@@ -1,0 +1,232 @@
+"""2D image VAE (counterpart of ``vqgan_tpu/models/ae.py``).
+
+Encoder: conv_in → per-level ResnetBlocks + Downsample (not at the last
+level) → mid (block_1, block_2) → GroupNorm+swish → conv_out. Decoder:
+conv_in ← z → mid → levels in reverse, each (num_res_blocks + 1) ResnetBlocks
++ Upsample (not at level 0) → GroupNorm+swish → conv_out.
+
+Module names give the reference state-dict keys, e.g.
+``encoder.down.0.block.1.conv1.weight``, ``encoder.mid.block_1.norm1.weight``,
+``decoder.up.2.upsample.conv.bias``; ``decoder.up`` is indexed by level and
+walked in reverse.
+
+``VAE.encode``/``decode``/``forward`` keep the JAX package's layout: images
+(B, H, W, C) and latents (B, h, w, z). Inside, tensors are (B, C, H, W) in
+``torch.channels_last`` memory format.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from vqgan_tpu_torch.config import DTYPES, VAEConfig
+from vqgan_tpu_torch.models.blocks import (
+    Downsample,
+    FP32GroupNorm,
+    ResnetBlock,
+    Upsample,
+    conv3x3,
+    init_weights_,
+)
+
+
+class DownLevel(nn.Module):
+    def __init__(self, block_in: int, block_out: int, num_res_blocks: int,
+                 has_downsample: bool, dtype: torch.dtype):
+        super().__init__()
+        self.block = nn.ModuleList(
+            ResnetBlock(block_in if i == 0 else block_out, block_out, dtype)
+            for i in range(num_res_blocks)
+        )
+        self.downsample = Downsample(block_out, dtype) if has_downsample else None
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for blk in self.block:
+            h = blk(h)
+        if self.downsample is not None:
+            h = self.downsample(h)
+        return h
+
+
+class UpLevel(nn.Module):
+    def __init__(self, block_in: int, block_out: int, num_res_blocks: int,
+                 has_upsample: bool, dtype: torch.dtype):
+        super().__init__()
+        self.block = nn.ModuleList(
+            ResnetBlock(block_in if i == 0 else block_out, block_out, dtype)
+            for i in range(num_res_blocks + 1)
+        )
+        self.upsample = Upsample(block_out, dtype) if has_upsample else None
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for blk in self.block:
+            h = blk(h)
+        if self.upsample is not None:
+            h = self.upsample(h)
+        return h
+
+
+class Mid(nn.Module):
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.block_1 = ResnetBlock(channels, channels, dtype)
+        self.block_2 = ResnetBlock(channels, channels, dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.block_2(self.block_1(h))
+
+
+class Encoder(nn.Module):
+    """Reference ae.py:170-257. Emits z_channels, or 2·z_channels (mean,
+    logvar) with ``double_z``."""
+
+    def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
+                 z_channels: int, in_channels: int = 3, double_z: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        n = len(ch_mult)
+        self.conv_in = conv3x3(in_channels, ch, dtype)
+        in_mult = (1,) + tuple(ch_mult)
+        self.down = nn.ModuleList(
+            DownLevel(ch * in_mult[i], ch * ch_mult[i], num_res_blocks,
+                      has_downsample=i != n - 1, dtype=dtype)
+            for i in range(n)
+        )
+        block_in = ch * ch_mult[-1]
+        self.mid = Mid(block_in, dtype)
+        self.norm_out = FP32GroupNorm(block_in, fused_swish=True)
+        self.conv_out = conv3x3(block_in, z_channels * (2 if double_z else 1), dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for level in self.down:
+            h = level(h)
+        return self.conv_out(self.norm_out(self.mid(h)))
+
+
+class Decoder(nn.Module):
+    """Reference ae.py:260-333."""
+
+    def __init__(self, ch: int, out_ch: int, ch_mult: Sequence[int],
+                 num_res_blocks: int, z_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        n = len(ch_mult)
+        block_in = ch * ch_mult[-1]
+        self.conv_in = conv3x3(z_channels, block_in, dtype)
+        self.mid = Mid(block_in, dtype)
+        level_in = [ch * ch_mult[min(i + 1, n - 1)] for i in range(n)]
+        self.up = nn.ModuleList(
+            UpLevel(level_in[i], ch * ch_mult[i], num_res_blocks,
+                    has_upsample=i != 0, dtype=dtype)
+            for i in range(n)
+        )
+        self.norm_out = FP32GroupNorm(ch * ch_mult[0], fused_swish=True)
+        self.conv_out = conv3x3(ch * ch_mult[0], out_ch, dtype)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.mid(self.conv_in(z))
+        for level in reversed(self.up):
+            h = level(h)
+        return self.conv_out(self.norm_out(h))
+
+
+class IdentityGaussian(nn.Module):
+    """The reference's degenerate constant-variance regularizer: z is the
+    mean, std=0.0 → deterministic identity (ae.py:336-348)."""
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return z
+
+
+class DiagonalGaussian(nn.Module):
+    """Reparameterized Gaussian over a 2·z_channels input (reference
+    tae.py:253-266). Sampling is a training path and is not ported yet;
+    serving takes the mean (``VAEPipeline.encode``)."""
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(
+            "DiagonalGaussian sampling is a training path; it is ported "
+            "with the train step (ROADMAP.md, Queue 1: train state and step)"
+        )
+
+
+def _check_ported(cfg: VAEConfig) -> None:
+    if cfg.use_attn:
+        raise NotImplementedError(
+            "use_attn: AttnBlock is not ported yet (ROADMAP.md, Queue 1: 2D models)"
+        )
+    if cfg.use_wavelet:
+        raise NotImplementedError(
+            "use_wavelet: the wavelet front end is not ported yet "
+            "(ROADMAP.md, Queue 1: 2D models)"
+        )
+    if cfg.reg_type == "vq":
+        raise NotImplementedError(
+            "reg_type='vq': the VQ latent is not ported yet (ROADMAP.md, "
+            "Queue 1: VQ latent)"
+        )
+    if cfg.reg_type not in ("identity_gaussian", "gaussian"):
+        raise ValueError(f"unknown reg_type {cfg.reg_type!r}")
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B, C, H, W) channels_last (a view when x is contiguous)."""
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class VAE(nn.Module):
+    """Encoder + regularizer + decoder (reference ae.py:351-392).
+
+    Params are allocated, not initialized: load a state dict, or use
+    ``init_vae``."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.encoder = Encoder(
+            cfg.ch, cfg.ch_mult, cfg.num_res_blocks, cfg.z_channels,
+            in_channels=cfg.in_channels,
+            double_z=cfg.reg_type == "gaussian",
+            dtype=DTYPES[cfg.enc_dtype],
+        )
+        self.decoder = Decoder(
+            cfg.ch, cfg.out_ch, cfg.decoder_ch_mult, cfg.num_res_blocks,
+            cfg.z_channels, dtype=DTYPES[cfg.dec_dtype],
+        )
+        self.reg = (
+            IdentityGaussian() if cfg.reg_type == "identity_gaussian"
+            else DiagonalGaussian()
+        )
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, in_channels) → (B, h, w, z) in the encoder's dtype."""
+        return _nhwc(self.encoder(_nchw(x)))
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, z) → (B, H, W, out_ch) in the decoder's dtype."""
+        return _nhwc(self.decoder(_nchw(z)))
+
+    def regularize(self, z: torch.Tensor) -> torch.Tensor:
+        return self.reg(z)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns ``(decoded, z)`` like the reference."""
+        z = self.encode(x)
+        return self.decode(self.regularize(z)), z
+
+
+def init_vae(cfg: VAEConfig, generator: torch.Generator) -> VAE:
+    """A VAE on the CPU with the reference init scheme, drawn from
+    ``generator``."""
+    model = VAE(cfg)
+    init_weights_(model, generator)
+    return model

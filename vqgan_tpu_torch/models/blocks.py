@@ -1,0 +1,145 @@
+"""2D model blocks (counterpart of ``vqgan_tpu/models/blocks.py``).
+
+Activations are (B, C, H, W) in ``torch.channels_last`` memory format, which is
+physically NHWC: cuDNN's fast layout and the (B, H·W, C) view the GroupNorm
+kernel reads. Params are fp32; each conv casts its input, weight and bias to
+its compute dtype. Module and parameter names give the reference state-dict
+keys (``conv1.weight``, ``norm1.weight``, ``nin_shortcut.bias``, ...).
+
+Init follows the reference (``init_weights_``): torch's default Conv2d init
+(U(±1/√fan_in)), ResnetBlock.conv2 normal with std 1e-4/out_ch, every bias
+zero, GroupNorm weight 1.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vqgan_tpu_torch.ops.groupnorm_cuda import fused_group_norm
+from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)  # x * sigmoid(x), reference ae.py:13-14
+
+
+class FP32GroupNorm(nn.Module):
+    """GroupNorm(32, eps=1e-6) computed in fp32 (reference ae.py:41-53), with
+    the following swish fused when ``fused_swish``. A CUDA tensor runs the
+    hand-written kernel; a CPU tensor its plain version."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
+                 fused_swish: bool = False):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.fused_swish = fused_swish
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_group_norm(x, self.weight, self.bias, self.num_groups,
+                                self.eps, with_swish=self.fused_swish)
+
+
+class Conv2d(nn.Module):
+    """A conv with fp32 params that computes in ``dtype``. ``init_std``:
+    normal init with this std instead of torch's default."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 dtype: torch.dtype = torch.float32,
+                 init_std: float | None = None):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+        self.init_std = init_std
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        self.stride, self.padding)
+
+
+def conv3x3(in_channels: int, out_channels: int, dtype: torch.dtype,
+            **kw) -> Conv2d:
+    return Conv2d(in_channels, out_channels, 3, padding=1, dtype=dtype, **kw)
+
+
+def conv1x1(in_channels: int, out_channels: int, dtype: torch.dtype) -> Conv2d:
+    return Conv2d(in_channels, out_channels, 1, dtype=dtype)
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """The reference init scheme, drawn from ``generator`` in module order."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            if m.init_std is None:
+                # torch's Conv2d default: kaiming_uniform(a=√5) = U(±1/√fan_in)
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                m.weight.uniform_(-bound, bound, generator=generator)
+            else:
+                m.weight.normal_(0.0, m.init_std, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, FP32GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class ResnetBlock(nn.Module):
+    """norm→swish→conv ×2 with ~identity start (reference ae.py:96-140)."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm1 = FP32GroupNorm(in_channels, fused_swish=True)
+        self.conv1 = conv3x3(in_channels, out_channels, dtype)
+        self.norm2 = FP32GroupNorm(out_channels, fused_swish=True)
+        # near-zero so the residual branch starts ≈ identity (ae.py:120-121)
+        self.conv2 = conv3x3(out_channels, out_channels, dtype,
+                             init_std=1e-4 / out_channels)
+        self.nin_shortcut = (
+            conv1x1(in_channels, out_channels, dtype)
+            if in_channels != out_channels else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class Downsample(nn.Module):
+    """Stride-2 3×3 conv after an asymmetric (0, 1) pad of H and W — the FLUX
+    convention (reference ae.py:143-154), not the conv's symmetric padding."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x, (0, 1, 0, 1))
+        # a no-op where F.pad kept the layout; the convs and the GroupNorm
+        # kernel downstream need channels_last
+        return self.conv(x.contiguous(memory_format=torch.channels_last))
+
+
+class Upsample(nn.Module):
+    """Nearest 2× then 3×3 conv (reference ae.py:157-167), the direct form."""
+
+    def __init__(self, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.conv = conv3x3(channels, channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(nearest_upsample_2x(x))

@@ -1,0 +1,149 @@
+"""Where the device time of the serving path goes, from a torch.profiler trace.
+
+    python -m vqgan_tpu_torch.tools.profile_serving [--batch 8] [--out DIR]
+
+Builds the flagship pipeline (``VAEConfig()`` defaults, random weights from a
+seed) on the first CUDA device, runs one warm-up reconstruct, then profiles
+``--iters`` reconstructs. Prints the device time by kernel class (GroupNorm
+kernel, convolutions, other), the top kernels by device time, and the
+device's busy share of the profiled window (union of kernel intervals over the
+window's host-clock length). Then profiles the GroupNorm kernel alone at the
+flagship shapes and prints the time of each of its three launches. Writes the
+chrome trace of the reconstructs to ``DIR/serving_trace.json`` when ``--out``
+is given. Needs a CUDA device; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+GN_PREFIX = "gn_"
+CONV_MARKERS = ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
+                "nchwToNhwc", "nhwcToNchw")
+
+
+def _kernel_class(name: str) -> str:
+    # the GroupNorm kernels live in an anonymous namespace: "(anonymous
+    # namespace)::gn_stats_kernel<float>(...)"
+    base = name.split("::")[-1]
+    if base.startswith(GN_PREFIX):
+        return "groupnorm kernel"
+    low = name.lower()
+    if any(m.lower() in low for m in CONV_MARKERS):
+        return "conv (cuDNN)"
+    return "other"
+
+
+def _device_kernels(prof) -> list:
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    return kernels
+
+
+def _busy_us(kernels) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + cur_e - cur_s
+
+
+def profile_reconstruct(batch: int, iters: int, out_dir: str | None) -> None:
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.inference import VAEPipeline
+    from vqgan_tpu_torch.models.ae import init_vae
+
+    cfg = VAEConfig()
+    sd = init_vae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    pipe = VAEPipeline(cfg, sd, device="cuda")
+    images = np.random.RandomState(0).randint(
+        0, 256, (batch, cfg.resolution, cfg.resolution, 3), np.uint8)
+    pipe.reconstruct(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pipe.reconstruct(images)  # ends in a device-to-host copy
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = _device_kernels(prof)
+    by_class: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        dur = e.time_range.elapsed_us()
+        cls = _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + dur
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += dur
+        entry[1] += 1
+    total = sum(by_class.values())
+    busy = _busy_us(kernels)
+    print(f"reconstruct batch {batch}, {iters} iters: window {window_us / iters / 1e3:.3f} "
+          f"ms/iter host clock, kernels {total / iters / 1e3:.3f} ms/iter, device busy "
+          f"{busy / window_us:.4f} of the window (idle {1 - busy / window_us:.4f})")
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {cls}: {us / iters / 1e3:.3f} ms/iter ({us / total:.4f} of kernel time)")
+    print("top kernels by device time:")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / iters / 1e3:8.3f} ms/iter  {n // iters:4d} calls/iter  {name[:110]}")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "serving_trace.json"))
+
+
+def profile_groupnorm(batch: int) -> None:
+    from vqgan_tpu_torch.ops.groupnorm_cuda import fused_group_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for s, c, dtype in [(1024, 1024, torch.bfloat16), (16384, 256, torch.float32),
+                        (65536, 512, torch.bfloat16), (65536, 256, torch.float32)]:
+        side = int(round(s ** 0.5))
+        x = torch.randn((batch, side, side, c), generator=gen, device="cuda")
+        x = x.to(dtype).permute(0, 3, 1, 2)
+        w = torch.ones(c, device="cuda")
+        b = torch.zeros(c, device="cuda")
+        for _ in range(3):
+            fused_group_norm(x, w, b, 32, 1e-6, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fused_group_norm(x, w, b, 32, 1e-6, True)
+            torch.cuda.synchronize()
+        times: dict[str, float] = {}
+        for e in _device_kernels(prof):
+            base = e.name.split("::")[-1].split("<")[0].split("(")[0]
+            times[base] = times.get(base, 0.0) + e.time_range.elapsed_us() / 10
+        parts = ", ".join(f"{k} {v:.2f} us" for k, v in times.items())
+        print(f"gn B={batch} S={s} C={c} {str(dtype).split('.')[-1]} swish: {parts}")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--iters", type=int, default=2)
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"{torch.cuda.get_device_name(0)}; tf32: cudnn {torch.backends.cudnn.allow_tf32}, "
+          f"matmul {torch.backends.cuda.matmul.allow_tf32}")
+    profile_reconstruct(args.batch, args.iters, args.out)
+    for b in (2, args.batch):
+        profile_groupnorm(b)
+
+
+if __name__ == "__main__":
+    main()
