@@ -6,18 +6,31 @@
 Phases, each fatal on failure:
   1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, the TF32 flags;
-  2. build the CUDA GroupNorm kernel from ``vqgan_tpu_torch/csrc/``;
-  3. the kernel against its plain PyTorch version at every GroupNorm shape of
-     a flagship reconstruct, batch 2 and batch 8 (the serving phase's batch),
-     fp32 and bf16, swish on and off: max abs error against the stated
-     tolerance, kernel and plain times (CUDA events);
-  4. the serving path at the flagship config (``VAEConfig()``: ch=256,
+  2. build the CUDA GroupNorm kernels (forward, backward) from
+     ``vqgan_tpu_torch/csrc/``;
+  3. the forward kernel against its plain PyTorch version at every GroupNorm
+     shape of a flagship reconstruct, batch 2 and batch 8, fp32 and bf16,
+     swish on and off: max abs error against the stated tolerance; kernel,
+     plain and library times (CUDA events) and the bound;
+  4. the backward kernel against its plain version at the same shapes, batch
+     8, fp32 and bf16, swish on and off: dx, dγ, dβ against the stated
+     tolerances; kernel, plain and library times and the bound;
+  5. the serving path at the flagship config (``VAEConfig()``: ch=256,
      ch_mult 1,2,4,4, 256 px), random weights from a seed, written as a
      reference-format .pt and served through ``VAEPipeline.from_checkpoint``:
      shapes, finiteness, ranges, exactly 21 kernel launches per encode and 29
      per decode, img/s and peak memory at batch 8;
-  5. the same weights and images on the CPU (plain GroupNorm) and on the card
-     (kernel) at a reduced width, TF32 off.
+  6. the flagship training step (``bench.py``'s config: bf16 encoder and
+     decoder, bf16 LPIPS and PatchDiscriminator, hinge + LeCam + clamp) at
+     batch 8 through ``create_train_state`` and ``make_train_step``: D moves
+     in step 1 and G in step 2 (its lr is 0 at step 0), exactly 50 forward
+     and 50 backward kernel launches per step, finite metrics, img/s, step ms
+     and peak memory;
+  7. serving: the same weights and images on the CPU (plain GroupNorm) and on
+     the card (kernels) at a reduced width, TF32 off;
+  8. training: one step on the CPU and on the card from the same weights,
+     batch and draws at a reduced width, fp32, TF32 off: losses, and the
+     gradients read from AdamW's first moments.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -36,8 +49,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SERVE_BATCH = 8
+TRAIN_BATCH = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # (S = H*W, C) -> calls per reconstruct, from the flagship config
 ENCODER_GN_SHAPES = {  # fp32
     (65536, 256): 4, (16384, 256): 1, (16384, 512): 3, (4096, 512): 1,
@@ -59,6 +75,24 @@ RTOL_BF16 = 2.0 ** -7
 ATOL_PATH_FP32 = 1e-3
 MEAN_TOL_PATH_BF16 = 0.01
 MAX_TOL_PATH_BF16 = 0.1
+# backward kernel vs plain. dx: fp32 terms of size O(1) whose coefficients
+# come from sums taken in another order differ by a few ulps before any
+# rounding to bf16; bf16 dx then one bf16 ulp (rtol 2^-7). dγ, dβ: sums over
+# B·H·W terms in another order; a fixed-order fp32 sum of n terms is off by
+# about √n·eps of Σ|terms|, the kernel's chains are a few hundred adds long:
+# 1e-5 of Σ|terms| leaves a wide margin
+ATOL_DX = 1e-5
+SUM_RTOL = 1e-5
+# training step, CPU vs card, fp32, TF32 off. Losses: the repo's bound for a
+# loss against another implementation (tests/test_full_step_parity.py:199);
+# the discriminator's accuracy counts logits > 0, so one logit on either side
+# of 0 moves it by 1/count. Gradients: per tensor, relative to its largest
+# entry; the VGG towers' ReLUs (and the hinge) pass or stop gradient where a
+# pre-activation lies within rounding noise of 0 (tests/test_torch_train_step.py
+# measured 2.2e-3 for G and 4.8e-3 for D against the JAX step)
+LOSS_RTOL, LOSS_ATOL = 8e-3, 8e-4
+GRAD_RTOL = 1e-2
+GRAD_FLOOR = 1e-6  # of the largest gradient entry
 
 
 def log(*args) -> None:
@@ -85,18 +119,42 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _shapes() -> list:
+    return sorted(set(ENCODER_GN_SHAPES) | set(DECODER_GN_SHAPES))
+
+
+def _gn_inputs(gen, batch: int, s: int, c: int, dtype):
+    """x (B, C, H, W) channels_last in ``dtype`` with mean 0.3 and std 1.5,
+    γ around 1, β around 0."""
+    side = int(round(s ** 0.5))
+    x = torch.randn((batch, side, side, c), generator=gen, device="cuda")
+    x = (x * 1.5 + 0.3).to(dtype).permute(0, 3, 1, 2)  # channels_last
+    w = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.5 * torch.randn(c, generator=gen, device="cuda")
+    return x, w, b
+
+
+def _library_forward(x, w, b, swish):
+    """One PyTorch call of the same function, as a yardstick only (the port
+    never calls it): F.group_norm (+ F.silu), with γ and β in x's dtype."""
+    y = F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), 1e-6)
+    return F.silu(y) if swish else y
+
+
+def bound_ms(n_bytes: int) -> float:
+    """The least time the card needs to move ``n_bytes`` once."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
 def phase_kernel_vs_plain(gn, group_norm_fp32, batch: int) -> dict:
-    """Returns {(S, C, dtype, swish): (max_abs_err, kernel_ms, plain_ms)}."""
-    shapes = sorted(set(ENCODER_GN_SHAPES) | set(DECODER_GN_SHAPES))
+    """Forward. Returns {(S, C, dtype, swish): (max_abs_err, kernel_ms,
+    plain_ms, library_ms, bound_ms)}; the bound counts x read once and y
+    written once."""
     gen = torch.Generator(device="cuda").manual_seed(batch)
     out = {}
-    for s, c in shapes:
-        side = int(round(s ** 0.5))
+    for s, c in _shapes():
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn((batch, side, side, c), generator=gen, device="cuda")
-            x = (x * 1.5 + 0.3).to(dtype).permute(0, 3, 1, 2)  # channels_last
-            w = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
-            b = 0.5 * torch.randn(c, generator=gen, device="cuda")
+            x, w, b = _gn_inputs(gen, batch, s, c, dtype)
             for swish in (False, True):
                 got = gn.fused_group_norm(x, w, b, 32, 1e-6, swish)
                 ref = group_norm_fp32(x, w, b, 32, 1e-6, swish)
@@ -111,14 +169,88 @@ def phase_kernel_vs_plain(gn, group_norm_fp32, batch: int) -> dict:
                     tol = "1 bf16 ulp (rtol 2^-7)"
                 k_ms = cuda_ms(lambda: gn.fused_group_norm(x, w, b, 32, 1e-6, swish))
                 p_ms = cuda_ms(lambda: group_norm_fp32(x, w, b, 32, 1e-6, swish))
+                l_ms = cuda_ms(lambda: _library_forward(x, w, b, swish))
+                b_ms = bound_ms(2 * x.numel() * x.element_size())
                 name = "bf16" if dtype == torch.bfloat16 else "fp32"
-                log(f"gn B={batch} S={s} C={c} {name} swish={int(swish)}: "
+                log(f"gn fwd B={batch} S={s} C={c} {name} swish={int(swish)}: "
                     f"max_abs_err={err:.3e} ({tol}) kernel_ms={k_ms:.4f} "
-                    f"plain_ms={p_ms:.4f} {'ok' if ok else 'MISS'}")
+                    f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
+                    f"{'ok' if ok else 'MISS'}")
                 if not ok:
                     raise AssertionError(f"kernel disagrees with plain at {(s, c, name, swish)}")
-                out[(s, c, dtype, swish)] = (err, k_ms, p_ms)
+                out[(s, c, dtype, swish)] = (err, k_ms, p_ms, l_ms, b_ms)
+            del x, got, ref, diff
     return out
+
+
+def phase_backward_vs_plain(gn, group_norm_fp32_backward, batch: int) -> dict:
+    """Backward. Returns {(S, C, dtype, swish): (max_abs_err, kernel_ms,
+    plain_ms, library_ms, bound_ms)}; the bound counts x and g read once and
+    dx written once."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + batch)
+    out = {}
+    for s, c in _shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, b = _gn_inputs(gen, batch, s, c, dtype)
+            g = _gn_inputs(gen, batch, s, c, dtype)[0] - 0.3
+            for swish in (False, True):
+                _, stats = gn.group_norm_forward(x, w, b, 32, 1e-6, swish)
+                dx, dw, db = gn.group_norm_backward(x, g, stats, w, b, 32, swish)
+                mean, rstd = stats[:, 0], stats[:, 1]
+                rdx, rdw, rdb = group_norm_fp32_backward(x, g, mean, rstd, w, b, 32, swish)
+                torch.cuda.synchronize()
+                ddx = (dx.float() - rdx.float()).abs()
+                if dtype == torch.float32:
+                    ok_dx = float(ddx.max()) <= ATOL_DX
+                else:
+                    ok_dx = bool((ddx <= ATOL_DX + RTOL_BF16 * rdx.float().abs()).all())
+                # Σ|terms| per channel (|dŷ| <= 1.1·|g| with the swish)
+                ga = 1.1 * g.float().abs()
+                t_beta = ga.sum(dim=(0, 2, 3))
+                t_gamma = float(rstd.max()) * (
+                    ga * (x.float().abs() + float(mean.abs().max()))).sum(dim=(0, 2, 3))
+                ok_dw = bool(((dw - rdw).abs() <= SUM_RTOL * t_gamma + 1e-6).all())
+                ok_db = bool(((db - rdb).abs() <= SUM_RTOL * t_beta + 1e-6).all())
+                errs = (float(ddx.max()), float((dw - rdw).abs().max()),
+                        float((db - rdb).abs().max()))
+                del ga, ddx, rdx
+                k_ms = cuda_ms(lambda: gn.group_norm_backward(x, g, stats, w, b, 32, swish))
+                p_ms = cuda_ms(lambda: group_norm_fp32_backward(
+                    x, g, mean, rstd, w, b, 32, swish))
+                xl = x.detach().requires_grad_()
+                # detach first: for fp32, .to(dtype) would return w itself
+                wl = w.detach().to(dtype).requires_grad_()
+                bl = b.detach().to(dtype).requires_grad_()
+                yl = _library_forward(xl, wl, bl, swish)
+                l_ms = cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), g,
+                                                           retain_graph=True))
+                del xl, wl, bl, yl
+                b_ms = bound_ms(3 * x.numel() * x.element_size())
+                name = "bf16" if dtype == torch.bfloat16 else "fp32"
+                ok = ok_dx and ok_dw and ok_db
+                log(f"gn bwd B={batch} S={s} C={c} {name} swish={int(swish)}: max_abs_err "
+                    f"dx={errs[0]:.3e} dgamma={errs[1]:.3e} dbeta={errs[2]:.3e} "
+                    f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} {'ok' if ok else 'MISS'}")
+                if not ok:
+                    raise AssertionError(f"backward kernel disagrees with plain at "
+                                         f"{(s, c, name, swish)}: dx {ok_dx} dgamma {ok_dw} "
+                                         f"dbeta {ok_db}")
+                out[(s, c, dtype, swish)] = (max(errs), k_ms, p_ms, l_ms, b_ms)
+            del x, g, dx, dw, db
+    return out
+
+
+def per_step(results: dict, dtypes: dict) -> list:
+    """Sums of (kernel, plain, library, bound) ms over the 50 GroupNorm calls
+    of a flagship encode + decode, every call with swish, encoder calls in
+    ``dtypes["enc"]`` and decoder calls in ``dtypes["dec"]``."""
+    return [
+        sum(n * results[(s, c, dtypes["enc"], True)][i] for (s, c), n in ENCODER_GN_SHAPES.items())
+        + sum(n * results[(s, c, dtypes["dec"], True)][i]
+              for (s, c), n in DECODER_GN_SHAPES.items())
+        for i in (1, 2, 3, 4)
+    ]
 
 
 def phase_flagship(gn, tmp: str) -> tuple[int, dict]:
@@ -206,6 +338,72 @@ def phase_flagship(gn, tmp: str) -> tuple[int, dict]:
     return main_launches, result
 
 
+def phase_train_flagship(gn) -> tuple[tuple[int, int], dict]:
+    """The flagship training step at batch 8; returns the kernel launches of
+    one counted step (forward, backward) and the timings."""
+    from vqgan_tpu_torch.tools.profile_step import build_flagship_step
+
+    set_tf32(True)
+    t0 = time.perf_counter()
+    state, step, images = build_flagship_step(TRAIN_BATCH)
+    g_params = list(state.g_model.parameters())
+    d_params = list(state.d_model.parameters())
+    log(f"train flagship: {sum(p.numel() for p in g_params)} G params, "
+        f"{sum(p.numel() for p in d_params)} D params, batch {TRAIN_BATCH}, "
+        f"build {time.perf_counter() - t0:.1f} s")
+
+    def moved(params, before) -> bool:
+        return any(not torch.equal(p, q) for p, q in zip(params, before))
+
+    g0 = [p.detach().clone() for p in g_params]
+    d0 = [p.detach().clone() for p in d_params]
+    t0 = time.perf_counter()
+    state, metrics = step(state, images)
+    float(metrics["overall_vae_loss"])
+    first_s = time.perf_counter() - t0
+    if moved(g_params, g0):
+        raise AssertionError("G moved in step 1, where its lr is 0")
+    if not moved(d_params, d0):
+        raise AssertionError("D did not move in step 1")
+    state, metrics = step(state, images)
+    if not moved(g_params, g0):
+        raise AssertionError("G did not move in step 2")
+    del g0, d0
+    log(f"train flagship: D moved in step 1, G in step 2 (first step {first_s:.2f} s)")
+
+    # the main path, counted: one training step
+    gn.launches = gn.bwd_launches = 0
+    state, metrics = step(state, images)
+    torch.cuda.synchronize()
+    counts = (gn.launches, gn.bwd_launches)
+    log(f"train flagship: GN kernel launches per step: forward {counts[0]}, "
+        f"backward {counts[1]}")
+    if counts != (50, 50):
+        raise AssertionError("expected 50 forward and 50 backward GN launches per step")
+
+    iters = 5
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = step(state, images)
+    float(metrics["overall_vae_loss"])  # waits for the device
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics: {bad}")
+    log("train flagship metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
+    result = {"img_per_s": TRAIN_BATCH * iters / seconds, "step_ms": seconds / iters * 1e3,
+              "peak_bytes": peak}
+    log(f"train flagship batch {TRAIN_BATCH}: {result['img_per_s']:.3f} img/s, "
+        f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), "
+        f"peak memory {peak / 2**30:.3f} GiB")
+    del state, step, images, metrics, g_params, d_params
+    torch.cuda.empty_cache()
+    return counts, result
+
+
 def _perturbed_state_dict(cfg, seed: int) -> dict:
     """Reference init, then every residual branch and GroupNorm made
     non-trivial, so the comparison sees every path."""
@@ -256,6 +454,83 @@ def phase_cross_device() -> None:
             raise AssertionError(f"decoded images differ across devices ({dec_dtype})")
 
 
+def phase_train_cross_device() -> None:
+    """One training step on the CPU and on the card: same weights, batch and
+    draws; fp32, TF32 off."""
+    from vqgan_tpu_torch.config import TrainConfig, VAEConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step import StepDraws, make_train_step
+
+    set_tf32(False)
+    vae_cfg = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
+                        z_channels=16, enc_dtype="float32", dec_dtype="float32")
+    # D's lr: AdamW's first step moves every D param by ±lr·sign(grad); where
+    # a gradient is rounding noise the two devices step apart, and G's GAN
+    # branch through the updated D carries that into G's gradient
+    # (tests/test_torch_train_step.py). At 1e-8 D's update stays below it.
+    cfg = TrainConfig(batch_size=2, image_size=64, max_steps=10_000, do_ganloss=True,
+                      disc_type="hinge", use_lecam=True, do_clamp=True,
+                      flip_invariance=True, learning_rate_disc=1e-8)
+    sd_vae = _perturbed_state_dict(vae_cfg, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    disc_ref = PatchDiscriminator()
+    init_discriminator_(disc_ref, gen)
+    with torch.no_grad():  # non-zero final heads: the GAN branch reaches G
+        for k in range(1, 6):
+            getattr(disc_ref, f"binary_classifier{k}")[-1].weight.normal_(0.0, 0.05,
+                                                                          generator=gen)
+    lpips_ref = LPIPS()
+    init_lpips_(lpips_ref, gen)
+    images = np.random.RandomState(3).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    draws = StepDraws(flip_in=True, flip_w=True, flip_h=False, crop_h=0, crop_w=0,
+                      aug_lpips_w=False, aug_lpips_h=False)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        with torch.device(dev):
+            vae, disc, lpips = VAE(vae_cfg), PatchDiscriminator(), LPIPS()
+        vae.load_state_dict(sd_vae, strict=True)
+        disc.load_state_dict(disc_ref.state_dict(), strict=True)
+        lpips.load_state_dict(lpips_ref.state_dict(), strict=True)
+        state = create_train_state(cfg, vae, disc, vae_cfg.ch)
+        step = make_train_step(cfg, vae_cfg, vae, disc, lpips)
+        state, metrics = step(state, torch.from_numpy(images).to(dev), 0, draws)
+        moments = {}
+        for side, model, opt in (("G", vae, state.g_opt), ("D", disc, state.d_opt)):
+            moments[side] = {n: opt.state[p]["exp_avg"].cpu() for n, p in model.named_parameters()}
+        runs[dev] = ({k: float(v) for k, v in metrics.items()}, moments)
+
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    n_logits = 2 * 2 * 16  # real and fake, batch 2, a 4x4 patch grid at 64 px
+    bad = []
+    for k, v in m_cpu.items():
+        atol = 1.0 / n_logits if k == "gan/discriminator_accuracy" else LOSS_ATOL
+        if abs(m_gpu[k] - v) > atol + LOSS_RTOL * abs(v):
+            bad.append((k, v, m_gpu[k]))
+    worst_loss = max(abs(m_gpu[k] - v) / (LOSS_ATOL + LOSS_RTOL * abs(v))
+                     for k, v in m_cpu.items() if k != "gan/discriminator_accuracy")
+    log(f"train cross-device ch=64 (1,2,4) 64px batch 2: overall_vae_loss cpu="
+        f"{m_cpu['overall_vae_loss']:.6f} card={m_gpu['overall_vae_loss']:.6f}; the worst "
+        f"loss uses {worst_loss:.3f} of its bound")
+    for side in ("G", "D"):
+        ref, got = g_cpu[side], g_gpu[side]
+        floor = GRAD_FLOOR * max(float(t.abs().max()) for t in ref.values())
+        worst = 0.0
+        for n, r in ref.items():
+            scale = float(r.abs().max())
+            err = float((got[n] - r).abs().max())
+            worst = max(worst, err / (GRAD_RTOL * scale + floor))
+            if err > GRAD_RTOL * scale + floor:
+                bad.append((side, n, err, scale))
+        log(f"train cross-device {side} step-1 gradients (AdamW exp_avg): the worst tensor "
+            f"uses {worst:.3f} of its bound (rtol {GRAD_RTOL:g}, floor {GRAD_FLOOR:g} of "
+            f"the largest entry)")
+    if bad:
+        raise AssertionError(f"training step differs across devices: {bad[:10]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
@@ -264,7 +539,7 @@ def main() -> int:
 
     from vqgan_tpu_torch.ops import cuda_build
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
-    from vqgan_tpu_torch.ops.normalization import group_norm_fp32
+    from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
 
     # 1. environment
     smi = subprocess.run(
@@ -282,43 +557,53 @@ def main() -> int:
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
         f"({cuda_build.library_path('groupnorm').name})")
 
-    # 3. kernel vs plain
-    results = {b: phase_kernel_vs_plain(gn, group_norm_fp32, b)
-               for b in (2, SERVE_BATCH)}
+    # 3. forward kernel vs plain; 4. backward kernel vs plain
+    fwd = {b: phase_kernel_vs_plain(gn, group_norm_fp32, b) for b in (2, SERVE_BATCH)}
+    bwd = phase_backward_vs_plain(gn, group_norm_fp32_backward, TRAIN_BATCH)
 
-    # 4. flagship serving path
+    # 5. flagship serving path
     with tempfile.TemporaryDirectory() as tmp:
-        main_launches, flagship = phase_flagship(gn, tmp)
+        serve_launches, flagship = phase_flagship(gn, tmp)
 
-    # 5. whole path, CPU vs card
+    # 6. flagship training step
+    (train_fwd, train_bwd), train = phase_train_flagship(gn)
+
+    # 7. serving, CPU vs card; 8. training, CPU vs card
     phase_cross_device()
+    phase_train_cross_device()
 
-    # the 50 GN calls of one flagship reconstruct (all with swish fused),
-    # summed from the per-shape times: [kernel ms, plain ms] per batch
-    per_reconstruct = {}
-    for b, res in results.items():
-        per_reconstruct[b] = [
-            sum(n * res[(s, c, torch.float32, True)][i]
-                for (s, c), n in ENCODER_GN_SHAPES.items())
-            + sum(n * res[(s, c, torch.bfloat16, True)][i]
-                  for (s, c), n in DECODER_GN_SHAPES.items())
-            for i in (1, 2)
-        ]
-        log(f"GN per flagship reconstruct at batch {b}: kernel "
-            f"{per_reconstruct[b][0]:.4f} ms, plain {per_reconstruct[b][1]:.4f} ms")
-    ms, plain_ms = per_reconstruct[SERVE_BATCH]
-    log(f"kernel ms / plain_ms below: batch {SERVE_BATCH}, the serving phase's")
+    serving = {"enc": torch.float32, "dec": torch.bfloat16}
+    training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
+    for b, res in fwd.items():
+        k, p, lib, bnd = per_step(res, serving)
+        log(f"GN forward per flagship reconstruct at batch {b} (fp32 encoder, bf16 decoder): "
+            f"kernel {k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
+    fwd_step = per_step(fwd[TRAIN_BATCH], training)
+    bwd_step = per_step(bwd, training)
+    for name, (k, p, lib, bnd) in (("forward", fwd_step), ("backward", bwd_step)):
+        log(f"GN {name} per flagship training step at batch {TRAIN_BATCH} (all bf16): "
+            f"kernel {k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
+    log(f"serving batch {SERVE_BATCH}: {flagship['img_per_s']:.3f} img/s, "
+        f"{serve_launches} forward launches per reconstruct; training batch {TRAIN_BATCH}: "
+        f"{train['img_per_s']:.3f} img/s, {train['step_ms']:.1f} ms per step, peak "
+        f"{train['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"kernels line: launches per training step; ms per training step at batch "
+        f"{TRAIN_BATCH}, bf16, summed over its 50 calls")
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "fused_group_norm",
-        "route": "cuda",
-        "source": "vqgan_tpu_torch/csrc/groupnorm.cu",
-        "replaces": "vqgan_tpu/ops/pallas/groupnorm.py:91",
-        "launches": main_launches,
-        "max_abs_err": max(v[0] for res in results.values() for v in res.values()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+
+    def entry(name, replaces, launches, errs, times):
+        k, p, lib, bnd = times
+        return {"name": name, "route": "cuda", "source": "vqgan_tpu_torch/csrc/groupnorm.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": max(errs),
+                "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": "bytes",
+                "library_ms": lib}
+
+    log(json.dumps({"kernels": [
+        entry("fused_group_norm", "vqgan_tpu/ops/pallas/groupnorm.py:91", train_fwd,
+              [v[0] for res in fwd.values() for v in res.values()], fwd_step),
+        entry("fused_group_norm_bwd", "vqgan_tpu/ops/pallas/groupnorm.py:194", train_bwd,
+              [v[0] for v in bwd.values()], bwd_step),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The CUDA GroupNorm kernel against its plain version, on the card.
+"""The CUDA GroupNorm kernels (forward and backward) against their plain
+versions, and the autograd path through them, on the card.
 
 Marked ``cuda``; each test skips where torch sees no CUDA device. This file
 imports no JAX, so the card's machine runs it without the JAX package's
@@ -14,9 +15,9 @@ import torch
 from vqgan_tpu_torch.config import VAEConfig
 from vqgan_tpu_torch.inference import VAEPipeline
 from vqgan_tpu_torch.models.ae import init_vae
-from vqgan_tpu_torch.models.blocks import FP32GroupNorm
+from vqgan_tpu_torch.models.blocks import Conv2d, FP32GroupNorm, init_weights_
 from vqgan_tpu_torch.ops import groupnorm_cuda
-from vqgan_tpu_torch.ops.normalization import group_norm_fp32
+from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
 
 pytestmark = pytest.mark.cuda
 
@@ -26,6 +27,13 @@ ATOL_FP32 = 1e-5
 # bf16 output: the fp32 values may straddle a rounding boundary, one bf16
 # ulp, which is at most 2^-7 of the value
 RTOL_BF16 = 2.0 ** -7
+# backward dx: fp32 terms of size O(1) whose coefficients come from sums taken
+# in another order differ by a few ulps before any rounding to bf16
+ATOL_DX = 1e-5
+# dγ, dβ: sums over B·H·W terms; a fixed-order fp32 sum of n terms is off by
+# about √n·eps of the sum of their magnitudes, and the kernel's chains are a
+# few hundred adds long: 1e-5 of Σ|terms| leaves a wide margin
+SUM_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -91,3 +99,127 @@ def test_pipeline_goes_through_the_kernel(device):
     got = gpu.reconstruct(imgs)
     assert groupnorm_cuda.launches == n_gn
     np.testing.assert_allclose(got, cpu.reconstruct(imgs), atol=1e-4)
+
+
+def _sum_bounds(x, g, stats):
+    """Per-channel Σ|terms| of dβ and dγ (an upper bound: |dŷ| <= 1.1·|g|
+    for the swish derivative)."""
+    ga = 1.1 * g.float().abs()
+    mean_max = stats[:, 0].abs().max()
+    rstd_max = stats[:, 1].max()
+    t_beta = ga.sum(dim=(0, 2, 3))
+    t_gamma = rstd_max * (ga * (x.float().abs() + mean_max)).sum(dim=(0, 2, 3))
+    return t_gamma, t_beta
+
+
+@pytest.mark.parametrize("swish", [False, True], ids=["plain", "swish"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,groups", [
+    ((2, 64, 8, 8), 32),
+    ((2, 128, 8, 8), 16),
+    ((3, 256, 7, 9), 32),      # ragged last tile
+    ((2, 512, 64, 64), 32),    # a flagship decoder shape at batch 2
+])
+def test_backward_kernel_matches_plain(device, shape, groups, dtype, swish):
+    x, scale, bias = _inputs(shape, dtype, device)
+    g = _inputs(shape, dtype, device, seed=1)[0]
+    _, stats = groupnorm_cuda.group_norm_forward(x, scale, bias, groups, 1e-6, swish)
+    groupnorm_cuda.bwd_launches = 0
+    dx, dgamma, dbeta = groupnorm_cuda.group_norm_backward(
+        x, g, stats, scale, bias, groups, swish)
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.bwd_launches == 1
+    assert dx.dtype == dtype and dx.is_contiguous(memory_format=torch.channels_last)
+    ref_dx, ref_dgamma, ref_dbeta = group_norm_fp32_backward(
+        x, g, stats[:, 0], stats[:, 1], scale, bias, groups, swish)
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, ref_dx, atol=ATOL_DX, rtol=0)
+    else:
+        torch.testing.assert_close(dx.float(), ref_dx.float(), atol=ATOL_DX,
+                                   rtol=RTOL_BF16)
+    t_gamma, t_beta = _sum_bounds(x, g, stats)
+    assert bool(((dgamma - ref_dgamma).abs() <= SUM_RTOL * t_gamma + 1e-6).all())
+    assert bool(((dbeta - ref_dbeta).abs() <= SUM_RTOL * t_beta + 1e-6).all())
+
+
+def test_backward_kernel_rejects_non_channels_last_gradient(device):
+    x, scale, bias = _inputs((2, 64, 8, 8), torch.float32, device)
+    _, stats = groupnorm_cuda.group_norm_forward(x, scale, bias)
+    with pytest.raises(ValueError, match="channels_last"):
+        groupnorm_cuda.group_norm_backward(x, x.contiguous(), stats, scale, bias)
+
+
+def test_autograd_reaches_the_conv_upstream(device):
+    """On the card the GroupNorm output has a grad_fn, and a conv upstream of
+    it gets the CPU's (plain) gradient, through one launch of each kernel."""
+    grads = {}
+    for dev in ("cpu", device):
+        conv = Conv2d(8, 64, 3, padding=1)
+        norm = FP32GroupNorm(64, fused_swish=True)
+        init_weights_(conv, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            norm.weight.normal_(1.0, 0.2, generator=torch.Generator().manual_seed(1))
+        conv.to(dev)
+        norm.to(dev)
+        x, _, _ = _inputs((2, 8, 16, 16), torch.float32, dev, seed=2)
+        w = _inputs((2, 64, 16, 16), torch.float32, dev, seed=3)[0]
+        groupnorm_cuda.launches = groupnorm_cuda.bwd_launches = 0
+        y = norm(conv(x))
+        assert y.grad_fn is not None
+        (y * w).sum().backward()
+        counts = (groupnorm_cuda.launches, groupnorm_cuda.bwd_launches)
+        assert counts == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[dev] = [p.grad.cpu() for p in (conv.weight, conv.bias, norm.weight, norm.bias)]
+    assert all(bool(gr.abs().max() > 0) for gr in grads[device])
+    for got, ref in zip(grads[device], grads["cpu"]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_tiny_train_step_goes_through_both_kernels(device):
+    """A tiny GAN step on the card: every GroupNorm of the VAE launches the
+    forward kernel once and the backward kernel once per step, and the
+    step's losses match the same step on the CPU (plain versions)."""
+    from vqgan_tpu_torch.config import TrainConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step import StepDraws, make_train_step
+
+    vae_cfg = VAEConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                        z_channels=8, dec_dtype="float32")
+    # D's lr 1e-8: AdamW's first step is ±lr·sign(grad), and where a gradient
+    # is rounding noise the two devices would step apart before the G losses
+    # read D (tests/test_torch_train_step.py)
+    cfg = TrainConfig(max_steps=10, warmup_steps=2, do_ganloss=True, disc_type="hinge",
+                      use_lecam=True, do_clamp=True, flip_invariance=True,
+                      learning_rate_disc=1e-8)
+    gen = torch.Generator().manual_seed(0)
+    sd_vae = init_vae(vae_cfg, gen).state_dict()
+    disc_ref, lpips_ref = PatchDiscriminator(), LPIPS()
+    init_discriminator_(disc_ref, gen)
+    init_lpips_(lpips_ref, gen)
+    images = torch.from_numpy(np.random.RandomState(1).uniform(-1, 1, (2, 32, 32, 3))
+                              .astype(np.float32))
+    draws = StepDraws(True, True, False, 0, 0, False, False)
+    losses = {}
+    for dev in ("cpu", device):
+        with torch.device(dev):
+            vae, disc, lpips = VAE(vae_cfg), PatchDiscriminator(), LPIPS()
+        vae.load_state_dict(sd_vae)
+        disc.load_state_dict(disc_ref.state_dict())
+        lpips.load_state_dict(lpips_ref.state_dict())
+        state = create_train_state(cfg, vae, disc, vae_cfg.ch)
+        step = make_train_step(cfg, vae_cfg, vae, disc, lpips)
+        n_gn = sum(isinstance(m, FP32GroupNorm) for m in vae.modules())
+        groupnorm_cuda.launches = groupnorm_cuda.bwd_launches = 0
+        state, metrics = step(state, images.to(dev), 0, draws)
+        counts = (groupnorm_cuda.launches, groupnorm_cuda.bwd_launches)
+        assert counts == ((0, 0) if dev == "cpu" else (n_gn, n_gn))
+        losses[str(dev)] = {k: float(v) for k, v in metrics.items()}
+        if dev != "cpu":  # drawn coins and offsets, on the device
+            state, metrics = step(state, images.to(dev))
+            assert all(np.isfinite(float(v)) for v in metrics.values())
+    for k, v in losses["cpu"].items():
+        if k != "gan/discriminator_accuracy":  # counts logits > 0
+            np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)

@@ -128,6 +128,9 @@ def test_vq_codebook_in_checkpoint_fails_loudly(tmp_path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, vqgan_tpu_torch.inference, vqgan_tpu_torch.weights\n"
+        "import vqgan_tpu_torch.train.step, vqgan_tpu_torch.train.state\n"
+        "import vqgan_tpu_torch.losses.lpips, vqgan_tpu_torch.losses.discriminator\n"
+        "import vqgan_tpu_torch.tools.profile_step, vqgan_tpu_torch.ops.gradnorm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vqgan_tpu')]\n"
         "assert not bad, bad\n"

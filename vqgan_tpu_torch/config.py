@@ -1,14 +1,16 @@
-"""Model configuration (counterpart of ``vqgan_tpu/config.py::VAEConfig``).
+"""Model and training configuration (counterpart of ``vqgan_tpu/config.py``:
+``VAEConfig`` and ``TrainConfig``).
 
-Every field of the JAX package's ``VAEConfig`` is here with the same name and
+Every field of the JAX package's two configs is here with the same name and
 default, so a configuration built from the JAX package's arguments builds here
-too. Fields that only steer TPU lowerings are accepted and have no effect.
+too. Fields that only steer TPU lowerings, or parts not ported yet, are
+accepted and listed in each docstring.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -37,7 +39,9 @@ class VAEConfig:
         GroupNorm (``ops/groupnorm_cuda.py``); a CPU tensor takes its plain
         version;
       - ``remat``, ``remat_policy``: activation rematerialization is a training
-        memory lever; serving keeps no activations for a backward;
+        memory lever; its counterpart here, ``torch.utils.checkpoint``, is not
+        ported yet, so the train step keeps every activation (the flagship step
+        fits on an 80 GB card without it) and serving keeps none;
       - ``upsample_impl``: "fused", "dilated" and "auto" compute the same
         function with the same params as "direct" (TPU lowerings); every value
         runs the direct nearest-2× + conv form;
@@ -85,6 +89,104 @@ class VAEConfig:
         if self.use_wavelet:
             mult = (mult[0] * 2,) + mult[1:]
         return mult + ((4,) if self.decoder_also_perform_hr else ())
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration; defaults match the reference CLI defaults
+    (vae_trainer.py:224-338).
+
+    The train step (``train/step.py``) reads the optimization, objective and
+    latent fields. No effect in this package yet, each waiting for the port
+    of the training loop (ROADMAP.md, Queue 1 item 7) unless named otherwise:
+      - data: ``dataset_url``, ``test_dataset_url``, ``num_epochs``,
+        ``image_size``, ``num_workers``, ``synthetic_data``, ``indexed_data``,
+        ``device_normalize`` (the step normalizes a uint8 batch on the device
+        whatever its value), ``batch_size`` (the step takes the batch it is
+        given);
+      - run management: ``run_name``, ``project_name``,
+        ``evaluate_every_n_steps``, ``eval_batches``, ``eval_bf16``,
+        ``rfid_taps``, ``load_path``, ``ckpt_dir``, ``seed``, ``log_every``,
+        ``use_wandb``, ``nan_guard``, ``profile_dir``;
+      - weights from files: ``lpips_weights``, ``disc_backbone_weights`` (the
+        modules load reference-format state dicts; ``weights.py``);
+      - the video family: ``video_loss_frames``, ``disc_3d``;
+      - TPU mesh: ``mesh_shape``; ``full_bf16`` (set ``VAEConfig.enc_dtype``
+        instead);
+      - ``crop_invariance``: the caller picks the crop bucket per step
+        (``do_crop``), as in the JAX package.
+
+    Not ported yet (the train step raises NotImplementedError):
+    ``grad_accum > 1``.
+    """
+
+    # data
+    dataset_url: str = ""
+    test_dataset_url: str = ""
+    batch_size: int = 8
+    num_epochs: int = 2
+    image_size: int = 512
+    num_workers: int = 4
+    synthetic_data: bool = False
+    indexed_data: bool = True
+    device_normalize: bool = True
+
+    # optimization (vae_trainer.py:455-490)
+    learning_rate_vae: float = 1e-5  # divided by vae_ch for all but conv_in,
+    learning_rate_disc: float = 2e-4  # which gets a fixed 1e-4
+    weight_decay: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.95
+    warmup_steps: int = 200
+    max_steps: int = 1000
+    grad_accum: int = 1
+    ema_decay: float = 0.0  # Polyak average of the generator weights; 0 = off
+
+    # objectives
+    do_ganloss: bool = False
+    disc_type: str = "bce"  # "bce" | "hinge"
+    use_lecam: bool = False
+    lecam_weight: float = 0.1
+    lecam_beta: float = 0.9
+    recon_weight: float = 0.0
+    z_reg_weight: float = 0.1
+    do_pool_recon: bool = True
+    gradnorm_lpips: float = 1.0
+    gradnorm_mse: float = 0.001
+    gradnorm_gan: float = 1.0
+    gradnorm_mode: str = "global"  # "global" | "mean_shard_norm"
+    augment_before_perceptual_loss: bool = False
+    lpips_weights: Optional[str] = None
+    disc_backbone_weights: Optional[str] = None
+    video_loss_frames: int = 0
+    disc_3d: str = "frame"
+
+    # latent behaviours (vae_trainer.py:561-621)
+    do_clamp: bool = False
+    clamp_th: float = 8.0
+    flip_invariance: bool = False
+    crop_invariance: bool = False
+    downscale_factor: int = 16
+    crop_fractions: Tuple[float, ...] = (0.75, 0.5, 0.875)
+
+    # run management
+    run_name: str = "run"
+    project_name: str = "vae_sweep_attn_lr_width"
+    evaluate_every_n_steps: int = 250
+    eval_batches: int = 2
+    eval_bf16: bool = True
+    rfid_taps: Tuple[int, ...] = (-1,)
+    load_path: Optional[str] = None
+    ckpt_dir: str = "./ckpt"
+    seed: int = 42
+    log_every: int = 5
+    use_wandb: bool = True
+    nan_guard: bool = True
+
+    # mesh
+    mesh_shape: str = "data=-1"
+    full_bf16: bool = False
+    profile_dir: Optional[str] = None
 
 
 def parse_ch_mult(s: str | Sequence[int]) -> Tuple[int, ...]:

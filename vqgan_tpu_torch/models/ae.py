@@ -30,6 +30,7 @@ from vqgan_tpu_torch.models.blocks import (
     Upsample,
     conv3x3,
     init_weights_,
+    nchw,
 )
 
 
@@ -144,13 +145,14 @@ class IdentityGaussian(nn.Module):
 
 class DiagonalGaussian(nn.Module):
     """Reparameterized Gaussian over a 2·z_channels input (reference
-    tae.py:253-266). Sampling is a training path and is not ported yet;
-    serving takes the mean (``VAEPipeline.encode``)."""
+    tae.py:253-266). Sampling is a training path and is not ported yet (the
+    train step raises for ``reg_type="gaussian"``); serving takes the mean
+    (``VAEPipeline.encode``)."""
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
-            "DiagonalGaussian sampling is a training path; it is ported "
-            "with the train step (ROADMAP.md, Queue 1: train state and step)"
+            "DiagonalGaussian sampling is not ported yet (ROADMAP.md, "
+            "Queue 1: 2D models)"
         )
 
 
@@ -171,11 +173,6 @@ def _check_ported(cfg: VAEConfig) -> None:
         )
     if cfg.reg_type not in ("identity_gaussian", "gaussian"):
         raise ValueError(f"unknown reg_type {cfg.reg_type!r}")
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) → (B, C, H, W) channels_last (a view when x is contiguous)."""
-    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -209,11 +206,11 @@ class VAE(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, in_channels) → (B, h, w, z) in the encoder's dtype."""
-        return _nhwc(self.encoder(_nchw(x)))
+        return _nhwc(self.encoder(nchw(x)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, z) → (B, H, W, out_ch) in the decoder's dtype."""
-        return _nhwc(self.decoder(_nchw(z)))
+        return _nhwc(self.decoder(nchw(z)))
 
     def regularize(self, z: torch.Tensor) -> torch.Tensor:
         return self.reg(z)

@@ -19,8 +19,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vqgan_tpu_torch.ops.groupnorm_cuda import fused_group_norm
+from vqgan_tpu_torch.ops.groupnorm_cuda import FusedGroupNorm
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B, C, H, W) channels_last (a view when x is a
+    contiguous NHWC tensor)."""
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -29,8 +35,9 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 class FP32GroupNorm(nn.Module):
     """GroupNorm(32, eps=1e-6) computed in fp32 (reference ae.py:41-53), with
-    the following swish fused when ``fused_swish``. A CUDA tensor runs the
-    hand-written kernel; a CPU tensor its plain version."""
+    the following swish fused when ``fused_swish``. Goes through the
+    ``FusedGroupNorm`` autograd Function: a CUDA tensor runs the hand-written
+    kernels forward and backward; a CPU tensor their plain versions."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  fused_swish: bool = False):
@@ -42,8 +49,8 @@ class FP32GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_group_norm(x, self.weight, self.bias, self.num_groups,
-                                self.eps, with_swish=self.fused_swish)
+        return FusedGroupNorm.apply(x, self.weight, self.bias, self.num_groups,
+                                    self.eps, self.fused_swish)
 
 
 class Conv2d(nn.Module):

@@ -1,19 +1,32 @@
-"""Plain PyTorch fp32 GroupNorm (+ optional fused swish), forward only.
+"""Plain PyTorch fp32 GroupNorm (+ optional fused swish), forward and backward.
 
-The counterpart of ``vqgan_tpu/ops/normalization.py::_forward`` in the same
-channel-coefficient form:
+The counterpart of ``vqgan_tpu/ops/normalization.py`` (``_forward``) and of
+the Pallas backward ``vqgan_tpu/ops/pallas/groupnorm.py::_pallas_gn_bwd``, in
+the same channel-coefficient form:
 
     mean, var = E[x], E[x²] − mean²      per (batch, group), in fp32
     rstd = rsqrt(var + eps)
-    y = x · A_c + B_c ,  A = rstd·γ ,  B = β − mean·A
-    y = y · sigmoid(y)                    when with_swish
+    ŷ = x · A_c + B_c ,  A = rstd·γ ,  B = β − mean·A
+    y = ŷ · sigmoid(ŷ)                    when with_swish, else y = ŷ
 
 cast back to the input's dtype. Channel c belongs to group c // (C / G), as
-in torch's GroupNorm.
+in torch's GroupNorm. The backward, from the input x, the incoming gradient g
+and the per-(batch, group) mean and rstd:
 
-This is the reference the CUDA kernel (``ops/groupnorm_cuda.py``) is held
-against, and the path a tensor on the CPU takes. It is not the model's GroupNorm
-on the card: a CUDA tensor goes through the kernel.
+    dŷ = g·σ(ŷ)·(1 + ŷ·(1 − σ(ŷ)))       in fp32 (with swish), else dŷ = g
+    S0 = Σ_spatial dŷ ,  S1 = Σ_spatial dŷ·x                  per (batch, channel)
+    dγ = Σ_batch r·(S1 − μ·S0) ,  dβ = Σ_batch S0
+    m1 = Σ_group γ·S0 / n ,  m2 = r·Σ_group γ·S1 / n − μ·r·Σ_group γ·S0 / n
+                                      (n = spatial size · channels per group)
+    dx = dŷ·(rγ)_c + x·(−r²·m2)_c + (μ·r²·m2 − r·m1)_c
+
+dŷ stays in fp32, as in the Pallas backward; the JAX package's XLA backward
+rounds it to the input's dtype first (``vqgan_tpu/ops/normalization.py``,
+``_group_norm_bwd``), which differs from this form by bf16 rounding only.
+
+These are the references the CUDA kernels (``ops/groupnorm_cuda.py``) are
+held against, and the path a tensor on the CPU takes. On the card a CUDA
+tensor goes through the kernels.
 """
 
 from __future__ import annotations
@@ -21,20 +34,25 @@ from __future__ import annotations
 import torch
 
 
-def group_norm_fp32(
+def _check_groups(c: int, num_groups: int) -> None:
+    if c % num_groups != 0:
+        raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
+
+
+def group_norm_fp32_forward(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: torch.Tensor,
     num_groups: int = 32,
     eps: float = 1e-6,
     with_swish: bool = False,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """GroupNorm(+swish) over x of shape (B, C, *spatial) with fp32
-    statistics and arithmetic; returns x's dtype and memory layout (a
-    channels_last input gives a channels_last output)."""
+    statistics and arithmetic. Returns ``(y, mean, rstd)``: y in x's dtype and
+    memory layout (a channels_last input gives a channels_last output), mean
+    and rstd fp32 (B, G)."""
     b, c = x.shape[0], x.shape[1]
-    if c % num_groups != 0:
-        raise ValueError(f"channels {c} not divisible by num_groups {num_groups}")
+    _check_groups(c, num_groups)
     cg = c // num_groups
     xf = x.float().movedim(1, -1)  # (B, *spatial, C)
     xg = xf.reshape(b, -1, num_groups, cg)
@@ -47,4 +65,66 @@ def group_norm_fp32(
     y = xf * a.view(shape) + bb.view(shape)
     if with_swish:
         y = y * torch.sigmoid(y)
-    return y.to(x.dtype).movedim(-1, 1)
+    return y.to(x.dtype).movedim(-1, 1), mean, rstd
+
+
+def group_norm_fp32(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+    with_swish: bool = False,
+) -> torch.Tensor:
+    """The output of ``group_norm_fp32_forward`` alone."""
+    return group_norm_fp32_forward(x, weight, bias, num_groups, eps, with_swish)[0]
+
+
+def group_norm_fp32_backward(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    mean: torch.Tensor,
+    rstd: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    with_swish: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dγ, dβ) of GroupNorm(+swish) at x of shape (B, C, *spatial) for
+    the incoming gradient g (same shape), given the forward's fp32 (B, G)
+    mean and rstd. dx has x's dtype and memory layout; dγ and dβ are fp32."""
+    b, c = x.shape[0], x.shape[1]
+    _check_groups(c, num_groups)
+    cg = c // num_groups
+    xf = x.float().movedim(1, -1).reshape(b, -1, c)  # (B, S, C)
+    gf = g.float().movedim(1, -1).reshape(b, -1, c)
+    n_group = xf.shape[1] * cg
+    r_c = rstd.repeat_interleave(cg, dim=-1)  # (B, C)
+    m_c = mean.repeat_interleave(cg, dim=-1)
+    scale = weight.float()[None, :]
+    if with_swish:
+        a = r_c * scale
+        bb = bias.float()[None, :] - m_c * a
+        y_hat = xf * a[:, None, :] + bb[:, None, :]
+        sig = torch.sigmoid(y_hat)
+        dy = gf * sig * (1.0 + y_hat * (1.0 - sig))
+    else:
+        dy = gf
+    s0 = dy.sum(dim=1)  # (B, C)
+    s1 = (dy * xf).sum(dim=1)
+
+    d_scale = (r_c * (s1 - m_c * s0)).sum(dim=0)
+    d_bias = s0.sum(dim=0)
+
+    g_s0 = (scale * s0).reshape(b, num_groups, cg).sum(dim=-1)  # (B, G)
+    g_s1 = (scale * s1).reshape(b, num_groups, cg).sum(dim=-1)
+    m1 = g_s0 / n_group
+    m2 = rstd * (g_s1 / n_group) - mean * rstd * (g_s0 / n_group)
+    m1_c = m1.repeat_interleave(cg, dim=-1)
+    m2_c = m2.repeat_interleave(cg, dim=-1)
+    ca = r_c * scale
+    cb = -r_c * r_c * m2_c
+    cc = m_c * r_c * r_c * m2_c - r_c * m1_c
+    dx = dy * ca[:, None, :] + xf * cb[:, None, :] + cc[:, None, :]
+    dx = dx.to(x.dtype).reshape((b,) + tuple(x.shape[2:]) + (c,)).movedim(-1, 1)
+    return dx, d_scale, d_bias

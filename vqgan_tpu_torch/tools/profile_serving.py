@@ -25,30 +25,37 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 GN_PREFIX = "gn_"
+GN_BWD_PREFIX = "gn_bwd_"
 CONV_MARKERS = ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
                 "nchwToNhwc", "nhwcToNchw")
 
 
-def _kernel_class(name: str) -> str:
+def kernel_class(name: str) -> str:
     # the GroupNorm kernels live in an anonymous namespace: "(anonymous
     # namespace)::gn_stats_kernel<float>(...)"
     base = name.split("::")[-1]
+    if base.startswith(GN_BWD_PREFIX):
+        return "groupnorm kernel, backward"
     if base.startswith(GN_PREFIX):
-        return "groupnorm kernel"
+        return "groupnorm kernel, forward"
     low = name.lower()
     if any(m.lower() in low for m in CONV_MARKERS):
         return "conv (cuDNN)"
     return "other"
 
 
-def _device_kernels(prof) -> list:
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+def device_kernels(prof) -> list:
+    """The trace's device kernels and copies; GPU user annotations (such as
+    ``Optimizer.step#AdamW.step``) span other kernels and are left out, as
+    in torch.profiler's own summaries."""
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device kernels")
     return kernels
 
 
-def _busy_us(kernels) -> float:
+def busy_us(kernels) -> float:
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -77,18 +84,18 @@ def profile_reconstruct(batch: int, iters: int, out_dir: str | None) -> None:
         for _ in range(iters):
             pipe.reconstruct(images)  # ends in a device-to-host copy
         window_us = (time.perf_counter() - t0) * 1e6
-    kernels = _device_kernels(prof)
+    kernels = device_kernels(prof)
     by_class: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
         dur = e.time_range.elapsed_us()
-        cls = _kernel_class(e.name)
+        cls = kernel_class(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + dur
         entry = by_name.setdefault(e.name, [0.0, 0])
         entry[0] += dur
         entry[1] += 1
     total = sum(by_class.values())
-    busy = _busy_us(kernels)
+    busy = busy_us(kernels)
     print(f"reconstruct batch {batch}, {iters} iters: window {window_us / iters / 1e3:.3f} "
           f"ms/iter host clock, kernels {total / iters / 1e3:.3f} ms/iter, device busy "
           f"{busy / window_us:.4f} of the window (idle {1 - busy / window_us:.4f})")
@@ -121,7 +128,7 @@ def profile_groupnorm(batch: int) -> None:
                 fused_group_norm(x, w, b, 32, 1e-6, True)
             torch.cuda.synchronize()
         times: dict[str, float] = {}
-        for e in _device_kernels(prof):
+        for e in device_kernels(prof):
             base = e.name.split("::")[-1].split("<")[0].split("(")[0]
             times[base] = times.get(base, 0.0) + e.time_range.elapsed_us() / 10
         parts = ", ".join(f"{k} {v:.2f} us" for k, v in times.items())

@@ -1,0 +1,305 @@
+"""The GAN train step (counterpart of ``vqgan_tpu/train/step.py``,
+``make_train_step`` with ``grad_accum <= 1``; reference
+vae_trainer.py:524-704).
+
+One step, in order:
+
+  - input: a uint8 batch is normalized on the device; area-resize to the
+    encoder's and the target's resolution; a random horizontal flip of both;
+  - encoder; z statistics (quantiles, kurtosis, skewness) taken before the
+    clamp; clamp; the identity regularizer;
+  - latent flip equivariance: flip z and the target along W and negate latent
+    channels [-4, -2), then along H and negate [-2, C);
+  - the crop bucket ``do_crop`` (static size, drawn offsets) of z and of the
+    target;
+  - decoder → recon. Its graph stays alive: the generator runs once forward
+    and once backward per step;
+  - discriminator update on ``recon.detach()`` and the fp32 target, with the
+    LeCam anchors EMA'd first and the penalty taken against the new anchors;
+  - generator losses against the UPDATED discriminator (reference :659, 684):
+    GradNorm applied three separate times to recon (LPIPS w=1.0, MSE w=0.001,
+    GAN w=1.0), LPIPS and D on ``recon.float()``, ``vae_loss_function``; D's
+    params take no gradient from this backward;
+  - one backward, G AdamW step, scheduler step; the Polyak EMA of G's params
+    when ``ema_decay > 0``.
+
+Randomness: the step's coins (input flip, latent flips, LPIPS augment flips)
+and crop offsets are drawn from the state's ``torch.Generator`` on the
+device, and selected with ``torch.where`` so the host never waits for them. A
+caller that needs given draws (the parity tests feed the JAX step's) passes
+``draws``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn as nn
+
+from vqgan_tpu_torch.config import TrainConfig, VAEConfig
+from vqgan_tpu_torch.losses.gan import (
+    gan_disc_loss,
+    generator_gan_loss,
+    lecam_penalty,
+    update_lecam_anchors,
+)
+from vqgan_tpu_torch.losses.recon import vae_loss_function
+from vqgan_tpu_torch.ops.gradnorm import gradnorm
+from vqgan_tpu_torch.ops.resize import resize_area
+from vqgan_tpu_torch.train.state import TrainState
+
+QUANTILES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """One step's random draws. Each coin is a bool or a 0-d bool tensor on
+    the step's device (flip when true); each crop offset an int or a 0-d
+    int64 tensor, in latent rows (``crop_h``) and columns (``crop_w``)."""
+
+    flip_in: Any
+    flip_w: Any
+    flip_h: Any
+    crop_h: Any
+    crop_w: Any
+    aug_lpips_w: Any
+    aug_lpips_h: Any
+
+
+def draw_step(generator: torch.Generator, crop_range: tuple[int, int]) -> StepDraws:
+    """Five fair coins and two crop offsets in [0, crop_range[i]], on the
+    generator's device (no host synchronisation)."""
+    dev = generator.device
+    coins = torch.rand(5, generator=generator, device=dev) < 0.5
+    off_h, off_w = (torch.randint(0, n + 1, (), generator=generator, device=dev)
+                    for n in crop_range)
+    return StepDraws(flip_in=coins[0], flip_w=coins[1], flip_h=coins[2],
+                     crop_h=off_h, crop_w=off_w,
+                     aug_lpips_w=coins[3], aug_lpips_h=coins[4])
+
+
+def _where(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a if flag else b: a select on the device for a tensor flag."""
+    if isinstance(flag, torch.Tensor):
+        return torch.where(flag, a, b)
+    return a if flag else b
+
+
+def _flip_if(flag, arrays, dim: int) -> tuple[torch.Tensor, ...]:
+    return tuple(_where(flag, a.flip(dim), a) for a in arrays)
+
+
+def _latent_flip(flag, z_s, target, dim: int, neg_lo: int, neg_hi: int):
+    """Flip z_s and the target along one spatial dim and negate latent
+    channels [neg_lo, neg_hi) (the sign channels of the Z2×Z2-equivariant
+    latent; vae_trainer.py:567-575)."""
+    c = z_s.shape[-1]
+    lo = c + neg_lo if neg_lo < 0 else neg_lo
+    hi = c + neg_hi if neg_hi < 0 else neg_hi
+    idx = torch.arange(c, device=z_s.device)
+    sign = torch.where((idx >= lo) & (idx < hi), -1.0, 1.0).to(z_s.dtype)
+    z_new = _where(flag, z_s.flip(dim) * sign, z_s)
+    t_new = _where(flag, target.flip(dim), target)
+    return z_new, t_new
+
+
+def _crop(x: torch.Tensor, off_h, off_w, h: int, w: int) -> torch.Tensor:
+    """x[:, off_h:off_h+h, off_w:off_w+w] of NHWC, for int or tensor offsets."""
+    rows = torch.arange(h, device=x.device) + off_h
+    cols = torch.arange(w, device=x.device) + off_w
+    return x.index_select(1, rows).index_select(2, cols)
+
+
+def z_statistics(z: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Quantiles {0, .2, ..., 1}, kurtosis and skewness of z
+    (vae_trainer.py:540-559)."""
+    zf = z.float().reshape(-1)
+    # torch.quantile interpolates linearly, as jnp.quantile does; it refuses
+    # inputs above 2^24 elements (the flagship z at batch 8 has 131,072)
+    qs = torch.quantile(zf, torch.tensor(QUANTILES, device=zf.device))
+    mean = zf.mean()
+    std = zf.std(correction=0)  # population std, as jnp.std
+    centered = zf - mean
+    out = {f"z_quantiles/{q:.1f}": qs[i] for i, q in enumerate(QUANTILES)}
+    out["z_quantiles/kurtosis"] = centered.pow(4).mean() / (std.pow(4) + 1e-12)
+    out["z_quantiles/skewness"] = centered.pow(3).mean() / (std.pow(3) + 1e-12)
+    return out
+
+
+def make_train_step(
+    cfg: TrainConfig,
+    vae_cfg: VAEConfig,
+    vae: nn.Module,
+    disc: Optional[nn.Module],
+    lpips: nn.Module,
+    gradnorm_shards: int = 1,
+) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
+    """Returns ``step(state, batch, do_crop=0, draws=None) -> (state,
+    metrics)``. ``state`` is a ``TrainState`` of these models and is updated
+    in place; ``batch`` is (B, S, S, 3), uint8 or float in [-1, 1], on the
+    models' device; ``do_crop`` is 0 (no crop) or a 1-based bucket of
+    ``cfg.crop_fractions``; metrics are 0-d device tensors.
+
+    ``gradnorm_shards``: the data-parallel extent for
+    ``cfg.gradnorm_mode = "mean_shard_norm"``; 1 = global-norm mode."""
+    if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
+        raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
+    if cfg.grad_accum > 1:
+        raise NotImplementedError(
+            "grad_accum > 1: the microbatched step is not ported yet "
+            "(ROADMAP.md, Queue 1: train state and step)"
+        )
+    if vae_cfg.reg_type != "identity_gaussian":
+        raise NotImplementedError(
+            f"reg_type={vae_cfg.reg_type!r}: the train step ports the identity "
+            "Gaussian only; Gaussian sampling and the VQ latent wait "
+            "(ROADMAP.md, Queue 1: 2D models, VQ latent)"
+        )
+    if cfg.do_ganloss and disc is None:
+        raise ValueError("do_ganloss needs a discriminator")
+    gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
+
+    enc_res = vae_cfg.resolution
+    hr = vae_cfg.decoder_also_perform_hr
+    tgt_res = enc_res * (2 if hr else 1)
+    ds_factor = cfg.downscale_factor * (2 if hr else 1)
+    z_side = enc_res // vae_cfg.ffactor
+
+    def crop_size(do_crop: int) -> tuple[int, int]:
+        if int(do_crop) > len(cfg.crop_fractions):
+            raise ValueError(f"crop bucket {int(do_crop)} out of range for "
+                             f"crop_fractions {cfg.crop_fractions}")
+        frac = cfg.crop_fractions[int(do_crop) - 1]
+        side = max(1, int(round(frac * z_side)))
+        return side, side
+
+    def gen_forward(batch, draws, do_crop):
+        if batch.dtype == torch.uint8:
+            batch = batch.float() / 127.5 - 1.0
+        x_enc = resize_area(batch, (enc_res, enc_res))
+        target = resize_area(batch, (tgt_res, tgt_res))
+        x_enc, target = _flip_if(draws.flip_in, (x_enc, target), 2)
+
+        z = vae.encode(x_enc)
+        z_pre = z.detach()  # statistics are taken before the clamp
+        if cfg.do_clamp:
+            z = z.clamp(-cfg.clamp_th, cfg.clamp_th)
+        z_s = vae.regularize(z)
+        if cfg.flip_invariance:
+            c = z_s.shape[-1]
+            z_s, target = _latent_flip(draws.flip_w, z_s, target, 2, -4, -2)
+            z_s, target = _latent_flip(draws.flip_h, z_s, target, 1, -2, c)
+        if do_crop:
+            ch, cw = crop_size(do_crop)
+            z_s = _crop(z_s, draws.crop_h, draws.crop_w, ch, cw)
+            target = _crop(target, draws.crop_h * ds_factor, draws.crop_w * ds_factor,
+                           ch * ds_factor, cw * ds_factor)
+        recon = vae.decode(z_s)
+        return recon, z, target, z_pre
+
+    def disc_update(state, recon, target, metrics):
+        recon_const = recon.detach().float()
+        real_preds = disc(target)
+        fake_preds = disc(recon_const)
+        d_loss, d_metrics = gan_disc_loss(real_preds, fake_preds, cfg.disc_type)
+        # anchors EMA'd from the logits first, then the penalty uses the new
+        # anchors (reference :639-655)
+        new_real, new_fake = update_lecam_anchors(
+            state.lecam_real, state.lecam_fake,
+            d_metrics["avg_real_logits"].detach(),
+            d_metrics["avg_fake_logits"].detach(),
+            cfg.lecam_beta,
+        )
+        total_d = d_loss
+        lecam_val = torch.zeros((), device=d_loss.device)
+        if cfg.use_lecam:
+            lecam_val = lecam_penalty(real_preds, fake_preds, new_real, new_fake)
+            total_d = total_d + cfg.lecam_weight * lecam_val
+        state.d_opt.zero_grad(set_to_none=True)
+        total_d.backward()
+        state.d_opt.step()
+        state.d_opt.zero_grad(set_to_none=True)
+        state.lecam_real, state.lecam_fake = new_real, new_fake
+        metrics["gan/discriminator_loss"] = d_loss.detach()
+        metrics["gan/discriminator_accuracy"] = d_metrics["disc_acc"]
+        metrics["gan/avg_real_logits"] = d_metrics["avg_real_logits"].detach()
+        metrics["gan/avg_fake_logits"] = d_metrics["avg_fake_logits"].detach()
+        metrics["gan/lecam_loss"] = lecam_val.detach()
+        metrics["gan/lecam_anchor_real_logits"] = new_real
+        metrics["gan/lecam_anchor_fake_logits"] = new_fake
+
+    def g_losses(recon, z, target, draws):
+        """All generator loss branches (reference vae_trainer.py:662-698)."""
+        metrics = {}
+        recon_lpips = gradnorm(recon, cfg.gradnorm_lpips, None, gn_shards)
+        target_aug = target
+        if cfg.augment_before_perceptual_loss:
+            recon_lpips, target_aug = _flip_if(draws.aug_lpips_w, (recon_lpips, target_aug), 2)
+            recon_lpips, target_aug = _flip_if(draws.aug_lpips_h, (recon_lpips, target_aug), 1)
+        percep = lpips(recon_lpips.float(), target_aug).mean()
+        metrics["perceptual_loss"] = percep
+
+        recon_mse = gradnorm(recon, cfg.gradnorm_mse, None, gn_shards)
+        vae_loss, vae_metrics = vae_loss_function(
+            target, recon_mse.float(), z, do_pool=cfg.do_pool_recon,
+            recon_weight=cfg.recon_weight, z_reg_weight=cfg.z_reg_weight,
+        )
+        metrics.update(vae_metrics)
+
+        total = percep + vae_loss
+        if cfg.do_ganloss:
+            recon_gan = gradnorm(recon, cfg.gradnorm_gan, None, gn_shards)
+            g_gan = generator_gan_loss(disc(recon_gan.float()), cfg.disc_type)
+            metrics["gan/generator_gan_loss"] = g_gan
+            total = total + g_gan
+        metrics["overall_vae_loss"] = total
+        return total, metrics
+
+    def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
+             draws: Optional[StepDraws] = None):
+        if draws is None:
+            crop_range = (0, 0)
+            if do_crop:
+                ch, cw = crop_size(do_crop)
+                crop_range = (z_side - ch, z_side - cw)
+            draws = draw_step(state.generator, crop_range)
+
+        # --- shared generator forward (one forward, one backward per step) ---
+        recon, z, target, z_pre = gen_forward(batch, draws, do_crop)
+        metrics = z_statistics(z_pre)
+
+        # --- discriminator update, before G ---
+        if cfg.do_ganloss:
+            disc_update(state, recon, target, metrics)
+
+        # --- generator update against the updated D; D's params take no
+        # gradient from this backward ---
+        d_params = list(disc.parameters()) if cfg.do_ganloss else []
+        for p in d_params:
+            p.requires_grad_(False)
+        try:
+            total, g_metrics = g_losses(recon, z, target, draws)
+        finally:
+            for p in d_params:
+                p.requires_grad_(True)
+        state.g_opt.zero_grad(set_to_none=True)
+        total.backward()
+        state.g_opt.step()
+        state.g_sched.step()
+        state.g_opt.zero_grad(set_to_none=True)
+
+        if cfg.ema_decay > 0:
+            with torch.no_grad():
+                names = list(state.g_ema)
+                params = dict(vae.named_parameters())
+                ema = [state.g_ema[n] for n in names]
+                torch._foreach_mul_(ema, cfg.ema_decay)
+                torch._foreach_add_(ema, [params[n] for n in names],
+                                    alpha=1.0 - cfg.ema_decay)
+        state.step += 1
+        metrics.update({k: v.detach() for k, v in g_metrics.items()})
+        return state, metrics
+
+    return step

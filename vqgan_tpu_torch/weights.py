@@ -1,6 +1,7 @@
 """Reference-format weights (counterpart of
-``vqgan_tpu/train/torch_import.py::params_to_torch_state_dict`` and the ``.pt``
-branch of ``vqgan_tpu/train/checkpoint.py::load_weights``).
+``vqgan_tpu/train/torch_import.py::params_to_torch_state_dict``, the ``.pt``
+branch of ``vqgan_tpu/train/checkpoint.py::load_weights``, and the inverse of
+the JAX package's LPIPS and discriminator converters).
 
 The reference saves weights-only ``vae.state_dict()`` files, possibly with
 DDP (``module.``) or torch.compile (``_orig_mod.``) prefixes. The port's module
@@ -21,6 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+
+from vqgan_tpu_torch.losses.vgg import TORCHVISION_CONV_INDICES, slice_of
 
 _INDEXED = ("down", "up", "block", "attn")
 _STRIP = ("module", "_orig_mod")
@@ -59,6 +62,61 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             )
 
     walk(params, [])
+    return out
+
+
+def _conv(kernel, bias) -> tuple[torch.Tensor, torch.Tensor]:
+    """A flax conv (HWIO kernel, bias) → torch (OIHW weight, bias), fp32."""
+    w = np.array(kernel, dtype=np.float32).transpose(3, 2, 0, 1)
+    return (torch.from_numpy(np.ascontiguousarray(w)),
+            torch.from_numpy(np.array(bias, dtype=np.float32)))
+
+
+def _vgg_state_dict(vgg: Mapping, prefix: str, wrapped: bool) -> dict[str, torch.Tensor]:
+    out = {}
+    for j, idx in enumerate(TORCHVISION_CONV_INDICES):
+        w, b = _conv(vgg[f"conv_{j}"]["kernel"], vgg[f"conv_{j}"]["bias"])
+        key = f"{prefix}slice{slice_of(idx)}.{'0.' if wrapped else ''}{idx}"
+        out[f"{key}.weight"], out[f"{key}.bias"] = w, b
+    return out
+
+
+def jax_lpips_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` params (``vgg/conv_{j}``, ``lin_{k}``) → the reference's
+    ``vgg.pth`` keys, which the port's ``LPIPS`` loads strictly: the VGG
+    under ``net.slice{n}.{idx}.*``, the heads as ``lin{k}.model.1.weight``
+    (1, C, 1, 1). The exact inverse of the JAX package's
+    ``convert_torch_lpips``."""
+    out = _vgg_state_dict(params["vgg"], "net.", wrapped=False)
+    for k in range(5):
+        lin = np.array(params[f"lin_{k}"], dtype=np.float32)
+        out[f"lin{k}.model.1.weight"] = torch.from_numpy(lin.reshape(1, -1, 1, 1))
+    return out
+
+
+# JAX head conv name → reference Sequential index (utils.py:156-185)
+_DISC_HEADS = {
+    "bc1_conv0": "binary_classifier1.0",
+    "bc1_conv1": "binary_classifier1.2",
+    "bc2_conv0": "binary_classifier2.0",
+    "bc2_conv1": "binary_classifier2.2",
+    "bc3_conv0": "binary_classifier3.0",
+    "bc3_conv1": "binary_classifier3.2",
+    "bc4_conv0": "binary_classifier4.0",
+    "bc5_conv0": "binary_classifier5.0",
+}
+
+
+def jax_disc_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``PatchDiscriminator`` params → the reference's state-dict keys,
+    which the port's ``PatchDiscriminator`` loads strictly: the backbone
+    under ``slice{n}.0.{idx}.*``, the heads as ``binary_classifier{k}.{0,2}.*``.
+    The exact inverse of the JAX package's
+    ``convert_torch_patch_discriminator``."""
+    out = _vgg_state_dict(params["vgg"], "", wrapped=True)
+    for ours, theirs in _DISC_HEADS.items():
+        out[f"{theirs}.weight"], out[f"{theirs}.bias"] = _conv(
+            params[ours]["kernel"], params[ours]["bias"])
     return out
 
 
