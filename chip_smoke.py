@@ -30,15 +30,36 @@ Phases, each fatal on failure:
      the card (kernels) at a reduced width, TF32 off;
   8. training: one step on the CPU and on the card from the same weights,
      batch and draws at a reduced width, fp32, TF32 off: losses, and the
-     gradients read from AdamW's first moments.
+     gradients read from AdamW's first moments;
+  9. the VQ nearest-code search kernel against its plain version at the
+     flagship shapes (N = 8192 and 2048 tokens, K = 16384 codes, D = 16),
+     a ragged N, several K tiles, a K of 32 and a codebook with every code
+     duplicated (the first copy must win): codes compared by distance in
+     fp64; kernel, plain and library (cuBLAS addmm + argmin) times and the
+     bound. The code-statistics kernel at the same shapes, counts only and
+     with sums: counts exact, sums within a bound of Σ|terms|;
+ 10. VQ serving at the flagship width (``VAEConfig(reg_type="vq")``), random
+     weights with a codebook, from a reference-format .pt: every latent a
+     codebook row, 1 search launch per encode, 50 GroupNorm launches per
+     reconstruct, img/s and peak memory at batch 8;
+ 11. the flagship VQ training step (phase 6's, with ``reg_type="vq"``, K =
+     16384, EMA 0.99) at batch 8: 1 search and 1 statistics launch per step
+     beside the 50 + 50 GroupNorm launches, the EMA counts move and the
+     codebook is folded in step 1, finite metrics with ``vq_loss``, img/s,
+     step ms and peak memory;
+ 12. VQ, CPU against card at the reduced width of phases 7-8 with K = 1024:
+     serving latents by distance; one training step (EMA 0.9, revival at
+     0.5, the same draws and revival rows): losses and gradients within
+     phase 8's bounds, EMA counts, the folded codebook.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
-prints neither.
+The kernels are built in parallel, one nvcc per source. The second-to-last
+line is a JSON summary of the kernels; the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits 1 and prints neither.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -54,6 +75,7 @@ import torch.nn.functional as F
 SERVE_BATCH = 8
 TRAIN_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 # (S = H*W, C) -> calls per reconstruct, from the flagship config
 ENCODER_GN_SHAPES = {  # fp32
     (65536, 256): 4, (16384, 256): 1, (16384, 512): 3, (4096, 512): 1,
@@ -93,6 +115,20 @@ SUM_RTOL = 1e-5
 LOSS_RTOL, LOSS_ATOL = 8e-3, 8e-4
 GRAD_RTOL = 1e-2
 GRAD_FLOOR = 1e-6  # of the largest gradient entry
+# VQ search, kernel vs plain: each computes a distance from a D-term fp32 dot
+# product, ‖E‖² and (the plain one) ‖z‖², in other orders; each distance is
+# off by at most (D + 2)·u·(‖z‖² + 2|z·E| + ‖E‖²), u = 2^-24, with
+# 2|z·E| <= ‖z‖² + ‖E‖². Where the two pick different codes, the kernel's is
+# at most both errors farther from z (fp64 distances): this factor of u
+VQ_GAP_U = 2.0 ** -24
+# VQ statistics: counts are exact; a code's sum of m rows in another order is
+# off by at most 2·(m − 1)·u of Σ|terms|.
+# (N, K, D) of the VQ cases; the flagship latent is 32x32x16 per image
+VQ_CASES = {
+    "flagship b8": (8192, 16384, 16), "flagship b2": (2048, 16384, 16),
+    "ragged N": (700, 256, 16), "K tiles": (512, 2048, 8), "small K": (64, 32, 4),
+}
+VQ_CROSS_K = 1024
 
 
 def log(*args) -> None:
@@ -404,6 +440,256 @@ def phase_train_flagship(gn) -> tuple[tuple[int, int], dict]:
     return counts, result
 
 
+def vq_distance_gap(z, cb, codes, ref):
+    """Per token, in fp64: ‖z − E[codes]‖² − ‖z − E[ref]‖², and its fp32
+    rounding bound (VQ_GAP_U)."""
+    z, cb = z.double(), cb.double()
+    a, b = cb[codes.long()], cb[ref.long()]
+    gap = ((z - a) ** 2).sum(-1) - ((z - b) ** 2).sum(-1)
+    tol = 2 * (z.shape[1] + 2) * VQ_GAP_U * (
+        2 * (z * z).sum(-1) + (a * a).sum(-1) + (b * b).sum(-1))
+    return gap, tol
+
+
+def _library_nearest(z, cb, e_sq):
+    """One PyTorch call of the search, as a yardstick only (the port never
+    calls it): cuBLAS fp32 (TF32 off) writes the (N, K) matrix, then argmin."""
+    return torch.addmm(e_sq, z, cb.T, alpha=-2.0).argmin(1)
+
+
+def _library_stats(codes64, z, k, with_sums):
+    """The statistics by PyTorch calls, as a yardstick only: bincount, and
+    index_add_ (float atomics) for the sums."""
+    counts = torch.bincount(codes64, minlength=k)
+    if with_sums:
+        return counts, torch.zeros(k, z.shape[1], device=z.device).index_add_(0, codes64, z)
+    return counts, None
+
+
+def phase_vq_kernels(vq) -> tuple[dict, dict]:
+    """Kernel #4 and #5 against their plain versions. Returns
+    ({case: (gap, kernel_ms, plain_ms, library_ms, bound_ms)},
+     {(case, with_sums): (max_abs_err, kernel_ms, plain_ms, library_ms,
+     bound_ms)})."""
+    from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    nearest, stats = {}, {}
+    for name, (n, k, d) in VQ_CASES.items():
+        z = torch.randn((n, d), generator=gen, device="cuda")
+        cb = torch.randn((k, d), generator=gen, device="cuda")
+        got = vq.nearest_codes(z, cb)
+        ref = nearest_codes_plain(z, cb)
+        torch.cuda.synchronize()
+        gap, tol = vq_distance_gap(z, cb, got, ref)
+        agree = int((got == ref).sum())
+        ok = bool((gap.abs() <= tol).all())
+        e_sq = (cb * cb).sum(-1)
+        k_ms = cuda_ms(lambda: vq.nearest_codes(z, cb))
+        p_ms = cuda_ms(lambda: nearest_codes_plain(z, cb))
+        l_ms = cuda_ms(lambda: _library_nearest(z, cb, e_sq))
+        b_ms = max(2 * n * k * d / FP32_FLOPS_PER_S,
+                   ((n * d + k * d) * 4 + n * 4) / HBM_BYTES_PER_S) * 1e3
+        worst = float(gap.max())
+        log(f"vq nearest {name} N={n} K={k} D={d}: {agree}/{n} codes equal to plain, "
+            f"max distance gap {worst:.3e} (bound {float(tol.max()):.3e}) kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
+            f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError(f"search kernel picks farther codes than plain at {name}")
+        nearest[name] = (max(worst, 0.0), k_ms, p_ms, l_ms, b_ms)
+
+        codes = ref  # the plain search's codes, with the skew a search gives
+        codes64 = codes.long()
+        for with_sums in (False, True):
+            counts, sums = vq.code_stats(codes, z, k, with_sums=with_sums)
+            r_counts, r_sums = code_stats_plain(codes, z, k, with_sums)
+            torch.cuda.synchronize()
+            ok = torch.equal(counts, r_counts) and float(counts.sum()) == n
+            err = 0.0
+            if with_sums:
+                abs_sums = code_stats_plain(codes, z.abs(), k, True)[1]
+                bound = 2 * (counts[:, None] - 1).clamp_min(0) * VQ_GAP_U * abs_sums + 1e-30
+                diff = (sums - r_sums).abs()
+                err = float(diff.max())
+                ok = ok and bool((diff <= bound).all())
+            k_ms = cuda_ms(lambda: vq.code_stats(codes, z, k, with_sums=with_sums))
+            p_ms = cuda_ms(lambda: code_stats_plain(codes, z, k, with_sums))
+            l_ms = cuda_ms(lambda: _library_stats(codes64, z, k, with_sums))
+            moved = n * 4 + k * 4 + ((n + k) * d * 4 if with_sums else 0)
+            b_ms = bound_ms(moved)
+            log(f"vq stats {name} N={n} K={k} D={d} {'sums' if with_sums else 'counts'}: "
+                f"counts exact={torch.equal(counts, r_counts)} sum={float(counts.sum()):.0f} "
+                f"sums max_abs_err={err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} {'ok' if ok else 'MISS'}")
+            if not ok:
+                raise AssertionError(f"statistics kernel disagrees with plain at {name}")
+            stats[(name, with_sums)] = (err, k_ms, p_ms, l_ms, b_ms)
+        del z, cb, got, ref, gap, tol
+
+    # a collapsed codebook: every token on one code, the longest chain of
+    # matches a thread can get
+    n, k, d = VQ_CASES["flagship b8"]
+    z = torch.randn((n, d), generator=gen, device="cuda")
+    codes = torch.full((n,), 5, dtype=torch.int32, device="cuda")
+    counts, sums = vq.code_stats(codes, z, k, with_sums=True)
+    r_counts, r_sums = code_stats_plain(codes, z, k, True)
+    err = float((sums - r_sums).abs().max())
+    bound = 2 * (n - 1) * VQ_GAP_U * float(z.abs().sum(0).max())
+    ok = torch.equal(counts, r_counts) and err <= bound
+    k_ms = cuda_ms(lambda: vq.code_stats(codes, z, k, with_sums=True))
+    log(f"vq stats collapsed N={n} K={k} D={d} (every token on code 5): counts exact="
+        f"{torch.equal(counts, r_counts)} sums max_abs_err={err:.3e} (bound {bound:.3e}) "
+        f"kernel_ms={k_ms:.4f} {'ok' if ok else 'MISS'}")
+    if not ok:
+        raise AssertionError("statistics kernel disagrees with plain on a collapsed codebook")
+
+    # every code duplicated, copies in other tiles and splits: first copy wins
+    z = torch.randn((n, d), generator=gen, device="cuda")
+    base = torch.randn((k // 2, d), generator=gen, device="cuda")
+    cb = torch.cat([base, base])
+    got, ref = vq.nearest_codes(z, cb), nearest_codes_plain(z, cb)
+    gap, tol = vq_distance_gap(z, cb, got, ref)
+    ok = int(got.max()) < k // 2 and bool((gap.abs() <= tol).all())
+    log(f"vq nearest ties N={n} K={k} (every code twice) D={d}: largest code "
+        f"{int(got.max())} (< {k // 2} required), {int((got == ref).sum())}/{n} equal to "
+        f"plain {'ok' if ok else 'MISS'}")
+    if not ok:
+        raise AssertionError("search kernel does not pick the first copy of a tie")
+    return nearest, stats
+
+
+def _codebook_rows(lat, cb) -> tuple[torch.Tensor, float]:
+    """The codebook row nearest each latent vector, and the largest distance
+    of a latent from its row."""
+    from vqgan_tpu_torch.ops.vq import nearest_codes_plain
+
+    flat = lat.reshape(-1, cb.shape[1]).float()
+    idx = nearest_codes_plain(flat, cb)
+    return idx, float((flat - cb[idx.long()]).abs().max())
+
+
+def phase_vq_serving(gn, vq, tmp: str) -> tuple[dict, dict]:
+    """VQ serving at the flagship width, batch 8; returns the counts of one
+    reconstruct and the timings."""
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.inference import VAEPipeline
+    from vqgan_tpu_torch.models.ae import init_vae
+    from vqgan_tpu_torch.weights import save_weights
+
+    set_tf32(True)
+    cfg = VAEConfig(reg_type="vq", vq_ema_decay=0.0)
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "flagship_vq.pt")
+    save_weights(init_vae(cfg, torch.Generator().manual_seed(0)), path)
+    pipe = VAEPipeline.from_checkpoint(path, cfg, device="cuda")
+    log(f"vq flagship: K={cfg.vq_codebook_size} D={cfg.z_channels}, init+save+load "
+        f"{time.perf_counter() - t0:.1f} s")
+    images = np.random.RandomState(0).randint(0, 256, (SERVE_BATCH, 256, 256, 3), np.uint8)
+
+    vq.nearest_launches = vq.stats_launches = 0
+    z = pipe.encode(images)
+    torch.cuda.synchronize()
+    enc = (vq.nearest_launches, vq.stats_launches)
+    cb = pipe.model.reg.codebook.detach()
+    _, row_err = _codebook_rows(z, cb)
+    # the straight-through z + (e − z) rounds twice at |z| <= 8: 2 ulps of 8
+    ste_atol = 2 * 8 * 2.0 ** -23
+    log(f"vq flagship: encode launches search={enc[0]} stats={enc[1]}; latents "
+        f"{tuple(z.shape)}, largest distance from a codebook row {row_err:.3e} "
+        f"(<= {ste_atol:.3e})")
+    if enc != (1, 0):
+        raise AssertionError("expected 1 search and no statistics launch per VQ encode")
+    if tuple(z.shape) != (SERVE_BATCH, 32, 32, 16) or row_err > ste_atol:
+        raise AssertionError("VQ latents are not codebook rows")
+
+    # the main path, counted: one reconstruct of the batch
+    gn.launches = gn.bwd_launches = vq.nearest_launches = vq.stats_launches = 0
+    recon = pipe.reconstruct(images)
+    counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches,
+              "nearest": vq.nearest_launches, "stats": vq.stats_launches}
+    log(f"vq flagship reconstruct launches: {counts}")
+    if counts != {"gn": 50, "gn_bwd": 0, "nearest": 1, "stats": 0}:
+        raise AssertionError("expected 50 GN and 1 search launch per VQ reconstruct")
+    if not np.isfinite(recon).all() or recon.min() < 0.0 or recon.max() > 1.0:
+        raise AssertionError("VQ output not finite or outside [0, 1]")
+
+    iters = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pipe.reconstruct(images)
+    seconds = time.perf_counter() - t0
+    result = {"img_per_s": SERVE_BATCH * iters / seconds, "reconstruct_s": seconds / iters,
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"vq flagship serving batch {SERVE_BATCH}: {result['img_per_s']:.3f} img/s, "
+        f"{result['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
+        f"{result['peak_bytes'] / 2**30:.3f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+    return counts, result
+
+
+def phase_train_vq_flagship(gn, vq) -> tuple[dict, dict]:
+    """The flagship VQ training step at batch 8; returns the launches of one
+    counted step and the timings."""
+    from vqgan_tpu_torch.tools.profile_step import build_flagship_step
+
+    set_tf32(True)
+    t0 = time.perf_counter()
+    state, step, images = build_flagship_step(TRAIN_BATCH, reg_type="vq")
+    reg = state.g_model.reg
+    log(f"vq train flagship: K={reg.codebook_size} D={reg.embedding_dim} EMA {reg.ema_decay}, "
+        f"batch {TRAIN_BATCH}, build {time.perf_counter() - t0:.1f} s")
+    counts0 = state.vq_ema["counts"].clone()
+    cb0 = reg.codebook.detach().clone()
+    t0 = time.perf_counter()
+    state, metrics = step(state, images)
+    float(metrics["vq_loss"])
+    first_s = time.perf_counter() - t0
+    used = int((state.vq_ema["counts"] > counts0 * reg.ema_decay + 1e-6).sum())
+    cb_moved = float((reg.codebook.detach() - cb0).abs().max())
+    log(f"vq train flagship: step 1 ({first_s:.2f} s) moved the EMA counts of {used} codes; "
+        f"the fold moved the codebook by up to {cb_moved:.4e}")
+    if used == 0 or cb_moved == 0.0:
+        raise AssertionError("the EMA counts or the codebook did not move in step 1")
+    del counts0, cb0
+
+    # the main path, counted: one training step
+    gn.launches = gn.bwd_launches = vq.nearest_launches = vq.stats_launches = 0
+    state, metrics = step(state, images)
+    torch.cuda.synchronize()
+    counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches,
+              "nearest": vq.nearest_launches, "stats": vq.stats_launches}
+    log(f"vq train flagship: launches per step {counts}")
+    if counts != {"gn": 50, "gn_bwd": 50, "nearest": 1, "stats": 1}:
+        raise AssertionError("expected 50 + 50 GN, 1 search and 1 statistics launch per step")
+
+    iters = 5
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = step(state, images)
+    float(metrics["overall_vae_loss"])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if not np.isfinite(v)]
+    if bad or "vq_loss" not in values:
+        raise AssertionError(f"non-finite or missing metrics: {bad}")
+    log("vq train flagship metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
+    result = {"img_per_s": TRAIN_BATCH * iters / seconds, "step_ms": seconds / iters * 1e3,
+              "peak_bytes": peak}
+    log(f"vq train flagship batch {TRAIN_BATCH}: {result['img_per_s']:.3f} img/s, "
+        f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    del state, step, images, metrics, reg
+    torch.cuda.empty_cache()
+    return counts, result
+
+
 def _perturbed_state_dict(cfg, seed: int) -> dict:
     """Reference init, then every residual branch and GroupNorm made
     non-trivial, so the comparison sees every path."""
@@ -454,9 +740,13 @@ def phase_cross_device() -> None:
             raise AssertionError(f"decoded images differ across devices ({dec_dtype})")
 
 
-def phase_train_cross_device() -> None:
+def phase_train_cross_device(vq_k: int = 0) -> None:
     """One training step on the CPU and on the card: same weights, batch and
-    draws; fp32, TF32 off."""
+    draws; fp32, TF32 off. ``vq_k`` > 0: the VQ latent with K = vq_k codes,
+    EMA 0.9 and revival at 0.5, the EMA counts started from a numpy draw in
+    [0.3, 1.3) so that unused codes are revived, and the same K revival rows
+    on both devices; then the EMA statistics and the folded codebook are
+    compared too."""
     from vqgan_tpu_torch.config import TrainConfig, VAEConfig
     from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
     from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
@@ -465,8 +755,12 @@ def phase_train_cross_device() -> None:
     from vqgan_tpu_torch.train.step import StepDraws, make_train_step
 
     set_tf32(False)
+    vq_kw = {}
+    if vq_k:
+        vq_kw = dict(reg_type="vq", vq_codebook_size=vq_k, vq_ema_decay=0.9,
+                     vq_revive_threshold=0.5)
     vae_cfg = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
-                        z_channels=16, enc_dtype="float32", dec_dtype="float32")
+                        z_channels=16, enc_dtype="float32", dec_dtype="float32", **vq_kw)
     # D's lr: AdamW's first step moves every D param by ±lr·sign(grad); where
     # a gradient is rounding noise the two devices step apart, and G's GAN
     # branch through the updated D carries that into G's gradient
@@ -485,8 +779,15 @@ def phase_train_cross_device() -> None:
     lpips_ref = LPIPS()
     init_lpips_(lpips_ref, gen)
     images = np.random.RandomState(3).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
-    draws = StepDraws(flip_in=True, flip_w=True, flip_h=False, crop_h=0, crop_w=0,
-                      aug_lpips_w=False, aug_lpips_h=False)
+    revive_idx, vq_ema = None, None
+    if vq_k:
+        rng = np.random.RandomState(4)
+        sd_vae["reg.codebook"] = torch.from_numpy(
+            (0.5 * rng.randn(vq_k, 16)).astype(np.float32))
+        n_tokens = 2 * 16 * 16
+        revive_idx = torch.from_numpy(rng.randint(0, n_tokens, vq_k))
+        counts = torch.from_numpy(rng.uniform(0.3, 1.3, vq_k).astype(np.float32))
+        vq_ema = {"counts": counts, "sums": counts[:, None] * sd_vae["reg.codebook"]}
     runs = {}
     for dev in ("cpu", "cuda"):
         with torch.device(dev):
@@ -494,15 +795,25 @@ def phase_train_cross_device() -> None:
         vae.load_state_dict(sd_vae, strict=True)
         disc.load_state_dict(disc_ref.state_dict(), strict=True)
         lpips.load_state_dict(lpips_ref.state_dict(), strict=True)
-        state = create_train_state(cfg, vae, disc, vae_cfg.ch)
+        state = create_train_state(cfg, vae, disc, vae_cfg.ch, vq_ema=vq_ema)
         step = make_train_step(cfg, vae_cfg, vae, disc, lpips)
+        draws = StepDraws(flip_in=True, flip_w=True, flip_h=False, crop_h=0, crop_w=0,
+                          aug_lpips_w=False, aug_lpips_h=False,
+                          revive_idx=None if revive_idx is None else revive_idx.to(dev))
         state, metrics = step(state, torch.from_numpy(images).to(dev), 0, draws)
         moments = {}
         for side, model, opt in (("G", vae, state.g_opt), ("D", disc, state.d_opt)):
-            moments[side] = {n: opt.state[p]["exp_avg"].cpu() for n, p in model.named_parameters()}
-        runs[dev] = ({k: float(v) for k, v in metrics.items()}, moments)
+            # in EMA mode the codebook takes no gradient and has no AdamW state
+            moments[side] = {n: opt.state[p]["exp_avg"].cpu()
+                             for n, p in model.named_parameters() if p in opt.state}
+        extra = {}
+        if vq_k:
+            extra = {"counts": state.vq_ema["counts"].cpu(), "sums": state.vq_ema["sums"].cpu(),
+                     "codebook": vae.reg.codebook.detach().cpu()}
+        runs[dev] = ({k: float(v) for k, v in metrics.items()}, moments, extra)
 
-    (m_cpu, g_cpu), (m_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    (m_cpu, g_cpu, x_cpu), (m_gpu, g_gpu, x_gpu) = runs["cpu"], runs["cuda"]
+    what = f"vq K={vq_k} " if vq_k else ""
     n_logits = 2 * 2 * 16  # real and fake, batch 2, a 4x4 patch grid at 64 px
     bad = []
     for k, v in m_cpu.items():
@@ -511,11 +822,14 @@ def phase_train_cross_device() -> None:
             bad.append((k, v, m_gpu[k]))
     worst_loss = max(abs(m_gpu[k] - v) / (LOSS_ATOL + LOSS_RTOL * abs(v))
                      for k, v in m_cpu.items() if k != "gan/discriminator_accuracy")
-    log(f"train cross-device ch=64 (1,2,4) 64px batch 2: overall_vae_loss cpu="
+    log(f"train cross-device {what}ch=64 (1,2,4) 64px batch 2: overall_vae_loss cpu="
         f"{m_cpu['overall_vae_loss']:.6f} card={m_gpu['overall_vae_loss']:.6f}; the worst "
         f"loss uses {worst_loss:.3f} of its bound")
     for side in ("G", "D"):
         ref, got = g_cpu[side], g_gpu[side]
+        if set(ref) != set(got):
+            bad.append((side, "parameters with AdamW state differ"))
+            continue
         floor = GRAD_FLOOR * max(float(t.abs().max()) for t in ref.values())
         worst = 0.0
         for n, r in ref.items():
@@ -524,11 +838,63 @@ def phase_train_cross_device() -> None:
             worst = max(worst, err / (GRAD_RTOL * scale + floor))
             if err > GRAD_RTOL * scale + floor:
                 bad.append((side, n, err, scale))
-        log(f"train cross-device {side} step-1 gradients (AdamW exp_avg): the worst tensor "
-            f"uses {worst:.3f} of its bound (rtol {GRAD_RTOL:g}, floor {GRAD_FLOOR:g} of "
-            f"the largest entry)")
+        log(f"train cross-device {what}{side} step-1 gradients (AdamW exp_avg): the worst "
+            f"tensor uses {worst:.3f} of its bound (rtol {GRAD_RTOL:g}, floor {GRAD_FLOOR:g} "
+            f"of the largest entry)")
+    if vq_k:
+        if "reg.codebook" in g_gpu["G"]:
+            bad.append("the EMA codebook has AdamW state")
+        # the counts: 0.9·c + 0.1·(integer counts), the same fp32 operations on
+        # both devices. A token on the other side of a near-tie would move two
+        # codes by 0.1: at most one such token is allowed, and printed
+        dc = (x_gpu["counts"] - x_cpu["counts"]).abs()
+        flips = float(dc.sum()) / (2 * 0.1)
+        # the sums and the folded codebook average or copy z rows, which the
+        # two devices' fp32 convs give within ATOL_PATH_FP32
+        ds = float((x_gpu["sums"] - x_cpu["sums"]).abs().max())
+        dcb = float((x_gpu["codebook"] - x_cpu["codebook"]).abs().max())
+        revived = int((x_cpu["counts"] < 0.5).sum())
+        log(f"train cross-device {what}EMA counts: {int((dc == 0).sum())}/{vq_k} equal, "
+            f"{flips:.2f} tokens' worth of difference; sums max_abs_err={ds:.3e}; folded "
+            f"codebook max_abs_err={dcb:.3e} ({revived} codes revived)")
+        if flips > 1.0 + 1e-3 or ds > ATOL_PATH_FP32 or dcb > ATOL_PATH_FP32 or revived == 0:
+            bad.append(("vq statistics", flips, ds, dcb, revived))
     if bad:
         raise AssertionError(f"training step differs across devices: {bad[:10]}")
+
+
+def phase_vq_cross_device() -> None:
+    """VQ serving on the CPU and on the card at the reduced width: the
+    latents' codes compared by distance from the CPU's z. The two devices'
+    encoders agree within ATOL_PATH_FP32 per entry, so a code picked
+    differently may be up to 2·‖δz‖·‖E_a − E_b‖ farther beyond rounding."""
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.inference import VAEPipeline
+
+    set_tf32(False)
+    cfg = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
+                    z_channels=16, reg_type="vq", vq_codebook_size=VQ_CROSS_K,
+                    vq_ema_decay=0.0)
+    sd = _perturbed_state_dict(cfg, seed=5)
+    sd["reg.codebook"] = torch.from_numpy(
+        (0.5 * np.random.RandomState(5).randn(VQ_CROSS_K, 16)).astype(np.float32))
+    images = np.random.RandomState(6).randint(0, 256, (2, 64, 64, 3), np.uint8)
+    cpu = VAEPipeline(cfg, sd, device="cpu")
+    gpu = VAEPipeline(cfg, sd, device="cuda")
+    cb = sd["reg.codebook"]
+    z_pre = cpu.model.encode(cpu._to_model_input(images)).clamp(-8, 8).detach()
+    z_pre = z_pre.reshape(-1, 16)
+    codes_cpu, err_cpu = _codebook_rows(cpu.encode(images), cb)
+    codes_gpu, err_gpu = _codebook_rows(gpu.encode(images).cpu(), cb)
+    gap, tol = vq_distance_gap(z_pre, cb, codes_gpu, codes_cpu)
+    shift = 2 * 4 * ATOL_PATH_FP32 * (cb[codes_gpu.long()] - cb[codes_cpu.long()]).norm(dim=-1)
+    agree = int((codes_gpu == codes_cpu).sum())
+    ok = bool((gap <= tol + shift.double()).all()) and max(err_cpu, err_gpu) <= 1e-5
+    log(f"vq cross-device ch=64 (1,2,4) 64px K={VQ_CROSS_K}: {agree}/{codes_cpu.numel()} "
+        f"codes equal, max distance gap {float(gap.max()):.3e}; latents within "
+        f"{max(err_cpu, err_gpu):.2e} of codebook rows {'ok' if ok else 'MISS'}")
+    if not ok:
+        raise AssertionError("VQ serving picks farther codes on the card than on the CPU")
 
 
 def main() -> int:
@@ -539,6 +905,7 @@ def main() -> int:
 
     from vqgan_tpu_torch.ops import cuda_build
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
+    from vqgan_tpu_torch.ops import vq_cuda as vq
     from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
 
     # 1. environment
@@ -551,11 +918,13 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     set_tf32(False)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    gn.library()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for lib in [pool.submit(gn.library), pool.submit(vq.library)]:
+            lib.result()
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-        f"({cuda_build.library_path('groupnorm').name})")
+        f"({cuda_build.library_path('groupnorm').name}, {cuda_build.library_path('vq').name})")
 
     # 3. forward kernel vs plain; 4. backward kernel vs plain
     fwd = {b: phase_kernel_vs_plain(gn, group_norm_fp32, b) for b in (2, SERVE_BATCH)}
@@ -572,6 +941,18 @@ def main() -> int:
     phase_cross_device()
     phase_train_cross_device()
 
+    # 9. the VQ kernels vs plain
+    vq_nearest, vq_stats = phase_vq_kernels(vq)
+
+    # 10. VQ serving; 11. the VQ training step, both at the flagship width
+    with tempfile.TemporaryDirectory() as tmp:
+        _, vq_serve = phase_vq_serving(gn, vq, tmp)
+    vq_counts, vq_train = phase_train_vq_flagship(gn, vq)
+
+    # 12. VQ, CPU vs card: serving, then a training step
+    phase_vq_cross_device()
+    phase_train_cross_device(vq_k=VQ_CROSS_K)
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -587,22 +968,36 @@ def main() -> int:
         f"{serve_launches} forward launches per reconstruct; training batch {TRAIN_BATCH}: "
         f"{train['img_per_s']:.3f} img/s, {train['step_ms']:.1f} ms per step, peak "
         f"{train['peak_bytes'] / 2**30:.3f} GiB")
-    log(f"kernels line: launches per training step; ms per training step at batch "
-        f"{TRAIN_BATCH}, bf16, summed over its 50 calls")
+    log(f"VQ serving batch {SERVE_BATCH}: {vq_serve['img_per_s']:.3f} img/s, peak "
+        f"{vq_serve['peak_bytes'] / 2**30:.3f} GiB; VQ training batch {TRAIN_BATCH}: "
+        f"{vq_train['img_per_s']:.3f} img/s, {vq_train['step_ms']:.1f} ms per step, peak "
+        f"{vq_train['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"kernels line: GroupNorm launches per identity training step and ms per step at "
+        f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
+        f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
+        f"K={VQ_CASES['flagship b8'][1]}; statistics with sums); the search's max_abs_err is "
+        f"its largest fp64 distance gap over plain's code")
     log(smi)
 
-    def entry(name, replaces, launches, errs, times):
+    def entry(name, source, replaces, launches, err, times, bound_by):
         k, p, lib, bnd = times
-        return {"name": name, "route": "cuda", "source": "vqgan_tpu_torch/csrc/groupnorm.cu",
-                "replaces": replaces, "launches": launches, "max_abs_err": max(errs),
-                "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": "bytes",
+        return {"name": name, "route": "cuda", "source": f"vqgan_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": bound_by,
                 "library_ms": lib}
 
     log(json.dumps({"kernels": [
-        entry("fused_group_norm", "vqgan_tpu/ops/pallas/groupnorm.py:91", train_fwd,
-              [v[0] for res in fwd.values() for v in res.values()], fwd_step),
-        entry("fused_group_norm_bwd", "vqgan_tpu/ops/pallas/groupnorm.py:194", train_bwd,
-              [v[0] for v in bwd.values()], bwd_step),
+        entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
+              train_fwd, max(v[0] for res in fwd.values() for v in res.values()), fwd_step,
+              "bytes"),
+        entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
+              train_bwd, max(v[0] for v in bwd.values()), bwd_step, "bytes"),
+        entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113", vq_counts["nearest"],
+              max(v[0] for v in vq_nearest.values()), vq_nearest["flagship b8"][1:],
+              "operations"),
+        entry("code_stats", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:223", vq_counts["stats"],
+              max(v[0] for v in vq_stats.values()), vq_stats[("flagship b8", True)][1:],
+              "bytes"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,5 +1,7 @@
-"""The CUDA GroupNorm kernels (forward and backward) against their plain
-versions, and the autograd path through them, on the card.
+"""The CUDA kernels against their plain versions, and the paths through
+them, on the card: GroupNorm forward and backward (with autograd), and the
+VQ nearest-code search and code statistics (with the VQ pipeline and train
+step).
 
 Marked ``cuda``; each test skips where torch sees no CUDA device. This file
 imports no JAX, so the card's machine runs it without the JAX package's
@@ -16,8 +18,11 @@ from vqgan_tpu_torch.config import VAEConfig
 from vqgan_tpu_torch.inference import VAEPipeline
 from vqgan_tpu_torch.models.ae import init_vae
 from vqgan_tpu_torch.models.blocks import Conv2d, FP32GroupNorm, init_weights_
-from vqgan_tpu_torch.ops import groupnorm_cuda
+from vqgan_tpu_torch.ops import groupnorm_cuda, vq_cuda
 from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
+from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
+
+from torch_parity import assert_codes_by_distance
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +228,159 @@ def test_tiny_train_step_goes_through_both_kernels(device):
     for k, v in losses["cpu"].items():
         if k != "gan/discriminator_accuracy":  # counts logits > 0
             np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+VQ_SHAPES = [(700, 256, 16), (512, 2048, 8), (64, 32, 4), (2048, 16384, 16), (5, 3, 20)]
+
+
+def _vq_data(n, k, d, device, seed=0):
+    rng = np.random.RandomState(seed)
+    z = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(device)
+    cb = torch.from_numpy(rng.randn(k, d).astype(np.float32)).to(device)
+    return z, cb
+
+
+@pytest.mark.parametrize("n,k,d", VQ_SHAPES)
+def test_vq_nearest_kernel_matches_plain(device, n, k, d):
+    """Codes by distance: both searches round a D-term dot product in fp32,
+    in other orders (torch_parity.distance_gap states the bound)."""
+    z, cb = _vq_data(n, k, d, device)
+    vq_cuda.nearest_launches = 0
+    got = vq_cuda.nearest_codes(z, cb)
+    torch.cuda.synchronize()
+    assert vq_cuda.nearest_launches == 1
+    assert got.dtype == torch.int32 and got.shape == (n,) and got.is_cuda
+    ref = nearest_codes_plain(z, cb)
+    assert_codes_by_distance(z.cpu().numpy(), cb.cpu().numpy(), got.cpu().numpy(),
+                             ref.cpu().numpy())
+
+
+@pytest.mark.parametrize("k", [256, 4096])
+def test_vq_nearest_kernel_tie_prefers_first_index(device, k):
+    """Every code duplicated, the copies in other tiles and splits: the first
+    copy wins, exactly."""
+    z, base = _vq_data(3000, k // 2, 4, device, seed=1)
+    got = vq_cuda.nearest_codes(z, torch.cat([base, base]))
+    ref = nearest_codes_plain(z, torch.cat([base, base]))
+    assert torch.equal(got, ref) and int(got.max()) < k // 2
+
+
+@pytest.mark.parametrize("with_sums", [False, True], ids=["counts", "sums"])
+@pytest.mark.parametrize("n,k,d", VQ_SHAPES)
+def test_vq_stats_kernel_matches_plain(device, n, k, d, with_sums):
+    """Counts exactly; sums within 2·(m − 1)·2^-24 of Σ|terms| for a code of
+    m tokens (two fp32 sums of the same terms in other orders)."""
+    z, _ = _vq_data(n, k, d, device, seed=2)
+    codes = torch.from_numpy(np.random.RandomState(3).randint(0, k, n).astype(np.int32))
+    codes = codes.to(device)
+    vq_cuda.stats_launches = 0
+    counts, sums = vq_cuda.code_stats(codes, z, k, with_sums=with_sums)
+    torch.cuda.synchronize()
+    assert vq_cuda.stats_launches == 1
+    ref_counts, ref_sums = code_stats_plain(codes, z, k, with_sums)
+    assert torch.equal(counts, ref_counts) and float(counts.sum()) == n
+    if not with_sums:
+        assert sums is None
+        return
+    m = counts[:, None]
+    abs_sums = code_stats_plain(codes, z.abs(), k, True)[1]
+    bound = 2 * (m - 1).clamp_min(0) * 2.0 ** -24 * abs_sums + 1e-30
+    assert bool(((sums - ref_sums).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("n,k", [(8192, 16384), (1000, 64)])
+def test_vq_stats_kernel_collapsed_codebook(device, n, k):
+    """Every token on one code: one thread's chain of matches runs through
+    all of its split's tokens; the sum is still within the bound."""
+    z, _ = _vq_data(n, k, 16, device, seed=4)
+    codes = torch.full((n,), k - 1, dtype=torch.int32, device=device)
+    counts, sums = vq_cuda.code_stats(codes, z, k, with_sums=True)
+    ref_counts, ref_sums = code_stats_plain(codes, z, k, True)
+    assert torch.equal(counts, ref_counts) and float(counts[k - 1]) == n
+    bound = 2 * (n - 1) * 2.0 ** -24 * z.abs().sum(0)
+    assert bool(((sums[k - 1] - ref_sums[k - 1]).abs() <= bound).all())
+    assert float(sums[:k - 1].abs().max()) == 0.0
+
+
+def test_vq_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    z, cb = _vq_data(64, 32, 8, device)
+    codes = vq_cuda.nearest_codes(z, cb)
+    for bad in (lambda: vq_cuda.nearest_codes(z.double(), cb),
+                lambda: vq_cuda.nearest_codes(z, cb.cpu()),
+                lambda: vq_cuda.nearest_codes(torch.zeros(8, 64, device=device).T, cb),
+                lambda: vq_cuda.code_stats(codes.long(), z, 32),
+                lambda: vq_cuda.code_stats(codes.cpu(), z, 32),
+                lambda: vq_cuda.code_stats(codes, z[:, :4].contiguous().T, 32)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+def _tiny_vq_cfg(**kw):
+    return VAEConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=8,
+                     dec_dtype="float32", reg_type="vq", vq_codebook_size=256, **kw)
+
+
+def test_vq_pipeline_goes_through_the_search_kernel(device):
+    """One search launch per encode and no statistics; the CPU pipeline on the
+    same weights picks the same codes up to near-ties."""
+    cfg = _tiny_vq_cfg(vq_ema_decay=0.0)
+    sd = init_vae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    gpu, cpu = VAEPipeline(cfg, sd, device=device), VAEPipeline(cfg, sd, device="cpu")
+    imgs = (np.random.RandomState(0).rand(2, 32, 32, 3) * 255).astype(np.uint8)
+    vq_cuda.nearest_launches = vq_cuda.stats_launches = 0
+    z = gpu.encode(imgs)
+    assert (vq_cuda.nearest_launches, vq_cuda.stats_launches) == (1, 0)
+    cb = sd["reg.codebook"].numpy()
+    codes = lambda lat: np.argmin(((lat.reshape(-1, 1, 8) - cb[None]) ** 2).sum(-1), 1)  # noqa: E731
+    np.testing.assert_allclose(z.cpu().numpy().reshape(-1, 8), cb[codes(z.cpu().numpy())],
+                               atol=1e-6)
+    z_cpu = cpu.encode(imgs).numpy()
+    assert (codes(z.cpu().numpy()) == codes(z_cpu)).mean() >= 0.99
+    assert np.isfinite(gpu.decode(z)).all()
+
+
+def test_tiny_vq_train_step_goes_through_both_vq_kernels(device):
+    """A tiny VQ GAN step (EMA 0.9) on the card: one search and one
+    statistics launch per step, the EMA counts move, and the losses match the
+    same step on the CPU."""
+    from vqgan_tpu_torch.config import TrainConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step import StepDraws, make_train_step
+
+    vae_cfg = _tiny_vq_cfg(vq_ema_decay=0.9, vq_revive_threshold=0.5)
+    cfg = TrainConfig(max_steps=10, warmup_steps=2, do_ganloss=True, disc_type="hinge",
+                      use_lecam=True, do_clamp=True, flip_invariance=True,
+                      learning_rate_disc=1e-8)
+    gen = torch.Generator().manual_seed(0)
+    sd_vae = init_vae(vae_cfg, gen).state_dict()
+    disc_ref, lpips_ref = PatchDiscriminator(), LPIPS()
+    init_discriminator_(disc_ref, gen)
+    init_lpips_(lpips_ref, gen)
+    images = torch.from_numpy(np.random.RandomState(1).uniform(-1, 1, (2, 32, 32, 3))
+                              .astype(np.float32))
+    idx = torch.from_numpy(np.random.RandomState(2).randint(0, 512, 256))
+    losses, counts = {}, {}
+    for dev in ("cpu", device):
+        with torch.device(dev):
+            vae, disc, lpips = VAE(vae_cfg), PatchDiscriminator(), LPIPS()
+        vae.load_state_dict(sd_vae)
+        disc.load_state_dict(disc_ref.state_dict())
+        lpips.load_state_dict(lpips_ref.state_dict())
+        state = create_train_state(cfg, vae, disc, vae_cfg.ch)
+        step = make_train_step(cfg, vae_cfg, vae, disc, lpips)
+        draws = StepDraws(True, True, False, 0, 0, False, False, idx.to(dev))
+        vq_cuda.nearest_launches = vq_cuda.stats_launches = 0
+        state, metrics = step(state, images.to(dev), 0, draws)
+        launches = (vq_cuda.nearest_launches, vq_cuda.stats_launches)
+        assert launches == ((0, 0) if dev == "cpu" else (1, 1))
+        losses[str(dev)] = {k: float(v) for k, v in metrics.items()}
+        counts[str(dev)] = state.vq_ema["counts"].cpu()
+        assert not torch.equal(counts[str(dev)], torch.ones(256))
+    for k, v in losses["cpu"].items():
+        if k != "gan/discriminator_accuracy":  # counts logits > 0
+            np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)
+    # one token on the other side of a near-tie moves two counts by 0.1
+    assert float((counts["cuda"] - counts["cpu"]).abs().sum()) <= 0.2 + 1e-4

@@ -30,7 +30,7 @@ from vqgan_tpu_torch.inference import (
     build_vae_config,
 )
 
-from torch_parity import randomize_params
+from torch_parity import distance_gap, randomize_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1,
@@ -47,10 +47,14 @@ MAX_BF16_DEC = 0.04
 MEAN_BF16_DEC = 0.005
 
 
-def _checkpoint(tmp_path, seed=0, reg_type="identity_gaussian", scale_z=1.0):
-    _, params = init_vae_params(JaxVAEConfig(**TINY, reg_type=reg_type),
+def _params(seed, reg_type, **cfg_kw):
+    _, params = init_vae_params(JaxVAEConfig(**TINY, reg_type=reg_type, **cfg_kw),
                                 jax.random.PRNGKey(seed))
-    params = randomize_params(jax.device_get(params), seed)
+    return randomize_params(jax.device_get(params), seed)
+
+
+def _checkpoint(tmp_path, seed=0, reg_type="identity_gaussian", scale_z=1.0):
+    params = _params(seed, reg_type)
     params["encoder"]["conv_out"]["kernel"] *= scale_z
     path = str(tmp_path / f"w{seed}_{reg_type}.pt")
     save_weights_torch(params, path)
@@ -114,6 +118,46 @@ def test_gaussian_takes_the_mean(tmp_path):
     np.testing.assert_allclose(z, np.asarray(jax_pipe.encode(imgs)), atol=ATOL_FP32)
 
 
+def test_vq_pipeline_matches_jax(tmp_path):
+    """A JAX VQ checkpoint (``reg.codebook`` beside the convs, written by
+    ``save_weights_torch``) served by the port, against the JAX pipeline on
+    the same params. (The JAX package's own ``.pt`` reader drops
+    ``reg.codebook``, so its ``from_checkpoint`` refuses the file; it is
+    given the params.) The latents are the nearest codebook rows on both
+    sides, by distance: each side's encoder z is within ATOL_FP32 of the
+    other's, so a code the two pick differently is at most fp32 rounding plus
+    2·‖δz‖·‖E_a − E_b‖ farther from the port's z."""
+    vq = dict(reg_type="vq", vq_codebook_size=1024, vq_ema_decay=0.0)
+    params = _params(5, **vq)
+    path = str(tmp_path / "vq.pt")
+    save_weights_torch(params, path)
+    jax_pipe = JaxPipeline(JaxVAEConfig(**TINY, **vq, use_pallas_gn=True),
+                           jax.tree_util.tree_map(jax.numpy.asarray, params))
+    port = VAEPipeline.from_checkpoint(path, VAEConfig(**TINY, **vq), device="cpu")
+    imgs = _images(2, seed=5)
+    z_ref = np.asarray(jax_pipe.encode(imgs)).reshape(-1, 8)
+    z = port.encode(imgs)
+    assert z.shape == (2, 16, 16, 8)
+    cb = port.model.reg.codebook.detach().numpy()
+    z_pre = port.model.encode(port._to_model_input(imgs)).clamp(-8, 8).detach().numpy()
+    z_pre = z_pre.reshape(-1, 8)
+    # each latent is its code's row up to the straight-through rounding
+    # z + (e − z): a few ulps of max(|z|, |e|)
+    codes, ref = (np.argmin(((lat[:, None] - cb[None]) ** 2).sum(-1), axis=1)
+                  for lat in (z.numpy().reshape(-1, 8), z_ref))
+    np.testing.assert_allclose(z.numpy().reshape(-1, 8), cb[codes], atol=1e-6)
+    np.testing.assert_allclose(z_ref, cb[ref], atol=1e-6)
+    gap, tol = distance_gap(z_pre, cb, codes, ref)
+    shift = 2 * np.sqrt(8) * ATOL_FP32 * np.linalg.norm(cb[codes] - cb[ref], axis=-1)
+    assert (gap <= tol + shift).all()
+    assert (codes == ref).mean() >= 0.99
+    # both decoders get the same latents
+    np.testing.assert_allclose(port.decode(z_ref.reshape(2, 16, 16, 8)),
+                               jax_pipe.decode(z_ref.reshape(2, 16, 16, 8)), atol=ATOL_FP32)
+    rec = port.reconstruct(imgs)
+    assert rec.shape == (2, 32, 32, 3) and rec.min() >= 0.0 and rec.max() <= 1.0
+
+
 def test_vq_codebook_in_checkpoint_fails_loudly(tmp_path):
     import torch
 
@@ -131,6 +175,8 @@ def test_importing_the_port_loads_no_jax():
         "import vqgan_tpu_torch.train.step, vqgan_tpu_torch.train.state\n"
         "import vqgan_tpu_torch.losses.lpips, vqgan_tpu_torch.losses.discriminator\n"
         "import vqgan_tpu_torch.tools.profile_step, vqgan_tpu_torch.ops.gradnorm\n"
+        "import vqgan_tpu_torch.models.quant, vqgan_tpu_torch.ops.vq\n"
+        "import vqgan_tpu_torch.ops.vq_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vqgan_tpu')]\n"
         "assert not bad, bad\n"
@@ -146,7 +192,8 @@ def test_build_vae_config_matches_jax_flags():
     parser = argparse.ArgumentParser()
     add_vae_arch_args(parser)
     for argv in ([], ["--vae_ch", "64", "--vae_ch_mult", "1,2,4",
-                      "--decoder_also_perform_hr", "true", "--reg_type", "gaussian"]):
+                      "--decoder_also_perform_hr", "true", "--reg_type", "gaussian"],
+                 ["--reg_type", "vq", "--vq_codebook_size", "1024"]):
         kw = vars(parser.parse_args(argv))
         ours = dataclasses.asdict(build_vae_config(kw))
         assert ours == dataclasses.asdict(jax_build_vae_config(kw))

@@ -149,7 +149,6 @@ def test_config_has_every_jax_field_with_its_default():
 @pytest.mark.parametrize("kw,what", [
     ({"use_attn": True}, "use_attn"),
     ({"use_wavelet": True}, "use_wavelet"),
-    ({"reg_type": "vq"}, "vq"),
 ])
 def test_unported_features_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -48,7 +48,7 @@ class VAEConfig:
       - ``attn_chunk``, ``attn_impl``: only read with ``use_attn``.
 
     Not ported yet (model construction raises NotImplementedError):
-    ``use_attn``, ``use_wavelet`` and ``reg_type="vq"``.
+    ``use_attn`` and ``use_wavelet``.
     """
 
     resolution: int = 256

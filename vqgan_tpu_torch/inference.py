@@ -80,9 +80,10 @@ def build_vae_config(kw: Mapping) -> VAEConfig:
 
 
 class VAEPipeline:
-    """Serving path of the 2D VAE: encode (then clamp to ±clamp_th and take
-    the Gaussian mean where the config has one), decode, reconstruct. Runs
-    under ``torch.inference_mode()`` on ``device``."""
+    """Serving path of the 2D VAE: encode (then clamp to ±clamp_th, and take
+    the Gaussian mean or the nearest codebook entries where the config has
+    them), decode, reconstruct. Runs under ``torch.inference_mode()`` on
+    ``device``."""
 
     def __init__(self, cfg: VAEConfig, state_dict: Mapping[str, torch.Tensor],
                  *, device: str | torch.device, do_clamp: bool = True,
@@ -119,12 +120,16 @@ class VAEPipeline:
     @torch.inference_mode()
     def encode(self, images) -> torch.Tensor:
         """Images (B,H,W,3) uint8 [0,255] or float [-1,1] → latents (B,h,w,z)
-        on the device, clamped to ±clamp_th like the published model."""
+        on the device, clamped to ±clamp_th like the published model; for VQ
+        the nearest-code embeddings (the search and the gather only: the
+        statistics the JAX package's jit drops are never computed)."""
         z = self.model.encode(self._to_model_input(images))
         if self.do_clamp:
             z = z.clamp(-self.clamp_th, self.clamp_th)
         if self.cfg.reg_type == "gaussian":
             z = z.chunk(2, dim=-1)[0]  # mean
+        elif self.cfg.reg_type == "vq":
+            z = self.model.reg.quantize(z)
         return z
 
     @torch.inference_mode()

@@ -17,7 +17,7 @@ walked in reverse.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -32,6 +32,7 @@ from vqgan_tpu_torch.models.blocks import (
     init_weights_,
     nchw,
 )
+from vqgan_tpu_torch.models.quant import VectorQuantizer
 
 
 class DownLevel(nn.Module):
@@ -166,12 +167,7 @@ def _check_ported(cfg: VAEConfig) -> None:
             "use_wavelet: the wavelet front end is not ported yet "
             "(ROADMAP.md, Queue 1: 2D models)"
         )
-    if cfg.reg_type == "vq":
-        raise NotImplementedError(
-            "reg_type='vq': the VQ latent is not ported yet (ROADMAP.md, "
-            "Queue 1: VQ latent)"
-        )
-    if cfg.reg_type not in ("identity_gaussian", "gaussian"):
+    if cfg.reg_type not in ("identity_gaussian", "gaussian", "vq"):
         raise ValueError(f"unknown reg_type {cfg.reg_type!r}")
 
 
@@ -199,10 +195,13 @@ class VAE(nn.Module):
             cfg.ch, cfg.out_ch, cfg.decoder_ch_mult, cfg.num_res_blocks,
             cfg.z_channels, dtype=DTYPES[cfg.dec_dtype],
         )
-        self.reg = (
-            IdentityGaussian() if cfg.reg_type == "identity_gaussian"
-            else DiagonalGaussian()
-        )
+        if cfg.reg_type == "vq":  # JAX ae.py:283-289
+            self.reg = VectorQuantizer(cfg.vq_codebook_size, cfg.z_channels,
+                                       cfg.vq_beta, cfg.vq_ema_decay)
+        elif cfg.reg_type == "identity_gaussian":
+            self.reg = IdentityGaussian()
+        else:
+            self.reg = DiagonalGaussian()
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, in_channels) → (B, h, w, z) in the encoder's dtype."""
@@ -212,13 +211,24 @@ class VAE(nn.Module):
         """(B, h, w, z) → (B, H, W, out_ch) in the decoder's dtype."""
         return _nhwc(self.decoder(nchw(z)))
 
-    def regularize(self, z: torch.Tensor) -> torch.Tensor:
+    def regularize(self, z: torch.Tensor, ema_state: Optional[dict] = None,
+                   update_stats: bool = False):
+        """z_s for the Gaussian kinds; for VQ the quantizer's ``(z_q, aux,
+        new_ema)`` (JAX ae.py:299-306, where ``new_ema`` is the mutable
+        ``vq_ema`` collection's new value)."""
+        if isinstance(self.reg, VectorQuantizer):
+            return self.reg(z, ema_state, update_stats)
         return self.reg(z)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns ``(decoded, z)`` like the reference."""
+        """Returns ``(decoded, z)`` like the reference; VQ quantizes without
+        statistics (JAX ae.py:308-315)."""
         z = self.encode(x)
-        return self.decode(self.regularize(z)), z
+        if isinstance(self.reg, VectorQuantizer):
+            z_s = self.reg.quantize(z)
+        else:
+            z_s = self.regularize(z)
+        return self.decode(z_s), z
 
 
 def init_vae(cfg: VAEConfig, generator: torch.Generator) -> VAE:

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.groupnorm_cuda import FusedGroupNorm
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
 
@@ -88,7 +89,8 @@ def conv1x1(in_channels: int, out_channels: int, dtype: torch.dtype) -> Conv2d:
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """The reference init scheme, drawn from ``generator`` in module order."""
+    """The reference init scheme, drawn from ``generator`` in module order;
+    a VQ codebook takes the JAX package's init (``init_codebook_``)."""
     for m in module.modules():
         if isinstance(m, Conv2d):
             if m.init_std is None:
@@ -101,6 +103,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, FP32GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, VectorQuantizer):
+            m.init_codebook_(generator)
 
 
 class ResnetBlock(nn.Module):

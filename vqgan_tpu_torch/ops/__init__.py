@@ -1,1 +1,2 @@
-"""Ops: GroupNorm (plain version and CUDA kernel), resizing."""
+"""Ops: GroupNorm and the VQ search and statistics (plain versions and CUDA
+kernels), GradNorm, resizing."""

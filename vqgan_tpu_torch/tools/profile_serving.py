@@ -26,14 +26,17 @@ from torch.profiler import ProfilerActivity, profile
 
 GN_PREFIX = "gn_"
 GN_BWD_PREFIX = "gn_bwd_"
+VQ_PREFIX = "vq_"
 CONV_MARKERS = ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
                 "nchwToNhwc", "nhwcToNchw")
 
 
 def kernel_class(name: str) -> str:
-    # the GroupNorm kernels live in an anonymous namespace: "(anonymous
-    # namespace)::gn_stats_kernel<float>(...)"
+    # the GroupNorm and VQ kernels live in an anonymous namespace:
+    # "(anonymous namespace)::gn_stats_kernel<float>(...)"
     base = name.split("::")[-1]
+    if base.startswith(VQ_PREFIX):
+        return "VQ kernels (nearest-code search, code statistics)"
     if base.startswith(GN_BWD_PREFIX):
         return "groupnorm kernel, backward"
     if base.startswith(GN_PREFIX):

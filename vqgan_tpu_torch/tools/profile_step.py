@@ -2,16 +2,20 @@
 torch.profiler trace (counterpart of ``tools/profile_step.py``).
 
     python -m vqgan_tpu_torch.tools.profile_step [--batch 8] [--steps 3] [--out DIR]
+        [--reg_type identity_gaussian|vq]
 
 Builds ``bench.py``'s flagship GAN step on the first CUDA device with random
 weights from a seed: ``VAEConfig`` with bf16 encoder and decoder (ch=256,
 ch_mult 1,2,4,4, 256 px), ``PatchDiscriminator`` and ``LPIPS`` computing in
-bf16, hinge + LeCam + clamp. Runs two warm-up steps, then profiles
+bf16, hinge + LeCam + clamp. ``--reg_type vq`` swaps the identity latent for
+the VQ latent at ``VAEConfig``'s defaults (K = 16,384 codes, β 0.25, EMA
+0.99). Runs two warm-up steps, then profiles
 ``--steps`` steps and prints the host-clock ms per step, the kernels' ms per
 step, the device's busy and idle share of the window (union of kernel
 intervals over its host-clock length), the device ms by kernel class
-(GroupNorm forward and backward kernels, cuDNN convs, the AdamW updates,
-adds, reductions, copies and casts, other) and the top kernels. TF32 on for convs, off for matmuls. Writes the
+(GroupNorm forward and backward kernels, the VQ kernels, cuDNN convs, the
+AdamW updates, adds, reductions, copies and casts, other), the top kernels
+and each VQ kernel. TF32 on for convs, off for matmuls. Writes the
 chrome trace to ``DIR/step_trace.json`` when ``--out`` is given. Needs a
 CUDA device; fails without one.
 """
@@ -48,11 +52,13 @@ def step_kernel_class(name: str) -> str:
     return cls
 
 
-def build_flagship_step(batch: int, device: str = "cuda", seed: int = 0):
-    """bench.py's flagship GAN step on ``device``: returns (state, step,
-    batch tensor). Weights are random: the reference init schemes drawn from
-    generators seeded ``seed``, ``seed + 1`` and ``seed + 2``; the batch is
-    numpy's uniform [-1, 1] from ``seed``."""
+def build_flagship_step(batch: int, device: str = "cuda", seed: int = 0,
+                        reg_type: str = "identity_gaussian"):
+    """bench.py's flagship GAN step on ``device``, with the latent
+    ``reg_type``: returns (state, step, batch tensor). Weights are random:
+    the reference init schemes (and the JAX package's codebook init) drawn
+    from generators seeded ``seed``, ``seed + 1`` and ``seed + 2``; the batch
+    is numpy's uniform [-1, 1] from ``seed``."""
     from vqgan_tpu_torch.config import TrainConfig, VAEConfig
     from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
     from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
@@ -61,7 +67,7 @@ def build_flagship_step(batch: int, device: str = "cuda", seed: int = 0):
     from vqgan_tpu_torch.train.state import create_train_state
     from vqgan_tpu_torch.train.step import make_train_step
 
-    vae_cfg = VAEConfig(enc_dtype="bfloat16", dec_dtype="bfloat16")
+    vae_cfg = VAEConfig(enc_dtype="bfloat16", dec_dtype="bfloat16", reg_type=reg_type)
     cfg = TrainConfig(batch_size=batch, image_size=vae_cfg.resolution, max_steps=10_000,
                       do_ganloss=True, disc_type="hinge", use_lecam=True, do_clamp=True)
     with torch.device(device):
@@ -78,8 +84,9 @@ def build_flagship_step(batch: int, device: str = "cuda", seed: int = 0):
     return state, step, torch.from_numpy(images).to(device)
 
 
-def profile_steps(batch: int, steps: int, out_dir: str | None) -> None:
-    state, step, images = build_flagship_step(batch)
+def profile_steps(batch: int, steps: int, out_dir: str | None,
+                  reg_type: str = "identity_gaussian") -> None:
+    state, step, images = build_flagship_step(batch, reg_type=reg_type)
     for _ in range(2):
         state, metrics = step(state, images)
     float(metrics["overall_vae_loss"])  # waits for the device
@@ -101,14 +108,20 @@ def profile_steps(batch: int, steps: int, out_dir: str | None) -> None:
         entry[1] += 1
     total = sum(by_class.values())
     busy = busy_us(kernels)
-    print(f"train step batch {batch}, {steps} steps: window {window_us / steps / 1e3:.3f} "
+    print(f"train step {reg_type} batch {batch}, {steps} steps: window {window_us / steps / 1e3:.3f} "
           f"ms/step host clock, kernels {total / steps / 1e3:.3f} ms/step, device busy "
           f"{busy / window_us:.4f} of the window (idle {1 - busy / window_us:.4f})")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {us / steps / 1e3:.3f} ms/step ({us / total:.4f} of kernel time)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     print("top kernels by device time:")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+    for name, (us, n) in ranked[:20]:
         print(f"  {us / steps / 1e3:8.3f} ms/step  {n // steps:4d} calls/step  {name[:110]}")
+    vq = [(name, v) for name, v in ranked if step_kernel_class(name).startswith("VQ")]
+    if vq:
+        print("VQ kernels:")
+        for name, (us, n) in vq:
+            print(f"  {us / steps / 1e3:8.4f} ms/step  {n // steps:4d} calls/step  {name[:110]}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "step_trace.json"))
@@ -119,6 +132,8 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--reg_type", default="identity_gaussian",
+                        choices=("identity_gaussian", "vq"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -126,7 +141,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; tf32: cudnn {torch.backends.cudnn.allow_tf32}, "
           f"matmul {torch.backends.cuda.matmul.allow_tf32}")
-    profile_steps(args.batch, args.steps, args.out)
+    profile_steps(args.batch, args.steps, args.out, args.reg_type)
 
 
 if __name__ == "__main__":

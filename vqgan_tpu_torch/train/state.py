@@ -5,7 +5,8 @@ on G and the LeCam EMA anchors beside its models (vae_trainer.py:455-490,
 517-522). ``TrainState`` holds the same: the models (whose parameters the
 optimizers update in place), the optimizers and G's scheduler, the anchors as
 0-d device tensors, the step count, the step's ``torch.Generator`` on the
-models' device, and an optional Polyak-averaged copy of G's parameters.
+models' device, an optional Polyak-averaged copy of G's parameters and, for a
+VQ latent with EMA, the codebook's EMA statistics.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn as nn
 from torch.optim.lr_scheduler import LambdaLR
 
 from vqgan_tpu_torch.config import TrainConfig
+from vqgan_tpu_torch.models.quant import VectorQuantizer
 
 
 @dataclasses.dataclass
@@ -34,6 +36,9 @@ class TrainState:
     generator: torch.Generator
     # Polyak-averaged G parameters by name (cfg.ema_decay > 0); None when off
     g_ema: Optional[dict[str, torch.Tensor]] = None
+    # EMA codebook statistics {"counts": (K,), "sums": (K, D)}, fp32 on the
+    # device (reg_type="vq" with vq_ema_decay > 0); None otherwise
+    vq_ema: Optional[dict[str, torch.Tensor]] = None
 
 
 def hf_cosine_schedule(base_lr: float, warmup_steps: int,
@@ -92,10 +97,15 @@ def create_train_state(
     d_model: Optional[nn.Module],
     vae_ch: int,
     seed: int = 0,
+    vq_ema: Optional[dict[str, torch.Tensor]] = None,
 ) -> TrainState:
     """The state of a fresh run. The models must already sit on their device;
     their params are put in ``torch.channels_last`` (what the convs and the
-    GroupNorm kernels read), then handed to the optimizers."""
+    GroupNorm kernels read), then handed to the optimizers.
+
+    A VQ generator with EMA gets its EMA statistics: ``vq_ema`` moved to the
+    device when given, else the JAX init's counts 1 and sums = the codebook
+    (``vqgan_tpu/models/quant.py:93-98``, ``trainer.py:98``)."""
     g_model.to(memory_format=torch.channels_last)
     device = next(g_model.parameters()).device
     g_opt, g_sched = make_generator_optimizer(cfg, vae_ch, g_model)
@@ -107,6 +117,12 @@ def create_train_state(
     if cfg.ema_decay > 0:
         # starts at the initial weights (Polyak convention)
         g_ema = {n: p.detach().clone() for n, p in g_model.named_parameters()}
+    reg = getattr(g_model, "reg", None)
+    if isinstance(reg, VectorQuantizer) and reg.ema_decay > 0:
+        vq_ema = (reg.init_ema() if vq_ema is None
+                  else {k: v.to(device, torch.float32) for k, v in vq_ema.items()})
+    elif vq_ema is not None:
+        raise ValueError("vq_ema given, but the generator has no VQ latent with EMA")
     return TrainState(
         step=0,
         g_model=g_model,
@@ -118,4 +134,5 @@ def create_train_state(
         lecam_fake=torch.zeros((), device=device),
         generator=torch.Generator(device=device).manual_seed(seed),
         g_ema=g_ema,
+        vq_ema=vq_ema,
     )

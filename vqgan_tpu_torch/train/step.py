@@ -7,7 +7,8 @@ One step, in order:
   - input: a uint8 batch is normalized on the device; area-resize to the
     encoder's and the target's resolution; a random horizontal flip of both;
   - encoder; z statistics (quantiles, kurtosis, skewness) taken before the
-    clamp; clamp; the identity regularizer;
+    clamp; clamp; the regularizer: identity, or the VQ latent (nearest code,
+    straight-through z_q, ``vq_loss``, the batch's EMA statistics);
   - latent flip equivariance: flip z and the target along W and negate latent
     channels [-4, -2), then along H and negate [-2, C);
   - the crop bucket ``do_crop`` (static size, drawn offsets) of z and of the
@@ -20,12 +21,16 @@ One step, in order:
     GradNorm applied three separate times to recon (LPIPS w=1.0, MSE w=0.001,
     GAN w=1.0), LPIPS and D on ``recon.float()``, ``vae_loss_function``; D's
     params take no gradient from this backward;
-  - one backward, G AdamW step, scheduler step; the Polyak EMA of G's params
-    when ``ema_decay > 0``.
+  - one backward, G AdamW step, scheduler step;
+  - VQ with EMA: the new EMA statistics folded into the codebook, then dead
+    codes revived from the step's clamped, unflipped z
+    (``vq_revive_threshold > 0``), then the statistics stored in the state;
+  - the Polyak EMA of G's params when ``ema_decay > 0``, over the folded
+    codebook too.
 
-Randomness: the step's coins (input flip, latent flips, LPIPS augment flips)
-and crop offsets are drawn from the state's ``torch.Generator`` on the
-device, and selected with ``torch.where`` so the host never waits for them. A
+Randomness: the step's coins (input flip, latent flips, LPIPS augment flips),
+crop offsets and dead-code revival rows are drawn from the state's
+``torch.Generator`` on the device, and selected with ``torch.where`` so the host never waits for them. A
 caller that needs given draws (the parity tests feed the JAX step's) passes
 ``draws``.
 """
@@ -46,6 +51,7 @@ from vqgan_tpu_torch.losses.gan import (
     update_lecam_anchors,
 )
 from vqgan_tpu_torch.losses.recon import vae_loss_function
+from vqgan_tpu_torch.models.quant import apply_ema_codebook_update, revive_dead_codes
 from vqgan_tpu_torch.ops.gradnorm import gradnorm
 from vqgan_tpu_torch.ops.resize import resize_area
 from vqgan_tpu_torch.train.state import TrainState
@@ -57,7 +63,9 @@ QUANTILES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 class StepDraws:
     """One step's random draws. Each coin is a bool or a 0-d bool tensor on
     the step's device (flip when true); each crop offset an int or a 0-d
-    int64 tensor, in latent rows (``crop_h``) and columns (``crop_w``)."""
+    int64 tensor, in latent rows (``crop_h``) and columns (``crop_w``);
+    ``revive_idx`` the (K,) int64 rows of the batch's flat z that dead codes
+    take (VQ with ``vq_revive_threshold > 0`` only)."""
 
     flip_in: Any
     flip_w: Any
@@ -66,18 +74,25 @@ class StepDraws:
     crop_w: Any
     aug_lpips_w: Any
     aug_lpips_h: Any
+    revive_idx: Optional[torch.Tensor] = None
 
 
-def draw_step(generator: torch.Generator, crop_range: tuple[int, int]) -> StepDraws:
-    """Five fair coins and two crop offsets in [0, crop_range[i]], on the
-    generator's device (no host synchronisation)."""
+def draw_step(generator: torch.Generator, crop_range: tuple[int, int],
+              revive: Optional[tuple[int, int]] = None) -> StepDraws:
+    """Five fair coins and two crop offsets in [0, crop_range[i]], and, for
+    ``revive = (K, N)``, K revival rows in [0, N); on the generator's device
+    (no host synchronisation)."""
     dev = generator.device
     coins = torch.rand(5, generator=generator, device=dev) < 0.5
     off_h, off_w = (torch.randint(0, n + 1, (), generator=generator, device=dev)
                     for n in crop_range)
+    revive_idx = None
+    if revive is not None:
+        k, n = revive
+        revive_idx = torch.randint(0, n, (k,), generator=generator, device=dev)
     return StepDraws(flip_in=coins[0], flip_w=coins[1], flip_h=coins[2],
                      crop_h=off_h, crop_w=off_w,
-                     aug_lpips_w=coins[3], aug_lpips_h=coins[4])
+                     aug_lpips_w=coins[3], aug_lpips_h=coins[4], revive_idx=revive_idx)
 
 
 def _where(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,11 +166,11 @@ def make_train_step(
             "grad_accum > 1: the microbatched step is not ported yet "
             "(ROADMAP.md, Queue 1: train state and step)"
         )
-    if vae_cfg.reg_type != "identity_gaussian":
+    if vae_cfg.reg_type not in ("identity_gaussian", "vq"):
         raise NotImplementedError(
             f"reg_type={vae_cfg.reg_type!r}: the train step ports the identity "
-            "Gaussian only; Gaussian sampling and the VQ latent wait "
-            "(ROADMAP.md, Queue 1: 2D models, VQ latent)"
+            "Gaussian and the VQ latent; Gaussian sampling waits "
+            "(ROADMAP.md, Queue 1: 2D models)"
         )
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
@@ -166,6 +181,9 @@ def make_train_step(
     tgt_res = enc_res * (2 if hr else 1)
     ds_factor = cfg.downscale_factor * (2 if hr else 1)
     z_side = enc_res // vae_cfg.ffactor
+    use_vq = vae_cfg.reg_type == "vq"
+    use_vq_ema = use_vq and vae_cfg.vq_ema_decay > 0
+    revive = use_vq_ema and vae_cfg.vq_revive_threshold > 0
 
     def crop_size(do_crop: int) -> tuple[int, int]:
         if int(do_crop) > len(cfg.crop_fractions):
@@ -175,7 +193,7 @@ def make_train_step(
         side = max(1, int(round(frac * z_side)))
         return side, side
 
-    def gen_forward(batch, draws, do_crop):
+    def gen_forward(batch, draws, do_crop, vq_ema):
         if batch.dtype == torch.uint8:
             batch = batch.float() / 127.5 - 1.0
         x_enc = resize_area(batch, (enc_res, enc_res))
@@ -186,7 +204,12 @@ def make_train_step(
         z_pre = z.detach()  # statistics are taken before the clamp
         if cfg.do_clamp:
             z = z.clamp(-cfg.clamp_th, cfg.clamp_th)
-        z_s = vae.regularize(z)
+        aux_loss = new_ema = None
+        if use_vq:
+            z_s, aux, new_ema = vae.regularize(z, vq_ema, update_stats=use_vq_ema)
+            aux_loss = aux["vq_loss"]
+        else:
+            z_s = vae.regularize(z)
         if cfg.flip_invariance:
             c = z_s.shape[-1]
             z_s, target = _latent_flip(draws.flip_w, z_s, target, 2, -4, -2)
@@ -197,7 +220,7 @@ def make_train_step(
             target = _crop(target, draws.crop_h * ds_factor, draws.crop_w * ds_factor,
                            ch * ds_factor, cw * ds_factor)
         recon = vae.decode(z_s)
-        return recon, z, target, z_pre
+        return recon, z, target, z_pre, aux_loss, new_ema
 
     def disc_update(state, recon, target, metrics):
         recon_const = recon.detach().float()
@@ -230,7 +253,7 @@ def make_train_step(
         metrics["gan/lecam_anchor_real_logits"] = new_real
         metrics["gan/lecam_anchor_fake_logits"] = new_fake
 
-    def g_losses(recon, z, target, draws):
+    def g_losses(recon, z, aux_loss, target, draws):
         """All generator loss branches (reference vae_trainer.py:662-698)."""
         metrics = {}
         recon_lpips = gradnorm(recon, cfg.gradnorm_lpips, None, gn_shards)
@@ -249,13 +272,33 @@ def make_train_step(
         metrics.update(vae_metrics)
 
         total = percep + vae_loss
+        if aux_loss is not None:
+            total = total + aux_loss
         if cfg.do_ganloss:
             recon_gan = gradnorm(recon, cfg.gradnorm_gan, None, gn_shards)
             g_gan = generator_gan_loss(disc(recon_gan.float()), cfg.disc_type)
             metrics["gan/generator_gan_loss"] = g_gan
             total = total + g_gan
         metrics["overall_vae_loss"] = total
+        if aux_loss is not None:
+            metrics["vq_loss"] = aux_loss
         return total, metrics
+
+    @torch.no_grad()
+    def fold_codebook(state, new_ema, z, revive_idx):
+        """After G's AdamW step: the EMA statistics folded into the codebook
+        in place (overwriting whatever AdamW did; in EMA mode the codebook
+        takes no gradient), then dead codes revived from the clamped,
+        unflipped z (JAX step.py:364-388)."""
+        codebook = vae.reg.codebook
+        new_cb = apply_ema_codebook_update(codebook, new_ema["counts"], new_ema["sums"],
+                                           vae.reg.ema_eps)
+        if revive:
+            flat_z = z.detach().float().reshape(-1, z.shape[-1])
+            new_cb = revive_dead_codes(new_cb, new_ema["counts"], flat_z, revive_idx,
+                                       vae_cfg.vq_revive_threshold)
+        codebook.copy_(new_cb)
+        state.vq_ema = new_ema
 
     def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
              draws: Optional[StepDraws] = None):
@@ -264,10 +307,15 @@ def make_train_step(
             if do_crop:
                 ch, cw = crop_size(do_crop)
                 crop_range = (z_side - ch, z_side - cw)
-            draws = draw_step(state.generator, crop_range)
+            n_tokens = batch.shape[0] * z_side * z_side
+            draws = draw_step(state.generator, crop_range,
+                              (vae_cfg.vq_codebook_size, n_tokens) if revive else None)
+        elif revive and draws.revive_idx is None:
+            raise ValueError("vq_revive_threshold > 0: draws.revive_idx is needed")
 
         # --- shared generator forward (one forward, one backward per step) ---
-        recon, z, target, z_pre = gen_forward(batch, draws, do_crop)
+        recon, z, target, z_pre, aux_loss, new_ema = gen_forward(batch, draws, do_crop,
+                                                                 state.vq_ema)
         metrics = z_statistics(z_pre)
 
         # --- discriminator update, before G ---
@@ -280,7 +328,7 @@ def make_train_step(
         for p in d_params:
             p.requires_grad_(False)
         try:
-            total, g_metrics = g_losses(recon, z, target, draws)
+            total, g_metrics = g_losses(recon, z, aux_loss, target, draws)
         finally:
             for p in d_params:
                 p.requires_grad_(True)
@@ -289,6 +337,8 @@ def make_train_step(
         state.g_opt.step()
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
+        if use_vq_ema:
+            fold_codebook(state, new_ema, z, draws.revive_idx)
 
         if cfg.ema_decay > 0:
             with torch.no_grad():

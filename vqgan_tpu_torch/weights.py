@@ -13,6 +13,8 @@ of arrays, flax names) is mapped here without importing the JAX package:
       → "encoder.down.0.block.1.conv1.weight"                  (OIHW)
     params["encoder"]["mid_block_1"]["norm1"]["scale"]
       → "encoder.mid.block_1.norm1.weight"
+    params["reg"]["codebook"]                                  (K, D)
+      → "reg.codebook"
 """
 
 from __future__ import annotations
@@ -63,6 +65,14 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
     walk(params, [])
     return out
+
+
+def jax_vq_ema_to_torch(vq_ema: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``vq_ema`` collection ``{"reg": {"counts", "sums"}}`` → the
+    port's EMA statistics (``TrainState.vq_ema``): fp32 CPU tensors counts
+    (K,) and sums (K, D)."""
+    return {k: torch.from_numpy(np.array(vq_ema["reg"][k], dtype=np.float32))
+            for k in ("counts", "sums")}
 
 
 def _conv(kernel, bias) -> tuple[torch.Tensor, torch.Tensor]:
