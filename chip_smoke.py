@@ -50,7 +50,27 @@ Phases, each fatal on failure:
  12. VQ, CPU against card at the reduced width of phases 7-8 with K = 1024:
      serving latents by distance; one training step (EMA 0.9, revival at
      0.5, the same draws and revival rows): losses and gradients within
-     phase 8's bounds, EMA counts, the folded codebook.
+     phase 8's bounds, EMA counts, the folded codebook;
+ 13. the attention kernels (forward; backward: delta, dK/dV, dQ) against
+     their plain versions on q/k/v views of one qkv tensor, fp32 and bf16: at
+     the flagship mid block (B = 8, N = 1,024, H = 16, D = 64), forward and
+     backward; the high-resolution mid block (B = 1, N = 16,384), forward;
+     D = 32 (B = 1, N = 4,096, H = 8) and a ragged N = 400, forward and
+     backward. out, lse, dq, dk, dv within their stated bounds; kernel,
+     plain and library (``F.scaled_dot_product_attention``, forward, and its
+     backward through autograd) times and the bound;
+ 14. flagship serving with the mid-block attention (``VAEConfig(use_attn=
+     True, attn_chunk=512)``), from a reference-format .pt: 22 GroupNorm and
+     1 attention launch per encode, 30 and 1 per decode, img/s and peak
+     memory at batch 8;
+ 15. the same weights at 1,024 px, batch 1, ``attn_chunk=1024`` (16,384
+     mid-block tokens): finite output in range, img/s and peak memory;
+ 16. the flagship training step with attention at batch 8: 52 + 52
+     GroupNorm and 2 + 2 attention launches per step, D moves in step 1 and
+     G in step 2, finite metrics, img/s, step ms and peak memory;
+ 17. attention, CPU against card at the reduced width of phases 7-8 (mid
+     block 256 tokens, 4 heads of 64, ``attn_chunk=128``): serving, and one
+     training step within phase 8's bounds.
 
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
@@ -76,6 +96,7 @@ SERVE_BATCH = 8
 TRAIN_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
 # (S = H*W, C) -> calls per reconstruct, from the flagship config
 ENCODER_GN_SHAPES = {  # fp32
     (65536, 256): 4, (16384, 256): 1, (16384, 512): 3, (4096, 512): 1,
@@ -129,6 +150,25 @@ VQ_CASES = {
     "ragged N": (700, 256, 16), "K tiles": (512, 2048, 8), "small K": (64, 32, 4),
 }
 VQ_CROSS_K = 1024
+# attention: the flagship's attn_chunk (its mid block has 1,024 tokens) and
+# the high-resolution serving's (16,384 tokens)
+ATTN_CHUNK = 512
+HIRES_CHUNK = 1024
+# kernel #3 cases: name -> (B, N, H, D, the plain version's chunk, backward)
+ATTN_CASES = {
+    "flagship": (8, 1024, 16, 64, ATTN_CHUNK, True),
+    "high-res": (1, 16384, 16, 64, HIRES_CHUNK, False),
+    "head_dim 32": (1, 4096, 8, 32, 1024, True),
+    "ragged N": (2, 400, 4, 64, 400, True),
+}
+# kernel vs plain on the same inputs: each output within ATTN_RTOL of its
+# Σ|terms| for fp32 summation orders, plus 2^-9 of it where the kernel rounds
+# P or dS to bf16 as the Pallas kernel does
+# (vqgan_tpu_torch/ops/attention.py::rounding_bounds), plus one bf16 ulp of
+# the value for a bf16 output rounded on either side. lse: the logits'
+# D-term sums in other orders, O(1e-6) of |S|
+ATTN_RTOL = 3e-5
+ATTN_LSE_ATOL = 1e-4
 
 
 def log(*args) -> None:
@@ -374,17 +414,23 @@ def phase_flagship(gn, tmp: str) -> tuple[int, dict]:
     return main_launches, result
 
 
-def phase_train_flagship(gn) -> tuple[tuple[int, int], dict]:
-    """The flagship training step at batch 8; returns the kernel launches of
-    one counted step (forward, backward) and the timings."""
+def phase_train_flagship(gn, ac=None) -> tuple[dict, dict]:
+    """The flagship training step at batch 8, with the mid-block attention
+    when the attention kernels' module ``ac`` is given; returns the kernel
+    launches of one counted step and the timings."""
     from vqgan_tpu_torch.tools.profile_step import build_flagship_step
 
     set_tf32(True)
+    what = "train flagship" + (" attn" if ac else "")
     t0 = time.perf_counter()
-    state, step, images = build_flagship_step(TRAIN_BATCH)
+    if ac:
+        state, step, images = build_flagship_step(TRAIN_BATCH, use_attn=True,
+                                                  attn_chunk=ATTN_CHUNK)
+    else:
+        state, step, images = build_flagship_step(TRAIN_BATCH)
     g_params = list(state.g_model.parameters())
     d_params = list(state.d_model.parameters())
-    log(f"train flagship: {sum(p.numel() for p in g_params)} G params, "
+    log(f"{what}: {sum(p.numel() for p in g_params)} G params, "
         f"{sum(p.numel() for p in d_params)} D params, batch {TRAIN_BATCH}, "
         f"build {time.perf_counter() - t0:.1f} s")
 
@@ -405,17 +451,22 @@ def phase_train_flagship(gn) -> tuple[tuple[int, int], dict]:
     if not moved(g_params, g0):
         raise AssertionError("G did not move in step 2")
     del g0, d0
-    log(f"train flagship: D moved in step 1, G in step 2 (first step {first_s:.2f} s)")
+    log(f"{what}: D moved in step 1, G in step 2 (first step {first_s:.2f} s)")
 
     # the main path, counted: one training step
     gn.launches = gn.bwd_launches = 0
+    if ac:
+        ac.fwd_launches = ac.bwd_launches = 0
     state, metrics = step(state, images)
     torch.cuda.synchronize()
-    counts = (gn.launches, gn.bwd_launches)
-    log(f"train flagship: GN kernel launches per step: forward {counts[0]}, "
-        f"backward {counts[1]}")
-    if counts != (50, 50):
-        raise AssertionError("expected 50 forward and 50 backward GN launches per step")
+    counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches}
+    want = {"gn": 50, "gn_bwd": 50}
+    if ac:  # one AttnBlock in the encoder and one in the decoder
+        counts.update(attn=ac.fwd_launches, attn_bwd=ac.bwd_launches)
+        want = {"gn": 52, "gn_bwd": 52, "attn": 2, "attn_bwd": 2}
+    log(f"{what}: kernel launches per step: {counts}")
+    if counts != want:
+        raise AssertionError(f"expected {want} kernel launches per step")
 
     iters = 5
     torch.cuda.reset_peak_memory_stats()
@@ -429,10 +480,10 @@ def phase_train_flagship(gn) -> tuple[tuple[int, int], dict]:
     bad = [k for k, v in values.items() if not np.isfinite(v)]
     if bad:
         raise AssertionError(f"non-finite metrics: {bad}")
-    log("train flagship metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
+    log(f"{what} metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
     result = {"img_per_s": TRAIN_BATCH * iters / seconds, "step_ms": seconds / iters * 1e3,
               "peak_bytes": peak}
-    log(f"train flagship batch {TRAIN_BATCH}: {result['img_per_s']:.3f} img/s, "
+    log(f"{what} batch {TRAIN_BATCH}: {result['img_per_s']:.3f} img/s, "
         f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), "
         f"peak memory {peak / 2**30:.3f} GiB")
     del state, step, images, metrics, g_params, d_params
@@ -709,25 +760,36 @@ def _perturbed_state_dict(cfg, seed: int) -> dict:
     return model.state_dict()
 
 
-def phase_cross_device() -> None:
+def _attn_kw(attn: bool) -> dict:
+    """The reduced width's attention config: its mid block has 16x16 = 256
+    tokens of 256 channels (4 heads of 64), above the chunk of 128."""
+    return dict(use_attn=True, attn_chunk=128) if attn else {}
+
+
+def phase_cross_device(attn: bool = False) -> None:
     from vqgan_tpu_torch.config import VAEConfig
     from vqgan_tpu_torch.inference import VAEPipeline
+    from vqgan_tpu_torch.ops import attention_cuda as ac
 
     set_tf32(False)
     base = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
-                     z_channels=16)
+                     z_channels=16, **_attn_kw(attn))
     images = np.random.RandomState(1).randint(0, 256, (2, 64, 64, 3), np.uint8)
     for dec_dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dec_dtype=dec_dtype)
         sd = _perturbed_state_dict(cfg, seed=1)
         cpu = VAEPipeline(cfg, sd, device="cpu")
         gpu = VAEPipeline(cfg, sd, device="cuda")
+        ac.fwd_launches = 0
         z_cpu, z_gpu = cpu.encode(images), gpu.encode(images).cpu()
         z_err = float((z_cpu - z_gpu).abs().max())
         # both decoders get the CPU latents, so the decode is compared alone
         r_cpu, r_gpu = cpu.decode(z_cpu), gpu.decode(z_cpu)
         r_err = np.abs(r_cpu - r_gpu)
-        log(f"cross-device ch=64 (1,2,4) 64px, dec {dec_dtype}: latents max_abs_err="
+        if ac.fwd_launches != (2 if attn else 0):
+            raise AssertionError(f"{ac.fwd_launches} attention launches on the card")
+        log(f"cross-device {'attn ' if attn else ''}ch=64 (1,2,4) 64px, dec {dec_dtype}: "
+            f"latents max_abs_err="
             f"{z_err:.3e} (|z|max {float(z_cpu.abs().max()):.3f}); decoded max_abs_err="
             f"{r_err.max():.3e} mean={r_err.mean():.3e}")
         if z_err > ATOL_PATH_FP32:
@@ -740,27 +802,29 @@ def phase_cross_device() -> None:
             raise AssertionError(f"decoded images differ across devices ({dec_dtype})")
 
 
-def phase_train_cross_device(vq_k: int = 0) -> None:
+def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
     """One training step on the CPU and on the card: same weights, batch and
     draws; fp32, TF32 off. ``vq_k`` > 0: the VQ latent with K = vq_k codes,
     EMA 0.9 and revival at 0.5, the EMA counts started from a numpy draw in
     [0.3, 1.3) so that unused codes are revived, and the same K revival rows
     on both devices; then the EMA statistics and the folded codebook are
-    compared too."""
+    compared too. ``attn``: with the mid-block attention (phase 17), whose
+    kernels must run on the card."""
     from vqgan_tpu_torch.config import TrainConfig, VAEConfig
     from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
     from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
     from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.ops import attention_cuda as ac
     from vqgan_tpu_torch.train.state import create_train_state
     from vqgan_tpu_torch.train.step import StepDraws, make_train_step
 
     set_tf32(False)
-    vq_kw = {}
+    extra_kw = _attn_kw(attn)
     if vq_k:
-        vq_kw = dict(reg_type="vq", vq_codebook_size=vq_k, vq_ema_decay=0.9,
+        extra_kw |= dict(reg_type="vq", vq_codebook_size=vq_k, vq_ema_decay=0.9,
                      vq_revive_threshold=0.5)
     vae_cfg = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
-                        z_channels=16, enc_dtype="float32", dec_dtype="float32", **vq_kw)
+                        z_channels=16, enc_dtype="float32", dec_dtype="float32", **extra_kw)
     # D's lr: AdamW's first step moves every D param by ±lr·sign(grad); where
     # a gradient is rounding noise the two devices step apart, and G's GAN
     # branch through the updated D carries that into G's gradient
@@ -800,7 +864,10 @@ def phase_train_cross_device(vq_k: int = 0) -> None:
         draws = StepDraws(flip_in=True, flip_w=True, flip_h=False, crop_h=0, crop_w=0,
                           aug_lpips_w=False, aug_lpips_h=False,
                           revive_idx=None if revive_idx is None else revive_idx.to(dev))
+        ac.fwd_launches = ac.bwd_launches = 0
         state, metrics = step(state, torch.from_numpy(images).to(dev), 0, draws)
+        if attn and dev == "cuda" and (ac.fwd_launches, ac.bwd_launches) != (2, 2):
+            raise AssertionError("the card's step did not run 2 + 2 attention launches")
         moments = {}
         for side, model, opt in (("G", vae, state.g_opt), ("D", disc, state.d_opt)):
             # in EMA mode the codebook takes no gradient and has no AdamW state
@@ -813,7 +880,7 @@ def phase_train_cross_device(vq_k: int = 0) -> None:
         runs[dev] = ({k: float(v) for k, v in metrics.items()}, moments, extra)
 
     (m_cpu, g_cpu, x_cpu), (m_gpu, g_gpu, x_gpu) = runs["cpu"], runs["cuda"]
-    what = f"vq K={vq_k} " if vq_k else ""
+    what = (f"vq K={vq_k} " if vq_k else "") + ("attn " if attn else "")
     n_logits = 2 * 2 * 16  # real and fake, batch 2, a 4x4 patch grid at 64 px
     bad = []
     for k, v in m_cpu.items():
@@ -897,12 +964,204 @@ def phase_vq_cross_device() -> None:
         raise AssertionError("VQ serving picks farther codes on the card than on the CPU")
 
 
+def _library_attention(q, k, v):
+    """One PyTorch call of the same function, as a yardstick only (the port
+    never calls it): scaled_dot_product_attention on (B, H, N, D) views."""
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2))
+
+
+def attention_bound_ms(b, n, h, d, dtype, backward: bool) -> float:
+    """The least time of one call: the larger of its operations at the peak
+    rate of the inputs' type (4·B·H·N²·D forward; 10·B·H·N²·D backward: the
+    four products and S recomputed) and its bytes at 3.35 TB/s (q, k, v read
+    and out written, plus out and dO read and dq, dk, dv written backward;
+    the fp32 lse written forward and read backward)."""
+    flops = (10 if backward else 4) * b * h * n * n * d
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    es = torch.finfo(dtype).bits // 8
+    moved = (8 if backward else 4) * b * n * h * d * es + 4 * b * h * n
+    return max(flops / rate, moved / HBM_BYTES_PER_S) * 1e3
+
+
+def phase_attention_kernels(ac) -> dict:
+    """Kernel #3 against its plain versions. Returns {(case, dtype, "fwd" or
+    "bwd"): (max_abs_err, kernel_ms, plain_ms, library_ms, bound_ms)}."""
+    from vqgan_tpu_torch.ops.attention import (
+        chunked_attention_backward,
+        chunked_attention_forward,
+        rounding_bounds,
+    )
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, (b, n, h, d, chunk, with_bwd) in ATTN_CASES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            # q, k, v: views of one (B, N, 3, H, D) tensor, as the AttnBlock's
+            qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.unbind(2)
+            o, lse = ac.attention_forward(q, k, v, chunk)
+            ro, rlse = chunked_attention_forward(q, k, v, chunk)
+            pairs = {"out": (o, ro)}
+            if with_bwd:
+                g = torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+                # both backwards from the plain forward's residuals
+                grads = ac.attention_backward(q, k, v, ro, rlse, g, chunk)
+                ref = chunked_attention_backward(q, k, v, ro, rlse, g, chunk)
+                pairs.update(zip(("dq", "dk", "dv"), zip(grads, ref)))
+                delta = (g.float() * ro.float()).sum(-1).transpose(1, 2)
+                bounds = rounding_bounds(q, k, v, rlse, ATTN_RTOL, bf16, g, delta)
+            else:
+                bounds = rounding_bounds(q, k, v, rlse, ATTN_RTOL, bf16)
+            torch.cuda.synchronize()
+            lse_err = float((lse - rlse).abs().max())
+            used = {"lse": lse_err / ATTN_LSE_ATOL}
+            errs = {}
+            for key, (got, want) in pairs.items():
+                diff = (got.float() - want.float()).abs()
+                tol = bounds[key] + 1e-7
+                if bf16:
+                    tol = tol + 2.0 ** -7 * want.float().abs()
+                used[key] = float((diff / tol).max())
+                errs[key] = float(diff.max())
+            del bounds, pairs, diff, tol
+            ok = all(u <= 1.0 for u in used.values())
+            tname = "bf16" if bf16 else "fp32"
+            iters = 5 if n > 4096 else 20
+            f_ms = cuda_ms(lambda: ac.attention_forward(q, k, v, chunk), iters=iters)
+            pf_ms = cuda_ms(lambda: chunked_attention_forward(q, k, v, chunk), iters=iters)
+            lf_ms = cuda_ms(lambda: _library_attention(q, k, v), iters=iters)
+            fb = attention_bound_ms(b, n, h, d, dtype, backward=False)
+            log(f"attn fwd {name} B={b} N={n} H={h} D={d} {tname}: max_abs_err "
+                + " ".join(f"{key}={e:.3e}" for key, e in errs.items() if key == "out")
+                + f" lse={lse_err:.3e}; share of the bound used "
+                + " ".join(f"{key}={u:.3f}" for key, u in used.items() if key in ("out", "lse"))
+                + f" kernel_ms={f_ms:.4f} plain_ms={pf_ms:.4f} library_ms={lf_ms:.4f} "
+                f"bound_ms={fb:.4f} {'ok' if ok else 'MISS'}")
+            out[(name, dtype, "fwd")] = (max(errs["out"], lse_err), f_ms, pf_ms, lf_ms, fb)
+            if with_bwd:
+                b_ms = cuda_ms(lambda: ac.attention_backward(q, k, v, ro, rlse, g, chunk))
+                pb_ms = cuda_ms(lambda: chunked_attention_backward(q, k, v, ro, rlse, g, chunk))
+                ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+                ol = _library_attention(ql, kl, vl)
+                gl = g.transpose(1, 2)
+                lb_ms = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), gl,
+                                                            retain_graph=True))
+
+                def fwd_bwd():
+                    torch.autograd.grad(_library_attention(ql, kl, vl), (ql, kl, vl), gl)
+
+                lfb_ms = cuda_ms(fwd_bwd)
+                del ql, kl, vl, ol
+                bb = attention_bound_ms(b, n, h, d, dtype, backward=True)
+                log(f"attn bwd {name} B={b} N={n} H={h} D={d} {tname}: max_abs_err "
+                    + " ".join(f"{key}={errs[key]:.3e}" for key in ("dq", "dk", "dv"))
+                    + "; share of the bound used "
+                    + " ".join(f"{key}={used[key]:.3f}" for key in ("dq", "dk", "dv"))
+                    + f" kernel_ms={b_ms:.4f} plain_ms={pb_ms:.4f} library_ms={lb_ms:.4f} "
+                    f"(library forward+backward {lfb_ms:.4f}) bound_ms={bb:.4f} "
+                    f"{'ok' if ok else 'MISS'}")
+                out[(name, dtype, "bwd")] = (max(errs[key] for key in ("dq", "dk", "dv")),
+                                             b_ms, pb_ms, lb_ms, bb)
+                del g, grads, ref, delta
+            if not ok:
+                raise AssertionError(f"attention kernel disagrees with plain at {name} "
+                                     f"{tname}: {used}")
+            del qkv, q, k, v, o, lse, ro, rlse
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve_and_time(pipe, images, iters: int) -> dict:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        recon = pipe.reconstruct(images)  # ends in a device-to-host copy
+    seconds = time.perf_counter() - t0
+    if not np.isfinite(recon).all() or recon.min() < 0.0 or recon.max() > 1.0:
+        raise AssertionError("output not finite or outside [0, 1]")
+    return {"img_per_s": len(images) * iters / seconds, "reconstruct_s": seconds / iters,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_attn_serving(gn, ac, tmp: str) -> tuple[dict, dict, dict]:
+    """Flagship serving with the mid-block attention at batch 8 (phase 14),
+    then the same .pt at 1,024 px, batch 1 (phase 15). Returns the counts of
+    one flagship reconstruct and the two timings."""
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.inference import VAEPipeline
+    from vqgan_tpu_torch.models.ae import init_vae
+    from vqgan_tpu_torch.weights import save_weights
+
+    set_tf32(True)
+    cfg = VAEConfig(use_attn=True, attn_chunk=ATTN_CHUNK)
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "flagship_attn.pt")
+    save_weights(init_vae(cfg, torch.Generator().manual_seed(0)), path)
+    pipe = VAEPipeline.from_checkpoint(path, cfg, device="cuda")
+    log(f"attn flagship: attn_chunk={cfg.attn_chunk}, init+save+load "
+        f"{time.perf_counter() - t0:.1f} s")
+    images = np.random.RandomState(0).randint(0, 256, (SERVE_BATCH, 256, 256, 3), np.uint8)
+
+    stages = {}
+    gn.launches = ac.fwd_launches = ac.bwd_launches = 0
+    z = pipe.encode(images)
+    torch.cuda.synchronize()
+    stages["encode"] = (gn.launches, ac.fwd_launches, ac.bwd_launches)
+    gn.launches = ac.fwd_launches = 0
+    recon = pipe.decode(z)
+    stages["decode"] = (gn.launches, ac.fwd_launches, ac.bwd_launches)
+    log(f"attn flagship: (GN, attention forward, attention backward) launches {stages}")
+    if stages != {"encode": (22, 1, 0), "decode": (30, 1, 0)}:
+        raise AssertionError("expected 22 GN and 1 attention launch per encode, 30 and 1 per "
+                             "decode")
+    if (tuple(z.shape) != (SERVE_BATCH, 32, 32, 16) or not bool(torch.isfinite(z).all())
+            or float(z.abs().max()) > 8.0 or tuple(recon.shape) != (SERVE_BATCH, 256, 256, 3)):
+        raise AssertionError("attention flagship latents or output out of shape or range")
+
+    # the main path, counted: one reconstruct of the batch
+    gn.launches = ac.fwd_launches = 0
+    pipe.reconstruct(images)
+    counts = {"gn": gn.launches, "attn": ac.fwd_launches, "attn_bwd": ac.bwd_launches}
+    log(f"attn flagship reconstruct launches: {counts}")
+    if counts != {"gn": 52, "attn": 2, "attn_bwd": 0}:
+        raise AssertionError("expected 52 GN and 2 attention launches per reconstruct")
+    flagship = _serve_and_time(pipe, images, iters=3)
+    log(f"attn flagship serving batch {SERVE_BATCH}: {flagship['img_per_s']:.3f} img/s, "
+        f"{flagship['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
+        f"{flagship['peak_bytes'] / 2**30:.3f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+
+    hr_cfg = VAEConfig(resolution=1024, use_attn=True, attn_chunk=HIRES_CHUNK)
+    pipe = VAEPipeline.from_checkpoint(path, hr_cfg, device="cuda")
+    image = np.random.RandomState(1).randint(0, 256, (1, 1024, 1024, 3), np.uint8)
+    ac.fwd_launches = 0
+    z = pipe.encode(image)
+    if tuple(z.shape) != (1, 128, 128, 16) or not bool(torch.isfinite(z).all()):
+        raise AssertionError("high-resolution latents not finite or out of shape")
+    pipe.decode(z)
+    if ac.fwd_launches != 2:
+        raise AssertionError(f"{ac.fwd_launches} attention launches in a 1,024 px reconstruct")
+    hires = _serve_and_time(pipe, image, iters=2)
+    log(f"attn high-res serving 1024 px batch 1 (16384 mid-block tokens, attn_chunk="
+        f"{HIRES_CHUNK}): {hires['img_per_s']:.3f} img/s, {hires['reconstruct_s'] * 1e3:.1f} "
+        f"ms per reconstruct, peak memory {hires['peak_bytes'] / 2**30:.3f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+    return counts, flagship, hires
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
               "a CUDA device", file=sys.stderr)
         return 1
 
+    from vqgan_tpu_torch.ops import attention_cuda as ac
     from vqgan_tpu_torch.ops import cuda_build
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
     from vqgan_tpu_torch.ops import vq_cuda as vq
@@ -920,11 +1179,12 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for lib in [pool.submit(gn.library), pool.submit(vq.library)]:
+    modules = (gn, vq, ac)
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        for lib in [pool.submit(m.library) for m in modules]:
             lib.result()
-    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s "
-        f"({cuda_build.library_path('groupnorm').name}, {cuda_build.library_path('vq').name})")
+    names = ", ".join(cuda_build.library_path(n).name for n in ("groupnorm", "vq", "attention"))
+    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s ({names})")
 
     # 3. forward kernel vs plain; 4. backward kernel vs plain
     fwd = {b: phase_kernel_vs_plain(gn, group_norm_fp32, b) for b in (2, SERVE_BATCH)}
@@ -935,7 +1195,7 @@ def main() -> int:
         serve_launches, flagship = phase_flagship(gn, tmp)
 
     # 6. flagship training step
-    (train_fwd, train_bwd), train = phase_train_flagship(gn)
+    train_counts, train = phase_train_flagship(gn)
 
     # 7. serving, CPU vs card; 8. training, CPU vs card
     phase_cross_device()
@@ -952,6 +1212,20 @@ def main() -> int:
     # 12. VQ, CPU vs card: serving, then a training step
     phase_vq_cross_device()
     phase_train_cross_device(vq_k=VQ_CROSS_K)
+
+    # 13. the attention kernels vs plain
+    attn = phase_attention_kernels(ac)
+
+    # 14. attention serving at the flagship width; 15. at 1,024 px
+    with tempfile.TemporaryDirectory() as tmp:
+        attn_serve_counts, attn_serve, hires = phase_attn_serving(gn, ac, tmp)
+
+    # 16. the flagship training step with attention
+    attn_counts, attn_train = phase_train_flagship(gn, ac)
+
+    # 17. attention, CPU vs card: serving, then a training step
+    phase_cross_device(attn=True)
+    phase_train_cross_device(attn=True)
 
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
@@ -972,11 +1246,28 @@ def main() -> int:
         f"{vq_serve['peak_bytes'] / 2**30:.3f} GiB; VQ training batch {TRAIN_BATCH}: "
         f"{vq_train['img_per_s']:.3f} img/s, {vq_train['step_ms']:.1f} ms per step, peak "
         f"{vq_train['peak_bytes'] / 2**30:.3f} GiB")
+    bf16 = torch.bfloat16
+    attn_step = {kind: [2 * x for x in attn[("flagship", bf16, kind)][1:]]
+                 for kind in ("fwd", "bwd")}
+    log(f"attention serving batch {SERVE_BATCH}: {attn_serve['img_per_s']:.3f} img/s, "
+        f"{attn_serve_counts} launches per reconstruct, peak "
+        f"{attn_serve['peak_bytes'] / 2**30:.3f} GiB; 1,024 px batch 1: "
+        f"{hires['img_per_s']:.3f} img/s, peak {hires['peak_bytes'] / 2**30:.3f} GiB; "
+        f"attention training batch {TRAIN_BATCH}: {attn_train['img_per_s']:.3f} img/s, "
+        f"{attn_train['step_ms']:.1f} ms per step, peak "
+        f"{attn_train['peak_bytes'] / 2**30:.3f} GiB")
+    for kind, (k, p, lib, bnd) in attn_step.items():
+        log(f"attention {kind} per flagship training step at batch {TRAIN_BATCH} (2 bf16 "
+            f"calls): kernel {k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms")
     log(f"kernels line: GroupNorm launches per identity training step and ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
         f"K={VQ_CASES['flagship b8'][1]}; statistics with sums); the search's max_abs_err is "
-        f"its largest fp64 distance gap over plain's code")
+        f"its largest fp64 distance gap over plain's code; attention launches per flagship "
+        f"attention training step and ms per step, its 2 bf16 calls at B=8, N=1024, H=16, "
+        f"D=64 (library: scaled_dot_product_attention, forward, and its backward through "
+        f"autograd), max_abs_err over every case of phase 13")
     log(smi)
 
     def entry(name, source, replaces, launches, err, times, bound_by):
@@ -988,16 +1279,22 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
-              train_fwd, max(v[0] for res in fwd.values() for v in res.values()), fwd_step,
-              "bytes"),
+              train_counts["gn"], max(v[0] for res in fwd.values() for v in res.values()),
+              fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
-              train_bwd, max(v[0] for v in bwd.values()), bwd_step, "bytes"),
+              train_counts["gn_bwd"], max(v[0] for v in bwd.values()), bwd_step, "bytes"),
         entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113", vq_counts["nearest"],
               max(v[0] for v in vq_nearest.values()), vq_nearest["flagship b8"][1:],
               "operations"),
         entry("code_stats", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:223", vq_counts["stats"],
               max(v[0] for v in vq_stats.values()), vq_stats[("flagship b8", True)][1:],
               "bytes"),
+        entry("flash_attention", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
+              attn_counts["attn"], max(v[0] for key, v in attn.items() if key[2] == "fwd"),
+              attn_step["fwd"], "operations"),
+        entry("flash_attention_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
+              attn_counts["attn_bwd"], max(v[0] for key, v in attn.items() if key[2] == "bwd"),
+              attn_step["bwd"], "operations"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

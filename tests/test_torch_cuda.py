@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, and the paths through
-them, on the card: GroupNorm forward and backward (with autograd), and the
-VQ nearest-code search and code statistics (with the VQ pipeline and train
-step).
+them, on the card: GroupNorm forward and backward (with autograd), the VQ
+nearest-code search and code statistics (with the VQ pipeline and train
+step), and attention forward and backward (with autograd, the pipeline and
+the train step).
 
 Marked ``cuda``; each test skips where torch sees no CUDA device. This file
 imports no JAX, so the card's machine runs it without the JAX package's
@@ -17,8 +18,13 @@ import torch
 from vqgan_tpu_torch.config import VAEConfig
 from vqgan_tpu_torch.inference import VAEPipeline
 from vqgan_tpu_torch.models.ae import init_vae
-from vqgan_tpu_torch.models.blocks import Conv2d, FP32GroupNorm, init_weights_
-from vqgan_tpu_torch.ops import groupnorm_cuda, vq_cuda
+from vqgan_tpu_torch.models.blocks import AttnBlock, Conv2d, FP32GroupNorm, init_weights_
+from vqgan_tpu_torch.ops import attention_cuda, groupnorm_cuda, vq_cuda
+from vqgan_tpu_torch.ops.attention import (
+    chunked_attention_backward,
+    chunked_attention_forward,
+    rounding_bounds,
+)
 from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
 from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
 
@@ -384,3 +390,176 @@ def test_tiny_vq_train_step_goes_through_both_vq_kernels(device):
             np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)
     # one token on the other side of a near-tie moves two counts by 0.1
     assert float((counts["cuda"] - counts["cpu"]).abs().sum()) <= 0.2 + 1e-4
+
+
+# attention, kernel vs plain on the same inputs: each output within
+# ATTN_RTOL of its Σ|terms| for fp32 summation orders (plus 2^-9 of it where
+# the kernel rounds P or dS to bf16, ops/attention.py::rounding_bounds), plus
+# one bf16 ulp of the value for a bf16 output rounded on either side. lse:
+# the logits' D-term sums in other orders, O(1e-6) of |S| <= ~10
+ATTN_RTOL = 3e-5
+LSE_ATOL = 1e-4
+ATTN_SHAPES = [(2, 256, 2, 64), (2, 400, 2, 64), (1, 1, 1, 64), (2, 333, 3, 32), (1, 1024, 2, 32)]
+
+
+def _attn_inputs(shape, dtype, device, seed=0):
+    """q, k, v as views of one (B, N, 3, H, D) tensor, as the AttnBlock hands
+    them over (token stride 3·H·D), and a gradient g of out."""
+    b, n, h, d = shape
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(b, n, 3, h, d).astype(np.float32)).to(device, dtype)
+    g = torch.from_numpy(rng.randn(b, n, h, d).astype(np.float32)).to(device, dtype)
+    return (*qkv.unbind(2), g)
+
+
+def attention_errors(q, k, v, g):
+    """Kernel #3 against its plain versions on the same inputs, forward and
+    backward (the backward of both from the plain forward's out and lse):
+    {name: the largest |error| / its bound}, lse against LSE_ATOL."""
+    n = q.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    out, lse = attention_cuda.attention_forward(q, k, v, n)
+    ref_out, ref_lse = chunked_attention_forward(q, k, v, n)
+    grads = attention_cuda.attention_backward(q, k, v, ref_out, ref_lse, g, n)
+    ref_grads = chunked_attention_backward(q, k, v, ref_out, ref_lse, g, n)
+    torch.cuda.synchronize()
+    delta = (g.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    bounds = rounding_bounds(q, k, v, ref_lse, ATTN_RTOL, bf16, g, delta)
+    used = {"lse": float((lse - ref_lse).abs().max()) / LSE_ATOL}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref_out, *ref_grads)):
+        assert got.dtype == q.dtype and got.shape == q.shape and got.is_contiguous()
+        tol = bounds[name] + 1e-7
+        if bf16:
+            tol = tol + 2.0 ** -7 * want.float().abs()
+        used[name] = float(((got.float() - want.float()).abs() / tol).max())
+    return used
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernel_matches_plain(device, shape, dtype):
+    """Forward (out, lse) and backward (dq, dk, dv) at head_dim 64 and 32,
+    fp32 and bf16, N a multiple of the 64-token tile, ragged, and 1."""
+    q, k, v, g = _attn_inputs(shape, dtype, device)
+    attention_cuda.fwd_launches = attention_cuda.bwd_launches = 0
+    used = attention_errors(q, k, v, g)
+    assert (attention_cuda.fwd_launches, attention_cuda.bwd_launches) == (1, 1)
+    assert all(u <= 1.0 for u in used.values()), used
+
+
+def test_attention_kernel_is_deterministic(device):
+    q, k, v, g = _attn_inputs((2, 333, 2, 64), torch.bfloat16, device)
+    runs = []
+    for _ in range(2):
+        out, lse = attention_cuda.attention_forward(q, k, v, 333)
+        runs.append((out, lse, *attention_cuda.attention_backward(q, k, v, out, lse, g, 333)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    q48 = torch.zeros(1, 64, 2, 48, device=device)
+    with pytest.raises(NotImplementedError, match="32 or 64"):
+        attention_cuda.attention_forward(q48, q48, q48, 64)
+    odd = torch.zeros(2, 64, 2, 65, device=device)[..., :64]  # token stride 130
+    with pytest.raises(ValueError, match="multiples of 4"):
+        attention_cuda.attention_forward(odd, odd, odd, 64)
+    q = torch.zeros(1, 64, 2, 64, device=device)
+    with pytest.raises(ValueError, match="does not match"):
+        attention_cuda.attention_forward(q, q.cpu(), q, 64)
+
+
+def test_attn_block_autograd_reaches_qkv_through_the_kernel(device):
+    """On the card the AttnBlock's attention output has a grad_fn, and the
+    qkv conv's weight (upstream of the kernel), proj_out's weight and the
+    input get the CPU's (plain) gradients, through one launch of each
+    kernel; fp32, TF32 off."""
+    grads = {}
+    for dev in ("cpu", device):
+        block = AttnBlock(128, torch.float32, attn_chunk=64)
+        gen = torch.Generator().manual_seed(0)
+        init_weights_(block, gen)
+        with torch.no_grad():
+            block.norm.weight.normal_(1.0, 0.2, generator=gen)
+            block.proj_out.weight.normal_(0.0, 0.05, generator=gen)
+        block.to(dev)
+        x = _inputs((2, 128, 16, 16), torch.float32, dev, seed=5)[0].detach().requires_grad_()
+        w = _inputs((2, 128, 16, 16), torch.float32, dev, seed=6)[0]
+        attention_cuda.fwd_launches = attention_cuda.bwd_launches = 0
+        (block(x) * w).sum().backward()
+        counts = (attention_cuda.fwd_launches, attention_cuda.bwd_launches)
+        assert counts == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[dev] = [t.cpu() for t in (block.qkv.weight.grad, block.proj_out.weight.grad,
+                                        x.grad)]
+    assert all(bool(gr.abs().max() > 0) for gr in grads[device])
+    for got, ref in zip(grads[device], grads["cpu"]):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _tiny_attn_cfg(**kw):
+    # mid block 16x16 = 256 tokens, 64 channels = one head of 64
+    return VAEConfig(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=8,
+                     dec_dtype="float32", use_attn=True, attn_chunk=64, **kw)
+
+
+def test_attn_pipeline_goes_through_the_attention_kernel(device):
+    """One forward launch per encode and one per decode; every GroupNorm,
+    the AttnBlocks' two among them, launches its kernel once; and the CPU's
+    reconstruction."""
+    cfg = _tiny_attn_cfg()
+    sd = init_vae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    gpu, cpu = VAEPipeline(cfg, sd, device=device), VAEPipeline(cfg, sd, device="cpu")
+    imgs = (np.random.RandomState(0).rand(2, 32, 32, 3) * 255).astype(np.uint8)
+    assert sum(isinstance(m, AttnBlock) for m in gpu.model.modules()) == 2
+    n_gn = sum(isinstance(m, FP32GroupNorm) for m in gpu.model.modules())
+    attention_cuda.fwd_launches = attention_cuda.bwd_launches = groupnorm_cuda.launches = 0
+    z = gpu.encode(imgs)
+    enc = attention_cuda.fwd_launches
+    rec = gpu.decode(z)
+    assert (enc, attention_cuda.fwd_launches, attention_cuda.bwd_launches) == (1, 2, 0)
+    assert groupnorm_cuda.launches == n_gn
+    np.testing.assert_allclose(rec, cpu.reconstruct(imgs), atol=1e-4)
+
+
+def test_tiny_attn_train_step_goes_through_the_attention_kernel(device):
+    """A tiny GAN step with attention on the card: two forward and two
+    backward attention launches (encoder and decoder), every GroupNorm once
+    each way, and the CPU's losses."""
+    from vqgan_tpu_torch.config import TrainConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step import StepDraws, make_train_step
+
+    vae_cfg = _tiny_attn_cfg()
+    cfg = TrainConfig(max_steps=10, warmup_steps=2, do_ganloss=True, disc_type="hinge",
+                      use_lecam=True, do_clamp=True, flip_invariance=True,
+                      learning_rate_disc=1e-8)
+    gen = torch.Generator().manual_seed(0)
+    sd_vae = init_vae(vae_cfg, gen).state_dict()
+    disc_ref, lpips_ref = PatchDiscriminator(), LPIPS()
+    init_discriminator_(disc_ref, gen)
+    init_lpips_(lpips_ref, gen)
+    images = torch.from_numpy(np.random.RandomState(1).uniform(-1, 1, (2, 32, 32, 3))
+                              .astype(np.float32))
+    losses = {}
+    for dev in ("cpu", device):
+        with torch.device(dev):
+            vae, disc, lpips = VAE(vae_cfg), PatchDiscriminator(), LPIPS()
+        vae.load_state_dict(sd_vae)
+        disc.load_state_dict(disc_ref.state_dict())
+        lpips.load_state_dict(lpips_ref.state_dict())
+        state = create_train_state(cfg, vae, disc, vae_cfg.ch)
+        step = make_train_step(cfg, vae_cfg, vae, disc, lpips)
+        n_gn = sum(isinstance(m, FP32GroupNorm) for m in vae.modules())
+        attention_cuda.fwd_launches = attention_cuda.bwd_launches = 0
+        groupnorm_cuda.launches = groupnorm_cuda.bwd_launches = 0
+        state, metrics = step(state, images.to(dev), 0, StepDraws(True, True, False, 0, 0,
+                                                                  False, False))
+        counts = (attention_cuda.fwd_launches, attention_cuda.bwd_launches,
+                  groupnorm_cuda.launches, groupnorm_cuda.bwd_launches)
+        assert counts == ((0, 0, 0, 0) if dev == "cpu" else (2, 2, n_gn, n_gn))
+        losses[str(dev)] = {k: float(v) for k, v in metrics.items()}
+    for k, v in losses["cpu"].items():
+        if k != "gan/discriminator_accuracy":  # counts logits > 0
+            np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)

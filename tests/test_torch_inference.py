@@ -176,7 +176,7 @@ def test_importing_the_port_loads_no_jax():
         "import vqgan_tpu_torch.losses.lpips, vqgan_tpu_torch.losses.discriminator\n"
         "import vqgan_tpu_torch.tools.profile_step, vqgan_tpu_torch.ops.gradnorm\n"
         "import vqgan_tpu_torch.models.quant, vqgan_tpu_torch.ops.vq\n"
-        "import vqgan_tpu_torch.ops.vq_cuda\n"
+        "import vqgan_tpu_torch.ops.vq_cuda, vqgan_tpu_torch.ops.attention_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vqgan_tpu')]\n"
         "assert not bad, bad\n"

@@ -147,7 +147,6 @@ def test_config_has_every_jax_field_with_its_default():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"use_attn": True}, "use_attn"),
     ({"use_wavelet": True}, "use_wavelet"),
 ])
 def test_unported_features_raise(kw, what):

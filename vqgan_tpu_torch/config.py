@@ -45,10 +45,21 @@ class VAEConfig:
       - ``upsample_impl``: "fused", "dilated" and "auto" compute the same
         function with the same params as "direct" (TPU lowerings); every value
         runs the direct nearest-2× + conv form;
-      - ``attn_chunk``, ``attn_impl``: only read with ``use_attn``.
+      - ``attn_impl``: "auto", "pallas" and "lax" pick the JAX package's
+        attention lowering; here a CUDA tensor always runs the hand-written
+        flash-attention kernel (``ops/attention_cuda.py``) and a CPU tensor
+        its chunked plain version. Another value raises ValueError, as in the
+        JAX package.
+
+    ``use_attn`` adds the mid-block AttnBlock to the encoder and the decoder.
+    ``attn_chunk`` (read only with ``use_attn``): 0, or a token count at or
+    above the mid block's, runs dense attention; else the memory-efficient
+    path, and it must divide the mid block's H·W. The kernel picks its own
+    tiles, so on the card the value only selects the path; on the CPU it is
+    the plain version's k/v chunk.
 
     Not ported yet (model construction raises NotImplementedError):
-    ``use_attn`` and ``use_wavelet``.
+    ``use_wavelet``.
     """
 
     resolution: int = 256

@@ -1,9 +1,10 @@
 """2D image VAE (counterpart of ``vqgan_tpu/models/ae.py``).
 
 Encoder: conv_in → per-level ResnetBlocks + Downsample (not at the last
-level) → mid (block_1, block_2) → GroupNorm+swish → conv_out. Decoder:
-conv_in ← z → mid → levels in reverse, each (num_res_blocks + 1) ResnetBlocks
-+ Upsample (not at level 0) → GroupNorm+swish → conv_out.
+level) → mid (block_1, attn_1 with ``use_attn``, block_2) → GroupNorm+swish →
+conv_out. Decoder: conv_in ← z → mid → levels in reverse, each
+(num_res_blocks + 1) ResnetBlocks + Upsample (not at level 0) →
+GroupNorm+swish → conv_out.
 
 Module names give the reference state-dict keys, e.g.
 ``encoder.down.0.block.1.conv1.weight``, ``encoder.mid.block_1.norm1.weight``,
@@ -24,6 +25,7 @@ import torch.nn as nn
 
 from vqgan_tpu_torch.config import DTYPES, VAEConfig
 from vqgan_tpu_torch.models.blocks import (
+    AttnBlock,
     Downsample,
     FP32GroupNorm,
     ResnetBlock,
@@ -72,13 +74,22 @@ class UpLevel(nn.Module):
 
 
 class Mid(nn.Module):
-    def __init__(self, channels: int, dtype: torch.dtype):
+    """block_1, the AttnBlock ``attn_1`` when ``use_attn``, block_2 (JAX
+    ``ae.py:146-153``)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype, use_attn: bool = False,
+                 attn_chunk: int = 0, attn_impl: str = "auto"):
         super().__init__()
         self.block_1 = ResnetBlock(channels, channels, dtype)
+        self.attn_1 = (AttnBlock(channels, dtype, attn_chunk=attn_chunk, attn_impl=attn_impl)
+                       if use_attn else None)
         self.block_2 = ResnetBlock(channels, channels, dtype)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.block_2(self.block_1(h))
+        h = self.block_1(h)
+        if self.attn_1 is not None:
+            h = self.attn_1(h)
+        return self.block_2(h)
 
 
 class Encoder(nn.Module):
@@ -87,7 +98,8 @@ class Encoder(nn.Module):
 
     def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
                  z_channels: int, in_channels: int = 3, double_z: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_attn: bool = False,
+                 attn_chunk: int = 0, attn_impl: str = "auto"):
         super().__init__()
         n = len(ch_mult)
         self.conv_in = conv3x3(in_channels, ch, dtype)
@@ -98,7 +110,7 @@ class Encoder(nn.Module):
             for i in range(n)
         )
         block_in = ch * ch_mult[-1]
-        self.mid = Mid(block_in, dtype)
+        self.mid = Mid(block_in, dtype, use_attn, attn_chunk, attn_impl)
         self.norm_out = FP32GroupNorm(block_in, fused_swish=True)
         self.conv_out = conv3x3(block_in, z_channels * (2 if double_z else 1), dtype)
 
@@ -114,12 +126,13 @@ class Decoder(nn.Module):
 
     def __init__(self, ch: int, out_ch: int, ch_mult: Sequence[int],
                  num_res_blocks: int, z_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_attn: bool = False,
+                 attn_chunk: int = 0, attn_impl: str = "auto"):
         super().__init__()
         n = len(ch_mult)
         block_in = ch * ch_mult[-1]
         self.conv_in = conv3x3(z_channels, block_in, dtype)
-        self.mid = Mid(block_in, dtype)
+        self.mid = Mid(block_in, dtype, use_attn, attn_chunk, attn_impl)
         level_in = [ch * ch_mult[min(i + 1, n - 1)] for i in range(n)]
         self.up = nn.ModuleList(
             UpLevel(level_in[i], ch * ch_mult[i], num_res_blocks,
@@ -158,10 +171,6 @@ class DiagonalGaussian(nn.Module):
 
 
 def _check_ported(cfg: VAEConfig) -> None:
-    if cfg.use_attn:
-        raise NotImplementedError(
-            "use_attn: AttnBlock is not ported yet (ROADMAP.md, Queue 1: 2D models)"
-        )
     if cfg.use_wavelet:
         raise NotImplementedError(
             "use_wavelet: the wavelet front end is not ported yet "
@@ -185,15 +194,18 @@ class VAE(nn.Module):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        attn = dict(use_attn=cfg.use_attn, attn_chunk=cfg.attn_chunk,
+                    attn_impl=cfg.attn_impl)
         self.encoder = Encoder(
             cfg.ch, cfg.ch_mult, cfg.num_res_blocks, cfg.z_channels,
             in_channels=cfg.in_channels,
             double_z=cfg.reg_type == "gaussian",
             dtype=DTYPES[cfg.enc_dtype],
+            **attn,
         )
         self.decoder = Decoder(
             cfg.ch, cfg.out_ch, cfg.decoder_ch_mult, cfg.num_res_blocks,
-            cfg.z_channels, dtype=DTYPES[cfg.dec_dtype],
+            cfg.z_channels, dtype=DTYPES[cfg.dec_dtype], **attn,
         )
         if cfg.reg_type == "vq":  # JAX ae.py:283-289
             self.reg = VectorQuantizer(cfg.vq_codebook_size, cfg.z_channels,

@@ -7,8 +7,8 @@ its compute dtype. Module and parameter names give the reference state-dict
 keys (``conv1.weight``, ``norm1.weight``, ``nin_shortcut.bias``, ...).
 
 Init follows the reference (``init_weights_``): torch's default Conv2d init
-(U(±1/√fan_in)), ResnetBlock.conv2 normal with std 1e-4/out_ch, every bias
-zero, GroupNorm weight 1.
+(U(±1/√fan_in)), ResnetBlock.conv2 normal with std 1e-4/out_ch, AttnBlock's
+proj_out normal with std 0.2/√C, every bias zero, GroupNorm weight 1.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vqgan_tpu_torch.models.quant import VectorQuantizer
+from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_attention
 from vqgan_tpu_torch.ops.groupnorm_cuda import FusedGroupNorm
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
 
@@ -56,12 +57,13 @@ class FP32GroupNorm(nn.Module):
 
 class Conv2d(nn.Module):
     """A conv with fp32 params that computes in ``dtype``. ``init_std``:
-    normal init with this std instead of torch's default."""
+    normal init with this std instead of torch's default; ``bias=False``: no
+    bias parameter."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 init_std: float | None = None):
+                 init_std: float | None = None, bias: bool = True):
         super().__init__()
         self.stride = stride
         self.padding = padding
@@ -70,12 +72,12 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
         )
-        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
 
 
 def conv3x3(in_channels: int, out_channels: int, dtype: torch.dtype,
@@ -99,7 +101,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.uniform_(-bound, bound, generator=generator)
             else:
                 m.weight.normal_(0.0, m.init_std, generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, FP32GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -128,6 +131,48 @@ class ResnetBlock(nn.Module):
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-layer self-attention over the flattened spatial tokens
+    (reference ae.py:56-93; JAX ``blocks.py:167-231``): GroupNorm without
+    swish, a bias-free 1×1 qkv conv whose channels split into thirds (q, k,
+    v) and each third into heads of ``head_dim``, attention with scale
+    head_dim^-½, a bias-free 1×1 proj_out, residual add.
+
+    ``attn_chunk`` > 0 and a token count above it: the memory-efficient path
+    (kernel #3 on the card, the chunked plain version on the CPU), and the
+    chunk must divide the token count, as in the JAX package. Else dense
+    attention. ``attn_impl`` keeps the JAX values and has no other effect."""
+
+    head_dim = 64  # the reference's, for every width
+
+    def __init__(self, channels: int, dtype: torch.dtype, attn_chunk: int = 0,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        self.attn_chunk = attn_chunk
+        self.attn_impl = attn_impl
+        self.norm = FP32GroupNorm(channels)
+        self.qkv = Conv2d(channels, 3 * channels, 1, dtype=dtype, bias=False)
+        self.proj_out = Conv2d(channels, channels, 1, dtype=dtype, bias=False,
+                               init_std=0.2 / math.sqrt(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        n = h * w
+        qkv = self.qkv(self.norm(x))
+        # channels_last qkv is physically (B, N, 3C): q, k, v are views
+        q, k, v = qkv.permute(0, 2, 3, 1).reshape(
+            b, n, 3, c // self.head_dim, self.head_dim).unbind(2)
+        if self.attn_chunk and n > self.attn_chunk:
+            if n % self.attn_chunk:
+                raise ValueError(
+                    f"attn_chunk {self.attn_chunk} must divide the mid-block token "
+                    f"count {n} (= H·W after downsampling); pick a divisor of {n}")
+            out = memory_efficient_attention(q, k, v, self.attn_chunk, self.attn_impl)
+        else:
+            out = dense_attention(q, k, v)
+        return x + self.proj_out(nchw(out.reshape(b, h, w, c)))
 
 
 class Downsample(nn.Module):

@@ -1,0 +1,188 @@
+"""Exact non-causal attention, forward and backward: the binding of the
+hand-written CUDA kernels for Hopper and the ``torch.autograd.Function`` that
+joins them.
+
+Replaces ``vqgan_tpu/ops/flash_attention.py::flash_attention_tpu``, which
+wraps the Pallas TPU flash-attention kernel that ships with JAX (a forward
+and the dK/dV and dQ backward passes). The kernels are ``csrc/attention.cu``,
+built by ``nvcc`` for ``sm_90a`` at first use and bound with ctypes; the
+source says what bounds them on an H100 and what the design does about it.
+
+``FlashAttention`` saves q, k, v, the output and the fp32 (B, H, N)
+logsumexp: the JAX residuals (``vqgan_tpu/ops/chunked_attention.py``), all
+O(N·D). A CUDA tensor launches the kernels, or raises; a CPU tensor runs the
+chunked plain versions (``ops/attention.py``), with k/v chunks of ``chunk``
+tokens. There is no fallback between the two. The kernels take any N >= 1
+and choose their own tiles, so ``chunk`` does not reach them.
+
+Inputs are (B, N, H, D), fp32 or bf16, all of one dtype and device; on the
+card D is 32 or 64, the last stride 1 and the others multiples of 4
+elements, so q, k and v may be views of the qkv conv's channels-last output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from vqgan_tpu_torch.ops.attention import (
+    chunked_attention_backward,
+    chunked_attention_forward,
+)
+from vqgan_tpu_torch.ops.cuda_build import load_library
+
+# Kernel launches since the count was last set to 0: one per forward
+# (``fwd_launches``) or backward (``bwd_launches``) call that reached the
+# CUDA kernels; calls on CPU tensors do not count.
+fwd_launches = 0
+bwd_launches = 0
+
+HEAD_DIMS = (32, 64)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library (built on the first call)."""
+    lib = load_library("attention")
+    lib.attn_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.attn_forward.restype = ctypes.c_int
+    lib.attn_backward.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.attn_backward.restype = ctypes.c_int
+    lib.attn_error_string.argtypes = [ctypes.c_int]
+    lib.attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, *others: torch.Tensor) -> None:
+    if q.ndim != 4:
+        raise ValueError(f"attention takes (B, N, H, D) tensors, got shape {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"attention takes float32 or bfloat16, not {q.dtype}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention runs on cpu or cuda, not {q.device}")
+    for t in others:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{tuple(t.shape)} {t.dtype} on {t.device} does not match q: "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+
+
+def _kernel_strides(*tensors: torch.Tensor) -> ctypes.Array:
+    """The (batch, token, head) strides of each tensor, as the kernels take
+    them; raises where the kernels' 4-element vector loads would not hold."""
+    head_dim = tensors[0].shape[-1]
+    if head_dim not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the attention kernels take head_dim {' or '.join(map(str, HEAD_DIMS))}, "
+            f"not {head_dim}")
+    if tensors[0].shape[0] * tensors[0].shape[2] > 65535:
+        raise ValueError("the attention kernels take at most 65535 (batch, head) pairs")
+    out = []
+    for t in tensors:
+        align = 4 * t.element_size()
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % align:
+            raise ValueError(
+                f"the attention kernels need a unit last stride, other strides that are "
+                f"multiples of 4 and {align}-byte alignment; got strides {t.stride()}")
+        out.extend(t.stride()[:3])
+    return (ctypes.c_int64 * len(out))(*out)
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err:
+        raise RuntimeError(
+            f"attention {what} kernel launch failed: {lib.attn_error_string(err).decode()}")
+
+
+def attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward, outside autograd: ``(out, lse)``, out (B, N, H, D)
+    contiguous in q's dtype, lse the fp32 (B, H, N) logsumexp of the scaled
+    scores. A CUDA tensor launches kernel #3's forward (and counts it in
+    ``fwd_launches``); a CPU tensor runs the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return chunked_attention_forward(q, k, v, chunk)
+    return _launch_forward(q, k, v)
+
+
+def _launch_forward(q, k, v):
+    global fwd_launches
+    b, n, h, d = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    strides = _kernel_strides(q, k, v, out)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attn_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               lse.data_ptr(), ctypes.addressof(strides), b, h, n, d,
+                               _DTYPE_CODES[q.dtype], stream)
+    _raise_on(err, lib, "forward")
+    fwd_launches += 1
+    return out, lse
+
+
+def attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward, outside autograd: ``(dq, dk, dv)`` for the incoming
+    gradient g of out, given the forward's out and lse. A CUDA tensor
+    launches kernel #3's backward (delta, dK/dV, dQ; counted once in
+    ``bwd_launches``); a CPU tensor runs the plain version."""
+    _check(q, k, v, out, g)
+    b, n, h, _ = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {n}) tensor on {q.device}")
+    if q.device.type == "cpu":
+        return chunked_attention_backward(q, k, v, out, lse, g, chunk)
+    return _launch_backward(q, k, v, out, lse, g)
+
+
+def _launch_backward(q, k, v, out, lse, g):
+    global bwd_launches
+    b, n, h, d = q.shape
+    grads = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v)]
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    strides = _kernel_strides(q, k, v, out, g, *grads)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attn_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in grads),
+            ctypes.addressof(strides), b, h, n, d, _DTYPE_CODES[q.dtype], stream)
+    _raise_on(err, lib, "backward")
+    bwd_launches += 1
+    return tuple(grads)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Exact attention with the kernels (CUDA) or the chunked plain versions
+    (CPU), forward and backward; the counterpart of the custom VJP of
+    ``chunked_attention`` and of the Pallas kernel's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk):
+        out, lse = attention_forward(q, k, v, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, lse, g.contiguous(), ctx.chunk)
+        return dq, dk, dv, None

@@ -1,11 +1,14 @@
 """Where the device time of the serving path goes, from a torch.profiler trace.
 
     python -m vqgan_tpu_torch.tools.profile_serving [--batch 8] [--out DIR]
+        [--use_attn] [--attn_chunk 512]
 
-Builds the flagship pipeline (``VAEConfig()`` defaults, random weights from a
-seed) on the first CUDA device, runs one warm-up reconstruct, then profiles
-``--iters`` reconstructs. Prints the device time by kernel class (GroupNorm
-kernel, convolutions, other), the top kernels by device time, and the
+Builds the flagship pipeline (``VAEConfig()`` defaults, with the mid-block
+AttnBlocks under ``--use_attn``; random weights from a seed) on the first
+CUDA device, runs one warm-up reconstruct, then profiles ``--iters``
+reconstructs. Prints the device time by kernel class (GroupNorm
+kernel, attention kernel, convolutions, other), the top kernels by device
+time, the attention kernels' time per reconstruct, and the
 device's busy share of the profiled window (union of kernel intervals over the
 window's host-clock length). Then profiles the GroupNorm kernel alone at the
 flagship shapes and prints the time of each of its three launches. Writes the
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import time
 
 import numpy as np
@@ -27,14 +31,22 @@ from torch.profiler import ProfilerActivity, profile
 GN_PREFIX = "gn_"
 GN_BWD_PREFIX = "gn_bwd_"
 VQ_PREFIX = "vq_"
+ATTN_FWD_PREFIX = "attn_fwd"
+ATTN_BWD_PREFIX = "attn_bwd"
 CONV_MARKERS = ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
                 "nchwToNhwc", "nhwcToNchw")
 
 
 def kernel_class(name: str) -> str:
-    # the GroupNorm and VQ kernels live in an anonymous namespace:
-    # "(anonymous namespace)::gn_stats_kernel<float>(...)"
-    base = name.split("::")[-1]
+    # the GroupNorm, VQ and attention kernels live in an anonymous namespace:
+    # "void (anonymous namespace)::gn_stats_kernel<float>(...)"; the
+    # parameter list may name the namespace's types too
+    found = re.search(r"::(\w+)", name)
+    base = found.group(1) if found else name
+    if base.startswith(ATTN_FWD_PREFIX):
+        return "attention kernel, forward"
+    if base.startswith(ATTN_BWD_PREFIX):
+        return "attention kernels, backward (delta, dK/dV, dQ)"
     if base.startswith(VQ_PREFIX):
         return "VQ kernels (nearest-code search, code statistics)"
     if base.startswith(GN_BWD_PREFIX):
@@ -70,12 +82,23 @@ def busy_us(kernels) -> float:
     return busy + cur_e - cur_s
 
 
-def profile_reconstruct(batch: int, iters: int, out_dir: str | None) -> None:
+def print_attention_kernels(ranked: list, per: int, unit: str) -> None:
+    """The attention kernels of a profile ranked by device time, ms per
+    ``unit`` over ``per`` units."""
+    attn = [(name, v) for name, v in ranked if kernel_class(name).startswith("attention")]
+    if attn:
+        print("attention kernels:")
+        for name, (us, n) in attn:
+            print(f"  {us / per / 1e3:8.4f} ms/{unit}  {n // per:4d} calls/{unit}  {name[:110]}")
+
+
+def profile_reconstruct(batch: int, iters: int, out_dir: str | None, use_attn: bool = False,
+                        attn_chunk: int = 0) -> None:
     from vqgan_tpu_torch.config import VAEConfig
     from vqgan_tpu_torch.inference import VAEPipeline
     from vqgan_tpu_torch.models.ae import init_vae
 
-    cfg = VAEConfig()
+    cfg = VAEConfig(use_attn=use_attn, attn_chunk=attn_chunk)
     sd = init_vae(cfg, torch.Generator().manual_seed(0)).state_dict()
     pipe = VAEPipeline(cfg, sd, device="cuda")
     images = np.random.RandomState(0).randint(
@@ -104,9 +127,11 @@ def profile_reconstruct(batch: int, iters: int, out_dir: str | None) -> None:
           f"{busy / window_us:.4f} of the window (idle {1 - busy / window_us:.4f})")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {us / iters / 1e3:.3f} ms/iter ({us / total:.4f} of kernel time)")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     print("top kernels by device time:")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+    for name, (us, n) in ranked[:15]:
         print(f"  {us / iters / 1e3:8.3f} ms/iter  {n // iters:4d} calls/iter  {name[:110]}")
+    print_attention_kernels(ranked, iters, "iter")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "serving_trace.json"))
@@ -143,6 +168,8 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--iters", type=int, default=2)
     parser.add_argument("--out", default=None)
+    parser.add_argument("--use_attn", action="store_true")
+    parser.add_argument("--attn_chunk", type=int, default=512)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
@@ -150,7 +177,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; tf32: cudnn {torch.backends.cudnn.allow_tf32}, "
           f"matmul {torch.backends.cuda.matmul.allow_tf32}")
-    profile_reconstruct(args.batch, args.iters, args.out)
+    profile_reconstruct(args.batch, args.iters, args.out, args.use_attn, args.attn_chunk)
     for b in (2, args.batch):
         profile_groupnorm(b)
 
