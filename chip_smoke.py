@@ -56,7 +56,8 @@ Phases, each fatal on failure:
      the flagship mid block (B = 8, N = 1,024, H = 16, D = 64), forward and
      backward; the high-resolution mid block (B = 1, N = 16,384), forward;
      D = 32 (B = 1, N = 4,096, H = 8) and a ragged N = 400, forward and
-     backward. out, lse, dq, dk, dv within their stated bounds; kernel,
+     backward; the long clip's mid block (B = 1, N = 49,152, H = 8, D = 32),
+     forward. out, lse, dq, dk, dv within their stated bounds; kernel,
      plain and library (``F.scaled_dot_product_attention``, forward, and its
      backward through autograd) times and the bound;
  14. flagship serving with the mid-block attention (``VAEConfig(use_attn=
@@ -70,7 +71,35 @@ Phases, each fatal on failure:
      G in step 2, finite metrics, img/s, step ms and peak memory;
  17. attention, CPU against card at the reduced width of phases 7-8 (mid
      block 256 tokens, 4 heads of 64, ``attn_chunk=128``): serving, and one
-     training step within phase 8's bounds.
+     training step within phase 8's bounds;
+ 18. the fused-tap Conv3d kernel (#6) against its plain version at every
+     distinct conv shape of a 16-frame 128 px TVAE reconstruct at batch 2,
+     bf16, forward and dx (the same kernel on the flipped, transposed
+     weight); fp32 and the boundary cases (T = 1, Ci = Co = 3, ragged H/W,
+     Ci not a multiple of 16); dx and dk through the autograd Function at
+     two shapes. Every output within ``ops/conv3d.py::bound_share``'s bound
+     (``rounding_bound`` plus one bf16 ulp); kernel, plain, library
+     (``F.conv3d`` and cuDNN's dgrad in bf16, channels_last_3d) and bound
+     times; where the launch plan splits K, the same call at one split too;
+ 19. TVAE clip serving (``TVAEConfig()``: ch=64, ch_mult 1,2,4,4, 2 res
+     blocks, z=16, bf16; 16 frames x 128 px, batch 2), random weights from a
+     seed, from a reference-format .pt: latents (2, 2, 16, 16, 16) finite,
+     output in [0, 1], exactly 22 Conv3d and 22 GroupNorm launches per
+     encode and 33 and 30 per decode at the stated shapes; the GroupNorm
+     kernel (#1) held against its plain version at every (B, C, T, H, W)
+     the reconstruct ran (5-D channels_last_3d, bf16, no swish); frames/s
+     and peak memory; the same .pt with ``conv3d_impl="direct"`` (cuDNN)
+     timed as a yardstick; then the gradient of a reconstruct loss through the model
+     (the 3D training slice's path): 54 dx and 52 GroupNorm backward
+     launches, finite gradients;
+ 20. long-clip serving (48 frames x 256 px, batch 1, ch_mult 1,2,4,
+     ``attn_chunk=1024``; 49,152 mid-block tokens, 8 heads of 32): 1 + 1
+     attention launches, 18 + 26 Conv3d launches, finite output in range;
+     the GroupNorm kernel against its plain version at every shape of the
+     reconstruct, as in phase 19; frames/s and peak memory;
+ 21. TVAE serving, CPU against card, at ch=32, ch_mult 1,8, 1 res block,
+     4 frames x 32 px, ``attn_chunk=64`` (512 mid-block tokens of 256
+     channels: kernels #6, #1 and #3), fp32 with TF32 off and bf16.
 
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
@@ -160,6 +189,7 @@ ATTN_CASES = {
     "high-res": (1, 16384, 16, 64, HIRES_CHUNK, False),
     "head_dim 32": (1, 4096, 8, 32, 1024, True),
     "ragged N": (2, 400, 4, 64, 400, True),
+    "long clip": (1, 49152, 8, 32, 1024, False),  # the 48f/256px TVAE's mid block
 }
 # kernel vs plain on the same inputs: each output within ATTN_RTOL of its
 # Σ|terms| for fp32 summation orders, plus 2^-9 of it where the kernel rounds
@@ -169,6 +199,40 @@ ATTN_CASES = {
 # D-term sums in other orders, O(1e-6) of |S|
 ATTN_RTOL = 3e-5
 ATTN_LSE_ATOL = 1e-4
+# the TVAE clip configs: 16 frames x 128 px at batch 2 (TVAEConfig()), and the
+# long clip, 48 frames x 256 px at batch 1 with ch_mult 1,2,4
+CLIP_BATCH, CLIP_FRAMES, CLIP_RES = 2, 16, 128
+LONG_FRAMES, LONG_RES, LONG_CHUNK = 48, 256, 1024
+# (Ci, Co, T, H, W) -> kernel #6 calls per 16f/128px reconstruct, from the
+# model (phase 19 checks them against what the pipeline runs)
+ENCODER_CONV3D_SHAPES = {
+    (3, 64, 16, 128, 128): 1, (64, 64, 16, 128, 128): 4, (64, 128, 8, 64, 64): 1,
+    (128, 128, 8, 64, 64): 3, (128, 256, 4, 32, 32): 1, (256, 256, 4, 32, 32): 3,
+    (256, 256, 2, 16, 16): 8, (256, 32, 2, 16, 16): 1,
+}
+DECODER_CONV3D_SHAPES = {
+    (16, 256, 2, 16, 16): 1, (256, 256, 2, 16, 16): 10, (256, 256, 4, 32, 32): 7,
+    (256, 256, 8, 64, 64): 1, (256, 128, 8, 64, 64): 1, (128, 128, 8, 64, 64): 5,
+    (128, 128, 16, 128, 128): 1, (128, 64, 16, 128, 128): 1, (64, 64, 16, 128, 128): 5,
+    (64, 3, 16, 128, 128): 1,
+}
+# kernel #6 off the path's shapes: (B, Ci, Co, T, H, W) in fp32 (and bf16 for
+# the boundary cases): T = 1, Ci = Co = 3, ragged H/W with Co % 4 != 0, Ci
+# not a multiple of 16, the split-K mid level
+# the same for the 48f/256px long clip at batch 1 (ch_mult 1,2,4)
+LONG_CONV3D_SHAPES = {
+    (3, 64, 48, 256, 256): 1, (64, 64, 48, 256, 256): 9, (64, 128, 24, 128, 128): 1,
+    (128, 128, 24, 128, 128): 8, (128, 256, 12, 64, 64): 1, (256, 256, 12, 64, 64): 17,
+    (256, 32, 12, 64, 64): 1, (16, 256, 12, 64, 64): 1, (256, 256, 24, 128, 128): 1,
+    (256, 128, 24, 128, 128): 1, (128, 128, 48, 256, 256): 1, (128, 64, 48, 256, 256): 1,
+    (64, 3, 48, 256, 256): 1,
+}
+CONV3D_FP32_CASES = [(2, 64, 64, 4, 32, 32), (2, 3, 64, 4, 32, 32), (2, 256, 256, 2, 16, 16),
+                     (2, 64, 3, 4, 32, 32)]
+CONV3D_EDGE_CASES = [(1, 64, 64, 1, 16, 16), (1, 3, 3, 2, 8, 8), (1, 48, 40, 5, 37, 29),
+                     (1, 20, 12, 3, 9, 11)]
+# dk: a sum of B·T·H·W products per entry, in whatever order cuDNN takes;
+# (n − 1)·u of Σ|terms| bounds any order's error against the fp64 value
 
 
 def log(*args) -> None:
@@ -199,12 +263,13 @@ def _shapes() -> list:
     return sorted(set(ENCODER_GN_SHAPES) | set(DECODER_GN_SHAPES))
 
 
-def _gn_inputs(gen, batch: int, s: int, c: int, dtype):
-    """x (B, C, H, W) channels_last in ``dtype`` with mean 0.3 and std 1.5,
-    γ around 1, β around 0."""
-    side = int(round(s ** 0.5))
-    x = torch.randn((batch, side, side, c), generator=gen, device="cuda")
-    x = (x * 1.5 + 0.3).to(dtype).permute(0, 3, 1, 2)  # channels_last
+def _gn_inputs(gen, batch: int, s: int, c: int, dtype, spatial: tuple = ()):
+    """x (B, C, H, W) channels_last of H = W = √s, or (B, C, *spatial)
+    channels_last_3d, in ``dtype`` with mean 0.3 and std 1.5, γ around 1, β
+    around 0."""
+    spatial = spatial or (int(round(s ** 0.5)),) * 2
+    x = torch.randn((batch, *spatial, c), generator=gen, device="cuda")
+    x = (x * 1.5 + 0.3).to(dtype).movedim(-1, 1)  # channels_last(_3d)
     w = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
     b = 0.5 * torch.randn(c, generator=gen, device="cuda")
     return x, w, b
@@ -222,40 +287,48 @@ def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def gn_check(gn, group_norm_fp32, x, w, b, swish: bool, label: str) -> tuple:
+    """The forward kernel against its plain version on x: raises where they
+    disagree, else returns (max_abs_err, kernel_ms, plain_ms, library_ms,
+    bound_ms); the bound counts x read once and y written once."""
+    got = gn.fused_group_norm(x, w, b, 32, 1e-6, swish)
+    ref = group_norm_fp32(x, w, b, 32, 1e-6, swish)
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs()
+    err = float(diff.max())
+    if x.dtype == torch.float32:
+        ok = err <= ATOL_FP32
+        tol = f"atol {ATOL_FP32:g}"
+    else:
+        ok = bool((diff <= 1e-6 + RTOL_BF16 * ref.float().abs()).all())
+        tol = "1 bf16 ulp (rtol 2^-7)"
+    del got, ref, diff
+    k_ms = cuda_ms(lambda: gn.fused_group_norm(x, w, b, 32, 1e-6, swish))
+    p_ms = cuda_ms(lambda: group_norm_fp32(x, w, b, 32, 1e-6, swish))
+    l_ms = cuda_ms(lambda: _library_forward(x, w, b, swish))
+    b_ms = bound_ms(2 * x.numel() * x.element_size())
+    name = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    log(f"gn fwd {label} {name} swish={int(swish)}: "
+        f"max_abs_err={err:.3e} ({tol}) kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
+        f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with plain at {label} {name} swish={swish}")
+    return err, k_ms, p_ms, l_ms, b_ms
+
+
 def phase_kernel_vs_plain(gn, group_norm_fp32, batch: int) -> dict:
     """Forward. Returns {(S, C, dtype, swish): (max_abs_err, kernel_ms,
-    plain_ms, library_ms, bound_ms)}; the bound counts x read once and y
-    written once."""
+    plain_ms, library_ms, bound_ms)}."""
     gen = torch.Generator(device="cuda").manual_seed(batch)
     out = {}
     for s, c in _shapes():
         for dtype in (torch.float32, torch.bfloat16):
             x, w, b = _gn_inputs(gen, batch, s, c, dtype)
             for swish in (False, True):
-                got = gn.fused_group_norm(x, w, b, 32, 1e-6, swish)
-                ref = group_norm_fp32(x, w, b, 32, 1e-6, swish)
-                torch.cuda.synchronize()
-                diff = (got.float() - ref.float()).abs()
-                err = float(diff.max())
-                if dtype == torch.float32:
-                    ok = err <= ATOL_FP32
-                    tol = f"atol {ATOL_FP32:g}"
-                else:
-                    ok = bool((diff <= 1e-6 + RTOL_BF16 * ref.float().abs()).all())
-                    tol = "1 bf16 ulp (rtol 2^-7)"
-                k_ms = cuda_ms(lambda: gn.fused_group_norm(x, w, b, 32, 1e-6, swish))
-                p_ms = cuda_ms(lambda: group_norm_fp32(x, w, b, 32, 1e-6, swish))
-                l_ms = cuda_ms(lambda: _library_forward(x, w, b, swish))
-                b_ms = bound_ms(2 * x.numel() * x.element_size())
-                name = "bf16" if dtype == torch.bfloat16 else "fp32"
-                log(f"gn fwd B={batch} S={s} C={c} {name} swish={int(swish)}: "
-                    f"max_abs_err={err:.3e} ({tol}) kernel_ms={k_ms:.4f} "
-                    f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
-                    f"{'ok' if ok else 'MISS'}")
-                if not ok:
-                    raise AssertionError(f"kernel disagrees with plain at {(s, c, name, swish)}")
-                out[(s, c, dtype, swish)] = (err, k_ms, p_ms, l_ms, b_ms)
-            del x, got, ref, diff
+                out[(s, c, dtype, swish)] = gn_check(gn, group_norm_fp32, x, w, b, swish,
+                                                     f"B={batch} S={s} C={c}")
+            del x
     return out
 
 
@@ -1155,6 +1228,456 @@ def phase_attn_serving(gn, ac, tmp: str) -> tuple[dict, dict, dict]:
     return counts, flagship, hires
 
 
+def _conv3d_case(gen, b, ci, co, t, h, w, dtype):
+    """x (B, Ci, T, H, W) channels_last_3d and an OIDHW weight of unit-scale
+    outputs, in ``dtype``."""
+    x = torch.randn((b, t, h, w, ci), generator=gen, device="cuda").to(dtype)
+    wt = torch.randn((co, ci, 3, 3, 3), generator=gen, device="cuda") / (27 * ci) ** 0.5
+    return x.permute(0, 4, 1, 2, 3), wt.to(dtype)
+
+
+def conv3d_bound_ms(m: int, ci: int, co: int, dtype) -> float:
+    """The least time of one call over M voxels: the larger of its 2·27·Ci·Co
+    operations per voxel at the peak rate of the inputs' type and its bytes
+    (x and the weight read once, y written once) at 3.35 TB/s."""
+    flops = 2 * 27 * ci * co * m
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    es = torch.finfo(dtype).bits // 8
+    return max(flops / rate, (m * (ci + co) + 27 * ci * co) * es / HBM_BYTES_PER_S) * 1e3
+
+
+class _OneSplit:
+    """Within the block, kernel #6's launch plan keeps K whole (splits = 1):
+    the split-K plan's yardstick."""
+
+    def __init__(self, cc):
+        self.cc, self.plan = cc, cc.launch_plan
+
+    def __enter__(self):
+        def one(*args):
+            plan = self.plan(*args)
+            return dataclasses.replace(plan, splits=1, chunks_per_split=plan.n_chunks)
+
+        self.cc.launch_plan = one
+
+    def __exit__(self, *exc):
+        self.cc.launch_plan = self.plan
+
+
+def phase_conv3d_kernels(cc) -> tuple[dict, dict, dict]:
+    """Kernel #6 against its plain versions: forward and dx at the 16f/128px
+    clip's shapes and the edge cases, the forward alone at the long clip's.
+    Returns ({(B, Ci, Co, T, H, W, dtype): (max_abs_err, kernel_ms,
+    plain_ms, library_ms, bound_ms)} for the forward, the same for dx, and
+    {(Ci, Co, T, H, W): ([forward splits, dx splits], forward ms, forward
+    ms at one split, dx ms, dx ms at one split)} for the clip's shapes whose
+    forward or dx plan splits K)."""
+    from vqgan_tpu_torch.ops.conv3d import (
+        bound_share,
+        conv3d_input_grad_plain,
+        conv3d_plain,
+        flipped_weight,
+    )
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    path = sorted(set(ENCODER_CONV3D_SHAPES) | set(DECODER_CONV3D_SHAPES))
+    cases = [((CLIP_BATCH, *s), torch.bfloat16, True) for s in path]
+    cases += [(c, torch.float32, True) for c in CONV3D_FP32_CASES + CONV3D_EDGE_CASES]
+    cases += [(c, torch.bfloat16, True) for c in CONV3D_EDGE_CASES]
+    cases += [((1, *s), torch.bfloat16, False) for s in sorted(LONG_CONV3D_SHAPES)]
+    fwd, bwd, split = {}, {}, {}
+    for (b, ci, co, t, h, w), dtype, with_dx in cases:
+        x, wt = _conv3d_case(gen, b, ci, co, t, h, w, dtype)
+        wl = wt.contiguous(memory_format=torch.channels_last_3d)
+        y, ref = cc.conv3d_forward(x, wt), conv3d_plain(x, wt)
+        torch.cuda.synchronize()
+        used, errs = [bound_share(y, ref, x, wt)], [float((y.float() - ref.float()).abs().max())]
+        del y, ref
+        m = b * t * h * w
+        iters = 5 if m * ci * co > 2 ** 30 else 20
+        times = [cuda_ms(fn, iters=iters) for fn in (
+            lambda: cc.conv3d_forward(x, wt), lambda: conv3d_plain(x, wt),
+            lambda: F.conv3d(x, wl, padding=1))]
+        if with_dx:
+            dy = _conv3d_case(gen, b, co, ci, t, h, w, dtype)[0]
+            dx, ref_dx = cc.conv3d_input_grad(dy, wt), conv3d_input_grad_plain(dy, wt)
+            torch.cuda.synchronize()
+            used.append(bound_share(dx, ref_dx, dy, flipped_weight(wt)))
+            errs.append(float((dx.float() - ref_dx.float()).abs().max()))
+            del dx, ref_dx
+            times += [cuda_ms(fn, iters=iters) for fn in (
+                lambda: cc.conv3d_input_grad(dy, wt), lambda: conv3d_input_grad_plain(dy, wt),
+                lambda: torch.nn.grad.conv3d_input(x.shape, wl, dy, padding=1))]
+        fb, bb = conv3d_bound_ms(m, ci, co, dtype), conv3d_bound_ms(m, co, ci, dtype)
+        tname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        ok = max(used) <= 1.0
+        line = (f"conv3d B={b} Ci={ci} Co={co} T={t} H={h} W={w} {tname}: share of the bound "
+                f"used fwd={used[0]:.3f} (max_abs_err {errs[0]:.3e}) kernel_ms={times[0]:.4f} "
+                f"plain_ms={times[1]:.4f} library_ms={times[2]:.4f} bound_ms={fb:.4f} "
+                f"({2 * 27 * ci * co * m / times[0] / 1e9:.1f} TFLOP/s)")
+        if with_dx:
+            line += (f"; dx used={used[1]:.3f} (max_abs_err {errs[1]:.3e}) "
+                     f"kernel_ms={times[3]:.4f} plain_ms={times[4]:.4f} "
+                     f"library_ms={times[5]:.4f} bound_ms={bb:.4f}")
+        log(f"{line} {'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError(f"conv3d kernel disagrees with plain at {(b, ci, co, t, h, w)} "
+                                 f"{tname}: {used}")
+        key = (b, ci, co, t, h, w, dtype)
+        fwd[key] = (errs[0], *times[:3], fb)
+        if with_dx:
+            bwd[key] = (errs[1], *times[3:], bb)
+        splits = [cc.launch_plan(m, i, o, cc.num_sms(x.device.index)).splits
+                  for i, o in ((ci, co), (co, ci))]
+        if (with_dx and max(splits) > 1 and (ci, co, t, h, w) in path and b == CLIP_BATCH
+                and dtype == torch.bfloat16):
+            # the same calls with K kept whole, held against plain too
+            with _OneSplit(cc):
+                one = [bound_share(cc.conv3d_forward(x, wt), conv3d_plain(x, wt), x, wt),
+                       bound_share(cc.conv3d_input_grad(dy, wt), conv3d_input_grad_plain(dy, wt),
+                                   dy, flipped_weight(wt))]
+                one_ms = [cuda_ms(lambda: cc.conv3d_forward(x, wt)),
+                          cuda_ms(lambda: cc.conv3d_input_grad(dy, wt))]
+            log(f"conv3d split-K B={b} Ci={ci} Co={co} T={t} H={h} W={w} bf16: "
+                f"fwd {times[0]:.4f} ms at {splits[0]} splits, {one_ms[0]:.4f} ms at 1 "
+                f"(share of the bound used {one[0]:.3f}); dx {times[3]:.4f} ms at "
+                f"{splits[1]} splits, {one_ms[1]:.4f} ms at 1 (used {one[1]:.3f})")
+            if max(one) > 1.0:
+                raise AssertionError(f"conv3d kernel at one split disagrees with plain at "
+                                     f"{(b, ci, co, t, h, w)}: {one}")
+            split[(ci, co, t, h, w)] = (splits, times[0], one_ms[0], times[3], one_ms[1])
+        del x, wt, wl
+        if with_dx:
+            del dy
+        torch.cuda.empty_cache()
+
+    # dx and dk through the autograd Function, fp32: dx against the plain
+    # version, dk (cuDNN's weight gradient) against fp64 within (n − 1)·u of
+    # its Σ|terms|, the bound of any summation order of n terms
+    for b, ci, co, t, h, w in [(1, 64, 64, 4, 16, 16), (1, 256, 256, 2, 16, 16)]:
+        x, wt = _conv3d_case(gen, b, ci, co, t, h, w, torch.float32)
+        g = _conv3d_case(gen, b, co, ci, t, h, w, torch.float32)[0]
+        xg, wg = x.detach().requires_grad_(), wt.detach().requires_grad_()
+        cc.bwd_launches = 0
+        y = cc.conv3d_ttap(xg, wg)
+        if y.grad_fn is None:
+            raise AssertionError("conv3d_ttap's output on the card has no grad_fn")
+        y.backward(g)
+        dk_ref = torch.nn.grad.conv3d_weight(x.double(), wt.shape, g.double(), padding=1)
+        dk_terms = torch.nn.grad.conv3d_weight(x.abs().double(), wt.shape, g.abs().double(),
+                                               padding=1)
+        n = b * t * h * w
+        dk_used = float(((wg.grad.double() - dk_ref).abs()
+                         / ((n - 1) * 2.0 ** -24 * dk_terms + 1e-30)).max())
+        dx_used = bound_share(xg.grad, conv3d_input_grad_plain(g, wt), g, flipped_weight(wt))
+        ok = cc.bwd_launches == 1 and dk_used <= 1.0 and dx_used <= 1.0
+        log(f"conv3d autograd B={b} Ci={ci} Co={co} T={t} H={h} W={w} fp32: {cc.bwd_launches} "
+            f"dx launch, share of the bound used dx={dx_used:.3f} dk={dk_used:.3f} "
+            f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError("conv3d autograd on the card disagrees")
+        del x, wt, g, xg, wg, y
+    return fwd, bwd, split
+
+
+def clip_conv3d_calls(backward: bool = False) -> dict:
+    """(Ci, Co, T, H, W) -> kernel #6 calls of one 16f/128px reconstruct;
+    with ``backward`` the dx calls of its backward: every one but the
+    encoder's conv_in, whose input takes no gradient (the dx of a conv is
+    keyed by its forward's shape)."""
+    calls = dict(ENCODER_CONV3D_SHAPES)
+    for s, n in DECODER_CONV3D_SHAPES.items():
+        calls[s] = calls.get(s, 0) + n
+    if backward:
+        calls[(3, 64, CLIP_FRAMES, CLIP_RES, CLIP_RES)] -= 1
+    return calls
+
+
+def per_reconstruct(results: dict, batch: int, calls: dict) -> list:
+    """Sums of (kernel, plain, library, bound) ms over ``calls`` at
+    ``batch``, bf16."""
+    return [sum(n * results[(batch, *s, torch.bfloat16)][i] for s, n in calls.items())
+            for i in (1, 2, 3, 4)]
+
+
+def record_conv3d_shapes(model) -> tuple[dict, list]:
+    """Forward pre-hooks on the model's Conv3d modules that count, by (Ci,
+    Co, T, H, W), the calls that take kernel #6: the dict and the hooks."""
+    from vqgan_tpu_torch.models.tae import Conv3d
+
+    seen = {}
+
+    def record(module, args):
+        x = args[0]
+        if module.uses_kernel(x):
+            key = (x.shape[1], module.weight.shape[0], *x.shape[2:])
+            seen[key] = seen.get(key, 0) + 1
+
+    return seen, [m.register_forward_pre_hook(record) for m in model.modules()
+                  if isinstance(m, Conv3d)]
+
+
+def record_gn_shapes(model) -> tuple[dict, list]:
+    """Forward pre-hooks on the model's GroupNorms that count the calls by
+    (B, C, T, H, W, dtype, swish): the dict and the hooks."""
+    from vqgan_tpu_torch.models.blocks import FP32GroupNorm
+
+    seen = {}
+
+    def record(module, args):
+        key = (*args[0].shape, args[0].dtype, module.fused_swish)
+        seen[key] = seen.get(key, 0) + 1
+
+    return seen, [m.register_forward_pre_hook(record) for m in model.modules()
+                  if isinstance(m, FP32GroupNorm)]
+
+
+def gn_at_clip_shapes(gn, shapes: dict, label: str) -> float:
+    """Kernel #1 against its plain version at each (B, C, T, H, W, dtype,
+    swish) of ``shapes``, 5-D channels_last_3d, as a clip reconstruct ran
+    them; logs the sums of (kernel, plain, library, bound) ms over the
+    calls and returns the largest max_abs_err."""
+    from vqgan_tpu_torch.ops.normalization import group_norm_fp32
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    err, sums = 0.0, [0.0] * 4
+    for key in sorted(shapes, key=lambda k: (k[:5], str(k[5]), k[6])):
+        b, c, t, h, w, dtype, swish = key
+        x, wt, bs = _gn_inputs(gen, b, 0, c, dtype, (t, h, w))
+        res = gn_check(gn, group_norm_fp32, x, wt, bs, swish,
+                       f"{label} B={b} C={c} T={t} H={h} W={w} (S={t * h * w})")
+        err = max(err, res[0])
+        sums = [acc + shapes[key] * v for acc, v in zip(sums, res[1:])]
+        del x
+    torch.cuda.empty_cache()
+    log(f"GN forward per {label} reconstruct ({sum(shapes.values())} calls): kernel "
+        f"{sums[0]:.4f} ms, plain {sums[1]:.4f} ms, library {sums[2]:.4f} ms, bound "
+        f"{sums[3]:.4f} ms")
+    return err
+
+
+def _clip_model(cfg, tmp: str, name: str):
+    """Random TVAE weights from a seed, written as a reference-format .pt,
+    served through TVAEPipeline.from_checkpoint on the card."""
+    from vqgan_tpu_torch.inference import TVAEPipeline
+    from vqgan_tpu_torch.models.tae import init_tvae
+    from vqgan_tpu_torch.weights import save_weights
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, name)
+    model = init_tvae(cfg, torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    save_weights(model, path)
+    del model
+    pipe = TVAEPipeline.from_checkpoint(path, cfg, device="cuda")
+    log(f"{name}: {n_params} params, init+save+load {time.perf_counter() - t0:.1f} s")
+    return pipe, path
+
+
+def _serve_clips(pipe, clips, iters: int) -> dict:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        recon = pipe.reconstruct(clips)  # ends in a device-to-host copy
+    seconds = time.perf_counter() - t0
+    if not np.isfinite(recon).all() or recon.min() < 0.0 or recon.max() > 1.0:
+        raise AssertionError("clip output not finite or outside [0, 1]")
+    return {"frames_per_s": clips.shape[0] * clips.shape[1] * iters / seconds,
+            "reconstruct_s": seconds / iters, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
+    """TVAE clip serving at 16f/128px, batch 2 (phase 19). Returns the
+    launches of one counted reconstruct, the timings, and the launches and
+    time of one backward of a reconstruct loss."""
+    from vqgan_tpu_torch.config import TVAEConfig
+    from vqgan_tpu_torch.inference import TVAEPipeline
+
+    set_tf32(True)
+    cfg = TVAEConfig(resolution=CLIP_RES)
+    pipe, path = _clip_model(cfg, tmp, "tvae_16f128.pt")
+    seen, hooks = record_conv3d_shapes(pipe.model)
+    gn_seen, gn_hooks = record_gn_shapes(pipe.model)
+    clips = np.random.RandomState(0).randint(
+        0, 256, (CLIP_BATCH, CLIP_FRAMES, CLIP_RES, CLIP_RES, 3), np.uint8)
+    stages = {}
+    cc.launches = gn.launches = ac.fwd_launches = 0
+    z = pipe.encode(clips)
+    torch.cuda.synchronize()
+    stages["encode"] = (cc.launches, gn.launches, ac.fwd_launches)
+    enc_seen = dict(seen)
+    seen.clear()
+    cc.launches = gn.launches = ac.fwd_launches = 0
+    recon = pipe.decode(z)
+    stages["decode"] = (cc.launches, gn.launches, ac.fwd_launches)
+    for h in hooks + gn_hooks:
+        h.remove()
+    log(f"tvae 16f/128px: (Conv3d, GroupNorm, attention) launches {stages}")
+    if stages != {"encode": (22, 22, 0), "decode": (33, 30, 0)}:
+        raise AssertionError("expected 22 Conv3d and 22 GroupNorm launches per encode, 33 and "
+                             "30 per decode, dense attention")
+    if enc_seen != ENCODER_CONV3D_SHAPES or seen != DECODER_CONV3D_SHAPES:
+        raise AssertionError(f"Conv3d shapes {enc_seen} {seen} differ from the tables")
+    want = (CLIP_BATCH, CLIP_FRAMES // 8, CLIP_RES // 8, CLIP_RES // 8, cfg.z_channels)
+    if tuple(z.shape) != want or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"latents {tuple(z.shape)} not {want} or not finite")
+    if (recon.shape != (CLIP_BATCH, CLIP_FRAMES, CLIP_RES, CLIP_RES, 3)
+            or not np.isfinite(recon).all() or recon.min() < 0.0 or recon.max() > 1.0):
+        raise AssertionError("clip output out of shape, not finite or outside [0, 1]")
+    log(f"tvae 16f/128px: latents {tuple(z.shape)} |z|max={float(z.abs().max()):.4f} "
+        f"std={float(z.float().std()):.4f}; output mean={recon.mean():.4f} std={recon.std():.4f}")
+    gn_err = gn_at_clip_shapes(gn, gn_seen, "16f/128px")
+
+    # the main path, counted: one reconstruct of the batch
+    cc.launches = cc.bwd_launches = gn.launches = ac.fwd_launches = 0
+    pipe.reconstruct(clips)
+    counts = {"conv3d": cc.launches, "conv3d_dx": cc.bwd_launches, "gn": gn.launches,
+              "attn": ac.fwd_launches}
+    log(f"tvae 16f/128px reconstruct launches: {counts}")
+    if counts != {"conv3d": 55, "conv3d_dx": 0, "gn": 52, "attn": 0}:
+        raise AssertionError("expected 55 Conv3d and 52 GroupNorm launches per reconstruct")
+    timing = _serve_clips(pipe, clips, iters=3)
+    log(f"tvae 16f/128px serving batch {CLIP_BATCH}: {timing['frames_per_s']:.3f} frames/s, "
+        f"{timing['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
+        f"{timing['peak_bytes'] / 2**30:.3f} GiB")
+
+    # the gradient of a reconstruct loss: the next slice's training path
+    model = pipe.model
+    x = pipe._to_model_input(clips)
+    cc.launches = cc.bwd_launches = gn.bwd_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec = model.decode(model.deterministic_latent(model.encode(x)))
+    dec.float().square().mean().backward()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grads = [p.grad for p in model.parameters()]
+    backward = {"conv3d": cc.launches, "conv3d_dx": cc.bwd_launches, "gn_bwd": gn.bwd_launches}
+    finite = all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+    log(f"tvae 16f/128px reconstruct-loss forward+backward: {grad_s * 1e3:.1f} ms (host clock, "
+        f"first call), launches {backward}, every parameter gradient finite: {finite}")
+    if backward != {"conv3d": 55, "conv3d_dx": 54, "gn_bwd": 52} or not finite:
+        raise AssertionError("expected 55 forward, 54 dx and 52 GroupNorm backward launches "
+                             "and finite gradients")
+    del model, x, dec, grads
+    pipe.model.zero_grad(set_to_none=True)
+
+    # the yardstick: the same weights through cuDNN's Conv3d
+    direct = TVAEPipeline.from_checkpoint(path, dataclasses.replace(cfg, conv3d_impl="direct"),
+                                          device="cuda")
+    del pipe
+    torch.cuda.empty_cache()
+    direct.reconstruct(clips)
+    cc.launches = 0
+    yard = _serve_clips(direct, clips, iters=3)
+    log(f"tvae 16f/128px serving with conv3d_impl=direct (cuDNN, a yardstick): "
+        f"{yard['frames_per_s']:.3f} frames/s, {yard['reconstruct_s'] * 1e3:.1f} ms per "
+        f"reconstruct, peak memory {yard['peak_bytes'] / 2**30:.3f} GiB, {cc.launches} "
+        f"kernel #6 launches")
+    timing["direct_frames_per_s"] = yard["frames_per_s"]
+    timing["gn_err"] = gn_err
+    del direct
+    torch.cuda.empty_cache()
+    return counts, timing, {**backward, "seconds": grad_s}
+
+
+def phase_long_clip(gn, cc, ac, tmp: str) -> dict:
+    """Long-clip serving at 48f/256px, batch 1, attn_chunk 1024 (phase 20)."""
+    from vqgan_tpu_torch.config import TVAEConfig
+
+    set_tf32(True)
+    cfg = TVAEConfig(resolution=LONG_RES, ch_mult=(1, 2, 4), attn_chunk=LONG_CHUNK)
+    pipe, _ = _clip_model(cfg, tmp, "tvae_48f256.pt")
+    clip = np.random.RandomState(1).randint(0, 256, (1, LONG_FRAMES, LONG_RES, LONG_RES, 3),
+                                            np.uint8)
+    seen, hooks = record_conv3d_shapes(pipe.model)
+    gn_seen, gn_hooks = record_gn_shapes(pipe.model)
+    stages = {}
+    cc.launches = gn.launches = ac.fwd_launches = 0
+    z = pipe.encode(clip)
+    torch.cuda.synchronize()
+    stages["encode"] = (cc.launches, gn.launches, ac.fwd_launches)
+    cc.launches = gn.launches = ac.fwd_launches = 0
+    recon = pipe.decode(z)
+    stages["decode"] = (cc.launches, gn.launches, ac.fwd_launches)
+    for h in hooks + gn_hooks:
+        h.remove()
+    if seen != LONG_CONV3D_SHAPES:
+        raise AssertionError(f"long-clip Conv3d shapes {seen} differ from the table")
+    tokens = (LONG_FRAMES // 4) * (LONG_RES // 4) ** 2
+    log(f"tvae long clip 48f/256px ({tokens} mid-block tokens, attn_chunk {LONG_CHUNK}): "
+        f"(Conv3d, GroupNorm, attention) launches {stages}")
+    if stages != {"encode": (18, 18, 1), "decode": (26, 24, 1)}:
+        raise AssertionError("expected 18 + 26 Conv3d, 18 + 24 GroupNorm, 1 + 1 attention "
+                             "launches")
+    want = (1, LONG_FRAMES // 4, LONG_RES // 4, LONG_RES // 4, cfg.z_channels)
+    if (tuple(z.shape) != want or not bool(torch.isfinite(z).all())
+            or recon.shape != (1, LONG_FRAMES, LONG_RES, LONG_RES, 3)
+            or not np.isfinite(recon).all() or recon.min() < 0.0 or recon.max() > 1.0):
+        raise AssertionError("long-clip latents or output out of shape or range")
+    gn_err = gn_at_clip_shapes(gn, gn_seen, "48f/256px")
+    timing = _serve_clips(pipe, clip, iters=2)
+    log(f"tvae long clip serving batch 1: {timing['frames_per_s']:.3f} frames/s, "
+        f"{timing['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
+        f"{timing['peak_bytes'] / 2**30:.3f} GiB")
+    timing["gn_err"] = gn_err
+    del pipe
+    torch.cuda.empty_cache()
+    return timing
+
+
+def phase_tvae_cross_device(cc, ac) -> None:
+    """TVAE serving on the CPU and on the card (phase 21): ch=32, ch_mult
+    1,8, 1 res block, 4 frames x 32 px, attn_chunk 64 (512 mid-block tokens
+    of 256 channels, 8 heads of 32). The CPU runs the direct Conv3d, the card
+    kernels #6, #1 and #3. fp32, TF32 off: ATOL_PATH_FP32. bf16: each conv
+    output is rounded to bf16 on either device after sums in other orders,
+    with the bias added before (CPU) or after (card) that rounding; on the
+    CPU the kernel's plain version is 0.016 max and 0.0028 mean from the
+    direct conv in latents and 0.020 and 0.0024 in decoded values at this
+    config, so the decoded bounds of phases 7 and 17 (0.1 max, 0.01 mean)
+    hold latents and images alike."""
+    from vqgan_tpu_torch.config import TVAEConfig
+    from vqgan_tpu_torch.inference import TVAEPipeline
+    from vqgan_tpu_torch.models.tae import init_tvae
+
+    set_tf32(False)
+    clips = np.random.RandomState(7).randint(0, 256, (2, 4, 32, 32, 3), np.uint8)
+    for dtype in ("float32", "bfloat16"):
+        cfg = TVAEConfig(resolution=32, ch=32, ch_mult=(1, 8), num_res_blocks=1,
+                         compute_dtype=dtype, attn_chunk=64)
+        gen = torch.Generator().manual_seed(21)
+        model = init_tvae(cfg, gen)
+        with torch.no_grad():  # non-trivial GroupNorm affines
+            for name, p in model.named_parameters():
+                if p.ndim == 1 and ".norm" in name:
+                    p.normal_(1.0 if name.endswith(".weight") else 0.0, 0.2, generator=gen)
+        sd = model.state_dict()
+        cpu = TVAEPipeline(cfg, sd, device="cpu")
+        gpu = TVAEPipeline(cfg, sd, device="cuda")
+        cc.launches = ac.fwd_launches = 0
+        z_cpu, z_gpu = cpu.encode(clips), gpu.encode(clips).cpu()
+        r_cpu, r_gpu = cpu.decode(z_cpu), gpu.decode(z_cpu)
+        if (cc.launches, ac.fwd_launches) != (25, 2):
+            raise AssertionError(f"{cc.launches} Conv3d and {ac.fwd_launches} attention "
+                                 f"launches on the card, expected 25 and 2")
+        z_err = (z_cpu.float() - z_gpu.float()).abs()
+        r_err = np.abs(r_cpu - r_gpu)
+        log(f"tvae cross-device ch=32 (1,8) 4f/32px {dtype}: latents max_abs_err="
+            f"{float(z_err.max()):.3e} mean={float(z_err.mean()):.3e} (|z|max "
+            f"{float(z_cpu.abs().max()):.3f}); decoded max_abs_err={r_err.max():.3e} "
+            f"mean={r_err.mean():.3e}")
+        if dtype == "float32":
+            ok = float(z_err.max()) <= ATOL_PATH_FP32 and r_err.max() <= ATOL_PATH_FP32
+        else:
+            ok = all(e.max() <= MAX_TOL_PATH_BF16 and e.mean() <= MEAN_TOL_PATH_BF16
+                     for e in (z_err.numpy(), r_err))
+        if not ok:
+            raise AssertionError(f"TVAE serving differs across devices ({dtype})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
@@ -1162,6 +1685,7 @@ def main() -> int:
         return 1
 
     from vqgan_tpu_torch.ops import attention_cuda as ac
+    from vqgan_tpu_torch.ops import conv3d_cuda as cc
     from vqgan_tpu_torch.ops import cuda_build
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
     from vqgan_tpu_torch.ops import vq_cuda as vq
@@ -1179,11 +1703,12 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    modules = (gn, vq, ac)
+    modules = (gn, vq, ac, cc)
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         for lib in [pool.submit(m.library) for m in modules]:
             lib.result()
-    names = ", ".join(cuda_build.library_path(n).name for n in ("groupnorm", "vq", "attention"))
+    names = ", ".join(cuda_build.library_path(n).name
+                      for n in ("groupnorm", "vq", "attention", "conv3d"))
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s ({names})")
 
     # 3. forward kernel vs plain; 4. backward kernel vs plain
@@ -1227,6 +1752,17 @@ def main() -> int:
     phase_cross_device(attn=True)
     phase_train_cross_device(attn=True)
 
+    # 18. the Conv3d kernel vs plain
+    conv_fwd, conv_dx, conv_split = phase_conv3d_kernels(cc)
+
+    # 19. TVAE clip serving at 16f/128px; 20. the long clip at 48f/256px
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_counts, clip_serve, clip_grad = phase_clip_serving(gn, cc, ac, tmp)
+        long_clip = phase_long_clip(gn, cc, ac, tmp)
+
+    # 21. TVAE serving, CPU vs card
+    phase_tvae_cross_device(cc, ac)
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -1260,6 +1796,28 @@ def main() -> int:
         log(f"attention {kind} per flagship training step at batch {TRAIN_BATCH} (2 bf16 "
             f"calls): kernel {k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, "
             f"bound {bnd:.4f} ms")
+    conv_step = per_reconstruct(conv_fwd, CLIP_BATCH, clip_conv3d_calls())
+    dx_step = per_reconstruct(conv_dx, CLIP_BATCH, clip_conv3d_calls(backward=True))
+    for name, (k, p, lib, bnd) in (("forward", conv_step), ("dx", dx_step)):
+        log(f"Conv3d {name} per 16f/128px reconstruct{' backward' if name == 'dx' else ''} at "
+            f"batch {CLIP_BATCH} (bf16, {55 if name == 'forward' else 54} calls): kernel "
+            f"{k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
+    calls = clip_conv3d_calls()
+    for i, name in ((1, "forward"), (3, "dx")):
+        n = sum(calls[s] for s in conv_split)
+        log(f"Conv3d {name} split-K per 16f/128px reconstruct at batch {CLIP_BATCH} (bf16, the "
+            f"{n} calls of the {len(conv_split)} shapes whose forward or dx splits K): "
+            f"{sum(calls[s] * v[i] for s, v in conv_split.items()):.4f} ms split, "
+            f"{sum(calls[s] * v[i + 1] for s, v in conv_split.items()):.4f} ms at one split")
+    k, p, lib, bnd = per_reconstruct(conv_fwd, 1, LONG_CONV3D_SHAPES)
+    log(f"Conv3d forward per 48f/256px reconstruct at batch 1 (bf16, 44 calls): kernel "
+        f"{k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
+    log(f"TVAE 16f/128px serving batch {CLIP_BATCH}: {clip_serve['frames_per_s']:.3f} frames/s "
+        f"({clip_serve['direct_frames_per_s']:.3f} with cuDNN's Conv3d), "
+        f"{clip_counts} launches per reconstruct, peak "
+        f"{clip_serve['peak_bytes'] / 2**30:.3f} GiB; 48f/256px batch 1: "
+        f"{long_clip['frames_per_s']:.3f} frames/s, peak "
+        f"{long_clip['peak_bytes'] / 2**30:.3f} GiB")
     log(f"kernels line: GroupNorm launches per identity training step and ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
@@ -1267,7 +1825,10 @@ def main() -> int:
         f"its largest fp64 distance gap over plain's code; attention launches per flagship "
         f"attention training step and ms per step, its 2 bf16 calls at B=8, N=1024, H=16, "
         f"D=64 (library: scaled_dot_product_attention, forward, and its backward through "
-        f"autograd), max_abs_err over every case of phase 13")
+        f"autograd), max_abs_err over every case of phase 13; Conv3d launches per 16f/128px "
+        f"TVAE reconstruct (forward) and per backward of its reconstruct loss (dx), ms summed "
+        f"over those 55 and 54 bf16 calls at batch 2 (library: F.conv3d and cuDNN's dgrad, "
+        f"bf16, channels_last_3d), max_abs_err over every case of phase 18")
     log(smi)
 
     def entry(name, source, replaces, launches, err, times, bound_by):
@@ -1279,7 +1840,8 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
-              train_counts["gn"], max(v[0] for res in fwd.values() for v in res.values()),
+              train_counts["gn"], max([v[0] for res in fwd.values() for v in res.values()]
+                                      + [clip_serve["gn_err"], long_clip["gn_err"]]),
               fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
               train_counts["gn_bwd"], max(v[0] for v in bwd.values()), bwd_step, "bytes"),
@@ -1295,6 +1857,12 @@ def main() -> int:
         entry("flash_attention_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
               attn_counts["attn_bwd"], max(v[0] for key, v in attn.items() if key[2] == "bwd"),
               attn_step["bwd"], "operations"),
+        entry("conv3d_ttap", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:243",
+              clip_counts["conv3d"], max(v[0] for v in conv_fwd.values()), conv_step,
+              "operations"),
+        entry("conv3d_ttap_dx", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:316",
+              clip_grad["conv3d_dx"], max(v[0] for v in conv_dx.values()), dx_step,
+              "operations"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, and the paths through
-them, on the card: GroupNorm forward and backward (with autograd), the VQ
-nearest-code search and code statistics (with the VQ pipeline and train
-step), and attention forward and backward (with autograd, the pipeline and
-the train step).
+them, on the card: GroupNorm forward and backward (with autograd; 4-D and
+5-D input), the VQ nearest-code search and code statistics (with the VQ
+pipeline and train step), attention forward and backward (with autograd, the
+pipeline and the train step), and the fused-tap Conv3d forward and dx (with
+autograd and the TVAE clip pipeline).
 
 Marked ``cuda``; each test skips where torch sees no CUDA device. This file
 imports no JAX, so the card's machine runs it without the JAX package's
@@ -15,15 +16,22 @@ import numpy as np
 import pytest
 import torch
 
-from vqgan_tpu_torch.config import VAEConfig
-from vqgan_tpu_torch.inference import VAEPipeline
+from vqgan_tpu_torch.config import TVAEConfig, VAEConfig
+from vqgan_tpu_torch.inference import TVAEPipeline, VAEPipeline
+from vqgan_tpu_torch.models import tae
 from vqgan_tpu_torch.models.ae import init_vae
 from vqgan_tpu_torch.models.blocks import AttnBlock, Conv2d, FP32GroupNorm, init_weights_
-from vqgan_tpu_torch.ops import attention_cuda, groupnorm_cuda, vq_cuda
+from vqgan_tpu_torch.ops import attention_cuda, conv3d_cuda, groupnorm_cuda, vq_cuda
 from vqgan_tpu_torch.ops.attention import (
     chunked_attention_backward,
     chunked_attention_forward,
     rounding_bounds,
+)
+from vqgan_tpu_torch.ops.conv3d import (
+    bound_share,
+    conv3d_input_grad_plain,
+    conv3d_plain,
+    flipped_weight,
 )
 from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
 from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
@@ -118,8 +126,9 @@ def _sum_bounds(x, g, stats):
     ga = 1.1 * g.float().abs()
     mean_max = stats[:, 0].abs().max()
     rstd_max = stats[:, 1].max()
-    t_beta = ga.sum(dim=(0, 2, 3))
-    t_gamma = rstd_max * (ga * (x.float().abs() + mean_max)).sum(dim=(0, 2, 3))
+    dims = (0, *range(2, x.ndim))  # all but the channels
+    t_beta = ga.sum(dim=dims)
+    t_gamma = rstd_max * (ga * (x.float().abs() + mean_max)).sum(dim=dims)
     return t_gamma, t_beta
 
 
@@ -563,3 +572,144 @@ def test_tiny_attn_train_step_goes_through_the_attention_kernel(device):
     for k, v in losses["cpu"].items():
         if k != "gan/discriminator_accuracy":  # counts logits > 0
             np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16, 12), (1, 256, 2, 8, 8)],
+                         ids=["64ch", "256ch"])
+def test_groupnorm_5d_forward_and_backward(device, shape, dtype):
+    """(B, C, T, H, W) channels_last_3d, physically (B, T·H·W, C): the same
+    kernels as 4-D input, against the plain versions (the 4-D tests'
+    bounds)."""
+    b, c, t, h, w = shape
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(b, t, h, w, c).astype(np.float32) * 1.5 + 0.3)
+    x = x.to(device, dtype).permute(0, 4, 1, 2, 3)
+    g = torch.from_numpy(rng.randn(b, t, h, w, c).astype(np.float32)).to(device, dtype)
+    g = g.permute(0, 4, 1, 2, 3)
+    scale = torch.from_numpy((1 + 0.5 * rng.randn(c)).astype(np.float32)).to(device)
+    bias = torch.from_numpy((0.5 * rng.randn(c)).astype(np.float32)).to(device)
+    groupnorm_cuda.launches = groupnorm_cuda.bwd_launches = 0
+    y, stats = groupnorm_cuda.group_norm_forward(x, scale, bias, 32, 1e-6, True)
+    dx, dw, db = groupnorm_cuda.group_norm_backward(x, g, stats, scale, bias, 32, True)
+    torch.cuda.synchronize()
+    assert (groupnorm_cuda.launches, groupnorm_cuda.bwd_launches) == (1, 1)
+    assert y.is_contiguous(memory_format=torch.channels_last_3d)
+    assert dx.is_contiguous(memory_format=torch.channels_last_3d)
+    ref = group_norm_fp32(x, scale, bias, 32, 1e-6, True)
+    rdx, rdw, rdb = group_norm_fp32_backward(x, g, stats[:, 0], stats[:, 1], scale, bias, 32,
+                                             True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=ATOL_FP32, rtol=0)
+        torch.testing.assert_close(dx, rdx, atol=ATOL_DX, rtol=0)
+    else:
+        torch.testing.assert_close(y.float(), ref.float(), atol=1e-6, rtol=RTOL_BF16)
+        torch.testing.assert_close(dx.float(), rdx.float(), atol=ATOL_DX, rtol=RTOL_BF16)
+    t_gamma, t_beta = _sum_bounds(x, g, stats)
+    assert bool(((dw - rdw).abs() <= SUM_RTOL * t_gamma + 1e-6).all())
+    assert bool(((db - rdb).abs() <= SUM_RTOL * t_beta + 1e-6).all())
+
+
+# (B, Ci, Co, T, H, W): the 16f/128px path's channel pairs at reduced frames
+# and sides, Ci = 3 (conv_in), Ci = 16 (decoder conv_in), Co = 3 and 32
+# (conv_out), the split-K mid level, T = 1, and ragged H/W with Co % 4 != 0
+CONV3D_SHAPES = [
+    (2, 3, 64, 4, 16, 16), (2, 64, 64, 4, 16, 16), (1, 64, 128, 2, 8, 8),
+    (1, 128, 128, 2, 8, 8), (1, 128, 256, 2, 8, 8), (1, 256, 256, 2, 16, 16),
+    (1, 16, 256, 2, 16, 16), (1, 256, 32, 2, 16, 16), (2, 64, 3, 4, 16, 16),
+    (1, 32, 48, 1, 7, 9), (1, 16, 20, 3, 5, 13),
+]
+
+
+def _conv3d_inputs(shape, dtype, device, seed=0):
+    b, ci, co, t, h, w = shape
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, t, h, w, ci).astype(np.float32)).to(device, dtype)
+    wt = torch.from_numpy((rng.randn(co, ci, 3, 3, 3) / np.sqrt(27 * ci)).astype(np.float32))
+    return x.permute(0, 4, 1, 2, 3), wt.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", CONV3D_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_kernel_matches_plain(device, shape, dtype):
+    """Forward and dx (the same kernel on the flipped, transposed weight)
+    against the plain versions, one launch each."""
+    x, w = _conv3d_inputs(shape, dtype, device)
+    dy = _conv3d_inputs(shape[:1] + shape[2:3] + shape[1:2] + shape[3:], dtype, device, 1)[0]
+    conv3d_cuda.launches = conv3d_cuda.bwd_launches = 0
+    y = conv3d_cuda.conv3d_forward(x, w)
+    dx = conv3d_cuda.conv3d_input_grad(dy, w)
+    torch.cuda.synchronize()
+    assert (conv3d_cuda.launches, conv3d_cuda.bwd_launches) == (1, 1)
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last_3d)
+    assert dx.shape == x.shape and dx.is_contiguous(memory_format=torch.channels_last_3d)
+    assert bound_share(y, conv3d_plain(x, w), x, w) <= 1.0
+    assert bound_share(dx, conv3d_input_grad_plain(dy, w), dy, flipped_weight(w)) <= 1.0
+
+
+def test_conv3d_kernel_is_deterministic(device):
+    x, w = _conv3d_inputs((1, 256, 256, 2, 16, 16), torch.bfloat16, device)
+    assert conv3d_cuda.launch_plan(512, 256, 256, 132).splits > 1
+    assert torch.equal(conv3d_cuda.conv3d_forward(x, w), conv3d_cuda.conv3d_forward(x, w))
+
+
+def test_conv3d_wrapper_raises_on_what_the_kernel_does_not_take(device):
+    x, w = _conv3d_inputs((1, 16, 16, 2, 4, 4), torch.float32, device)
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        conv3d_cuda.conv3d_forward(x.contiguous(), w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv3d_cuda.conv3d_forward(x.half(), w.half())
+    with pytest.raises(ValueError, match="does not match"):
+        conv3d_cuda.conv3d_forward(x, w.cpu())
+    flat = torch.zeros(1 + x.numel(), device=device)[1:]  # 4-byte aligned, not 16
+    misaligned = flat.view(1, 2, 4, 4, 16).permute(0, 4, 1, 2, 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv3d_cuda.conv3d_forward(misaligned, w)
+
+
+def test_conv3d_autograd_on_the_card(device):
+    """Through ``Conv3dTTap`` on the card the output has a grad_fn; dx (one
+    kernel launch) and dk (the weight gradient) match the CPU's plain
+    gradients; fp32, TF32 off."""
+    grads = {}
+    for dev in ("cpu", device):
+        x, w = _conv3d_inputs((1, 64, 32, 3, 8, 10), torch.float32, dev, seed=3)
+        x = x.detach().requires_grad_()
+        w = w.detach().requires_grad_()
+        conv3d_cuda.launches = conv3d_cuda.bwd_launches = 0
+        y = conv3d_cuda.conv3d_ttap(x, w)
+        assert y.grad_fn is not None
+        g = _conv3d_inputs((1, 32, 64, 3, 8, 10), torch.float32, dev, seed=4)[0]
+        y.backward(g)
+        counts = (conv3d_cuda.launches, conv3d_cuda.bwd_launches)
+        assert counts == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [x.grad.cpu(), w.grad.cpu()]
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        assert bool(got.abs().max() > 0)
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _tiny_tvae_cfg(**kw):
+    # mid block 2x8x8 = 128 tokens of 256 channels: 8 heads of 32, a head
+    # dim kernel #3 takes; a chunk of 64 takes its memory-efficient path
+    return TVAEConfig(resolution=16, ch=32, ch_mult=(1, 8), num_res_blocks=1, z_channels=8,
+                      compute_dtype="float32", attn_chunk=64, **kw)
+
+
+def test_tvae_pipeline_goes_through_the_kernels(device):
+    """"auto" on the card: every stride-1 3x3x3 conv launches kernel #6 once
+    (10 per encode, 15 per decode at this depth), every GroupNorm kernel #1,
+    each mid block's attention kernel #3; and the CPU's reconstruction."""
+    cfg = _tiny_tvae_cfg()
+    sd = tae.init_tvae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    gpu, cpu = TVAEPipeline(cfg, sd, device=device), TVAEPipeline(cfg, sd, device="cpu")
+    clips = (np.random.RandomState(0).rand(2, 4, 16, 16, 3) * 255).astype(np.uint8)
+    n_gn = sum(isinstance(m, FP32GroupNorm) for m in gpu.model.modules())
+    conv3d_cuda.launches = attention_cuda.fwd_launches = groupnorm_cuda.launches = 0
+    z = gpu.encode(clips)
+    enc = (conv3d_cuda.launches, attention_cuda.fwd_launches)
+    rec = gpu.decode(z)
+    assert enc == (10, 1)
+    assert (conv3d_cuda.launches, attention_cuda.fwd_launches) == (25, 2)
+    assert groupnorm_cuda.launches == n_gn
+    np.testing.assert_allclose(rec, cpu.reconstruct(clips), atol=1e-4)

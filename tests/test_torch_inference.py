@@ -177,6 +177,8 @@ def test_importing_the_port_loads_no_jax():
         "import vqgan_tpu_torch.tools.profile_step, vqgan_tpu_torch.ops.gradnorm\n"
         "import vqgan_tpu_torch.models.quant, vqgan_tpu_torch.ops.vq\n"
         "import vqgan_tpu_torch.ops.vq_cuda, vqgan_tpu_torch.ops.attention_cuda\n"
+        "import vqgan_tpu_torch.models.tae, vqgan_tpu_torch.ops.conv3d_cuda\n"
+        "import vqgan_tpu_torch.tools.profile_serving\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vqgan_tpu')]\n"
         "assert not bad, bad\n"
@@ -212,7 +214,7 @@ def test_cli_reconstructs_images(tmp_path):
     _main(flags + ["--images", img_path])
     out = np.asarray(Image.open(tmp_path / "out" / "a_recon.png"))
     assert out.shape == (32, 32, 3) and out.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="TVAE"):
-        _main(flags + ["--clips", "a.npy"])
+    with pytest.raises(SystemExit):  # both --images and --clips
+        _main(flags + ["--images", img_path, "--clips", "a.npy"])
     with pytest.raises(SystemExit):
         _main(flags)

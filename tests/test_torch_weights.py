@@ -11,18 +11,23 @@ import numpy as np
 import pytest
 import torch
 
+from vqgan_tpu.config import TVAEConfig as JaxTVAEConfig
 from vqgan_tpu.config import VAEConfig as JaxVAEConfig
 from vqgan_tpu.models.ae import init_vae_params
+from vqgan_tpu.models.tae import TVAE as JaxTVAE
 from vqgan_tpu.train.checkpoint import save_weights_torch
-from vqgan_tpu.train.torch_import import params_to_torch_state_dict
-from vqgan_tpu_torch.config import VAEConfig
+from vqgan_tpu.train.torch_import import params_to_torch_state_dict, save_torch_checkpoint
+from vqgan_tpu_torch.config import TVAEConfig, VAEConfig
 from vqgan_tpu_torch.models.ae import VAE, init_vae
+from vqgan_tpu_torch.models.tae import TVAE
 from vqgan_tpu_torch.models.blocks import Conv2d, FP32GroupNorm
 from vqgan_tpu_torch.weights import (
     jax_params_to_state_dict,
     load_weights,
     save_weights,
 )
+
+from torch_parity import randomize_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(resolution=32, ch=32, ch_mult=(1, 2), num_res_blocks=1,
@@ -50,6 +55,35 @@ def test_state_dict_matches_jax_exporter_and_loads_strictly(reg_type):
     assert "encoder.mid.block_1.norm1.weight" in ours
     assert "decoder.up.1.upsample.conv.bias" in ours
     assert "decoder.up.0.block.0.nin_shortcut.weight" in ours
+
+
+@pytest.mark.parametrize("reg_type", ["gaussian", "vq"])
+def test_conv3d_kernels_transpose_to_oidhw(reg_type, tmp_path):
+    """A JAX TVAE tree: every 5-D kernel DHWIO → OIDHW, as the JAX exporter
+    writes it, and the state dict loads into the port's TVAE strictly; the
+    ``.pt`` the JAX package writes reads back the same."""
+    kw = dict(resolution=16, ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=8,
+              reg_type=reg_type, vq_codebook_size=64)
+    model = JaxTVAE(cfg=JaxTVAEConfig(**kw))
+    x = jax.numpy.zeros((1, 4, 16, 16, 3))
+    # the init's shapes (tracing only), filled with numpy
+    shapes = jax.eval_shape(model.init, {"params": jax.random.PRNGKey(0),
+                                         "sample": jax.random.PRNGKey(1)}, x)
+    params = randomize_params(shapes["params"], 0)
+    ours = jax_params_to_state_dict(params)
+    theirs = params_to_torch_state_dict(params)
+    assert set(ours) == set(theirs)
+    for k, v in theirs.items():
+        np.testing.assert_array_equal(ours[k].numpy(), v)
+    kernel = params["decoder"]["up_1"]["upsample"]["conv"]["kernel"]  # DHWIO
+    np.testing.assert_array_equal(ours["decoder.up.1.upsample.conv.weight"].numpy(),
+                                  np.transpose(kernel, (4, 3, 0, 1, 2)))
+    TVAE(TVAEConfig(**kw)).load_state_dict(ours, strict=True)
+    path = str(tmp_path / "tvae.pt")
+    save_torch_checkpoint(params, path)
+    sd = load_weights(path)
+    assert set(sd) == set(ours)
+    assert all(torch.equal(sd[k], ours[k]) for k in ours)
 
 
 def test_load_weights_reads_the_jax_package_pt(jax_params, tmp_path):

@@ -1,7 +1,7 @@
 """Model and training configuration (counterpart of ``vqgan_tpu/config.py``:
-``VAEConfig`` and ``TrainConfig``).
+``VAEConfig``, ``TVAEConfig`` and ``TrainConfig``).
 
-Every field of the JAX package's two configs is here with the same name and
+Every field of the JAX package's three configs is here with the same name and
 default, so a configuration built from the JAX package's arguments builds here
 too. Fields that only steer TPU lowerings, or parts not ported yet, are
 accepted and listed in each docstring.
@@ -100,6 +100,60 @@ class VAEConfig:
         if self.use_wavelet:
             mult = (mult[0] * 2,) + mult[1:]
         return mult + ((4,) if self.decoder_also_perform_hr else ())
+
+
+CONV3D_IMPLS = ("auto", "direct", "tap2d", "tap2dfat", "pallas", "mixed")
+
+
+@dataclasses.dataclass(frozen=True)
+class TVAEConfig:
+    """3D video VAE architecture config (reference tae.py:269-297).
+
+    ``reg_type``: "gaussian" (encoder emits 2·z_channels: mean, logvar) or
+    "vq". Params are fp32; the model computes in ``compute_dtype``; GroupNorm
+    always computes in fp32 and returns its input's dtype.
+
+    ``conv3d_impl`` keeps the JAX values; here it picks what computes each
+    stride-1 3×3×3 SAME conv:
+      - "pallas", and "auto" on a CUDA device: the hand-written fused-tap
+        kernel (kernel #6, ``ops/conv3d_cuda.py``); on the CPU "pallas" runs
+        its plain version and "auto" is "direct";
+      - "mixed": the kernel where min(Ci, Co) >= 128, as the JAX package's
+        per-width split (``vqgan_tpu/models/tae.py:325-343``), else "direct";
+      - "direct", "tap2d", "tap2dfat": ``F.conv3d``. The tap lowerings are TPU
+        forms of the same function with the same params.
+    The stride-2 downsample conv always runs ``F.conv3d``, as the JAX
+    "pallas" keeps it off the kernel.
+
+    No effect in this package: ``upsample_impl`` (every value runs the direct
+    nearest-2× + conv form, as ``VAEConfig`` says); ``remat``,
+    ``remat_policy`` (training memory levers; serving keeps no activations);
+    ``attn_impl`` (as in ``VAEConfig``: a CUDA tensor runs kernel #3, a CPU
+    tensor its chunked plain version). ``attn_chunk``: 0, or a token count at
+    or above the mid block's T·H·W, runs dense attention; else the
+    memory-efficient path, and it must divide T·H·W.
+    """
+
+    resolution: int = 256
+    in_channels: int = 3
+    ch: int = 64
+    out_ch: int = 3
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    z_channels: int = 16
+    reg_type: str = "gaussian"
+    vq_codebook_size: int = 16384
+    vq_beta: float = 0.25
+    vq_ema_decay: float = 0.99
+    vq_revive_threshold: float = 0.0
+    compute_dtype: str = "bfloat16"
+    remat: bool = False
+    remat_policy: str = "full"
+    conv3d_impl: str = "auto"
+    attn_chunk: int = 0
+    attn_impl: str = "auto"
+    upsample_impl: str = "auto"
+    fused_gn_swish: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,18 @@
-"""Inference pipeline: load a reference-format ``.pt`` and encode/decode
-images on an explicit device (counterpart of ``vqgan_tpu/inference.py``).
+"""Inference pipelines: load a reference-format ``.pt`` and encode/decode
+images (``VAEPipeline``) or video clips (``TVAEPipeline``) on an explicit
+device (counterpart of ``vqgan_tpu/inference.py``).
 
     from vqgan_tpu_torch.inference import VAEPipeline
     pipe = VAEPipeline.from_checkpoint("vae.pt", VAEConfig(), device="cuda")
     z = pipe.encode(images)          # (B,H,W,3) uint8/float → latents (B,h,w,z)
     recon = pipe.decode(z)           # latents → float images in [0,1], numpy
 
+    tpipe = TVAEPipeline.from_checkpoint("tvae.pt", TVAEConfig(), device="cuda")
+    recon = tpipe.reconstruct(clips) # (B,T,H,W,3) uint8 → float clips in [0,1]
+
 CLI:  python -m vqgan_tpu_torch.inference --checkpoint vae.pt --images 'a.png b.png'
+      python -m vqgan_tpu_torch.inference --checkpoint tvae.pt --clips 'a.npy' \
+          --vae_ch 64 [--attn_chunk 1024]
 """
 
 from __future__ import annotations
@@ -18,12 +24,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from vqgan_tpu_torch.config import VAEConfig, parse_ch_mult
+from vqgan_tpu_torch.config import TVAEConfig, VAEConfig, parse_ch_mult
 from vqgan_tpu_torch.models.ae import VAE
+from vqgan_tpu_torch.models.tae import TVAE
 from vqgan_tpu_torch.weights import load_weights
 
 
-def check_reg_matches_params(cfg: VAEConfig, state_dict: Mapping) -> None:
+def check_reg_matches_params(cfg: VAEConfig | TVAEConfig, state_dict: Mapping) -> None:
     """A VQ-trained checkpoint carries ``reg.codebook``; serving it with a
     non-vq config would silently skip quantization. Fail loudly instead."""
     has_codebook = "reg.codebook" in state_dict
@@ -79,6 +86,45 @@ def build_vae_config(kw: Mapping) -> VAEConfig:
     )
 
 
+def build_tvae_config(kw: Mapping, attn_chunk: int = 0) -> TVAEConfig:
+    """TVAEConfig from the --vae_* arguments, as the JAX ``--clips`` CLI
+    builds it: the Gaussian for "gaussian" and "identity_gaussian",
+    vq_ema_decay 0 for serving."""
+    reg = kw["reg_type"]
+    return TVAEConfig(
+        resolution=kw["vae_resolution"],
+        ch=kw["vae_ch"],
+        ch_mult=parse_ch_mult(kw["vae_ch_mult"]),
+        num_res_blocks=kw["vae_num_res_blocks"],
+        z_channels=kw["vae_z_channels"],
+        reg_type="gaussian" if reg in ("gaussian", "identity_gaussian") else reg,
+        vq_codebook_size=kw["vq_codebook_size"],
+        vq_ema_decay=0.0,
+        attn_chunk=attn_chunk,
+    )
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a))  # a writable host copy
+    return a.to(device)
+
+
+def _model_input(a, device: torch.device, one_ndim: int) -> torch.Tensor:
+    """uint8 [0, 255] → float [-1, 1] on the device; a single item (``one_ndim``
+    dimensions) gains a batch dimension."""
+    x = _to_device(a, device)
+    if x.dtype == torch.uint8:
+        x = x.float() / 127.5 - 1.0
+    if x.ndim == one_ndim:
+        x = x[None]
+    return x.float()
+
+
+def _to_unit_range(dec: torch.Tensor) -> np.ndarray:
+    return (dec.float() * 0.5 + 0.5).clamp(0.0, 1.0).cpu().numpy()
+
+
 class VAEPipeline:
     """Serving path of the 2D VAE: encode (then clamp to ±clamp_th, and take
     the Gaussian mean or the nearest codebook entries where the config has
@@ -104,18 +150,8 @@ class VAEPipeline:
                         device: str | torch.device, **kw) -> "VAEPipeline":
         return cls(cfg, load_weights(path), device=device, **kw)
 
-    def _to_device(self, a) -> torch.Tensor:
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.array(a))  # a writable host copy
-        return a.to(self.device)
-
     def _to_model_input(self, images) -> torch.Tensor:
-        x = self._to_device(images)
-        if x.dtype == torch.uint8:
-            x = x.float() / 127.5 - 1.0
-        if x.ndim == 3:
-            x = x[None]
-        return x.float()
+        return _model_input(images, self.device, one_ndim=3)
 
     @torch.inference_mode()
     def encode(self, images) -> torch.Tensor:
@@ -135,11 +171,50 @@ class VAEPipeline:
     @torch.inference_mode()
     def decode(self, z) -> np.ndarray:
         """Latents (B,h,w,z) → float images (B,H,W,3) in [0,1], on the host."""
-        dec = self.model.decode(self._to_device(z)).float()
-        return (dec * 0.5 + 0.5).clamp(0.0, 1.0).cpu().numpy()
+        return _to_unit_range(self.model.decode(_to_device(z, self.device)))
 
     def reconstruct(self, images) -> np.ndarray:
         return self.decode(self.encode(images))
+
+
+class TVAEPipeline:
+    """Serving path of the 3D video VAE (JAX ``inference.py:160-225``):
+    encode to the deterministic latent (the posterior mean, or the quantized
+    latent for VQ; no clamp, as in the JAX pipeline), decode, reconstruct.
+    Runs under ``torch.inference_mode()`` on ``device``."""
+
+    def __init__(self, cfg: TVAEConfig, state_dict: Mapping[str, torch.Tensor],
+                 *, device: str | torch.device):
+        check_reg_matches_params(cfg, state_dict)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        with torch.device(self.device):
+            self.model = TVAE(cfg)
+        self.model.load_state_dict(state_dict, strict=True)
+        self.model.to(memory_format=torch.channels_last_3d).eval()
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: TVAEConfig, *,
+                        device: str | torch.device) -> "TVAEPipeline":
+        return cls(cfg, load_weights(path), device=device)
+
+    def _to_model_input(self, clips) -> torch.Tensor:
+        return _model_input(clips, self.device, one_ndim=4)
+
+    @torch.inference_mode()
+    def encode(self, clips) -> torch.Tensor:
+        """Clips (B,T,H,W,3) uint8 [0,255] or float [-1,1] → latents
+        (B,t,h,w,z) on the device, in the compute dtype."""
+        return self.model.deterministic_latent(self.model.encode(self._to_model_input(clips)))
+
+    @torch.inference_mode()
+    def decode(self, z) -> np.ndarray:
+        """Latents (B,t,h,w,z) → float clips (B,T,H,W,3) in [0,1], on the
+        host."""
+        return _to_unit_range(self.model.decode(_to_device(z, self.device)))
+
+    def reconstruct(self, clips) -> np.ndarray:
+        return self.decode(self.encode(clips))
 
 
 def _main(argv: list[str] | None = None) -> None:
@@ -150,8 +225,10 @@ def _main(argv: list[str] | None = None) -> None:
     parser.add_argument("--checkpoint", required=True)
     parser.add_argument("--images", default="", help="space-separated image paths")
     parser.add_argument("--clips", default="",
-                        help="space-separated .npy uint8 (T,H,W,3) clip paths "
-                             "(3D pipeline; not ported yet)")
+                        help="space-separated .npy uint8 (T,H,W,3) clip paths: runs "
+                             "the 3D (TVAE) pipeline instead of the 2D one")
+    parser.add_argument("--attn_chunk", type=int, default=0,
+                        help="clips only: chunked mid-block attention for long clips")
     parser.add_argument("--out_dir", default="./recon")
     parser.add_argument("--device", default="cuda")
     add_vae_arch_args(parser)
@@ -159,16 +236,30 @@ def _main(argv: list[str] | None = None) -> None:
 
     if bool(args.images) == bool(args.clips):
         parser.error("pass exactly one of --images / --clips")
+    os.makedirs(args.out_dir, exist_ok=True)
     if args.clips:
-        raise NotImplementedError(
-            "--clips: the 3D video pipeline waits for the TVAE port "
-            "(ROADMAP.md, Queue 1: 3D family)"
-        )
+        tcfg = build_tvae_config(vars(args), args.attn_chunk)
+        tpipe = TVAEPipeline.from_checkpoint(args.checkpoint, tcfg, device=args.device)
+        for path in args.clips.split():
+            clip = np.load(path)
+            # a cast here would silently mangle a float or wide-int clip:
+            # refuse it, as the JAX CLI does
+            if clip.dtype != np.uint8:
+                parser.error(f"{path}: clip dtype {clip.dtype} — --clips expects uint8 "
+                             f"(T, H, W, 3) arrays in [0, 255]; convert explicitly (e.g. "
+                             f"np.round(x * 255).astype(np.uint8) for floats in [0, 1])")
+            if clip.ndim != 4 or clip.shape[-1] != 3:
+                parser.error(f"{path}: clip shape {clip.shape} — expected (T, H, W, 3) uint8")
+            recon = tpipe.reconstruct(clip)[0]
+            out_path = os.path.join(
+                args.out_dir, os.path.splitext(os.path.basename(path))[0] + "_recon.npy")
+            np.save(out_path, (recon * 255).astype(np.uint8))
+            print(f"{path} -> {out_path}")
+        return
     from PIL import Image  # image files only; the pipeline needs no PIL
 
     cfg = build_vae_config(vars(args))
     pipe = VAEPipeline.from_checkpoint(args.checkpoint, cfg, device=args.device)
-    os.makedirs(args.out_dir, exist_ok=True)
     for path in args.images.split():
         s = cfg.resolution
         img = Image.open(path).convert("RGB").resize((s, s))

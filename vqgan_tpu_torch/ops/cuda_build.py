@@ -87,3 +87,11 @@ def load_library(name: str) -> ctypes.CDLL:
         )
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+@functools.cache
+def num_sms(device_index: int) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

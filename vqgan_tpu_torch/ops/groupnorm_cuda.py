@@ -26,7 +26,9 @@ JAX package's contract, ``vqgan_tpu/ops/normalization.py``). Its backward
 recomputes ŷ from x.
 
 ``fused_group_norm`` takes (B, C, H, W) tensors in ``torch.channels_last``
-memory format, which are physically (B, H·W, C), and is differentiable. A
+memory format, which are physically (B, H·W, C), or (B, C, T, H, W) tensors
+in ``torch.channels_last_3d``, physically (B, T·H·W, C), and is
+differentiable. A
 tensor on the CPU goes to the plain versions (``ops/normalization.py``); a
 CUDA tensor launches the kernels, or raises. There is no fallback between the
 two.
@@ -41,7 +43,7 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from vqgan_tpu_torch.ops.cuda_build import load_library
+from vqgan_tpu_torch.ops.cuda_build import load_library, num_sms
 from vqgan_tpu_torch.ops.normalization import (
     group_norm_fp32_backward,
     group_norm_fp32_forward,
@@ -111,18 +113,21 @@ def launch_geometry(
     return threads, rows_per_tile, n_tiles
 
 
-@functools.cache
-def _num_sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def channels_last_format(x: torch.Tensor) -> torch.memory_format:
+    """The channels-last memory format of a 4-D or 5-D tensor."""
+    if x.ndim == 4:
+        return torch.channels_last
+    if x.ndim == 5:
+        return torch.channels_last_3d
+    raise ValueError(f"expected (B, C, H, W) or (B, C, T, H, W), got shape {tuple(x.shape)}")
 
 
 def _check(x, weight, bias, num_groups):
-    if x.ndim != 4:
-        raise ValueError(f"expected (B, C, H, W), got shape {tuple(x.shape)}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
+    if not x.is_contiguous(memory_format=channels_last_format(x)):
         raise ValueError(
             "fused_group_norm needs a torch.channels_last-contiguous input "
-            "(physically (B, H, W, C)); convert it once where it is made"
+            "(channels_last_3d for 5-D; physically (B, ..., C)); convert it "
+            "once where it is made"
         )
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_group_norm takes float32 or bfloat16, not {x.dtype}")
@@ -155,7 +160,7 @@ def group_norm_forward(
     with_swish: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward, outside autograd: ``(y, stats)``, y in x's dtype and
-    channels_last, stats the fp32 (B, 2, G) mean and rstd. A CUDA tensor
+    channels-last layout, stats the fp32 (B, 2, G) mean and rstd. A CUDA tensor
     launches kernel #1 (and counts it in ``launches``); a CPU tensor runs
     the plain version."""
     _check(x, weight, bias, num_groups)
@@ -168,15 +173,15 @@ def group_norm_forward(
 
 def _launch_forward(x, weight, bias, num_groups, eps, with_swish):
     global launches
-    b, c, h, w = x.shape
-    s = h * w
+    b, c = x.shape[:2]
+    s = math.prod(x.shape[2:])
     if x.data_ptr() % 16:
         raise ValueError("fused_group_norm needs a 16-byte aligned input")
     threads, rows_per_tile, n_tiles = launch_geometry(
-        b, s, c, x.element_size(), _num_sms(x.device.index)
+        b, s, c, x.element_size(), num_sms(x.device.index)
     )
     lib = library()
-    y = torch.empty_like(x, memory_format=torch.channels_last)
+    y = torch.empty_like(x, memory_format=channels_last_format(x))
     partial = torch.empty((b, n_tiles, 2, num_groups), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
@@ -204,7 +209,7 @@ def group_norm_backward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward, outside autograd: ``(dx, dγ, dβ)`` for the incoming
     gradient g at x, given the forward's (B, 2, G) stats. g must have x's
-    shape, dtype and channels_last layout. A CUDA tensor launches kernel #2
+    shape, dtype and channels-last layout. A CUDA tensor launches kernel #2
     (and counts it in ``bwd_launches``); a CPU tensor runs the plain
     version."""
     _check(x, weight, bias, num_groups)
@@ -213,7 +218,7 @@ def group_norm_backward(
             f"gradient {tuple(g.shape)} {g.dtype} on {g.device} does not match "
             f"the input {tuple(x.shape)} {x.dtype} on {x.device}"
         )
-    if not g.is_contiguous(memory_format=torch.channels_last):
+    if not g.is_contiguous(memory_format=channels_last_format(x)):
         raise ValueError("the GroupNorm backward needs a channels_last-contiguous gradient")
     b = x.shape[0]
     if (stats.dtype != torch.float32 or tuple(stats.shape) != (b, 2, num_groups)
@@ -228,15 +233,15 @@ def group_norm_backward(
 
 def _launch_backward(x, g, stats, weight, bias, num_groups, with_swish):
     global bwd_launches
-    b, c, h, w = x.shape
-    s = h * w
+    b, c = x.shape[:2]
+    s = math.prod(x.shape[2:])
     if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("the GroupNorm backward needs 16-byte aligned x and gradient")
     threads, rows_per_tile, n_tiles = launch_geometry(
-        b, s, c, x.element_size(), _num_sms(x.device.index)
+        b, s, c, x.element_size(), num_sms(x.device.index)
     )
     lib = library()
-    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    dx = torch.empty_like(x, memory_format=channels_last_format(x))
     partial = torch.empty((b, n_tiles, 2, c), dtype=torch.float32, device=x.device)
     coef = torch.empty((b, 3, c), dtype=torch.float32, device=x.device)
     dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
@@ -272,7 +277,7 @@ class FusedGroupNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, stats, weight, bias = ctx.saved_tensors
         # a flip or a slice downstream can hand back another layout
-        g = g.contiguous(memory_format=torch.channels_last)
+        g = g.contiguous(memory_format=channels_last_format(g))
         dx, dgamma, dbeta = group_norm_backward(
             x, g, stats, weight, bias, ctx.num_groups, ctx.with_swish
         )
@@ -287,7 +292,7 @@ def fused_group_norm(
     eps: float = 1e-6,
     with_swish: bool = False,
 ) -> torch.Tensor:
-    """GroupNorm(+swish) of a channels_last (B, C, H, W) tensor with fp32
-    statistics and arithmetic; returns x's dtype, channels_last, and is
-    differentiable in x, weight and bias."""
+    """GroupNorm(+swish) of a channels_last (B, C, H, W) or channels_last_3d
+    (B, C, T, H, W) tensor with fp32 statistics and arithmetic; returns x's
+    dtype and layout, and is differentiable in x, weight and bias."""
     return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, with_swish)

@@ -1,8 +1,9 @@
 """Image resizing ops (counterpart of ``vqgan_tpu/ops/resize.py``).
 
 ``area_downsample`` and ``resize_area`` take and return NHWC (B, H, W, C),
-the JAX package's layout; ``nearest_upsample_2x`` works inside the model on
-(B, C, H, W).
+the JAX package's layout; ``nearest_upsample_2x`` and
+``nearest_upsample_2x_3d`` work inside the models on (B, C, H, W) and
+(B, C, T, H, W).
 """
 
 from __future__ import annotations
@@ -38,3 +39,10 @@ def resize_area(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2× upsample of (B, C, H, W); keeps channels_last."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def nearest_upsample_2x_3d(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2× upsample of (B, C, T, H, W) in T, H and W (JAX
+    ``ops/resize.py:44``); returns channels_last_3d."""
+    y = F.interpolate(x, scale_factor=2, mode="nearest")
+    return y.contiguous(memory_format=torch.channels_last_3d)

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from vqgan_tpu_torch.ops.cuda_build import load_library
+from vqgan_tpu_torch.ops.cuda_build import load_library, num_sms
 from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
 
 # Kernel launches since the count was last set to 0: one per call that
@@ -78,11 +78,6 @@ def stats_launch_geometry(n: int, k: int, num_sms: int) -> tuple[int, int]:
     return (math.ceil(n / per) if n else 1), per
 
 
-@functools.cache
-def _num_sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _check_device(t: torch.Tensor, name: str, like: torch.Tensor) -> None:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the VQ kernels run on cpu or cuda, not {t.device}")
@@ -127,7 +122,7 @@ def _launch_nearest(flat, codebook):
     codes = torch.empty(n, dtype=torch.int32, device=flat.device)
     if n == 0:
         return codes
-    splits, per = nearest_launch_geometry(n, k, _num_sms(flat.device.index))
+    splits, per = nearest_launch_geometry(n, k, num_sms(flat.device.index))
     part = splits if splits > 1 else 0
     part_dist = torch.empty((part, n), dtype=torch.float32, device=flat.device)
     part_idx = torch.empty((part, n), dtype=torch.int32, device=flat.device)
@@ -169,7 +164,7 @@ def _launch_stats(codes, flat, k, with_sums):
     global stats_launches
     n, d = flat.shape
     dev = flat.device
-    splits, per = stats_launch_geometry(n, k, _num_sms(dev.index))
+    splits, per = stats_launch_geometry(n, k, num_sms(dev.index))
     part = splits if splits > 1 else 0
     part_counts = torch.empty((part, k), dtype=torch.int32, device=dev)
     part_sums = torch.empty((part if with_sums else 0, k, d), dtype=torch.float32, device=dev)

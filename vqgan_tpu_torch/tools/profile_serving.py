@@ -2,18 +2,22 @@
 
     python -m vqgan_tpu_torch.tools.profile_serving [--batch 8] [--out DIR]
         [--use_attn] [--attn_chunk 512]
+    python -m vqgan_tpu_torch.tools.profile_serving --clips [--batch 2]
+        [--frames 16] [--res 128] [--ch_mult 1,2,4,4] [--attn_chunk 0]
 
 Builds the flagship pipeline (``VAEConfig()`` defaults, with the mid-block
 AttnBlocks under ``--use_attn``; random weights from a seed) on the first
-CUDA device, runs one warm-up reconstruct, then profiles ``--iters``
-reconstructs. Prints the device time by kernel class (GroupNorm
-kernel, attention kernel, convolutions, other), the top kernels by device
-time, the attention kernels' time per reconstruct, and the
-device's busy share of the profiled window (union of kernel intervals over the
-window's host-clock length). Then profiles the GroupNorm kernel alone at the
-flagship shapes and prints the time of each of its three launches. Writes the
-chrome trace of the reconstructs to ``DIR/serving_trace.json`` when ``--out``
-is given. Needs a CUDA device; fails without one.
+CUDA device, or with ``--clips`` the TVAE clip pipeline (``TVAEConfig()``
+with the given ch_mult and attn_chunk, clips of ``--frames`` x ``--res`` px),
+runs one warm-up reconstruct, then profiles ``--iters`` reconstructs. Prints
+the device time by kernel class (GroupNorm kernel, Conv3d kernel, attention
+kernel, convolutions, other), the top kernels by device time, the attention
+kernels' time per reconstruct, and the device's busy share of the profiled
+window (union of kernel intervals over the window's host-clock length). In
+the 2D mode it then profiles the GroupNorm kernel alone at the flagship
+shapes and prints the time of each of its three launches. Writes the chrome
+trace of the reconstructs to ``DIR/serving_trace.json`` when ``--out`` is
+given. Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ GN_BWD_PREFIX = "gn_bwd_"
 VQ_PREFIX = "vq_"
 ATTN_FWD_PREFIX = "attn_fwd"
 ATTN_BWD_PREFIX = "attn_bwd"
+CONV3D_PREFIX = "conv3d_"
 CONV_MARKERS = ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad", "dgrad",
                 "nchwToNhwc", "nhwcToNchw")
 
@@ -47,6 +52,8 @@ def kernel_class(name: str) -> str:
         return "attention kernel, forward"
     if base.startswith(ATTN_BWD_PREFIX):
         return "attention kernels, backward (delta, dK/dV, dQ)"
+    if base.startswith(CONV3D_PREFIX):
+        return "conv3d kernel (#6; with its split-K reduce)"
     if base.startswith(VQ_PREFIX):
         return "VQ kernels (nearest-code search, code statistics)"
     if base.startswith(GN_BWD_PREFIX):
@@ -103,12 +110,33 @@ def profile_reconstruct(batch: int, iters: int, out_dir: str | None, use_attn: b
     pipe = VAEPipeline(cfg, sd, device="cuda")
     images = np.random.RandomState(0).randint(
         0, 256, (batch, cfg.resolution, cfg.resolution, 3), np.uint8)
-    pipe.reconstruct(images)
+    profile_pipeline(pipe, images, iters, out_dir)
+
+
+def profile_clips(batch: int, frames: int, res: int, ch_mult: tuple, attn_chunk: int,
+                  iters: int, out_dir: str | None) -> None:
+    from vqgan_tpu_torch.config import TVAEConfig
+    from vqgan_tpu_torch.inference import TVAEPipeline
+    from vqgan_tpu_torch.models.tae import init_tvae
+
+    cfg = TVAEConfig(resolution=res, ch_mult=ch_mult, attn_chunk=attn_chunk)
+    sd = init_tvae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    pipe = TVAEPipeline(cfg, sd, device="cuda")
+    clips = np.random.RandomState(0).randint(0, 256, (batch, frames, res, res, 3), np.uint8)
+    print(f"TVAE clips: batch {batch}, {frames} frames x {res} px, ch_mult {ch_mult}, "
+          f"attn_chunk {attn_chunk}")
+    profile_pipeline(pipe, clips, iters, out_dir)
+
+
+def profile_pipeline(pipe, inputs: np.ndarray, iters: int, out_dir: str | None) -> None:
+    """One warm-up reconstruct of ``inputs``, then ``iters`` profiled."""
+    batch = len(inputs)
+    pipe.reconstruct(inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            pipe.reconstruct(images)  # ends in a device-to-host copy
+            pipe.reconstruct(inputs)  # ends in a device-to-host copy
         window_us = (time.perf_counter() - t0) * 1e6
     kernels = device_kernels(prof)
     by_class: dict[str, float] = {}
@@ -164,12 +192,19 @@ def profile_groupnorm(batch: int) -> None:
 
 
 def main() -> None:
+    from vqgan_tpu_torch.config import parse_ch_mult
+
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--iters", type=int, default=2)
     parser.add_argument("--out", default=None)
     parser.add_argument("--use_attn", action="store_true")
-    parser.add_argument("--attn_chunk", type=int, default=512)
+    parser.add_argument("--attn_chunk", type=int, default=None,
+                        help="default 512 for images, 0 for --clips")
+    parser.add_argument("--clips", action="store_true", help="profile the TVAE clip pipeline")
+    parser.add_argument("--frames", type=int, default=16)
+    parser.add_argument("--res", type=int, default=128)
+    parser.add_argument("--ch_mult", default="1,2,4,4")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
@@ -177,7 +212,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; tf32: cudnn {torch.backends.cudnn.allow_tf32}, "
           f"matmul {torch.backends.cuda.matmul.allow_tf32}")
-    profile_reconstruct(args.batch, args.iters, args.out, args.use_attn, args.attn_chunk)
+    if args.clips:
+        profile_clips(args.batch, args.frames, args.res, parse_ch_mult(args.ch_mult),
+                      args.attn_chunk or 0, args.iters, args.out)
+        return
+    chunk = 512 if args.attn_chunk is None else args.attn_chunk
+    profile_reconstruct(args.batch, args.iters, args.out, args.use_attn, chunk)
     for b in (2, args.batch):
         profile_groupnorm(b)
 

@@ -9,8 +9,8 @@ names are the reference's, so such a file feeds
 ``VAE.load_state_dict(strict=True)`` as it is. A JAX param tree (nested dicts
 of arrays, flax names) is mapped here without importing the JAX package:
 
-    params["encoder"]["down_0"]["block_1"]["conv1"]["kernel"]  (HWIO)
-      → "encoder.down.0.block.1.conv1.weight"                  (OIHW)
+    params["encoder"]["down_0"]["block_1"]["conv1"]["kernel"]  (HWIO; DHWIO)
+      → "encoder.down.0.block.1.conv1.weight"                  (OIHW; OIDHW)
     params["encoder"]["mid_block_1"]["norm1"]["scale"]
       → "encoder.mid.block_1.norm1.weight"
     params["reg"]["codebook"]                                  (K, D)
@@ -47,8 +47,9 @@ def _flax_to_torch_key(path: list[str]) -> str:
 
 
 def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """A flax VAE param tree (nested dicts of numpy-convertible arrays) → a
-    reference state dict of fp32 CPU tensors; conv kernels HWIO → OIHW."""
+    """A flax VAE or TVAE param tree (nested dicts of numpy-convertible
+    arrays) → a reference state dict of fp32 CPU tensors; conv kernels HWIO →
+    OIHW, Conv3d kernels DHWIO → OIDHW."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: list[str]) -> None:
@@ -59,6 +60,8 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             arr = np.array(v, dtype=np.float32)  # a writable copy
             if k == "kernel" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif k == "kernel" and arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
             out[_flax_to_torch_key(path + [k])] = torch.from_numpy(
                 np.ascontiguousarray(arr)
             )
