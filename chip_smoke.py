@@ -99,7 +99,27 @@ Phases, each fatal on failure:
      reconstruct, as in phase 19; frames/s and peak memory;
  21. TVAE serving, CPU against card, at ch=32, ch_mult 1,8, 1 res block,
      4 frames x 32 px, ``attn_chunk=64`` (512 mid-block tokens of 256
-     channels: kernels #6, #1 and #3), fp32 with TF32 off and bf16.
+     channels: kernels #6, #1 and #3), fp32 with TF32 off and bf16;
+ 22. the conv-tile geometry probe (kernel #7): its entry point
+     (``vqgan_tpu_torch.tools.probe_conv3d_geometry.run_probe``) builds and
+     launches all eight cases A-H once (8 counted launches), each built and
+     within the JAX tool's rtol = atol = 2e-2 of its plain version; then each
+     case's registers and local bytes, kernel, plain and ``torch.matmul`` (the
+     same product) times and its bound;
+ 23. the 3D recon-only step (``make_train_step_3d``) at ``tools/bench_tvae.py``'s
+     config (ch 64, ch_mult 1,2,4, 1 res block, z 8, bf16, gaussian, 16
+     frames x 128 px, batch 2, clips from ``synthetic_video_batches``): the
+     loss falls over 5 steps, exactly 32 kernel #6 forward, 31 dx, 30 + 30
+     GroupNorm launches per step (the wrappers' counts and the model's
+     hooks), finite metrics, frames/s, ms per step and peak memory;
+ 24. the 3D GAN step (``make_train_step_3d_gan``: hinge + LeCam, 4 of 16
+     frames to LPIPS and D) at the same config, with ``disc_3d="frame"`` and
+     ``"tubelet"``: D moves in step 1 and G in step 2, the same exact
+     launches, finite metrics, frames/s, ms per step and peak memory;
+ 25. the 3D GAN step, CPU against card, at phase 21's config (kernels #6
+     forward and dx, #1/#2 on 5-D input, #3 forward and backward at head
+     dim 32), gaussian + frame D and VQ (K = 1024, EMA, revival) + tubelet D:
+     losses and gradients within phase 8's bounds, EMA counts to one token.
 
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
@@ -233,6 +253,17 @@ CONV3D_EDGE_CASES = [(1, 64, 64, 1, 16, 16), (1, 3, 3, 2, 8, 8), (1, 48, 40, 5, 
                      (1, 20, 12, 3, 9, 11)]
 # dk: a sum of B·T·H·W products per entry, in whatever order cuDNN takes;
 # (n − 1)·u of Σ|terms| bounds any order's error against the fp64 value
+# the 3D training steps (phases 23-24) at tools/bench_tvae.py's config: ch 64,
+# ch_mult 1,2,4, 1 res block, z 8, bf16, gaussian, 16 frames x 128 px, batch 2
+STEP3D_BATCH, STEP3D_FRAMES, STEP3D_RES = 2, 16, 128
+# kernel launches per 3D step, counted from the model by forward hooks
+# (phase 23 checks the hooks' count too): kernel #6 at each stride-1 3x3x3
+# conv (encoder conv_in, 3 levels x 2, mid 4, conv_out = 12; decoder conv_in,
+# mid 4, 3 levels x 4, 2 upsample convs, conv_out = 20), dx at each but the
+# encoder's conv_in, whose input takes no gradient; GroupNorm forward and
+# backward at each norm (encoder 12, decoder 18). Dense attention (4,096
+# mid-block tokens, attn_chunk 0). The GAN step adds 2D modules only.
+STEP3D_LAUNCHES = {"conv3d": 32, "conv3d_dx": 31, "gn": 30, "gn_bwd": 30}
 
 
 def log(*args) -> None:
@@ -952,9 +983,19 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
                      "codebook": vae.reg.codebook.detach().cpu()}
         runs[dev] = ({k: float(v) for k, v in metrics.items()}, moments, extra)
 
-    (m_cpu, g_cpu, x_cpu), (m_gpu, g_gpu, x_gpu) = runs["cpu"], runs["cuda"]
     what = (f"vq K={vq_k} " if vq_k else "") + ("attn " if attn else "")
     n_logits = 2 * 2 * 16  # real and fake, batch 2, a 4x4 patch grid at 64 px
+    compare_step_across_devices(runs, f"{what}ch=64 (1,2,4) 64px batch 2", n_logits, vq_k)
+
+
+def compare_step_across_devices(runs: dict, what: str, n_logits: int, vq_k: int) -> None:
+    """One training step's (metrics, AdamW first moments of G and D, VQ
+    statistics) on the CPU and on the card against phase 8's bounds: losses
+    LOSS_RTOL/ATOL (D's accuracy one logit of ``n_logits``), gradients
+    GRAD_RTOL of each tensor's largest entry + GRAD_FLOOR of the largest;
+    with ``vq_k`` the EMA counts to one token, the sums and the folded
+    codebook to ATOL_PATH_FP32, some code revived."""
+    (m_cpu, g_cpu, x_cpu), (m_gpu, g_gpu, x_gpu) = runs["cpu"], runs["cuda"]
     bad = []
     for k, v in m_cpu.items():
         atol = 1.0 / n_logits if k == "gan/discriminator_accuracy" else LOSS_ATOL
@@ -962,7 +1003,7 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
             bad.append((k, v, m_gpu[k]))
     worst_loss = max(abs(m_gpu[k] - v) / (LOSS_ATOL + LOSS_RTOL * abs(v))
                      for k, v in m_cpu.items() if k != "gan/discriminator_accuracy")
-    log(f"train cross-device {what}ch=64 (1,2,4) 64px batch 2: overall_vae_loss cpu="
+    log(f"train cross-device {what}: overall_vae_loss cpu="
         f"{m_cpu['overall_vae_loss']:.6f} card={m_gpu['overall_vae_loss']:.6f}; the worst "
         f"loss uses {worst_loss:.3f} of its bound")
     for side in ("G", "D"):
@@ -971,16 +1012,17 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
             bad.append((side, "parameters with AdamW state differ"))
             continue
         floor = GRAD_FLOOR * max(float(t.abs().max()) for t in ref.values())
-        worst = 0.0
+        used = {}
         for n, r in ref.items():
             scale = float(r.abs().max())
             err = float((got[n] - r).abs().max())
-            worst = max(worst, err / (GRAD_RTOL * scale + floor))
+            used[n] = err / (GRAD_RTOL * scale + floor)
             if err > GRAD_RTOL * scale + floor:
                 bad.append((side, n, err, scale))
-        log(f"train cross-device {what}{side} step-1 gradients (AdamW exp_avg): the worst "
-            f"tensor uses {worst:.3f} of its bound (rtol {GRAD_RTOL:g}, floor {GRAD_FLOOR:g} "
-            f"of the largest entry)")
+        worst = max(used, key=used.get)
+        log(f"train cross-device {what} {side} step-1 gradients (AdamW exp_avg): the worst "
+            f"tensor, {worst}, uses {used[worst]:.3f} of its bound (rtol {GRAD_RTOL:g}, floor "
+            f"{GRAD_FLOOR:g} of the largest entry)")
     if vq_k:
         if "reg.codebook" in g_gpu["G"]:
             bad.append("the EMA codebook has AdamW state")
@@ -994,7 +1036,7 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
         ds = float((x_gpu["sums"] - x_cpu["sums"]).abs().max())
         dcb = float((x_gpu["codebook"] - x_cpu["codebook"]).abs().max())
         revived = int((x_cpu["counts"] < 0.5).sum())
-        log(f"train cross-device {what}EMA counts: {int((dc == 0).sum())}/{vq_k} equal, "
+        log(f"train cross-device {what} EMA counts: {int((dc == 0).sum())}/{vq_k} equal, "
             f"{flips:.2f} tokens' worth of difference; sums max_abs_err={ds:.3e}; folded "
             f"codebook max_abs_err={dcb:.3e} ({revived} codes revived)")
         if flips > 1.0 + 1e-3 or ds > ATOL_PATH_FP32 or dcb > ATOL_PATH_FP32 or revived == 0:
@@ -1678,6 +1720,285 @@ def phase_tvae_cross_device(cc, ac) -> None:
             raise AssertionError(f"TVAE serving differs across devices ({dtype})")
 
 
+def _probe_library_operands(case, a, b):
+    """One (M, K) @ (K, N) product of ``case``'s operands for torch.matmul,
+    arranged outside the timing: A, B the fat-N (256,64)@(64,192); C the nine
+    chunks side by side; D, E the slabs side by side; F, G the two windows;
+    H the 9-window im2col, in bf16."""
+    from vqgan_tpu_torch.ops.geometry_probe import BH, CI, K, STRIP_W, WF
+
+    if case.letter in "AB":
+        return a, b.reshape(K, -1)
+    if case.letter == "C":
+        return a.permute(1, 0, 2).reshape(a.shape[1], -1), b.reshape(-1, b.shape[2])
+    if case.letter in "DE":
+        return torch.cat([a[0], a[1]], 1), b
+    if case.letter in "FG":
+        return torch.cat([a[:, :STRIP_W - 2].reshape(-1, K), a[:, 2:].reshape(-1, K)], 1), b
+    xq = a.to(torch.bfloat16)
+    wins = [xq[dh:dh + BH, dw:dw + WF].reshape(BH * WF, CI) for dh in range(3) for dw in range(3)]
+    return torch.cat(wins, 1), b.to(torch.bfloat16)
+
+
+def phase_geometry_probe(gpc) -> tuple[int, dict]:
+    """Kernel #7 (phase 22). The main path: the probe's entry point
+    (``run_probe``), each case's kernel once, counted; every case must build
+    and hold its plain version at the JAX tool's 2e-2. Then each case alone:
+    kernel, plain and torch.matmul (the same product, TF32 off; H in bf16)
+    times by CUDA events, and the bound (bytes: inputs read once, output
+    written once; operations at 67 TFLOP/s fp32, 989 bf16). Returns the
+    counted launches and, by letter, (max_abs_err, ms, plain ms, library
+    ms, bound ms, bound_by, registers, local bytes)."""
+    from vqgan_tpu_torch.ops.geometry_probe import ATOL, CASES, RTOL, make_inputs
+    from vqgan_tpu_torch.tools.probe_conv3d_geometry import run_probe
+
+    set_tf32(False)
+    gpc.launches = 0
+    results = run_probe(iters=0, log=log)
+    torch.cuda.synchronize()
+    counted = gpc.launches
+    bad = [r.case.letter for r in results if not (r.built and r.ok)]
+    log(f"geometry probe entry point: {counted} kernel launches, not built or wrong: {bad}")
+    if counted != len(CASES) or bad:
+        raise AssertionError(f"expected all {len(CASES)} cases built, OK and launched once")
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in make_inputs().items()}
+    out = {}
+    for case, res in zip(CASES, results):
+        a, b = (inputs[k] for k in case.inputs)
+        got, ref = gpc.probe_case(case, a, b), case.plain(a, b)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"geometry probe case {case.letter}: max abs err {err}")
+        ms = cuda_ms(lambda: gpc.probe_case(case, a, b))
+        plain_ms = cuda_ms(lambda: case.plain(a, b))
+        lhs, rhs = _probe_library_operands(case, a, b)
+        lib_ms = cuda_ms(lambda: torch.matmul(lhs, rhs))
+        n_bytes = 4 * (a.numel() + b.numel() + got.numel())
+        peak = BF16_FLOPS_PER_S if case.dtype == "bf16" else FP32_FLOPS_PER_S
+        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, case.flops / peak * 1e3
+        bound = max(by_bytes, by_ops)
+        bound_by = "bytes" if by_bytes >= by_ops else "operations"
+        out[case.letter] = (err, ms, plain_ms, lib_ms, bound, bound_by, res.num_regs,
+                            res.local_bytes)
+        log(f"geometry probe {case.name}: {res.num_regs} registers, {res.local_bytes} B local, "
+            f"{res.shared_bytes} B shared; max_abs_err={err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound {bound:.5f} ms "
+            f"({bound_by}; {case.flops / 1e6:.1f} MFLOP {case.dtype}, {n_bytes} bytes)")
+    return counted, out
+
+
+def count_step_launches(model) -> tuple[dict, list]:
+    """Forward pre-hooks that count what one training step launches from the
+    model: kernel #6 at each Conv3d that takes it (``conv3d``) and, where its
+    input takes a gradient, its dx in the backward (``conv3d_dx``); a
+    GroupNorm forward and backward at each norm (its affine params always
+    take a gradient). Returns the dict and the hooks."""
+    from vqgan_tpu_torch.models.blocks import FP32GroupNorm
+    from vqgan_tpu_torch.models.tae import Conv3d
+
+    seen = {"conv3d": 0, "conv3d_dx": 0, "gn": 0, "gn_bwd": 0}
+
+    def conv(module, args):
+        if module.uses_kernel(args[0]):
+            seen["conv3d"] += 1
+            seen["conv3d_dx"] += int(args[0].requires_grad)
+
+    def norm(module, args):
+        seen["gn"] += 1
+        seen["gn_bwd"] += 1
+
+    hooks = [m.register_forward_pre_hook(conv if isinstance(m, Conv3d) else norm)
+             for m in model.modules() if isinstance(m, (Conv3d, FP32GroupNorm))]
+    return seen, hooks
+
+
+def phase_train3d(gn, cc, gan: bool = False, disc_3d: str = "frame") -> dict:
+    """The 3D recon-only step (phase 23) or GAN step (phase 24) at the bench
+    config (``profile_step.build_step3d``: hinge + LeCam, 4 of the 16 frames
+    to LPIPS and D, fp32 LPIPS and D). Recon-only: the loss falls over 5 steps on one clip batch; GAN: D
+    moves in step 1 and G in step 2 (its lr is 0 at step 0). Then one counted
+    step (exact launches: STEP3D_LAUNCHES, from the wrappers and from the
+    model's hooks) and 5 timed steps after those warm-ups, host clock, ending
+    in a fetch of the loss: frames/s, ms per step, peak memory."""
+    from vqgan_tpu_torch.tools.profile_step import build_step3d
+
+    set_tf32(True)
+    what = f"train3d {'gan ' + disc_3d if gan else 'recon-only'}"
+    t0 = time.perf_counter()
+    # recon-only: an lr that moves the loss within 5 steps (the bench's
+    # default is 1e-5 / 64); the speed of a step does not depend on it
+    state, step, model, disc, src = build_step3d(
+        STEP3D_BATCH, STEP3D_FRAMES, STEP3D_RES, disc_3d if gan else "none",
+        learning_rate_vae=None if gan else 0.032)
+    batches = [next(src) for _ in range(7)]
+    log(f"{what}: {sum(p.numel() for p in model.parameters())} G params"
+        + (f", {sum(p.numel() for p in disc.parameters())} D params" if gan else "")
+        + f", clips {tuple(batches[0].shape)}, build {time.perf_counter() - t0:.1f} s")
+    key = "overall_vae_loss" if gan else "loss"
+    if gan:
+        def snap(m):
+            return [p.detach().clone() for p in m.parameters()]
+
+        def moved(m, before):
+            return any(not torch.equal(p, q) for p, q in zip(m.parameters(), before))
+
+        g0, d0 = snap(model), snap(disc)
+        state, metrics = step(state, batches[0])
+        if moved(model, g0) or not moved(disc, d0):
+            raise AssertionError("expected D to move in step 1 and G not (its lr is 0)")
+        for _ in range(2):
+            state, metrics = step(state, batches[0])
+        if not moved(model, g0):
+            raise AssertionError("G did not move in step 2")
+        del g0, d0
+        log(f"{what}: D moved in step 1, G in step 2")
+    else:
+        losses = []
+        for _ in range(5):
+            state, metrics = step(state, batches[0])
+            losses.append(float(metrics["loss"]))
+        log(f"{what}: loss over 5 steps on one batch: " + ", ".join(f"{v:.5f}" for v in losses))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError("the recon-only loss did not fall over 5 steps")
+
+    # the main path, counted: one training step
+    seen, hooks = count_step_launches(model)
+    cc.launches = cc.bwd_launches = gn.launches = gn.bwd_launches = 0
+    state, metrics = step(state, batches[1])
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    counts = {"conv3d": cc.launches, "conv3d_dx": cc.bwd_launches, "gn": gn.launches,
+              "gn_bwd": gn.bwd_launches}
+    log(f"{what}: kernel launches per step {counts}, from the model's hooks {seen}")
+    if counts != STEP3D_LAUNCHES or seen != STEP3D_LAUNCHES:
+        raise AssertionError(f"expected {STEP3D_LAUNCHES} launches per step")
+
+    iters = 5
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        state, metrics = step(state, batches[2 + i])
+    float(metrics[key])  # waits for the device
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in values.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics: {bad}")
+    log(f"{what} metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
+    frames = STEP3D_BATCH * STEP3D_FRAMES * iters
+    result = {"frames_per_s": frames / seconds, "step_ms": seconds / iters * 1e3,
+              "peak_bytes": peak, "counts": counts}
+    log(f"{what} 16f/128px batch {STEP3D_BATCH}: {result['frames_per_s']:.3f} frames/s, "
+        f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    del state, step, model, disc, batches, metrics
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train3d_cross_device(cc, ac, gn, vq: bool) -> None:
+    """One 3D GAN step on the CPU and on the card (phase 25): ch=32, ch_mult
+    1,8, 1 res block, 4 frames x 32 px, attn_chunk 64 (512 mid-block tokens of
+    256 channels, 8 heads of 32), fp32, TF32 off; 3 of the 4 frames to LPIPS
+    and D; the same weights, clips and draws (ε, frame phase, revival rows).
+    Gaussian + frame disc, or VQ (K = 1024, EMA 0.9, revival at 0.5) +
+    tubelet disc. The card must run kernels #6 (forward and dx), #1/#2 and #3
+    (forward and backward at head_dim 32); losses and gradients within phase
+    8's bounds, the VQ statistics to one token."""
+    from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
+    from vqgan_tpu_torch.losses.discriminator import (
+        PatchDiscriminator,
+        TemporalMix,
+        TubeletDiscriminator,
+        init_discriminator_,
+    )
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.tae import TVAE, init_tvae
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step3d import Step3DDraws, make_train_step_3d_gan
+
+    set_tf32(False)
+    k, z = 1024, 16
+    extra = dict(reg_type="vq", vq_codebook_size=k, vq_ema_decay=0.9,
+                 vq_revive_threshold=0.5) if vq else {}
+    tvae_cfg = TVAEConfig(resolution=32, ch=32, ch_mult=(1, 8), num_res_blocks=1, z_channels=z,
+                          compute_dtype="float32", attn_chunk=64, **extra)
+    disc_3d = "tubelet" if vq else "frame"
+    cfg = TrainConfig(batch_size=2, image_size=32, max_steps=10_000, do_ganloss=True,
+                      disc_type="hinge", use_lecam=True, video_loss_frames=3, disc_3d=disc_3d,
+                      learning_rate_disc=1e-8)
+    gen = torch.Generator().manual_seed(25)
+    model = init_tvae(tvae_cfg, gen)
+    with torch.no_grad():  # non-trivial GroupNorm affines
+        for name, p in model.named_parameters():
+            if p.ndim == 1 and ".norm" in name:
+                p.normal_(1.0 if name.endswith(".weight") else 0.0, 0.2, generator=gen)
+    sd_model = model.state_dict()
+    disc_ref = TubeletDiscriminator(3) if vq else PatchDiscriminator()
+    init_discriminator_(disc_ref, gen)
+    with torch.no_grad():  # non-zero final heads, and temporal mixers off the identity
+        for i in range(1, 6):
+            getattr(disc_ref, f"binary_classifier{i}")[-1].weight.normal_(0.0, 0.05,
+                                                                          generator=gen)
+        for m in disc_ref.modules():
+            if isinstance(m, TemporalMix):
+                m.weight.add_(torch.randn(m.weight.shape, generator=gen), alpha=0.2)
+    lpips_ref = LPIPS()
+    init_lpips_(lpips_ref, gen)
+    rng = np.random.RandomState(25)
+    clips = rng.uniform(-1, 1, (2, 4, 32, 32, 3)).astype(np.float32)
+    eps = torch.from_numpy(rng.randn(2, 2, 16, 16, z).astype(np.float32))
+    vq_ema = revive_idx = None
+    if vq:
+        sd_model["reg.codebook"] = torch.from_numpy((0.5 * rng.randn(k, z)).astype(np.float32))
+        revive_idx = torch.from_numpy(rng.randint(0, 2 * 2 * 16 * 16, k))
+        counts = torch.from_numpy(rng.uniform(0.3, 1.3, k).astype(np.float32))
+        vq_ema = {"counts": counts, "sums": counts[:, None] * sd_model["reg.codebook"]}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        with torch.device(dev):
+            model = TVAE(tvae_cfg)
+            disc = TubeletDiscriminator(3) if vq else PatchDiscriminator()
+            lpips = LPIPS()
+        model.load_state_dict(sd_model, strict=True)
+        disc.load_state_dict(disc_ref.state_dict(), strict=True)
+        lpips.load_state_dict(lpips_ref.state_dict(), strict=True)
+        state = create_train_state(cfg, model, disc, tvae_cfg.ch, vq_ema=vq_ema)
+        step = make_train_step_3d_gan(cfg, tvae_cfg, model, disc, lpips)
+        draws = Step3DDraws(eps=None if vq else eps.to(dev),
+                            frame_u=torch.tensor(0.37, device=dev),
+                            revive_idx=None if revive_idx is None else revive_idx.to(dev))
+        cc.launches = cc.bwd_launches = ac.fwd_launches = ac.bwd_launches = 0
+        gn.launches = gn.bwd_launches = 0
+        state, metrics = step(state, torch.from_numpy(clips).to(dev), draws)
+        launches = (cc.launches, cc.bwd_launches, gn.launches, gn.bwd_launches,
+                    ac.fwd_launches, ac.bwd_launches)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            log(f"train3d cross-device card launches (Conv3d, dx, GN, GN bwd, attention, "
+                f"attention bwd): {launches}")
+            # 10 encoder + 15 decoder convs, 10 + 14 GroupNorms, one
+            # AttnBlock3D in each
+            if launches != (25, 24, 24, 24, 2, 2):
+                raise AssertionError("expected (25, 24, 24, 24, 2, 2) launches on the card")
+        moments = {side: {n: opt.state[p]["exp_avg"].cpu() for n, p in m.named_parameters()
+                          if p in opt.state}
+                   for side, m, opt in (("G", model, state.g_opt), ("D", disc, state.d_opt))}
+        extra_out = {}
+        if vq:
+            extra_out = {"counts": state.vq_ema["counts"].cpu(),
+                         "sums": state.vq_ema["sums"].cpu(),
+                         "codebook": model.reg.codebook.detach().cpu()}
+        runs[dev] = ({name: float(v) for name, v in metrics.items()}, moments, extra_out)
+    # real and fake logits: 2 clips x 3 frames x a 2x2 patch grid at 32 px
+    compare_step_across_devices(
+        runs, f"3D {'vq K=1024 + tubelet' if vq else 'gaussian + frame'} ch=32 (1,8) 4f/32px",
+        2 * 2 * 3 * 4, k if vq else 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
@@ -1687,6 +2008,7 @@ def main() -> int:
     from vqgan_tpu_torch.ops import attention_cuda as ac
     from vqgan_tpu_torch.ops import conv3d_cuda as cc
     from vqgan_tpu_torch.ops import cuda_build
+    from vqgan_tpu_torch.ops import geometry_probe_cuda as gpc
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
     from vqgan_tpu_torch.ops import vq_cuda as vq
     from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
@@ -1703,12 +2025,12 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    modules = (gn, vq, ac, cc)
+    modules = (gn, vq, ac, cc, gpc)
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         for lib in [pool.submit(m.library) for m in modules]:
             lib.result()
     names = ", ".join(cuda_build.library_path(n).name
-                      for n in ("groupnorm", "vq", "attention", "conv3d"))
+                      for n in ("groupnorm", "vq", "attention", "conv3d", "geometry_probe"))
     log(f"kernel build+load: {time.perf_counter() - t0:.2f} s ({names})")
 
     # 3. forward kernel vs plain; 4. backward kernel vs plain
@@ -1762,6 +2084,18 @@ def main() -> int:
 
     # 21. TVAE serving, CPU vs card
     phase_tvae_cross_device(cc, ac)
+
+    # 22. kernel #7: the geometry probe's entry point, then each case vs plain
+    probe_counted, probe = phase_geometry_probe(gpc)
+
+    # 23. the 3D recon-only step; 24. the 3D GAN step, frame and tubelet D
+    train3d = {"recon-only": phase_train3d(gn, cc)}
+    for disc_3d in ("frame", "tubelet"):
+        train3d[f"gan {disc_3d}"] = phase_train3d(gn, cc, gan=True, disc_3d=disc_3d)
+
+    # 25. the 3D GAN step, CPU vs card
+    phase_train3d_cross_device(cc, ac, gn, vq=False)
+    phase_train3d_cross_device(cc, ac, gn, vq=True)
 
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
@@ -1818,6 +2152,13 @@ def main() -> int:
         f"{clip_serve['peak_bytes'] / 2**30:.3f} GiB; 48f/256px batch 1: "
         f"{long_clip['frames_per_s']:.3f} frames/s, peak "
         f"{long_clip['peak_bytes'] / 2**30:.3f} GiB")
+    for name, r in train3d.items():
+        log(f"3D {name} step 16f/128px batch {STEP3D_BATCH}: {r['frames_per_s']:.3f} frames/s, "
+            f"{r['step_ms']:.1f} ms per step, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
+            f"{r['counts']} launches per step")
+    log(f"geometry probe: {probe_counted} launches in the entry point's run; per case "
+        f"(kernel, plain, torch.matmul, bound) ms: " + "; ".join(
+            f"{c} {v[1]:.4f}/{v[2]:.4f}/{v[3]:.4f}/{v[4]:.5f}" for c, v in probe.items()))
     log(f"kernels line: GroupNorm launches per identity training step and ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
@@ -1828,7 +2169,9 @@ def main() -> int:
         f"autograd), max_abs_err over every case of phase 13; Conv3d launches per 16f/128px "
         f"TVAE reconstruct (forward) and per backward of its reconstruct loss (dx), ms summed "
         f"over those 55 and 54 bf16 calls at batch 2 (library: F.conv3d and cuDNN's dgrad, "
-        f"bf16, channels_last_3d), max_abs_err over every case of phase 18")
+        f"bf16, channels_last_3d), max_abs_err over every case of phase 18; geometry probe: "
+        f"one entry per case, launches in the probe entry point's run, ms of one call "
+        f"(library: torch.matmul of the same product)")
     log(smi)
 
     def entry(name, source, replaces, launches, err, times, bound_by):
@@ -1837,6 +2180,11 @@ def main() -> int:
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": k, "plain_ms": p, "bound_ms": bnd, "bound_by": bound_by,
                 "library_ms": lib}
+
+    probe_entries = [
+        entry(f"geometry_probe_{c}", "geometry_probe.cu", "tools/probe_mosaic_geometry.py:52",
+              probe_counted // len(probe), v[0], v[1:5], v[5])
+        for c, v in probe.items()]
 
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
@@ -1863,6 +2211,7 @@ def main() -> int:
         entry("conv3d_ttap_dx", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:316",
               clip_grad["conv3d_dx"], max(v[0] for v in conv_dx.values()), dx_step,
               "operations"),
+        *probe_entries,
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

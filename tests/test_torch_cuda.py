@@ -2,8 +2,9 @@
 them, on the card: GroupNorm forward and backward (with autograd; 4-D and
 5-D input), the VQ nearest-code search and code statistics (with the VQ
 pipeline and train step), attention forward and backward (with autograd, the
-pipeline and the train step), and the fused-tap Conv3d forward and dx (with
-autograd and the TVAE clip pipeline).
+pipeline and the train step), the fused-tap Conv3d forward and dx (with
+autograd, the TVAE clip pipeline and the 3D train steps), and the conv-tile
+geometry probe's eight cases (with its entry point).
 
 Marked ``cuda``; each test skips where torch sees no CUDA device. This file
 imports no JAX, so the card's machine runs it without the JAX package's
@@ -713,3 +714,109 @@ def test_tvae_pipeline_goes_through_the_kernels(device):
     assert (conv3d_cuda.launches, attention_cuda.fwd_launches) == (25, 2)
     assert groupnorm_cuda.launches == n_gn
     np.testing.assert_allclose(rec, cpu.reconstruct(clips), atol=1e-4)
+
+
+# the conv-tile geometry probe (kernel #7): each case against its plain
+# version at the JAX tool's rtol = atol = 2e-2, and far inside it (A-G: the
+# same fp32 products summed in another order; H: exact bf16 products, fp32
+# sums)
+@pytest.mark.parametrize("letter", "ABCDEFGH")
+def test_geometry_probe_case_matches_plain(device, letter):
+    from vqgan_tpu_torch.ops import geometry_probe_cuda
+    from vqgan_tpu_torch.ops.geometry_probe import ATOL, CASES, RTOL, make_inputs
+
+    case = next(c for c in CASES if c.letter == letter)
+    inputs = make_inputs()
+    a, b = (torch.from_numpy(inputs[k]).to(device) for k in case.inputs)
+    before = geometry_probe_cuda.launches
+    got = geometry_probe_cuda.probe_case(case, a, b)
+    ref = case.plain(a, b)
+    torch.cuda.synchronize()
+    assert geometry_probe_cuda.launches == before + 1
+    assert got.shape == case.out_shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
+    attrs = geometry_probe_cuda.attributes(case)
+    assert attrs["num_regs"] > 0 and attrs["shared_bytes"] > 0
+
+
+def test_geometry_probe_entry_point_builds_and_passes_every_case(device):
+    from vqgan_tpu_torch.ops import geometry_probe_cuda
+    from vqgan_tpu_torch.tools.probe_conv3d_geometry import run_probe
+
+    geometry_probe_cuda.launches = 0
+    results = run_probe(iters=2, log=lambda line: None)
+    assert [r.case.letter for r in results] == list("ABCDEFGH")
+    assert all(r.built and r.ok and r.ms > 0 for r in results)
+    assert geometry_probe_cuda.launches == 8 * (1 + 3 + 2)
+
+
+def _tiny_3d_runs(device, gan):
+    """One 3D step (recon-only, or GAN with gaussian + frame D and 3 of 4
+    frames) on the CPU and on the card from the same weights, clips and
+    draws, at _tiny_tvae_cfg (kernels #6 forward and dx, #1/#2 on 5-D input,
+    #3 forward and backward at head dim 32): metrics, G's first moments, and
+    the card's launches."""
+    from vqgan_tpu_torch.config import TrainConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step3d import (
+        Step3DDraws,
+        make_train_step_3d,
+        make_train_step_3d_gan,
+    )
+
+    cfg_t = _tiny_tvae_cfg()
+    cfg = TrainConfig(max_steps=10, warmup_steps=2, learning_rate_disc=1e-8, do_ganloss=gan,
+                      disc_type="hinge", use_lecam=True, video_loss_frames=3)
+    gen = torch.Generator().manual_seed(0)
+    sd = tae.init_tvae(cfg_t, gen).state_dict()
+    disc_ref, lpips_ref = PatchDiscriminator(), LPIPS()
+    init_discriminator_(disc_ref, gen)
+    init_lpips_(lpips_ref, gen)
+    rng = np.random.RandomState(1)
+    clips = torch.from_numpy(rng.uniform(-1, 1, (2, 4, 16, 16, 3)).astype(np.float32))
+    eps = torch.from_numpy(rng.randn(2, 2, 8, 8, 8).astype(np.float32))
+    out = {}
+    for dev in ("cpu", device):
+        model = tae.TVAE(cfg_t).to(dev)
+        model.load_state_dict(sd)
+        conv3d_cuda.launches = conv3d_cuda.bwd_launches = 0
+        attention_cuda.fwd_launches = attention_cuda.bwd_launches = 0
+        draws = Step3DDraws(eps=eps.to(dev), frame_u=0.5)
+        if gan:
+            with torch.device(dev):
+                disc, lpips = PatchDiscriminator(), LPIPS()
+            disc.load_state_dict(disc_ref.state_dict())
+            lpips.load_state_dict(lpips_ref.state_dict())
+            state = create_train_state(cfg, model, disc, cfg_t.ch)
+            step = make_train_step_3d_gan(cfg, cfg_t, model, disc, lpips)
+        else:
+            state = create_train_state(cfg, model, None, cfg_t.ch, recon_only=True)
+            step = make_train_step_3d(cfg, cfg_t, model)
+        state, metrics = step(state, clips.to(dev), draws)
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {n: state.g_opt.state[p]["exp_avg"].cpu()
+                          for n, p in model.named_parameters()},
+                         (conv3d_cuda.launches, conv3d_cuda.bwd_launches,
+                          attention_cuda.fwd_launches, attention_cuda.bwd_launches))
+    return out["cpu"], out["cuda"]
+
+
+@pytest.mark.parametrize("gan", [False, True], ids=["recon-only", "gan"])
+def test_tiny_3d_step_on_the_card_matches_cpu(device, gan):
+    """25 Conv3d launches and 24 dx (every conv but the encoder's conv_in),
+    2 + 2 attention launches on the card; losses within the CPU-vs-card
+    bounds of a training step (chip_smoke.py phase 8: 8e-3 relative + 8e-4),
+    G's first moments within 1e-2 of each tensor's largest entry + 1e-6 of
+    the largest."""
+    (m_cpu, g_cpu, l_cpu), (m_gpu, g_gpu, l_gpu) = _tiny_3d_runs(device, gan)
+    assert l_cpu == (0, 0, 0, 0) and l_gpu == (25, 24, 2, 2)
+    assert set(m_cpu) == set(m_gpu)
+    for k, v in m_cpu.items():
+        if k != "gan/discriminator_accuracy":  # counts logits > 0
+            np.testing.assert_allclose(m_gpu[k], v, rtol=8e-3, atol=8e-4, err_msg=k)
+    floor = 1e-6 * max(float(t.abs().max()) for t in g_cpu.values())
+    for n, r in g_cpu.items():
+        assert float((g_gpu[n] - r).abs().max()) <= 1e-2 * float(r.abs().max()) + floor, n

@@ -291,5 +291,12 @@ def test_forward_quantizes_vq():
         assert dec.shape == (1, 4, 16, 16, 3) and z.shape == (1, 2, 8, 8, 8)
         torch.testing.assert_close(dec, model.decode(model.deterministic_latent(z)))
     gauss = tae.init_tvae(TVAEConfig(**TINY), torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError, match="sampling"):
-        gauss(x)
+    with torch.no_grad():  # the Gaussian samples: mean + exp(max(logvar, -3)/2)·ε
+        torch.manual_seed(3)
+        dec, z = gauss(x)
+        mean, logvar = z.chunk(2, dim=-1)
+        torch.manual_seed(3)
+        eps = torch.randn(mean.shape)
+        z_s = mean + torch.exp(0.5 * logvar.clamp(min=-3.0)) * eps
+        torch.testing.assert_close(dec, gauss.decode(z_s))
+        assert not torch.allclose(dec, gauss.decode(gauss.deterministic_latent(z)))

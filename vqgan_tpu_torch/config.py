@@ -161,9 +161,11 @@ class TrainConfig:
     """Training configuration; defaults match the reference CLI defaults
     (vae_trainer.py:224-338).
 
-    The train step (``train/step.py``) reads the optimization, objective and
-    latent fields. No effect in this package yet, each waiting for the port
-    of the training loop (ROADMAP.md, Queue 1 item 7) unless named otherwise:
+    The train steps (``train/step.py``, ``train/step3d.py``) read the
+    optimization, objective and latent fields, the 3D steps also the video
+    family's ``video_loss_frames`` and ``disc_3d``. No effect in this package
+    yet, each waiting for the port of the training loop (ROADMAP.md, Queue 1
+    item 4) unless named otherwise:
       - data: ``dataset_url``, ``test_dataset_url``, ``num_epochs``,
         ``image_size``, ``num_workers``, ``synthetic_data``, ``indexed_data``,
         ``device_normalize`` (the step normalizes a uint8 batch on the device
@@ -175,13 +177,12 @@ class TrainConfig:
         ``use_wandb``, ``nan_guard``, ``profile_dir``;
       - weights from files: ``lpips_weights``, ``disc_backbone_weights`` (the
         modules load reference-format state dicts; ``weights.py``);
-      - the video family: ``video_loss_frames``, ``disc_3d``;
       - TPU mesh: ``mesh_shape``; ``full_bf16`` (set ``VAEConfig.enc_dtype``
         instead);
       - ``crop_invariance``: the caller picks the crop bucket per step
         (``do_crop``), as in the JAX package.
 
-    Not ported yet (the train step raises NotImplementedError):
+    Not ported yet (the train steps raise NotImplementedError):
     ``grad_accum > 1``.
     """
 

@@ -1,0 +1,427 @@
+// The conv-tile geometry probe for Hopper (sm_90a): kernel #7 of the port.
+//
+// Replaces the Pallas TPU probe tools/probe_mosaic_geometry.py::_run (its
+// pallas_call, l.52): eight candidate dot geometries (A-H) of a fat conv
+// tile, each compile-tested in a minimal kernel and held against numpy at
+// rtol = atol = 2e-2. The TPU question was which of them Mosaic lowers onto
+// the 128x128 MXU; the question here is which tile geometry builds for the
+// H100 (nvcc/ptxas accept it), at what registers and spills, and whether it
+// computes the case's function. Each case below is one __global__ that
+// computes exactly the JAX case's function on the JAX case's shapes
+// (ops/geometry_probe.py holds the table and the plain versions).
+//
+// A-G keep fp32 precision, as the JAX cases' Precision.HIGHEST does: every
+// product is an fp32 FMA on the CUDA cores, every sum fp32. H is the
+// prototype of kernel #6's tensor-core inner loop: bf16 mma.sync m16n8k16
+// with fp32 accumulation, an implicit im2col over the 9 (dh, dw) windows of
+// a halo strip in shared memory.
+//
+//   A  fat-N flat: a block owns 32 rows by all 192 columns of
+//      x (256,64) @ w3 (64,192); each thread holds 1 row by 24 columns
+//      (c, c+8, ..., c+184) and sums the three 64-column slices in registers.
+//   B  rank-3 rhs: the same tile as three N=64 passes, one per middle index
+//      of w3 (64,3,64), each loaded x value feeding all three.
+//   C  multi-contraction: nine K=64 chunks (x9[j], w9[j]) through shared
+//      memory into one accumulator.
+//   D  sublane concat: the two (256,64) slabs staged K-major (transposed)
+//      as one K=128 A tile, sA[k][m], then (128,64) of w.
+//   E  lane concat: the same K=128 tile staged row-major, the two slabs side
+//      by side, sA[m][k].
+//   F  shifted windows: one (34,64) strip row of xs in shared memory, both
+//      windows (columns j and j+2) read from it in place.
+//   G  F with each window first copied to its own (32,64) tile.
+//   H  the full 9-window bf16 im2col of a (34,130,64) strip: a block owns
+//      one output row (128 pixels by 64 channels); its three input rows and
+//      the whole (576,64) weight sit in shared memory as bf16; each of 8
+//      warps owns 16 pixels by 64 channels, 8 m16n8k16 accumulators, and
+//      walks K = 9*64 in 36 steps of 16 (one tap, 16 channels).
+//
+// Bound on an H100 SXM: these are microsecond kernels. A-G move 176-512 KB
+// for 6-19 MFLOP: at 67 TFLOP/s of fp32 FMA and 3.35 TB/s both bounds are
+// under 0.3 us, so launch latency sets the pace. H moves 2.3 MB for 302
+// MFLOP of bf16: bytes bound it (0.7 us) against 0.3 us of tensor cores.
+//
+// Build one case alone with -DGEOMETRY_PROBE_CASE=<0..7> (the probe's entry
+// point does, to say which case ptxas rejects when the whole file fails).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef GEOMETRY_PROBE_CASE
+#define GEOMETRY_PROBE_CASE -1  // every case
+#endif
+#define CASE_ON(i) (GEOMETRY_PROBE_CASE < 0 || GEOMETRY_PROBE_CASE == (i))
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int M = 256, K = 64, CO = 64;
+constexpr int SH = 32, SW = 34;             // F, G: the strip; output width SW - 2
+constexpr int BH = 32, WF = 128, CI = 64;   // H: output rows, width, channels
+constexpr int kNotBuilt = 100000;           // error code: the case is not in this build
+
+#if CASE_ON(0)
+// A: 8 blocks of 32 rows; K in chunks of 16 through shared memory.
+__global__ void __launch_bounds__(kThreads) probe_a(const float* __restrict__ x,
+                                                    const float* __restrict__ w,
+                                                    float* __restrict__ out) {
+  __shared__ float sx[32][17];
+  __shared__ float sw[16][3 * CO];
+  const int tid = threadIdx.x, row = tid >> 3, c = tid & 7, m0 = blockIdx.x * 32;
+  float acc[24];
+#pragma unroll
+  for (int i = 0; i < 24; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    for (int i = tid; i < 32 * 16; i += kThreads)
+      sx[i >> 4][i & 15] = x[(m0 + (i >> 4)) * K + k0 + (i & 15)];
+    for (int i = tid; i < 16 * 3 * CO; i += kThreads)
+      sw[i / (3 * CO)][i % (3 * CO)] = w[(k0 + i / (3 * CO)) * 3 * CO + i % (3 * CO)];
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const float a = sx[row][kk];
+#pragma unroll
+      for (int i = 0; i < 24; ++i) acc[i] = fmaf(a, sw[kk][c + 8 * i], acc[i]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    out[(m0 + row) * CO + c + 8 * i] = acc[i] + acc[i + 8] + acc[i + 16];
+}
+#endif
+
+#if CASE_ON(1)
+// B: 8 blocks of 32 rows; per k one x value, three passes over w3[k][p].
+__global__ void __launch_bounds__(kThreads) probe_b(const float* __restrict__ x,
+                                                    const float* __restrict__ w3,
+                                                    float* __restrict__ out) {
+  __shared__ float sx[32][17];
+  __shared__ float sw[16][3][CO];
+  const int tid = threadIdx.x, row = tid >> 3, c = tid & 7, m0 = blockIdx.x * 32;
+  float acc[3][8];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[p][i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    for (int i = tid; i < 32 * 16; i += kThreads)
+      sx[i >> 4][i & 15] = x[(m0 + (i >> 4)) * K + k0 + (i & 15)];
+    for (int i = tid; i < 16 * 3 * CO; i += kThreads) {
+      const int kk = i / (3 * CO), p = (i / CO) % 3, o = i % CO;
+      sw[kk][p][o] = w3[((k0 + kk) * 3 + p) * CO + o];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const float a = sx[row][kk];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[p][i] = fmaf(a, sw[kk][p][c + 8 * i], acc[p][i]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    out[(m0 + row) * CO + c + 8 * i] = acc[0][i] + acc[1][i] + acc[2][i];
+}
+#endif
+
+#if CASE_ON(2)
+// C: 8 blocks of 32 rows; the nine (x9[j], w9[j]) chunks in turn.
+__global__ void __launch_bounds__(kThreads) probe_c(const float* __restrict__ x9,
+                                                    const float* __restrict__ w9,
+                                                    float* __restrict__ out) {
+  __shared__ float sx[32][K + 1];
+  __shared__ float sw[K][CO];
+  const int tid = threadIdx.x, row = tid >> 3, c = tid & 7, m0 = blockIdx.x * 32;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int j = 0; j < 9; ++j) {
+    for (int i = tid; i < 32 * K; i += kThreads)
+      sx[i / K][i % K] = x9[(j * M + m0 + i / K) * K + i % K];
+    for (int i = tid; i < K * CO; i += kThreads) sw[i / CO][i % CO] = w9[j * K * CO + i];
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      const float a = sx[row][k];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] = fmaf(a, sw[k][c + 8 * i], acc[i]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[(m0 + row) * CO + c + 8 * i] = acc[i];
+}
+#endif
+
+#if CASE_ON(3) || CASE_ON(4)
+// D and E: 16 blocks of 16 rows; the K = 128 A tile of both slabs and the
+// (128, 64) weight in shared memory; each thread 1 row by 4 columns.
+template <bool kKMajor>
+__device__ __forceinline__ void concat_tile(const float* __restrict__ x2,
+                                            const float* __restrict__ w,
+                                            float* __restrict__ out) {
+  __shared__ float sa[kKMajor ? 2 * K : 16][kKMajor ? 16 + 1 : 2 * K + 1];
+  __shared__ float sw[2 * K][CO];
+  const int tid = threadIdx.x, row = tid >> 4, c = tid & 15, m0 = blockIdx.x * 16;
+  for (int i = tid; i < 2 * 16 * K; i += kThreads) {
+    const int s = i / (16 * K), m = (i / K) % 16, k = i % K;  // slab, row, column
+    const float v = x2[(s * M + m0 + m) * K + k];
+    if constexpr (kKMajor) {
+      sa[s * K + k][m] = v;  // (x2[0].T ; x2[1].T): (2K, 16)
+    } else {
+      sa[m][s * K + k] = v;  // (x2[0] | x2[1]): (16, 2K)
+    }
+  }
+  for (int i = tid; i < 2 * K * CO; i += kThreads) sw[i / CO][i % CO] = w[i];
+  __syncthreads();
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int k = 0; k < 2 * K; ++k) {
+    float a;
+    if constexpr (kKMajor) {
+      a = sa[k][row];
+    } else {
+      a = sa[row][k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = fmaf(a, sw[k][c + 16 * i], acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[(m0 + row) * CO + c + 16 * i] = acc[i];
+}
+#endif
+
+#if CASE_ON(3)
+__global__ void __launch_bounds__(kThreads) probe_d(const float* __restrict__ x2,
+                                                    const float* __restrict__ w,
+                                                    float* __restrict__ out) {
+  concat_tile<true>(x2, w, out);
+}
+#endif
+
+#if CASE_ON(4)
+__global__ void __launch_bounds__(kThreads) probe_e(const float* __restrict__ x2,
+                                                    const float* __restrict__ w,
+                                                    float* __restrict__ out) {
+  concat_tile<false>(x2, w, out);
+}
+#endif
+
+#if CASE_ON(5)
+// F: 32 blocks, one strip row each; both windows read in place.
+__global__ void __launch_bounds__(kThreads) probe_f(const float* __restrict__ xs,
+                                                    const float* __restrict__ w,
+                                                    float* __restrict__ out) {
+  __shared__ float sx[SW][K + 1];
+  __shared__ float sw[2 * K][CO];
+  const int tid = threadIdx.x, j = tid >> 3, c = tid & 7, h = blockIdx.x;
+  for (int i = tid; i < SW * K; i += kThreads) sx[i / K][i % K] = xs[h * SW * K + i];
+  for (int i = tid; i < 2 * K * CO; i += kThreads) sw[i / CO][i % CO] = w[i];
+  __syncthreads();
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    const float a = sx[j][k], b = sx[j + 2][k];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      acc[i] = fmaf(a, sw[k][c + 8 * i], acc[i]);
+      acc[i] = fmaf(b, sw[K + k][c + 8 * i], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[(h * (SW - 2) + j) * CO + c + 8 * i] = acc[i];
+}
+#endif
+
+#if CASE_ON(6)
+// G: as F, with each window copied out of the strip into its own tile, and
+// the weight staged in two halves, one per window.
+__global__ void __launch_bounds__(kThreads) probe_g(const float* __restrict__ xs,
+                                                    const float* __restrict__ w,
+                                                    float* __restrict__ out) {
+  __shared__ float sx[SW][K];
+  __shared__ float wa[SW - 2][K + 1];
+  __shared__ float wb[SW - 2][K + 1];
+  __shared__ float sw[K][CO];
+  const int tid = threadIdx.x, j = tid >> 3, c = tid & 7, h = blockIdx.x;
+  for (int i = tid; i < SW * K; i += kThreads) sx[i / K][i % K] = xs[h * SW * K + i];
+  __syncthreads();
+  for (int i = tid; i < (SW - 2) * K; i += kThreads) {
+    wa[i / K][i % K] = sx[i / K][i % K];
+    wb[i / K][i % K] = sx[i / K + 2][i % K];
+  }
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int half = 0; half < 2; ++half) {
+    __syncthreads();
+    for (int i = tid; i < K * CO; i += kThreads) sw[i / CO][i % CO] = w[half * K * CO + i];
+    __syncthreads();
+    const float(*win)[K + 1] = half ? wb : wa;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      const float a = win[j][k];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] = fmaf(a, sw[k][c + 8 * i], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[(h * (SW - 2) + j) * CO + c + 8 * i] = acc[i];
+}
+#endif
+
+#if CASE_ON(7)
+constexpr int kXStride = CI + 8;      // bf16 per strip pixel in shared memory
+constexpr int kWStride = 9 * CI + 8;  // bf16 per weight column (one n)
+constexpr size_t kHSmemBytes =
+    (size_t(3) * (WF + 2) * kXStride + size_t(CO) * kWStride) * sizeof(__nv_bfloat16);
+
+__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// H: 32 blocks, one output row each; 8 warps of 16 pixels by 64 channels.
+// Fragments of mma.m16n8k16 (PTX ISA): lane = 4*g + t; A (16x16, row major)
+// holds rows g and g+8, columns 2t, 2t+1 and 2t+8, 2t+9; B (16x8, K by N)
+// rows 2t, 2t+1 and 2t+8, 2t+9 of column g; C rows g, g+8, columns 2t, 2t+1.
+__global__ void __launch_bounds__(kThreads) probe_h(const float* __restrict__ xh,
+                                                    const float* __restrict__ wh,
+                                                    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);  // [3][WF+2][kXStride]
+  __nv_bfloat16* sw = sx + 3 * (WF + 2) * kXStride;             // [CO][kWStride], K-contiguous
+  const int tid = threadIdx.x, h = blockIdx.x;
+  for (int i = tid; i < 3 * (WF + 2) * CI; i += kThreads) {
+    const int dh = i / ((WF + 2) * CI), col = (i / CI) % (WF + 2), ci = i % CI;
+    sx[(dh * (WF + 2) + col) * kXStride + ci] =
+        __float2bfloat16_rn(xh[((h + dh) * (WF + 2) + col) * CI + ci]);
+  }
+  for (int i = tid; i < 9 * CI * CO; i += kThreads) {
+    const int k = i / CO, n = i % CO;
+    sw[n * kWStride + k] = __float2bfloat16_rn(wh[i]);
+  }
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = warp * 16;  // this warp's first output pixel of the row
+  float acc[CO / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
+
+  for (int ks = 0; ks < 9 * CI / 16; ++ks) {
+    const int tap = ks >> 2, dh = tap / 3, dw = tap % 3, ci0 = (ks & 3) * 16;
+    // im2col row m of window (dh, dw) is strip pixel (dh, m + dw)
+    const __nv_bfloat16* lo = sx + (dh * (WF + 2) + m0 + g + dw) * kXStride + ci0 + 2 * t;
+    const __nv_bfloat16* hi = lo + 8 * kXStride;
+    const uint32_t a0 = pair(lo), a1 = pair(hi), a2 = pair(lo + 8), a3 = pair(hi + 8);
+#pragma unroll
+    for (int nt = 0; nt < CO / 8; ++nt) {
+      const __nv_bfloat16* bp = sw + (nt * 8 + g) * kWStride + ks * 16 + 2 * t;
+      const uint32_t b0 = pair(bp), b1 = pair(bp + 8);
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]), "+f"(acc[nt][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  const int r0 = h * WF + m0 + g;
+#pragma unroll
+  for (int nt = 0; nt < CO / 8; ++nt) {
+    const int n = nt * 8 + 2 * t;
+    out[r0 * CO + n] = acc[nt][0];
+    out[r0 * CO + n + 1] = acc[nt][1];
+    out[(r0 + 8) * CO + n] = acc[nt][2];
+    out[(r0 + 8) * CO + n + 1] = acc[nt][3];
+  }
+}
+#endif
+
+// The kernel of each case, and its grid; nullptr where it is not built.
+const void* kernel_of(int which) {
+  switch (which) {
+#if CASE_ON(0)
+    case 0: return reinterpret_cast<const void*>(probe_a);
+#endif
+#if CASE_ON(1)
+    case 1: return reinterpret_cast<const void*>(probe_b);
+#endif
+#if CASE_ON(2)
+    case 2: return reinterpret_cast<const void*>(probe_c);
+#endif
+#if CASE_ON(3)
+    case 3: return reinterpret_cast<const void*>(probe_d);
+#endif
+#if CASE_ON(4)
+    case 4: return reinterpret_cast<const void*>(probe_e);
+#endif
+#if CASE_ON(5)
+    case 5: return reinterpret_cast<const void*>(probe_f);
+#endif
+#if CASE_ON(6)
+    case 6: return reinterpret_cast<const void*>(probe_g);
+#endif
+#if CASE_ON(7)
+    case 7: return reinterpret_cast<const void*>(probe_h);
+#endif
+    default: return nullptr;
+  }
+}
+
+constexpr int kGrid[8] = {M / 32, M / 32, M / 32, M / 16, M / 16, SH, SH, BH};
+
+}  // namespace
+
+// Launches case `which` (0..7 for A..H) on `stream`: out = f(a, b), fp32
+// buffers of the case's shapes. Returns 0, a cudaError_t, or kNotBuilt.
+extern "C" int geometry_probe_run(int which, const float* a, const float* b, float* out,
+                                  cudaStream_t stream) {
+  const void* fn = kernel_of(which);
+  if (fn == nullptr) return kNotBuilt;
+  size_t smem = 0;
+#if CASE_ON(7)
+  if (which == 7) {
+    smem = kHSmemBytes;
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+#endif
+  void* args[] = {&a, &b, &out};
+  cudaError_t err = cudaLaunchKernel(fn, dim3(kGrid[which]), dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cudaFuncGetAttributes of case `which`: registers per thread, local memory
+// per thread in bytes (spills and local arrays), static and dynamic shared
+// memory of its launch in bytes. Returns 0, a cudaError_t, or kNotBuilt.
+extern "C" int geometry_probe_attributes(int which, int* num_regs, int* local_bytes,
+                                         int* shared_bytes) {
+  const void* fn = kernel_of(which);
+  if (fn == nullptr) return kNotBuilt;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *num_regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+#if CASE_ON(7)
+  if (which == 7) *shared_bytes += static_cast<int>(kHSmemBytes);
+#endif
+  return 0;
+}
+
+extern "C" const char* geometry_probe_error_string(int err) {
+  return err == kNotBuilt ? "the case is not built into this library"
+                          : cudaGetErrorString(static_cast<cudaError_t>(err));
+}

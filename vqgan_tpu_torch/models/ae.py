@@ -159,15 +159,16 @@ class IdentityGaussian(nn.Module):
 
 class DiagonalGaussian(nn.Module):
     """Reparameterized Gaussian over a 2·z_channels input (reference
-    tae.py:253-266). Sampling is a training path and is not ported yet (the
-    train step raises for ``reg_type="gaussian"``); serving takes the mean
-    (``VAEPipeline.encode``)."""
+    tae.py:253-266; JAX ``models/ae.py::DiagonalGaussian``): split into mean
+    and logvar in z's dtype, clip logvar at −3, mean + exp(logvar/2)·ε with ε
+    from torch's default generator. Serving takes the mean
+    (``VAEPipeline.encode``); the 3D train steps sample in fp32 with the KL
+    and given or drawn ε (``models/tae.py::reparameterize``)."""
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "DiagonalGaussian sampling is not ported yet (ROADMAP.md, "
-            "Queue 1: 2D models)"
-        )
+        mean, logvar = z.chunk(2, dim=-1)
+        std = torch.exp(0.5 * logvar.clamp(min=-3.0))
+        return mean + std * torch.randn_like(mean)
 
 
 def _check_ported(cfg: VAEConfig) -> None:

@@ -373,8 +373,8 @@ class TVAE(nn.Module):
 
     def regularize(self, z: torch.Tensor, ema_state: Optional[dict] = None,
                    update_stats: bool = False):
-        """The Gaussian's sample (a training path, not ported yet: it
-        raises), or for VQ the quantizer's ``(z_q, aux, new_ema)``."""
+        """The Gaussian's sample in z's dtype, or for VQ the quantizer's
+        ``(z_q, aux, new_ema)``."""
         if isinstance(self.reg, VectorQuantizer):
             return self.reg(z, ema_state, update_stats)
         return self.reg(z)
@@ -388,13 +388,26 @@ class TVAE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(decoded, z)`` like the reference; VQ quantizes without
-        statistics, the Gaussian samples (not ported yet)."""
+        statistics, the Gaussian samples."""
         z = self.encode(x)
         if isinstance(self.reg, VectorQuantizer):
             z_s = self.reg.quantize(z)
         else:
             z_s = self.regularize(z)
         return self.decode(z_s), z
+
+
+def reparameterize(z: torch.Tensor, eps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Gaussian latent's training sample and its KL, as the JAX 3D steps
+    take them (``vqgan_tpu/train/step3d.py:90-97``, ``trainer3d.py:56-63``):
+    z (..., 2·z_channels) split in fp32 into mean and logvar, logvar clipped
+    at −3, z_s = mean + exp(logvar/2)·ε cast back to z's dtype, and
+    KL = ½·mean(μ² + e^logvar − 1 − logvar). ``eps`` has the mean's shape."""
+    mean, logvar = z.float().chunk(2, dim=-1)
+    logvar = logvar.clamp(min=-3.0)
+    z_s = (mean + torch.exp(0.5 * logvar) * eps).to(z.dtype)
+    kl = 0.5 * (mean.square() + torch.exp(logvar) - 1.0 - logvar).mean()
+    return z_s, kl
 
 
 def init_tvae(cfg: TVAEConfig, generator: torch.Generator) -> TVAE:

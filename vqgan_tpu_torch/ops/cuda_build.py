@@ -48,22 +48,24 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
-    source text and the flags."""
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Where ``csrc/<name>.cu`` builds to with the extra ``-D`` flags
+    ``defines``: the name carries a hash of the source text and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + defines)
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it.
+def load_library(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (with the extra ``-D`` flags ``defines``) if
+    its library is missing, then load it.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory and spills
     of every kernel) is kept beside the library as ``<library>.log``.
     """
-    out = library_path(name)
+    out = library_path(name, defines)
     if not out.is_file():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -71,7 +73,7 @@ def load_library(name: str) -> ctypes.CDLL:
         # build never leaves a half-written library under the final name
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

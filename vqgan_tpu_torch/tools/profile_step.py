@@ -1,8 +1,11 @@
-"""Where the device time of the flagship training step goes, from a
-torch.profiler trace (counterpart of ``tools/profile_step.py``).
+"""Where the device time of the flagship training step, or of the 3D
+step, goes, from a torch.profiler trace (counterpart of
+``tools/profile_step.py``).
 
     python -m vqgan_tpu_torch.tools.profile_step [--batch 8] [--steps 3] [--out DIR]
         [--reg_type identity_gaussian|vq] [--use_attn] [--attn_chunk 512]
+    python -m vqgan_tpu_torch.tools.profile_step --clips [--disc_3d none|frame|tubelet]
+        [--batch 2] [--steps 3] [--out DIR]
 
 Builds ``bench.py``'s flagship GAN step on the first CUDA device with random
 weights from a seed: ``VAEConfig`` with bf16 encoder and decoder (ch=256,
@@ -17,7 +20,11 @@ window (union of kernel intervals over its host-clock length), the device ms
 by kernel class (GroupNorm forward and backward kernels, the VQ kernels, the
 attention kernels, cuDNN convs, the AdamW updates, adds, reductions, copies
 and casts, other), the top kernels, each VQ kernel and each attention
-kernel. TF32 on for convs, off for matmuls. Writes the chrome trace to
+kernel. ``--clips`` profiles the 3D step instead, at ``tools/bench_tvae.py``'s
+config (``build_step3d``: 16 frames x 128 px, batch ``--batch``, default 2
+there): the recon-only step, or with ``--disc_3d frame|tubelet`` the GAN
+step with that discriminator; the kernel classes then include kernel #6.
+TF32 on for convs, off for matmuls. Writes the chrome trace to
 ``DIR/step_trace.json`` when ``--out`` is given. Needs a CUDA device; fails
 without one.
 """
@@ -94,19 +101,67 @@ def build_flagship_step(batch: int, device: str = "cuda", seed: int = 0,
     return state, step, torch.from_numpy(images).to(device)
 
 
-def profile_steps(batch: int, steps: int, out_dir: str | None,
-                  reg_type: str = "identity_gaussian", use_attn: bool = False,
-                  attn_chunk: int = 0) -> None:
-    state, step, images = build_flagship_step(batch, reg_type=reg_type, use_attn=use_attn,
-                                              attn_chunk=attn_chunk)
+def build_step3d(batch: int = 2, frames: int = 16, res: int = 128, disc_3d: str = "none",
+                 device: str = "cuda", learning_rate_vae: float | None = None):
+    """The 3D step at ``tools/bench_tvae.py``'s config (ch 64, ch_mult 1,2,4,
+    1 res block, z 8, bf16, gaussian) on ``device``: the recon-only step
+    (``disc_3d="none"``), or the GAN step (hinge + LeCam, 4 of the frames to
+    LPIPS and D, fp32 LPIPS and D as the JAX 3D trainer builds them) with
+    the frame or tubelet discriminator. Random weights from seeds 0-2;
+    ``learning_rate_vae`` overrides TrainConfig's. Returns (state, step,
+    model, D or None, a clip batch source from ``synthetic_video_batches``
+    yielding device tensors)."""
+    import dataclasses
+
+    from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
+    from vqgan_tpu_torch.losses.discriminator import (
+        PatchDiscriminator,
+        TubeletDiscriminator,
+        init_discriminator_,
+    )
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.tae import init_tvae
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step3d import make_train_step_3d, make_train_step_3d_gan
+    from vqgan_tpu_torch.train.trainer3d import synthetic_video_batches
+
+    tvae_cfg = TVAEConfig(resolution=res, ch=64, ch_mult=(1, 2, 4), num_res_blocks=1,
+                          z_channels=8, compute_dtype="bfloat16")
+    model = init_tvae(tvae_cfg, torch.Generator().manual_seed(0)).to(device)
+    src = (torch.from_numpy(c).to(device)
+           for c in synthetic_video_batches(batch, frames, res, seed=0))
+    cfg = TrainConfig(batch_size=batch)
+    if learning_rate_vae is not None:
+        cfg = dataclasses.replace(cfg, learning_rate_vae=learning_rate_vae)
+    if disc_3d == "none":
+        state = create_train_state(cfg, model, None, tvae_cfg.ch, recon_only=True)
+        return state, make_train_step_3d(cfg, tvae_cfg, model), model, None, src
+    loss_frames = min(4, frames)
+    cfg = dataclasses.replace(cfg, do_ganloss=True, disc_type="hinge", use_lecam=True,
+                              video_loss_frames=loss_frames, disc_3d=disc_3d)
+    with torch.device(device):
+        disc = (TubeletDiscriminator(loss_frames) if disc_3d == "tubelet"
+                else PatchDiscriminator())
+        lpips = LPIPS()
+    init_discriminator_(disc, torch.Generator(device).manual_seed(1))
+    init_lpips_(lpips, torch.Generator(device).manual_seed(2))
+    state = create_train_state(cfg, model, disc, tvae_cfg.ch)
+    return state, make_train_step_3d_gan(cfg, tvae_cfg, model, disc, lpips), model, disc, src
+
+
+def profile_steps(state, step, batches, steps: int, out_dir: str | None, what: str,
+                  loss_key: str, unit: str) -> None:
+    """Two warm-up steps, then ``steps`` profiled ones, each on the next of
+    ``batches``; prints the breakdown (``unit``: what a step's batch holds)."""
     for _ in range(2):
-        state, metrics = step(state, images)
-    float(metrics["overall_vae_loss"])  # waits for the device
+        state, metrics = step(state, next(batches))
+    float(metrics[loss_key])  # waits for the device
+    inputs = [next(batches) for _ in range(steps)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = step(state, images)
-        float(metrics["overall_vae_loss"])
+        for x in inputs:
+            state, metrics = step(state, x)
+        float(metrics[loss_key])
         window_us = (time.perf_counter() - t0) * 1e6
     kernels = device_kernels(prof)
     by_class: dict[str, float] = {}
@@ -120,8 +175,7 @@ def profile_steps(batch: int, steps: int, out_dir: str | None,
         entry[1] += 1
     total = sum(by_class.values())
     busy = busy_us(kernels)
-    what = reg_type + (" attn" if use_attn else "")
-    print(f"train step {what} batch {batch}, {steps} steps: window {window_us / steps / 1e3:.3f} "
+    print(f"train step {what} ({unit}), {steps} steps: window {window_us / steps / 1e3:.3f} "
           f"ms/step host clock, kernels {total / steps / 1e3:.3f} ms/step, device busy "
           f"{busy / window_us:.4f} of the window (idle {1 - busy / window_us:.4f})")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
@@ -150,6 +204,10 @@ def main() -> None:
                         choices=("identity_gaussian", "vq"))
     parser.add_argument("--use_attn", action="store_true")
     parser.add_argument("--attn_chunk", type=int, default=512)
+    parser.add_argument("--clips", action="store_true",
+                        help="profile the 3D step at tools/bench_tvae.py's config")
+    parser.add_argument("--disc_3d", default="none", choices=("none", "frame", "tubelet"),
+                        help="with --clips: the recon-only step, or the GAN step with this D")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -157,8 +215,20 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"{torch.cuda.get_device_name(0)}; tf32: cudnn {torch.backends.cudnn.allow_tf32}, "
           f"matmul {torch.backends.cuda.matmul.allow_tf32}")
-    profile_steps(args.batch, args.steps, args.out, args.reg_type, args.use_attn,
-                  args.attn_chunk)
+    if args.clips:
+        batch = 2 if args.batch == parser.get_default("batch") else args.batch
+        state, step, _, _, batches = build_step3d(batch, disc_3d=args.disc_3d)
+        what = "3D recon-only" if args.disc_3d == "none" else f"3D GAN {args.disc_3d}"
+        profile_steps(state, step, batches, args.steps, args.out, what,
+                      "loss" if args.disc_3d == "none" else "overall_vae_loss",
+                      f"batch {batch} of 16 frames x 128 px")
+        return
+    state, step, images = build_flagship_step(args.batch, reg_type=args.reg_type,
+                                              use_attn=args.use_attn,
+                                              attn_chunk=args.attn_chunk)
+    what = args.reg_type + (" attn" if args.use_attn else "")
+    profile_steps(state, step, iter(lambda: images, None), args.steps, args.out, what,
+                  "overall_vae_loss", f"batch {args.batch}")
 
 
 if __name__ == "__main__":

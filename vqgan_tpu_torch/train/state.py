@@ -28,7 +28,7 @@ class TrainState:
     step: int
     g_model: nn.Module
     g_opt: torch.optim.AdamW
-    g_sched: LambdaLR
+    g_sched: Optional[LambdaLR]  # None for the 3D recon-only step's constant lr
     d_model: Optional[nn.Module]  # None when the GAN loss is off
     d_opt: Optional[torch.optim.AdamW]
     lecam_real: torch.Tensor
@@ -91,6 +91,35 @@ def make_discriminator_optimizer(cfg: TrainConfig, d_model: nn.Module) -> torch.
     )
 
 
+def make_recon_optimizer(cfg: TrainConfig, vae_ch: int, g_model: nn.Module
+                         ) -> torch.optim.AdamW:
+    """The 3D recon-only step's optimizer (``vqgan_tpu/train/trainer3d.py:
+    271-275``): one AdamW over every parameter at the constant lr
+    learning_rate_vae / vae_ch, no conv_in group, no schedule."""
+    return torch.optim.AdamW(
+        g_model.parameters(),
+        lr=cfg.learning_rate_vae / vae_ch,
+        betas=(cfg.beta1, cfg.beta2),
+        weight_decay=cfg.weight_decay,
+    )
+
+
+def to_channels_last(model: nn.Module) -> None:
+    """Each 4-D parameter or buffer of ``model`` into ``torch.channels_last``
+    and each 5-D one into ``torch.channels_last_3d`` (what the convs and the
+    kernels read), in place; ``Module.to(memory_format=...)`` takes one format
+    for both ranks and refuses a 5-D weight with the 4-D one."""
+    formats = {4: torch.channels_last, 5: torch.channels_last_3d}
+    with torch.no_grad():
+        for m in model.modules():
+            for p in m.parameters(recurse=False):
+                if p.ndim in formats:
+                    p.data = p.data.contiguous(memory_format=formats[p.ndim])
+            for name, buf in m.named_buffers(recurse=False):
+                if buf.ndim in formats:
+                    setattr(m, name, buf.contiguous(memory_format=formats[buf.ndim]))
+
+
 def create_train_state(
     cfg: TrainConfig,
     g_model: nn.Module,
@@ -98,23 +127,31 @@ def create_train_state(
     vae_ch: int,
     seed: int = 0,
     vq_ema: Optional[dict[str, torch.Tensor]] = None,
+    recon_only: bool = False,
 ) -> TrainState:
     """The state of a fresh run. The models must already sit on their device;
-    their params are put in ``torch.channels_last`` (what the convs and the
-    GroupNorm kernels read), then handed to the optimizers.
+    their params are put in the channels-last format of their rank
+    (``to_channels_last``), then handed to the optimizers: G's two-group
+    AdamW with the cosine schedule, or with ``recon_only`` (the 3D
+    recon-only step; no D) the constant-lr ``make_recon_optimizer``.
 
     A VQ generator with EMA gets its EMA statistics: ``vq_ema`` moved to the
     device when given, else the JAX init's counts 1 and sums = the codebook
     (``vqgan_tpu/models/quant.py:93-98``, ``trainer.py:98``)."""
-    g_model.to(memory_format=torch.channels_last)
+    if recon_only and d_model is not None:
+        raise ValueError("recon_only: the recon-only step has no discriminator")
+    to_channels_last(g_model)
     device = next(g_model.parameters()).device
-    g_opt, g_sched = make_generator_optimizer(cfg, vae_ch, g_model)
+    if recon_only:
+        g_opt, g_sched = make_recon_optimizer(cfg, vae_ch, g_model), None
+    else:
+        g_opt, g_sched = make_generator_optimizer(cfg, vae_ch, g_model)
     d_opt = None
     if d_model is not None:
-        d_model.to(memory_format=torch.channels_last)
+        to_channels_last(d_model)
         d_opt = make_discriminator_optimizer(cfg, d_model)
     g_ema = None
-    if cfg.ema_decay > 0:
+    if cfg.ema_decay > 0 and not recon_only:  # the JAX recon-only step keeps none
         # starts at the initial weights (Polyak convention)
         g_ema = {n: p.detach().clone() for n, p in g_model.named_parameters()}
     reg = getattr(g_model, "reg", None)

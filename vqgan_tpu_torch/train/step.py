@@ -37,6 +37,7 @@ caller that needs given draws (the parity tests feed the JAX step's) passes
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -143,6 +144,85 @@ def z_statistics(z: torch.Tensor) -> dict[str, torch.Tensor]:
     return out
 
 
+def discriminator_update(cfg: TrainConfig, disc: nn.Module, state: TrainState,
+                         real: torch.Tensor, fake: torch.Tensor,
+                         metrics: dict[str, torch.Tensor]) -> None:
+    """One AdamW step of D on the real and the (detached) fake inputs: the GAN
+    loss, the LeCam anchors EMA'd from the logits first and the penalty taken
+    against the new anchors (reference :639-655); D's metrics go to
+    ``metrics``."""
+    real_preds = disc(real)
+    fake_preds = disc(fake)
+    d_loss, d_metrics = gan_disc_loss(real_preds, fake_preds, cfg.disc_type)
+    new_real, new_fake = update_lecam_anchors(
+        state.lecam_real, state.lecam_fake,
+        d_metrics["avg_real_logits"].detach(),
+        d_metrics["avg_fake_logits"].detach(),
+        cfg.lecam_beta,
+    )
+    total_d = d_loss
+    lecam_val = torch.zeros((), device=d_loss.device)
+    if cfg.use_lecam:
+        lecam_val = lecam_penalty(real_preds, fake_preds, new_real, new_fake)
+        total_d = total_d + cfg.lecam_weight * lecam_val
+    state.d_opt.zero_grad(set_to_none=True)
+    total_d.backward()
+    state.d_opt.step()
+    state.d_opt.zero_grad(set_to_none=True)
+    state.lecam_real, state.lecam_fake = new_real, new_fake
+    metrics["gan/discriminator_loss"] = d_loss.detach()
+    metrics["gan/discriminator_accuracy"] = d_metrics["disc_acc"]
+    metrics["gan/avg_real_logits"] = d_metrics["avg_real_logits"].detach()
+    metrics["gan/avg_fake_logits"] = d_metrics["avg_fake_logits"].detach()
+    metrics["gan/lecam_loss"] = lecam_val.detach()
+    metrics["gan/lecam_anchor_real_logits"] = new_real
+    metrics["gan/lecam_anchor_fake_logits"] = new_fake
+
+
+@contextlib.contextmanager
+def frozen(module: Optional[nn.Module]):
+    """``module``'s params take no gradient inside the block (G's backward
+    through the updated D)."""
+    params = [] if module is None else list(module.parameters())
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+@torch.no_grad()
+def fold_codebook(state: TrainState, model: nn.Module, new_ema: dict[str, torch.Tensor],
+                  z: torch.Tensor, revive_idx: Optional[torch.Tensor],
+                  revive_threshold: float) -> None:
+    """After G's AdamW step: the EMA statistics folded into ``model.reg``'s
+    codebook in place (overwriting whatever AdamW did; in EMA mode the
+    codebook takes no gradient), then, for ``revive_threshold`` > 0, dead
+    codes revived from the rows ``revive_idx`` of the flat z; the statistics
+    stored in the state (JAX step.py:364-388)."""
+    codebook = model.reg.codebook
+    new_cb = apply_ema_codebook_update(codebook, new_ema["counts"], new_ema["sums"],
+                                       model.reg.ema_eps)
+    if revive_threshold > 0:
+        flat_z = z.detach().float().reshape(-1, z.shape[-1])
+        new_cb = revive_dead_codes(new_cb, new_ema["counts"], flat_z, revive_idx,
+                                   revive_threshold)
+    codebook.copy_(new_cb)
+    state.vq_ema = new_ema
+
+
+@torch.no_grad()
+def polyak_update(state: TrainState, model: nn.Module, decay: float) -> None:
+    """state.g_ema ← decay·g_ema + (1 − decay)·params, by name."""
+    names = list(state.g_ema)
+    params = dict(model.named_parameters())
+    ema = [state.g_ema[n] for n in names]
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [params[n] for n in names], alpha=1.0 - decay)
+
+
 def make_train_step(
     cfg: TrainConfig,
     vae_cfg: VAEConfig,
@@ -222,37 +302,6 @@ def make_train_step(
         recon = vae.decode(z_s)
         return recon, z, target, z_pre, aux_loss, new_ema
 
-    def disc_update(state, recon, target, metrics):
-        recon_const = recon.detach().float()
-        real_preds = disc(target)
-        fake_preds = disc(recon_const)
-        d_loss, d_metrics = gan_disc_loss(real_preds, fake_preds, cfg.disc_type)
-        # anchors EMA'd from the logits first, then the penalty uses the new
-        # anchors (reference :639-655)
-        new_real, new_fake = update_lecam_anchors(
-            state.lecam_real, state.lecam_fake,
-            d_metrics["avg_real_logits"].detach(),
-            d_metrics["avg_fake_logits"].detach(),
-            cfg.lecam_beta,
-        )
-        total_d = d_loss
-        lecam_val = torch.zeros((), device=d_loss.device)
-        if cfg.use_lecam:
-            lecam_val = lecam_penalty(real_preds, fake_preds, new_real, new_fake)
-            total_d = total_d + cfg.lecam_weight * lecam_val
-        state.d_opt.zero_grad(set_to_none=True)
-        total_d.backward()
-        state.d_opt.step()
-        state.d_opt.zero_grad(set_to_none=True)
-        state.lecam_real, state.lecam_fake = new_real, new_fake
-        metrics["gan/discriminator_loss"] = d_loss.detach()
-        metrics["gan/discriminator_accuracy"] = d_metrics["disc_acc"]
-        metrics["gan/avg_real_logits"] = d_metrics["avg_real_logits"].detach()
-        metrics["gan/avg_fake_logits"] = d_metrics["avg_fake_logits"].detach()
-        metrics["gan/lecam_loss"] = lecam_val.detach()
-        metrics["gan/lecam_anchor_real_logits"] = new_real
-        metrics["gan/lecam_anchor_fake_logits"] = new_fake
-
     def g_losses(recon, z, aux_loss, target, draws):
         """All generator loss branches (reference vae_trainer.py:662-698)."""
         metrics = {}
@@ -284,22 +333,6 @@ def make_train_step(
             metrics["vq_loss"] = aux_loss
         return total, metrics
 
-    @torch.no_grad()
-    def fold_codebook(state, new_ema, z, revive_idx):
-        """After G's AdamW step: the EMA statistics folded into the codebook
-        in place (overwriting whatever AdamW did; in EMA mode the codebook
-        takes no gradient), then dead codes revived from the clamped,
-        unflipped z (JAX step.py:364-388)."""
-        codebook = vae.reg.codebook
-        new_cb = apply_ema_codebook_update(codebook, new_ema["counts"], new_ema["sums"],
-                                           vae.reg.ema_eps)
-        if revive:
-            flat_z = z.detach().float().reshape(-1, z.shape[-1])
-            new_cb = revive_dead_codes(new_cb, new_ema["counts"], flat_z, revive_idx,
-                                       vae_cfg.vq_revive_threshold)
-        codebook.copy_(new_cb)
-        state.vq_ema = new_ema
-
     def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
              draws: Optional[StepDraws] = None):
         if draws is None:
@@ -320,34 +353,24 @@ def make_train_step(
 
         # --- discriminator update, before G ---
         if cfg.do_ganloss:
-            disc_update(state, recon, target, metrics)
+            discriminator_update(cfg, disc, state, target, recon.detach().float(), metrics)
 
         # --- generator update against the updated D; D's params take no
         # gradient from this backward ---
-        d_params = list(disc.parameters()) if cfg.do_ganloss else []
-        for p in d_params:
-            p.requires_grad_(False)
-        try:
+        with frozen(disc if cfg.do_ganloss else None):
             total, g_metrics = g_losses(recon, z, aux_loss, target, draws)
-        finally:
-            for p in d_params:
-                p.requires_grad_(True)
         state.g_opt.zero_grad(set_to_none=True)
         total.backward()
         state.g_opt.step()
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         if use_vq_ema:
-            fold_codebook(state, new_ema, z, draws.revive_idx)
+            # revival from the clamped, unflipped z
+            fold_codebook(state, vae, new_ema, z, draws.revive_idx,
+                          vae_cfg.vq_revive_threshold)
 
         if cfg.ema_decay > 0:
-            with torch.no_grad():
-                names = list(state.g_ema)
-                params = dict(vae.named_parameters())
-                ema = [state.g_ema[n] for n in names]
-                torch._foreach_mul_(ema, cfg.ema_decay)
-                torch._foreach_add_(ema, [params[n] for n in names],
-                                    alpha=1.0 - cfg.ema_decay)
+            polyak_update(state, vae, cfg.ema_decay)
         state.step += 1
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
         return state, metrics

@@ -1,0 +1,246 @@
+"""The train steps of the 3D video VAE (TVAE): recon-only and full GAN
+(counterparts of ``vqgan_tpu/train/trainer3d.py::make_train_step_3d`` and
+``vqgan_tpu/train/step3d.py::make_train_step_3d_gan``, both at
+``grad_accum <= 1``).
+
+Clips are (B, T, H, W, 3) floats in [-1, 1]. The latent is the
+reparameterized Gaussian (``models/tae.py::reparameterize``: a sample and its
+KL) or the VQ latent (its ``vq_loss`` in the KL's place, the EMA statistics
+of the one generator forward). Unlike the 2D step there is no input flip, no
+latent crop and no z clamp.
+
+The recon-only step: L2 + ``z_reg_weight``·KL, one backward, the
+constant-lr AdamW (``create_train_state(..., recon_only=True)``), then with
+VQ EMA the codebook fold and dead-code revival.
+
+The GAN step, in order (the JAX order):
+
+  - one generator forward, encode → latent → decode; its graph stays alive;
+  - with ``do_ganloss``: D's update before G, on ``recon.detach()`` and the
+    clip in fp32. D sees a frame subset (``frame_subset``, the
+    ``video_loss_frames`` phase drawn once a step): the frame disc as a
+    (B·k) frame batch, the tubelet disc as the (B, k) clip;
+  - G's losses against the updated D, D's params frozen: LPIPS on the same
+    frame subset, L2 on every frame, each branch through its GradNorm, plus
+    ``z_reg_weight``·KL and the hinge/BCE GAN branch on that subset;
+  - one backward, G's AdamW step and its scheduler step;
+  - VQ with EMA: the fold and the revival; then the Polyak EMA.
+
+Randomness: ε, the frame phase u and the revival rows are drawn from the
+state's ``torch.Generator`` on the device, or given as ``Step3DDraws`` (the
+parity tests feed the JAX step's).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
+from vqgan_tpu_torch.losses.gan import generator_gan_loss
+from vqgan_tpu_torch.models.tae import reparameterize
+from vqgan_tpu_torch.ops.gradnorm import gradnorm
+from vqgan_tpu_torch.train.state import TrainState
+from vqgan_tpu_torch.train.step import (
+    discriminator_update,
+    fold_codebook,
+    frozen,
+    polyak_update,
+)
+
+
+@dataclasses.dataclass
+class Step3DDraws:
+    """One 3D step's random draws; any left None is drawn from the state's
+    generator. ``eps``: the Gaussian's ε, shaped like the latent's mean (B,
+    t, h, w, z_channels), fp32; ``frame_u``: the frame subset's phase in
+    [0, 1), a float or a 0-d fp32 tensor; ``revive_idx``: the (K,) int64
+    rows of the step's flat z that dead codes take."""
+
+    eps: Optional[torch.Tensor] = None
+    frame_u: Any = None
+    revive_idx: Optional[torch.Tensor] = None
+
+
+def frame_subset(arrays: Sequence[torch.Tensor], k: int, u) -> tuple[torch.Tensor, ...]:
+    """``k`` evenly strided frames of each (B, T, ...) array with the phase
+    u: frame floor((i + u)·T/k) for i < k, in fp32 as JAX's
+    ``_frame_subset`` computes it (``step3d.py:42-57``). k <= 0 or k >= T
+    keeps every frame."""
+    t = arrays[0].shape[1]
+    if k <= 0 or k >= t:
+        return tuple(arrays)
+    device = arrays[0].device
+    u = torch.as_tensor(u, dtype=torch.float32, device=device)
+    idx = ((torch.arange(k, device=device) + u) * (t / k)).floor().long()
+    return tuple(a.index_select(1, idx) for a in arrays)
+
+
+def flat_frames(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) → (B·T, H, W, C) for the 2D loss modules."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def _check(cfg: TrainConfig, tvae_cfg: TVAEConfig) -> None:
+    if cfg.grad_accum > 1:
+        raise NotImplementedError(
+            "grad_accum > 1: the microbatched 3D step is not ported yet "
+            "(ROADMAP.md, Queue 1: the 3D training step)")
+    if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
+        raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
+    if tvae_cfg.reg_type not in ("gaussian", "vq"):
+        raise ValueError(f"unknown reg_type {tvae_cfg.reg_type!r}")
+
+
+class _Latent:
+    """The regularizer of one step and its draws: the Gaussian's sample and
+    KL, or the VQ latent with its loss and new EMA statistics."""
+
+    def __init__(self, tvae_cfg: TVAEConfig, model: nn.Module):
+        self.model = model
+        self.gaussian = tvae_cfg.reg_type == "gaussian"
+        self.use_vq_ema = not self.gaussian and tvae_cfg.vq_ema_decay > 0
+        self.revive_threshold = tvae_cfg.vq_revive_threshold if self.use_vq_ema else 0.0
+        self.codebook_size = tvae_cfg.vq_codebook_size
+
+    def __call__(self, z: torch.Tensor, state: TrainState, draws: Step3DDraws):
+        """→ (z_s, reg_loss, new_ema or None); fills ``draws.eps``."""
+        if self.gaussian:
+            if draws.eps is None:
+                draws.eps = torch.randn(*z.shape[:-1], z.shape[-1] // 2,
+                                        generator=state.generator, device=z.device)
+            z_s, kl = reparameterize(z, draws.eps)
+            return z_s, kl, None
+        z_s, aux, new_ema = self.model.regularize(z, state.vq_ema, self.use_vq_ema)
+        return z_s, aux["vq_loss"], new_ema
+
+    def fold(self, state: TrainState, new_ema, z: torch.Tensor, draws: Step3DDraws) -> None:
+        """The EMA fold and dead-code revival after G's AdamW step; draws the
+        revival rows of ``draws`` when they are missing."""
+        if not self.use_vq_ema:
+            return
+        if self.revive_threshold > 0 and draws.revive_idx is None:
+            n = z[..., 0].numel()
+            draws.revive_idx = torch.randint(0, n, (self.codebook_size,),
+                                             generator=state.generator, device=z.device)
+        fold_codebook(state, self.model, new_ema, z, draws.revive_idx, self.revive_threshold)
+
+
+def make_train_step_3d(
+    cfg: TrainConfig, tvae_cfg: TVAEConfig, model: nn.Module,
+) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
+    """The recon-only step (``trainer3d.py:49-163``): returns ``step(state,
+    clips, draws=None) -> (state, metrics)`` with metrics ``recon_l2``,
+    ``kl`` (the VQ loss for VQ) and ``loss``, 0-d device tensors. ``state``
+    comes from ``create_train_state(..., recon_only=True)`` and is updated
+    in place."""
+    _check(cfg, tvae_cfg)
+    latent = _Latent(tvae_cfg, model)
+
+    def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
+        draws = Step3DDraws() if draws is None else draws
+        batch = clips.float()
+        z = model.encode(batch)
+        z_s, reg, new_ema = latent(z, state, draws)
+        recon = model.decode(z_s)
+        rec = (recon.float() - batch).square().mean()
+        total = rec + cfg.z_reg_weight * reg
+        state.g_opt.zero_grad(set_to_none=True)
+        total.backward()
+        state.g_opt.step()
+        state.g_opt.zero_grad(set_to_none=True)
+        latent.fold(state, new_ema, z, draws)
+        state.step += 1
+        return state, {"recon_l2": rec.detach(), "kl": reg.detach(), "loss": total.detach()}
+
+    return step
+
+
+def make_train_step_3d_gan(
+    cfg: TrainConfig,
+    tvae_cfg: TVAEConfig,
+    model: nn.Module,
+    disc: Optional[nn.Module],
+    lpips: nn.Module,
+    gradnorm_shards: int = 1,
+) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
+    """The full-GAN step (``step3d.py:66-331``): returns ``step(state, clips,
+    draws=None) -> (state, metrics)``. ``disc`` is a ``PatchDiscriminator``
+    (``cfg.disc_3d == "frame"``) or a ``TubeletDiscriminator`` built for the
+    subset's frame count (``"tubelet"``); ``state`` comes from
+    ``create_train_state`` and is updated in place. ``gradnorm_shards``: the
+    data-parallel extent for ``cfg.gradnorm_mode = "mean_shard_norm"``."""
+    _check(cfg, tvae_cfg)
+    if cfg.disc_3d not in ("frame", "tubelet"):
+        raise ValueError(f"unknown disc_3d {cfg.disc_3d!r}")
+    if cfg.do_ganloss and disc is None:
+        raise ValueError("do_ganloss needs a discriminator")
+    gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
+    latent = _Latent(tvae_cfg, model)
+    tubelet = cfg.disc_3d == "tubelet"
+    k = cfg.video_loss_frames
+
+    def disc_in(clip: torch.Tensor) -> torch.Tensor:
+        """The frame disc takes a (B·T) frame batch, the tubelet disc the
+        clip; both in fp32."""
+        clip = clip.float()
+        return clip if tubelet else flat_frames(clip)
+
+    def g_losses(recon, reg_loss, batch, u):
+        metrics = {}
+        # LPIPS and the GAN branch see the frame subset, L2 every frame
+        recon_f, target_f = frame_subset((recon, batch), k, u)
+        recon_lpips = gradnorm(recon_f, cfg.gradnorm_lpips, None, gn_shards)
+        percep = lpips(flat_frames(recon_lpips.float()), flat_frames(target_f.float())).mean()
+        metrics["perceptual_loss"] = percep
+        recon_mse = gradnorm(recon, cfg.gradnorm_mse, None, gn_shards)
+        rec = (recon_mse.float() - batch).square().mean()
+        metrics["recon_l2"] = rec
+        metrics["kl"] = reg_loss
+        total = percep + rec + cfg.z_reg_weight * reg_loss
+        if cfg.do_ganloss:
+            recon_gan = gradnorm(recon_f, cfg.gradnorm_gan, None, gn_shards)
+            g_gan = generator_gan_loss(disc(disc_in(recon_gan)), cfg.disc_type)
+            metrics["gan/generator_gan_loss"] = g_gan
+            total = total + g_gan
+        metrics["overall_vae_loss"] = total
+        metrics["loss"] = total
+        return total, metrics
+
+    def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
+        draws = Step3DDraws() if draws is None else draws
+        batch = clips.float()
+        if draws.frame_u is None and 0 < k < batch.shape[1]:
+            draws.frame_u = torch.rand((), generator=state.generator, device=batch.device)
+
+        # --- the one generator forward; its graph stays alive ---
+        z = model.encode(batch)
+        z_s, reg, new_ema = latent(z, state, draws)
+        recon = model.decode(z_s)
+        metrics = {}
+
+        # --- D's update before G, on the same frame subset ---
+        if cfg.do_ganloss:
+            recon_f, target_f = frame_subset((recon.detach().float(), batch), k, draws.frame_u)
+            discriminator_update(cfg, disc, state, disc_in(target_f), disc_in(recon_f),
+                                 metrics)
+
+        # --- G against the updated D; D's params take no gradient ---
+        with frozen(disc if cfg.do_ganloss else None):
+            total, g_metrics = g_losses(recon, reg, batch, draws.frame_u)
+        state.g_opt.zero_grad(set_to_none=True)
+        total.backward()
+        state.g_opt.step()
+        state.g_sched.step()
+        state.g_opt.zero_grad(set_to_none=True)
+        latent.fold(state, new_ema, z, draws)
+        if cfg.ema_decay > 0:
+            polyak_update(state, model, cfg.ema_decay)
+        state.step += 1
+        metrics.update({name: v.detach() for name, v in g_metrics.items()})
+        return state, metrics
+
+    return step

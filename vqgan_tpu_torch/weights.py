@@ -125,11 +125,18 @@ def jax_disc_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     which the port's ``PatchDiscriminator`` loads strictly: the backbone
     under ``slice{n}.0.{idx}.*``, the heads as ``binary_classifier{k}.{0,2}.*``.
     The exact inverse of the JAX package's
-    ``convert_torch_patch_discriminator``."""
+    ``convert_torch_patch_discriminator``. A ``TubeletDiscriminator``'s
+    temporal mixers ``tmix{k}`` come too: the depthwise (kt, 1, 1, 1, C)
+    kernel becomes the (C, 1, kt, 1, 1) ``tmix{k}.weight``."""
     out = _vgg_state_dict(params["vgg"], "", wrapped=True)
     for ours, theirs in _DISC_HEADS.items():
         out[f"{theirs}.weight"], out[f"{theirs}.bias"] = _conv(
             params[ours]["kernel"], params[ours]["bias"])
+    for k in range(1, 6):
+        if f"tmix{k}" in params:
+            kernel = np.array(params[f"tmix{k}"]["kernel"], dtype=np.float32)
+            out[f"tmix{k}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(kernel.transpose(4, 3, 0, 1, 2)))
     return out
 
 
