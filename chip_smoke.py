@@ -72,20 +72,30 @@ Phases, each fatal on failure:
  17. attention, CPU against card at the reduced width of phases 7-8 (mid
      block 256 tokens, 4 heads of 64, ``attn_chunk=128``): serving, and one
      training step within phase 8's bounds;
- 18. the fused-tap Conv3d kernel (#6) against its plain version at every
-     distinct conv shape of a 16-frame 128 px TVAE reconstruct at batch 2,
-     bf16, forward and dx (the same kernel on the flipped, transposed
-     weight); fp32 and the boundary cases (T = 1, Ci = Co = 3, ragged H/W,
-     Ci not a multiple of 16); dx and dk through the autograd Function at
-     two shapes. Every output within ``ops/conv3d.py::bound_share``'s bound
-     (``rounding_bound`` plus one bf16 ulp); kernel, plain, library
-     (``F.conv3d`` and cuDNN's dgrad in bf16, channels_last_3d) and bound
-     times; where the launch plan splits K, the same call at one split too;
+ 18. the fused-tap Conv3d kernel (#6), both routes, against its plain
+     version, forward and dx (the same kernel on the flipped, transposed
+     weight): bf16 on the tensor cores at every distinct conv shape of a
+     16-frame 128 px TVAE reconstruct at batch 2, of the 48-frame 256 px
+     long clip at batch 1 and of the 3D training config (phases 23-24), and
+     at the edge cases (T = 1, Ci = Co = 3, ragged H/W, Ci not a multiple of
+     8 or 16), there also the fp32 sums before the cast against the fp32
+     plain version of the same bf16 inputs (the tensor cores' accumulation
+     alone); fp32 on the CUDA cores at the fp32 and edge cases; every call
+     counted on its route. dx and dk through the autograd Function at two
+     shapes. Every output within ``ops/conv3d.py::bound_share``'s bound
+     (``rounding_bound`` plus one bf16 ulp); at each shape the plan's tile
+     and splits, kernel ms and TFLOP/s, plain, library (``F.conv3d`` and
+     cuDNN's dgrad in bf16, channels_last_3d) and bound times, each the
+     device's (CUDA graph replays); where the launch plan splits K, the
+     same call at one split too. Fails where the kernel is slower than
+     its plain version, or the split plan than one split, at a bf16 path
+     shape;
  19. TVAE clip serving (``TVAEConfig()``: ch=64, ch_mult 1,2,4,4, 2 res
      blocks, z=16, bf16; 16 frames x 128 px, batch 2), random weights from a
      seed, from a reference-format .pt: latents (2, 2, 16, 16, 16) finite,
      output in [0, 1], exactly 22 Conv3d and 22 GroupNorm launches per
-     encode and 33 and 30 per decode at the stated shapes; the GroupNorm
+     encode and 33 and 30 per decode at the stated shapes, every Conv3d
+     call on the tensor-core route; the GroupNorm
      kernel (#1) held against its plain version at every (B, C, T, H, W)
      the reconstruct ran (5-D channels_last_3d, bf16, no swish); frames/s
      and peak memory; the same .pt with ``conv3d_impl="direct"`` (cuDNN)
@@ -94,7 +104,8 @@ Phases, each fatal on failure:
      launches, finite gradients;
  20. long-clip serving (48 frames x 256 px, batch 1, ch_mult 1,2,4,
      ``attn_chunk=1024``; 49,152 mid-block tokens, 8 heads of 32): 1 + 1
-     attention launches, 18 + 26 Conv3d launches, finite output in range;
+     attention launches, 18 + 26 Conv3d launches (all on the tensor
+     cores), finite output in range;
      the GroupNorm kernel against its plain version at every shape of the
      reconstruct, as in phase 19; frames/s and peak memory;
  21. TVAE serving, CPU against card, at ch=32, ch_mult 1,8, 1 res block,
@@ -109,9 +120,10 @@ Phases, each fatal on failure:
  23. the 3D recon-only step (``make_train_step_3d``) at ``tools/bench_tvae.py``'s
      config (ch 64, ch_mult 1,2,4, 1 res block, z 8, bf16, gaussian, 16
      frames x 128 px, batch 2, clips from ``synthetic_video_batches``): the
-     loss falls over 5 steps, exactly 32 kernel #6 forward, 31 dx, 30 + 30
-     GroupNorm launches per step (the wrappers' counts and the model's
-     hooks), finite metrics, frames/s, ms per step and peak memory;
+     loss falls over 5 steps, exactly 32 kernel #6 forward, 31 dx (all on
+     the tensor cores), 30 + 30 GroupNorm launches per step (the wrappers'
+     counts and the model's hooks), finite metrics, frames/s, ms per step
+     and peak memory;
  24. the 3D GAN step (``make_train_step_3d_gan``: hinge + LeCam, 4 of 16
      frames to LPIPS and D) at the same config, with ``disc_3d="frame"`` and
      ``"tubelet"``: D moves in step 1 and G in step 2, the same exact
@@ -264,6 +276,15 @@ STEP3D_BATCH, STEP3D_FRAMES, STEP3D_RES = 2, 16, 128
 # backward at each norm (encoder 12, decoder 18). Dense attention (4,096
 # mid-block tokens, attn_chunk 0). The GAN step adds 2D modules only.
 STEP3D_LAUNCHES = {"conv3d": 32, "conv3d_dx": 31, "gn": 30, "gn_bwd": 30}
+# (Ci, Co, T, H, W) -> kernel #6 forward calls per 3D step at that config
+# (phase 18 holds the forward and dx at each against plain)
+STEP3D_CONV3D_SHAPES = {
+    (3, 64, 16, 128, 128): 1, (64, 64, 16, 128, 128): 5, (64, 128, 8, 64, 64): 1,
+    (128, 128, 8, 64, 64): 4, (128, 256, 4, 32, 32): 1, (256, 256, 4, 32, 32): 13,
+    (256, 16, 4, 32, 32): 1, (8, 256, 4, 32, 32): 1, (256, 256, 8, 64, 64): 1,
+    (256, 128, 8, 64, 64): 1, (128, 128, 16, 128, 128): 1, (128, 64, 16, 128, 128): 1,
+    (64, 3, 16, 128, 128): 1,
+}
 
 
 def log(*args) -> None:
@@ -1306,93 +1327,148 @@ class _OneSplit:
         self.cc.launch_plan = self.plan
 
 
+def _tc_plan(cc, b, ci, co, t, h, w) -> str:
+    plan = cc.launch_plan(b * t * h * w, ci, co, cc.num_sms(0), torch.bfloat16)
+    return f"tile {plan.block_m}x{plan.block_n} splits {plan.splits}"
+
+
+def check_tc_route(cc, what: str) -> None:
+    """Every kernel #6 call since the counts were set to 0 (forward and dx)
+    took the bf16 tensor-core route: none the fp32 FMA route."""
+    total = cc.launches + cc.bwd_launches
+    log(f"{what}: kernel #6 routes: {cc.tc_launches} tensor-core, {cc.fma_launches} FMA of "
+        f"{total} calls")
+    if cc.tc_launches != total or cc.fma_launches != 0:
+        raise AssertionError(f"{what}: expected all {total} Conv3d calls on the tensor cores")
+
+
 def phase_conv3d_kernels(cc) -> tuple[dict, dict, dict]:
-    """Kernel #6 against its plain versions: forward and dx at the 16f/128px
-    clip's shapes and the edge cases, the forward alone at the long clip's.
-    Returns ({(B, Ci, Co, T, H, W, dtype): (max_abs_err, kernel_ms,
+    """Kernel #6 against its plain versions (phase 18): both routes, forward
+    and dx. bf16 (tensor cores) at every shape of the 16f/128px clip, the
+    long clip and the 3D training config, and at the edge cases; there also
+    the fp32 sums before the cast (``conv3d_forward_sums``) against the fp32
+    plain version of the same bf16 inputs, with no bf16 ulp: the tensor
+    cores' accumulation alone. fp32 (CUDA-core FMA) at the fp32 and edge
+    cases. Returns ({(B, Ci, Co, T, H, W, dtype): (max_abs_err, kernel_ms,
     plain_ms, library_ms, bound_ms)} for the forward, the same for dx, and
-    {(Ci, Co, T, H, W): ([forward splits, dx splits], forward ms, forward
-    ms at one split, dx ms, dx ms at one split)} for the clip's shapes whose
-    forward or dx plan splits K)."""
+    {(B, Ci, Co, T, H, W): ([forward splits, dx splits], forward ms, forward
+    ms at one split, dx ms, dx ms at one split)} for the bf16 path shapes
+    whose forward or dx plan splits K). Every time is the device's
+    (``device_ms``: calls replayed from a CUDA graph, no host work between
+    them). Fails where the kernel is slower than its plain version, or the
+    split plan slower than one split, at a bf16 path shape."""
     from vqgan_tpu_torch.ops.conv3d import (
         bound_share,
         conv3d_input_grad_plain,
         conv3d_plain,
         flipped_weight,
     )
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
 
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(18)
-    path = sorted(set(ENCODER_CONV3D_SHAPES) | set(DECODER_CONV3D_SHAPES))
-    cases = [((CLIP_BATCH, *s), torch.bfloat16, True) for s in path]
-    cases += [(c, torch.float32, True) for c in CONV3D_FP32_CASES + CONV3D_EDGE_CASES]
-    cases += [(c, torch.bfloat16, True) for c in CONV3D_EDGE_CASES]
-    cases += [((1, *s), torch.bfloat16, False) for s in sorted(LONG_CONV3D_SHAPES)]
+    clip = {(CLIP_BATCH, *s) for s in set(ENCODER_CONV3D_SHAPES) | set(DECODER_CONV3D_SHAPES)}
+    path = sorted(clip | {(1, *s) for s in LONG_CONV3D_SHAPES}
+                  | {(STEP3D_BATCH, *s) for s in STEP3D_CONV3D_SHAPES})
+    cases = [(c, torch.bfloat16) for c in path]
+    cases += [(c, torch.float32) for c in CONV3D_FP32_CASES + CONV3D_EDGE_CASES]
+    cases += [(c, torch.bfloat16) for c in CONV3D_EDGE_CASES]
     fwd, bwd, split = {}, {}, {}
-    for (b, ci, co, t, h, w), dtype, with_dx in cases:
+    sums_used = 0.0
+    for (b, ci, co, t, h, w), dtype in cases:
         x, wt = _conv3d_case(gen, b, ci, co, t, h, w, dtype)
+        dy = _conv3d_case(gen, b, co, ci, t, h, w, dtype)[0]
         wl = wt.contiguous(memory_format=torch.channels_last_3d)
-        y, ref = cc.conv3d_forward(x, wt), conv3d_plain(x, wt)
+        wf = flipped_weight(wt)
+        cc.tc_launches = cc.fma_launches = 0
+        y, dx = cc.conv3d_forward(x, wt), cc.conv3d_input_grad(dy, wt)
         torch.cuda.synchronize()
-        used, errs = [bound_share(y, ref, x, wt)], [float((y.float() - ref.float()).abs().max())]
-        del y, ref
+        route = {torch.bfloat16: (2, 0), torch.float32: (0, 2)}[dtype]
+        if (cc.tc_launches, cc.fma_launches) != route:
+            raise AssertionError(f"conv3d {dtype} took the routes (tc, fma) "
+                                 f"{(cc.tc_launches, cc.fma_launches)}, not {route}")
+        ref, ref_dx = conv3d_plain(x, wt), conv3d_input_grad_plain(dy, wt)
+        used = [bound_share(y, ref, x, wt), bound_share(dx, ref_dx, dy, wf)]
+        errs = [float((y.float() - ref.float()).abs().max()),
+                float((dx.float() - ref_dx.float()).abs().max())]
+        del y, dx, ref, ref_dx
+        sums = ""
+        if dtype == torch.bfloat16:
+            # the tensor cores' fp32 sums, no bf16 rounding: fp32 bound alone
+            s_used = [bound_share(cc.conv3d_forward_sums(a, k), conv3d_plain(a.float(),
+                                                                             k.float()),
+                                  a.float(), k.float()) for a, k in ((x, wt), (dy, wf))]
+            used += s_used
+            sums_used = max(sums_used, *s_used)
+            sums = f" fp32 sums used fwd={s_used[0]:.4f} dx={s_used[1]:.4f};"
         m = b * t * h * w
         iters = 5 if m * ci * co > 2 ** 30 else 20
-        times = [cuda_ms(fn, iters=iters) for fn in (
+        times = [device_ms(fn, iters) for fn in (
             lambda: cc.conv3d_forward(x, wt), lambda: conv3d_plain(x, wt),
-            lambda: F.conv3d(x, wl, padding=1))]
-        if with_dx:
-            dy = _conv3d_case(gen, b, co, ci, t, h, w, dtype)[0]
-            dx, ref_dx = cc.conv3d_input_grad(dy, wt), conv3d_input_grad_plain(dy, wt)
-            torch.cuda.synchronize()
-            used.append(bound_share(dx, ref_dx, dy, flipped_weight(wt)))
-            errs.append(float((dx.float() - ref_dx.float()).abs().max()))
-            del dx, ref_dx
-            times += [cuda_ms(fn, iters=iters) for fn in (
-                lambda: cc.conv3d_input_grad(dy, wt), lambda: conv3d_input_grad_plain(dy, wt),
-                lambda: torch.nn.grad.conv3d_input(x.shape, wl, dy, padding=1))]
+            lambda: F.conv3d(x, wl, padding=1),
+            lambda: cc.conv3d_input_grad(dy, wt), lambda: conv3d_input_grad_plain(dy, wt),
+            lambda: torch.nn.grad.conv3d_input(x.shape, wl, dy, padding=1))]
         fb, bb = conv3d_bound_ms(m, ci, co, dtype), conv3d_bound_ms(m, co, ci, dtype)
         tname = "bf16" if dtype == torch.bfloat16 else "fp32"
+        plans = ""
+        if dtype == torch.bfloat16:
+            plans = (f" [fwd {_tc_plan(cc, b, ci, co, t, h, w)}, dx "
+                     f"{_tc_plan(cc, b, co, ci, t, h, w)}]")
+        flop = 2 * 27 * ci * co * m
         ok = max(used) <= 1.0
-        line = (f"conv3d B={b} Ci={ci} Co={co} T={t} H={h} W={w} {tname}: share of the bound "
-                f"used fwd={used[0]:.3f} (max_abs_err {errs[0]:.3e}) kernel_ms={times[0]:.4f} "
-                f"plain_ms={times[1]:.4f} library_ms={times[2]:.4f} bound_ms={fb:.4f} "
-                f"({2 * 27 * ci * co * m / times[0] / 1e9:.1f} TFLOP/s)")
-        if with_dx:
-            line += (f"; dx used={used[1]:.3f} (max_abs_err {errs[1]:.3e}) "
-                     f"kernel_ms={times[3]:.4f} plain_ms={times[4]:.4f} "
-                     f"library_ms={times[5]:.4f} bound_ms={bb:.4f}")
-        log(f"{line} {'ok' if ok else 'MISS'}")
+        log(f"conv3d B={b} Ci={ci} Co={co} T={t} H={h} W={w} {tname}{plans}: share of the "
+            f"bound used fwd={used[0]:.3f} (max_abs_err {errs[0]:.3e}) dx={used[1]:.3f} "
+            f"(max_abs_err {errs[1]:.3e});{sums} fwd kernel_ms={times[0]:.4f} "
+            f"({flop / times[0] / 1e9:.1f} TFLOP/s) plain_ms={times[1]:.4f} "
+            f"library_ms={times[2]:.4f} bound_ms={fb:.4f}; dx kernel_ms={times[3]:.4f} "
+            f"({flop / times[3] / 1e9:.1f} TFLOP/s) plain_ms={times[4]:.4f} "
+            f"library_ms={times[5]:.4f} bound_ms={bb:.4f} {'ok' if ok else 'MISS'}")
         if not ok:
             raise AssertionError(f"conv3d kernel disagrees with plain at {(b, ci, co, t, h, w)} "
                                  f"{tname}: {used}")
         key = (b, ci, co, t, h, w, dtype)
         fwd[key] = (errs[0], *times[:3], fb)
-        if with_dx:
-            bwd[key] = (errs[1], *times[3:], bb)
-        splits = [cc.launch_plan(m, i, o, cc.num_sms(x.device.index)).splits
-                  for i, o in ((ci, co), (co, ci))]
-        if (with_dx and max(splits) > 1 and (ci, co, t, h, w) in path and b == CLIP_BATCH
-                and dtype == torch.bfloat16):
-            # the same calls with K kept whole, held against plain too
+        bwd[key] = (errs[1], *times[3:], bb)
+        plans = [cc.launch_plan(m, i, o, cc.num_sms(x.device.index), dtype)
+                 for i, o in ((ci, co), (co, ci))]
+        splits = [plan.splits for plan in plans]
+        if max(splits) > 1 and (b, ci, co, t, h, w) in path and dtype == torch.bfloat16:
+            # the same calls with K kept whole, held against plain too, and
+            # timed against the plan on the device
             with _OneSplit(cc):
                 one = [bound_share(cc.conv3d_forward(x, wt), conv3d_plain(x, wt), x, wt),
                        bound_share(cc.conv3d_input_grad(dy, wt), conv3d_input_grad_plain(dy, wt),
-                                   dy, flipped_weight(wt))]
-                one_ms = [cuda_ms(lambda: cc.conv3d_forward(x, wt)),
-                          cuda_ms(lambda: cc.conv3d_input_grad(dy, wt))]
-            log(f"conv3d split-K B={b} Ci={ci} Co={co} T={t} H={h} W={w} bf16: "
-                f"fwd {times[0]:.4f} ms at {splits[0]} splits, {one_ms[0]:.4f} ms at 1 "
-                f"(share of the bound used {one[0]:.3f}); dx {times[3]:.4f} ms at "
-                f"{splits[1]} splits, {one_ms[1]:.4f} ms at 1 (used {one[1]:.3f})")
+                                   dy, wf)]
+            ms = [device_ms(lambda p=p, tr=tr, a=a: cc._launch(a, wt, p, transpose=tr), iters)
+                  for a, tr, plan in ((x, False, plans[0]), (dy, True, plans[1]))
+                  for p in (plan, dataclasses.replace(plan, splits=1,
+                                                      chunks_per_split=plan.n_chunks))]
+            log(f"conv3d split-K B={b} Ci={ci} Co={co} T={t} H={h} W={w} bf16, device "
+                f"time: fwd {ms[0]:.4f} ms at {splits[0]} splits, {ms[1]:.4f} ms at 1 "
+                f"(share of the bound used {one[0]:.3f}); dx {ms[2]:.4f} ms at "
+                f"{splits[1]} splits, {ms[3]:.4f} ms at 1 (used {one[1]:.3f})")
             if max(one) > 1.0:
                 raise AssertionError(f"conv3d kernel at one split disagrees with plain at "
                                      f"{(b, ci, co, t, h, w)}: {one}")
-            split[(ci, co, t, h, w)] = (splits, times[0], one_ms[0], times[3], one_ms[1])
-        del x, wt, wl
-        if with_dx:
-            del dy
+            split[(b, ci, co, t, h, w)] = (splits, *ms)
+        del x, wt, wl, wf, dy
         torch.cuda.empty_cache()
+    slower = [(k, v) for k, v in split.items()
+              if (v[0][0] > 1 and v[1] > v[2]) or (v[0][1] > 1 and v[3] > v[4])]
+    behind = [(k[:6], v[1], v[2], bwd[k][1], bwd[k][2]) for k, v in fwd.items()
+              if k[:6] in path and k[6] == torch.bfloat16
+              and (v[1] > v[2] or bwd[k][1] > bwd[k][2])]
+    log(f"conv3d: every bf16 call on the tensor cores; fp32 sums use at most "
+        f"{sums_used:.4f} of the fp32 bound; device time: the kernel is slower than its plain "
+        f"version at {len(behind)} of the {len(path)} bf16 path shapes"
+        + "".join(f"; {k}: {a:.4f}/{p:.4f} fwd, {c:.4f}/{q:.4f} dx" for k, a, p, c, q in behind)
+        + f"; the split-K plan is slower than one split at {len(slower)} of the "
+        f"{len(split)} path shapes that split"
+        + "".join(f"; {k}: {v[1]:.4f}/{v[2]:.4f} fwd, {v[3]:.4f}/{v[4]:.4f} dx"
+                  for k, v in slower))
+    if behind or slower:
+        raise AssertionError("conv3d: the kernel is slower than its plain version, or the "
+                             "split-K plan than one split, at a path shape")
 
     # dx and dk through the autograd Function, fp32: dx against the plain
     # version, dk (cuDNN's weight gradient) against fp64 within (n − 1)·u of
@@ -1545,7 +1621,8 @@ def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
     clips = np.random.RandomState(0).randint(
         0, 256, (CLIP_BATCH, CLIP_FRAMES, CLIP_RES, CLIP_RES, 3), np.uint8)
     stages = {}
-    cc.launches = gn.launches = ac.fwd_launches = 0
+    cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
+    gn.launches = ac.fwd_launches = 0
     z = pipe.encode(clips)
     torch.cuda.synchronize()
     stages["encode"] = (cc.launches, gn.launches, ac.fwd_launches)
@@ -1554,6 +1631,8 @@ def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
     cc.launches = gn.launches = ac.fwd_launches = 0
     recon = pipe.decode(z)
     stages["decode"] = (cc.launches, gn.launches, ac.fwd_launches)
+    cc.launches = stages["encode"][0] + stages["decode"][0]
+    check_tc_route(cc, "tvae 16f/128px encode + decode")
     for h in hooks + gn_hooks:
         h.remove()
     log(f"tvae 16f/128px: (Conv3d, GroupNorm, attention) launches {stages}")
@@ -1573,13 +1652,15 @@ def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
     gn_err = gn_at_clip_shapes(gn, gn_seen, "16f/128px")
 
     # the main path, counted: one reconstruct of the batch
-    cc.launches = cc.bwd_launches = gn.launches = ac.fwd_launches = 0
+    cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
+    gn.launches = ac.fwd_launches = 0
     pipe.reconstruct(clips)
     counts = {"conv3d": cc.launches, "conv3d_dx": cc.bwd_launches, "gn": gn.launches,
               "attn": ac.fwd_launches}
     log(f"tvae 16f/128px reconstruct launches: {counts}")
     if counts != {"conv3d": 55, "conv3d_dx": 0, "gn": 52, "attn": 0}:
         raise AssertionError("expected 55 Conv3d and 52 GroupNorm launches per reconstruct")
+    check_tc_route(cc, "tvae 16f/128px reconstruct")
     timing = _serve_clips(pipe, clips, iters=3)
     log(f"tvae 16f/128px serving batch {CLIP_BATCH}: {timing['frames_per_s']:.3f} frames/s, "
         f"{timing['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
@@ -1588,7 +1669,7 @@ def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
     # the gradient of a reconstruct loss: the next slice's training path
     model = pipe.model
     x = pipe._to_model_input(clips)
-    cc.launches = cc.bwd_launches = gn.bwd_launches = 0
+    cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = gn.bwd_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dec = model.decode(model.deterministic_latent(model.encode(x)))
@@ -1603,6 +1684,7 @@ def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
     if backward != {"conv3d": 55, "conv3d_dx": 54, "gn_bwd": 52} or not finite:
         raise AssertionError("expected 55 forward, 54 dx and 52 GroupNorm backward launches "
                              "and finite gradients")
+    check_tc_route(cc, "tvae 16f/128px reconstruct-loss forward+backward")
     del model, x, dec, grads
     pipe.model.zero_grad(set_to_none=True)
 
@@ -1637,13 +1719,16 @@ def phase_long_clip(gn, cc, ac, tmp: str) -> dict:
     seen, hooks = record_conv3d_shapes(pipe.model)
     gn_seen, gn_hooks = record_gn_shapes(pipe.model)
     stages = {}
-    cc.launches = gn.launches = ac.fwd_launches = 0
+    cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
+    gn.launches = ac.fwd_launches = 0
     z = pipe.encode(clip)
     torch.cuda.synchronize()
     stages["encode"] = (cc.launches, gn.launches, ac.fwd_launches)
     cc.launches = gn.launches = ac.fwd_launches = 0
     recon = pipe.decode(z)
     stages["decode"] = (cc.launches, gn.launches, ac.fwd_launches)
+    cc.launches = stages["encode"][0] + stages["decode"][0]
+    check_tc_route(cc, "tvae long clip 48f/256px encode + decode")
     for h in hooks + gn_hooks:
         h.remove()
     if seen != LONG_CONV3D_SHAPES:
@@ -1864,7 +1949,8 @@ def phase_train3d(gn, cc, gan: bool = False, disc_3d: str = "frame") -> dict:
 
     # the main path, counted: one training step
     seen, hooks = count_step_launches(model)
-    cc.launches = cc.bwd_launches = gn.launches = gn.bwd_launches = 0
+    cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
+    gn.launches = gn.bwd_launches = 0
     state, metrics = step(state, batches[1])
     torch.cuda.synchronize()
     for h in hooks:
@@ -1874,6 +1960,7 @@ def phase_train3d(gn, cc, gan: bool = False, disc_3d: str = "frame") -> dict:
     log(f"{what}: kernel launches per step {counts}, from the model's hooks {seen}")
     if counts != STEP3D_LAUNCHES or seen != STEP3D_LAUNCHES:
         raise AssertionError(f"expected {STEP3D_LAUNCHES} launches per step")
+    check_tc_route(cc, what)
 
     iters = 5
     torch.cuda.reset_peak_memory_stats()
@@ -2137,15 +2224,26 @@ def main() -> int:
             f"batch {CLIP_BATCH} (bf16, {55 if name == 'forward' else 54} calls): kernel "
             f"{k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
     calls = clip_conv3d_calls()
+    clip_split = {key[1:]: v for key, v in conv_split.items() if key[0] == CLIP_BATCH
+                  and key[1:] in calls}
     for i, name in ((1, "forward"), (3, "dx")):
-        n = sum(calls[s] for s in conv_split)
-        log(f"Conv3d {name} split-K per 16f/128px reconstruct at batch {CLIP_BATCH} (bf16, the "
-            f"{n} calls of the {len(conv_split)} shapes whose forward or dx splits K): "
-            f"{sum(calls[s] * v[i] for s, v in conv_split.items()):.4f} ms split, "
-            f"{sum(calls[s] * v[i + 1] for s, v in conv_split.items()):.4f} ms at one split")
+        n = sum(calls[s] for s in clip_split)
+        log(f"Conv3d {name} split-K per 16f/128px reconstruct at batch {CLIP_BATCH} (bf16, "
+            f"device time of the {n} calls of the {len(clip_split)} shapes whose forward or "
+            f"dx splits K): "
+            f"{sum(calls[s] * v[i] for s, v in clip_split.items()):.4f} ms split, "
+            f"{sum(calls[s] * v[i + 1] for s, v in clip_split.items()):.4f} ms at one split")
     k, p, lib, bnd = per_reconstruct(conv_fwd, 1, LONG_CONV3D_SHAPES)
     log(f"Conv3d forward per 48f/256px reconstruct at batch 1 (bf16, 44 calls): kernel "
         f"{k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
+    step_dx = dict(STEP3D_CONV3D_SHAPES)
+    step_dx[(3, 64, STEP3D_FRAMES, STEP3D_RES, STEP3D_RES)] -= 1
+    for name, res, n_calls in (("forward", conv_fwd, STEP3D_CONV3D_SHAPES),
+                               ("dx", conv_dx, step_dx)):
+        k, p, lib, bnd = per_reconstruct(res, STEP3D_BATCH, n_calls)
+        log(f"Conv3d {name} per 3D training step at batch {STEP3D_BATCH} (bf16, "
+            f"{sum(n_calls.values())} calls): kernel {k:.4f} ms, plain {p:.4f} ms, library "
+            f"{lib:.4f} ms, bound {bnd:.4f} ms")
     log(f"TVAE 16f/128px serving batch {CLIP_BATCH}: {clip_serve['frames_per_s']:.3f} frames/s "
         f"({clip_serve['direct_frames_per_s']:.3f} with cuDNN's Conv3d), "
         f"{clip_counts} launches per reconstruct, peak "

@@ -613,12 +613,16 @@ def test_groupnorm_5d_forward_and_backward(device, shape, dtype):
 
 # (B, Ci, Co, T, H, W): the 16f/128px path's channel pairs at reduced frames
 # and sides, Ci = 3 (conv_in), Ci = 16 (decoder conv_in), Co = 3 and 32
-# (conv_out), the split-K mid level, T = 1, and ragged H/W with Co % 4 != 0
+# (conv_out), the split-K mid level, T = 1, and ragged H/W with Co % 4 != 0;
+# the 3D training config's Ci = 8 and Co = 16 (z = 8); chip_smoke.py's edge
+# cases: Ci = Co = 3, ragged H/W, Ci not a multiple of 8 or 16
 CONV3D_SHAPES = [
     (2, 3, 64, 4, 16, 16), (2, 64, 64, 4, 16, 16), (1, 64, 128, 2, 8, 8),
     (1, 128, 128, 2, 8, 8), (1, 128, 256, 2, 8, 8), (1, 256, 256, 2, 16, 16),
     (1, 16, 256, 2, 16, 16), (1, 256, 32, 2, 16, 16), (2, 64, 3, 4, 16, 16),
     (1, 32, 48, 1, 7, 9), (1, 16, 20, 3, 5, 13),
+    (2, 8, 256, 2, 8, 8), (2, 256, 16, 2, 8, 8), (1, 3, 3, 2, 8, 8), (1, 48, 40, 5, 37, 29),
+    (1, 20, 12, 3, 9, 11),
 ]
 
 
@@ -638,20 +642,94 @@ def test_conv3d_kernel_matches_plain(device, shape, dtype):
     x, w = _conv3d_inputs(shape, dtype, device)
     dy = _conv3d_inputs(shape[:1] + shape[2:3] + shape[1:2] + shape[3:], dtype, device, 1)[0]
     conv3d_cuda.launches = conv3d_cuda.bwd_launches = 0
+    conv3d_cuda.tc_launches = conv3d_cuda.fma_launches = 0
     y = conv3d_cuda.conv3d_forward(x, w)
     dx = conv3d_cuda.conv3d_input_grad(dy, w)
     torch.cuda.synchronize()
     assert (conv3d_cuda.launches, conv3d_cuda.bwd_launches) == (1, 1)
+    # the route by dtype: bf16 on the tensor cores, fp32 on the CUDA cores
+    routes = (conv3d_cuda.tc_launches, conv3d_cuda.fma_launches)
+    assert routes == ((2, 0) if dtype == torch.bfloat16 else (0, 2))
     assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last_3d)
     assert dx.shape == x.shape and dx.is_contiguous(memory_format=torch.channels_last_3d)
     assert bound_share(y, conv3d_plain(x, w), x, w) <= 1.0
     assert bound_share(dx, conv3d_input_grad_plain(dy, w), dy, flipped_weight(w)) <= 1.0
+    # the TVAE holds its 5-D weights in channels_last_3d: the same outputs
+    w_cl = w.contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(conv3d_cuda.conv3d_forward(x, w_cl), y)
+    assert torch.equal(conv3d_cuda.conv3d_input_grad(dy, w_cl), dx)
 
 
 def test_conv3d_kernel_is_deterministic(device):
     x, w = _conv3d_inputs((1, 256, 256, 2, 16, 16), torch.bfloat16, device)
-    assert conv3d_cuda.launch_plan(512, 256, 256, 132).splits > 1
+    assert conv3d_cuda.launch_plan(512, 256, 256, 132, torch.bfloat16).splits > 1
     assert torch.equal(conv3d_cuda.conv3d_forward(x, w), conv3d_cuda.conv3d_forward(x, w))
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 2, 16, 16), (2, 64, 64, 4, 16, 16),
+                                   (1, 3, 64, 2, 8, 8), (2, 64, 3, 4, 16, 16),
+                                   (2, 8, 256, 2, 8, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_tensor_core_sums_within_the_fp32_bound(device, shape):
+    """The bf16 route's fp32 sums before the cast, against the fp32 plain
+    version of the same bf16 inputs: the tensor cores' accumulation within
+    ``rounding_bound`` alone, no bf16 ulp."""
+    x, w = _conv3d_inputs(shape, torch.bfloat16, device)
+    sums = conv3d_cuda.conv3d_forward_sums(x, w)
+    assert sums.dtype == torch.float32 and sums.shape == (shape[0], shape[2], *shape[3:])
+    assert bound_share(sums, conv3d_plain(x.float(), w.float()), x.float(), w.float()) <= 1.0
+
+
+@pytest.mark.parametrize("tile", range(len(conv3d_cuda.TC_TILES)))
+def test_conv3d_every_tensor_core_tile_matches_plain(device, tile):
+    """Each tile the kernel has, at one split and three, vectorised (Ci = 64)
+    and element-gathered (Ci = 20) im2col, against the plain version."""
+    bm, bn = conv3d_cuda.TC_TILES[tile]
+    for ci, co in ((64, 24), (20, 40)):
+        x, w = _conv3d_inputs((1, ci, co, 3, 9, 13), torch.bfloat16, device, seed=tile)
+        n_chunks = -(-27 * ci // 32)
+        for s in (1, 3):
+            splits, per = conv3d_cuda._split(n_chunks, s)
+            plan = conv3d_cuda.LaunchPlan("tc", tile, bm, bn, -(-co // bn) * bn, n_chunks,
+                                          splits, per)
+            y = conv3d_cuda._launch(x, w, plan)
+            assert bound_share(y, conv3d_plain(x, w), x, w) <= 1.0, (ci, co, s)
+
+
+@pytest.mark.parametrize("layout", ["oidhw", "channels_last_3d"])
+@pytest.mark.parametrize("ci,co", [(16, 256), (3, 64), (256, 3), (20, 12)])
+def test_conv3d_pack_kernel_matches_pack_weight(device, ci, co, layout):
+    """The card's weight rows equal ``pack_weight``'s, bit for bit: the
+    forward's from the weight, the dx's from the flipped, transposed one,
+    read by the weight's strides from an OIDHW or a channels_last_3d
+    weight."""
+    w = _conv3d_inputs((1, ci, co, 1, 1, 1), torch.bfloat16, device)[1]
+    if layout == "channels_last_3d":
+        w = w.contiguous(memory_format=torch.channels_last_3d)
+    lib = conv3d_cuda.library()
+    for transpose, (i, o) in ((0, (ci, co)), (1, (co, ci))):
+        plan = conv3d_cuda.launch_plan(4096, i, o, 132, torch.bfloat16)
+        ref = conv3d_cuda.pack_weight(flipped_weight(w) if transpose else w, plan)
+        got = torch.full_like(ref, float("nan"))
+        stream = torch.cuda.current_stream().cuda_stream
+        assert lib.conv3d_pack_bf16(w.data_ptr(), got.data_ptr(), co, ci, *ref.shape,
+                                    transpose, *w.stride(), stream) == 0
+        assert torch.equal(got, ref)
+
+
+def test_conv3d_bf16_without_the_kernel_raises(device, monkeypatch):
+    """A bf16 call on the card whose tensor-core kernel cannot be built
+    raises: no fallback to the FMA kernel or to cuDNN."""
+    x, w = _conv3d_inputs((1, 16, 16, 2, 4, 4), torch.bfloat16, device)
+
+    def no_library():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(conv3d_cuda, "library", no_library)
+    conv3d_cuda.tc_launches = conv3d_cuda.fma_launches = 0
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        conv3d_cuda.conv3d_forward(x, w)
+    assert (conv3d_cuda.tc_launches, conv3d_cuda.fma_launches) == (0, 0)
 
 
 def test_conv3d_wrapper_raises_on_what_the_kernel_does_not_take(device):
