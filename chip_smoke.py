@@ -57,17 +57,26 @@ Phases, each fatal on failure:
      backward; the high-resolution mid block (B = 1, N = 16,384), forward;
      D = 32 (B = 1, N = 4,096, H = 8) and a ragged N = 400, forward and
      backward; the long clip's mid block (B = 1, N = 49,152, H = 8, D = 32),
-     forward. out, lse, dq, dk, dv within their stated bounds; kernel,
-     plain and library (``F.scaled_dot_product_attention``, forward, and its
-     backward through autograd) times and the bound;
+     forward. Every call counted on its route (bf16 the tensor cores, fp32
+     FMA); out, lse, dq, dk, dv within their stated bounds; two runs of the
+     bf16 backward bitwise equal; kernel, plain and library
+     (``F.scaled_dot_product_attention``, forward, and its backward through
+     autograd: forward + backward less forward) times, each the device's
+     (CUDA graph replays), the wrapper's CUDA-event time beside the kernel's,
+     TFLOP/s, the ratio to the library and the bound (operations, exps at
+     the SFU's rate, or bytes). Fails where a bf16 call is slower than its
+     plain version;
  14. flagship serving with the mid-block attention (``VAEConfig(use_attn=
      True, attn_chunk=512)``), from a reference-format .pt: 22 GroupNorm and
      1 attention launch per encode, 30 and 1 per decode, img/s and peak
-     memory at batch 8;
+     memory at batch 8; the fp32 encoder's call on the FMA route, the bf16
+     decoder's on the tensor cores;
  15. the same weights at 1,024 px, batch 1, ``attn_chunk=1024`` (16,384
-     mid-block tokens): finite output in range, img/s and peak memory;
+     mid-block tokens): finite output in range, the routes as in 14, img/s
+     and peak memory;
  16. the flagship training step with attention at batch 8: 52 + 52
-     GroupNorm and 2 + 2 attention launches per step, D moves in step 1 and
+     GroupNorm and 2 + 2 attention launches per step, all four on the
+     tensor cores (bf16 encoder and decoder), D moves in step 1 and
      G in step 2, finite metrics, img/s, step ms and peak memory;
  17. attention, CPU against card at the reduced width of phases 7-8 (mid
      block 256 tokens, 4 heads of 64, ``attn_chunk=128``): serving, and one
@@ -104,8 +113,8 @@ Phases, each fatal on failure:
      launches, finite gradients;
  20. long-clip serving (48 frames x 256 px, batch 1, ch_mult 1,2,4,
      ``attn_chunk=1024``; 49,152 mid-block tokens, 8 heads of 32): 1 + 1
-     attention launches, 18 + 26 Conv3d launches (all on the tensor
-     cores), finite output in range;
+     attention launches (both on the tensor-core route), 18 + 26 Conv3d
+     launches (all on the tensor cores), finite output in range;
      the GroupNorm kernel against its plain version at every shape of the
      reconstruct, as in phase 19; frames/s and peak memory;
  21. TVAE serving, CPU against card, at ch=32, ch_mult 1,8, 1 res block,
@@ -142,6 +151,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -158,6 +168,9 @@ TRAIN_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
+# exps a clock per SM for compute capability 9.0 (CUDA C Programming Guide,
+# arithmetic instruction throughput: base-2 exponential on the SFU)
+SFU_EXPS_PER_CLOCK_SM = 16
 # (S = H*W, C) -> calls per reconstruct, from the flagship config
 ENCODER_GN_SHAPES = {  # fp32
     (65536, 256): 4, (16384, 256): 1, (16384, 512): 3, (4096, 512): 1,
@@ -581,7 +594,7 @@ def phase_train_flagship(gn, ac=None) -> tuple[dict, dict]:
     # the main path, counted: one training step
     gn.launches = gn.bwd_launches = 0
     if ac:
-        ac.fwd_launches = ac.bwd_launches = 0
+        ac.fwd_launches = ac.bwd_launches = ac.tc_launches = ac.fma_launches = 0
     state, metrics = step(state, images)
     torch.cuda.synchronize()
     counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches}
@@ -592,6 +605,8 @@ def phase_train_flagship(gn, ac=None) -> tuple[dict, dict]:
     log(f"{what}: kernel launches per step: {counts}")
     if counts != want:
         raise AssertionError(f"expected {want} kernel launches per step")
+    if ac:  # bf16 encoder and decoder: all four calls on the tensor cores
+        check_attn_route(ac, what, 4, 0)
 
     iters = 5
     torch.cuda.reset_peak_memory_stats()
@@ -905,7 +920,7 @@ def phase_cross_device(attn: bool = False) -> None:
         sd = _perturbed_state_dict(cfg, seed=1)
         cpu = VAEPipeline(cfg, sd, device="cpu")
         gpu = VAEPipeline(cfg, sd, device="cuda")
-        ac.fwd_launches = 0
+        ac.fwd_launches = ac.tc_launches = ac.fma_launches = 0
         z_cpu, z_gpu = cpu.encode(images), gpu.encode(images).cpu()
         z_err = float((z_cpu - z_gpu).abs().max())
         # both decoders get the CPU latents, so the decode is compared alone
@@ -913,6 +928,10 @@ def phase_cross_device(attn: bool = False) -> None:
         r_err = np.abs(r_cpu - r_gpu)
         if ac.fwd_launches != (2 if attn else 0):
             raise AssertionError(f"{ac.fwd_launches} attention launches on the card")
+        if attn:  # the fp32 encoder's call on FMA, the decoder's by its dtype
+            bf16_dec = dec_dtype == "bfloat16"
+            check_attn_route(ac, f"cross-device attn dec {dec_dtype}", int(bf16_dec),
+                             2 - int(bf16_dec))
         log(f"cross-device {'attn ' if attn else ''}ch=64 (1,2,4) 64px, dec {dec_dtype}: "
             f"latents max_abs_err="
             f"{z_err:.3e} (|z|max {float(z_cpu.abs().max()):.3f}); decoded max_abs_err="
@@ -989,10 +1008,12 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
         draws = StepDraws(flip_in=True, flip_w=True, flip_h=False, crop_h=0, crop_w=0,
                           aug_lpips_w=False, aug_lpips_h=False,
                           revive_idx=None if revive_idx is None else revive_idx.to(dev))
-        ac.fwd_launches = ac.bwd_launches = 0
+        ac.fwd_launches = ac.bwd_launches = ac.tc_launches = ac.fma_launches = 0
         state, metrics = step(state, torch.from_numpy(images).to(dev), 0, draws)
         if attn and dev == "cuda" and (ac.fwd_launches, ac.bwd_launches) != (2, 2):
             raise AssertionError("the card's step did not run 2 + 2 attention launches")
+        if attn and dev == "cuda":  # fp32 throughout: the FMA route
+            check_attn_route(ac, "cross-device attn training step", 0, 4)
         moments = {}
         for side, model, opt in (("G", vae, state.g_opt), ("D", disc, state.d_opt)):
             # in EMA mode the codebook takes no gradient and has no AdamW state
@@ -1107,27 +1128,61 @@ def _library_attention(q, k, v):
                                           v.transpose(1, 2))
 
 
+@functools.cache
+def sfu_exps_per_s() -> float:
+    """The card's exp rate: SFU_EXPS_PER_CLOCK_SM x its SMs x its highest SM
+    clock (``nvidia-smi`` clocks.max.sm)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_EXPS_PER_CLOCK_SM * sms * float(mhz) * 1e6
+
+
+def attention_flops(b, n, h, d, backward: bool) -> int:
+    """4·B·H·N²·D forward (two products); 10·B·H·N²·D backward (the four
+    products and S recomputed): what the function needs, not what kernel
+    #3's backward does (14, S and dP recomputed twice)."""
+    return (10 if backward else 4) * b * h * n * n * d
+
+
 def attention_bound_ms(b, n, h, d, dtype, backward: bool) -> float:
-    """The least time of one call: the larger of its operations at the peak
-    rate of the inputs' type (4·B·H·N²·D forward; 10·B·H·N²·D backward: the
-    four products and S recomputed) and its bytes at 3.35 TB/s (q, k, v read
-    and out written, plus out and dO read and dq, dk, dv written backward;
-    the fp32 lse written forward and read backward)."""
-    flops = (10 if backward else 4) * b * h * n * n * d
+    """The least time of one call: the largest of its operations at the peak
+    rate of the inputs' type (``attention_flops``), its exps at the SFU's
+    rate (one per score forward, one backward: P recomputed) and its bytes at
+    3.35 TB/s (q, k, v read and out written, plus out and dO read and dq, dk,
+    dv written backward; the fp32 lse written forward and read backward)."""
     rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     es = torch.finfo(dtype).bits // 8
     moved = (8 if backward else 4) * b * n * h * d * es + 4 * b * h * n
-    return max(flops / rate, moved / HBM_BYTES_PER_S) * 1e3
+    return max(attention_flops(b, n, h, d, backward) / rate, b * h * n * n / sfu_exps_per_s(),
+               moved / HBM_BYTES_PER_S) * 1e3
+
+
+def check_attn_route(ac, what: str, tc: int, fma: int) -> None:
+    """The kernel #3 calls since the route counts were set to 0: ``tc`` bf16
+    calls on the tensor cores and ``fma`` fp32 calls on the CUDA cores."""
+    log(f"{what}: kernel #3 routes: {ac.tc_launches} tensor-core, {ac.fma_launches} FMA")
+    if (ac.tc_launches, ac.fma_launches) != (tc, fma):
+        raise AssertionError(f"{what}: expected {tc} bf16 attention calls on the tensor cores "
+                             f"and {fma} fp32 calls on the FMA route")
 
 
 def phase_attention_kernels(ac) -> dict:
-    """Kernel #3 against its plain versions. Returns {(case, dtype, "fwd" or
-    "bwd"): (max_abs_err, kernel_ms, plain_ms, library_ms, bound_ms)}."""
+    """Kernel #3 against its plain versions (phase 13): fp32 (the FMA route)
+    and bf16 (the tensor-core route) at every case, the route of every call
+    counted; each output within ``rounding_bounds``, lse within
+    ATTN_LSE_ATOL. Times are the device's (``device_ms``: calls replayed from
+    a CUDA graph), the wrapper's CUDA-event time beside them. Fails where a
+    bf16 call is slower than its plain version, or two runs of the bf16
+    backward differ in a bit. Returns {(case, dtype, "fwd" or "bwd"):
+    (max_abs_err, kernel_ms, plain_ms, library_ms, bound_ms)}."""
     from vqgan_tpu_torch.ops.attention import (
         chunked_attention_backward,
         chunked_attention_forward,
         rounding_bounds,
     )
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
 
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1135,9 +1190,11 @@ def phase_attention_kernels(ac) -> dict:
     for name, (b, n, h, d, chunk, with_bwd) in ATTN_CASES.items():
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
+            tname = "bf16" if bf16 else "fp32"
             # q, k, v: views of one (B, N, 3, H, D) tensor, as the AttnBlock's
             qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype)
             q, k, v = qkv.unbind(2)
+            ac.tc_launches = ac.fma_launches = 0
             o, lse = ac.attention_forward(q, k, v, chunk)
             ro, rlse = chunked_attention_forward(q, k, v, chunk)
             pairs = {"out": (o, ro)}
@@ -1152,6 +1209,9 @@ def phase_attention_kernels(ac) -> dict:
             else:
                 bounds = rounding_bounds(q, k, v, rlse, ATTN_RTOL, bf16)
             torch.cuda.synchronize()
+            calls = 2 if with_bwd else 1
+            check_attn_route(ac, f"attn {name} {tname}", calls if bf16 else 0,
+                             0 if bf16 else calls)
             lse_err = float((lse - rlse).abs().max())
             used = {"lse": lse_err / ATTN_LSE_ATOL}
             errs = {}
@@ -1164,47 +1224,65 @@ def phase_attention_kernels(ac) -> dict:
                 errs[key] = float(diff.max())
             del bounds, pairs, diff, tol
             ok = all(u <= 1.0 for u in used.values())
-            tname = "bf16" if bf16 else "fp32"
-            iters = 5 if n > 4096 else 20
-            f_ms = cuda_ms(lambda: ac.attention_forward(q, k, v, chunk), iters=iters)
-            pf_ms = cuda_ms(lambda: chunked_attention_forward(q, k, v, chunk), iters=iters)
-            lf_ms = cuda_ms(lambda: _library_attention(q, k, v), iters=iters)
+            if with_bwd and bf16:  # the backward sums in a fixed order
+                again = ac.attention_backward(q, k, v, ro, rlse, g, chunk)
+                if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                    raise AssertionError(f"attention backward {name} bf16 not deterministic")
+                del again
+            iters = 3 if n > 4096 else 20
+            f_ms = device_ms(lambda: ac.attention_forward(q, k, v, chunk), iters)
+            fw_ms = cuda_ms(lambda: ac.attention_forward(q, k, v, chunk), iters=iters)
+            pf_ms = device_ms(lambda: chunked_attention_forward(q, k, v, chunk), iters)
+            lf_ms = device_ms(lambda: _library_attention(q, k, v), iters)
             fb = attention_bound_ms(b, n, h, d, dtype, backward=False)
+            tflops = attention_flops(b, n, h, d, backward=False) / f_ms / 1e9
             log(f"attn fwd {name} B={b} N={n} H={h} D={d} {tname}: max_abs_err "
-                + " ".join(f"{key}={e:.3e}" for key, e in errs.items() if key == "out")
-                + f" lse={lse_err:.3e}; share of the bound used "
-                + " ".join(f"{key}={u:.3f}" for key, u in used.items() if key in ("out", "lse"))
-                + f" kernel_ms={f_ms:.4f} plain_ms={pf_ms:.4f} library_ms={lf_ms:.4f} "
-                f"bound_ms={fb:.4f} {'ok' if ok else 'MISS'}")
+                f"out={errs['out']:.3e} lse={lse_err:.3e}; share of the bound used "
+                f"out={used['out']:.3f} lse={used['lse']:.3f} kernel_ms={f_ms:.4f} (device; "
+                f"wrapper {fw_ms:.4f}) {tflops:.1f} TFLOP/s plain_ms={pf_ms:.4f} "
+                f"library_ms={lf_ms:.4f} (kernel/SDPA {f_ms / lf_ms:.2f}) bound_ms={fb:.4f} "
+                f"{'ok' if ok else 'MISS'}")
             out[(name, dtype, "fwd")] = (max(errs["out"], lse_err), f_ms, pf_ms, lf_ms, fb)
+            slow = [f"fwd {f_ms:.4f} against plain {pf_ms:.4f}"] if bf16 and f_ms >= pf_ms else []
             if with_bwd:
-                b_ms = cuda_ms(lambda: ac.attention_backward(q, k, v, ro, rlse, g, chunk))
-                pb_ms = cuda_ms(lambda: chunked_attention_backward(q, k, v, ro, rlse, g, chunk))
+                b_ms = device_ms(lambda: ac.attention_backward(q, k, v, ro, rlse, g, chunk),
+                                 iters)
+                bw_ms = cuda_ms(lambda: ac.attention_backward(q, k, v, ro, rlse, g, chunk),
+                                iters=iters)
+                pb_ms = device_ms(lambda: chunked_attention_backward(q, k, v, ro, rlse, g,
+                                                                     chunk), iters)
                 ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-                ol = _library_attention(ql, kl, vl)
                 gl = g.transpose(1, 2)
-                lb_ms = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), gl,
-                                                            retain_graph=True))
 
                 def fwd_bwd():
                     torch.autograd.grad(_library_attention(ql, kl, vl), (ql, kl, vl), gl)
 
-                lfb_ms = cuda_ms(fwd_bwd)
-                del ql, kl, vl, ol
+                # SDPA's backward: its forward + backward less its forward
+                lfb_ms = device_ms(fwd_bwd, iters)
+                lb_ms = lfb_ms - lf_ms
+                del ql, kl, vl
                 bb = attention_bound_ms(b, n, h, d, dtype, backward=True)
+                tflops = attention_flops(b, n, h, d, backward=True) / b_ms / 1e9
                 log(f"attn bwd {name} B={b} N={n} H={h} D={d} {tname}: max_abs_err "
                     + " ".join(f"{key}={errs[key]:.3e}" for key in ("dq", "dk", "dv"))
                     + "; share of the bound used "
                     + " ".join(f"{key}={used[key]:.3f}" for key in ("dq", "dk", "dv"))
-                    + f" kernel_ms={b_ms:.4f} plain_ms={pb_ms:.4f} library_ms={lb_ms:.4f} "
-                    f"(library forward+backward {lfb_ms:.4f}) bound_ms={bb:.4f} "
+                    + f" kernel_ms={b_ms:.4f} (device; wrapper {bw_ms:.4f}) {tflops:.1f} "
+                    f"TFLOP/s of 10·BHN²D ({tflops * 1.4:.1f} of the 14 it does) "
+                    f"plain_ms={pb_ms:.4f} library_ms={lb_ms:.4f} (library forward+backward "
+                    f"{lfb_ms:.4f}; kernel/SDPA {b_ms / lb_ms:.2f}) bound_ms={bb:.4f} "
                     f"{'ok' if ok else 'MISS'}")
                 out[(name, dtype, "bwd")] = (max(errs[key] for key in ("dq", "dk", "dv")),
                                              b_ms, pb_ms, lb_ms, bb)
+                if bf16 and b_ms >= pb_ms:
+                    slow.append(f"bwd {b_ms:.4f} against plain {pb_ms:.4f}")
                 del g, grads, ref, delta
             if not ok:
                 raise AssertionError(f"attention kernel disagrees with plain at {name} "
                                      f"{tname}: {used}")
+            if slow:
+                raise AssertionError(f"attention kernel slower than plain at {name} bf16: "
+                                     + ", ".join(slow))
             del qkv, q, k, v, o, lse, ro, rlse
             torch.cuda.empty_cache()
     return out
@@ -1259,12 +1337,13 @@ def phase_attn_serving(gn, ac, tmp: str) -> tuple[dict, dict, dict]:
         raise AssertionError("attention flagship latents or output out of shape or range")
 
     # the main path, counted: one reconstruct of the batch
-    gn.launches = ac.fwd_launches = 0
+    gn.launches = ac.fwd_launches = ac.tc_launches = ac.fma_launches = 0
     pipe.reconstruct(images)
     counts = {"gn": gn.launches, "attn": ac.fwd_launches, "attn_bwd": ac.bwd_launches}
     log(f"attn flagship reconstruct launches: {counts}")
     if counts != {"gn": 52, "attn": 2, "attn_bwd": 0}:
         raise AssertionError("expected 52 GN and 2 attention launches per reconstruct")
+    check_attn_route(ac, "attn flagship reconstruct (fp32 encoder, bf16 decoder)", 1, 1)
     flagship = _serve_and_time(pipe, images, iters=3)
     log(f"attn flagship serving batch {SERVE_BATCH}: {flagship['img_per_s']:.3f} img/s, "
         f"{flagship['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
@@ -1275,13 +1354,14 @@ def phase_attn_serving(gn, ac, tmp: str) -> tuple[dict, dict, dict]:
     hr_cfg = VAEConfig(resolution=1024, use_attn=True, attn_chunk=HIRES_CHUNK)
     pipe = VAEPipeline.from_checkpoint(path, hr_cfg, device="cuda")
     image = np.random.RandomState(1).randint(0, 256, (1, 1024, 1024, 3), np.uint8)
-    ac.fwd_launches = 0
+    ac.fwd_launches = ac.tc_launches = ac.fma_launches = 0
     z = pipe.encode(image)
     if tuple(z.shape) != (1, 128, 128, 16) or not bool(torch.isfinite(z).all()):
         raise AssertionError("high-resolution latents not finite or out of shape")
     pipe.decode(z)
     if ac.fwd_launches != 2:
         raise AssertionError(f"{ac.fwd_launches} attention launches in a 1,024 px reconstruct")
+    check_attn_route(ac, "attn 1,024 px reconstruct (fp32 encoder, bf16 decoder)", 1, 1)
     hires = _serve_and_time(pipe, image, iters=2)
     log(f"attn high-res serving 1024 px batch 1 (16384 mid-block tokens, attn_chunk="
         f"{HIRES_CHUNK}): {hires['img_per_s']:.3f} img/s, {hires['reconstruct_s'] * 1e3:.1f} "
@@ -1594,6 +1674,9 @@ def _clip_model(cfg, tmp: str, name: str):
 
 
 def _serve_clips(pipe, clips, iters: int) -> dict:
+    # untimed: after a torch.cuda.empty_cache() (gn_at_clip_shapes) the first
+    # reconstruct allocates its device memory anew
+    pipe.reconstruct(clips)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1720,7 +1803,7 @@ def phase_long_clip(gn, cc, ac, tmp: str) -> dict:
     gn_seen, gn_hooks = record_gn_shapes(pipe.model)
     stages = {}
     cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
-    gn.launches = ac.fwd_launches = 0
+    gn.launches = ac.fwd_launches = ac.tc_launches = ac.fma_launches = 0
     z = pipe.encode(clip)
     torch.cuda.synchronize()
     stages["encode"] = (cc.launches, gn.launches, ac.fwd_launches)
@@ -1739,6 +1822,7 @@ def phase_long_clip(gn, cc, ac, tmp: str) -> dict:
     if stages != {"encode": (18, 18, 1), "decode": (26, 24, 1)}:
         raise AssertionError("expected 18 + 26 Conv3d, 18 + 24 GroupNorm, 1 + 1 attention "
                              "launches")
+    check_attn_route(ac, "tvae long clip 48f/256px encode + decode (bf16)", 2, 0)
     want = (1, LONG_FRAMES // 4, LONG_RES // 4, LONG_RES // 4, cfg.z_channels)
     if (tuple(z.shape) != want or not bool(torch.isfinite(z).all())
             or recon.shape != (1, LONG_FRAMES, LONG_RES, LONG_RES, 3)

@@ -189,3 +189,180 @@ def test_wrappers_check_their_inputs():
     assert attention_cuda.attention_forward(*[torch.zeros(1, 8, 1, 48)] * 3, 8)[0].shape[-1] == 48
     with pytest.raises(NotImplementedError, match="32 or 64"):
         attention_cuda._kernel_strides(torch.zeros(1, 8, 1, 48))
+
+
+# kernel #3's tensor-core route (csrc/attention.cu, bf16), emulated in torch in
+# its order: blocks of TC_BLOCK_ROWS rows, tiles of TC_STEP_ROWS streamed,
+# ragged tiles zero-filled and masked to -inf, the online softmax per tile on
+# exp2 with scale·log2(e) folded in, P and dS rounded to bf16 where the kernel
+# rounds them. Against the plain versions and the JAX scan: each output within
+# rounding_bounds (fp32 orders at ATTN_RTOL of Σ|terms|, 2^-9 more for the
+# bf16 P and dS) plus one bf16 ulp of the value; lse within LSE_ATOL
+ATTN_RTOL = 3e-5
+LSE_ATOL = 1e-4
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tiles(t, rows):
+    """(B, H, N, D) → [(row0, the rows [row0, row0 + rows) zero-padded to
+    ``rows``)]: what the kernel's cp.async ring holds, src-size 0 past N."""
+    n = t.shape[2]
+    padded = torch.nn.functional.pad(t, (0, 0, 0, -n % rows))
+    return [(r0, padded[:, :, r0:r0 + rows]) for r0 in range(0, n, rows)]
+
+
+def _mask_past(s, c0, n):
+    """Columns c0 + j at or past n → -inf (the kernel's mask_past)."""
+    cols = c0 + torch.arange(s.shape[-1])
+    return s.masked_fill(cols >= n, float("-inf"))
+
+
+def tc_forward_emulated(q, k, v):
+    """(out, lse) in the tensor-core forward's order."""
+    b, n, h, d = q.shape
+    scale = d ** -0.5
+    sl = scale * LOG2E
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    out, lse = torch.empty(b, h, n, d), torch.empty(b, h, n)
+    for q0, qb in _tiles(qf, attention_cuda.TC_BLOCK_ROWS):
+        m = torch.full(qb.shape[:-1], float("-inf"))
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        for (k0, kt), (_, vt) in zip(_tiles(kf, attention_cuda.TC_STEP_ROWS),
+                                     _tiles(vf, attention_cuda.TC_STEP_ROWS)):
+            s = _mask_past(qb @ kt.transpose(-1, -2), k0, n)
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2((m - mx) * sl)
+            p = torch.exp2(s * sl - (mx * sl)[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _bf16(p) @ vt
+            m = mx
+        rows = slice(q0, min(q0 + attention_cuda.TC_BLOCK_ROWS, n))
+        valid = rows.stop - q0
+        out[:, :, rows] = (acc / l[..., None])[:, :, :valid]
+        lse[:, :, rows] = (m * scale + torch.log(l))[:, :, :valid]
+    return out.transpose(1, 2).to(q.dtype), lse
+
+
+def tc_backward_emulated(q, k, v, out, lse, g):
+    """(dq, dk, dv) in the tensor-core backward's order: the dK/dV loop over
+    query tiles per key block, the dQ loop over key tiles per query block."""
+    b, n, h, d = q.shape
+    scale = d ** -0.5
+    sl = scale * LOG2E
+    qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+    stats = torch.stack([lse, delta], -1)  # (B, H, N, 2): staged beside Q, dO
+    blk, step = attention_cuda.TC_BLOCK_ROWS, attention_cuda.TC_STEP_ROWS
+    dq, dk, dv = (torch.empty(b, h, n, d) for _ in range(3))
+    for (k0, kb), (_, vb) in zip(_tiles(kf, blk), _tiles(vf, blk)):
+        dk_acc, dv_acc = torch.zeros_like(kb), torch.zeros_like(kb)
+        for (q0, qt), (_, gt), (_, st) in zip(_tiles(qf, step), _tiles(gf, step),
+                                               _tiles(stats, step)):
+            pt = _mask_past(kb @ qt.transpose(-1, -2), q0, n)
+            pt = torch.exp2(pt * sl - (st[..., 0] * LOG2E)[:, :, None])
+            dv_acc += _bf16(pt) @ gt
+            dpt = vb @ gt.transpose(-1, -2)
+            dst = pt * (dpt - st[:, :, None, :, 1]) * scale
+            dk_acc += _bf16(dst) @ qt
+        rows = slice(k0, min(k0 + blk, n))
+        dk[:, :, rows] = dk_acc[:, :, :rows.stop - k0]
+        dv[:, :, rows] = dv_acc[:, :, :rows.stop - k0]
+    for (q0, qb), (_, gb), (_, sb) in zip(_tiles(qf, blk), _tiles(gf, blk), _tiles(stats, blk)):
+        dq_acc = torch.zeros_like(qb)
+        for (k0, kt), (_, vt) in zip(_tiles(kf, step), _tiles(vf, step)):
+            s = _mask_past(qb @ kt.transpose(-1, -2), k0, n)
+            p = torch.exp2(s * sl - (sb[..., 0] * LOG2E)[..., None])
+            dp = gb @ vt.transpose(-1, -2)
+            ds = p * (dp - sb[..., 1, None]) * scale
+            dq_acc += _bf16(ds) @ kt
+        rows = slice(q0, min(q0 + blk, n))
+        dq[:, :, rows] = dq_acc[:, :, :rows.stop - q0]
+    return tuple(t.transpose(1, 2).to(x.dtype) for t, x in zip((dq, dk, dv), (q, k, v)))
+
+
+def _within_bounds(got: dict, want: dict, bounds: dict) -> dict:
+    """{name: the largest |got − want| / (bound + one bf16 ulp of want)}."""
+    used = {}
+    for name, g_ in got.items():
+        w = want[name].float()
+        tol = bounds[name] + 1e-7 + 2.0 ** -7 * w.abs()
+        used[name] = float(((g_.float() - w).abs() / tol).max())
+    return used
+
+
+@pytest.mark.parametrize("n", [1, 65, 333])
+@pytest.mark.parametrize("d", [32, 64])
+def test_tensor_core_route_order_matches_plain_and_jax(d, n):
+    """The emulated tensor-core route, forward and backward, bf16 inputs as
+    views of one (B, N, 3, H, D) tensor, against the plain chunked versions
+    and the JAX chunked scan and its custom VJP, within the bounds that the
+    card holds the kernel to. The backwards all start from the plain
+    forward's out and lse (the JAX one from its own, as its VJP does)."""
+    from vqgan_tpu.ops.chunked_attention import _bwd_rule
+
+    from vqgan_tpu_torch.ops.attention import rounding_bounds
+
+    qkv_np = _draws((2, n, 3, 2, d), seed=40 + n + d, n_arrays=1)[0]
+    g_np = _draws((2, n, 2, d), seed=41 + n + d, n_arrays=1)[0]
+    qkv = _torch(qkv_np, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    g = _torch(g_np, torch.bfloat16)
+    out, lse = tc_forward_emulated(q, k, v)
+    ref_out, ref_lse = chunked_attention_forward(q, k, v, n)
+    grads = dict(zip(("dq", "dk", "dv"), tc_backward_emulated(q, k, v, ref_out, ref_lse, g)))
+    ref_grads = dict(zip(("dq", "dk", "dv"),
+                         chunked_attention_backward(q, k, v, ref_out, ref_lse, g, n)))
+    delta = (g.float() * ref_out.float()).sum(-1).transpose(1, 2)
+    bounds = rounding_bounds(q, k, v, ref_lse, ATTN_RTOL, True, g, delta)
+    assert out.dtype == torch.bfloat16 and all(t.dtype == torch.bfloat16 for t in grads.values())
+    used = _within_bounds({"out": out, **grads}, {"out": ref_out, **ref_grads}, bounds)
+    used["lse"] = float((lse - ref_lse).abs().max()) / LSE_ATOL
+    assert all(u <= 1.0 for u in used.values()), ("plain", used)
+
+    jq, jk, jv = (_jax(a, torch.bfloat16) for a in np.moveaxis(qkv_np, 2, 0))
+    j_out, j_lse = _forward(jq, jk, jv, n)
+    t_out = _torch(_np(j_out), torch.bfloat16)
+    t_lse = torch.from_numpy(np.array(j_lse))
+    j_grads = _bwd_rule(n, (jq, jk, jv, j_out, j_lse), _jax(g_np, torch.bfloat16))
+    grads = dict(zip(("dq", "dk", "dv"), tc_backward_emulated(q, k, v, t_out, t_lse, g)))
+    delta = (g.float() * t_out.float()).sum(-1).transpose(1, 2)
+    bounds = rounding_bounds(q, k, v, t_lse, ATTN_RTOL, True, g, delta)
+    want = {"out": t_out, **{key: torch.from_numpy(_np(a)) for key, a in
+                              zip(("dq", "dk", "dv"), j_grads)}}
+    used = _within_bounds({"out": out, **grads}, want, bounds)
+    used["lse"] = float((lse - t_lse).abs().max()) / LSE_ATOL
+    assert all(u <= 1.0 for u in used.values()), ("jax", used)
+
+
+def test_route_and_stride_rule():
+    """The dtype alone picks the route; each route's stride rule is checked
+    on CPU tensors (a pure function: no card)."""
+    assert attention_cuda.route(torch.bfloat16) == "tc"
+    assert attention_cuda.route(torch.float32) == "fma"
+    # the AttnBlock's views of a channels-last qkv: token stride 3C, C = H·D
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, d in ((1, 32), (8, 32), (4, 64)):
+            q, k, v = torch.zeros(2, 16, 3, h, d, dtype=dtype).unbind(2)
+            strides = list(attention_cuda._kernel_strides(q, k, v))
+            assert strides == [16 * 3 * h * d, 3 * h * d, d] * 3
+    # head stride 68: a multiple of 4, not of 8
+    for dtype, raises in ((torch.bfloat16, True), (torch.float32, False)):
+        view = torch.zeros(2, 16, 2, 68, dtype=dtype)[..., :64]
+        if raises:
+            with pytest.raises(ValueError, match="tc route .* multiples of 8"):
+                attention_cuda._kernel_strides(view)
+        else:
+            attention_cuda._kernel_strides(view)
+    # 8 bytes off a 16-byte boundary: bf16 strides whole, the address not
+    flat = torch.zeros(2 * 16 * 64 + 8, dtype=torch.bfloat16)
+    base = flat[(-flat.data_ptr() // 2) % 8:]  # 16-byte aligned
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_cuda._kernel_strides(base[4:4 + 2 * 16 * 64].view(2, 16, 1, 64))
+    attention_cuda._kernel_strides(base[8:8 + 2 * 16 * 64].view(2, 16, 1, 64))
+    with pytest.raises(ValueError, match="fma route .* multiples of 4"):
+        attention_cuda._kernel_strides(torch.zeros(2, 16, 2, 65)[..., :64])

@@ -452,8 +452,12 @@ def test_attention_kernel_matches_plain(device, shape, dtype):
     fp32 and bf16, N a multiple of the 64-token tile, ragged, and 1."""
     q, k, v, g = _attn_inputs(shape, dtype, device)
     attention_cuda.fwd_launches = attention_cuda.bwd_launches = 0
+    attention_cuda.tc_launches = attention_cuda.fma_launches = 0
     used = attention_errors(q, k, v, g)
     assert (attention_cuda.fwd_launches, attention_cuda.bwd_launches) == (1, 1)
+    # bf16 on the tensor cores, fp32 on the CUDA cores' FMA: both calls
+    want = (2, 0) if dtype == torch.bfloat16 else (0, 2)
+    assert (attention_cuda.tc_launches, attention_cuda.fma_launches) == want
     assert all(u <= 1.0 for u in used.values()), used
 
 
@@ -476,6 +480,16 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(device):
     q = torch.zeros(1, 64, 2, 64, device=device)
     with pytest.raises(ValueError, match="does not match"):
         attention_cuda.attention_forward(q, q.cpu(), q, 64)
+    # bf16: head stride 68, a multiple of 4 but not of the 8 that the
+    # tensor-core route's 16-byte copies need; raises, no fallback
+    attention_cuda.tc_launches = attention_cuda.fma_launches = 0
+    bad = torch.zeros(2, 64, 2, 68, device=device, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        attention_cuda.attention_forward(bad, bad, bad, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        off = torch.zeros(2 * 64 * 64 + 4, device=device, dtype=torch.bfloat16)[4:]
+        attention_cuda.attention_forward(*[off.view(2, 64, 1, 64)] * 3, 64)
+    assert (attention_cuda.tc_launches, attention_cuda.fma_launches) == (0, 0)
 
 
 def test_attn_block_autograd_reaches_qkv_through_the_kernel(device):

@@ -7,56 +7,78 @@
 // _flash_attention_kernel and the backward _flash_attention_dkv_kernel and
 // _flash_attention_dq_kernel). Scale D^-1/2, softmax statistics in fp32, O(N*D)
 // residuals: the output and the per-query logsumexp (lse); no N x N matrix
-// reaches device memory.
+// reaches device memory. For bf16 the kernels round where the Pallas kernel
+// casts: P to v's type before P.V and to dO's before dV, dS to the input type
+// before dK and dQ; l is summed from the unrounded fp32 P.
 //
 // Layout: q, k, v, the output and the gradients are (B, N, H, D) with any
-// strides whose last is 1 and whose others are multiples of 4 elements, so
-// q, k and v can be views of the qkv conv's channels-last output (token
-// stride 3C). lse and delta are fp32 (B, H, N). fp32 or bf16 I/O; every
-// product is an fp32 FMA on the CUDA cores, every sum fp32. For bf16 the
-// kernels round where the Pallas kernel casts: P to v's type before P.V and
-// to dO's before dV, dS to the input type before dK and dQ.
+// strides whose last is 1 and whose others are multiples of 4 elements (fp32)
+// or 8 (bf16), 16-byte aligned, so q, k and v can be views of the qkv conv's
+// channels-last output (token stride 3C). lse and delta are fp32 (B, H, N).
+// The backward is three launches: delta = sum_d dO*O per row (from O as
+// stored), a dK/dV kernel (one key tile per block, looping over query tiles)
+// and a dQ kernel (one query tile per block, looping over key tiles). Every
+// output entry is summed in a fixed order: no atomics, deterministic. The
+// ragged last tile is masked (any N >= 1). D is a template parameter: 32 or
+// 64. The dtype alone picks the route:
 //
-// Tiles: 64 queries by 64 keys. A block has 256 threads in a 16 x 16 grid
-// (ty, tx); in a 64 x 64 score tile a thread owns rows ty*4 + i and columns
-// tx + 16*j (i, j < 4), and in a 64 x D product tile rows ty*4 + i and
-// columns tx*(D/16) + j. Tiles sit in shared memory as fp32 rows padded by 4
-// floats, so that the float4 reads of a score tile's columns fall on 8
-// distinct bank groups and a row's 16 threads read one address.
+// bf16: the tensor cores (attn_*_tc_kernel). bf16 mma.sync m16n8k16 with
+//   fp32 accumulators (csrc/mma.cuh); a bf16 x bf16 product is exact in fp32,
+//   so every product and sum of the contract is fp32. A block of 8 warps owns
+//   128 rows (queries, or keys for dK/dV), 16 a warp; the warp loads its
+//   rows' fragments once by ldmatrix and keeps them in registers while tiles
+//   of 64 rows of the other side stream through a 3-stage ring of
+//   cp.async.cg 16-byte copies (two in flight, one __syncthreads a step), as
+//   bf16 in rows padded by 8 (144 or 80 bytes) so that each 8-row ldmatrix
+//   phase hits all 32 banks. Rows past N are zero-filled by src-size 0 and
+//   their scores masked to -inf. A score tile stays in the fp32 accumulators:
+//   the online softmax runs on them (a row's max combined across the 4 lanes
+//   that share it by __shfl_xor_sync; each lane keeps its part of the row sum
+//   until the end), the exponent is exp2 with scale*log2(e) folded into one
+//   FMA (lse is still written as the natural log, m*scale + log l), and P is
+//   rounded to bf16 in registers and used directly as the A operand of P.V:
+//   the accumulator layout of two adjacent n8 tiles is the A layout of one
+//   k16 step. The second operand of P.V (and of dV, dK, dQ) comes by
+//   ldmatrix.trans from the row-major tile. dK/dV per query tile: S^T = K.Q^T,
+//   P^T = exp(S^T - lse), dV += P^T.dO, dP^T = V.dO^T, dS^T = P^T (dP^T -
+//   delta) scale, dK += dS^T.Q; dQ per key tile: S, P, dP = dO.V^T, dS, dQ +=
+//   dS.K, with P and dS passed from accumulator to operand in registers.
 //
-//   attn_fwd_kernel        grid (ceil(N / 64), B*H). Stages its q tile, then
-//                          streams k/v tiles through shared memory: S = Q.K^T
-//                          * scale, a running (max, sum) per row with the
-//                          rescale of the O accumulator (online softmax), P
-//                          written to shared memory, O += P.V. Writes O in
-//                          the input type and lse = max + log(sum).
-//   attn_bwd_delta_kernel  delta = sum_d dO*O per row, from O as stored.
-//   attn_bwd_dkv_kernel    grid (ceil(N / 64), B*H): one k tile per block,
-//                          looping over q tiles. Recomputes S^T = K.Q^T and
-//                          P^T = exp(S^T - lse), dP^T = V.dO^T, dS^T = P^T *
-//                          (dP^T - delta) * scale; dV += P^T.dO, dK += dS^T.Q.
-//   attn_bwd_dq_kernel     grid (ceil(N / 64), B*H): one q tile per block,
-//                          looping over k tiles. Recomputes S, P, dP, dS;
-//                          dQ += dS.K.
-// Every output entry is summed by one thread in a fixed order: no atomics,
-// deterministic. The ragged last tile is masked (any N >= 1). D is a template
-// parameter: 32 or 64.
+// fp32: the CUDA cores (attn_fwd_kernel, attn_bwd_dkv_kernel,
+//   attn_bwd_dq_kernel), the route of the parity checks: no tensor-core type
+//   multiplies fp32 operands exactly. 64 queries by 64 keys a tile; a block
+//   has 256 threads in a 16 x 16 grid (ty, tx); in a 64 x 64 score tile a
+//   thread owns rows ty*4 + i and columns tx + 16*j (i, j < 4), and in a 64 x
+//   D product tile rows ty*4 + i and columns tx*(D/16) + j. Tiles sit in
+//   shared memory as fp32 rows padded by 4 floats, so that the float4 reads
+//   of a score tile's columns fall on 8 distinct bank groups and a row's 16
+//   threads read one address. Every product is an fp32 FMA; P and dS take a
+//   trip through shared memory.
 //
-// Bound: operations. The forward does 4*B*H*N^2*D flops (two products), the
-// backward 14 (seven products: the dK/dV and dQ kernels each recompute S and
-// dP, the price of no atomics; an atomic design needs 10). At the flagship
-// mid block (B = 8, N = 1024, H = 16, D = 64) that is 34.4 and 120 GFLOP
-// against 67 TFLOP/s of fp32 FMA on an H100 SXM, about 0.51 and 1.8 ms; the
-// bytes are ~17 MB per tensor in bf16, some 5 us each at 3.35 TB/s. A thread
-// spends two 16-byte shared-memory reads on every 16 FMAs of a product, so
-// the FMA pipes, not shared memory, set the pace. The tensor cores (bf16
-// mma, or wgmma with TMA-fed tiles) are the next step; they are left for a
-// later change.
+// Bound: operations, and at D = 32 the exponentials. The forward does
+// 4*B*H*N^2*D flops (two products) and B*H*N^2 exps; the backward 14*B*H*N^2*D
+// flops (seven products: the dK/dV and dQ kernels each recompute S and dP,
+// the price of no atomics; an atomic design needs 10) and 2*B*H*N^2 exps. At
+// the flagship mid block (B = 8, N = 1024, H = 16, D = 64) that is 34.4 and
+// 120 GFLOP: 0.035 and 0.12 ms at 989 TFLOP/s of bf16 tensor cores (0.51 and
+// 1.8 ms at 67 TFLOP/s of fp32 FMA). The SFU takes 16 exps a clock per SM,
+// some 3.9e12 a second: 128 flops of a D = 32 head per exp against the tensor
+// cores' ~250 per SFU op, so at D = 32 (the TVAE's long clip, N = 49152:
+// 1.9e10 exps a call, ~5 ms) the exps, not the products, set the floor. The
+// bytes are ~17 MB per tensor in bf16 at the flagship, some 5 us each at
+// 3.35 TB/s. What the bf16 design costs beyond that: mma.sync reaches about
+// two thirds of the rate of wgmma fed by TMA; each warp reads every streamed
+// tile from shared memory once per product (one ldmatrix.x4 per two mma);
+// the softmax's FMA, max and sum run on the fp32 pipes beside the SFU.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -80,15 +102,13 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// The FMA kernels below are instantiated for fp32 only (bf16 takes the
+// tensor-core route), where these casts are the identity.
 template <typename T>
 __device__ __forceinline__ T cast_to(float x);
 template <>
 __device__ __forceinline__ float cast_to<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 cast_to<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
 }
 
 // x rounded to T's precision (the Pallas kernel's casts before a product)
@@ -97,10 +117,6 @@ __device__ __forceinline__ float round_as(float x);
 template <>
 __device__ __forceinline__ float round_as<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ int64_t offset(const Strides& s, int b, int row, int h) {
@@ -418,6 +434,409 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<T, D>(dq, sdq, b, h, q0, n, dq_acc, one, ty, tx);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core route.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcRows = kTcWarps * 16;  // rows a block owns: 16 a warp
+constexpr int kTcStep = 64;             // rows of a tile streamed through the ring
+constexpr int kTcStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU (one MUFU.EX2); subnormal results flush to 0, -inf gives 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [row0, row0 + ROWS) of the (b, h) slice into a ROWS x (D + 8) bf16
+// tile, one cp.async of 16 bytes per 8 elements; rows at or past n are
+// zero-filled (src-size 0).
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* __restrict__ src,
+                                          const Strides& s, int b, int h, int row0, int n) {
+  constexpr int kPieces = D / 8, kLd = D + 8;
+  static_assert(ROWS * kPieces % kTcThreads == 0, "whole pieces a thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * kPieces / kTcThreads; ++j) {
+    const int i = threadIdx.x + j * kTcThreads;
+    const int r = i / kPieces, c = (i % kPieces) * 8;
+    const bool ok = row0 + r < n;
+    cp_async16(smem_addr(dst + r * kLd + c), ok ? src + offset(s, b, row0 + r, h) + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// The A fragments of rows [r0, r0 + 16) of a staged tile, one per k16 step
+// of D: lane l addresses row l%16 at column 8*(l/16).
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const bf16* tile, int r0,
+                                       int lane) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldmatrix_x4(a[kk], smem_addr(tile + (r0 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8));
+  }
+}
+
+// acc[j] += a . tile^T for columns 8j..8j+7 (j < 8): a warp's 16 rows (A
+// fragments over D) against the 64 rows of a streamed tile, summed over D.
+// B by ldmatrix without .trans: lane l addresses row l%8 of n8 tile 2p + l/16
+// at column 8*((l/8)%2), giving b0, b1 of two n8 tiles.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[D / 16][4],
+                                        const bf16* tile, int lane) {
+  constexpr int kLd = D + 8;
+  const int row = (lane >> 4) * 8 + (lane & 7), col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t r[4];
+      ldmatrix_x4(r, smem_addr(tile + (p * 16 + row) * kLd + kk * 16 + col));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(acc[2 * p], a[kk], b0);
+      mma_bf16(acc[2 * p + 1], a[kk], b1);
+    }
+  }
+}
+
+// acc[j] += p . tile for columns 8j..8j+7 of D: a warp's 16 x 64 fp32
+// accumulators p, rounded to bf16 in registers as the A operand (n8 tiles 2kk
+// and 2kk+1 are the A fragment of k16 step kk), against a streamed 64 x D
+// tile, summed over its 64 rows. B by ldmatrix.trans: lane l addresses row
+// 16kk + l%8 + 8*((l/8)%2) at column 16dp + 8*(l/16).
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[8][4],
+                                       const bf16* tile, int lane) {
+  constexpr int kLd = D + 8;
+  const int row = (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, smem_addr(tile + (kk * 16 + row) * kLd + dp * 16 + col));
+      const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(acc[2 * dp], a, b0);
+      mma_bf16(acc[2 * dp + 1], a, b1);
+    }
+  }
+}
+
+// Entries of a 16 x 64 score tile whose column c0 + 8j + 2t + e lies at or
+// past n become -inf, so that their exponential is 0.
+__device__ __forceinline__ void mask_past(float (&s)[8][4], int c0, int n, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c0 + 8 * j + 2 * t + (c & 1) >= n) s[j][c] = -INFINITY;
+    }
+  }
+}
+
+// Rows r0 + g and r0 + g + 8 of a warp's 16 x D accumulator, divided by
+// div[0] and div[1], as bf16 pairs into the (b, h) slice of dst; rows at or
+// past n are not written.
+template <int D>
+__device__ __forceinline__ void store_acc(bf16* __restrict__ dst, const Strides& s, int b, int h,
+                                          int r0, int n, const float (&acc)[D / 8][4],
+                                          const float (&div)[2], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= n) continue;
+    bf16* out = dst + offset(s, b, row, h) + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[j][2 * half] / div[half], acc[j][2 * half + 1] / div[half]);
+    }
+  }
+}
+
+// The ring, for every tensor-core kernel: the block's own rows are copied
+// with step 0 and steps 0 and 1 are in flight before the loop; step i waits
+// for its stage, starts the copies of step i + 2 into the stage that step i -
+// 1 used (every warp is past it: the barrier), then computes on step i. An
+// empty group keeps the count of groups in flight at 2.
+template <typename LoadStep>
+__device__ __forceinline__ void ring_prologue(int steps, LoadStep load_step) {
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) {
+    if (i < steps) load_step(i);
+    cp_async_commit();
+  }
+  cp_async_wait<kTcStages - 2>();
+  __syncthreads();
+}
+
+template <typename LoadStep>
+__device__ __forceinline__ void ring_step(int i, int steps, LoadStep load_step) {
+  cp_async_wait<kTcStages - 2>();
+  __syncthreads();
+  if (i + kTcStages - 1 < steps) load_step(i + kTcStages - 1);
+  cp_async_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                       Strides sq, Strides sk, Strides sv, Strides so, int heads, int n,
+                       float scale) {
+  constexpr int kLd = D + 8, kStage = 2 * kTcStep * kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // kTcRows x kLd
+  bf16* ring = qs + kTcRows * kLd;           // [stage][K then V, 64 x kLd each]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int q0 = blockIdx.x * kTcRows;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int steps = (n + kTcStep - 1) / kTcStep;
+  const float sl = scale * kLog2e;
+
+  auto load_step = [&](int i) {
+    bf16* st = ring + (i % kTcStages) * kStage;
+    copy_tile<D, kTcStep>(st, k, sk, b, h, i * kTcStep, n);
+    copy_tile<D, kTcStep>(st + kTcStep * kLd, v, sv, b, h, i * kTcStep, n);
+  };
+  copy_tile<D, kTcRows>(qs, q, sq, b, h, q0, n);
+  ring_prologue(steps, load_step);
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, qs, warp * 16, lane);
+
+  float acc[D / 8][4] = {};
+  // rows g and g+8: the running max of the raw scores, and this lane's part
+  // of the running sum (the 4 lanes of a row are added at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < steps; ++i) {
+    ring_step(i, steps, load_step);
+    const bf16* ks = ring + (i % kTcStages) * kStage;
+    float s[8][4] = {};
+    mma_abt<D>(s, qf, ks, lane);
+    if ((i + 1) * kTcStep > n) mask_past(s, i * kTcStep, n, t);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+    }
+    float corr[2], base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile has a key below n, so mx is finite; corr is 0 at the first
+      corr[r] = exp2_approx((m[r] - mx[r]) * sl);
+      base[r] = mx[r] * sl;
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = exp2_approx(fmaf(s[j][c], sl, -base[c >> 1]));
+        sum[c >> 1] += s[j][c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] *= corr[c >> 1];
+    }
+    mma_pv<D>(acc, s, ks + kTcStep * kLd, lane);  // O += P.V
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int r0 = q0 + warp * 16;
+  store_acc<D>(o, so, b, h, r0, n, acc, l, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + (lane >> 2) + 8 * r;
+      if (row < n) lse[static_cast<int64_t>(blockIdx.y) * n + row] = m[r] * scale + logf(l[r]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    attn_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ g,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
+                       Strides sv, Strides sg, Strides sdk, Strides sdv, int heads, int n,
+                       float scale) {
+  constexpr int kLd = D + 8, kTile = kTcStep * kLd;
+  constexpr int kStageBytes = 2 * kTile * sizeof(bf16) + 2 * kTcStep * sizeof(float);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // kTcRows x kLd
+  bf16* vs = ks + kTcRows * kLd;
+  // [stage]: Q and dO (64 x kLd bf16 each), then lse and delta (64 fp32 each)
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTcRows * kLd);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int k0 = blockIdx.x * kTcRows;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * n;
+  const int steps = (n + kTcStep - 1) / kTcStep;
+  const float sl = scale * kLog2e;
+
+  auto load_step = [&](int i) {
+    bf16* qt = reinterpret_cast<bf16*>(ring + (i % kTcStages) * kStageBytes);
+    copy_tile<D, kTcStep>(qt, q, sq, b, h, i * kTcStep, n);
+    copy_tile<D, kTcStep>(qt + kTile, g, sg, b, h, i * kTcStep, n);
+    if (threadIdx.x < 2 * kTcStep) {
+      float* stats = reinterpret_cast<float*>(qt + 2 * kTile);
+      const int row = i * kTcStep + threadIdx.x % kTcStep;
+      const float* src = threadIdx.x < kTcStep ? lse : delta;
+      const bool ok = row < n;
+      cp_async4(smem_addr(stats + threadIdx.x), ok ? src + stat0 + row : src, ok ? 4 : 0);
+    }
+  };
+  copy_tile<D, kTcRows>(ks, k, sk, b, h, k0, n);
+  copy_tile<D, kTcRows>(vs, v, sv, b, h, k0, n);
+  ring_prologue(steps, load_step);
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, ks, warp * 16, lane);
+  load_a<D>(vf, vs, warp * 16, lane);
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int i = 0; i < steps; ++i) {
+    ring_step(i, steps, load_step);
+    const bf16* qt = reinterpret_cast<const bf16*>(ring + (i % kTcStages) * kStageBytes);
+    const bf16* gt = qt + kTile;
+    const float* lse_s = reinterpret_cast<const float*>(qt + 2 * kTile);
+    const float* delta_s = lse_s + kTcStep;
+    // P^T: keys (rows g, g+8) by queries 8j + 2t + e of this step
+    float pt[8][4] = {};
+    mma_abt<D>(pt, kf, qt, lane);
+    if ((i + 1) * kTcStep > n) mask_past(pt, i * kTcStep, n, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1);
+        pt[j][c] = exp2_approx(fmaf(pt[j][c], sl, -lse_s[col] * kLog2e));
+      }
+    }
+    mma_pv<D>(dv_acc, pt, gt, lane);  // dV += P^T.dO
+    float dpt[8][4] = {};
+    mma_abt<D>(dpt, vf, gt, lane);  // dP^T = V.dO^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1);
+        pt[j][c] = pt[j][c] * (dpt[j][c] - delta_s[col]) * scale;  // dS^T
+      }
+    }
+    mma_pv<D>(dk_acc, pt, qt, lane);  // dK += dS^T.Q
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(dk, sdk, b, h, k0 + warp * 16, n, dk_acc, one, lane);
+  store_acc<D>(dv, sdv, b, h, k0 + warp * 16, n, dv_acc, one, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ g,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sg,
+                      Strides sdq, int heads, int n, float scale) {
+  constexpr int kLd = D + 8, kStage = 2 * kTcStep * kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // kTcRows x kLd
+  bf16* gs = qs + kTcRows * kLd;
+  bf16* ring = gs + kTcRows * kLd;  // [stage][K then V, 64 x kLd each]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
+  const int q0 = blockIdx.x * kTcRows;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * n;
+  const int steps = (n + kTcStep - 1) / kTcStep;
+  const float sl = scale * kLog2e;
+
+  auto load_step = [&](int i) {
+    bf16* st = ring + (i % kTcStages) * kStage;
+    copy_tile<D, kTcStep>(st, k, sk, b, h, i * kTcStep, n);
+    copy_tile<D, kTcStep>(st + kTcStep * kLd, v, sv, b, h, i * kTcStep, n);
+  };
+  copy_tile<D, kTcRows>(qs, q, sq, b, h, q0, n);
+  copy_tile<D, kTcRows>(gs, g, sg, b, h, q0, n);
+  ring_prologue(steps, load_step);
+  // rows g and g+8: lse in base 2, delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    lse2[r] = row < n ? lse[stat0 + row] * kLog2e : 0.f;
+    dl[r] = row < n ? delta[stat0 + row] : 0.f;
+  }
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  load_a<D>(qf, qs, warp * 16, lane);
+  load_a<D>(gf, gs, warp * 16, lane);
+
+  float dq_acc[D / 8][4] = {};
+  for (int i = 0; i < steps; ++i) {
+    ring_step(i, steps, load_step);
+    const bf16* kt = ring + (i % kTcStages) * kStage;
+    const bf16* vt = kt + kTcStep * kLd;
+    float s[8][4] = {};
+    mma_abt<D>(s, qf, kt, lane);
+    if ((i + 1) * kTcStep > n) mask_past(s, i * kTcStep, n, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = exp2_approx(fmaf(s[j][c], sl, -lse2[c >> 1]));
+    }
+    float dp[8][4] = {};
+    mma_abt<D>(dp, gf, vt, lane);  // dP = dO.V^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = s[j][c] * (dp[j][c] - dl[c >> 1]) * scale;  // dS
+    }
+    mma_pv<D>(dq_acc, s, kt, lane);  // dQ += dS.K
+  }
+  cp_async_wait<0>();
+  const float one[2] = {1.f, 1.f};
+  store_acc<D>(dq, sdq, b, h, q0 + warp * 16, n, dq_acc, one, lane);
+}
+
+template <int D>
+constexpr size_t tc_fwd_smem() {
+  return static_cast<size_t>(kTcRows + kTcStages * 2 * kTcStep) * (D + 8) * sizeof(bf16);
+}
+template <int D>
+constexpr size_t tc_dkv_smem() {
+  return 2 * kTcRows * (D + 8) * sizeof(bf16) +
+         kTcStages * (2 * kTcStep * (D + 8) * sizeof(bf16) + 2 * kTcStep * sizeof(float));
+}
+template <int D>
+constexpr size_t tc_dq_smem() {
+  return static_cast<size_t>(2 * kTcRows + kTcStages * 2 * kTcStep) * (D + 8) * sizeof(bf16);
+}
+
+// ---------------------------------------------------------------------------
+// Launches.
+
 template <int D>
 constexpr size_t fwd_smem() {
   return (3 * kTile * (D + kPad) + kTile * kLdp) * sizeof(float);
@@ -440,17 +859,29 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 Strides strides_at(const int64_t* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
+// The dtype picks the route: bf16 the tensor-core kernels, fp32 the FMA ones.
 template <typename T, int D>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, void* o, float* lse,
                            const int64_t* s, int batch, int heads, int n, cudaStream_t stream) {
-  auto kernel = attn_fwd_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, fwd_smem<D>());
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, batch * heads);
-  kernel<<<grid, kThreads, fwd_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
-      strides_at(s, 3), heads, n, 1.0f / sqrtf(static_cast<float>(D)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, bf16>) {
+    auto kernel = attn_fwd_tc_kernel<D>;
+    if ((err = allow_smem(kernel, tc_fwd_smem<D>())) != cudaSuccess) return err;
+    const dim3 grid((n + kTcRows - 1) / kTcRows, batch * heads);
+    kernel<<<grid, kTcThreads, tc_fwd_smem<D>(), stream>>>(
+        tq, tk, tv, static_cast<T*>(o), lse, strides_at(s, 0), strides_at(s, 1),
+        strides_at(s, 2), strides_at(s, 3), heads, n, scale);
+  } else {
+    auto kernel = attn_fwd_kernel<T, D>;
+    if ((err = allow_smem(kernel, fwd_smem<D>())) != cudaSuccess) return err;
+    const dim3 grid((n + kTile - 1) / kTile, batch * heads);
+    kernel<<<grid, kThreads, fwd_smem<D>(), stream>>>(
+        tq, tk, tv, static_cast<T*>(o), lse, strides_at(s, 0), strides_at(s, 1),
+        strides_at(s, 2), strides_at(s, 3), heads, n, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -469,20 +900,35 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const dim3 grid((n + kTile - 1) / kTile, batch * heads);
-  auto dkv = attn_bwd_dkv_kernel<T, D>;
-  if ((err = allow_smem(dkv, dkv_smem<D>())) != cudaSuccess) return err;
-  dkv<<<grid, kThreads, dkv_smem<D>(), stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), strides_at(s, 0),
-      strides_at(s, 1), strides_at(s, 2), strides_at(s, 4), strides_at(s, 6), strides_at(s, 7),
-      heads, n, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  auto dqk = attn_bwd_dq_kernel<T, D>;
-  if ((err = allow_smem(dqk, dq_smem<D>())) != cudaSuccess) return err;
-  dqk<<<grid, kThreads, dq_smem<D>(), stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), strides_at(s, 0), strides_at(s, 1),
-      strides_at(s, 2), strides_at(s, 4), strides_at(s, 5), heads, n, scale);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid((n + kTcRows - 1) / kTcRows, batch * heads);
+    auto dkv = attn_bwd_dkv_tc_kernel<D>;
+    if ((err = allow_smem(dkv, tc_dkv_smem<D>())) != cudaSuccess) return err;
+    dkv<<<grid, kTcThreads, tc_dkv_smem<D>(), stream>>>(
+        tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), strides_at(s, 0),
+        strides_at(s, 1), strides_at(s, 2), strides_at(s, 4), strides_at(s, 6),
+        strides_at(s, 7), heads, n, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    auto dqk = attn_bwd_dq_tc_kernel<D>;
+    if ((err = allow_smem(dqk, tc_dq_smem<D>())) != cudaSuccess) return err;
+    dqk<<<grid, kTcThreads, tc_dq_smem<D>(), stream>>>(
+        tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), strides_at(s, 0), strides_at(s, 1),
+        strides_at(s, 2), strides_at(s, 4), strides_at(s, 5), heads, n, scale);
+  } else {
+    const dim3 grid((n + kTile - 1) / kTile, batch * heads);
+    auto dkv = attn_bwd_dkv_kernel<T, D>;
+    if ((err = allow_smem(dkv, dkv_smem<D>())) != cudaSuccess) return err;
+    dkv<<<grid, kThreads, dkv_smem<D>(), stream>>>(
+        tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), strides_at(s, 0),
+        strides_at(s, 1), strides_at(s, 2), strides_at(s, 4), strides_at(s, 6),
+        strides_at(s, 7), heads, n, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    auto dqk = attn_bwd_dq_kernel<T, D>;
+    if ((err = allow_smem(dqk, dq_smem<D>())) != cudaSuccess) return err;
+    dqk<<<grid, kThreads, dq_smem<D>(), stream>>>(
+        tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), strides_at(s, 0), strides_at(s, 1),
+        strides_at(s, 2), strides_at(s, 4), strides_at(s, 5), heads, n, scale);
+  }
   return cudaGetLastError();
 }
 

@@ -15,9 +15,14 @@ chunked plain versions (``ops/attention.py``), with k/v chunks of ``chunk``
 tokens. There is no fallback between the two. The kernels take any N >= 1
 and choose their own tiles, so ``chunk`` does not reach them.
 
-Inputs are (B, N, H, D), fp32 or bf16, all of one dtype and device; on the
-card D is 32 or 64, the last stride 1 and the others multiples of 4
-elements, so q, k and v may be views of the qkv conv's channels-last output.
+Inputs are (B, N, H, D), fp32 or bf16, all of one dtype and device. The
+dtype alone picks the kernels' route (``route``): bf16 the tensor cores
+(bf16 ``mma.sync`` fed by ``cp.async``), fp32 the CUDA cores' FMA. On the
+card D is 32 or 64, the last stride 1 and the others multiples of 8 elements
+(bf16: 16-byte ``cp.async`` pieces) or 4 (fp32: float4 loads), each tensor
+16-byte aligned, so q, k and v may be views of the qkv conv's channels-last
+output (token stride 3C, C a multiple of 32). A view a route cannot take
+raises; nothing falls back to the other route or to plain.
 """
 
 from __future__ import annotations
@@ -36,12 +41,26 @@ from vqgan_tpu_torch.ops.cuda_build import load_library
 
 # Kernel launches since the count was last set to 0: one per forward
 # (``fwd_launches``) or backward (``bwd_launches``) call that reached the
-# CUDA kernels; calls on CPU tensors do not count.
+# CUDA kernels, and the same calls by route: bf16 on the tensor cores
+# (``tc_launches``), fp32 on the CUDA cores (``fma_launches``). Calls on CPU
+# tensors do not count.
 fwd_launches = 0
 bwd_launches = 0
+tc_launches = 0
+fma_launches = 0
 
 HEAD_DIMS = (32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.bfloat16: "tc", torch.float32: "fma"}
+# what a stride must be a multiple of, in elements, by route: the tensor-core
+# kernels copy 16-byte pieces of 8 bf16, the FMA kernels read float4
+STRIDE_MULTIPLE = {"tc": 8, "fma": 4}
+ALIGN_BYTES = 16
+# the tensor-core route's tiles (csrc/attention.cu kTcRows, kTcStep): a block
+# owns 128 queries (keys in the dK/dV kernel), 16 a warp, and streams the
+# other side in tiles of 64
+TC_BLOCK_ROWS = 128
+TC_STEP_ROWS = 64
 
 
 @functools.cache
@@ -70,9 +89,16 @@ def _check(q: torch.Tensor, *others: torch.Tensor) -> None:
                              f"{tuple(q.shape)} {q.dtype} on {q.device}")
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernels' route for a dtype: "tc" (bf16, tensor cores) or "fma"
+    (fp32, CUDA cores)."""
+    return ROUTES[dtype]
+
+
 def _kernel_strides(*tensors: torch.Tensor) -> ctypes.Array:
     """The (batch, token, head) strides of each tensor, as the kernels take
-    them; raises where the kernels' 4-element vector loads would not hold."""
+    them; raises where the route's vector copies would not hold (a pure
+    function of shapes, strides and addresses: it needs no card)."""
     head_dim = tensors[0].shape[-1]
     if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
@@ -80,15 +106,26 @@ def _kernel_strides(*tensors: torch.Tensor) -> ctypes.Array:
             f"not {head_dim}")
     if tensors[0].shape[0] * tensors[0].shape[2] > 65535:
         raise ValueError("the attention kernels take at most 65535 (batch, head) pairs")
+    kind = route(tensors[0].dtype)
+    multiple = STRIDE_MULTIPLE[kind]
     out = []
     for t in tensors:
-        align = 4 * t.element_size()
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % align:
+        if (t.stride(3) != 1 or any(s % multiple for s in t.stride()[:3])
+                or t.data_ptr() % ALIGN_BYTES):
             raise ValueError(
-                f"the attention kernels need a unit last stride, other strides that are "
-                f"multiples of 4 and {align}-byte alignment; got strides {t.stride()}")
+                f"the attention kernels' {kind} route ({t.dtype}) needs a unit last stride, "
+                f"other strides that are multiples of {multiple} and {ALIGN_BYTES}-byte "
+                f"alignment; got strides {t.stride()}")
         out.extend(t.stride()[:3])
     return (ctypes.c_int64 * len(out))(*out)
+
+
+def _count_route(dtype: torch.dtype) -> None:
+    global tc_launches, fma_launches
+    if route(dtype) == "tc":
+        tc_launches += 1
+    else:
+        fma_launches += 1
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
@@ -103,7 +140,8 @@ def attention_forward(
     """The forward, outside autograd: ``(out, lse)``, out (B, N, H, D)
     contiguous in q's dtype, lse the fp32 (B, H, N) logsumexp of the scaled
     scores. A CUDA tensor launches kernel #3's forward (and counts it in
-    ``fwd_launches``); a CPU tensor runs the plain version."""
+    ``fwd_launches`` and on its route); a CPU tensor runs the plain
+    version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return chunked_attention_forward(q, k, v, chunk)
@@ -124,6 +162,7 @@ def _launch_forward(q, k, v):
                                _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, lib, "forward")
     fwd_launches += 1
+    _count_route(q.dtype)
     return out, lse
 
 
@@ -139,7 +178,8 @@ def attention_backward(
     """The backward, outside autograd: ``(dq, dk, dv)`` for the incoming
     gradient g of out, given the forward's out and lse. A CUDA tensor
     launches kernel #3's backward (delta, dK/dV, dQ; counted once in
-    ``bwd_launches``); a CPU tensor runs the plain version."""
+    ``bwd_launches`` and once on its route); a CPU tensor runs the plain
+    version."""
     _check(q, k, v, out, g)
     b, n, h, _ = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
@@ -165,6 +205,7 @@ def _launch_backward(q, k, v, out, lse, g):
             ctypes.addressof(strides), b, h, n, d, _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, lib, "backward")
     bwd_launches += 1
+    _count_route(q.dtype)
     return tuple(grads)
 
 

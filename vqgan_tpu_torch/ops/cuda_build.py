@@ -50,10 +50,12 @@ def find_nvcc() -> str:
 
 def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to with the extra ``-D`` flags
-    ``defines``: the name carries a hash of the source text and the flags."""
+    ``defines``: the name carries a hash of the source text, of every shared
+    header (``csrc/*.cuh``, which a source may include) and of the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = b"".join(p.name.encode() + p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     flags = " ".join(NVCC_FLAGS + defines)
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + headers + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
