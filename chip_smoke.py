@@ -12,9 +12,14 @@ Phases, each fatal on failure:
      shape of a flagship reconstruct, batch 2 and batch 8, fp32 and bf16,
      swish on and off: max abs error against the stated tolerance; kernel,
      plain and library times (CUDA events) and the bound;
-  4. the backward kernel against its plain version at the same shapes, batch
-     8, fp32 and bf16, swish on and off: dx, dγ, dβ against the stated
-     tolerances; kernel, plain and library times and the bound;
+  4. the backward kernel (#2: one cooperative launch a call) against its
+     plain version at the same shapes, batch 8, fp32 and bf16, swish on and
+     off: dx, dγ, dβ against the stated tolerances, two calls bitwise equal,
+     one launch a call, the kernel faster than plain; kernel, plain and
+     library times, each the device's (CUDA graph replays), the bound and
+     the plan (units, slice width, teams, grid, route) on each line; the
+     per-step sum against the bound and GN_BWD_TARGET_MS at the end (and the
+     same checks at the 3D steps' 5-D shapes after phase 24);
   5. the serving path at the flagship config (``VAEConfig()``: ch=256,
      ch_mult 1,2,4,4, 256 px), random weights from a seed, written as a
      reference-format .pt and served through ``VAEPipeline.from_checkpoint``:
@@ -24,8 +29,10 @@ Phases, each fatal on failure:
      decoder, bf16 LPIPS and PatchDiscriminator, hinge + LeCam + clamp) at
      batch 8 through ``create_train_state`` and ``make_train_step``: D moves
      in step 1 and G in step 2 (its lr is 0 at step 0), exactly 50 forward
-     and 50 backward kernel launches per step, finite metrics, img/s, step ms
-     and peak memory;
+     and 50 backward kernel launches per step and how many incoming
+     GroupNorm gradients needed a copy to channels_last, finite metrics,
+     img/s and ms per step by the host clock, ms per step between CUDA
+     events on the stream over the same 5 steps, peak memory;
   7. serving: the same weights and images on the CPU (plain GroupNorm) and on
      the card (kernels) at a reduced width, TF32 off;
   8. training: one step on the CPU and on the card from the same weights,
@@ -46,7 +53,7 @@ Phases, each fatal on failure:
      16384, EMA 0.99) at batch 8: 1 search and 1 statistics launch per step
      beside the 50 + 50 GroupNorm launches, the EMA counts move and the
      codebook is folded in step 1, finite metrics with ``vq_loss``, img/s,
-     step ms and peak memory;
+     step ms (host clock and CUDA events, as in phase 6) and peak memory;
  12. VQ, CPU against card at the reduced width of phases 7-8 with K = 1024:
      serving latents by distance; one training step (EMA 0.9, revival at
      0.5, the same draws and revival rows): losses and gradients within
@@ -124,8 +131,10 @@ Phases, each fatal on failure:
      (``vqgan_tpu_torch.tools.probe_conv3d_geometry.run_probe``) builds and
      launches all eight cases A-H once (8 counted launches), each built and
      within the JAX tool's rtol = atol = 2e-2 of its plain version; then each
-     case's registers and local bytes, kernel, plain and ``torch.matmul`` (the
-     same product) times and its bound;
+     case's grid (blocks, clusters of a K split), registers and local bytes,
+     kernel, plain and ``torch.matmul`` (the same product) times by the
+     device (CUDA graph replays of 100 calls) beside the host clock's, and
+     its bound;
  23. the 3D recon-only step (``make_train_step_3d``) at ``tools/bench_tvae.py``'s
      config (ch 64, ch_mult 1,2,4, 1 res block, z 8, bf16, gaussian, 16
      frames x 128 px, batch 2, clips from ``synthetic_video_batches``): the
@@ -136,7 +145,9 @@ Phases, each fatal on failure:
  24. the 3D GAN step (``make_train_step_3d_gan``: hinge + LeCam, 4 of 16
      frames to LPIPS and D) at the same config, with ``disc_3d="frame"`` and
      ``"tubelet"``: D moves in step 1 and G in step 2, the same exact
-     launches, finite metrics, frames/s, ms per step and peak memory;
+     launches, finite metrics, frames/s, ms per step and peak memory; then
+     kernel #2 against its plain version, as in phase 4, at every 5-D
+     GroupNorm shape the steps ran (recorded by forward hooks);
  25. the 3D GAN step, CPU against card, at phase 21's config (kernels #6
      forward and dx, #1/#2 on 5-D input, #3 forward and backward at head
      dim 32), gaussian + frame D and VQ (K = 1024, EMA, revival) + tubelet D:
@@ -200,6 +211,9 @@ MAX_TOL_PATH_BF16 = 0.1
 # 1e-5 of Σ|terms| leaves a wide margin
 ATOL_DX = 1e-5
 SUM_RTOL = 1e-5
+# kernel #2's device time per flagship training step (50 bf16 calls with the
+# swish at batch 8): at most half its bound's speed, 2 x 5.003 ms
+GN_BWD_TARGET_MS = 10.0
 # training step, CPU vs card, fp32, TF32 off. Losses: the repo's bound for a
 # loss against another implementation (tests/test_full_step_parity.py:199);
 # the discriminator's accuracy counts logits > 0, so one logit on either side
@@ -324,6 +338,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_steps(run_step, iters: int) -> tuple[dict, float]:
+    """``iters`` calls of ``run_step`` (a training step, which updates its
+    state in place and returns (state, metrics)), timed by the host clock
+    from the first call to a fetch of the last step's loss, and by CUDA
+    events recorded on the stream before the first call and after the last.
+    Returns ({"step_s": host seconds a step, "last": the last (state,
+    metrics)}, ms a step between the events)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        last = run_step()
+    end.record()
+    float(last[1]["overall_vae_loss"])  # waits for the device
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"step_s": seconds / iters, "last": last}, start.elapsed_time(end) / iters
+
+
 def _shapes() -> list:
     return sorted(set(ENCODER_GN_SHAPES) | set(DECODER_GN_SHAPES))
 
@@ -397,10 +432,77 @@ def phase_kernel_vs_plain(gn, group_norm_fp32, batch: int) -> dict:
     return out
 
 
+def gn_bwd_check(gn, group_norm_fp32_backward, x, g, w, b, swish: bool, label: str) -> tuple:
+    """Kernel #2 against its plain version on (x, g): dx within ATOL_DX
+    (fp32) or one bf16 ulp, dγ and dβ within SUM_RTOL of Σ|terms|, two calls
+    bitwise equal, one launch a call, and the kernel faster than plain. Times
+    are the device's (CUDA graph replays): kernel, plain and library (F.group_norm
+    through autograd: its forward + backward less its forward), and the bound
+    counts x and g read once and dx written once. Raises where a check fails,
+    else returns (max_abs_err, kernel_ms, plain_ms, library_ms, bound_ms)."""
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
+
+    dtype = x.dtype
+    b_, c = x.shape[:2]
+    plan = gn.backward_plan(b_, x[0, 0].numel(), c, 32, x.element_size(),
+                            torch.cuda.get_device_properties(0).multi_processor_count,
+                            blocks_per_sm=gn.backward_blocks_per_sm(0, dtype, swish))
+    _, stats = gn.group_norm_forward(x, w, b, 32, 1e-6, swish)
+    gn.bwd_launches = 0
+    dx, dw, db = gn.group_norm_backward(x, g, stats, w, b, 32, swish)
+    torch.cuda.synchronize()
+    one_launch = gn.bwd_launches == 1
+    again = gn.group_norm_backward(x, g, stats, w, b, 32, swish)
+    same = all(torch.equal(p, q) for p, q in zip((dx, dw, db), again))
+    del again
+    mean, rstd = stats[:, 0], stats[:, 1]
+    rdx, rdw, rdb = group_norm_fp32_backward(x, g, mean, rstd, w, b, 32, swish)
+    torch.cuda.synchronize()
+    ddx = (dx.float() - rdx.float()).abs()
+    if dtype == torch.float32:
+        ok_dx = float(ddx.max()) <= ATOL_DX
+    else:
+        ok_dx = bool((ddx <= ATOL_DX + RTOL_BF16 * rdx.float().abs()).all())
+    # Σ|terms| per channel (|dŷ| <= 1.1·|g| with the swish)
+    dims = (0, *range(2, x.ndim))
+    ga = 1.1 * g.float().abs()
+    t_beta = ga.sum(dim=dims)
+    t_gamma = float(rstd.max()) * (ga * (x.float().abs() + float(mean.abs().max()))).sum(dim=dims)
+    ok_dw = bool(((dw - rdw).abs() <= SUM_RTOL * t_gamma + 1e-6).all())
+    ok_db = bool(((db - rdb).abs() <= SUM_RTOL * t_beta + 1e-6).all())
+    errs = (float(ddx.max()), float((dw - rdw).abs().max()), float((db - rdb).abs().max()))
+    del ga, ddx, rdx
+    iters = 3 if x.numel() * 4 > 2**29 else 20  # the plain version's fp32 temporaries
+    k_ms = device_ms(lambda: gn.group_norm_backward(x, g, stats, w, b, 32, swish), 20)
+    p_ms = device_ms(lambda: group_norm_fp32_backward(x, g, mean, rstd, w, b, 32, swish), iters)
+    xl = x.detach().requires_grad_()
+    # detach first: for fp32, .to(dtype) would return w itself
+    wl = w.detach().to(dtype).requires_grad_()
+    bl = b.detach().to(dtype).requires_grad_()
+    lf_ms = device_ms(lambda: _library_forward(xl, wl, bl, swish), iters)
+    lfb_ms = device_ms(lambda: torch.autograd.grad(_library_forward(xl, wl, bl, swish),
+                                                   (xl, wl, bl), g), iters)
+    del xl, wl, bl
+    b_ms = bound_ms(3 * x.numel() * x.element_size())
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    ok = ok_dx and ok_dw and ok_db and same and one_launch and k_ms < p_ms
+    log(f"gn bwd {label} {name} swish={int(swish)}: max_abs_err dx={errs[0]:.3e} "
+        f"dgamma={errs[1]:.3e} dbeta={errs[2]:.3e}; bitwise repeat {same}, one launch a "
+        f"call {one_launch}; kernel_ms={k_ms:.4f} (device, "
+        f"{3 * x.numel() * x.element_size() / k_ms / 1e9:.3f} TB/s) plain_ms={p_ms:.4f} "
+        f"library_ms={lfb_ms - lf_ms:.4f} bound_ms={b_ms:.4f}; plan: {plan.describe()} "
+        f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        raise AssertionError(f"backward kernel at {label} {name} swish={swish}: dx {ok_dx} "
+                             f"dgamma {ok_dw} dbeta {ok_db} bitwise {same} one launch "
+                             f"{one_launch} faster than plain {k_ms < p_ms}")
+    return max(errs), k_ms, p_ms, lfb_ms - lf_ms, b_ms
+
+
 def phase_backward_vs_plain(gn, group_norm_fp32_backward, batch: int) -> dict:
-    """Backward. Returns {(S, C, dtype, swish): (max_abs_err, kernel_ms,
-    plain_ms, library_ms, bound_ms)}; the bound counts x and g read once and
-    dx written once."""
+    """Backward (phase 4) at every flagship shape, fp32 and bf16, swish on
+    and off (``gn_bwd_check``). Returns {(S, C, dtype, swish): (max_abs_err,
+    kernel_ms, plain_ms, library_ms, bound_ms)}."""
     gen = torch.Generator(device="cuda").manual_seed(100 + batch)
     out = {}
     for s, c in _shapes():
@@ -408,51 +510,35 @@ def phase_backward_vs_plain(gn, group_norm_fp32_backward, batch: int) -> dict:
             x, w, b = _gn_inputs(gen, batch, s, c, dtype)
             g = _gn_inputs(gen, batch, s, c, dtype)[0] - 0.3
             for swish in (False, True):
-                _, stats = gn.group_norm_forward(x, w, b, 32, 1e-6, swish)
-                dx, dw, db = gn.group_norm_backward(x, g, stats, w, b, 32, swish)
-                mean, rstd = stats[:, 0], stats[:, 1]
-                rdx, rdw, rdb = group_norm_fp32_backward(x, g, mean, rstd, w, b, 32, swish)
-                torch.cuda.synchronize()
-                ddx = (dx.float() - rdx.float()).abs()
-                if dtype == torch.float32:
-                    ok_dx = float(ddx.max()) <= ATOL_DX
-                else:
-                    ok_dx = bool((ddx <= ATOL_DX + RTOL_BF16 * rdx.float().abs()).all())
-                # Σ|terms| per channel (|dŷ| <= 1.1·|g| with the swish)
-                ga = 1.1 * g.float().abs()
-                t_beta = ga.sum(dim=(0, 2, 3))
-                t_gamma = float(rstd.max()) * (
-                    ga * (x.float().abs() + float(mean.abs().max()))).sum(dim=(0, 2, 3))
-                ok_dw = bool(((dw - rdw).abs() <= SUM_RTOL * t_gamma + 1e-6).all())
-                ok_db = bool(((db - rdb).abs() <= SUM_RTOL * t_beta + 1e-6).all())
-                errs = (float(ddx.max()), float((dw - rdw).abs().max()),
-                        float((db - rdb).abs().max()))
-                del ga, ddx, rdx
-                k_ms = cuda_ms(lambda: gn.group_norm_backward(x, g, stats, w, b, 32, swish))
-                p_ms = cuda_ms(lambda: group_norm_fp32_backward(
-                    x, g, mean, rstd, w, b, 32, swish))
-                xl = x.detach().requires_grad_()
-                # detach first: for fp32, .to(dtype) would return w itself
-                wl = w.detach().to(dtype).requires_grad_()
-                bl = b.detach().to(dtype).requires_grad_()
-                yl = _library_forward(xl, wl, bl, swish)
-                l_ms = cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), g,
-                                                           retain_graph=True))
-                del xl, wl, bl, yl
-                b_ms = bound_ms(3 * x.numel() * x.element_size())
-                name = "bf16" if dtype == torch.bfloat16 else "fp32"
-                ok = ok_dx and ok_dw and ok_db
-                log(f"gn bwd B={batch} S={s} C={c} {name} swish={int(swish)}: max_abs_err "
-                    f"dx={errs[0]:.3e} dgamma={errs[1]:.3e} dbeta={errs[2]:.3e} "
-                    f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} {'ok' if ok else 'MISS'}")
-                if not ok:
-                    raise AssertionError(f"backward kernel disagrees with plain at "
-                                         f"{(s, c, name, swish)}: dx {ok_dx} dgamma {ok_dw} "
-                                         f"dbeta {ok_db}")
-                out[(s, c, dtype, swish)] = (max(errs), k_ms, p_ms, l_ms, b_ms)
-            del x, g, dx, dw, db
+                out[(s, c, dtype, swish)] = gn_bwd_check(
+                    gn, group_norm_fp32_backward, x, g, w, b, swish, f"B={batch} S={s} C={c}")
+            del x, g
+            torch.cuda.empty_cache()
     return out
+
+
+def gn_bwd_at_shapes(gn, shapes: dict, label: str) -> tuple[float, list]:
+    """Kernel #2 against its plain version (``gn_bwd_check``) at each (B, C,
+    T, H, W, dtype, swish) of ``shapes``, 5-D channels_last_3d, as a step's
+    hooks recorded them; logs the sums of (kernel, plain, library, bound) ms
+    over the calls and returns the largest max_abs_err and those sums."""
+    from vqgan_tpu_torch.ops.normalization import group_norm_fp32_backward
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    err, sums = 0.0, [0.0] * 4
+    for key in sorted(shapes, key=lambda k: (k[:5], str(k[5]), k[6])):
+        b, c, t, h, w, dtype, swish = key
+        x, wt, bs = _gn_inputs(gen, b, 0, c, dtype, (t, h, w))
+        g = _gn_inputs(gen, b, 0, c, dtype, (t, h, w))[0] - 0.3
+        res = gn_bwd_check(gn, group_norm_fp32_backward, x, g, wt, bs, swish,
+                           f"{label} B={b} C={c} T={t} H={h} W={w} (S={t * h * w})")
+        err = max(err, res[0])
+        sums = [acc + shapes[key] * v for acc, v in zip(sums, res[1:])]
+        del x, g
+    torch.cuda.empty_cache()
+    log(f"GN backward per {label} ({sum(shapes.values())} calls): kernel {sums[0]:.4f} ms, "
+        f"plain {sums[1]:.4f} ms, library {sums[2]:.4f} ms, bound {sums[3]:.4f} ms (device time)")
+    return err, sums
 
 
 def per_step(results: dict, dtypes: dict) -> list:
@@ -592,7 +678,7 @@ def phase_train_flagship(gn, ac=None) -> tuple[dict, dict]:
     log(f"{what}: D moved in step 1, G in step 2 (first step {first_s:.2f} s)")
 
     # the main path, counted: one training step
-    gn.launches = gn.bwd_launches = 0
+    gn.launches = gn.bwd_launches = gn.grad_copies = 0
     if ac:
         ac.fwd_launches = ac.bwd_launches = ac.tc_launches = ac.fma_launches = 0
     state, metrics = step(state, images)
@@ -602,30 +688,27 @@ def phase_train_flagship(gn, ac=None) -> tuple[dict, dict]:
     if ac:  # one AttnBlock in the encoder and one in the decoder
         counts.update(attn=ac.fwd_launches, attn_bwd=ac.bwd_launches)
         want = {"gn": 52, "gn_bwd": 52, "attn": 2, "attn_bwd": 2}
-    log(f"{what}: kernel launches per step: {counts}")
+    log(f"{what}: kernel launches per step: {counts}; GroupNorm gradients copied into "
+        f"channels_last first: {gn.grad_copies}")
     if counts != want:
         raise AssertionError(f"expected {want} kernel launches per step")
     if ac:  # bf16 encoder and decoder: all four calls on the tensor cores
         check_attn_route(ac, what, 4, 0)
 
-    iters = 5
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, metrics = step(state, images)
-    float(metrics["overall_vae_loss"])  # waits for the device
-    seconds = time.perf_counter() - t0
+    seconds, dev_ms = timed_steps(lambda: step(state, images), 5)
+    state, metrics = seconds.pop("last")
     peak = torch.cuda.max_memory_allocated()
     values = {k: float(v) for k, v in metrics.items()}
     bad = [k for k, v in values.items() if not np.isfinite(v)]
     if bad:
         raise AssertionError(f"non-finite metrics: {bad}")
     log(f"{what} metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
-    result = {"img_per_s": TRAIN_BATCH * iters / seconds, "step_ms": seconds / iters * 1e3,
-              "peak_bytes": peak}
+    result = {"img_per_s": TRAIN_BATCH / seconds["step_s"], "step_ms": seconds["step_s"] * 1e3,
+              "device_step_ms": dev_ms, "peak_bytes": peak}
     log(f"{what} batch {TRAIN_BATCH}: {result['img_per_s']:.3f} img/s, "
-        f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), "
-        f"peak memory {peak / 2**30:.3f} GiB")
+        f"{result['step_ms']:.1f} ms per step (host clock over 5 steps), {dev_ms:.1f} ms per "
+        f"step between CUDA events on the stream over the same steps, peak memory "
+        f"{peak / 2**30:.3f} GiB")
     del state, step, images, metrics, g_params, d_params
     torch.cuda.empty_cache()
     return counts, result
@@ -858,23 +941,19 @@ def phase_train_vq_flagship(gn, vq) -> tuple[dict, dict]:
     if counts != {"gn": 50, "gn_bwd": 50, "nearest": 1, "stats": 1}:
         raise AssertionError("expected 50 + 50 GN, 1 search and 1 statistics launch per step")
 
-    iters = 5
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, metrics = step(state, images)
-    float(metrics["overall_vae_loss"])
-    seconds = time.perf_counter() - t0
+    seconds, dev_ms = timed_steps(lambda: step(state, images), 5)
+    state, metrics = seconds.pop("last")
     peak = torch.cuda.max_memory_allocated()
     values = {k: float(v) for k, v in metrics.items()}
     bad = [k for k, v in values.items() if not np.isfinite(v)]
     if bad or "vq_loss" not in values:
         raise AssertionError(f"non-finite or missing metrics: {bad}")
     log("vq train flagship metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
-    result = {"img_per_s": TRAIN_BATCH * iters / seconds, "step_ms": seconds / iters * 1e3,
-              "peak_bytes": peak}
+    result = {"img_per_s": TRAIN_BATCH / seconds["step_s"], "step_ms": seconds["step_s"] * 1e3,
+              "device_step_ms": dev_ms, "peak_bytes": peak}
     log(f"vq train flagship batch {TRAIN_BATCH}: {result['img_per_s']:.3f} img/s, "
-        f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), peak memory "
+        f"{result['step_ms']:.1f} ms per step (host clock over 5 steps), {dev_ms:.1f} ms per "
+        f"step between CUDA events on the stream over the same steps, peak memory "
         f"{peak / 2**30:.3f} GiB")
     del state, step, images, metrics, reg
     torch.cuda.empty_cache()
@@ -1917,9 +1996,12 @@ def phase_geometry_probe(gpc) -> tuple[int, dict]:
     times by CUDA events, and the bound (bytes: inputs read once, output
     written once; operations at 67 TFLOP/s fp32, 989 bf16). Returns the
     counted launches and, by letter, (max_abs_err, ms, plain ms, library
-    ms, bound ms, bound_by, registers, local bytes)."""
+    ms, bound ms, bound_by, registers, local bytes), the times the device's
+    (CUDA graph replays); the host clock's CUDA-event times are logged
+    beside them."""
     from vqgan_tpu_torch.ops.geometry_probe import ATOL, CASES, RTOL, make_inputs
     from vqgan_tpu_torch.tools.probe_conv3d_geometry import run_probe
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
 
     set_tf32(False)
     gpc.launches = 0
@@ -1939,10 +2021,12 @@ def phase_geometry_probe(gpc) -> tuple[int, dict]:
         err = float((got - ref).abs().max())
         if not torch.allclose(got, ref, rtol=RTOL, atol=ATOL):
             raise AssertionError(f"geometry probe case {case.letter}: max abs err {err}")
-        ms = cuda_ms(lambda: gpc.probe_case(case, a, b))
-        plain_ms = cuda_ms(lambda: case.plain(a, b))
+        ms = device_ms(lambda: gpc.probe_case(case, a, b), 100)
+        plain_ms = device_ms(lambda: case.plain(a, b), 100)
         lhs, rhs = _probe_library_operands(case, a, b)
-        lib_ms = cuda_ms(lambda: torch.matmul(lhs, rhs))
+        lib_ms = device_ms(lambda: torch.matmul(lhs, rhs), 100)
+        host_ms = cuda_ms(lambda: gpc.probe_case(case, a, b))
+        host_lib_ms = cuda_ms(lambda: torch.matmul(lhs, rhs))
         n_bytes = 4 * (a.numel() + b.numel() + got.numel())
         peak = BF16_FLOPS_PER_S if case.dtype == "bf16" else FP32_FLOPS_PER_S
         by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, case.flops / peak * 1e3
@@ -1950,10 +2034,16 @@ def phase_geometry_probe(gpc) -> tuple[int, dict]:
         bound_by = "bytes" if by_bytes >= by_ops else "operations"
         out[case.letter] = (err, ms, plain_ms, lib_ms, bound, bound_by, res.num_regs,
                             res.local_bytes)
-        log(f"geometry probe {case.name}: {res.num_regs} registers, {res.local_bytes} B local, "
-            f"{res.shared_bytes} B shared; max_abs_err={err:.3e}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound {bound:.5f} ms "
-            f"({bound_by}; {case.flops / 1e6:.1f} MFLOP {case.dtype}, {n_bytes} bytes)")
+        blocks, cluster = gpc.grid(case)
+        log(f"geometry probe {case.name}: grid {blocks} blocks"
+            + (f" in clusters of {cluster} (K split)" if cluster > 1 else "")
+            + f", {res.num_regs} registers, {res.local_bytes} B local, {res.shared_bytes} B "
+            f"shared; max_abs_err={err:.3e}; device time (CUDA graph replays of 100 calls): "
+            f"kernel {ms * 1e3:.2f} us, torch.matmul {lib_ms * 1e3:.2f} us (kernel/matmul "
+            f"{ms / lib_ms:.2f}), plain {plain_ms * 1e3:.2f} us; host clock (CUDA events over "
+            f"20 calls from the host): kernel {host_ms * 1e3:.2f} us, torch.matmul "
+            f"{host_lib_ms * 1e3:.2f} us; bound {bound * 1e3:.3f} us ({bound_by}; "
+            f"{case.flops / 1e6:.1f} MFLOP {case.dtype}, {n_bytes} bytes)")
     return counted, out
 
 
@@ -2033,11 +2123,12 @@ def phase_train3d(gn, cc, gan: bool = False, disc_3d: str = "frame") -> dict:
 
     # the main path, counted: one training step
     seen, hooks = count_step_launches(model)
+    gn_shapes, gn_hooks = record_gn_shapes(model)
     cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
     gn.launches = gn.bwd_launches = 0
     state, metrics = step(state, batches[1])
     torch.cuda.synchronize()
-    for h in hooks:
+    for h in hooks + gn_hooks:
         h.remove()
     counts = {"conv3d": cc.launches, "conv3d_dx": cc.bwd_launches, "gn": gn.launches,
               "gn_bwd": gn.bwd_launches}
@@ -2061,7 +2152,7 @@ def phase_train3d(gn, cc, gan: bool = False, disc_3d: str = "frame") -> dict:
     log(f"{what} metrics: " + ", ".join(f"{k}={v:.5g}" for k, v in sorted(values.items())))
     frames = STEP3D_BATCH * STEP3D_FRAMES * iters
     result = {"frames_per_s": frames / seconds, "step_ms": seconds / iters * 1e3,
-              "peak_bytes": peak, "counts": counts}
+              "peak_bytes": peak, "counts": counts, "gn_shapes": gn_shapes}
     log(f"{what} 16f/128px batch {STEP3D_BATCH}: {result['frames_per_s']:.3f} frames/s, "
         f"{result['step_ms']:.1f} ms per step (host clock over {iters} steps), peak memory "
         f"{peak / 2**30:.3f} GiB")
@@ -2263,6 +2354,12 @@ def main() -> int:
     train3d = {"recon-only": phase_train3d(gn, cc)}
     for disc_3d in ("frame", "tubelet"):
         train3d[f"gan {disc_3d}"] = phase_train3d(gn, cc, gan=True, disc_3d=disc_3d)
+    # kernel #2 at every 5-D shape the 3D steps ran (the GAN steps add 2D
+    # modules only, so their GroupNorms are the recon-only step's)
+    step3d_gn = train3d["recon-only"]["gn_shapes"]
+    if any(r["gn_shapes"] != step3d_gn for r in train3d.values()):
+        raise AssertionError("the 3D steps ran their GroupNorms at different shapes")
+    bwd3d_err, bwd3d_step = gn_bwd_at_shapes(gn, step3d_gn, "3D training step")
 
     # 25. the 3D GAN step, CPU vs card
     phase_train3d_cross_device(cc, ac, gn, vq=False)
@@ -2279,6 +2376,14 @@ def main() -> int:
     for name, (k, p, lib, bnd) in (("forward", fwd_step), ("backward", bwd_step)):
         log(f"GN {name} per flagship training step at batch {TRAIN_BATCH} (all bf16): "
             f"kernel {k:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms")
+    log(f"GN backward (kernel #2, device time) per flagship training step: {bwd_step[0]:.4f} ms "
+        f"against its {bwd_step[3]:.4f} ms bound ({bwd_step[3] / bwd_step[0]:.3f} of it) and the "
+        f"{GN_BWD_TARGET_MS} ms target; per 3D training step ({sum(step3d_gn.values())} calls): "
+        f"{bwd3d_step[0]:.4f} ms against {bwd3d_step[3]:.4f}")
+    log(f"training step device time between CUDA events (host clock beside): identity "
+        f"{train['device_step_ms']:.1f} ms ({train['step_ms']:.1f}), VQ "
+        f"{vq_train['device_step_ms']:.1f} ms ({vq_train['step_ms']:.1f}), attention "
+        f"{attn_train['device_step_ms']:.1f} ms ({attn_train['step_ms']:.1f})")
     log(f"serving batch {SERVE_BATCH}: {flagship['img_per_s']:.3f} img/s, "
         f"{serve_launches} forward launches per reconstruct; training batch {TRAIN_BATCH}: "
         f"{train['img_per_s']:.3f} img/s, {train['step_ms']:.1f} ms per step, peak "
@@ -2339,7 +2444,7 @@ def main() -> int:
             f"{r['step_ms']:.1f} ms per step, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
             f"{r['counts']} launches per step")
     log(f"geometry probe: {probe_counted} launches in the entry point's run; per case "
-        f"(kernel, plain, torch.matmul, bound) ms: " + "; ".join(
+        f"(kernel, plain, torch.matmul, bound) ms, device time: " + "; ".join(
             f"{c} {v[1]:.4f}/{v[2]:.4f}/{v[3]:.4f}/{v[4]:.5f}" for c, v in probe.items()))
     log(f"kernels line: GroupNorm launches per identity training step and ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
@@ -2352,8 +2457,9 @@ def main() -> int:
         f"TVAE reconstruct (forward) and per backward of its reconstruct loss (dx), ms summed "
         f"over those 55 and 54 bf16 calls at batch 2 (library: F.conv3d and cuDNN's dgrad, "
         f"bf16, channels_last_3d), max_abs_err over every case of phase 18; geometry probe: "
-        f"one entry per case, launches in the probe entry point's run, ms of one call "
-        f"(library: torch.matmul of the same product)")
+        f"one entry per case, launches in the probe entry point's run, device ms of one call "
+        f"(library: torch.matmul of the same product); GroupNorm backward and geometry probe "
+        f"times from CUDA graph replays")
     log(smi)
 
     def entry(name, source, replaces, launches, err, times, bound_by):
@@ -2374,7 +2480,8 @@ def main() -> int:
                                       + [clip_serve["gn_err"], long_clip["gn_err"]]),
               fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
-              train_counts["gn_bwd"], max(v[0] for v in bwd.values()), bwd_step, "bytes"),
+              train_counts["gn_bwd"], max([v[0] for v in bwd.values()] + [bwd3d_err]), bwd_step,
+              "bytes"),
         entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113", vq_counts["nearest"],
               max(v[0] for v in vq_nearest.values()), vq_nearest["flagship b8"][1:],
               "operations"),

@@ -163,6 +163,40 @@ def test_backward_kernel_matches_plain(device, shape, groups, dtype, swish):
     assert bool(((dbeta - ref_dbeta).abs() <= SUM_RTOL * t_beta + 1e-6).all())
 
 
+def test_backward_kernel_is_one_deterministic_launch(device):
+    """Kernel #2 is one cooperative launch a call, and two bf16 calls (the
+    fp32 sums of every partial in a fixed order, integer barriers only) are
+    bitwise equal."""
+    x, scale, bias = _inputs((2, 512, 64, 64), torch.bfloat16, device)
+    g = _inputs((2, 512, 64, 64), torch.bfloat16, device, seed=1)[0]
+    _, stats = groupnorm_cuda.group_norm_forward(x, scale, bias, 32, 1e-6, True)
+    groupnorm_cuda.bwd_launches = 0
+    runs = [groupnorm_cuda.group_norm_backward(x, g, stats, scale, bias, 32, True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.bwd_launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_backward_kernel_raises_where_its_grid_cannot_be_resident(device):
+    """A plan whose grid exceeds the blocks the card holds at once is
+    refused by the cooperative launch; the wrapper raises and runs no other
+    kernel."""
+    x, scale, bias = _inputs((2, 64, 8, 8), torch.float32, device)
+    g = _inputs((2, 64, 8, 8), torch.float32, device, seed=1)[0]
+    _, stats = groupnorm_cuda.group_norm_forward(x, scale, bias)
+    per_sm = groupnorm_cuda.backward_blocks_per_sm(device.index or 0, torch.float32, False)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    too_many = groupnorm_cuda.BackwardPlan(
+        width=16, teams=4, team_blocks=per_sm * sms, rows_per_block=64, units=8,
+        smem_bytes=groupnorm_cuda.backward_smem_bytes(4))
+    groupnorm_cuda.bwd_launches = 0
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        groupnorm_cuda.group_norm_backward(x, g, stats, scale, bias, plan=too_many)
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.bwd_launches == 0
+
+
 def test_backward_kernel_rejects_non_channels_last_gradient(device):
     x, scale, bias = _inputs((2, 64, 8, 8), torch.float32, device)
     _, stats = groupnorm_cuda.group_norm_forward(x, scale, bias)
@@ -830,6 +864,13 @@ def test_geometry_probe_case_matches_plain(device, letter):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-4)
     attrs = geometry_probe_cuda.attributes(case)
     assert attrs["num_regs"] > 0 and attrs["shared_bytes"] > 0
+    # the grid spreads the case's tiles (SPLITS): a cluster of blocks per tile
+    # where K is split, else a block per column slice
+    from vqgan_tpu_torch.ops.geometry_probe import SPLITS
+
+    kind, split = SPLITS[letter]
+    blocks, cluster = geometry_probe_cuda.grid(case)
+    assert blocks % split == 0 and cluster == (split if kind == "k" else 1)
 
 
 def test_geometry_probe_entry_point_builds_and_passes_every_case(device):

@@ -19,7 +19,7 @@ import torch
 
 from vqgan_tpu_torch.ops import cuda_build
 from vqgan_tpu_torch.ops import geometry_probe_cuda as gpc
-from vqgan_tpu_torch.ops.geometry_probe import ATOL, CASES, RTOL, make_inputs
+from vqgan_tpu_torch.ops.geometry_probe import ATOL, CASES, RTOL, SPLITS, make_inputs, split_plain
 from vqgan_tpu_torch.tools import probe_conv3d_geometry
 
 REPO = Path(__file__).resolve().parent.parent
@@ -102,6 +102,33 @@ def test_plain_version_matches_the_jax_expectation(case):
     assert got.shape == exp.shape == case.out_shape and got.dtype == np.float32
     np.testing.assert_allclose(got, exp, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c.letter for c in CASES])
+def test_kernel_split_matches_the_plain_version_and_the_jax_expectation(case):
+    """The kernel's grid split (``SPLITS``: K over a cluster, partial tiles
+    summed in rank order; or output columns) computed in torch, against the
+    plain version and the JAX tool's expectation at its 2e-2 and far inside
+    it."""
+    exp = _jax_expectations()[case.letter]
+    inputs = make_inputs()
+    a, b = (torch.from_numpy(inputs[k]) for k in case.inputs)
+    got = split_plain(case, a, b)
+    assert tuple(got.shape) == case.out_shape
+    torch.testing.assert_close(got, case.plain(a, b), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-4)
+
+
+def test_split_table_is_the_kernels():
+    """``SPLITS`` states the source's splits: kSplit per case, and which
+    split K over a cluster (kClusterK)."""
+    src = (cuda_build.CSRC_DIR / "geometry_probe.cu").read_text()
+    splits = [int(v) for v in re.search(r"kSplit\[8\] = \{([^}]*)\}", src).group(1).split(",")]
+    cluster = [v.strip() == "true"
+               for v in re.search(r"kClusterK\[8\] = \{([^}]*)\}", src).group(1).split(",")]
+    assert [SPLITS[c.letter][1] for c in CASES] == splits
+    assert [SPLITS[c.letter][0] == "k" for c in CASES] == cluster
 
 
 def test_wrapper_runs_the_plain_version_on_the_cpu_and_counts_nothing():

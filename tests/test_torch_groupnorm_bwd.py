@@ -20,6 +20,7 @@ from vqgan_tpu.ops.normalization import group_norm_fp32 as xla_group_norm
 from vqgan_tpu.ops.pallas.groupnorm import _fused_gn_vjp
 from vqgan_tpu_torch.ops import groupnorm_cuda
 from vqgan_tpu_torch.ops.groupnorm_cuda import (
+    backward_candidates,
     fused_group_norm,
     group_norm_backward,
     group_norm_forward,
@@ -220,3 +221,103 @@ def test_backward_rejects_what_the_kernel_does_not_take():
         group_norm_backward(xt, gt.to(torch.bfloat16), stats, w, b)
     with pytest.raises(ValueError, match="stats"):
         group_norm_backward(xt, gt, stats[:, :, :16], w, b)
+
+
+def _emulate_kernel(x, g, mean, rstd, weight, bias, groups, swish, plan):
+    """``csrc/groupnorm.cu``'s ``gn_bwd_kernel`` in its order, fp32 torch on
+    the CPU: per unit (a sample, a slice of ``plan.width`` channels), each
+    block of the team sums dŷ and dŷ·x over its rows per channel, then γ·S0
+    and γ·S1 per group in channel order; the team's group sums in block
+    order give m1, m2 and the coefficients (ca, cb, cc); dx = (dŷ·ca + x·cb)
+    + cc. dγ, dβ: each unit's channel sums in block order, then the batch in
+    order. x, g: (B, C, H, W); returns (dx in x's dtype, dγ, dβ)."""
+    b_, c = x.shape[:2]
+    cg = c // groups
+    xf = x.float().movedim(1, -1).reshape(b_, -1, c)
+    gf = g.float().movedim(1, -1).reshape(b_, -1, c)
+    s, w, n = xf.shape[1], plan.width, xf.shape[1] * cg
+    dx = torch.empty_like(xf)
+    per_batch = torch.empty(b_, 2, c)
+    for u in range(plan.units):
+        b, sl = divmod(u, c // w)
+        ch = torch.arange(sl * w, (sl + 1) * w)
+        grp = ch // cg
+        xs, gs = xf[b][:, ch], gf[b][:, ch]
+        mu, r, gam = mean[b, grp], rstd[b, grp], weight[ch]
+        if swish:
+            a = r * gam
+            y = xs * a + (bias[ch] - mu * a)
+            sig = torch.sigmoid(y)
+            dy = gs * sig * (1.0 + y * (1.0 - sig))
+        else:
+            dy = gs
+        chan, grp_sums = [], []
+        for j in range(plan.team_blocks):
+            rows = slice(j * plan.rows_per_block, min(s, (j + 1) * plan.rows_per_block))
+            sums = torch.stack([dy[rows].sum(0), (dy[rows] * xs[rows]).sum(0)])  # (2, w)
+            chan.append(sums)
+            prods = (gam * sums).reshape(2, w // cg, cg)
+            acc = torch.zeros(2, w // cg)
+            for k in range(cg):
+                acc = acc + prods[..., k]
+            grp_sums.append(acc)
+        tot = grp_sums[0]
+        for part in grp_sums[1:]:
+            tot = tot + part
+        q = torch.arange(w) // cg
+        m1 = tot[0][q] / n
+        m2 = r * (tot[1][q] / n) - mu * r * (tot[0][q] / n)
+        ca, cb, cc = r * gam, -r * r * m2, mu * r * r * m2 - r * m1
+        dx[b][:, ch] = (dy * ca + xs * cb) + cc
+        s01 = chan[0]
+        for part in chan[1:]:
+            s01 = s01 + part
+        per_batch[b, 0, ch] = r * (s01[1] - mu * s01[0])
+        per_batch[b, 1, ch] = s01[0]
+    dgamma, dbeta = per_batch[0, 0], per_batch[0, 1]
+    for b in range(1, b_):
+        dgamma, dbeta = dgamma + per_batch[b, 0], dbeta + per_batch[b, 1]
+    dx = dx.to(x.dtype).reshape((b_,) + tuple(x.shape[2:]) + (c,)).movedim(-1, 1)
+    return dx, dgamma, dbeta
+
+
+def _many_block_plan(b, s, c, groups, element_size):
+    """A valid plan with several units a team, several blocks a team and
+    ragged rows: the kernel's order at its most general."""
+    cands = [p for p, _ in backward_candidates(b, s, c, groups, element_size, 4,
+                                               blocks_per_sm=2)
+             if p.teams >= 2 and p.units > p.teams and p.team_blocks >= 3
+             and p.team_blocks * p.rows_per_block > s]
+    return max(cands, key=lambda p: (p.team_blocks, -p.width))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("swish", [False, True], ids=["plain", "swish"])
+@pytest.mark.parametrize("shape,groups", [((2, 7, 9, 64), 32), ((3, 5, 13, 128), 16)],
+                         ids=["C64-G32", "C128-G16"])
+def test_kernel_order_matches_plain_and_pallas(shape, groups, swish, dtype):
+    """The CUDA backward's summation order (emulated in torch with a plan of
+    several units, teams of several blocks and ragged rows) against the
+    plain backward and the Pallas backward in interpret mode, at the
+    file's tolerances."""
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    c = shape[-1]
+    x, scale, bias, g = _inputs(9, shape, c, jdt)
+    xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+    gt = torch.from_numpy(g).to(tdt).permute(0, 3, 1, 2)
+    w, b = torch.from_numpy(scale), torch.from_numpy(bias)
+    _, stats = group_norm_forward(xt, w, b, groups, 1e-6, swish)
+    plan = _many_block_plan(shape[0], shape[1] * shape[2], c, groups, xt.element_size())
+    got = _emulate_kernel(xt, gt, stats[:, 0], stats[:, 1], w, b, groups, swish, plan)
+    got = [got[0].permute(0, 2, 3, 1).float().numpy(), got[1].numpy(), got[2].numpy()]
+    ref = group_norm_fp32_backward(xt, gt, stats[:, 0], stats[:, 1], w, b, groups, swish)
+    ref = [ref[0].permute(0, 2, 3, 1).float().numpy(), ref[1].numpy(), ref[2].numpy()]
+    pallas = _jax_grads(_pallas(groups, swish), x, scale, bias, g, jdt)
+    for want in (ref, pallas):
+        if dtype == "fp32":
+            _check_fp32(got, want)
+        else:
+            np.testing.assert_allclose(got[0], want[0], atol=1e-6, rtol=RTOL_BF16)
+            np.testing.assert_allclose(got[1], want[1], atol=ATOL_SUMS_FP32, rtol=0)
+            np.testing.assert_allclose(got[2], want[2], atol=ATOL_SUMS_FP32, rtol=0)

@@ -5,7 +5,7 @@
 // fused_group_norm (_stats_kernel and _apply_kernel, plus the XLA glue between
 // them that turns the partial sums into mean and rstd), and _pallas_gn_bwd
 // (_bwd_stats_kernel and _bwd_dx_kernel, plus the XLA glue that turns their
-// sums into dgamma, dbeta and the dx coefficients).
+// sums into dgamma, dbeta and the dx coefficients), in one launch.
 //
 // The activation is read as x[B][S][C] (NCHW in torch.channels_last memory
 // format is physically NHWC). Groups are torch's: channel c is in group
@@ -24,37 +24,49 @@
 //                       writes y = x*A + B (optionally y*sigmoid(y)) in the
 //                       input's dtype.
 //
-// The backward is three launches too. It takes x, the incoming gradient g
-// (same layout and dtype) and the forward's stats, and recomputes
-// yhat = x*A + B instead of reading a saved fp32 activation:
+// The backward is one persistent cooperative launch, gn_bwd_kernel. It takes
+// x, the incoming gradient g (same layout and dtype) and the forward's stats,
+// recomputes yhat = x*A + B instead of reading a saved fp32 activation, and
+// moves x, g and dx across device memory once. It walks the call in units:
+// one sample b and a slice of whole groups over all S rows, sized so that the
+// x and g of a unit fit on chip across the blocks that share it (a team).
+// Each block keeps its rows of the unit in shared memory (x double-buffered,
+// g single, filled by 16-byte cp.async) and dyhat in registers:
+//   dyhat = g (or, with swish, g*s*(1 + yhat*(1 - s)), s = sigmoid(yhat), in
+//   fp32), computed once per element; per-channel S0 = Σ dyhat and
+//   S1 = Σ dyhat*x over the block's rows; the block's partials to device
+//   memory; a barrier per unit (an integer arrival counter), after which
+//   every block sums the team's per-group partials in block order into m1,
+//   m2 and the dx coefficients (ca, cb, cc), while the next unit's x and g
+//   are already in flight; then dx = dyhat*ca + x*cb + cc from the chip in
+//   the input's dtype. Block 0 sums dgamma and dbeta over the batch in order
+//   at the end.
+// Where a unit fits on chip only as one 32-byte sector of each row (the 3D
+// steps' 262,144-row calls at C = 64 and 128), the plan takes the re-read
+// route instead (the kernel's kReread instances): a unit of whole 128-byte
+// row slices, whose block streams its rows in chunks for the sums and again,
+// after the barrier, for dx; x and g cross device memory twice, dx once, and
+// dyhat is computed in each pass.
 //
-//   gn_bwd_stats_kernel     grid (n_tiles, B). dyhat = g (or, with swish,
-//                           g*s*(1 + yhat*(1 - s)), s = sigmoid(yhat), in fp32);
-//                           per-channel sums of dyhat and dyhat*x over the tile's
-//                           rows, written to partial[b][tile][2][C].
-//   gn_bwd_finalize_kernel  grid (G). A block owns one group's channels over all
-//                           batches: sums the partials over tiles in a fixed
-//                           order (S0, S1 per batch and channel), folds them over
-//                           the group (m1, m2), writes the dx coefficients
-//                           coef[b][3][C] = (ca, cb, cc) and, summed over the
-//                           batch in order, dgamma and dbeta.
-//   gn_bwd_dx_kernel        grid (n_tiles, B). Recomputes dyhat and writes
-//                           dx = dyhat*ca + x*cb + cc in the input's dtype.
-//
-// Every sum runs in a fixed order, so the results are deterministic (no
-// atomics).
+// Every float sum runs in a fixed order, so the results are deterministic;
+// the only atomics are the barriers' integer counters.
 //
 // Bound: device-memory bandwidth. The forward reads the activation twice and
-// writes it once; the backward reads x and g twice and writes dx once; each
+// writes it once; the backward reads x and g once and writes dx once; each
 // against a few flops per element (about 3.35 TB/s on an H100 SXM). So every
 // thread moves 16 bytes per load and store (4 fp32 or 8 bf16 channels),
-// neighbouring threads touch neighbouring addresses, and the wrapper sizes
-// the grid to keep several blocks resident on every SM. The partials, stats
-// and coefficients are small (B * n_tiles * 2C floats at most).
+// neighbouring threads touch neighbouring addresses, and the forward sizes
+// its grid to keep several blocks resident on every SM; the backward holds
+// two blocks of 256 threads on every SM, each with 96 KB of x and g slots
+// and 64 (bf16) or 32 (fp32) dyhat registers a thread, so that one block's
+// arithmetic and barriers overlap the other's loads. The partials, stats
+// and coefficients are small (a few floats per channel and block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma.cuh"  // cp.async
 
 namespace {
 
@@ -277,241 +289,462 @@ int launch(const void* x, const float* gamma, const float* beta, void* y, float*
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward: one persistent cooperative launch
 // ---------------------------------------------------------------------------
 
+constexpr int kBwdThreads = 256;
+constexpr int kBwdBlocksPerSm = 2;  // two blocks interleave their phases on an SM
+constexpr int kBwdPacks = 8;  // 16-byte packs of each unit a thread holds
+constexpr int kBwdMaxSlicePacks = 16;  // 16-byte packs of a unit's row slice, at most
+
+// The wrapper's plan (ops/groupnorm_cuda.py::backward_plan) and the buffers.
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  const float* stats;  // (B, 2, G): mean, rstd
+  const float* gamma;
+  const float* beta;
+  void* dx;
+  float* dgamma;         // (C,)
+  float* dbeta;          // (C,)
+  int* sync;             // [teams] arrivals, then two end-of-call counters
+  float* group_partial;  // [units][team_blocks][2][width / cg]: a block's Σγ·S0, Σγ·S1
+  float* chan_partial;   // [units][team_blocks][2][width]: a block's S0, S1
+  float* per_batch;      // [B][2][C]: r·(S1 − μ·S0) and S0 of each (b, c)
+  int B, S, C, G;
+  int width;           // channels of a unit's slice: whole groups
+  int team_blocks;     // blocks that share a unit
+  int teams;           // teams walk units team, team + teams, ...
+  int rows_per_block;  // of a unit's S rows
+  float n;             // S · C / G, the elements of a group
+};
+
+// The words of the sync counters, rounded up to 16 bytes.
+inline int sync_words(int teams) { return (teams + 2 + 3) / 4 * 4; }
+
+__device__ __forceinline__ void compiler_fence() { asm volatile("" ::: "memory"); }
+
+#ifdef GN_BWD_TRACE
+// A diagnostic build's phase clock: thread 0 of each block stamps the global
+// timer at the phase boundaries of each unit, trace[block][seq][phase].
+__device__ long long* g_trace;
+constexpr int kTracePhases = 6, kTraceUnits = 64;
+#define TRACE(phase)                                                                   \
+  if (threadIdx.x == 0 && g_trace != nullptr && seq < kTraceUnits) {                    \
+    long long t;                                                                       \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                              \
+    g_trace[(static_cast<int64_t>(blockIdx.x) * kTraceUnits + seq) * kTracePhases + (phase)] = t; \
+  }
+#else
+#define TRACE(phase)
+#endif
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Thread 0 of every block adds the block to `counter` and waits until it
+// reaches `target`; the block's writes before the call are visible to every
+// block after it. The caller synchronises the block after.
+__device__ __forceinline__ void arrive_and_wait(int* counter, int target) {
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1);
+    while (ld_acquire(counter) < target) __nanosleep(16);
+    __threadfence();
+  }
+}
+
 // dL/dyhat from the incoming gradient, with yhat = x*a + b recomputed with
-// the forward's roundings; fp32 throughout (the Pallas backward's form).
-__device__ __forceinline__ float d_yhat(float x, float g, float a, float b, int with_swish) {
-  if (!with_swish) return g;
+// the forward's roundings; fp32 throughout (the Pallas backward's form). The
+// sigmoid takes the fast exp and division (a few ulps; the card's checks hold
+// dx within one bf16 ulp, or ATOL_DX in fp32, of the plain version).
+__device__ __forceinline__ float d_yhat(float x, float g, float a, float b) {
   const float y = __fadd_rn(__fmul_rn(x, a), b);
-  const float s = 1.f / (1.f + expf(-y));
+  const float s = __fdividef(1.f, 1.f + __expf(-y));
   // g * s * (1 + y * (1 - s)), each operation rounded like the plain version's
   return __fmul_rn(__fmul_rn(g, s), __fadd_rn(1.f, __fmul_rn(y, __fsub_rn(1.f, s))));
 }
 
-template <typename T>
-__global__ void gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                                    const float* __restrict__ stats,
-                                    const float* __restrict__ gamma,
-                                    const float* __restrict__ beta, float* __restrict__ partial,
-                                    int S, int C, int G, int rows_per_tile, int with_swish) {
-  constexpr int N = Pack<T>::N;
-  const int packs = C / N;
-  const int R = blockDim.x / packs;
-  const int pack = threadIdx.x % packs;
-  const int r = threadIdx.x / packs;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-
-  extern __shared__ float sh[];  // [2][C] A and B, then [2][R][C] the rows' sums
-  affine_coeffs(stats, gamma, beta, sh, b, C, G);
-  __syncthreads();
-  float ca[N], cb[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    ca[i] = sh[pack * N + i];
-    cb[i] = sh[C + pack * N + i];
-  }
-
-  const int64_t row0 = static_cast<int64_t>(tile) * rows_per_tile;
-  const int64_t row_end = row0 + rows_per_tile < S ? row0 + rows_per_tile : S;
-  const int64_t base = static_cast<int64_t>(b) * S * C + pack * N;
-  float s0[N], s1[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    s0[i] = 0.f;
-    s1[i] = 0.f;
-  }
-#pragma unroll 4
-  for (int64_t row = row0 + r; row < row_end; row += R) {
-    float xv[N], gv[N];
-    Pack<T>::load(x + base + row * C, xv);
-    Pack<T>::load(g + base + row * C, gv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float dy = d_yhat(xv[i], gv[i], ca[i], cb[i], with_swish);
-      s0[i] += dy;
-      s1[i] += dy * xv[i];
-    }
-  }
-
-  float* red0 = sh + 2 * C;
-  float* red1 = red0 + R * C;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    red0[r * C + pack * N + i] = s0[i];
-    red1[r * C + pack * N + i] = s1[i];
-  }
-  __syncthreads();
-
-  float* out = partial + (static_cast<int64_t>(b) * gridDim.x + tile) * 2 * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f, q = 0.f;
-    for (int rr = 0; rr < R; ++rr) {
-      a += red0[rr * C + c];
-      q += red1[rr * C + c];
-    }
-    out[c] = a;
-    out[C + c] = q;
-  }
-}
-
-// grid (G), blockDim.x = cg * lanes (cg = C / G): thread (lane, k) owns
-// channel c = g*cg + k; lane l sums tiles l, l + lanes, ...; lane 0 adds the
-// lanes' sums in lane order, thread 0 folds the group's channels in order.
-__global__ void gn_bwd_finalize_kernel(const float* __restrict__ partial,
-                                       const float* __restrict__ stats,
-                                       const float* __restrict__ gamma,
-                                       float* __restrict__ coef, float* __restrict__ dgamma,
-                                       float* __restrict__ dbeta, int B, int n_tiles, int C,
-                                       int G, float n) {
-  const int grp = blockIdx.x;
-  const int cg = C / G;
-  const int lanes = blockDim.x / cg;
-  const int k = threadIdx.x % cg;
-  const int lane = threadIdx.x / cg;
-  const int c = grp * cg + k;
-  const float gam = gamma[c];
-
-  extern __shared__ float sh[];  // [2][lanes][cg] sums, [2][cg] gamma*S, [2] m1 m2
-  float* red0 = sh;
-  float* red1 = red0 + lanes * cg;
-  float* gs0 = red1 + lanes * cg;
-  float* gs1 = gs0 + cg;
-  float* m = gs1 + cg;
-
-  float dg = 0.f, db = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const float* p = partial + static_cast<int64_t>(b) * n_tiles * 2 * C;
-    float a = 0.f, q = 0.f;
-#pragma unroll 4
-    for (int t = lane; t < n_tiles; t += lanes) {
-      a += p[static_cast<int64_t>(t) * 2 * C + c];
-      q += p[static_cast<int64_t>(t) * 2 * C + C + c];
-    }
-    red0[lane * cg + k] = a;
-    red1[lane * cg + k] = q;
-    __syncthreads();
-    float s0 = 0.f, s1 = 0.f;  // meaningful in lane 0
-    if (lane == 0) {
-      for (int l = 0; l < lanes; ++l) {
-        s0 += red0[l * cg + k];
-        s1 += red1[l * cg + k];
-      }
-      gs0[k] = gam * s0;
-      gs1[k] = gam * s1;
-    }
-    __syncthreads();
-    const float mean = stats[b * 2 * G + grp];
-    const float rstd = stats[b * 2 * G + G + grp];
-    if (threadIdx.x == 0) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int j = 0; j < cg; ++j) {
-        a0 += gs0[j];
-        a1 += gs1[j];
-      }
-      m[0] = a0 / n;
-      m[1] = rstd * (a1 / n) - mean * rstd * (a0 / n);
-    }
-    __syncthreads();
-    if (lane == 0) {
-      const float m1 = m[0], m2 = m[1];
-      dg += rstd * (s1 - mean * s0);
-      db += s0;
-      float* cf = coef + static_cast<int64_t>(b) * 3 * C;
-      cf[c] = rstd * gam;
-      cf[C + c] = -rstd * rstd * m2;
-      cf[2 * C + c] = mean * rstd * rstd * m2 - rstd * m1;
-    }
-    __syncthreads();  // red0, red1 and m are written again for the next batch
-  }
-  if (lane == 0) {
-    dgamma[c] = dg;
-    dbeta[c] = db;
-  }
-}
-
-template <typename T>
-__global__ void gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                                 const float* __restrict__ stats, const float* __restrict__ gamma,
-                                 const float* __restrict__ beta, const float* __restrict__ coef,
-                                 T* __restrict__ dx, int S, int C, int G, int rows_per_tile,
-                                 int with_swish) {
-  constexpr int N = Pack<T>::N;
-  const int packs = C / N;
-  const int R = blockDim.x / packs;
-  const int pack = threadIdx.x % packs;
-  const int r = threadIdx.x / packs;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-
-  extern __shared__ float sh[];  // [5][C]: A, B, ca, cb, cc
-  affine_coeffs(stats, gamma, beta, sh, b, C, G);
-  const float* cf = coef + static_cast<int64_t>(b) * 3 * C;
-  for (int c = threadIdx.x; c < 3 * C; c += blockDim.x) {
-    sh[2 * C + c] = cf[c];
-  }
-  __syncthreads();
-  float a[N], bb[N], ka[N], kb[N], kc[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int c = pack * N + i;
-    a[i] = sh[c];
-    bb[i] = sh[C + c];
-    ka[i] = sh[2 * C + c];
-    kb[i] = sh[3 * C + c];
-    kc[i] = sh[4 * C + c];
-  }
-
-  const int64_t row0 = static_cast<int64_t>(tile) * rows_per_tile;
-  const int64_t row_end = row0 + rows_per_tile < S ? row0 + rows_per_tile : S;
-  const int64_t base = static_cast<int64_t>(b) * S * C + pack * N;
-#pragma unroll 4
-  for (int64_t row = row0 + r; row < row_end; row += R) {
-    float xv[N], gv[N];
-    Pack<T>::load(x + base + row * C, xv);
-    Pack<T>::load(g + base + row * C, gv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float dy = d_yhat(xv[i], gv[i], a[i], bb[i], with_swish);
-      // the plain version's order: (dy*ca + x*cb) + cc, each rounded
-      gv[i] = __fadd_rn(__fadd_rn(__fmul_rn(dy, ka[i]), __fmul_rn(xv[i], kb[i])), kc[i]);
-    }
-    Pack<T>::store(dx + base + row * C, gv);
-  }
-}
-
-template <typename T>
-int launch_backward(const void* x, const void* g, const float* stats, const float* gamma,
-                    const float* beta, void* dx, float* partial, float* coef, float* dgamma,
-                    float* dbeta, int B, int S, int C, int G, int rows_per_tile, int n_tiles,
-                    int threads, int with_swish, cudaStream_t stream) {
-  constexpr int N = Pack<T>::N;
-  const int R = threads / (C / N);
-  const dim3 grid(n_tiles, B);
-
-  gn_bwd_stats_kernel<T><<<grid, threads, (2 * C + 2 * R * C) * sizeof(float), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), stats, gamma, beta, partial, S, C, G,
-      rows_per_tile, with_swish);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int cg = C / G;
-  int lanes = 512 / cg;  // the caller keeps cg <= 1024
+// Sums each of V chains of R values val(r, v) in a fixed order into red[v]:
+// lane l of a chain (L lanes: at most 16, and L * V <= cap floats of red)
+// adds rows l, l + L, ... in order into red[l * V + v], then thread v adds
+// the lanes' sums in lane order. Every thread of the block calls it; it
+// begins and ends with __syncthreads.
+template <typename Val>
+__device__ __forceinline__ void ordered_sums(float* red, int R, int V, int cap, Val val) {
+  int lanes = kBwdThreads / V;
+  if (lanes > 16) lanes = 16;
+  if (lanes > R) lanes = R;
+  if (lanes > cap / V) lanes = cap / V;
   if (lanes < 1) lanes = 1;
-  if (lanes > n_tiles) lanes = n_tiles;
-  gn_bwd_finalize_kernel<<<G, cg * lanes, (2 * lanes * cg + 2 * cg + 2) * sizeof(float),
-                           stream>>>(
-      partial, stats, gamma, coef, dgamma, dbeta, B, n_tiles, C, G,
-      static_cast<float>(static_cast<int64_t>(S) * cg));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  __syncthreads();
+  for (int task = threadIdx.x; task < lanes * V; task += kBwdThreads) {
+    const int l = task / V, v = task % V;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int r = l; r < R; r += lanes) acc += val(r, v);
+    red[l * V + v] = acc;
+  }
+  __syncthreads();
+  for (int v = threadIdx.x; v < V; v += kBwdThreads) {
+    float acc = red[v];
+    for (int l = 1; l < lanes; ++l) acc += red[l * V + v];
+    red[v] = acc;
+  }
+  __syncthreads();
+}
 
-  gn_bwd_dx_kernel<T><<<grid, threads, 5 * C * sizeof(float), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), stats, gamma, beta, coef,
-      static_cast<T*>(dx), S, C, G, rows_per_tile, with_swish);
-  return static_cast<int>(cudaGetLastError());
+// A unit is one sample b and a slice of `width` channels (whole groups, at
+// most kBwdMaxSlicePacks 16-byte packs, a power of two) over all S rows. The
+// teams walk the units; the team_blocks blocks of a team split a unit's
+// rows, rows_per_block each. Thread t owns the channel pack t % (width / N)
+// of rows t / (width / N) + i * (threads / (width / N)), i < kBwdPacks, of
+// its block's rows, and keeps them on chip for the whole unit: x and g in its
+// own shared-memory slots (x double-buffered), dyhat in registers. The
+// unit's per-channel parameters (the swish's A, B; gamma, mean, rstd) are
+// fetched a unit ahead and staged in shared memory. Per unit:
+//   1. wait for its x and g (cp.async), start the next unit's x and fetch
+//      its parameters;
+//   2. dyhat once per element, per-channel S0 = Σ dyhat and S1 = Σ dyhat·x;
+//      start the next unit's g into the freed slots;
+//   3. the block's S0, S1 (the warp's rows by shuffles, then the warps in
+//      order) and, per group, Σ γ·S0 and Σ γ·S1 to device memory; arrive at
+//      the team's counter and wait for the team (one integer barrier);
+//   4. every block sums the team's group partials in block order and forms
+//      m1, m2 and the dx coefficients (ca, cb, cc) of the slice, the finalize
+//      of the Pallas backward; dx = (dyhat·ca + x·cb) + cc from the slots and
+//      the registers.
+// With kReread (the re-read route) a block streams its rows of a unit in
+// chunks of kBwdPacks packs a thread through the same slots, once for step 2
+// and again after the barrier for dx, dyhat computed in each pass.
+// dgamma and dbeta need the per-channel sums only, so they wait for the end:
+// after a grid barrier each block sums the channel partials of some units in
+// block order, and after another, block 0 sums them over the batch in order.
+template <typename T, bool kSwish, bool kReread>
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(const BwdArgs a) {
+  constexpr int N = Pack<T>::N;
+  constexpr int kMaxWidth = kBwdMaxSlicePacks * N;
+  constexpr int kRed = kBwdThreads * N;  // floats: 8 warps' S0, S1 of a widest slice
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* xs = reinterpret_cast<uint4*>(smem);    // [2][kBwdPacks][kBwdThreads]
+  uint4* gs = xs + 2 * kBwdPacks * kBwdThreads;  // [kBwdPacks][kBwdThreads]
+  float* red = reinterpret_cast<float*>(gs + kBwdPacks * kBwdThreads);  // [kRed]
+  float* prm = red + kRed;  // [5][kMaxWidth]: A, B, gamma, mean, rstd; then A, B, ca, cb, cc
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int team = blockIdx.x / a.team_blocks;
+  const int j = blockIdx.x % a.team_blocks;
+  const int w = a.width, V = 2 * w;
+  const int pw = w / N;                // packs of a row's slice: 1, 2, 4, 8 or 16
+  const int rows_in_flight = kBwdThreads / pw;
+  const int cp = tid % pw, rl = tid / pw;
+  const int slices = a.C / w, units = a.B * slices, cg = a.C / a.G, gw = w / cg;
+  const int row0 = j * a.rows_per_block;
+  const int row_end = min(a.S, row0 + a.rows_per_block);
+  // a chunk: kBwdPacks * rows_in_flight rows of the block's, held on chip at
+  // once (the on-chip route's unit has one)
+  const int chunk_rows = kBwdPacks * rows_in_flight;
+  const int chunks = (row_end - row0 + chunk_rows - 1) / chunk_rows;
+  const int64_t stride = static_cast<int64_t>(rows_in_flight) * a.C;
+  int* arrivals = a.sync + team;
+  int* done = a.sync + a.teams;
+  const T* xg = static_cast<const T*>(a.x);
+  const T* gg = static_cast<const T*>(a.g);
+  T* dxg = static_cast<T*>(a.dx);
+
+  // this thread's packs of chunk k: rows row0 + k * chunk_rows + rl +
+  // i * rows_in_flight, i < packs_in(k)
+  auto packs_in = [&](int k) {
+    const int left = row_end - row0 - k * chunk_rows - rl;
+    return left <= 0 ? 0 : min(kBwdPacks, (left + rows_in_flight - 1) / rows_in_flight);
+  };
+  auto base_of = [&](int u, int k) -> int64_t {
+    const int b = u / slices, c0 = (u % slices) * w;
+    return (static_cast<int64_t>(b) * a.S + row0 + k * chunk_rows + rl) * a.C + c0 + cp * N;
+  };
+  // cp.async of the thread's packs of chunk k of unit u into its slots
+  // (zeros past its rows)
+  auto load = [&](const T* src, uint4* dst, int u, int k) {
+    const T* p = src + base_of(u, k);
+    const int n = packs_in(k);
+#pragma unroll
+    for (int i = 0; i < kBwdPacks; ++i) {
+      const bool ok = i < n;
+      cp_async16(smem_addr(dst + i * kBwdThreads + tid), ok ? p + i * stride : src, ok ? 16 : 0);
+    }
+  };
+  // the parameters of channel tid of unit u, fetched into registers, then
+  // staged (the caller synchronises the block after)
+  float f_gam = 0.f, f_beta = 0.f, f_mean = 0.f, f_rstd = 0.f;
+  auto fetch = [&](int u) {
+    if (tid < w && u < units) {
+      const int b = u / slices, c = (u % slices) * w + tid;
+      f_gam = __ldg(a.gamma + c);
+      f_beta = __ldg(a.beta + c);
+      f_mean = __ldg(a.stats + b * 2 * a.G + c / cg);
+      f_rstd = __ldg(a.stats + b * 2 * a.G + a.G + c / cg);
+    }
+  };
+  auto stage = [&]() {
+    if (tid < w) {
+      // the forward's roundings (affine_coeffs)
+      const float A = __fmul_rn(f_rstd, f_gam);
+      prm[tid] = A;
+      prm[kMaxWidth + tid] = __fsub_rn(f_beta, __fmul_rn(f_mean, A));
+      prm[2 * kMaxWidth + tid] = f_gam;
+      prm[3 * kMaxWidth + tid] = f_mean;
+      prm[4 * kMaxWidth + tid] = f_rstd;
+    }
+  };
+  // dyhat of one element of the thread's channel pack
+  auto dyhat = [&](float x, float g, int n) {
+    if constexpr (kSwish) return d_yhat(x, g, prm[cp * N + n], prm[kMaxWidth + cp * N + n]);
+    return g;
+  };
+
+  int u = team, seq = 0;
+  if constexpr (!kReread) {
+    if (u < units) {
+      load(xg, xs, u, 0);
+      load(gg, gs, u, 0);
+    }
+    cp_async_commit();
+  }
+  fetch(u);
+  stage();
+  __syncthreads();
+  for (; u < units; u += a.teams, ++seq) {
+    const int next = u + a.teams;
+    const uint4* xcur = xs + (seq & 1) * kBwdPacks * kBwdThreads;
+    // 2. dyhat and the thread's per-channel sums
+    float dy[kReread ? 1 : kBwdPacks][N], s0[N], s1[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      s0[n] = 0.f;
+      s1[n] = 0.f;
+    }
+    if constexpr (!kReread) {
+      // on chip: the unit's one chunk arrived while the last unit finished;
+      // dyhat stays in registers for dx
+      TRACE(0);
+      cp_async_wait<0>();
+      compiler_fence();
+      TRACE(1);
+      if (next < units) load(xg, xs + ((seq + 1) & 1) * kBwdPacks * kBwdThreads, next, 0);
+      cp_async_commit();
+      fetch(next);
+#pragma unroll
+      for (int i = 0; i < kBwdPacks; ++i) {
+        float xv[N], gv[N];
+        Pack<T>::load(reinterpret_cast<const T*>(xcur + i * kBwdThreads + tid), xv);
+        Pack<T>::load(reinterpret_cast<const T*>(gs + i * kBwdThreads + tid), gv);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          // a slot past the rows holds zeros: dyhat 0 adds nothing
+          const float d = dyhat(xv[n], gv[n], n);
+          dy[i][n] = d;
+          s0[n] += d;
+          s1[n] += d * xv[n];
+        }
+      }
+      compiler_fence();
+      TRACE(2);
+      if (next < units) load(gg, gs, next, 0);
+      cp_async_commit();
+    } else {
+      // re-read: stream the block's rows chunk by chunk for the sums
+      fetch(next);
+      for (int k = 0; k < chunks; ++k) {
+        load(xg, xs, u, k);
+        load(gg, gs, u, k);
+        cp_async_commit();
+        cp_async_wait<0>();
+        compiler_fence();
+#pragma unroll
+        for (int i = 0; i < kBwdPacks; ++i) {
+          float xv[N], gv[N];
+          Pack<T>::load(reinterpret_cast<const T*>(xs + i * kBwdThreads + tid), xv);
+          Pack<T>::load(reinterpret_cast<const T*>(gs + i * kBwdThreads + tid), gv);
+#pragma unroll
+          for (int n = 0; n < N; ++n) {
+            const float d = dyhat(xv[n], gv[n], n);
+            s0[n] += d;
+            s1[n] += d * xv[n];
+          }
+        }
+        compiler_fence();
+      }
+    }
+
+  // 3. the block's sums per channel and per group, the team's barrier.
+    // The lanes of a warp with one channel pack add their rows by a xor
+    // butterfly (every lane gets the same sum), then the warps in order.
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      for (int off = pw; off < 32; off <<= 1) {
+        s0[n] += __shfl_xor_sync(0xffffffffu, s0[n], off);
+        s1[n] += __shfl_xor_sync(0xffffffffu, s1[n], off);
+      }
+    }
+    if (lane < pw) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        red[warp * V + cp * N + n] = s0[n];
+        red[warp * V + w + cp * N + n] = s1[n];
+      }
+    }
+    __syncthreads();
+    // V <= 32 * N <= kBwdThreads: one chain a thread
+    float sum = 0.f;
+    if (tid < V) {
+      sum = red[tid];
+      for (int k = 1; k < kBwdThreads / 32; ++k) sum += red[k * V + tid];
+      a.chan_partial[(static_cast<int64_t>(u) * a.team_blocks + j) * V + tid] = sum;
+    }
+    __syncthreads();
+    if (tid < V) red[tid] = __fmul_rn(prm[2 * kMaxWidth + tid % w], sum);  // γ·S
+    __syncthreads();
+    float* grp = a.group_partial + (static_cast<int64_t>(u) * a.team_blocks + j) * 2 * gw;
+    for (int q = tid; q < 2 * gw; q += kBwdThreads) {
+      const float* p = red + (q < gw ? q * cg : w + (q - gw) * cg);
+      float acc = 0.f;
+      for (int k = 0; k < cg; ++k) acc += p[k];
+      grp[q] = acc;
+    }
+    __syncthreads();
+    TRACE(3);
+    arrive_and_wait(arrivals, (seq + 1) * a.team_blocks);
+    TRACE(4);
+
+    // 4. the team's group sums in block order, the coefficients, dx
+    const float* team_grp = a.group_partial + static_cast<int64_t>(u) * a.team_blocks * 2 * gw;
+    ordered_sums(red, a.team_blocks, 2 * gw, kRed,
+                 [&](int r, int v) { return __ldcg(team_grp + r * 2 * gw + v); });
+    // (ca, cb, cc) take the places of (gamma, mean, rstd), each thread its
+    // own channel's; A and B stay for the re-read route's second dyhat
+    for (int v = tid; v < w; v += kBwdThreads) {
+      const int q = v / cg;
+      const float gam = prm[2 * kMaxWidth + v];
+      const float mean = prm[3 * kMaxWidth + v], rstd = prm[4 * kMaxWidth + v];
+      const float m1 = red[q] / a.n;
+      const float m2 = rstd * (red[gw + q] / a.n) - mean * rstd * (red[q] / a.n);
+      prm[2 * kMaxWidth + v] = rstd * gam;
+      prm[3 * kMaxWidth + v] = -rstd * rstd * m2;
+      prm[4 * kMaxWidth + v] = mean * rstd * rstd * m2 - rstd * m1;
+    }
+    __syncthreads();
+    float ka[N], kb[N], kc[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      ka[n] = prm[2 * kMaxWidth + cp * N + n];
+      kb[n] = prm[3 * kMaxWidth + cp * N + n];
+      kc[n] = prm[4 * kMaxWidth + cp * N + n];
+    }
+    TRACE(5);
+    __syncthreads();  // prm takes the next unit's parameters below
+    if constexpr (!kReread) {
+      T* out = dxg + base_of(u, 0);
+      const int n_valid = packs_in(0);
+#pragma unroll
+      for (int i = 0; i < kBwdPacks; ++i) {
+        if (i >= n_valid) break;
+        float xv[N], o[N];
+        Pack<T>::load(reinterpret_cast<const T*>(xcur + i * kBwdThreads + tid), xv);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          // the plain version's order: (dy*ca + x*cb) + cc, each rounded
+          o[n] = __fadd_rn(__fadd_rn(__fmul_rn(dy[i][n], ka[n]), __fmul_rn(xv[n], kb[n])), kc[n]);
+        }
+        Pack<T>::store(out + i * stride, o);
+      }
+    } else {
+      // re-read: the same chunks again, dyhat again, then dx
+      for (int k = 0; k < chunks; ++k) {
+        load(xg, xs, u, k);
+        load(gg, gs, u, k);
+        cp_async_commit();
+        cp_async_wait<0>();
+        compiler_fence();
+        T* out = dxg + base_of(u, k);
+        const int n_valid = packs_in(k);
+#pragma unroll
+        for (int i = 0; i < kBwdPacks; ++i) {
+          if (i >= n_valid) break;
+          float xv[N], gv[N], o[N];
+          Pack<T>::load(reinterpret_cast<const T*>(xs + i * kBwdThreads + tid), xv);
+          Pack<T>::load(reinterpret_cast<const T*>(gs + i * kBwdThreads + tid), gv);
+#pragma unroll
+          for (int n = 0; n < N; ++n) {
+            const float d = dyhat(xv[n], gv[n], n);
+            o[n] = __fadd_rn(__fadd_rn(__fmul_rn(d, ka[n]), __fmul_rn(xv[n], kb[n])), kc[n]);
+          }
+          Pack<T>::store(out + i * stride, o);
+        }
+        compiler_fence();
+      }
+      __syncthreads();  // every thread's dyhat has read A, B before they change
+    }
+    compiler_fence();
+    stage();
+    __syncthreads();
+  }
+
+  // dgamma and dbeta: each unit's channel partials in block order, then the
+  // batch in order
+  __syncthreads();
+  arrive_and_wait(done, gridDim.x);
+  for (int uu = blockIdx.x; uu < units; uu += gridDim.x) {
+    const float* chan = a.chan_partial + static_cast<int64_t>(uu) * a.team_blocks * V;
+    ordered_sums(red, a.team_blocks, V, kRed,
+                 [&](int r, int v) { return __ldcg(chan + r * V + v); });
+    const int b = uu / slices, c0 = (uu % slices) * w;
+    const float* st = a.stats + b * 2 * a.G;
+    float* pb = a.per_batch + static_cast<int64_t>(b) * 2 * a.C;
+    for (int cl = tid; cl < w; cl += kBwdThreads) {
+      const int c = c0 + cl;
+      const float mean = st[c / cg], rstd = st[a.G + c / cg];
+      pb[c] = rstd * (red[w + cl] - mean * red[cl]);
+      pb[a.C + c] = red[cl];
+    }
+  }
+  __syncthreads();
+  if (blockIdx.x != 0) {
+    if (tid == 0) {
+      __threadfence();
+      atomicAdd(done + 1, 1);
+    }
+    return;
+  }
+  arrive_and_wait(done + 1, gridDim.x);
+  __syncthreads();
+  for (int c = tid; c < a.C; c += kBwdThreads) {
+    float dg = 0.f, db = 0.f;
+    for (int b = 0; b < a.B; ++b) {
+      dg += __ldcg(a.per_batch + static_cast<int64_t>(b) * 2 * a.C + c);
+      db += __ldcg(a.per_batch + static_cast<int64_t>(b) * 2 * a.C + a.C + c);
+    }
+    a.dgamma[c] = dg;
+    a.dbeta[c] = db;
+  }
+}
+
+template <typename T>
+const void* backward_kernel_of(int with_swish, int reread) {
+  if (reread) {
+    return with_swish ? reinterpret_cast<const void*>(gn_bwd_kernel<T, true, true>)
+                      : reinterpret_cast<const void*>(gn_bwd_kernel<T, false, true>);
+  }
+  return with_swish ? reinterpret_cast<const void*>(gn_bwd_kernel<T, true, false>)
+                    : reinterpret_cast<const void*>(gn_bwd_kernel<T, false, false>);
+}
+
+const void* backward_kernel(int dtype, int with_swish, int reread) {
+  if (dtype == 0) return backward_kernel_of<float>(with_swish, reread);
+  if (dtype == 1) return backward_kernel_of<__nv_bfloat16>(with_swish, reread);
+  return nullptr;
 }
 
 }  // namespace
@@ -541,33 +774,85 @@ int gn_forward(const void* x, const void* gamma, const void* beta, void* y, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g and dx). stats: the forward's fp32
-// (B, 2, G); gamma, beta: fp32 (C,). partial: fp32 (B, n_tiles, 2, C) scratch;
-// coef: fp32 (B, 3, C) scratch; dgamma, dbeta: fp32 (C,). The caller checks
-// shapes, alignment and the launch geometry; returns the cudaError_t of the
-// first failed launch, or 0.
-int gn_backward(const void* x, const void* g, const void* stats, const void* gamma,
-                const void* beta, void* dx, void* partial, void* coef, void* dgamma,
-                void* dbeta, int B, int S, int C, int G, int rows_per_tile, int n_tiles,
-                int threads, int with_swish, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* st = static_cast<const float*>(stats);
-  const float* gm = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
-  float* p = static_cast<float*>(partial);
-  float* cf = static_cast<float*>(coef);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  if (dtype == 0) {
-    return launch_backward<float>(x, g, st, gm, bt, dx, p, cf, dg, db, B, S, C, G, rows_per_tile,
-                                  n_tiles, threads, with_swish, s);
-  }
-  if (dtype == 1) {
-    return launch_backward<__nv_bfloat16>(x, g, st, gm, bt, dx, p, cf, dg, db, B, S, C, G,
-                                          rows_per_tile, n_tiles, threads, with_swish, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+// The backward's constants, for the wrapper to check its plan against.
+void gn_backward_limits(int* threads, int* packs, int* slice_packs) {
+  *threads = kBwdThreads;
+  *packs = kBwdPacks;
+  *slice_packs = kBwdMaxSlicePacks;
 }
+
+// Allows the backward kernel of (dtype, with_swish, reread) `smem` bytes of
+// dynamic shared memory and writes how many of its blocks one SM holds at
+// once (the cooperative launch's grid must not exceed that times the SMs).
+// Returns 0 or a cudaError_t.
+int gn_backward_occupancy(int dtype, int with_swish, int reread, int smem, int* blocks_per_sm) {
+  const void* fn = backward_kernel(dtype, with_swish, reread);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kBwdThreads, smem));
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x, g and dx). stats: the forward's fp32
+// (B, 2, G); gamma, beta: fp32 (C,); dgamma_dbeta: fp32 (2, C). workspace:
+// fp32 words, the sync counters (sync_words(teams)), then the group partials
+// (units * team_blocks * 2 * groups of a slice), the channel partials
+// (units * team_blocks * 2 * width) and the per-batch terms (B * 2 * C),
+// units = B * C / width. The plan (width, team_blocks, teams,
+// rows_per_block; reread 0 holds a block's rows of a unit on chip, 1 streams
+// them twice) and smem come from the wrapper, which checks shapes and
+// alignment. Zeroes the counters and makes one cooperative launch of
+// teams * team_blocks blocks on `stream`, which fails (and runs nothing) if
+// they cannot all be resident at once. Returns 0 or the cudaError_t.
+int gn_backward(const void* x, const void* g, const void* stats, const void* gamma,
+                const void* beta, void* dx, void* dgamma_dbeta, void* workspace, int B, int S,
+                int C, int G, int width, int team_blocks, int teams, int rows_per_block,
+                int reread, int smem, int with_swish, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* fn = backward_kernel(dtype, with_swish, reread);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  a.x = x;
+  a.g = g;
+  a.stats = static_cast<const float*>(stats);
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.dx = dx;
+  a.dgamma = static_cast<float*>(dgamma_dbeta);
+  a.dbeta = a.dgamma + C;
+  a.sync = static_cast<int*>(workspace);
+  const int64_t units = static_cast<int64_t>(B) * (C / width);
+  a.group_partial = static_cast<float*>(workspace) + sync_words(teams);
+  a.chan_partial = a.group_partial + units * team_blocks * 2 * (width / (C / G));
+  a.per_batch = a.chan_partial + units * team_blocks * 2 * width;
+  a.B = B;
+  a.S = S;
+  a.C = C;
+  a.G = G;
+  a.width = width;
+  a.team_blocks = team_blocks;
+  a.teams = teams;
+  a.rows_per_block = rows_per_block;
+  a.n = static_cast<float>(static_cast<int64_t>(S) * (C / G));
+  cudaError_t err = cudaMemsetAsync(a.sync, 0, sync_words(teams) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(teams * team_blocks), dim3(kBwdThreads), args,
+                                    static_cast<size_t>(smem), s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch: clear it, or the next launch reports it
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef GN_BWD_TRACE
+int gn_backward_trace(void* buffer) {
+  long long* p = static_cast<long long*>(buffer);
+  return static_cast<int>(cudaMemcpyToSymbol(g_trace, &p, sizeof(p)));
+}
+#endif
 
 const char* gn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -36,6 +36,15 @@ INPUT_SHAPES = {
 }
 
 
+# How csrc/geometry_probe.cu spreads each case over its grid: ("k", s) splits
+# K over the s blocks of a cluster, each block keeping its tile for its K
+# range, and sums the s partial tiles in rank order; ("n", s) gives each
+# block a 1/s of the output columns. The tiles per case are the output rows
+# (A-E), the strip rows (F, G) or the output rows of the strip (H).
+SPLITS = {"A": ("k", 4), "B": ("k", 4), "C": ("k", 9), "D": ("n", 4), "E": ("n", 4),
+          "F": ("n", 4), "G": ("n", 8), "H": ("k", 4)}
+
+
 def make_inputs(seed: int = 0) -> dict[str, np.ndarray]:
     """Every case's inputs, fp32, drawn as the JAX tool draws them."""
     rng = np.random.RandomState(seed)
@@ -137,3 +146,49 @@ CASES = (
          "bf16 mma.sync m16n8k16, fp32 accumulation, implicit im2col over the 9 windows "
          "of a halo strip in shared memory", _im2col_bf16, 2 * BH * WF * 9 * CI * CO, "bf16"),
 )
+
+
+def _k_parts(case: "Case", a: torch.Tensor, b: torch.Tensor) -> list[torch.Tensor]:
+    """The partial outputs of a K-split case, one per block of a cluster:
+    each its K range's products, summed as the case's tile sums them."""
+    s = SPLITS[case.letter][1]
+    if case.letter in "AB":
+        step = K // s
+        parts = []
+        for r in range(s):
+            xs, ws = a[:, r * step:(r + 1) * step], b[r * step:(r + 1) * step]
+            if case.letter == "A":
+                res = xs @ ws.reshape(step, 3 * CO)
+                parts.append(res[:, :CO] + res[:, CO:2 * CO] + res[:, 2 * CO:])
+            else:
+                res = torch.tensordot(xs, ws, dims=([1], [0]))
+                parts.append(res[:, 0] + res[:, 1] + res[:, 2])
+        return parts
+    if case.letter == "C":
+        return [a[r] @ b[r] for r in range(s)]
+    step = CI // s  # H: a 1/s of the input channels of every window
+    xq = a.to(torch.bfloat16).float()
+    wq = b.to(torch.bfloat16).float().reshape(9, CI, CO)
+    parts = []
+    for r in range(s):
+        ch = slice(r * step, (r + 1) * step)
+        wins = [xq[dh:dh + BH, dw:dw + WF, ch].reshape(BH * WF, step)
+                for dh in range(3) for dw in range(3)]
+        parts.append(torch.cat(wins, 1) @ wq[:, ch].reshape(9 * step, CO))
+    return parts
+
+
+def split_plain(case: "Case", a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``case``'s function computed the way its kernel's grid splits it
+    (``SPLITS``): a K split's partials summed in rank order, or the output's
+    column blocks, each from the whole K."""
+    kind, s = SPLITS[case.letter]
+    if kind == "k":
+        parts = _k_parts(case, a, b)
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+    step = CO // s
+    return torch.cat([case.plain(a, b[:, r * step:(r + 1) * step].contiguous())
+                      for r in range(s)], 1)

@@ -37,6 +37,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.geometry_probe_attributes.restype = ctypes.c_int
     lib.geometry_probe_error_string.argtypes = [ctypes.c_int]
     lib.geometry_probe_error_string.restype = ctypes.c_char_p
+    lib.geometry_probe_setup.argtypes = []
+    lib.geometry_probe_setup.restype = ctypes.c_int
+    lib.geometry_probe_grid.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.geometry_probe_grid.restype = ctypes.c_int
+    err = lib.geometry_probe_setup()  # once, not in every launch
+    if err:
+        raise RuntimeError(f"geometry probe setup failed: "
+                           f"{lib.geometry_probe_error_string(err).decode()}")
     return lib
 
 
@@ -97,3 +105,15 @@ def attributes(case: Case, lib: ctypes.CDLL | None = None) -> dict[str, int]:
         raise RuntimeError(f"cudaFuncGetAttributes of case {case.letter} failed: "
                            f"{lib.geometry_probe_error_string(err).decode()}")
     return dict(zip(("num_regs", "local_bytes", "shared_bytes"), (v.value for v in vals)))
+
+
+def grid(case: Case, lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """(blocks, blocks of a cluster) of ``case``'s launch; a cluster of 1 is
+    none."""
+    lib = library() if lib is None else lib
+    vals = [ctypes.c_int(0) for _ in range(2)]
+    err = lib.geometry_probe_grid(CASES.index(case), *(ctypes.byref(v) for v in vals))
+    if err:
+        raise RuntimeError(f"geometry_probe_grid of case {case.letter} failed: "
+                           f"{lib.geometry_probe_error_string(err).decode()}")
+    return vals[0].value, vals[1].value

@@ -9,16 +9,22 @@ and ``_bwd_dx_kernel``), which ``_fused_gn_vjp`` joins. The kernels are
 ``csrc/groupnorm.cu``, built by ``nvcc`` for ``sm_90a`` at first use and bound
 with ctypes.
 
-What bounds them on an H100: device-memory bandwidth. The forward reads the
-activation twice (statistics, then normalize) and writes it once; the backward
-reads the activation and the incoming gradient twice (sums, then dx) and
-writes dx once; about 3.35 TB/s on an H100 SXM, against a few flops per
-element. Each pass moves 16 bytes per thread per access (4 fp32 or 8 bf16
+What bounds them on an H100: device-memory bandwidth, against a few flops
+per element (about 3.35 TB/s on an H100 SXM). The forward reads the
+activation twice (statistics, then normalize) and writes it once, in three
+launches: each pass moves 16 bytes per thread per access (4 fp32 or 8 bf16
 channels), reads and writes each row contiguously over the channels-last
-``(B, S, C)`` view, and sizes the grid to about four blocks per SM so that
-enough loads are in flight. Between the passes, a small launch finishes the
-cross-block reduction: it sums the per-tile partials in a fixed order, so
-there are no atomics and the outputs are deterministic.
+``(B, S, C)`` view, and sizes the grid to about four blocks per SM; between
+the passes a small launch sums the per-tile partials in a fixed order. The
+backward is one persistent cooperative launch: it walks the call in units (a
+sample and a slice of whole groups over all rows) shared by a team of
+blocks, which meet at one barrier per unit, an integer counter. On the
+"on-chip" route a unit fits in the team's shared memory (x, g) and
+registers (dŷ), so x and the incoming gradient are read once and dx written
+once, and the next unit's loads are in flight across the barrier; where a
+unit would fit only as one 32-byte sector of each row, the "re-read" route
+streams whole row slices twice (``backward_plan`` picks the route, the
+slice and the teams). No float atomics: the outputs are deterministic.
 
 ``FusedGroupNorm`` saves only the input in its own dtype, the (B, 2, G)
 statistics the forward kernel wrote, and γ, β: no full-size fp32 tensor (the
@@ -37,6 +43,7 @@ two.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -51,21 +58,41 @@ from vqgan_tpu_torch.ops.normalization import (
 
 # Kernel launches since the count was last set to 0: one per forward
 # (``launches``) or backward (``bwd_launches``) call that reached the CUDA
-# kernels; calls on CPU tensors do not count.
+# kernels; calls on CPU tensors do not count. ``grad_copies``: the incoming
+# gradients ``FusedGroupNorm.backward`` had to copy into channels-last
+# memory first.
 launches = 0
 bwd_launches = 0
+grad_copies = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_THREADS = 1024
 _MAX_STATIC_SMEM = 48 * 1024  # bytes a block may take without opting in
 _THREADS_TARGET = 256
 _BLOCKS_PER_SM = 4
+# the backward kernel's block (csrc/groupnorm.cu kBwdThreads, kBwdPacks,
+# kBwdMaxSlicePacks; the library is checked against them when it loads)
+BWD_THREADS = 256
+BWD_PACKS = 8  # 16-byte packs of a unit's x, g and dŷ that a thread holds
+BWD_SLICE_PACKS = 16  # 16-byte packs of a unit's row slice, at most (a power of two)
+MAX_SMEM_PER_BLOCK = 232_448  # an H100's opt-in limit (227 KB)
+# backward_plan's cost model, per unit: the HBM rate a block gets (its share
+# of 3.35 TB/s among the launched blocks, at this fraction for a row slice of
+# 32, 64 or >= 128 bytes), the barrier's fixed cost, and for the re-read
+# route a wait for each chunk's loads; checked against every candidate by
+# tools/sweep_gn_bwd.py
+HBM_BYTES_PER_S = 3.35e12
+SLICE_EFFICIENCY = {32: 0.3, 64: 0.75, 128: 1.0}
+BARRIER_S = 3e-6
+CHUNK_S = 1e-6
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The built kernel library (built on the first call)."""
-    lib = load_library("groupnorm")
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built kernel library (built on the first call), with the extra
+    ``-D`` flags ``defines`` (``("-DGN_BWD_TRACE",)``: the backward's phase
+    clock, ``tools/trace_gn_bwd.py``)."""
+    lib = load_library("groupnorm", defines)
     lib.gn_forward.argtypes = (
         [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 7
@@ -73,28 +100,36 @@ def library() -> ctypes.CDLL:
     )
     lib.gn_forward.restype = ctypes.c_int
     lib.gn_backward.argtypes = (
-        [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 12
         + [ctypes.c_void_p]
     )
     lib.gn_backward.restype = ctypes.c_int
+    lib.gn_backward_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gn_backward_occupancy.restype = ctypes.c_int
+    lib.gn_backward_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.gn_backward_limits.restype = None
     lib.gn_error_string.argtypes = [ctypes.c_int]
     lib.gn_error_string.restype = ctypes.c_char_p
+    limits = [ctypes.c_int(0) for _ in range(3)]
+    lib.gn_backward_limits(*(ctypes.byref(v) for v in limits))
+    if tuple(v.value for v in limits) != (BWD_THREADS, BWD_PACKS, BWD_SLICE_PACKS):
+        raise RuntimeError(f"csrc/groupnorm.cu's backward block {[v.value for v in limits]} "
+                           f"differs from the plan's {[BWD_THREADS, BWD_PACKS, BWD_SLICE_PACKS]}")
     return lib
 
 
 def launch_geometry(
     batch: int, spatial: int, channels: int, element_size: int, num_sms: int
 ) -> tuple[int, int, int]:
-    """(threads per block, rows per tile, tiles per batch image) for one call,
-    forward or backward.
+    """(threads per block, rows per tile, tiles per batch image) for one
+    forward call.
 
     A thread owns one 16-byte pack of channels; a block holds whole rows, so
     its width is a multiple of C / pack. Rows per tile is a multiple of the
     rows a block has in flight, chosen so the grid has about
-    ``_BLOCKS_PER_SM`` blocks per SM. The backward's sums pass takes 2·C
-    coefficients on top of the forward's shared memory, and its dx pass
-    5·C."""
+    ``_BLOCKS_PER_SM`` blocks per SM. The statistics pass takes 2 floats per
+    thread's pack of shared memory, the apply pass 2·C."""
     pack = 16 // element_size
     if channels % pack:
         raise ValueError(f"channels {channels} must be a multiple of {pack}")
@@ -103,7 +138,7 @@ def launch_geometry(
         raise ValueError(f"channels {channels} exceed the kernel's limit")
     rows_in_flight = max(1, _THREADS_TARGET // packs)
     threads = rows_in_flight * packs
-    smem = max(2 * threads * pack + 2 * channels, 5 * channels) * 4
+    smem = max(2 * threads * pack, 2 * channels) * 4
     if smem > _MAX_STATIC_SMEM:
         raise ValueError(f"channels {channels} exceed the kernel's shared memory")
     tiles_wanted = max(1, math.ceil(_BLOCKS_PER_SM * num_sms / batch))
@@ -111,6 +146,129 @@ def launch_geometry(
     rows_per_tile = math.ceil(rows / rows_in_flight) * rows_in_flight
     n_tiles = math.ceil(spatial / rows_per_tile)
     return threads, rows_per_tile, n_tiles
+
+
+def backward_smem_bytes(element_size: int) -> int:
+    """The backward block's dynamic shared memory: x twice and g once, a
+    16-byte slot per pack (``BWD_PACKS`` a thread), the sums' scratch (a
+    float per thread's pack channel) and five parameters of each channel of
+    the widest slice."""
+    pack = 16 // element_size
+    return (3 * BWD_PACKS * BWD_THREADS * 16
+            + (BWD_THREADS * pack + 5 * BWD_SLICE_PACKS * pack) * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How one backward call walks its units. A unit is one sample and a
+    slice of ``width`` channels (whole groups) over all S rows; ``teams``
+    teams of ``team_blocks`` blocks take units team, team + teams, ...; the
+    blocks of a team split a unit's rows, ``rows_per_block`` each. The
+    "on-chip" route holds a block's rows of a unit on chip (x and g in shared
+    memory, dŷ in registers) and reads x and g once; the "re-read" route
+    streams them in chunks for the sums and again for dx, for units that do
+    not fit on chip at a useful slice width."""
+
+    width: int
+    teams: int
+    team_blocks: int
+    rows_per_block: int
+    units: int
+    smem_bytes: int
+    route: str = "on-chip"
+
+    @property
+    def grid(self) -> int:
+        return self.teams * self.team_blocks
+
+    def workspace_words(self, batch: int, channels: int, groups: int) -> int:
+        """fp32 words of the call's one workspace: the barriers' counters
+        (rounded to 4), each block's per-group and per-channel partials of
+        each unit, and the per-batch dγ, dβ terms (csrc/groupnorm.cu,
+        ``gn_backward``)."""
+        sync = (self.teams + 2 + 3) // 4 * 4
+        per_unit = self.team_blocks * 2 * (self.width // (channels // groups) + self.width)
+        return sync + self.units * per_unit + batch * 2 * channels
+
+    def describe(self) -> str:
+        return (f"{self.units} units of {self.width} channels, {self.teams} teams of "
+                f"{self.team_blocks} blocks (grid {self.grid}), {self.rows_per_block} rows a "
+                f"block, {self.route}")
+
+
+def _slice_efficiency(row_bytes: int) -> float:
+    return max(v for k, v in SLICE_EFFICIENCY.items() if row_bytes >= k)
+
+
+def backward_candidates(
+    batch: int, spatial: int, channels: int, groups: int, element_size: int, num_sms: int,
+    smem_per_block: int = MAX_SMEM_PER_BLOCK, blocks_per_sm: int = 2,
+) -> list[tuple[BackwardPlan, float]]:
+    """Every plan for one backward call, each with its modelled seconds
+    (``backward_plan`` takes the least).
+
+    Candidate slices are ``width`` channels that divide C, hold whole groups
+    and a power of two of 16-byte packs, at most ``BWD_SLICE_PACKS``, and
+    span at least 32 bytes of a row (one sector); candidate teams split the
+    ``num_sms * blocks_per_sm`` resident blocks evenly. An on-chip candidate
+    needs a block's rows of a unit to fill at most its ``BWD_PACKS`` packs a
+    thread; a re-read candidate takes any number of rows, in chunks of that
+    size. The model: units a team walks, times each unit's bytes (x, g and
+    dx once on chip; x and g twice when re-read) at the block's share of
+    the HBM rate (lower for narrow row slices, ``SLICE_EFFICIENCY``), plus
+    its barrier (``BARRIER_S``) and, re-read, ``CHUNK_S`` a chunk a pass."""
+    pack = 16 // element_size
+    if channels % pack:
+        raise ValueError(f"channels {channels} must be a multiple of {pack}")
+    if channels % groups:
+        raise ValueError(f"channels {channels} not divisible by num_groups {groups}")
+    smem = backward_smem_bytes(element_size)
+    if smem > smem_per_block:
+        raise ValueError(f"the backward block takes {smem} bytes of shared memory, "
+                         f"more than {smem_per_block}")
+    cg = channels // groups
+    step = math.lcm(cg, pack, 32 // element_size)
+    grid = num_sms * blocks_per_sm
+    out = []
+    for width in range(step, channels + 1, step):
+        packs = width // pack
+        if channels % width or packs > BWD_SLICE_PACKS or packs & (packs - 1):
+            continue
+        rows_fit = BWD_PACKS * (BWD_THREADS // packs)
+        units = batch * (channels // width)
+        eff = _slice_efficiency(width * element_size)
+        for teams in range(1, min(units, grid) + 1):
+            team_blocks = grid // teams
+            rows = math.ceil(spatial / team_blocks)
+            share = HBM_BYTES_PER_S / (teams * team_blocks)  # a block's, of the launched
+            unit_bytes = rows * width * element_size
+            waves = math.ceil(units / teams)
+            if rows <= rows_fit:
+                out.append((BackwardPlan(width, teams, team_blocks, rows, units, smem),
+                            waves * (3 * unit_bytes / share / eff + BARRIER_S)))
+            chunks = math.ceil(rows / rows_fit)
+            out.append((BackwardPlan(width, teams, team_blocks, rows, units, smem, "re-read"),
+                        waves * (5 * unit_bytes / share / eff + BARRIER_S
+                                 + 2 * chunks * CHUNK_S)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(
+    batch: int, spatial: int, channels: int, groups: int, element_size: int, num_sms: int,
+    smem_per_block: int = MAX_SMEM_PER_BLOCK, blocks_per_sm: int = 2,
+) -> BackwardPlan:
+    """The backward's route, units, teams and grid for one call (pure
+    Python): the candidate of ``backward_candidates`` with the least
+    modelled time, the first of equals. Raises where no slice fits."""
+    cands = backward_candidates(batch, spatial, channels, groups, element_size, num_sms,
+                                smem_per_block, blocks_per_sm)
+    if not cands:
+        raise ValueError(
+            f"the GroupNorm backward takes slices of whole groups in a power of two of "
+            f"16-byte packs, up to {BWD_SLICE_PACKS}, of at least 32 bytes: {channels} "
+            f"channels in {groups} groups do not fit")
+    return min(cands, key=lambda pc: pc[1])[0]
 
 
 def channels_last_format(x: torch.Tensor) -> torch.memory_format:
@@ -206,12 +364,13 @@ def group_norm_backward(
     bias: torch.Tensor,
     num_groups: int = 32,
     with_swish: bool = False,
+    plan: BackwardPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward, outside autograd: ``(dx, dγ, dβ)`` for the incoming
     gradient g at x, given the forward's (B, 2, G) stats. g must have x's
     shape, dtype and channels-last layout. A CUDA tensor launches kernel #2
-    (and counts it in ``bwd_launches``); a CPU tensor runs the plain
-    version."""
+    (and counts it in ``bwd_launches``) with ``plan``, by default
+    ``backward_plan``'s; a CPU tensor runs the plain version."""
     _check(x, weight, bias, num_groups)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(
@@ -228,36 +387,60 @@ def group_norm_backward(
     if x.device.type == "cpu":
         return group_norm_fp32_backward(x, g, stats[:, 0], stats[:, 1], weight, bias,
                                         num_groups, with_swish)
-    return _launch_backward(x, g, stats, weight, bias, num_groups, with_swish)
+    return _launch_backward(x, g, stats, weight, bias, num_groups, with_swish, plan)
 
 
-def _launch_backward(x, g, stats, weight, bias, num_groups, with_swish):
+@functools.cache
+def backward_blocks_per_sm(device_index: int, dtype: torch.dtype, with_swish: bool,
+                           defines: tuple[str, ...] = ()) -> int:
+    """Allows the backward kernels (both routes) their shared memory on the
+    device (once) and returns how many blocks an SM holds of the route that
+    holds fewer (the occupancy API): the cooperative launch's grid is at
+    most that many times the SMs."""
+    lib = library(defines)
+    smem = backward_smem_bytes(torch.empty((), dtype=dtype).element_size())
+    per_sm = []
+    for reread in (0, 1):
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = lib.gn_backward_occupancy(_DTYPE_CODES[dtype], int(with_swish), reread, smem,
+                                            ctypes.byref(blocks))
+        _raise_on(err, lib, "backward occupancy")
+        per_sm.append(blocks.value)
+    if min(per_sm) < 1:
+        raise RuntimeError("the GroupNorm backward block does not fit on an SM")
+    return min(per_sm)
+
+
+def _launch_backward(x, g, stats, weight, bias, num_groups, with_swish, plan,
+                     defines: tuple[str, ...] = ()):
     global bwd_launches
     b, c = x.shape[:2]
     s = math.prod(x.shape[2:])
     if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("the GroupNorm backward needs 16-byte aligned x and gradient")
-    threads, rows_per_tile, n_tiles = launch_geometry(
-        b, s, c, x.element_size(), num_sms(x.device.index)
-    )
-    lib = library()
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    per_sm = backward_blocks_per_sm(dev, x.dtype, with_swish, defines)
+    if plan is None:
+        plan = backward_plan(b, s, c, num_groups, x.element_size(), num_sms(dev),
+                             blocks_per_sm=per_sm)
+    lib = library(defines)
     dx = torch.empty_like(x, memory_format=channels_last_format(x))
-    partial = torch.empty((b, n_tiles, 2, c), dtype=torch.float32, device=x.device)
-    coef = torch.empty((b, 3, c), dtype=torch.float32, device=x.device)
-    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+    dgamma_dbeta = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    workspace = torch.empty(plan.workspace_words(b, c, num_groups), dtype=torch.float32,
+                            device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gn_backward(
             x.data_ptr(), g.data_ptr(), stats.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), dx.data_ptr(), partial.data_ptr(), coef.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(),
-            b, s, c, num_groups, rows_per_tile, n_tiles, threads,
+            bias.data_ptr(), dx.data_ptr(), dgamma_dbeta.data_ptr(), workspace.data_ptr(),
+            b, s, c, num_groups, plan.width, plan.team_blocks, plan.teams,
+            plan.rows_per_block, int(plan.route == "re-read"), plan.smem_bytes,
             int(with_swish), _DTYPE_CODES[x.dtype], stream,
         )
     _raise_on(err, lib, "backward")
     bwd_launches += 1
-    return dx, dgamma, dbeta
+    return dx, dgamma_dbeta[0], dgamma_dbeta[1]
 
 
 class FusedGroupNorm(torch.autograd.Function):
@@ -275,9 +458,13 @@ class FusedGroupNorm(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        global grad_copies
         x, stats, weight, bias = ctx.saved_tensors
         # a flip or a slice downstream can hand back another layout
-        g = g.contiguous(memory_format=channels_last_format(g))
+        fmt = channels_last_format(g)
+        if not g.is_contiguous(memory_format=fmt):
+            grad_copies += 1
+            g = g.contiguous(memory_format=fmt)
         dx, dgamma, dbeta = group_norm_backward(
             x, g, stats, weight, bias, ctx.num_groups, ctx.with_swish
         )
