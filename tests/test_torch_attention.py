@@ -76,7 +76,7 @@ DTYPE_IDS = ["fp32", "bf16"]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_chunked_matches_jax_chunked(d, dtype):
     """Forward (out, lse) and backward against the JAX chunked scan and its
     custom VJP: the same algorithm, fp32 throughout. The backward gets the
@@ -187,12 +187,14 @@ def test_wrappers_check_their_inputs():
         attention_cuda.attention_backward(q, q, q, out, lse.double(), q, 32)
     # the plain versions take any head_dim; the kernels' check refuses 48
     assert attention_cuda.attention_forward(*[torch.zeros(1, 8, 1, 48)] * 3, 8)[0].shape[-1] == 48
-    with pytest.raises(NotImplementedError, match="32 or 64"):
+    with pytest.raises(NotImplementedError, match="16, 32, 64, 128"):
         attention_cuda._kernel_strides(torch.zeros(1, 8, 1, 48))
+    for d in (16, 32, 64, 128):  # the head_dims the kernels take
+        attention_cuda._kernel_strides(torch.zeros(1, 8, 1, d))
 
 
 # kernel #3's tensor-core route (csrc/attention.cu, bf16), emulated in torch in
-# its order: blocks of TC_BLOCK_ROWS rows, tiles of TC_STEP_ROWS streamed,
+# its order: blocks of TC_BLOCK_ROWS rows, tiles of TC_STEP_ROWS[d] streamed,
 # ragged tiles zero-filled and masked to -inf, the online softmax per tile on
 # exp2 with scale·log2(e) folded in, P and dS rounded to bf16 where the kernel
 # rounds them. Against the plain versions and the JAX scan: each output within
@@ -232,8 +234,8 @@ def tc_forward_emulated(q, k, v):
         m = torch.full(qb.shape[:-1], float("-inf"))
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qb)
-        for (k0, kt), (_, vt) in zip(_tiles(kf, attention_cuda.TC_STEP_ROWS),
-                                     _tiles(vf, attention_cuda.TC_STEP_ROWS)):
+        for (k0, kt), (_, vt) in zip(_tiles(kf, attention_cuda.TC_STEP_ROWS[d]),
+                                     _tiles(vf, attention_cuda.TC_STEP_ROWS[d])):
             s = _mask_past(qb @ kt.transpose(-1, -2), k0, n)
             mx = torch.maximum(m, s.amax(-1))
             corr = torch.exp2((m - mx) * sl)
@@ -257,7 +259,7 @@ def tc_backward_emulated(q, k, v, out, lse, g):
     qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
     stats = torch.stack([lse, delta], -1)  # (B, H, N, 2): staged beside Q, dO
-    blk, step = attention_cuda.TC_BLOCK_ROWS, attention_cuda.TC_STEP_ROWS
+    blk, step = attention_cuda.TC_BLOCK_ROWS, attention_cuda.TC_STEP_ROWS[d]
     dq, dk, dv = (torch.empty(b, h, n, d) for _ in range(3))
     for (k0, kb), (_, vb) in zip(_tiles(kf, blk), _tiles(vf, blk)):
         dk_acc, dv_acc = torch.zeros_like(kb), torch.zeros_like(kb)
@@ -296,7 +298,7 @@ def _within_bounds(got: dict, want: dict, bounds: dict) -> dict:
 
 
 @pytest.mark.parametrize("n", [1, 65, 333])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_tensor_core_route_order_matches_plain_and_jax(d, n):
     """The emulated tensor-core route, forward and backward, bf16 inputs as
     views of one (B, N, 3, H, D) tensor, against the plain chunked versions

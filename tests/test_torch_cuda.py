@@ -34,7 +34,11 @@ from vqgan_tpu_torch.ops.conv3d import (
     conv3d_plain,
     flipped_weight,
 )
-from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
+from vqgan_tpu_torch.ops.normalization import (
+    group_norm_fp32,
+    group_norm_fp32_backward,
+    group_norm_fp32_forward,
+)
 from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
 
 from torch_parity import assert_codes_by_distance
@@ -82,6 +86,10 @@ def _inputs(shape, dtype, device, seed=0):
     ((2, 128, 8, 8), 16),
     ((3, 256, 7, 9), 32),      # ragged last tile
     ((2, 512, 64, 64), 32),    # a flagship decoder shape at batch 2
+    ((2, 96, 32, 32), 32),     # slices of 3 (bf16) or 6 (fp32) packs
+    ((2, 192, 16, 16), 32),
+    ((2, 48, 9, 7), 16),
+    ((2, 328, 5, 6), 1),       # one group wider than a block: column blocks
 ])
 def test_kernel_matches_plain(device, shape, groups, dtype, swish):
     x, scale, bias = _inputs(shape, dtype, device)
@@ -97,6 +105,36 @@ def test_kernel_matches_plain(device, shape, groups, dtype, swish):
     else:
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-6,
                                    rtol=RTOL_BF16)
+
+
+# (S, C) of the flagship reconstruct's GroupNorms, and the top levels of a
+# VAE of width 96
+FLAGSHIP_GN = [(65536, 256), (65536, 512), (16384, 1024), (16384, 512), (16384, 256),
+               (4096, 1024), (4096, 512), (1024, 1024), (16384, 96), (4096, 192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s,c", FLAGSHIP_GN, ids=lambda v: str(v))
+def test_forward_kernel_is_deterministic(device, s, c, dtype):
+    """Kernel #1 at the flagship shapes (batch 2) and at C = 96 and 192:
+    within its bound of the plain version (y and the saved stats), one call
+    counted once, two calls bitwise equal."""
+    side = int(s ** 0.5)
+    x, scale, bias = _inputs((2, c, side, side), dtype, device)
+    groupnorm_cuda.launches = 0
+    runs = [groupnorm_cuda.group_norm_forward(x, scale, bias, 32, 1e-6, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert groupnorm_cuda.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    y, stats = runs[0]
+    ref, mean, rstd = group_norm_fp32_forward(x, scale, bias, 32, 1e-6, True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, atol=ATOL_FP32, rtol=0)
+    else:
+        torch.testing.assert_close(y.float(), ref.float(), atol=1e-6, rtol=RTOL_BF16)
+    # the statistics: sums of S·C/G terms in another order
+    torch.testing.assert_close(stats[:, 0], mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(stats[:, 1], rstd, atol=1e-5, rtol=1e-5)
 
 
 def test_kernel_rejects_non_channels_last(device):
@@ -140,6 +178,10 @@ def _sum_bounds(x, g, stats):
     ((2, 128, 8, 8), 16),
     ((3, 256, 7, 9), 32),      # ragged last tile
     ((2, 512, 64, 64), 32),    # a flagship decoder shape at batch 2
+    ((2, 96, 32, 32), 32),     # slices of 3 (bf16) or 6 (fp32) packs
+    ((2, 192, 16, 16), 32),
+    ((2, 48, 9, 7), 16),
+    ((2, 328, 5, 6), 1),       # one group wider than a block: column blocks
 ])
 def test_backward_kernel_matches_plain(device, shape, groups, dtype, swish):
     x, scale, bias = _inputs(shape, dtype, device)
@@ -443,7 +485,8 @@ def test_tiny_vq_train_step_goes_through_both_vq_kernels(device):
 # the logits' D-term sums in other orders, O(1e-6) of |S| <= ~10
 ATTN_RTOL = 3e-5
 LSE_ATOL = 1e-4
-ATTN_SHAPES = [(2, 256, 2, 64), (2, 400, 2, 64), (1, 1, 1, 64), (2, 333, 3, 32), (1, 1024, 2, 32)]
+ATTN_SHAPES = [(2, 256, 2, 64), (2, 400, 2, 64), (1, 1, 1, 64), (2, 333, 3, 32), (1, 1024, 2, 32),
+               (2, 333, 8, 16), (1, 1024, 8, 16), (2, 333, 2, 128), (1, 1024, 2, 128)]
 
 
 def _attn_inputs(shape, dtype, device, seed=0):
@@ -482,8 +525,9 @@ def attention_errors(q, k, v, g):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_attention_kernel_matches_plain(device, shape, dtype):
-    """Forward (out, lse) and backward (dq, dk, dv) at head_dim 64 and 32,
-    fp32 and bf16, N a multiple of the 64-token tile, ragged, and 1."""
+    """Forward (out, lse) and backward (dq, dk, dv) at head_dim 16, 32, 64
+    and 128, fp32 and bf16, N a multiple of the 64-token tile, ragged, and
+    1."""
     q, k, v, g = _attn_inputs(shape, dtype, device)
     attention_cuda.fwd_launches = attention_cuda.bwd_launches = 0
     attention_cuda.tc_launches = attention_cuda.fma_launches = 0
@@ -506,7 +550,7 @@ def test_attention_kernel_is_deterministic(device):
 
 def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(device):
     q48 = torch.zeros(1, 64, 2, 48, device=device)
-    with pytest.raises(NotImplementedError, match="32 or 64"):
+    with pytest.raises(NotImplementedError, match="16, 32, 64, 128"):
         attention_cuda.attention_forward(q48, q48, q48, 64)
     odd = torch.zeros(2, 64, 2, 65, device=device)[..., :64]  # token stride 130
     with pytest.raises(ValueError, match="multiples of 4"):

@@ -226,16 +226,19 @@ def test_backward_rejects_what_the_kernel_does_not_take():
 def _emulate_kernel(x, g, mean, rstd, weight, bias, groups, swish, plan):
     """``csrc/groupnorm.cu``'s ``gn_bwd_kernel`` in its order, fp32 torch on
     the CPU: per unit (a sample, a slice of ``plan.width`` channels), each
-    block of the team sums dŷ and dŷ·x over its rows per channel, then γ·S0
-    and γ·S1 per group in channel order; the team's group sums in block
-    order give m1, m2 and the coefficients (ca, cb, cc); dx = (dŷ·ca + x·cb)
-    + cc. dγ, dβ: each unit's channel sums in block order, then the batch in
-    order. x, g: (B, C, H, W); returns (dx in x's dtype, dγ, dβ)."""
+    block of the team (a range of rows times a column block) sums dŷ and
+    dŷ·x over its rows per channel, then γ·S0 and γ·S1 per group over its
+    channels in channel order (0 for a group it does not touch); the team's
+    group sums in block order give m1, m2 and the coefficients (ca, cb, cc);
+    dx = (dŷ·ca + x·cb) + cc. dγ, dβ: each channel's sums over the row
+    blocks in order, then the batch in order. x, g: (B, C, H, W); returns
+    (dx in x's dtype, dγ, dβ)."""
     b_, c = x.shape[:2]
     cg = c // groups
     xf = x.float().movedim(1, -1).reshape(b_, -1, c)
     gf = g.float().movedim(1, -1).reshape(b_, -1, c)
     s, w, n = xf.shape[1], plan.width, xf.shape[1] * cg
+    gw, bwid, rpb = w // cg, plan.block_channels, plan.rows_per_block
     dx = torch.empty_like(xf)
     per_batch = torch.empty(b_, 2, c)
     for u in range(plan.units):
@@ -251,27 +254,32 @@ def _emulate_kernel(x, g, mean, rstd, weight, bias, groups, swish, plan):
             dy = gs * sig * (1.0 + y * (1.0 - sig))
         else:
             dy = gs
-        chan, grp_sums = [], []
+        chan, tot = [], None
         for j in range(plan.team_blocks):
-            rows = slice(j * plan.rows_per_block, min(s, (j + 1) * plan.rows_per_block))
-            sums = torch.stack([dy[rows].sum(0), (dy[rows] * xs[rows]).sum(0)])  # (2, w)
+            rb, cb = divmod(j, plan.col_blocks)
+            rows = slice(rb * rpb, min(s, (rb + 1) * rpb))
+            lo, hi = cb * bwid, min(w, (cb + 1) * bwid)
+            d, xv = dy[rows, lo:hi], xs[rows, lo:hi]
+            sums = torch.stack([d.sum(0), (d * xv).sum(0)])  # (2, block channels)
             chan.append(sums)
-            prods = (gam * sums).reshape(2, w // cg, cg)
-            acc = torch.zeros(2, w // cg)
-            for k in range(cg):
-                acc = acc + prods[..., k]
-            grp_sums.append(acc)
-        tot = grp_sums[0]
-        for part in grp_sums[1:]:
-            tot = tot + part
+            prods = gam[lo:hi] * sums
+            part = torch.zeros(2, gw)
+            for q in range(gw):
+                for k in range(max(q * cg, lo), min((q + 1) * cg, hi)):
+                    part[:, q] = part[:, q] + prods[:, k - lo]
+            tot = part if tot is None else tot + part
         q = torch.arange(w) // cg
         m1 = tot[0][q] / n
         m2 = r * (tot[1][q] / n) - mu * r * (tot[0][q] / n)
-        ca, cb, cc = r * gam, -r * r * m2, mu * r * r * m2 - r * m1
-        dx[b][:, ch] = (dy * ca + xs * cb) + cc
-        s01 = chan[0]
-        for part in chan[1:]:
-            s01 = s01 + part
+        ca, cb_, cc = r * gam, -r * r * m2, mu * r * r * m2 - r * m1
+        dx[b][:, ch] = (dy * ca + xs * cb_) + cc
+        s01 = torch.empty(2, w)
+        for cb in range(plan.col_blocks):
+            lo, hi = cb * bwid, min(w, (cb + 1) * bwid)
+            part = chan[cb]
+            for rb in range(1, plan.team_blocks // plan.col_blocks):
+                part = part + chan[rb * plan.col_blocks + cb]
+            s01[:, lo:hi] = part
         per_batch[b, 0, ch] = r * (s01[1] - mu * s01[0])
         per_batch[b, 1, ch] = s01[0]
     dgamma, dbeta = per_batch[0, 0], per_batch[0, 1]
@@ -293,13 +301,15 @@ def _many_block_plan(b, s, c, groups, element_size):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("swish", [False, True], ids=["plain", "swish"])
-@pytest.mark.parametrize("shape,groups", [((2, 7, 9, 64), 32), ((3, 5, 13, 128), 16)],
-                         ids=["C64-G32", "C128-G16"])
+@pytest.mark.parametrize("shape,groups", [((2, 7, 9, 64), 32), ((3, 5, 13, 128), 16),
+                                          ((2, 7, 9, 96), 32), ((3, 3, 7, 328), 1)],
+                         ids=["C64-G32", "C128-G16", "C96-G32", "C328-G1"])
 def test_kernel_order_matches_plain_and_pallas(shape, groups, swish, dtype):
     """The CUDA backward's summation order (emulated in torch with a plan of
-    several units, teams of several blocks and ragged rows) against the
-    plain backward and the Pallas backward in interpret mode, at the
-    file's tolerances."""
+    several units, teams of several blocks and ragged rows; at C = 96 a
+    slice of 3 or 6 packs, no power of two; at 328 channels in one group,
+    column blocks) against the plain backward and the Pallas backward in
+    interpret mode, at the file's tolerances."""
     jdt, tdt = {"fp32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     c = shape[-1]

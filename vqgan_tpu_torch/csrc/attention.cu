@@ -19,18 +19,19 @@
 // stored), a dK/dV kernel (one key tile per block, looping over query tiles)
 // and a dQ kernel (one query tile per block, looping over key tiles). Every
 // output entry is summed in a fixed order: no atomics, deterministic. The
-// ragged last tile is masked (any N >= 1). D is a template parameter: 32 or
-// 64. The dtype alone picks the route:
+// ragged last tile is masked (any N >= 1). D is a template parameter: 16, 32,
+// 64 or 128. The dtype alone picks the route:
 //
 // bf16: the tensor cores (attn_*_tc_kernel). bf16 mma.sync m16n8k16 with
 //   fp32 accumulators (csrc/mma.cuh); a bf16 x bf16 product is exact in fp32,
 //   so every product and sum of the contract is fp32. A block of 8 warps owns
 //   128 rows (queries, or keys for dK/dV), 16 a warp; the warp loads its
-//   rows' fragments once by ldmatrix and keeps them in registers while tiles
-//   of 64 rows of the other side stream through a 3-stage ring of
+//   rows' fragments once by ldmatrix and keeps them in registers (at D = 128
+//   it reloads them from the staged rows at each k16 step: AFrags) while
+//   tiles of 64 rows (32 at D = 128) of the other side stream through a 3-stage ring of
 //   cp.async.cg 16-byte copies (two in flight, one __syncthreads a step), as
-//   bf16 in rows padded by 8 (144 or 80 bytes) so that each 8-row ldmatrix
-//   phase hits all 32 banks. Rows past N are zero-filled by src-size 0 and
+//   bf16 in rows padded by 8 (48, 80, 144 or 272 bytes) so that each 8-row
+//   ldmatrix phase hits all 32 banks. Rows past N are zero-filled by src-size 0 and
 //   their scores masked to -inf. A score tile stays in the fp32 accumulators:
 //   the online softmax runs on them (a row's max combined across the 4 lanes
 //   that share it by __shfl_xor_sync; each lane keeps its part of the row sum
@@ -185,12 +186,17 @@ __device__ __forceinline__ void tile_mul(float (&acc)[4][D / 16], const float* p
     for (int e = 0; e < 4; ++e) {
       float mv[kCols];
       const float* row = m + (c + e) * kLd + tx * kCols;
-      if constexpr (kCols == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(row);
-        mv[0] = t.x, mv[1] = t.y, mv[2] = t.z, mv[3] = t.w;
-      } else {
+      if constexpr (kCols % 4 == 0) {
+#pragma unroll
+        for (int v = 0; v < kCols; v += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(row + v);
+          mv[v] = t.x, mv[v + 1] = t.y, mv[v + 2] = t.z, mv[v + 3] = t.w;
+        }
+      } else if constexpr (kCols == 2) {
         const float2 t = *reinterpret_cast<const float2*>(row);
         mv[0] = t.x, mv[1] = t.y;
+      } else {
+        mv[0] = row[0];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -442,7 +448,11 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = kTcWarps * 32;
 constexpr int kTcRows = kTcWarps * 16;  // rows a block owns: 16 a warp
-constexpr int kTcStep = 64;             // rows of a tile streamed through the ring
+// rows of a tile streamed through the ring: 64, or 32 at D = 128, where a
+// warp's score tiles beside its 16 x D accumulators would exceed 255
+// registers (the dK/dV kernel holds two accumulators and two score tiles)
+template <int D>
+constexpr int kTcStep = D > 64 ? 32 : 64;
 constexpr int kTcStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -459,11 +469,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
 template <int D, int ROWS>
 __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* __restrict__ src,
                                           const Strides& s, int b, int h, int row0, int n) {
-  constexpr int kPieces = D / 8, kLd = D + 8;
-  static_assert(ROWS * kPieces % kTcThreads == 0, "whole pieces a thread");
+  constexpr int kPieces = D / 8, kLd = D + 8, kTotal = ROWS * kPieces;
+  static_assert(kTotal % kTcThreads == 0 || kTotal < kTcThreads, "whole pieces a thread");
 #pragma unroll
-  for (int j = 0; j < ROWS * kPieces / kTcThreads; ++j) {
+  for (int j = 0; j < (kTotal + kTcThreads - 1) / kTcThreads; ++j) {
     const int i = threadIdx.x + j * kTcThreads;
+    if (kTotal < kTcThreads && i >= kTotal) break;
     const int r = i / kPieces, c = (i % kPieces) * 8;
     const bool ok = row0 + r < n;
     cp_async16(smem_addr(dst + r * kLd + c), ok ? src + offset(s, b, row0 + r, h) + c : src,
@@ -483,40 +494,65 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const bf16* til
   }
 }
 
-// acc[j] += a . tile^T for columns 8j..8j+7 (j < 8): a warp's 16 rows (A
-// fragments over D) against the 64 rows of a streamed tile, summed over D.
+// A warp's 16 rows of a staged tile as the A operand of mma_abt: at D <= 64
+// the fragments of every k16 step sit in registers for the whole kernel; at
+// D = 128 they would crowd out the accumulators, so each step's fragment is
+// loaded from the tile again (one ldmatrix.x4 per k16 step and product).
+template <int D>
+struct AFrags {
+  static constexpr bool kRegs = D <= 64;
+  uint32_t f[kRegs ? D / 16 : 1][4];
+  const bf16* tile;
+  int r0;
+  __device__ __forceinline__ AFrags(const bf16* t, int rows0, int lane) : tile(t), r0(rows0) {
+    if constexpr (kRegs) load_a<D>(f, t, rows0, lane);
+  }
+  __device__ __forceinline__ void at(int kk, uint32_t (&a)[4], int lane) const {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = f[kk][e];
+    } else {
+      ldmatrix_x4(a, smem_addr(tile + (r0 + (lane & 15)) * (D + 8) + kk * 16 + (lane >> 4) * 8));
+    }
+  }
+};
+
+// acc[j] += a . tile^T for columns 8j..8j+7 (j < NT): a warp's 16 rows (A
+// fragments over D) against the 8 NT rows of a streamed tile, summed over D.
 // B by ldmatrix without .trans: lane l addresses row l%8 of n8 tile 2p + l/16
 // at column 8*((l/8)%2), giving b0, b1 of two n8 tiles.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[D / 16][4],
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const AFrags<D>& a,
                                         const bf16* tile, int lane) {
   constexpr int kLd = D + 8;
   const int row = (lane >> 4) * 8 + (lane & 7), col = ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    a.at(kk, af, lane);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < NT / 2; ++p) {
       uint32_t r[4];
       ldmatrix_x4(r, smem_addr(tile + (p * 16 + row) * kLd + kk * 16 + col));
       const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(acc[2 * p], a[kk], b0);
-      mma_bf16(acc[2 * p + 1], a[kk], b1);
+      mma_bf16(acc[2 * p], af, b0);
+      mma_bf16(acc[2 * p + 1], af, b1);
     }
   }
 }
 
-// acc[j] += p . tile for columns 8j..8j+7 of D: a warp's 16 x 64 fp32
+// acc[j] += p . tile for columns 8j..8j+7 of D: a warp's 16 x 8 NT fp32
 // accumulators p, rounded to bf16 in registers as the A operand (n8 tiles 2kk
-// and 2kk+1 are the A fragment of k16 step kk), against a streamed 64 x D
-// tile, summed over its 64 rows. B by ldmatrix.trans: lane l addresses row
+// and 2kk+1 are the A fragment of k16 step kk), against a streamed 8 NT x D
+// tile, summed over its 8 NT rows. B by ldmatrix.trans: lane l addresses row
 // 16kk + l%8 + 8*((l/8)%2) at column 16dp + 8*(l/16).
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[8][4],
+template <int D, int NT>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[NT][4],
                                        const bf16* tile, int lane) {
   constexpr int kLd = D + 8;
   const int row = (lane & 7) + ((lane >> 3) & 1) * 8, col = (lane >> 4) * 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NT / 2; ++kk) {
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
@@ -534,9 +570,10 @@ __device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[
 
 // Entries of a 16 x 64 score tile whose column c0 + 8j + 2t + e lies at or
 // past n become -inf, so that their exponential is 0.
-__device__ __forceinline__ void mask_past(float (&s)[8][4], int c0, int n, int t) {
+template <int NT>
+__device__ __forceinline__ void mask_past(float (&s)[NT][4], int c0, int n, int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if (c0 + 8 * j + 2 * t + (c & 1) >= n) s[j][c] = -INFINITY;
@@ -589,31 +626,33 @@ __device__ __forceinline__ void ring_step(int i, int steps, LoadStep load_step) 
   cp_async_commit();
 }
 
+// Two blocks an SM, except at D = 128, whose tiles take more than half an
+// SM's shared memory (its registers may then grow to 255).
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, D > 64 ? 1 : 2)
     attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                        Strides sq, Strides sk, Strides sv, Strides so, int heads, int n,
                        float scale) {
-  constexpr int kLd = D + 8, kStage = 2 * kTcStep * kLd;
+  constexpr int kStep = kTcStep<D>, kNt = kStep / 8;
+  constexpr int kLd = D + 8, kStage = 2 * kStep * kLd;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // kTcRows x kLd
   bf16* ring = qs + kTcRows * kLd;           // [stage][K then V, 64 x kLd each]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = lane & 3;
   const int q0 = blockIdx.x * kTcRows;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int steps = (n + kTcStep - 1) / kTcStep;
+  const int steps = (n + kStep - 1) / kStep;
   const float sl = scale * kLog2e;
 
   auto load_step = [&](int i) {
     bf16* st = ring + (i % kTcStages) * kStage;
-    copy_tile<D, kTcStep>(st, k, sk, b, h, i * kTcStep, n);
-    copy_tile<D, kTcStep>(st + kTcStep * kLd, v, sv, b, h, i * kTcStep, n);
+    copy_tile<D, kStep>(st, k, sk, b, h, i * kStep, n);
+    copy_tile<D, kStep>(st + kStep * kLd, v, sv, b, h, i * kStep, n);
   };
   copy_tile<D, kTcRows>(qs, q, sq, b, h, q0, n);
   ring_prologue(steps, load_step);
-  uint32_t qf[D / 16][4];
-  load_a<D>(qf, qs, warp * 16, lane);
+  const AFrags<D> qf(qs, warp * 16, lane);
 
   float acc[D / 8][4] = {};
   // rows g and g+8: the running max of the raw scores, and this lane's part
@@ -622,12 +661,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   for (int i = 0; i < steps; ++i) {
     ring_step(i, steps, load_step);
     const bf16* ks = ring + (i % kTcStages) * kStage;
-    float s[8][4] = {};
+    float s[kNt][4] = {};
     mma_abt<D>(s, qf, ks, lane);
-    if ((i + 1) * kTcStep > n) mask_past(s, i * kTcStep, n, t);
+    if ((i + 1) * kStep > n) mask_past(s, i * kStep, n, t);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
     }
@@ -642,7 +681,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       m[r] = mx[r];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         s[j][c] = exp2_approx(fmaf(s[j][c], sl, -base[c >> 1]));
@@ -656,7 +695,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[j][c] *= corr[c >> 1];
     }
-    mma_pv<D>(acc, s, ks + kTcStep * kLd, lane);  // O += P.V
+    mma_pv<D>(acc, s, ks + kStep * kLd, lane);  // O += P.V
   }
   cp_async_wait<0>();
 #pragma unroll
@@ -683,8 +722,9 @@ __global__ void __launch_bounds__(kTcThreads)
                        bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
                        Strides sv, Strides sg, Strides sdk, Strides sdv, int heads, int n,
                        float scale) {
-  constexpr int kLd = D + 8, kTile = kTcStep * kLd;
-  constexpr int kStageBytes = 2 * kTile * sizeof(bf16) + 2 * kTcStep * sizeof(float);
+  constexpr int kStep = kTcStep<D>, kNt = kStep / 8;
+  constexpr int kLd = D + 8, kTile = kStep * kLd;
+  constexpr int kStageBytes = 2 * kTile * sizeof(bf16) + 2 * kStep * sizeof(float);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // kTcRows x kLd
   bf16* vs = ks + kTcRows * kLd;
@@ -694,17 +734,17 @@ __global__ void __launch_bounds__(kTcThreads)
   const int k0 = blockIdx.x * kTcRows;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * n;
-  const int steps = (n + kTcStep - 1) / kTcStep;
+  const int steps = (n + kStep - 1) / kStep;
   const float sl = scale * kLog2e;
 
   auto load_step = [&](int i) {
     bf16* qt = reinterpret_cast<bf16*>(ring + (i % kTcStages) * kStageBytes);
-    copy_tile<D, kTcStep>(qt, q, sq, b, h, i * kTcStep, n);
-    copy_tile<D, kTcStep>(qt + kTile, g, sg, b, h, i * kTcStep, n);
-    if (threadIdx.x < 2 * kTcStep) {
+    copy_tile<D, kStep>(qt, q, sq, b, h, i * kStep, n);
+    copy_tile<D, kStep>(qt + kTile, g, sg, b, h, i * kStep, n);
+    if (threadIdx.x < 2 * kStep) {
       float* stats = reinterpret_cast<float*>(qt + 2 * kTile);
-      const int row = i * kTcStep + threadIdx.x % kTcStep;
-      const float* src = threadIdx.x < kTcStep ? lse : delta;
+      const int row = i * kStep + threadIdx.x % kStep;
+      const float* src = threadIdx.x < kStep ? lse : delta;
       const bool ok = row < n;
       cp_async4(smem_addr(stats + threadIdx.x), ok ? src + stat0 + row : src, ok ? 4 : 0);
     }
@@ -712,9 +752,7 @@ __global__ void __launch_bounds__(kTcThreads)
   copy_tile<D, kTcRows>(ks, k, sk, b, h, k0, n);
   copy_tile<D, kTcRows>(vs, v, sv, b, h, k0, n);
   ring_prologue(steps, load_step);
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, ks, warp * 16, lane);
-  load_a<D>(vf, vs, warp * 16, lane);
+  const AFrags<D> kf(ks, warp * 16, lane), vf(vs, warp * 16, lane);
 
   float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
   for (int i = 0; i < steps; ++i) {
@@ -722,13 +760,13 @@ __global__ void __launch_bounds__(kTcThreads)
     const bf16* qt = reinterpret_cast<const bf16*>(ring + (i % kTcStages) * kStageBytes);
     const bf16* gt = qt + kTile;
     const float* lse_s = reinterpret_cast<const float*>(qt + 2 * kTile);
-    const float* delta_s = lse_s + kTcStep;
+    const float* delta_s = lse_s + kStep;
     // P^T: keys (rows g, g+8) by queries 8j + 2t + e of this step
-    float pt[8][4] = {};
+    float pt[kNt][4] = {};
     mma_abt<D>(pt, kf, qt, lane);
-    if ((i + 1) * kTcStep > n) mask_past(pt, i * kTcStep, n, t);
+    if ((i + 1) * kStep > n) mask_past(pt, i * kStep, n, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 8 * j + 2 * t + (c & 1);
@@ -736,10 +774,10 @@ __global__ void __launch_bounds__(kTcThreads)
       }
     }
     mma_pv<D>(dv_acc, pt, gt, lane);  // dV += P^T.dO
-    float dpt[8][4] = {};
+    float dpt[kNt][4] = {};
     mma_abt<D>(dpt, vf, gt, lane);  // dP^T = V.dO^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 8 * j + 2 * t + (c & 1);
@@ -761,7 +799,8 @@ __global__ void __launch_bounds__(kTcThreads)
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sg,
                       Strides sdq, int heads, int n, float scale) {
-  constexpr int kLd = D + 8, kStage = 2 * kTcStep * kLd;
+  constexpr int kStep = kTcStep<D>, kNt = kStep / 8;
+  constexpr int kLd = D + 8, kStage = 2 * kStep * kLd;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);  // kTcRows x kLd
   bf16* gs = qs + kTcRows * kLd;
@@ -770,13 +809,13 @@ __global__ void __launch_bounds__(kTcThreads)
   const int q0 = blockIdx.x * kTcRows;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int64_t stat0 = static_cast<int64_t>(blockIdx.y) * n;
-  const int steps = (n + kTcStep - 1) / kTcStep;
+  const int steps = (n + kStep - 1) / kStep;
   const float sl = scale * kLog2e;
 
   auto load_step = [&](int i) {
     bf16* st = ring + (i % kTcStages) * kStage;
-    copy_tile<D, kTcStep>(st, k, sk, b, h, i * kTcStep, n);
-    copy_tile<D, kTcStep>(st + kTcStep * kLd, v, sv, b, h, i * kTcStep, n);
+    copy_tile<D, kStep>(st, k, sk, b, h, i * kStep, n);
+    copy_tile<D, kStep>(st + kStep * kLd, v, sv, b, h, i * kStep, n);
   };
   copy_tile<D, kTcRows>(qs, q, sq, b, h, q0, n);
   copy_tile<D, kTcRows>(gs, g, sg, b, h, q0, n);
@@ -789,27 +828,25 @@ __global__ void __launch_bounds__(kTcThreads)
     lse2[r] = row < n ? lse[stat0 + row] * kLog2e : 0.f;
     dl[r] = row < n ? delta[stat0 + row] : 0.f;
   }
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  load_a<D>(qf, qs, warp * 16, lane);
-  load_a<D>(gf, gs, warp * 16, lane);
+  const AFrags<D> qf(qs, warp * 16, lane), gf(gs, warp * 16, lane);
 
   float dq_acc[D / 8][4] = {};
   for (int i = 0; i < steps; ++i) {
     ring_step(i, steps, load_step);
     const bf16* kt = ring + (i % kTcStages) * kStage;
-    const bf16* vt = kt + kTcStep * kLd;
-    float s[8][4] = {};
+    const bf16* vt = kt + kStep * kLd;
+    float s[kNt][4] = {};
     mma_abt<D>(s, qf, kt, lane);
-    if ((i + 1) * kTcStep > n) mask_past(s, i * kTcStep, n, t);
+    if ((i + 1) * kStep > n) mask_past(s, i * kStep, n, t);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[j][c] = exp2_approx(fmaf(s[j][c], sl, -lse2[c >> 1]));
     }
-    float dp[8][4] = {};
+    float dp[kNt][4] = {};
     mma_abt<D>(dp, gf, vt, lane);  // dP = dO.V^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[j][c] = s[j][c] * (dp[j][c] - dl[c >> 1]) * scale;  // dS
     }
@@ -822,16 +859,19 @@ __global__ void __launch_bounds__(kTcThreads)
 
 template <int D>
 constexpr size_t tc_fwd_smem() {
-  return static_cast<size_t>(kTcRows + kTcStages * 2 * kTcStep) * (D + 8) * sizeof(bf16);
+  constexpr int kStep = kTcStep<D>;
+  return static_cast<size_t>(kTcRows + kTcStages * 2 * kStep) * (D + 8) * sizeof(bf16);
 }
 template <int D>
 constexpr size_t tc_dkv_smem() {
+  constexpr int kStep = kTcStep<D>;
   return 2 * kTcRows * (D + 8) * sizeof(bf16) +
-         kTcStages * (2 * kTcStep * (D + 8) * sizeof(bf16) + 2 * kTcStep * sizeof(float));
+         kTcStages * (2 * kStep * (D + 8) * sizeof(bf16) + 2 * kStep * sizeof(float));
 }
 template <int D>
 constexpr size_t tc_dq_smem() {
-  return static_cast<size_t>(2 * kTcRows + kTcStages * 2 * kTcStep) * (D + 8) * sizeof(bf16);
+  constexpr int kStep = kTcStep<D>;
+  return static_cast<size_t>(2 * kTcRows + kTcStages * 2 * kStep) * (D + 8) * sizeof(bf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -936,28 +976,42 @@ bool valid(int batch, int heads, int n) {
   return batch >= 1 && heads >= 1 && n >= 1 && static_cast<int64_t>(batch) * heads <= 65535;
 }
 
+// go(T{}, std::integral_constant<int, D>{}) for dtype 0 (fp32) or 1 (bf16)
+// and head_dim D of 16, 32, 64 or 128; cudaErrorInvalidValue for any other.
+template <typename Go>
+cudaError_t by_type_and_dim(int dtype, int head_dim, Go go) {
+  auto by_dim = [&](auto t) -> cudaError_t {
+    switch (head_dim) {
+      case 16: return go(t, std::integral_constant<int, 16>{});
+      case 32: return go(t, std::integral_constant<int, 32>{});
+      case 64: return go(t, std::integral_constant<int, 64>{});
+      case 128: return go(t, std::integral_constant<int, 128>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == 0) return by_dim(float{});
+  if (dtype == 1) return by_dim(bf16{});
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // out and lse (fp32, B x H x N contiguous) of softmax(Q.K^T / sqrt(D)).V.
 // strides: 3 int64 (batch, token, head) for each of q, k, v, out, in that
-// order. dtype 0 = fp32, 1 = bf16; head_dim 32 or 64. Returns a cudaError_t.
+// order. dtype 0 = fp32, 1 = bf16; head_dim 16, 32, 64 or 128. Returns a
+// cudaError_t.
 int attn_forward(const void* q, const void* k, const void* v, void* out, float* lse,
                  const int64_t* strides, int batch, int heads, int n, int head_dim, int dtype,
                  void* stream) {
   if (!valid(batch, heads, n)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64)
-    err = launch_forward<float, 64>(q, k, v, out, lse, strides, batch, heads, n, st);
-  else if (dtype == 0 && head_dim == 32)
-    err = launch_forward<float, 32>(q, k, v, out, lse, strides, batch, heads, n, st);
-  else if (dtype == 1 && head_dim == 64)
-    err = launch_forward<__nv_bfloat16, 64>(q, k, v, out, lse, strides, batch, heads, n, st);
-  else if (dtype == 1 && head_dim == 32)
-    err = launch_forward<__nv_bfloat16, 32>(q, k, v, out, lse, strides, batch, heads, n, st);
-  return static_cast<int>(err);
+  auto go = [&](auto t, auto d) {
+    using T = decltype(t);
+    return launch_forward<T, decltype(d)::value>(q, k, v, out, lse, strides, batch, heads, n, st);
+  };
+  return static_cast<int>(by_type_and_dim(dtype, head_dim, go));
 }
 
 // dq, dk, dv of the forward above for the incoming gradient g of out; delta
@@ -969,20 +1023,12 @@ int attn_backward(const void* q, const void* k, const void* v, const void* out, 
                   void* stream) {
   if (!valid(batch, heads, n)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64)
-    err = launch_backward<float, 64>(q, k, v, out, g, lse, delta, dq, dk, dv, strides, batch,
-                                     heads, n, st);
-  else if (dtype == 0 && head_dim == 32)
-    err = launch_backward<float, 32>(q, k, v, out, g, lse, delta, dq, dk, dv, strides, batch,
-                                     heads, n, st);
-  else if (dtype == 1 && head_dim == 64)
-    err = launch_backward<__nv_bfloat16, 64>(q, k, v, out, g, lse, delta, dq, dk, dv, strides,
-                                             batch, heads, n, st);
-  else if (dtype == 1 && head_dim == 32)
-    err = launch_backward<__nv_bfloat16, 32>(q, k, v, out, g, lse, delta, dq, dk, dv, strides,
-                                             batch, heads, n, st);
-  return static_cast<int>(err);
+  auto go = [&](auto t, auto d) {
+    using T = decltype(t);
+    return launch_backward<T, decltype(d)::value>(q, k, v, out, g, lse, delta, dq, dk, dv,
+                                                  strides, batch, heads, n, st);
+  };
+  return static_cast<int>(by_type_and_dim(dtype, head_dim, go));
 }
 
 const char* attn_error_string(int err) {

@@ -9,7 +9,9 @@
 //
 // The activation is read as x[B][S][C] (NCHW in torch.channels_last memory
 // format is physically NHWC). Groups are torch's: channel c is in group
-// c / (C / G). The forward is three launches on the caller's stream:
+// c / (C / G).
+//
+// The forward is three launches on the caller's stream:
 //
 //   gn_stats_kernel     grid (n_tiles, B). A block reads rows_per_tile
 //                       contiguous rows of C channels, accumulates per-channel
@@ -24,32 +26,39 @@
 //                       writes y = x*A + B (optionally y*sigmoid(y)) in the
 //                       input's dtype.
 //
-// The backward is one persistent cooperative launch, gn_bwd_kernel. It takes
-// x, the incoming gradient g (same layout and dtype) and the forward's stats,
-// recomputes yhat = x*A + B instead of reading a saved fp32 activation, and
-// moves x, g and dx across device memory once. It walks the call in units:
-// one sample b and a slice of whole groups over all S rows, sized so that the
-// x and g of a unit fit on chip across the blocks that share it (a team).
-// Each block keeps its rows of the unit in shared memory (x double-buffered,
-// g single, filled by 16-byte cp.async) and dyhat in registers:
+// The backward is one persistent cooperative launch that walks the call in
+// units: one sample b and a slice of whole groups over all S rows. The
+// blocks of a team share a unit: each takes a range of its rows (and, where
+// the slice is wider than kBwdMaxSlicePacks 16-byte packs, a column block of it),
+// forms its partial sums in a fixed order, writes them to device memory and
+// arrives at the team's counter (one integer barrier a unit); after it every
+// block folds the team's partials in block order itself. The wrapper's plan
+// (ops/groupnorm_cuda.py::backward_plan) picks the slice, the teams and the
+// route:
+//   on-chip  a block's rows of a unit sit in shared memory (16-byte
+//            cp.async into per-thread slots), so x and g cross device memory
+//            once, and the next unit's loads are in flight across the
+//            barrier (x double-buffered);
+//   re-read  (the kReread instances) a block streams its rows in chunks for
+//            the sums and again after the barrier, for units that would fit
+//            on chip only as narrow row slices (the 3D steps' 262,144-row
+//            calls at C = 64 and 128) or not at all.
+// gn_bwd_kernel takes x, the incoming gradient g (same layout and dtype) and
+// the forward's stats, recomputes yhat = x*A + B instead of reading a saved
+// fp32 activation, and keeps dyhat in registers:
 //   dyhat = g (or, with swish, g*s*(1 + yhat*(1 - s)), s = sigmoid(yhat), in
 //   fp32), computed once per element; per-channel S0 = Σ dyhat and
 //   S1 = Σ dyhat*x over the block's rows; the block's partials to device
-//   memory; a barrier per unit (an integer arrival counter), after which
-//   every block sums the team's per-group partials in block order into m1,
-//   m2 and the dx coefficients (ca, cb, cc), while the next unit's x and g
-//   are already in flight; then dx = dyhat*ca + x*cb + cc from the chip in
-//   the input's dtype. Block 0 sums dgamma and dbeta over the batch in order
-//   at the end.
-// Where a unit fits on chip only as one 32-byte sector of each row (the 3D
-// steps' 262,144-row calls at C = 64 and 128), the plan takes the re-read
-// route instead (the kernel's kReread instances): a unit of whole 128-byte
-// row slices, whose block streams its rows in chunks for the sums and again,
-// after the barrier, for dx; x and g cross device memory twice, dx once, and
-// dyhat is computed in each pass.
+//   memory; the barrier, after which every block sums the team's per-group
+//   partials in block order into m1, m2 and the dx coefficients (ca, cb, cc),
+//   while the next unit's x and g are already in flight; then dx = dyhat*ca +
+//   x*cb + cc from the chip in the input's dtype. dgamma and dbeta are summed
+//   over the batch in order at the end.
 //
 // Every float sum runs in a fixed order, so the results are deterministic;
-// the only atomics are the barriers' integer counters.
+// the only atomics are the barriers' integer counters, which the launch
+// function zeroes on the stream before the kernel (a CUDA graph captures
+// both).
 //
 // Bound: device-memory bandwidth. The forward reads the activation twice and
 // writes it once; the backward reads x and g once and writes dx once; each
@@ -294,29 +303,51 @@ int launch(const void* x, const float* gamma, const float* beta, void* y, float*
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdBlocksPerSm = 2;  // two blocks interleave their phases on an SM
-constexpr int kBwdPacks = 8;  // 16-byte packs of each unit a thread holds
-constexpr int kBwdMaxSlicePacks = 16;  // 16-byte packs of a unit's row slice, at most
+constexpr int kBwdPacks = 8;     // 16-byte packs of a unit's x, g a backward thread holds
+constexpr int kBwdMaxSlicePacks = 40;  // 16-byte packs of a block's row slice, at most
 
-// The wrapper's plan (ops/groupnorm_cuda.py::backward_plan) and the buffers.
-struct BwdArgs {
-  const void* x;
-  const void* g;
-  const float* stats;  // (B, 2, G): mean, rstd
-  const float* gamma;
-  const float* beta;
-  void* dx;
-  float* dgamma;         // (C,)
-  float* dbeta;          // (C,)
-  int* sync;             // [teams] arrivals, then two end-of-call counters
-  float* group_partial;  // [units][team_blocks][2][width / cg]: a block's Σγ·S0, Σγ·S1
-  float* chan_partial;   // [units][team_blocks][2][width]: a block's S0, S1
-  float* per_batch;      // [B][2][C]: r·(S1 − μ·S0) and S0 of each (b, c)
+// The sums' scratch in floats: the shared-memory row sums of the widest
+// slice, one s0 (or s1) row per row in flight plus one row of results.
+template <int N>
+constexpr int kRedFloats = (kBwdThreads + kBwdMaxSlicePacks) * N;
+
+// The backward wrapper's plan (ops/groupnorm_cuda.py::backward_plan).
+struct Plan {
   int B, S, C, G;
   int width;           // channels of a unit's slice: whole groups
   int team_blocks;     // blocks that share a unit
   int teams;           // teams walk units team, team + teams, ...
   int rows_per_block;  // of a unit's S rows
-  float n;             // S · C / G, the elements of a group
+  int col_blocks;      // column blocks a unit's slice is split over
+  int block_width;     // channels of a column block (the last may be narrower)
+  float n;             // S * C / G, the elements of a group
+};
+
+// A block's part of every unit: rows [row0, row_end) and channels [boff,
+// boff + bw) of the unit's slice. Thread t owns the channel pack cp = t % pw
+// of rows rl, rl + rows_in_flight, ... where rl = t / pw; the threads past
+// rows_in_flight * pw (where pw does not divide the block) sit idle in the
+// loads and take no part in the sums.
+struct Part {
+  int team, j, boff, bw, pw, rows_in_flight, cp, rl, row0, row_end, slices, units, cg, gw;
+  bool active;
+  __device__ Part(const Plan& p, int N) {
+    team = blockIdx.x / p.team_blocks;
+    j = blockIdx.x % p.team_blocks;
+    boff = (j % p.col_blocks) * p.block_width;
+    bw = min(p.block_width, p.width - boff);
+    pw = bw / N;
+    rows_in_flight = kBwdThreads / pw;
+    cp = threadIdx.x % pw;
+    rl = threadIdx.x / pw;
+    active = rl < rows_in_flight;
+    row0 = (j / p.col_blocks) * p.rows_per_block;
+    row_end = min(p.S, row0 + p.rows_per_block);
+    slices = p.C / p.width;
+    units = p.B * slices;
+    cg = p.C / p.G;
+    gw = p.width / cg;
+  }
 };
 
 // The words of the sync counters, rounded up to 16 bytes.
@@ -357,17 +388,6 @@ __device__ __forceinline__ void arrive_and_wait(int* counter, int target) {
   }
 }
 
-// dL/dyhat from the incoming gradient, with yhat = x*a + b recomputed with
-// the forward's roundings; fp32 throughout (the Pallas backward's form). The
-// sigmoid takes the fast exp and division (a few ulps; the card's checks hold
-// dx within one bf16 ulp, or ATOL_DX in fp32, of the plain version).
-__device__ __forceinline__ float d_yhat(float x, float g, float a, float b) {
-  const float y = __fadd_rn(__fmul_rn(x, a), b);
-  const float s = __fdividef(1.f, 1.f + __expf(-y));
-  // g * s * (1 + y * (1 - s)), each operation rounded like the plain version's
-  return __fmul_rn(__fmul_rn(g, s), __fadd_rn(1.f, __fmul_rn(y, __fsub_rn(1.f, s))));
-}
-
 // Sums each of V chains of R values val(r, v) in a fixed order into red[v]:
 // lane l of a chain (L lanes: at most 16, and L * V <= cap floats of red)
 // adds rows l, l + L, ... in order into red[l * V + v], then thread v adds
@@ -397,60 +417,151 @@ __device__ __forceinline__ void ordered_sums(float* red, int R, int V, int cap, 
   __syncthreads();
 }
 
-// A unit is one sample b and a slice of `width` channels (whole groups, at
-// most kBwdMaxSlicePacks 16-byte packs, a power of two) over all S rows. The
-// teams walk the units; the team_blocks blocks of a team split a unit's
-// rows, rows_per_block each. Thread t owns the channel pack t % (width / N)
-// of rows t / (width / N) + i * (threads / (width / N)), i < kBwdPacks, of
-// its block's rows, and keeps them on chip for the whole unit: x and g in its
-// own shared-memory slots (x double-buffered), dyhat in registers. The
-// unit's per-channel parameters (the swish's A, B; gamma, mean, rstd) are
-// fetched a unit ahead and staged in shared memory. Per unit:
+// The block's sums of each thread's per-channel partials s0[N], s1[N] over
+// its rows, into red[0, bw) and red[bw, 2 bw), in a fixed order. Where a
+// row's pw packs are a power of two up to 16, the lanes of a warp that share
+// a channel pack add their rows by a xor butterfly (every lane gets the same
+// sum), then the warps are added in order; otherwise each row's s0 goes
+// through shared memory and is added in row order, then each row's s1. red
+// (kRedFloats<N>) must be free; every thread calls it; it ends with
+// __syncthreads.
+template <int N>
+__device__ __forceinline__ void block_channel_sums(float* red, float (&s0)[N], float (&s1)[N],
+                                                   const Part& q) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bw = q.bw, V = 2 * bw;
+  if (q.pw <= 16 && (q.pw & (q.pw - 1)) == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      for (int off = q.pw; off < 32; off <<= 1) {
+        s0[n] += __shfl_xor_sync(0xffffffffu, s0[n], off);
+        s1[n] += __shfl_xor_sync(0xffffffffu, s1[n], off);
+      }
+    }
+    if (lane < q.pw) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        red[warp * V + q.cp * N + n] = s0[n];
+        red[warp * V + bw + q.cp * N + n] = s1[n];
+      }
+    }
+    __syncthreads();
+    // V <= 32 * N <= kBwdThreads: one chain a thread; thread v alone reads
+    // red[v] and writes it
+    for (int v = tid; v < V; v += kBwdThreads) {
+      float sum = red[v];
+      for (int k = 1; k < kBwdThreads / 32; ++k) sum += red[k * V + v];
+      red[v] = sum;
+    }
+  } else {
+    // rows_in_flight * bw <= kBwdThreads * N: row r of the s0 pass at red[r *
+    // bw], of the s1 pass at red[bw + r * bw]; each column's sum replaces
+    // its row 0, which only its own thread reads
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {
+      float* rows = red + pass * bw;
+      if (q.active) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) rows[q.rl * bw + q.cp * N + n] = pass ? s1[n] : s0[n];
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int v = tid; v < bw; v += kBwdThreads) {
+        float sum = rows[v];
+        for (int r = 1; r < q.rows_in_flight; ++r) sum += rows[r * bw + v];
+        rows[v] = sum;
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  __syncthreads();
+}
+
+// Group q (< 2 gw: the gw groups of the unit's Σ0 terms, then of its Σ1
+// terms) of the block's per-channel sums in red[0, 2 bw): the sum, in
+// channel order, over the block's channels that fall in the group (0 where
+// none do).
+__device__ __forceinline__ float block_group_sum(const float* red, int q, const Part& p) {
+  const int half = q >= p.gw, g = half ? q - p.gw : q;
+  const int lo = max(g * p.cg - p.boff, 0), hi = min((g + 1) * p.cg - p.boff, p.bw);
+  float acc = 0.f;
+  for (int k = lo; k < hi; ++k) acc += red[half * p.bw + k];
+  return acc;
+}
+
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  const float* stats;  // (B, 2, G): mean, rstd
+  const float* gamma;
+  const float* beta;
+  void* dx;
+  float* dgamma;         // (C,)
+  float* dbeta;          // (C,)
+  int* sync;             // [teams] arrivals, then two end-of-call counters
+  float* group_partial;  // [units][team_blocks][2][gw]: a block's Σγ·S0, Σγ·S1
+  float* chan_partial;   // [units][team_blocks][2][width]: a block's S0, S1
+  float* per_batch;      // [B][2][C]: r·(S1 − μ·S0) and S0 of each (b, c)
+  Plan p;
+};
+
+// dL/dyhat from the incoming gradient, with yhat = x*a + b recomputed with
+// the forward's roundings; fp32 throughout (the Pallas backward's form). The
+// sigmoid takes the fast exp and division (a few ulps; the card's checks hold
+// dx within one bf16 ulp, or ATOL_DX in fp32, of the plain version).
+__device__ __forceinline__ float d_yhat(float x, float g, float a, float b) {
+  const float y = __fadd_rn(__fmul_rn(x, a), b);
+  const float s = __fdividef(1.f, 1.f + __expf(-y));
+  // g * s * (1 + y * (1 - s)), each operation rounded like the plain version's
+  return __fmul_rn(__fmul_rn(g, s), __fadd_rn(1.f, __fmul_rn(y, __fsub_rn(1.f, s))));
+}
+
+// Thread t owns the channel pack cp of its rows (Part), kBwdPacks of them a
+// chunk, and keeps a unit's on chip: x and g in its own shared-memory slots
+// (x double-buffered), dyhat in registers. The block's channels' parameters
+// (the swish's A, B; gamma, mean, rstd) are fetched a unit ahead and staged
+// in shared memory. Per unit:
 //   1. wait for its x and g (cp.async), start the next unit's x and fetch
 //      its parameters;
 //   2. dyhat once per element, per-channel S0 = Σ dyhat and S1 = Σ dyhat·x;
 //      start the next unit's g into the freed slots;
-//   3. the block's S0, S1 (the warp's rows by shuffles, then the warps in
-//      order) and, per group, Σ γ·S0 and Σ γ·S1 to device memory; arrive at
-//      the team's counter and wait for the team (one integer barrier);
+//   3. the block's S0, S1 (block_channel_sums) and, per group, Σ γ·S0 and
+//      Σ γ·S1 to device memory; arrive at the team's counter and wait for
+//      the team (one integer barrier);
 //   4. every block sums the team's group partials in block order and forms
-//      m1, m2 and the dx coefficients (ca, cb, cc) of the slice, the finalize
-//      of the Pallas backward; dx = (dyhat·ca + x·cb) + cc from the slots and
-//      the registers.
-// With kReread (the re-read route) a block streams its rows of a unit in
-// chunks of kBwdPacks packs a thread through the same slots, once for step 2
-// and again after the barrier for dx, dyhat computed in each pass.
+//      m1, m2 and the dx coefficients (ca, cb, cc) of its channels, the
+//      finalize of the Pallas backward; dx = (dyhat·ca + x·cb) + cc from the
+//      slots and the registers.
+// With kReread a block streams its rows of a unit in chunks of kBwdPacks
+// packs a thread through the same slots, once for step 2 and again after the
+// barrier for dx, dyhat computed in each pass.
 // dgamma and dbeta need the per-channel sums only, so they wait for the end:
-// after a grid barrier each block sums the channel partials of some units in
-// block order, and after another, block 0 sums them over the batch in order.
+// after a grid barrier each block sums the channel partials of some (unit,
+// column block) pairs in block order, and after another, block 0 sums them
+// over the batch in order.
 template <typename T, bool kSwish, bool kReread>
 __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(const BwdArgs a) {
   constexpr int N = Pack<T>::N;
   constexpr int kMaxWidth = kBwdMaxSlicePacks * N;
-  constexpr int kRed = kBwdThreads * N;  // floats: 8 warps' S0, S1 of a widest slice
+  constexpr int kRed = kRedFloats<N>;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* xs = reinterpret_cast<uint4*>(smem);    // [2][kBwdPacks][kBwdThreads]
-  uint4* gs = xs + 2 * kBwdPacks * kBwdThreads;  // [kBwdPacks][kBwdThreads]
+  uint4* xs = reinterpret_cast<uint4*>(smem);  // [2][kBwdPacks][kBwdThreads]
+  uint4* gs = xs + 2 * kBwdPacks * kBwdThreads;   // [kBwdPacks][kBwdThreads]
   float* red = reinterpret_cast<float*>(gs + kBwdPacks * kBwdThreads);  // [kRed]
   float* prm = red + kRed;  // [5][kMaxWidth]: A, B, gamma, mean, rstd; then A, B, ca, cb, cc
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int team = blockIdx.x / a.team_blocks;
-  const int j = blockIdx.x % a.team_blocks;
-  const int w = a.width, V = 2 * w;
-  const int pw = w / N;                // packs of a row's slice: 1, 2, 4, 8 or 16
-  const int rows_in_flight = kBwdThreads / pw;
-  const int cp = tid % pw, rl = tid / pw;
-  const int slices = a.C / w, units = a.B * slices, cg = a.C / a.G, gw = w / cg;
-  const int row0 = j * a.rows_per_block;
-  const int row_end = min(a.S, row0 + a.rows_per_block);
+  const Plan& P = a.p;
+  const Part q(P, N);
+  const int tid = threadIdx.x;
+  const int w = P.width, V = 2 * w;
   // a chunk: kBwdPacks * rows_in_flight rows of the block's, held on chip at
   // once (the on-chip route's unit has one)
-  const int chunk_rows = kBwdPacks * rows_in_flight;
-  const int chunks = (row_end - row0 + chunk_rows - 1) / chunk_rows;
-  const int64_t stride = static_cast<int64_t>(rows_in_flight) * a.C;
-  int* arrivals = a.sync + team;
-  int* done = a.sync + a.teams;
+  const int chunk_rows = kBwdPacks * q.rows_in_flight;
+  const int chunks = (max(q.row_end - q.row0, 0) + chunk_rows - 1) / chunk_rows;
+  const int stride = q.rows_in_flight * P.C;  // elements between a thread's rows
+  int* arrivals = a.sync + q.team;
+  int* done = a.sync + P.teams;
   const T* xg = static_cast<const T*>(a.x);
   const T* gg = static_cast<const T*>(a.g);
   T* dxg = static_cast<T*>(a.dx);
@@ -458,12 +569,15 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
   // this thread's packs of chunk k: rows row0 + k * chunk_rows + rl +
   // i * rows_in_flight, i < packs_in(k)
   auto packs_in = [&](int k) {
-    const int left = row_end - row0 - k * chunk_rows - rl;
-    return left <= 0 ? 0 : min(kBwdPacks, (left + rows_in_flight - 1) / rows_in_flight);
+    const int left = q.row_end - q.row0 - k * chunk_rows - q.rl;
+    return !q.active || left <= 0
+               ? 0
+               : min(kBwdPacks, (left + q.rows_in_flight - 1) / q.rows_in_flight);
   };
   auto base_of = [&](int u, int k) -> int64_t {
-    const int b = u / slices, c0 = (u % slices) * w;
-    return (static_cast<int64_t>(b) * a.S + row0 + k * chunk_rows + rl) * a.C + c0 + cp * N;
+    const int b = u / q.slices, c0 = (u % q.slices) * w + q.boff;
+    return (static_cast<int64_t>(b) * P.S + q.row0 + k * chunk_rows + q.rl) * P.C + c0 +
+           q.cp * N;
   };
   // cp.async of the thread's packs of chunk k of unit u into its slots
   // (zeros past its rows)
@@ -476,48 +590,59 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
       cp_async16(smem_addr(dst + i * kBwdThreads + tid), ok ? p + i * stride : src, ok ? 16 : 0);
     }
   };
-  // the parameters of channel tid of unit u, fetched into registers, then
-  // staged (the caller synchronises the block after)
+  // the parameters of the block's channel tid of unit u, fetched into
+  // registers, then staged with those of its channels past kBwdThreads (the
+  // caller synchronises the block after)
   float f_gam = 0.f, f_beta = 0.f, f_mean = 0.f, f_rstd = 0.f;
-  auto fetch = [&](int u) {
-    if (tid < w && u < units) {
-      const int b = u / slices, c = (u % slices) * w + tid;
-      f_gam = __ldg(a.gamma + c);
-      f_beta = __ldg(a.beta + c);
-      f_mean = __ldg(a.stats + b * 2 * a.G + c / cg);
-      f_rstd = __ldg(a.stats + b * 2 * a.G + a.G + c / cg);
-    }
+  auto params_of = [&](int u, int v, float& gam, float& beta, float& mean, float& rstd) {
+    const int b = u / q.slices, c = (u % q.slices) * w + q.boff + v;
+    gam = __ldg(a.gamma + c);
+    beta = __ldg(a.beta + c);
+    mean = __ldg(a.stats + b * 2 * P.G + c / q.cg);
+    rstd = __ldg(a.stats + b * 2 * P.G + P.G + c / q.cg);
   };
-  auto stage = [&]() {
-    if (tid < w) {
-      // the forward's roundings (affine_coeffs)
-      const float A = __fmul_rn(f_rstd, f_gam);
-      prm[tid] = A;
-      prm[kMaxWidth + tid] = __fsub_rn(f_beta, __fmul_rn(f_mean, A));
-      prm[2 * kMaxWidth + tid] = f_gam;
-      prm[3 * kMaxWidth + tid] = f_mean;
-      prm[4 * kMaxWidth + tid] = f_rstd;
+  auto fetch = [&](int u) {
+    if (tid < q.bw && u < q.units) params_of(u, tid, f_gam, f_beta, f_mean, f_rstd);
+  };
+  auto stage_one = [&](int v, float gam, float beta, float mean, float rstd) {
+    // the forward's roundings
+    const float A = __fmul_rn(rstd, gam);
+    prm[v] = A;
+    prm[kMaxWidth + v] = __fsub_rn(beta, __fmul_rn(mean, A));
+    prm[2 * kMaxWidth + v] = gam;
+    prm[3 * kMaxWidth + v] = mean;
+    prm[4 * kMaxWidth + v] = rstd;
+  };
+  auto stage = [&](int u) {
+    if (tid < q.bw) stage_one(tid, f_gam, f_beta, f_mean, f_rstd);
+#pragma unroll 1
+    for (int v = tid + kBwdThreads; v < q.bw && u < q.units; v += kBwdThreads) {
+      float gam, beta, mean, rstd;
+      params_of(u, v, gam, beta, mean, rstd);
+      stage_one(v, gam, beta, mean, rstd);
     }
   };
   // dyhat of one element of the thread's channel pack
   auto dyhat = [&](float x, float g, int n) {
-    if constexpr (kSwish) return d_yhat(x, g, prm[cp * N + n], prm[kMaxWidth + cp * N + n]);
+    if constexpr (kSwish) {
+      return d_yhat(x, g, prm[q.cp * N + n], prm[kMaxWidth + q.cp * N + n]);
+    }
     return g;
   };
 
-  int u = team, seq = 0;
+  int u = q.team, seq = 0;
   if constexpr (!kReread) {
-    if (u < units) {
+    if (u < q.units) {
       load(xg, xs, u, 0);
       load(gg, gs, u, 0);
     }
     cp_async_commit();
   }
   fetch(u);
-  stage();
+  stage(u);
   __syncthreads();
-  for (; u < units; u += a.teams, ++seq) {
-    const int next = u + a.teams;
+  for (; u < q.units; u += P.teams, ++seq) {
+    const int next = u + P.teams;
     const uint4* xcur = xs + (seq & 1) * kBwdPacks * kBwdThreads;
     // 2. dyhat and the thread's per-channel sums
     float dy[kReread ? 1 : kBwdPacks][N], s0[N], s1[N];
@@ -533,7 +658,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
       cp_async_wait<0>();
       compiler_fence();
       TRACE(1);
-      if (next < units) load(xg, xs + ((seq + 1) & 1) * kBwdPacks * kBwdThreads, next, 0);
+      if (next < q.units) load(xg, xs + ((seq + 1) & 1) * kBwdPacks * kBwdThreads, next, 0);
       cp_async_commit();
       fetch(next);
 #pragma unroll
@@ -552,7 +677,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
       }
       compiler_fence();
       TRACE(2);
-      if (next < units) load(gg, gs, next, 0);
+      if (next < q.units) load(gg, gs, next, 0);
       cp_async_commit();
     } else {
       // re-read: stream the block's rows chunk by chunk for the sums
@@ -579,58 +704,38 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
       }
     }
 
-  // 3. the block's sums per channel and per group, the team's barrier.
-    // The lanes of a warp with one channel pack add their rows by a xor
-    // butterfly (every lane gets the same sum), then the warps in order.
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      for (int off = pw; off < 32; off <<= 1) {
-        s0[n] += __shfl_xor_sync(0xffffffffu, s0[n], off);
-        s1[n] += __shfl_xor_sync(0xffffffffu, s1[n], off);
-      }
-    }
-    if (lane < pw) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        red[warp * V + cp * N + n] = s0[n];
-        red[warp * V + w + cp * N + n] = s1[n];
-      }
+    // 3. the block's sums per channel and per group, the team's barrier
+    block_channel_sums<N>(red, s0, s1, q);
+    float* chan = a.chan_partial + (static_cast<int64_t>(u) * P.team_blocks + q.j) * V;
+#pragma unroll 1
+    for (int v = tid; v < 2 * q.bw; v += kBwdThreads) {
+      const float sum = red[v];
+      const int cl = v < q.bw ? q.boff + v : w + q.boff + (v - q.bw);
+      chan[cl] = sum;
+      red[v] = __fmul_rn(prm[2 * kMaxWidth + (v < q.bw ? v : v - q.bw)], sum);  // γ·S
     }
     __syncthreads();
-    // V <= 32 * N <= kBwdThreads: one chain a thread
-    float sum = 0.f;
-    if (tid < V) {
-      sum = red[tid];
-      for (int k = 1; k < kBwdThreads / 32; ++k) sum += red[k * V + tid];
-      a.chan_partial[(static_cast<int64_t>(u) * a.team_blocks + j) * V + tid] = sum;
-    }
-    __syncthreads();
-    if (tid < V) red[tid] = __fmul_rn(prm[2 * kMaxWidth + tid % w], sum);  // γ·S
-    __syncthreads();
-    float* grp = a.group_partial + (static_cast<int64_t>(u) * a.team_blocks + j) * 2 * gw;
-    for (int q = tid; q < 2 * gw; q += kBwdThreads) {
-      const float* p = red + (q < gw ? q * cg : w + (q - gw) * cg);
-      float acc = 0.f;
-      for (int k = 0; k < cg; ++k) acc += p[k];
-      grp[q] = acc;
-    }
+    float* grp = a.group_partial + (static_cast<int64_t>(u) * P.team_blocks + q.j) * 2 * q.gw;
+#pragma unroll 1
+    for (int g = tid; g < 2 * q.gw; g += kBwdThreads) grp[g] = block_group_sum(red, g, q);
     __syncthreads();
     TRACE(3);
-    arrive_and_wait(arrivals, (seq + 1) * a.team_blocks);
+    arrive_and_wait(arrivals, (seq + 1) * P.team_blocks);
     TRACE(4);
 
     // 4. the team's group sums in block order, the coefficients, dx
-    const float* team_grp = a.group_partial + static_cast<int64_t>(u) * a.team_blocks * 2 * gw;
-    ordered_sums(red, a.team_blocks, 2 * gw, kRed,
-                 [&](int r, int v) { return __ldcg(team_grp + r * 2 * gw + v); });
+    const float* team_grp = a.group_partial + static_cast<int64_t>(u) * P.team_blocks * 2 * q.gw;
+    ordered_sums(red, P.team_blocks, 2 * q.gw, kRed,
+                 [&](int r, int v) { return __ldcg(team_grp + r * 2 * q.gw + v); });
     // (ca, cb, cc) take the places of (gamma, mean, rstd), each thread its
     // own channel's; A and B stay for the re-read route's second dyhat
-    for (int v = tid; v < w; v += kBwdThreads) {
-      const int q = v / cg;
+#pragma unroll 1
+    for (int v = tid; v < q.bw; v += kBwdThreads) {
+      const int g = (q.boff + v) / q.cg;
       const float gam = prm[2 * kMaxWidth + v];
       const float mean = prm[3 * kMaxWidth + v], rstd = prm[4 * kMaxWidth + v];
-      const float m1 = red[q] / a.n;
-      const float m2 = rstd * (red[gw + q] / a.n) - mean * rstd * (red[q] / a.n);
+      const float m1 = red[g] / P.n;
+      const float m2 = rstd * (red[q.gw + g] / P.n) - mean * rstd * (red[g] / P.n);
       prm[2 * kMaxWidth + v] = rstd * gam;
       prm[3 * kMaxWidth + v] = -rstd * rstd * m2;
       prm[4 * kMaxWidth + v] = mean * rstd * rstd * m2 - rstd * m1;
@@ -639,9 +744,9 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
     float ka[N], kb[N], kc[N];
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      ka[n] = prm[2 * kMaxWidth + cp * N + n];
-      kb[n] = prm[3 * kMaxWidth + cp * N + n];
-      kc[n] = prm[4 * kMaxWidth + cp * N + n];
+      ka[n] = prm[2 * kMaxWidth + q.cp * N + n];
+      kb[n] = prm[3 * kMaxWidth + q.cp * N + n];
+      kc[n] = prm[4 * kMaxWidth + q.cp * N + n];
     }
     TRACE(5);
     __syncthreads();  // prm takes the next unit's parameters below
@@ -688,26 +793,30 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
       __syncthreads();  // every thread's dyhat has read A, B before they change
     }
     compiler_fence();
-    stage();
+    stage(next);
     __syncthreads();
   }
 
-  // dgamma and dbeta: each unit's channel partials in block order, then the
-  // batch in order
+  // dgamma and dbeta: each (unit, column block)'s channel partials in row
+  // block order, then the batch in order
   __syncthreads();
   arrive_and_wait(done, gridDim.x);
-  for (int uu = blockIdx.x; uu < units; uu += gridDim.x) {
-    const float* chan = a.chan_partial + static_cast<int64_t>(uu) * a.team_blocks * V;
-    ordered_sums(red, a.team_blocks, V, kRed,
-                 [&](int r, int v) { return __ldcg(chan + r * V + v); });
-    const int b = uu / slices, c0 = (uu % slices) * w;
-    const float* st = a.stats + b * 2 * a.G;
-    float* pb = a.per_batch + static_cast<int64_t>(b) * 2 * a.C;
-    for (int cl = tid; cl < w; cl += kBwdThreads) {
+  const int row_blocks = P.team_blocks / P.col_blocks;
+  for (int pi = blockIdx.x; pi < q.units * P.col_blocks; pi += gridDim.x) {
+    const int uu = pi / P.col_blocks, cb = pi % P.col_blocks;
+    const int coff = cb * P.block_width, cw = min(P.block_width, w - coff);
+    const float* chan = a.chan_partial + static_cast<int64_t>(uu) * P.team_blocks * V;
+    ordered_sums(red, row_blocks, 2 * cw, kRed, [&](int r, int v) {
+      return __ldcg(chan + (r * P.col_blocks + cb) * V + (v < cw ? coff + v : w + coff + v - cw));
+    });
+    const int b = uu / q.slices, c0 = (uu % q.slices) * w + coff;
+    const float* st = a.stats + b * 2 * P.G;
+    float* pb = a.per_batch + static_cast<int64_t>(b) * 2 * P.C;
+    for (int cl = tid; cl < cw; cl += kBwdThreads) {
       const int c = c0 + cl;
-      const float mean = st[c / cg], rstd = st[a.G + c / cg];
-      pb[c] = rstd * (red[w + cl] - mean * red[cl]);
-      pb[a.C + c] = red[cl];
+      const float mean = st[c / q.cg], rstd = st[P.G + c / q.cg];
+      pb[c] = rstd * (red[cw + cl] - mean * red[cl]);
+      pb[P.C + c] = red[cl];
     }
   }
   __syncthreads();
@@ -720,11 +829,11 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
   }
   arrive_and_wait(done + 1, gridDim.x);
   __syncthreads();
-  for (int c = tid; c < a.C; c += kBwdThreads) {
+  for (int c = tid; c < P.C; c += kBwdThreads) {
     float dg = 0.f, db = 0.f;
-    for (int b = 0; b < a.B; ++b) {
-      dg += __ldcg(a.per_batch + static_cast<int64_t>(b) * 2 * a.C + c);
-      db += __ldcg(a.per_batch + static_cast<int64_t>(b) * 2 * a.C + a.C + c);
+    for (int b = 0; b < P.B; ++b) {
+      dg += __ldcg(a.per_batch + static_cast<int64_t>(b) * 2 * P.C + c);
+      db += __ldcg(a.per_batch + static_cast<int64_t>(b) * 2 * P.C + P.C + c);
     }
     a.dgamma[c] = dg;
     a.dbeta[c] = db;
@@ -751,6 +860,13 @@ const void* backward_kernel(int dtype, int with_swish, int reread) {
 
 extern "C" {
 
+// The backward's constants, for the wrapper to check its plans against.
+void gn_backward_limits(int* threads, int* packs, int* slice_packs) {
+  *threads = kBwdThreads;
+  *packs = kBwdPacks;
+  *slice_packs = kBwdMaxSlicePacks;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x and y). gamma, beta: fp32 (C,).
 // partial: fp32 (B, n_tiles, 2, G) scratch; stats: fp32 (B, 2, G) (mean, rstd).
 // The caller checks shapes, alignment and the launch geometry; returns the
@@ -774,13 +890,6 @@ int gn_forward(const void* x, const void* gamma, const void* beta, void* y, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward's constants, for the wrapper to check its plan against.
-void gn_backward_limits(int* threads, int* packs, int* slice_packs) {
-  *threads = kBwdThreads;
-  *packs = kBwdPacks;
-  *slice_packs = kBwdMaxSlicePacks;
-}
-
 // Allows the backward kernel of (dtype, with_swish, reread) `smem` bytes of
 // dynamic shared memory and writes how many of its blocks one SM holds at
 // once (the cooperative launch's grid must not exceed that times the SMs).
@@ -800,18 +909,17 @@ int gn_backward_occupancy(int dtype, int with_swish, int reread, int smem, int* 
 // (units * team_blocks * 2 * groups of a slice), the channel partials
 // (units * team_blocks * 2 * width) and the per-batch terms (B * 2 * C),
 // units = B * C / width. The plan (width, team_blocks, teams,
-// rows_per_block; reread 0 holds a block's rows of a unit on chip, 1 streams
-// them twice) and smem come from the wrapper, which checks shapes and
-// alignment. Zeroes the counters and makes one cooperative launch of
-// teams * team_blocks blocks on `stream`, which fails (and runs nothing) if
-// they cannot all be resident at once. Returns 0 or the cudaError_t.
+// rows_per_block, col_blocks, block_width; reread 0 holds a block's rows of
+// a unit on chip, 1 streams them twice) and smem come from the wrapper,
+// which checks shapes and alignment. Zeroes the counters and makes one
+// cooperative launch of teams * team_blocks blocks on `stream`, which fails
+// (and runs nothing) if they cannot all be resident at once. Returns 0 or
+// the cudaError_t.
 int gn_backward(const void* x, const void* g, const void* stats, const void* gamma,
                 const void* beta, void* dx, void* dgamma_dbeta, void* workspace, int B, int S,
                 int C, int G, int width, int team_blocks, int teams, int rows_per_block,
-                int reread, int smem, int with_swish, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* fn = backward_kernel(dtype, with_swish, reread);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+                int col_blocks, int block_width, int reread, int smem, int with_swish, int dtype,
+                void* stream) {
   BwdArgs a;
   a.x = x;
   a.g = g;
@@ -826,15 +934,11 @@ int gn_backward(const void* x, const void* g, const void* stats, const void* gam
   a.group_partial = static_cast<float*>(workspace) + sync_words(teams);
   a.chan_partial = a.group_partial + units * team_blocks * 2 * (width / (C / G));
   a.per_batch = a.chan_partial + units * team_blocks * 2 * width;
-  a.B = B;
-  a.S = S;
-  a.C = C;
-  a.G = G;
-  a.width = width;
-  a.team_blocks = team_blocks;
-  a.teams = teams;
-  a.rows_per_block = rows_per_block;
-  a.n = static_cast<float>(static_cast<int64_t>(S) * (C / G));
+  a.p = Plan{B, S, C, G, width, team_blocks, teams, rows_per_block, col_blocks, block_width,
+              static_cast<float>(static_cast<int64_t>(S) * (C / G))};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* fn = backward_kernel(dtype, with_swish, reread);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(a.sync, 0, sync_words(teams) * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&a};

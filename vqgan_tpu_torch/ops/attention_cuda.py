@@ -18,11 +18,12 @@ and choose their own tiles, so ``chunk`` does not reach them.
 Inputs are (B, N, H, D), fp32 or bf16, all of one dtype and device. The
 dtype alone picks the kernels' route (``route``): bf16 the tensor cores
 (bf16 ``mma.sync`` fed by ``cp.async``), fp32 the CUDA cores' FMA. On the
-card D is 32 or 64, the last stride 1 and the others multiples of 8 elements
-(bf16: 16-byte ``cp.async`` pieces) or 4 (fp32: float4 loads), each tensor
-16-byte aligned, so q, k and v may be views of the qkv conv's channels-last
-output (token stride 3C, C a multiple of 32). A view a route cannot take
-raises; nothing falls back to the other route or to plain.
+card D is 16, 32, 64 or 128 (any other head_dim raises), the last stride 1
+and the others multiples of 8 elements (bf16: 16-byte ``cp.async`` pieces)
+or 4 (fp32: float4 loads), each tensor 16-byte aligned, so q, k and v may
+be views of the qkv conv's channels-last output (token stride 3C, C a
+multiple of 32). A view a route cannot take raises; nothing falls back to
+the other route or to plain.
 """
 
 from __future__ import annotations
@@ -49,18 +50,18 @@ bwd_launches = 0
 tc_launches = 0
 fma_launches = 0
 
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.bfloat16: "tc", torch.float32: "fma"}
 # what a stride must be a multiple of, in elements, by route: the tensor-core
 # kernels copy 16-byte pieces of 8 bf16, the FMA kernels read float4
 STRIDE_MULTIPLE = {"tc": 8, "fma": 4}
 ALIGN_BYTES = 16
-# the tensor-core route's tiles (csrc/attention.cu kTcRows, kTcStep): a block
-# owns 128 queries (keys in the dK/dV kernel), 16 a warp, and streams the
-# other side in tiles of 64
+# the tensor-core route's tiles (csrc/attention.cu kTcRows, kTcStep<D>): a
+# block owns 128 queries (keys in the dK/dV kernel), 16 a warp, and streams
+# the other side in tiles of 64 rows, 32 at head_dim 128
 TC_BLOCK_ROWS = 128
-TC_STEP_ROWS = 64
+TC_STEP_ROWS = {16: 64, 32: 64, 64: 64, 128: 32}
 
 
 @functools.cache
@@ -102,7 +103,7 @@ def _kernel_strides(*tensors: torch.Tensor) -> ctypes.Array:
     head_dim = tensors[0].shape[-1]
     if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
-            f"the attention kernels take head_dim {' or '.join(map(str, HEAD_DIMS))}, "
+            f"the attention kernels take head_dim {', '.join(map(str, HEAD_DIMS))}, "
             f"not {head_dim}")
     if tensors[0].shape[0] * tensors[0].shape[2] > 65535:
         raise ValueError("the attention kernels take at most 65535 (batch, head) pairs")

@@ -22,9 +22,11 @@ blocks, which meet at one barrier per unit, an integer counter. On the
 "on-chip" route a unit fits in the team's shared memory (x, g) and
 registers (dŷ), so x and the incoming gradient are read once and dx written
 once, and the next unit's loads are in flight across the barrier; where a
-unit would fit only as one 32-byte sector of each row, the "re-read" route
-streams whole row slices twice (``backward_plan`` picks the route, the
-slice and the teams). No float atomics: the outputs are deterministic.
+unit would fit only as narrow row slices, the "re-read" route streams whole
+row slices twice. ``backward_plan`` (pure Python) picks the route, the slice
+(any whole number of 16-byte packs; a group wider than a block splits over
+column blocks) and the teams. No float atomics: the outputs are
+deterministic.
 
 ``FusedGroupNorm`` saves only the input in its own dtype, the (B, 2, G)
 statistics the forward kernel wrote, and γ, β: no full-size fp32 tensor (the
@@ -66,6 +68,7 @@ bwd_launches = 0
 grad_copies = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM_PER_BLOCK = 232_448  # an H100's opt-in limit (227 KB)
 _MAX_THREADS = 1024
 _MAX_STATIC_SMEM = 48 * 1024  # bytes a block may take without opting in
 _THREADS_TARGET = 256
@@ -74,15 +77,18 @@ _BLOCKS_PER_SM = 4
 # kBwdMaxSlicePacks; the library is checked against them when it loads)
 BWD_THREADS = 256
 BWD_PACKS = 8  # 16-byte packs of a unit's x, g and dŷ that a thread holds
-BWD_SLICE_PACKS = 16  # 16-byte packs of a unit's row slice, at most (a power of two)
-MAX_SMEM_PER_BLOCK = 232_448  # an H100's opt-in limit (227 KB)
+BWD_SLICE_PACKS = 40  # 16-byte packs of a row slice one block takes, at most
+# a unit's slice is at most this many packs where its groups allow one that
+# narrow, else the narrowest whole-group slice (split over column blocks
+# where it is wider than BWD_SLICE_PACKS)
+PREFERRED_SLICE_PACKS = 16
 # backward_plan's cost model, per unit: the HBM rate a block gets (its share
 # of 3.35 TB/s among the launched blocks, at this fraction for a row slice of
-# 32, 64 or >= 128 bytes), the barrier's fixed cost, and for the re-read
+# 16, 32, 64 or >= 128 bytes), the barrier's fixed cost, and for the re-read
 # route a wait for each chunk's loads; checked against every candidate by
 # tools/sweep_gn_bwd.py
 HBM_BYTES_PER_S = 3.35e12
-SLICE_EFFICIENCY = {32: 0.3, 64: 0.75, 128: 1.0}
+SLICE_EFFICIENCY = {16: 0.15, 32: 0.3, 64: 0.75, 128: 1.0}
 BARRIER_S = 3e-6
 CHUNK_S = 1e-6
 
@@ -101,7 +107,7 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.gn_forward.restype = ctypes.c_int
     lib.gn_backward.argtypes = (
         [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 12
+        + [ctypes.c_int] * 14
         + [ctypes.c_void_p]
     )
     lib.gn_backward.restype = ctypes.c_int
@@ -151,23 +157,25 @@ def launch_geometry(
 def backward_smem_bytes(element_size: int) -> int:
     """The backward block's dynamic shared memory: x twice and g once, a
     16-byte slot per pack (``BWD_PACKS`` a thread), the sums' scratch (a
-    float per thread's pack channel) and five parameters of each channel of
-    the widest slice."""
+    float per thread's pack channel and one row of the widest slice) and
+    five parameters of each channel of the widest slice."""
     pack = 16 // element_size
     return (3 * BWD_PACKS * BWD_THREADS * 16
-            + (BWD_THREADS * pack + 5 * BWD_SLICE_PACKS * pack) * 4)
+            + ((BWD_THREADS + BWD_SLICE_PACKS) * pack + 5 * BWD_SLICE_PACKS * pack) * 4)
 
 
 @dataclasses.dataclass(frozen=True)
 class BackwardPlan:
     """How one backward call walks its units. A unit is one sample and a
     slice of ``width`` channels (whole groups) over all S rows; ``teams``
-    teams of ``team_blocks`` blocks take units team, team + teams, ...; the
-    blocks of a team split a unit's rows, ``rows_per_block`` each. The
-    "on-chip" route holds a block's rows of a unit on chip (x and g in shared
-    memory, dŷ in registers) and reads x and g once; the "re-read" route
-    streams them in chunks for the sums and again for dx, for units that do
-    not fit on chip at a useful slice width."""
+    teams of ``team_blocks`` blocks take units team, team + teams, ...; a
+    team's blocks split a unit into ``team_blocks / col_blocks`` row ranges
+    of ``rows_per_block`` rows times ``col_blocks`` column slices of
+    ``block_width`` channels (the last may be narrower). The "on-chip" route
+    holds a block's part of a unit on chip (x and g in shared memory, dŷ in
+    registers) and reads x and g once; the "re-read" route streams them in
+    chunks for the sums and again for dx, for units that do not fit on chip
+    at a useful slice width."""
 
     width: int
     teams: int
@@ -176,10 +184,16 @@ class BackwardPlan:
     units: int
     smem_bytes: int
     route: str = "on-chip"
+    col_blocks: int = 1
+    block_width: int = 0  # channels of a column block; 0: the whole slice
 
     @property
     def grid(self) -> int:
         return self.teams * self.team_blocks
+
+    @property
+    def block_channels(self) -> int:
+        return self.block_width or self.width
 
     def workspace_words(self, batch: int, channels: int, groups: int) -> int:
         """fp32 words of the call's one workspace: the barriers' counters
@@ -191,7 +205,9 @@ class BackwardPlan:
         return sync + self.units * per_unit + batch * 2 * channels
 
     def describe(self) -> str:
-        return (f"{self.units} units of {self.width} channels, {self.teams} teams of "
+        cols = (f" in {self.col_blocks} column blocks of {self.block_channels}"
+                if self.col_blocks > 1 else "")
+        return (f"{self.units} units of {self.width} channels{cols}, {self.teams} teams of "
                 f"{self.team_blocks} blocks (grid {self.grid}), {self.rows_per_block} rows a "
                 f"block, {self.route}")
 
@@ -208,15 +224,18 @@ def backward_candidates(
     (``backward_plan`` takes the least).
 
     Candidate slices are ``width`` channels that divide C, hold whole groups
-    and a power of two of 16-byte packs, at most ``BWD_SLICE_PACKS``, and
-    span at least 32 bytes of a row (one sector); candidate teams split the
-    ``num_sms * blocks_per_sm`` resident blocks evenly. An on-chip candidate
-    needs a block's rows of a unit to fill at most its ``BWD_PACKS`` packs a
-    thread; a re-read candidate takes any number of rows, in chunks of that
-    size. The model: units a team walks, times each unit's bytes (x, g and
-    dx once on chip; x and g twice when re-read) at the block's share of
-    the HBM rate (lower for narrow row slices, ``SLICE_EFFICIENCY``), plus
-    its barrier (``BARRIER_S``) and, re-read, ``CHUNK_S`` a chunk a pass."""
+    and whole 16-byte packs, at most ``PREFERRED_SLICE_PACKS`` packs where
+    the narrowest such slice is no wider, else that slice alone; slices
+    under one 32-byte sector of a row only where no wider one exists. A
+    slice wider than ``BWD_SLICE_PACKS`` packs is split over column blocks.
+    Candidate teams split the ``num_sms * blocks_per_sm`` resident blocks
+    evenly. An on-chip candidate needs a block's rows of a unit to fill at
+    most its ``BWD_PACKS`` packs a thread; a re-read candidate takes any
+    number of rows, in chunks of that size. The model: units a team walks,
+    times each block's bytes of a unit (x, g and dx once on chip; x and g
+    twice when re-read) at the block's share of the HBM rate (lower for
+    narrow row slices, ``SLICE_EFFICIENCY``), plus its barrier
+    (``BARRIER_S``) and, re-read, ``CHUNK_S`` a chunk a pass."""
     pack = 16 // element_size
     if channels % pack:
         raise ValueError(f"channels {channels} must be a multiple of {pack}")
@@ -226,29 +245,38 @@ def backward_candidates(
     if smem > smem_per_block:
         raise ValueError(f"the backward block takes {smem} bytes of shared memory, "
                          f"more than {smem_per_block}")
-    cg = channels // groups
-    step = math.lcm(cg, pack, 32 // element_size)
+    step = math.lcm(channels // groups, pack)
+    widths = [w for w in range(step, channels + 1, step) if channels % w == 0]
+    widths = [w for w in widths if w * element_size >= 32] or widths
+    cap = max(PREFERRED_SLICE_PACKS, widths[0] // pack)
     grid = num_sms * blocks_per_sm
     out = []
-    for width in range(step, channels + 1, step):
+    for width in widths:
         packs = width // pack
-        if channels % width or packs > BWD_SLICE_PACKS or packs & (packs - 1):
-            continue
-        rows_fit = BWD_PACKS * (BWD_THREADS // packs)
+        if packs > cap:
+            break
+        block_packs = math.ceil(packs / math.ceil(packs / BWD_SLICE_PACKS))
+        col_blocks = math.ceil(packs / block_packs)
+        rows_fit = BWD_PACKS * (BWD_THREADS // block_packs)
         units = batch * (channels // width)
-        eff = _slice_efficiency(width * element_size)
+        eff = _slice_efficiency(block_packs * 16)
         for teams in range(1, min(units, grid) + 1):
-            team_blocks = grid // teams
-            rows = math.ceil(spatial / team_blocks)
+            row_blocks = grid // teams // col_blocks
+            if row_blocks == 0:
+                break
+            team_blocks = row_blocks * col_blocks
+            rows = math.ceil(spatial / row_blocks)
             share = HBM_BYTES_PER_S / (teams * team_blocks)  # a block's, of the launched
-            unit_bytes = rows * width * element_size
+            block_bytes = rows * block_packs * 16
             waves = math.ceil(units / teams)
+            plan = BackwardPlan(width, teams, team_blocks, rows, units, smem,
+                                col_blocks=col_blocks,
+                                block_width=block_packs * pack if col_blocks > 1 else 0)
             if rows <= rows_fit:
-                out.append((BackwardPlan(width, teams, team_blocks, rows, units, smem),
-                            waves * (3 * unit_bytes / share / eff + BARRIER_S)))
+                out.append((plan, waves * (3 * block_bytes / share / eff + BARRIER_S)))
             chunks = math.ceil(rows / rows_fit)
-            out.append((BackwardPlan(width, teams, team_blocks, rows, units, smem, "re-read"),
-                        waves * (5 * unit_bytes / share / eff + BARRIER_S
+            out.append((dataclasses.replace(plan, route="re-read"),
+                        waves * (5 * block_bytes / share / eff + BARRIER_S
                                  + 2 * chunks * CHUNK_S)))
     return out
 
@@ -260,14 +288,10 @@ def backward_plan(
 ) -> BackwardPlan:
     """The backward's route, units, teams and grid for one call (pure
     Python): the candidate of ``backward_candidates`` with the least
-    modelled time, the first of equals. Raises where no slice fits."""
+    modelled time, the first of equals. Every shape the wrappers take has at
+    least one."""
     cands = backward_candidates(batch, spatial, channels, groups, element_size, num_sms,
                                 smem_per_block, blocks_per_sm)
-    if not cands:
-        raise ValueError(
-            f"the GroupNorm backward takes slices of whole groups in a power of two of "
-            f"16-byte packs, up to {BWD_SLICE_PACKS}, of at least 32 bytes: {channels} "
-            f"channels in {groups} groups do not fit")
     return min(cands, key=lambda pc: pc[1])[0]
 
 
@@ -307,6 +331,28 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(
             f"groupnorm {what} kernel launch failed: {lib.gn_error_string(err).decode()}"
         )
+
+
+@functools.cache
+def backward_blocks_per_sm(device_index: int, dtype: torch.dtype, with_swish: bool,
+                           defines: tuple[str, ...] = ()) -> int:
+    """Allows the backward kernels (both routes) their shared memory on the
+    device (once) and returns how many blocks an SM holds of the route that
+    holds fewer (the occupancy API): the cooperative launch's grid is at
+    most that many times the SMs."""
+    lib = library(defines)
+    smem = backward_smem_bytes(torch.empty((), dtype=dtype).element_size())
+    per_sm = []
+    for reread in (0, 1):
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = lib.gn_backward_occupancy(_DTYPE_CODES[dtype], int(with_swish), reread, smem,
+                                            ctypes.byref(blocks))
+        _raise_on(err, lib, "backward occupancy")
+        per_sm.append(blocks.value)
+    if min(per_sm) < 1:
+        raise RuntimeError("the GroupNorm backward block does not fit on an SM")
+    return min(per_sm)
 
 
 def group_norm_forward(
@@ -390,28 +436,6 @@ def group_norm_backward(
     return _launch_backward(x, g, stats, weight, bias, num_groups, with_swish, plan)
 
 
-@functools.cache
-def backward_blocks_per_sm(device_index: int, dtype: torch.dtype, with_swish: bool,
-                           defines: tuple[str, ...] = ()) -> int:
-    """Allows the backward kernels (both routes) their shared memory on the
-    device (once) and returns how many blocks an SM holds of the route that
-    holds fewer (the occupancy API): the cooperative launch's grid is at
-    most that many times the SMs."""
-    lib = library(defines)
-    smem = backward_smem_bytes(torch.empty((), dtype=dtype).element_size())
-    per_sm = []
-    for reread in (0, 1):
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(device_index):
-            err = lib.gn_backward_occupancy(_DTYPE_CODES[dtype], int(with_swish), reread, smem,
-                                            ctypes.byref(blocks))
-        _raise_on(err, lib, "backward occupancy")
-        per_sm.append(blocks.value)
-    if min(per_sm) < 1:
-        raise RuntimeError("the GroupNorm backward block does not fit on an SM")
-    return min(per_sm)
-
-
 def _launch_backward(x, g, stats, weight, bias, num_groups, with_swish, plan,
                      defines: tuple[str, ...] = ()):
     global bwd_launches
@@ -435,8 +459,9 @@ def _launch_backward(x, g, stats, weight, bias, num_groups, with_swish, plan,
             x.data_ptr(), g.data_ptr(), stats.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), dx.data_ptr(), dgamma_dbeta.data_ptr(), workspace.data_ptr(),
             b, s, c, num_groups, plan.width, plan.team_blocks, plan.teams,
-            plan.rows_per_block, int(plan.route == "re-read"), plan.smem_bytes,
-            int(with_swish), _DTYPE_CODES[x.dtype], stream,
+            plan.rows_per_block, plan.col_blocks, plan.block_channels,
+            int(plan.route == "re-read"), plan.smem_bytes, int(with_swish),
+            _DTYPE_CODES[x.dtype], stream,
         )
     _raise_on(err, lib, "backward")
     bwd_launches += 1
