@@ -7,14 +7,17 @@ Phases, each fatal on failure:
   1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
      versions, the TF32 flags;
   2. build every kernel from ``vqgan_tpu_torch/csrc/``;
-  3. the forward kernel (#1: three launches a call, counted once) against
-     its plain PyTorch version at every GroupNorm shape of a flagship
-     reconstruct and at C = 96 and 192 (a width-96 VAE's top levels), batch 2
-     and batch 8, fp32 and bf16, swish on and off: max abs error against the
-     stated tolerance, two calls bitwise equal (y and stats), one count a
-     call, the kernel faster than plain; kernel, plain and library times,
-     each the device's (CUDA graph replays), and the bound; the per-step sum
-     against the bound and GN_FWD_TARGET_MS at the end;
+  3. the forward kernel (#1: one launch of thread-block clusters a call)
+     against its plain PyTorch version at every GroupNorm shape of a
+     flagship reconstruct and at C = 96 and 192 (a width-96 VAE's top
+     levels), batch 2 and batch 8, fp32 and bf16, swish on and off: max abs
+     error against the stated tolerance, two calls bitwise equal (y and
+     stats), one launch a call, the kernel faster than plain; kernel, plain
+     and library times, each the device's (CUDA graph replays), the bound,
+     the share of it the kernel reaches and the plan (units, slice, cluster,
+     held packs) on each line; the per-step sum against the bound and
+     GN_FWD_TARGET_MS at the end (and the same checks at the 3D steps' 5-D
+     shapes after phase 24);
   4. the backward kernel (#2: one cooperative launch a call) against its
      plain version at the same shapes, batch 8, fp32 and bf16, swish on and
      off: dx, dγ, dβ against the stated tolerances, two calls bitwise equal,
@@ -40,7 +43,12 @@ Phases, each fatal on failure:
      the card (kernels) at a reduced width, TF32 off;
   8. training: one step on the CPU and on the card from the same weights,
      batch and draws at a reduced width, fp32, TF32 off: losses, and the
-     gradients read from AdamW's first moments;
+     gradients read from AdamW's first moments, with the loss head's
+     discrete decisions (the ReLU masks and max-pool argmaxes of LPIPS's and
+     D's VGG16 towers and D's heads) recorded on the CPU and replayed on the
+     card (``DecisionTape``), so that the comparison sees rounding alone; the
+     card's step without the replay too, its losses within the same bounds
+     and its gradients' share printed;
   9. the VQ nearest-code search kernel against its plain version at the
      flagship shapes (N = 8192 and 2048 tokens, K = 16384 codes, D = 16),
      a ragged N, several K tiles, a K of 32 and a codebook with every code
@@ -151,13 +159,14 @@ Phases, each fatal on failure:
      frames to LPIPS and D) at the same config, with ``disc_3d="frame"`` and
      ``"tubelet"``: D moves in step 1 and G in step 2, the same exact
      launches, finite metrics, frames/s, ms per step and peak memory; then
-     kernel #2 against its plain version, as in phase 4, at every 5-D
-     GroupNorm shape the steps ran (recorded by forward hooks);
+     kernels #1 and #2 against their plain versions, as in phases 3 and 4,
+     at every 5-D GroupNorm shape the steps ran (recorded by forward hooks);
  25. the 3D GAN step, CPU against card, at phase 21's configs (kernels #6
      forward and dx, #1/#2 on 5-D input, #3 forward and backward at head
      dim 32 or 16), gaussian + frame D and VQ (K = 1024, EMA, revival) +
      tubelet D at ch_mult 1,8, gaussian + frame D at 1,4: losses and
-     gradients within phase 8's bounds, EMA counts to one token.
+     gradients within phase 8's bounds with the loss head's decisions
+     replayed, as in phase 8, EMA counts to one token.
 
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
@@ -167,6 +176,7 @@ line is a JSON summary of the kernels; the last line is ``{"ok": true,
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -220,7 +230,7 @@ SUM_RTOL = 1e-5
 # kernel #2's device time per flagship training step (50 bf16 calls with the
 # swish at batch 8): at most half its bound's speed, 2 x 5.003 ms
 GN_BWD_TARGET_MS = 10.0
-# kernel #1's: 0.61 of its 3.335 ms bound (not met yet: PERF.md, Findings)
+# kernel #1's: 0.61 of its 3.335 ms bound (PERF.md, Findings)
 GN_FWD_TARGET_MS = 5.5
 # (S, C) of GroupNorms off the flagship: the top levels of a VAE of width 96
 # (slices of whole groups that are no power of two of 16-byte packs)
@@ -403,13 +413,14 @@ def bound_ms(n_bytes: int) -> float:
 
 def gn_check(gn, group_norm_fp32, x, w, b, swish: bool, label: str) -> tuple:
     """Kernel #1 against its plain version on x: y within ATOL_FP32 (fp32)
-    or one bf16 ulp, two calls bitwise equal (y and the stats), one call
-    counted once, and the kernel faster than plain. Times are the device's
-    (CUDA graph replays): kernel, plain and library; the bound counts x read
-    once and y written once. Raises where a check fails, else returns
+    or one bf16 ulp, two calls bitwise equal (y and the stats), one launch
+    a call, and the kernel faster than plain. Times are the device's (CUDA
+    graph replays): kernel, plain and library; the bound counts x read once
+    and y written once. Raises where a check fails, else returns
     (max_abs_err, kernel_ms, plain_ms, library_ms, bound_ms)."""
     from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
 
+    plan = gn.forward_plan(x.shape[0], x[0, 0].numel(), x.shape[1], 32, x.element_size())
     gn.launches = 0
     got, stats = gn.group_norm_forward(x, w, b, 32, 1e-6, swish)
     torch.cuda.synchronize()
@@ -437,13 +448,13 @@ def gn_check(gn, group_norm_fp32, x, w, b, swish: bool, label: str) -> tuple:
     name = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     ok = ok and same and one_count and k_ms < p_ms
     log(f"gn fwd {label} {name} swish={int(swish)}: "
-        f"max_abs_err={err:.3e} ({tol}); bitwise repeat {same}, one count a call "
-        f"{one_count}; kernel_ms={k_ms:.4f} (device, {moved / k_ms / 1e9:.3f} TB/s) "
-        f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
-        f"{'ok' if ok else 'MISS'}")
+        f"max_abs_err={err:.3e} ({tol}); bitwise repeat {same}, one launch a call "
+        f"{one_count}; kernel_ms={k_ms:.4f} (device, {moved / k_ms / 1e9:.3f} TB/s, "
+        f"{b_ms / k_ms:.3f} of the bound) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+        f"bound_ms={b_ms:.4f}; plan: {plan.describe()} {'ok' if ok else 'MISS'}")
     if not ok:
         raise AssertionError(f"forward kernel at {label} {name} swish={swish}: within bound "
-                             f"{err}, bitwise {same}, one count {one_count}, faster than "
+                             f"{err}, bitwise {same}, one launch {one_count}, faster than "
                              f"plain {k_ms < p_ms}")
     return err, k_ms, p_ms, l_ms, b_ms
 
@@ -1109,8 +1120,9 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
         revive_idx = torch.from_numpy(rng.randint(0, n_tokens, vq_k))
         counts = torch.from_numpy(rng.uniform(0.3, 1.3, vq_k).astype(np.float32))
         vq_ema = {"counts": counts, "sums": counts[:, None] * sd_vae["reg.codebook"]}
-    runs = {}
-    for dev in ("cpu", "cuda"):
+    runs, tape = {}, DecisionTape()
+    for run in ("cpu", "cuda", "cuda free"):
+        dev = run.split()[0]
         with torch.device(dev):
             vae, disc, lpips = VAE(vae_cfg), PatchDiscriminator(), LPIPS()
         vae.load_state_dict(sd_vae, strict=True)
@@ -1122,7 +1134,10 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
                           aug_lpips_w=False, aug_lpips_h=False,
                           revive_idx=None if revive_idx is None else revive_idx.to(dev))
         ac.fwd_launches = ac.bwd_launches = ac.tc_launches = ac.fma_launches = 0
-        state, metrics = step(state, torch.from_numpy(images).to(dev), 0, draws)
+        head = {"lpips": lpips, "disc": disc}
+        with (tape.recording(head) if run == "cpu" else
+              tape.replaying(head) if run == "cuda" else contextlib.nullcontext()):
+            state, metrics = step(state, torch.from_numpy(images).to(dev), 0, draws)
         if attn and dev == "cuda" and (ac.fwd_launches, ac.bwd_launches) != (2, 2):
             raise AssertionError("the card's step did not run 2 + 2 attention launches")
         if attn and dev == "cuda":  # fp32 throughout: the FMA route
@@ -1136,50 +1151,162 @@ def phase_train_cross_device(vq_k: int = 0, attn: bool = False) -> None:
         if vq_k:
             extra = {"counts": state.vq_ema["counts"].cpu(), "sums": state.vq_ema["sums"].cpu(),
                      "codebook": vae.reg.codebook.detach().cpu()}
-        runs[dev] = ({k: float(v) for k, v in metrics.items()}, moments, extra)
+        runs[run] = ({k: float(v) for k, v in metrics.items()}, moments, extra)
 
+    log(f"train cross-device: {tape.describe()} recorded on the CPU, replayed on the card")
     what = (f"vq K={vq_k} " if vq_k else "") + ("attn " if attn else "")
     n_logits = 2 * 2 * 16  # real and fake, batch 2, a 4x4 patch grid at 64 px
     compare_step_across_devices(runs, f"{what}ch=64 (1,2,4) 64px batch 2", n_logits, vq_k)
 
 
+class DecisionTape:
+    """The loss head's discrete decisions in one training step, recorded on
+    one run and replayed on another, so that two runs of the step differ by
+    rounding alone: every ReLU's mask and every max-pool's argmax in the
+    VGG16 towers of LPIPS and D and in D's classifier heads, per module and
+    call, in call order. ``recording`` keeps them (the CPU's run);
+    ``replaying`` makes the same modules take them instead of their own (the
+    card's run): a ReLU returns x·mask, a max-pool pools x with -inf off the
+    recorded argmaxes, and the gradient follows the same masks and indices. Installed
+    by forward hooks on the modules given; the port's modules do not change.
+    A one-ulp change of a pre-activation near 0 flips a ReLU and moves 1-2 %
+    of a gradient (tools/cross_device_spread.py), which no bound on
+    rounding can hold."""
+
+    def __init__(self):
+        self.calls: dict[str, list[torch.Tensor]] = {}
+        self._next: dict[str, int] = {}
+
+    @staticmethod
+    def decision_modules(modules: dict) -> list:
+        """(name, module) of every ReLU and max-pool under ``modules``
+        ({prefix: root module})."""
+        return [(f"{prefix}.{name}", m) for prefix, root in modules.items()
+                for name, m in root.named_modules()
+                if isinstance(m, (torch.nn.ReLU, torch.nn.MaxPool2d))]
+
+    def _record(self, key, module, inputs, output):
+        x = inputs[0]
+        if isinstance(module, torch.nn.ReLU):
+            decision = x > 0
+        else:
+            with torch.no_grad():
+                decision = F.max_pool2d(x, module.kernel_size, module.stride, module.padding,
+                                        module.dilation, module.ceil_mode, True)[1]
+        self.calls.setdefault(key, []).append(decision.detach().cpu())
+
+    def _replay(self, key, module, inputs, output):
+        i = self._next.get(key, 0)
+        if i >= len(self.calls.get(key, ())):
+            raise AssertionError(f"{key} called more often than on the recorded run")
+        self._next[key] = i + 1
+        x, decision = inputs[0], self.calls[key][i].to(inputs[0].device)
+        if isinstance(module, torch.nn.ReLU):
+            return x * decision.to(x.dtype)
+        # the pool again over x with -inf off the recorded argmaxes: the same
+        # values, the gradient to the same elements, in the pool's own layout
+        off = torch.full_like(x, float("-inf"))
+        off.flatten(2).scatter_(2, decision.flatten(2), 0.0)
+        return F.max_pool2d(x + off, module.kernel_size, module.stride, module.padding,
+                            module.dilation, module.ceil_mode)
+
+    @contextlib.contextmanager
+    def _hooked(self, modules: dict, hook):
+        handles = [m.register_forward_hook(functools.partial(hook, key))
+                   for key, m in self.decision_modules(modules)]
+        try:
+            yield self
+        finally:
+            for h in handles:
+                h.remove()
+
+    def recording(self, modules: dict):
+        self.calls.clear()
+        return self._hooked(modules, self._record)
+
+    @contextlib.contextmanager
+    def replaying(self, modules: dict):
+        self._next.clear()
+        with self._hooked(modules, self._replay):
+            yield self
+        unused = {k: len(v) - self._next.get(k, 0) for k, v in self.calls.items()
+                  if len(v) != self._next.get(k, 0)}
+        if unused:
+            raise AssertionError(f"recorded decisions left unused: {unused}")
+
+    def describe(self) -> str:
+        n = sum(len(v) for v in self.calls.values())
+        elems = sum(t.numel() for v in self.calls.values() for t in v)
+        return f"{n} decisions ({elems} elements) of {len(self.calls)} modules"
+
+
+def step_bound_shares(ref: tuple, got: tuple, n_logits: int) -> tuple:
+    """One training step's (metrics, AdamW first moments of G and D) against
+    the reference run's, by phase 8's bounds: (the worst loss's share of
+    LOSS_RTOL/ATOL, {side: (the worst tensor, its share of GRAD_RTOL of the
+    tensor's largest entry + GRAD_FLOOR of the largest)}, [the losses past
+    their bound], [the gradients past theirs]). D's accuracy: one logit of
+    ``n_logits``."""
+    (m_ref, g_ref), (m_got, g_got) = ref[:2], got[:2]
+    bad_loss, bad_grad = [], []
+    for k, v in m_ref.items():
+        atol = 1.0 / n_logits if k == "gan/discriminator_accuracy" else LOSS_ATOL
+        if abs(m_got[k] - v) > atol + LOSS_RTOL * abs(v):
+            bad_loss.append((k, v, m_got[k]))
+    worst_loss = max(abs(m_got[k] - v) / (LOSS_ATOL + LOSS_RTOL * abs(v))
+                     for k, v in m_ref.items() if k != "gan/discriminator_accuracy")
+    worst = {}
+    for side in ("G", "D"):
+        r_side, o_side = g_ref[side], g_got[side]
+        if set(r_side) != set(o_side):
+            bad_grad.append((side, "parameters with AdamW state differ"))
+            continue
+        floor = GRAD_FLOOR * max(float(t.abs().max()) for t in r_side.values())
+        used = {}
+        for n, r in r_side.items():
+            scale = float(r.abs().max())
+            err = float((o_side[n] - r).abs().max())
+            used[n] = err / (GRAD_RTOL * scale + floor)
+            if err > GRAD_RTOL * scale + floor:
+                bad_grad.append((side, n, err, scale))
+        name = max(used, key=used.get)
+        worst[side] = (name, used[name])
+    return worst_loss, worst, bad_loss, bad_grad
+
+
 def compare_step_across_devices(runs: dict, what: str, n_logits: int, vq_k: int) -> None:
     """One training step's (metrics, AdamW first moments of G and D, VQ
-    statistics) on the CPU and on the card against phase 8's bounds: losses
+    statistics) on the CPU (``runs["cpu"]``, its loss head's decisions
+    recorded) and on the card with those decisions replayed
+    (``runs["cuda"]``, ``DecisionTape``), against phase 8's bounds: losses
     LOSS_RTOL/ATOL (D's accuracy one logit of ``n_logits``), gradients
     GRAD_RTOL of each tensor's largest entry + GRAD_FLOOR of the largest;
     with ``vq_k`` the EMA counts to one token, the sums and the folded
-    codebook to ATOL_PATH_FP32, some code revived."""
-    (m_cpu, g_cpu, x_cpu), (m_gpu, g_gpu, x_gpu) = runs["cpu"], runs["cuda"]
-    bad = []
-    for k, v in m_cpu.items():
-        atol = 1.0 / n_logits if k == "gan/discriminator_accuracy" else LOSS_ATOL
-        if abs(m_gpu[k] - v) > atol + LOSS_RTOL * abs(v):
-            bad.append((k, v, m_gpu[k]))
-    worst_loss = max(abs(m_gpu[k] - v) / (LOSS_ATOL + LOSS_RTOL * abs(v))
-                     for k, v in m_cpu.items() if k != "gan/discriminator_accuracy")
+    codebook to ATOL_PATH_FP32, some code revived. ``runs["cuda free"]``,
+    where given, is the card's step without the replay: its losses, which
+    the flips move only a little, are held to the same loss bounds, and its
+    gradients' share is printed for information."""
+    (m_cpu, _, x_cpu), (m_gpu, _, x_gpu) = runs["cpu"], runs["cuda"]
+    worst_loss, worst, bad_loss, bad_grad = step_bound_shares(runs["cpu"], runs["cuda"],
+                                                              n_logits)
+    bad = bad_loss + bad_grad
     log(f"train cross-device {what}: overall_vae_loss cpu="
         f"{m_cpu['overall_vae_loss']:.6f} card={m_gpu['overall_vae_loss']:.6f}; the worst "
         f"loss uses {worst_loss:.3f} of its bound")
-    for side in ("G", "D"):
-        ref, got = g_cpu[side], g_gpu[side]
-        if set(ref) != set(got):
-            bad.append((side, "parameters with AdamW state differ"))
-            continue
-        floor = GRAD_FLOOR * max(float(t.abs().max()) for t in ref.values())
-        used = {}
-        for n, r in ref.items():
-            scale = float(r.abs().max())
-            err = float((got[n] - r).abs().max())
-            used[n] = err / (GRAD_RTOL * scale + floor)
-            if err > GRAD_RTOL * scale + floor:
-                bad.append((side, n, err, scale))
-        worst = max(used, key=used.get)
-        log(f"train cross-device {what} {side} step-1 gradients (AdamW exp_avg): the worst "
-            f"tensor, {worst}, uses {used[worst]:.3f} of its bound (rtol {GRAD_RTOL:g}, floor "
-            f"{GRAD_FLOOR:g} of the largest entry)")
+    for side, (name, share) in worst.items():
+        log(f"train cross-device {what} {side} step-1 gradients (AdamW exp_avg), the loss "
+            f"head's decisions replayed from the CPU: the worst tensor, {name}, uses "
+            f"{share:.3f} of its bound (rtol {GRAD_RTOL:g}, floor {GRAD_FLOOR:g} of the largest "
+            f"entry)")
+    if "cuda free" in runs:
+        free_loss, free, free_bad_loss, _ = step_bound_shares(runs["cpu"], runs["cuda free"],
+                                                              n_logits)
+        bad += [("without replay",) + b for b in free_bad_loss]
+        log(f"train cross-device {what}, the card's own decisions: the worst loss uses "
+            f"{free_loss:.3f} of its bound; gradients (for information): " + ", ".join(
+                f"{side} {name} {share:.3f}" for side, (name, share) in free.items()))
     if vq_k:
-        if "reg.codebook" in g_gpu["G"]:
+        if "reg.codebook" in runs["cuda"][1]["G"]:
             bad.append("the EMA codebook has AdamW state")
         # the counts: 0.9·c + 0.1·(integer counts), the same fp32 operations on
         # both devices. A token on the other side of a near-tie would move two
@@ -1747,8 +1874,8 @@ def record_gn_shapes(model) -> tuple[dict, list]:
 def gn_at_clip_shapes(gn, shapes: dict, label: str) -> float:
     """Kernel #1 against its plain version (``gn_check``) at each (B, C, T,
     H, W, dtype, swish) of ``shapes``, 5-D channels_last_3d, as a clip
-    reconstruct ran them; logs the sums of (kernel, plain, library, bound) ms
-    over the calls and returns the largest max_abs_err."""
+    reconstruct or a 3D step ran them; logs the sums of (kernel, plain,
+    library, bound) ms over the calls and returns the largest max_abs_err."""
     from vqgan_tpu_torch.ops.normalization import group_norm_fp32
 
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -1762,7 +1889,7 @@ def gn_at_clip_shapes(gn, shapes: dict, label: str) -> float:
         sums = [acc + shapes[key] * v for acc, v in zip(sums, res[1:])]
         del x
         torch.cuda.empty_cache()
-    log(f"GN forward per {label} reconstruct ({sum(shapes.values())} calls, device time): "
+    log(f"GN forward per {label} ({sum(shapes.values())} calls, device time): "
         f"kernel {sums[0]:.4f} ms, plain {sums[1]:.4f} ms, library {sums[2]:.4f} ms, bound "
         f"{sums[3]:.4f} ms")
     return err
@@ -1845,7 +1972,7 @@ def phase_clip_serving(gn, cc, ac, tmp: str) -> tuple[dict, dict, dict]:
         raise AssertionError("clip output out of shape, not finite or outside [0, 1]")
     log(f"tvae 16f/128px: latents {tuple(z.shape)} |z|max={float(z.abs().max()):.4f} "
         f"std={float(z.float().std()):.4f}; output mean={recon.mean():.4f} std={recon.std():.4f}")
-    gn_err = gn_at_clip_shapes(gn, gn_seen, "16f/128px")
+    gn_err = gn_at_clip_shapes(gn, gn_seen, "16f/128px reconstruct")
 
     # the main path, counted: one reconstruct of the batch
     cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
@@ -1941,7 +2068,7 @@ def phase_long_clip(gn, cc, ac, tmp: str) -> dict:
             or recon.shape != (1, LONG_FRAMES, LONG_RES, LONG_RES, 3)
             or not np.isfinite(recon).all() or recon.min() < 0.0 or recon.max() > 1.0):
         raise AssertionError("long-clip latents or output out of shape or range")
-    gn_err = gn_at_clip_shapes(gn, gn_seen, "48f/256px")
+    gn_err = gn_at_clip_shapes(gn, gn_seen, "48f/256px reconstruct")
     timing = _serve_clips(pipe, clip, iters=2)
     log(f"tvae long clip serving batch 1: {timing['frames_per_s']:.3f} frames/s, "
         f"{timing['reconstruct_s'] * 1e3:.1f} ms per reconstruct, peak memory "
@@ -2255,8 +2382,9 @@ def phase_train3d_cross_device(cc, ac, gn, vq: bool, ch_mult=(1, 8)) -> None:
         revive_idx = torch.from_numpy(rng.randint(0, 2 * 2 * 16 * 16, k))
         counts = torch.from_numpy(rng.uniform(0.3, 1.3, k).astype(np.float32))
         vq_ema = {"counts": counts, "sums": counts[:, None] * sd_model["reg.codebook"]}
-    runs = {}
-    for dev in ("cpu", "cuda"):
+    runs, tape = {}, DecisionTape()
+    for run in ("cpu", "cuda", "cuda free"):
+        dev = run.split()[0]
         with torch.device(dev):
             model = TVAE(tvae_cfg)
             disc = TubeletDiscriminator(3) if vq else PatchDiscriminator()
@@ -2271,7 +2399,10 @@ def phase_train3d_cross_device(cc, ac, gn, vq: bool, ch_mult=(1, 8)) -> None:
                             revive_idx=None if revive_idx is None else revive_idx.to(dev))
         cc.launches = cc.bwd_launches = ac.fwd_launches = ac.bwd_launches = 0
         gn.launches = gn.bwd_launches = 0
-        state, metrics = step(state, torch.from_numpy(clips).to(dev), draws)
+        head = {"lpips": lpips, "disc": disc}
+        with (tape.recording(head) if run == "cpu" else
+              tape.replaying(head) if run == "cuda" else contextlib.nullcontext()):
+            state, metrics = step(state, torch.from_numpy(clips).to(dev), draws)
         launches = (cc.launches, cc.bwd_launches, gn.launches, gn.bwd_launches,
                     ac.fwd_launches, ac.bwd_launches)
         if dev == "cuda":
@@ -2290,7 +2421,8 @@ def phase_train3d_cross_device(cc, ac, gn, vq: bool, ch_mult=(1, 8)) -> None:
             extra_out = {"counts": state.vq_ema["counts"].cpu(),
                          "sums": state.vq_ema["sums"].cpu(),
                          "codebook": model.reg.codebook.detach().cpu()}
-        runs[dev] = ({name: float(v) for name, v in metrics.items()}, moments, extra_out)
+        runs[run] = ({name: float(v) for name, v in metrics.items()}, moments, extra_out)
+    log(f"train3d cross-device: {tape.describe()} recorded on the CPU, replayed on the card")
     # real and fake logits: 2 clips x 3 frames x a 2x2 patch grid at 32 px
     compare_step_across_devices(
         runs, f"3D {'vq K=1024 + tubelet' if vq else 'gaussian + frame'} ch=32 {ch_mult} "
@@ -2392,11 +2524,12 @@ def main() -> int:
     train3d = {"recon-only": phase_train3d(gn, cc)}
     for disc_3d in ("frame", "tubelet"):
         train3d[f"gan {disc_3d}"] = phase_train3d(gn, cc, gan=True, disc_3d=disc_3d)
-    # kernel #2 at every 5-D shape the 3D steps ran (the GAN steps add 2D
+    # kernels #1 and #2 at every 5-D shape the 3D steps ran (the GAN steps add 2D
     # modules only, so their GroupNorms are the recon-only step's)
     step3d_gn = train3d["recon-only"]["gn_shapes"]
     if any(r["gn_shapes"] != step3d_gn for r in train3d.values()):
         raise AssertionError("the 3D steps ran their GroupNorms at different shapes")
+    fwd3d_err = gn_at_clip_shapes(gn, step3d_gn, "3D training step")
     bwd3d_err, bwd3d_step = gn_bwd_at_shapes(gn, step3d_gn, "3D training step")
 
     # 25. the 3D GAN step, CPU vs card
@@ -2519,7 +2652,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
               train_counts["gn"], max([v[0] for res in fwd.values() for v in res.values()]
-                                      + [clip_serve["gn_err"], long_clip["gn_err"]]),
+                                      + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err]),
               fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
               train_counts["gn_bwd"], max([v[0] for v in bwd.values()] + [bwd3d_err]), bwd_step,

@@ -1,5 +1,6 @@
-"""The GroupNorm backward's launch plan (``ops/groupnorm_cuda.py::
-backward_plan``), on the CPU: pure Python, no card.
+"""The GroupNorm backward's and forward's launch plans
+(``ops/groupnorm_cuda.py::backward_plan``, ``forward_plan``), on the CPU:
+pure Python, no card.
 
 At every GroupNorm shape of the flagship training step (batch 8)
 and of the 3D training steps (batch 2, 16 frames x 128 px), in both dtypes,
@@ -10,7 +11,12 @@ spans at least one 32-byte sector of a row where its groups allow, a block's
 column slice fits its threads, an on-chip plan's rows of a unit fit a
 block's packs, the blocks of a team cover every row and channel of a unit,
 the grid fits the resident blocks the plan was given, and the workspace
-holds every partial.
+holds every partial. The forward's plan at the same shapes: units of whole
+groups that cover every (sample, channel) once, from the same slice rule,
+clusters whose blocks each take rows and together every row, rounds of held
+packs, shared memory for two blocks an SM, and the rule's slice and
+cluster (row slices of at most 128 bytes, at least four units; the
+smallest cluster whose threads take at most 16 rows).
 """
 
 import math
@@ -22,11 +28,20 @@ from vqgan_tpu_torch.ops.groupnorm_cuda import (
     BWD_PACKS,
     BWD_SLICE_PACKS,
     BWD_THREADS,
+    FWD_CLUSTERS,
+    FWD_MIN_UNITS,
+    FWD_ROUND_PACKS,
+    FWD_ROW_BYTES,
+    FWD_THREADS,
     MAX_SMEM_PER_BLOCK,
     PREFERRED_SLICE_PACKS,
     backward_candidates,
     backward_plan,
     backward_smem_bytes,
+    forward_candidates,
+    forward_plan,
+    forward_smem_bytes,
+    slice_widths,
 )
 
 NUM_SMS, BLOCKS_PER_SM = 132, 2  # an H100 SXM, two backward blocks an SM
@@ -171,3 +186,92 @@ def test_workspace_words_hold_every_partial():
     want = (math.ceil((plan.teams + 2) / 4) * 4
             + plan.units * plan.team_blocks * 2 * (groups_per_slice + plan.width) + 8 * 2 * 512)
     assert plan.workspace_words(8, 512, 32) == want
+
+
+def _check_forward(plan, b, s, c, groups, element_size):
+    pack = 16 // element_size
+    cg = c // groups
+    # units: every (sample, channel) once, whole groups and packs, from the
+    # slice rule both directions share (16-byte slices allowed)
+    assert plan.width in slice_widths(c, groups, element_size, min_bytes=16)
+    assert plan.width % cg == 0 and c % plan.width == 0 and plan.width % pack == 0
+    assert plan.width // pack <= FWD_THREADS
+    assert plan.units == b * (c // plan.width)
+    # the cluster's blocks each take rows, and together every row once
+    assert plan.cluster in FWD_CLUSTERS
+    assert plan.cluster == 1 or (plan.cluster - 1) * plan.rows_per_block < s
+    assert plan.cluster * plan.rows_per_block >= s
+    assert plan.slots >= 1 and 0 < plan.held_rows(s, element_size) <= s
+    # rounds: as many as a thread's rows need at its held packs
+    rows_in_flight = FWD_THREADS // (plan.width // pack)
+    assert plan.rounds(element_size) == math.ceil(
+        math.ceil(plan.rows_per_block / rows_in_flight) / plan.slots)
+    # shared memory: the slots, scratch, group sums, the cluster's sums,
+    # coefficients
+    assert plan.halves == (2 if math.ceil(plan.rows_per_block / rows_in_flight) > plan.slots
+                           else 1)
+    assert plan.smem_bytes == forward_smem_bytes(plan.width, plan.width // cg, element_size,
+                                                 plan.slots, plan.cluster,
+                                                 plan.halves) <= MAX_SMEM_PER_BLOCK
+    assert plan.blocks_per_sm in (1, 2)
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= SM_SMEM
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,s,c", FLAGSHIP + STEP3D,
+                         ids=[f"B{b}-S{s}-C{c}" for b, s, c in FLAGSHIP + STEP3D])
+def test_forward_plan_covers_the_call(b, s, c, element_size):
+    """Every path shape: a valid forward plan by the rule the sweep fitted
+    (``tools/sweep_gn_bwd.py --forward``): the widest row slice of at most
+    128 bytes that leaves four units (16- and 32-byte slices lost to it at
+    every path shape), the smallest cluster whose threads take at most 16
+    rows, two blocks an SM."""
+    plan = forward_plan(b, s, c, 32, element_size)
+    _check_forward(plan, b, s, c, 32, element_size)
+    widths = slice_widths(c, 32, element_size, min_bytes=16)
+    wider = [w for w in widths if plan.width < w and w * element_size <= FWD_ROW_BYTES]
+    assert plan.width * element_size <= FWD_ROW_BYTES
+    assert plan.units >= FWD_MIN_UNITS
+    assert all(b * c // w < FWD_MIN_UNITS for w in wider)
+    rows_in_flight = FWD_THREADS // (plan.width * element_size // 16)
+    per_thread = math.ceil(plan.rows_per_block / rows_in_flight)
+    assert per_thread <= FWD_ROUND_PACKS or plan.cluster == max(FWD_CLUSTERS)
+    if plan.cluster > 1:
+        half = math.ceil(math.ceil(s / (plan.cluster // 2)) / rows_in_flight)
+        assert half > FWD_ROUND_PACKS
+    assert plan.blocks_per_sm == 2
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+def test_every_width_has_a_forward_plan(element_size):
+    """Every C that is a multiple of 32 up to 1,280 at 32 groups, 48 in 16
+    and 328 in one group (41 bf16 packs), at every path shape and at tiny
+    and ragged ones: a valid forward plan. A group wider than a block's
+    threads (6,144 channels in one) has none, and raises."""
+    cases = [(c, 32) for c in range(32, 1281, 32)] + [(48, 16), (328, 1)]
+    for c, groups in cases:
+        for b, s, _ in FLAGSHIP + STEP3D + [(1, 1, 0), (3, 63, 0)]:
+            _check_forward(forward_plan(b, s, c, groups, element_size), b, s, c,
+                           groups, element_size)
+    with pytest.raises(ValueError, match="no forward plan"):
+        forward_plan(2, 64, 6144, 1, element_size)
+
+
+@pytest.mark.parametrize("c,groups", [(64, 32), (256, 32), (1024, 32), (96, 32), (48, 16),
+                                      (328, 1)])
+def test_every_forward_candidate_is_a_valid_plan(c, groups):
+    for b, s in [(1, 1), (3, 63), (2, 4096), (2, 262144)]:
+        for element_size in (2, 4):
+            cands = forward_candidates(b, s, c, groups, element_size)
+            assert cands and len(set(cands)) == len(cands)
+            for plan in cands:
+                _check_forward(plan, b, s, c, groups, element_size)
+            assert forward_plan(b, s, c, groups, element_size) in cands
+
+
+def test_the_forward_rule_is_a_candidate_at_every_path_shape():
+    """What the sweep times includes what the rule picks."""
+    for b, s, c in FLAGSHIP + STEP3D:
+        for element_size in (2, 4):
+            cands = forward_candidates(b, s, c, 32, element_size)
+            assert forward_plan(b, s, c, 32, element_size) in cands and len(cands) > 1

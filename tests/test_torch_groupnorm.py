@@ -7,6 +7,7 @@ tests/test_pallas_kernels.py. The CUDA kernel itself is tested on the card by
 tests/test_torch_cuda.py.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,9 +21,14 @@ from vqgan_tpu.ops.normalization import group_norm_fp32 as jax_group_norm
 from vqgan_tpu.ops.pallas.groupnorm import fused_group_norm as pallas_group_norm
 from vqgan_tpu_torch.ops import groupnorm_cuda
 from vqgan_tpu_torch.ops.groupnorm_cuda import (
+    FWD_CLUSTERS,
+    FWD_THREADS,
+    MAX_SMEM_PER_BLOCK,
+    SM_SMEM_BYTES,
+    forward_plan,
+    forward_smem_bytes,
     fused_group_norm,
     group_norm_forward,
-    launch_geometry,
 )
 from vqgan_tpu_torch.ops.normalization import group_norm_fp32_forward
 
@@ -108,22 +114,31 @@ def test_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("dtype_size", [4, 2], ids=["fp32", "bf16"])
-def test_launch_geometry_covers_flagship_shapes(dtype_size):
+def test_forward_plan_covers_flagship_shapes(dtype_size):
     """Every GroupNorm shape of a flagship reconstruct, at batch 1, 2 and 8,
-    gets a geometry the kernel accepts: whole rows per block, at most 1024
-    threads and 48 KB of shared memory, tiles that cover S exactly once."""
+    gets a forward plan the kernel takes: units of whole groups and packs
+    that cover C, at most ``FWD_THREADS`` packs a row, a cluster of
+    ``FWD_CLUSTERS`` whose blocks cover S exactly once, shared memory within
+    a block's limit and one or two blocks an SM."""
     shapes = [(65536, 256), (16384, 256), (16384, 512), (4096, 512),
               (4096, 1024), (1024, 1024), (16384, 1024), (65536, 512),
               (60, 64)]
     pack = 16 // dtype_size
     for b in (1, 2, 8):
         for s, c in shapes:
-            threads, rows, n_tiles = launch_geometry(b, s, c, dtype_size, 132)
-            packs = c // pack
-            assert threads % packs == 0 and threads <= 1024
-            assert 2 * threads * pack * 4 <= 48 * 1024
-            assert rows % (threads // packs) == 0
-            assert (n_tiles - 1) * rows < s <= n_tiles * rows
+            plan = forward_plan(b, s, c, 32, dtype_size)
+            packs = plan.width // pack
+            assert c % plan.width == 0 and plan.width % (c // 32) == 0 and plan.width % pack == 0
+            assert packs <= FWD_THREADS and plan.units == b * c // plan.width
+            assert plan.cluster in FWD_CLUSTERS
+            assert (plan.cluster - 1) * plan.rows_per_block < s <= plan.cluster * plan.rows_per_block
+            assert 0 < plan.held_rows(s, dtype_size) <= s
+            assert plan.smem_bytes == forward_smem_bytes(plan.width, plan.width // (c // 32),
+                                                         dtype_size, plan.slots, plan.cluster,
+                                                         plan.halves)
+            assert plan.smem_bytes <= MAX_SMEM_PER_BLOCK
+            assert plan.blocks_per_sm in (1, 2)
+            assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= SM_SMEM_BYTES
 
 
 def test_import_builds_nothing(tmp_path):
@@ -157,63 +172,84 @@ def _fma32(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _emulate_forward(x, weight, bias, groups, eps, swish, num_sms):
-    """``csrc/groupnorm.cu``'s forward (``gn_stats_kernel``,
-    ``gn_finalize_kernel``, ``gn_apply_kernel``) in its order, fp32 torch on
-    the CPU: per tile of ``launch_geometry``'s, thread (r, pack)
-    sums rows r, r + R, ... of the tile in order (Σx, and Σx² by fused
-    multiply-adds), then per group over the rows in flight and the group's
-    channels in order; per group, lane l sums tiles l, l + lanes, ... in
-    order, then the lanes in order; mean = s1/n, var = s2/n − mean² (fused),
-    rstd = rsqrt(var + eps); A = rstd·γ, B = β − mean·A; y = x·A + B, with
-    the swish t·(1/(1 + e^−t)). x: (B, C, ...) channels-last; returns (y in
-    x's dtype and layout, the (B, 2, G) stats)."""
+def _seq_sums(rows):
+    """Σx and Σx² (fused multiply-adds) of rows (m, R, W) over m in order."""
+    s1 = torch.zeros(rows.shape[1:])
+    s2 = torch.zeros(rows.shape[1:])
+    for v in rows:
+        s1 = s1 + v
+        s2 = _fma32(v, v, s2)
+    return s1, s2
+
+
+def _emulate_forward(x, weight, bias, groups, eps, swish, plan):
+    """``csrc/groupnorm.cu``'s ``gn_fwd_kernel`` in its order, fp32 torch on
+    the CPU, for ``plan``: per unit (a sample, a slice of ``plan.width``
+    channels), block r of its cluster takes rows [r·rpb, (r + 1)·rpb);
+    thread (rl, pack) sums rows rl, rl + R, ... of the block in rounds of
+    ``plan.slots`` rows, in order within a round (Σx, and Σx² by fused
+    multiply-adds), the rounds' sums added in order; the block sums each
+    channel over its threads' rows in flight, then each group over its
+    channels in order; the cluster adds its blocks' group sums in rank
+    order; mean = s1/n, var = s2/n − mean² (fused), rstd = rsqrt(var + eps);
+    A = rstd·γ, B = β − mean·A; y = x·A + B, with the swish t·(1/(1 +
+    e^−t)). x: (B, C, ...) channels-last; returns (y in x's dtype and
+    layout, the (B, 2, G) stats)."""
     b_, c = x.shape[:2]
     cg = c // groups
     xf = x.float().movedim(1, -1).reshape(b_, -1, c)
     s = xf.shape[1]
-    threads, rpt, n_tiles = launch_geometry(b_, s, c, x.element_size(), num_sms)
-    pack = 16 // x.element_size()
-    rows_in_flight = threads // (c // pack)
-    lanes = min(1024 // groups, n_tiles)
-    n = float(s * cg)
+    w = plan.width
+    rows_in_flight = plan.rows_in_flight(x.element_size())
+    rpb, n, gw = plan.rows_per_block, float(s * cg), w // cg
     y = torch.empty_like(xf)
     stats = torch.empty(b_, 2, groups)
-    for b in range(b_):
-        partial = torch.zeros(n_tiles, 2, groups)
-        for t in range(n_tiles):
-            rows = xf[b, t * rpt:min(s, (t + 1) * rpt)]
-            s1 = torch.zeros(rows_in_flight, c)
-            s2 = torch.zeros(rows_in_flight, c)
-            for i in range(0, rows.shape[0], rows_in_flight):
-                chunk = rows[i:i + rows_in_flight]
-                k = chunk.shape[0]
-                s1[:k] = s1[:k] + chunk
-                s2[:k] = _fma32(chunk, chunk, s2[:k])
-            for rr in range(rows_in_flight):
-                for j in range(cg):
-                    partial[t, 0] = partial[t, 0] + s1[rr, j::cg]
-                    partial[t, 1] = partial[t, 1] + s2[rr, j::cg]
-        lane_sums = torch.zeros(lanes, 2, groups)
-        for lane in range(lanes):
-            for t in range(lane, n_tiles, lanes):
-                lane_sums[lane] = lane_sums[lane] + partial[t]
-        tot = lane_sums[0]
-        for lane in range(1, lanes):
-            tot = tot + lane_sums[lane]
+    for u in range(plan.units):
+        b, sl = divmod(u, c // w)
+        ch = torch.arange(sl * w, (sl + 1) * w)
+        tot = None
+        for r in range(plan.cluster):
+            rows = xf[b, r * rpb:min(s, (r + 1) * rpb)][:, ch]
+            m = -(-rows.shape[0] // rows_in_flight)  # rows a thread takes, at most
+            pad = torch.zeros(m * rows_in_flight, w)
+            pad[:rows.shape[0]] = rows
+            per_thread = pad.reshape(m, rows_in_flight, w)  # [i][rl]: row rl + i·R
+            t1, t2 = torch.zeros(rows_in_flight, w), torch.zeros(rows_in_flight, w)
+            for i0 in range(0, m, plan.slots):  # zero rows add nothing
+                c1, c2 = _seq_sums(per_thread[i0:i0 + plan.slots])
+                t1, t2 = t1 + c1, t2 + c2
+            chan1, chan2 = t1[0], t2[0]
+            for rl in range(1, rows_in_flight):
+                chan1, chan2 = chan1 + t1[rl], chan2 + t2[rl]
+            part = torch.zeros(2, gw)
+            for q in range(gw):
+                for k in range(q * cg, (q + 1) * cg):
+                    part[0, q] = part[0, q] + chan1[k]
+                    part[1, q] = part[1, q] + chan2[k]
+            tot = part if tot is None else tot + part
         mean = tot[0] / n
         var = _fma32(-mean, mean, tot[1] / n)
         rstd = torch.rsqrt(var + eps)
-        stats[b, 0], stats[b, 1] = mean, rstd
-        grp = torch.arange(c) // cg
-        a = rstd[grp] * weight
-        bb = bias - mean[grp] * a
-        t_ = xf[b] * a + bb
+        g0 = sl * gw
+        stats[b, 0, g0:g0 + gw], stats[b, 1, g0:g0 + gw] = mean, rstd
+        q = torch.arange(w) // cg
+        a = rstd[q] * weight[ch]
+        bb = bias[ch] - mean[q] * a
+        t_ = xf[b][:, ch] * a + bb
         if swish:
             t_ = t_ * (1.0 / (1.0 + torch.exp(-t_)))
-        y[b] = t_
+        y[b][:, ch] = t_
     y = y.to(x.dtype).reshape((b_,) + tuple(x.shape[2:]) + (c,)).movedim(-1, 1)
     return y, stats
+
+
+def _many_block_plan(b, s, c, groups, element_size):
+    """A plan with several units, clusters of several blocks (one of them
+    ragged), and threads that take their rows in several rounds of one pack:
+    the kernel's order at its most general."""
+    plan = forward_plan(b, s, c, groups, element_size)
+    rows = -(-s // 3)
+    return dataclasses.replace(plan, cluster=3, rows_per_block=rows, slots=1)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -224,20 +260,21 @@ def _emulate_forward(x, weight, bias, groups, eps, swish, num_sms):
     ((3, 7), 328, 1),         # one group of 41 bf16 packs
 ], ids=["C96-4d", "C192-5d", "C328-G1"])
 def test_kernel_order_matches_plain_and_pallas(spatial, c, groups, swish, dtype):
-    """Kernel #1's summation order and roundings (emulated in torch with
-    several tiles a sample, ragged, and several lanes) against the plain
-    forward and the Pallas forward in interpret mode: y within ATOL_FP32
-    (fp32), or one bf16 ulp of plain and ATOL_BF16 of Pallas (bf16 output),
-    the stats within fp32 summation orders (1e-5)."""
+    """Kernel #1's summation order and roundings (emulated in torch: units,
+    clusters of three blocks, one ragged, rounds of held rows, the fold in
+    block order) against the plain forward and the Pallas
+    forward in interpret mode: y within ATOL_FP32 (fp32), or one bf16 ulp
+    of plain and ATOL_BF16 of Pallas (bf16 output), the stats within fp32
+    summation orders (1e-5)."""
     tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
     x, scale, bias = _inputs(11, (2, *spatial, c), c)
     x = np.asarray(torch.from_numpy(x).to(tdt).float())  # both sides see the same values
     xt = torch.from_numpy(x).to(tdt).movedim(-1, 1)
     w, b = torch.from_numpy(scale), torch.from_numpy(bias)
     s = int(np.prod(spatial))
-    _, _, n_tiles = launch_geometry(2, s, c, xt.element_size(), 4)
-    assert n_tiles > 1
-    got, stats = _emulate_forward(xt, w, b, groups, 1e-6, swish, 4)
+    plan = _many_block_plan(2, s, c, groups, xt.element_size())
+    assert plan.units > 1 or c == 328
+    got, stats = _emulate_forward(xt, w, b, groups, 1e-6, swish, plan)
     assert got.dtype == tdt and got.is_contiguous(memory_format=torch.channels_last
                                                   if len(spatial) == 2 else torch.channels_last_3d)
     ref, mean, rstd = group_norm_fp32_forward(xt, w, b, groups, 1e-6, swish)

@@ -11,20 +11,28 @@
 // format is physically NHWC). Groups are torch's: channel c is in group
 // c / (C / G).
 //
-// The forward is three launches on the caller's stream:
-//
-//   gn_stats_kernel     grid (n_tiles, B). A block reads rows_per_tile
-//                       contiguous rows of C channels, accumulates per-channel
-//                       sum(x) and sum(x^2) in fp32, folds them to its groups
-//                       in a fixed order and writes partial[b][tile][2][G].
-//   gn_finalize_kernel  grid (B). Sums a batch's partials over tiles in a
-//                       fixed order; mean = s1/n, var = s2/n - mean^2 (the reference's
-//                       E[x^2] - mu^2 form), rstd = rsqrt(var + eps);
-//                       writes stats[b][2][G].
-//   gn_apply_kernel     grid (n_tiles, B). Builds the per-channel coefficients
-//                       A = rstd*gamma, B = beta - mean*A in shared memory, then
-//                       writes y = x*A + B (optionally y*sigmoid(y)) in the
-//                       input's dtype.
+// The forward is one launch of thread-block clusters (gn_fwd_kernel). It walks
+// the call in units, as the backward does: one sample b and a slice of whole
+// groups over all S rows (the wrapper's plan, ops/groupnorm_cuda.py::
+// forward_plan, takes the slice from the backward's rule). As many clusters
+// of 1-16 blocks as the device holds at once each take a unit at a time;
+// block r of a cluster takes the r-th range of the unit's rows:
+//   1. each thread loads its rows into its own slots of shared memory by
+//      cp.async, in rounds of up to `slots` 16-byte packs (most plans: one
+//      round, the whole unit on chip), and sums x and x^2 (fused
+//      multiply-adds) in order; the block's channel sums and group sums in a
+//      fixed order into its own shared memory;
+//   2. barrier.cluster; every block reads the cluster's group sums through
+//      distributed shared memory and adds them in block rank order, itself,
+//      so that every block holds the same mean = s1/n, var = s2/n - mean^2
+//      (the reference's E[x^2] - mu^2 form), rstd = rsqrt(var + eps); the
+//      unit's first block writes them to stats[b][2][G];
+//   3. A = rstd*gamma, B = beta - mean*A per channel; y = x*A + B
+//      (optionally y*sigmoid(y)) in the input's dtype, from the slots (the
+//      rounds before the last loaded again, from L2); as the last round's
+//      slots free, the next unit's first round loads into them.
+// x is read from device memory once and y written once. No grid-wide
+// barrier, no float atomics: the result is deterministic.
 //
 // The backward is one persistent cooperative launch that walks the call in
 // units: one sample b and a slice of whole groups over all S rows. The
@@ -60,17 +68,19 @@
 // function zeroes on the stream before the kernel (a CUDA graph captures
 // both).
 //
-// Bound: device-memory bandwidth. The forward reads the activation twice and
-// writes it once; the backward reads x and g once and writes dx once; each
-// against a few flops per element (about 3.35 TB/s on an H100 SXM). So every
-// thread moves 16 bytes per load and store (4 fp32 or 8 bf16 channels),
-// neighbouring threads touch neighbouring addresses, and the forward sizes
-// its grid to keep several blocks resident on every SM; the backward holds
+// Bound: device-memory bandwidth. The forward reads the activation once
+// (and the rounds a cluster cannot hold again, from L2) and writes it once;
+// the backward reads x and g once and writes dx once; each against a few
+// flops per element (about 3.35 TB/s on an H100 SXM). So every thread moves
+// 16 bytes per load and store (4 fp32 or 8 bf16 channels), neighbouring
+// threads touch neighbouring addresses; the forward keeps one or two blocks
+// of 256 threads on every SM, as its shared memory allows; the backward holds
 // two blocks of 256 threads on every SM, each with 96 KB of x and g slots
 // and 64 (bf16) or 32 (fp32) dyhat registers a thread, so that one block's
 // arithmetic and barriers overlap the other's loads. The partials, stats
 // and coefficients are small (a few floats per channel and block).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,23 +95,28 @@ struct Pack;
 template <>
 struct Pack<float> {
   static constexpr int N = 4;  // 16 bytes
+  __device__ static void unpack(const uint4& q, float* v) {
+    v[0] = __uint_as_float(q.x);
+    v[1] = __uint_as_float(q.y);
+    v[2] = __uint_as_float(q.z);
+    v[3] = __uint_as_float(q.w);
+  }
+  __device__ static uint4 pack(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
   __device__ static void load(const float* p, float* v) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
+    unpack(*reinterpret_cast<const uint4*>(p), v);
   }
   __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<uint4*>(p) = pack(v);
   }
 };
 
 template <>
 struct Pack<__nv_bfloat16> {
   static constexpr int N = 8;  // 16 bytes
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
+  __device__ static void unpack(const uint4& q, float* v) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -110,192 +125,22 @@ struct Pack<__nv_bfloat16> {
       v[2 * i + 1] = f.y;
     }
   }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
+  __device__ static uint4 pack(const float* v) {
     uint4 q;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);  // round to nearest even
     }
-    *reinterpret_cast<uint4*>(p) = q;
+    return q;
+  }
+  __device__ static void load(const __nv_bfloat16* p, float* v) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    *reinterpret_cast<uint4*>(p) = pack(v);
   }
 };
-
-// Thread t of a block owns the channel pack t % (C / N) of the rows
-// t / (C / N), t / (C / N) + R, ... where R = blockDim.x / (C / N).
-
-template <typename T>
-__global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                                int S, int C, int G, int rows_per_tile) {
-  constexpr int N = Pack<T>::N;
-  const int packs = C / N;
-  const int R = blockDim.x / packs;
-  const int pack = threadIdx.x % packs;
-  const int r = threadIdx.x / packs;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const int64_t row0 = static_cast<int64_t>(tile) * rows_per_tile;
-  const int64_t row_end = row0 + rows_per_tile < S ? row0 + rows_per_tile : S;
-  const T* xb = x + static_cast<int64_t>(b) * S * C + pack * N;
-
-  float s1[N], s2[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    s1[i] = 0.f;
-    s2[i] = 0.f;
-  }
-#pragma unroll 4
-  for (int64_t row = row0 + r; row < row_end; row += R) {
-    float v[N];
-    Pack<T>::load(xb + row * C, v);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      s1[i] += v[i];
-      s2[i] += v[i] * v[i];
-    }
-  }
-
-  extern __shared__ float sh[];  // [2][R][C]
-  float* sh1 = sh;
-  float* sh2 = sh + R * C;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    sh1[r * C + pack * N + i] = s1[i];
-    sh2[r * C + pack * N + i] = s2[i];
-  }
-  __syncthreads();
-
-  const int cg = C / G;
-  float* out = partial + (static_cast<int64_t>(b) * gridDim.x + tile) * 2 * G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float a = 0.f, q = 0.f;
-    for (int rr = 0; rr < R; ++rr) {
-      for (int c = g * cg; c < (g + 1) * cg; ++c) {
-        a += sh1[rr * C + c];
-        q += sh2[rr * C + c];
-      }
-    }
-    out[g] = a;
-    out[G + g] = q;
-  }
-}
-
-// blockDim.x = G * lanes: lane l of group g sums tiles l, l + lanes, ...;
-// lane 0 then adds the lanes' sums in lane order.
-__global__ void gn_finalize_kernel(const float* __restrict__ partial, float* __restrict__ stats,
-                                   int n_tiles, int G, float n, float eps) {
-  const int b = blockIdx.x;
-  const int lanes = blockDim.x / G;
-  const int g = threadIdx.x % G;
-  const int lane = threadIdx.x / G;
-  const float* p = partial + static_cast<int64_t>(b) * n_tiles * 2 * G;
-  float a = 0.f, q = 0.f;
-#pragma unroll 4
-  for (int t = lane; t < n_tiles; t += lanes) {
-    a += p[t * 2 * G + g];
-    q += p[t * 2 * G + G + g];
-  }
-  extern __shared__ float sh[];  // [2][lanes][G]
-  sh[lane * G + g] = a;
-  sh[(lanes + lane) * G + g] = q;
-  __syncthreads();
-  if (lane == 0) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int l = 0; l < lanes; ++l) {
-      s1 += sh[l * G + g];
-      s2 += sh[(lanes + l) * G + g];
-    }
-    const float mean = s1 / n;
-    const float var = s2 / n - mean * mean;
-    stats[b * 2 * G + g] = mean;
-    stats[b * 2 * G + G + g] = rsqrtf(var + eps);
-  }
-}
-
-// The per-channel coefficients of batch b: A = rstd*gamma into sh[0, C),
-// B = beta - mean*A into sh[C, 2C). The caller synchronises the block after.
-__device__ void affine_coeffs(const float* __restrict__ stats, const float* __restrict__ gamma,
-                              const float* __restrict__ beta, float* sh, int b, int C, int G) {
-  const int cg = C / G;
-  const float* st = stats + b * 2 * G;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int g = c / cg;
-    // the plain version's roundings: one product, then one product and one
-    // difference, each rounded (no fused multiply-add)
-    const float a = __fmul_rn(st[G + g], gamma[c]);
-    sh[c] = a;
-    sh[C + c] = __fsub_rn(beta[c], __fmul_rn(st[g], a));
-  }
-}
-
-template <typename T>
-__global__ void gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
-                                const float* __restrict__ gamma, const float* __restrict__ beta,
-                                T* __restrict__ y, int S, int C, int G, int rows_per_tile,
-                                int with_swish) {
-  constexpr int N = Pack<T>::N;
-  const int packs = C / N;
-  const int R = blockDim.x / packs;
-  const int pack = threadIdx.x % packs;
-  const int r = threadIdx.x / packs;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-
-  extern __shared__ float sh[];  // [2][C]: A then B
-  affine_coeffs(stats, gamma, beta, sh, b, C, G);
-  __syncthreads();
-
-  float ca[N], cb[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    ca[i] = sh[pack * N + i];
-    cb[i] = sh[C + pack * N + i];
-  }
-
-  const int64_t row0 = static_cast<int64_t>(tile) * rows_per_tile;
-  const int64_t row_end = row0 + rows_per_tile < S ? row0 + rows_per_tile : S;
-  const int64_t base = static_cast<int64_t>(b) * S * C + pack * N;
-#pragma unroll 4
-  for (int64_t row = row0 + r; row < row_end; row += R) {
-    float v[N];
-    Pack<T>::load(x + base + row * C, v);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float t = __fadd_rn(__fmul_rn(v[i], ca[i]), cb[i]);
-      if (with_swish) {
-        t = __fmul_rn(t, 1.f / (1.f + expf(-t)));
-      }
-      v[i] = t;
-    }
-    Pack<T>::store(y + base + row * C, v);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const float* gamma, const float* beta, void* y, float* partial,
-           float* stats, int B, int S, int C, int G, int rows_per_tile, int n_tiles,
-           int threads, float eps, int with_swish, cudaStream_t stream) {
-  constexpr int N = Pack<T>::N;
-  const int R = threads / (C / N);
-  const dim3 grid(n_tiles, B);
-
-  gn_stats_kernel<T><<<grid, threads, 2 * R * C * sizeof(float), stream>>>(
-      static_cast<const T*>(x), partial, S, C, G, rows_per_tile);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  int lanes = 1024 / G;  // the caller keeps G <= 1024
-  if (lanes > n_tiles) lanes = n_tiles;
-  gn_finalize_kernel<<<B, G * lanes, 2 * G * lanes * sizeof(float), stream>>>(
-      partial, stats, n_tiles, G, static_cast<float>(static_cast<int64_t>(S) * (C / G)), eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  gn_apply_kernel<T><<<grid, threads, 2 * C * sizeof(float), stream>>>(
-      static_cast<const T*>(x), stats, gamma, beta, static_cast<T*>(y), S, C, G, rows_per_tile,
-      with_swish);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // backward: one persistent cooperative launch
@@ -423,11 +268,12 @@ __device__ __forceinline__ void ordered_sums(float* red, int R, int V, int cap, 
 // a channel pack add their rows by a xor butterfly (every lane gets the same
 // sum), then the warps are added in order; otherwise each row's s0 goes
 // through shared memory and is added in row order, then each row's s1. red
-// (kRedFloats<N>) must be free; every thread calls it; it ends with
-// __syncthreads.
-template <int N>
+// (kRedFloats<N>, or forward_red_floats) must be free; every thread calls
+// it; it ends with __syncthreads. Q: the backward's Part or the forward's
+// FwdPart (a block of kBwdThreads threads either way).
+template <int N, typename Q>
 __device__ __forceinline__ void block_channel_sums(float* red, float (&s0)[N], float (&s1)[N],
-                                                   const Part& q) {
+                                                   const Q& q) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bw = q.bw, V = 2 * bw;
   if (q.pw <= 16 && (q.pw & (q.pw - 1)) == 0) {
@@ -482,7 +328,8 @@ __device__ __forceinline__ void block_channel_sums(float* red, float (&s0)[N], f
 // terms) of the block's per-channel sums in red[0, 2 bw): the sum, in
 // channel order, over the block's channels that fall in the group (0 where
 // none do).
-__device__ __forceinline__ float block_group_sum(const float* red, int q, const Part& p) {
+template <typename Q>
+__device__ __forceinline__ float block_group_sum(const float* red, int q, const Q& p) {
   const int half = q >= p.gw, g = half ? q - p.gw : q;
   const int lo = max(g * p.cg - p.boff, 0), hi = min((g + 1) * p.cg - p.boff, p.bw);
   float acc = 0.f;
@@ -840,6 +687,321 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm) gn_bwd_kernel(co
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward: one launch of thread-block clusters
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = kBwdThreads;  // block_channel_sums serves both
+constexpr int kFwdMaxCluster = 16;        // blocks of a cluster (above 8: non-portable)
+
+// The forward wrapper's plan (ops/groupnorm_cuda.py::forward_plan).
+struct FwdPlan {
+  int B, S, C, G;
+  int width;           // channels of a unit's slice: whole groups, whole packs
+  int rows_per_block;  // of a unit's S rows, block r of its cluster takes the r-th range
+  int slots;           // 16-byte packs of its rows a thread holds in shared memory
+  int halves;          // 2: the slots twice over, rounds loading while others are used
+  float n;             // S * C / G, the elements of a group
+  float eps;
+};
+
+// The floats of a forward block's sums' scratch (block_channel_sums): eight
+// warps' rows of the two sums where a row's packs are a power of two up to 16,
+// else a row of each in flight plus one.
+__host__ __device__ constexpr int forward_red_floats(int width, int packs) {
+  return (packs <= 16 && (packs & (packs - 1)) == 0) ? 16 * width
+                                                     : (kFwdThreads / packs + 1) * width;
+}
+
+// A block's part of its unit: rows [row0, row_end) and all `width` channels
+// of the unit's slice. Thread t owns the channel pack cp = t % pw of rows rl,
+// rl + rows_in_flight, ... (rl = t / pw); the threads past rows_in_flight *
+// pw sit idle (the fields block_channel_sums and block_group_sum read).
+struct FwdPart {
+  int bw, pw, rows_in_flight, cp, rl, row0, row_end, cg, gw, boff;
+  bool active;
+  __device__ FwdPart(const FwdPlan& p, int N, int rank) {
+    bw = p.width;
+    pw = bw / N;
+    rows_in_flight = kFwdThreads / pw;
+    cp = threadIdx.x % pw;
+    rl = threadIdx.x / pw;
+    active = rl < rows_in_flight;
+    row0 = min(p.S, rank * p.rows_per_block);
+    row_end = min(p.S, row0 + p.rows_per_block);
+    cg = p.C / p.G;
+    gw = p.width / cg;
+    boff = 0;
+  }
+};
+
+struct FwdArgs {
+  const void* x;
+  const float* gamma;
+  const float* beta;
+  void* y;
+  float* stats;  // (B, 2, G): mean, rstd
+  FwdPlan p;
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// ŷ = x*A + B with the plain version's roundings (one product, one sum), and
+// with the swish ŷ*sigmoid(ŷ), the sigmoid by the fast exp and division as in
+// the backward (a few ulps; the card's checks hold y within one bf16 ulp, or
+// ATOL_FP32 in fp32, of the plain version).
+template <bool kSwish>
+__device__ __forceinline__ float affine(float x, float a, float b) {
+  const float t = __fadd_rn(__fmul_rn(x, a), b);
+  if constexpr (kSwish) return __fmul_rn(t, __fdividef(1.f, 1.f + __expf(-t)));
+  return t;
+}
+
+#ifdef GN_FWD_TRACE
+// A diagnostic build's phase clock: thread 0 of each block stamps the global
+// timer at the phase boundaries of each of its units,
+// trace[block][unit][phase]: the unit's start, its first round arrived, its
+// group sums written, past the cluster barrier, its coefficients ready, its
+// rows of y written.
+__device__ long long* g_fwd_trace;
+constexpr int kFwdTracePhases = 6, kFwdTraceUnits = 16;
+#define FTRACE(k, phase)                                                               \
+  if (threadIdx.x == 0 && g_fwd_trace != nullptr && (k) < kFwdTraceUnits) {            \
+    long long t;                                                                       \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                              \
+    g_fwd_trace[(static_cast<int64_t>(blockIdx.x) * kFwdTraceUnits + (k)) *            \
+                    kFwdTracePhases + (phase)] = t;                                    \
+  }
+#else
+#define FTRACE(k, phase)
+#endif
+
+// A persistent cluster walks the units cluster, cluster + clusters, ...
+// (clusters = gridDim.x / cluster size, as many as the device holds at once);
+// block r of it takes the r-th range of each unit's rows. A thread takes its
+// rows of a unit in rounds of up to `slots` 16-byte packs, each round one
+// batch of cp.async into its own slots of shared memory (so every thread has
+// a round in flight, not a few registers' worth); round r lives in half r % 2
+// of its slots, so that the next round loads while this one is used:
+//   pass 1: each round is summed while the next one loads (Σx, and Σx² by
+//           fused multiply-adds, in order within a round; the rounds' sums
+//           added in order); the last two rounds stay on chip;
+//   the block's and the cluster's sums, the fold, the coefficients;
+//   pass 2: y of the last two rounds, then of the rounds before them, each
+//           loaded again while the one after it is written (from L2: the
+//           plan keeps the units in flight within it). As a thread frees
+//           each slot of round 0, it starts the next unit's round 0 into it,
+//           so that unit's reads overlap this one's writes.
+// Most plans hold a unit in one or two rounds. Shared memory: the slots
+// [halves][slots][kFwdThreads] of 16 bytes (one half where a round holds a
+// thread's rows), the sums' scratch (forward_red_floats),
+// the block's group sums [2][2][gw] (read by the whole cluster; two, so that
+// a block never writes the ones another may still read), the cluster's
+// group sums [cluster size][2][gw] and the coefficients [2][width].
+template <typename T, bool kSwish>
+__global__ void __launch_bounds__(kFwdThreads, 2) gn_fwd_kernel(const FwdArgs a) {
+  namespace cgr = cooperative_groups;
+  constexpr int N = Pack<T>::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const FwdPlan& P = a.p;
+  cgr::cluster_group cluster = cgr::this_cluster();
+  const int K = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const FwdPart q(P, N, rank);
+  const int tid = threadIdx.x, R = q.rows_in_flight, W = P.width;
+  uint4* xs = reinterpret_cast<uint4*>(smem) + tid;  // this thread's slots, kFwdThreads apart
+  float* red = reinterpret_cast<float*>(reinterpret_cast<uint4*>(smem) +
+                                        P.halves * P.slots * kFwdThreads);
+  float* gparts = red + forward_red_floats(W, q.pw);
+  float* remote = gparts + 4 * q.gw;
+  float* coef = remote + K * 2 * q.gw;
+
+  const int slices = P.C / W, units = P.B * slices, clusters = gridDim.x / K;
+  const int64_t stride = static_cast<int64_t>(R) * P.C;  // elements between a thread's rows
+  const int left = q.row_end - q.row0 - q.rl;
+  const int mine = q.active && left > 0 ? (left + R - 1) / R : 0;  // the thread's rows
+  const int rounds = (mine + P.slots - 1) / P.slots;
+  // this thread's first row of unit u
+  auto offset = [&](int u) -> int64_t {
+    const int b = u / slices, c0 = (u % slices) * W;
+    return (static_cast<int64_t>(b) * P.S + q.row0 + q.rl) * P.C + c0 + q.cp * N;
+  };
+  auto round_rows = [&](int k) { return min(P.slots, mine - k * P.slots); };
+  // this thread's slots of round k
+  auto half = [&](int k) { return xs + (k & 1) * P.slots * kFwdThreads; };
+  // round k of the rows at src into its half of the slots (one cp.async group)
+  auto load_round = [&](const T* src, int k) {
+    const int n = round_rows(k);
+    uint4* dst = half(k);
+    src += static_cast<int64_t>(k) * P.slots * stride;
+    for (int i = 0; i < n; ++i) cp_async16(smem_addr(dst + i * kFwdThreads), src + i * stride, 16);
+    cp_async_commit();
+  };
+
+  int u = blockIdx.x / K;
+  if (u < units) load_round(static_cast<const T*>(a.x) + offset(u), 0);
+  for (int k = 0; u < units; ++k, u += clusters) {
+    float* gpart = gparts + (k & 1) * 2 * q.gw;
+    const T* xg = static_cast<const T*>(a.x) + offset(u);
+    T* yg = static_cast<T*>(a.y) + offset(u);
+    const int b = u / slices, c0 = (u % slices) * W;
+    const T* xnext = u + clusters < units ? static_cast<const T*>(a.x) + offset(u + clusters)
+                                          : nullptr;
+    FTRACE(k, 0);
+    // 1. every round summed in turn while the next one loads (into the half
+    // the round before this one has left); round 0 is already on its way
+    float s1[N], s2[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) s1[n] = s2[n] = 0.f;
+    for (int r = 0; r < rounds; ++r) {
+      if (r + 1 < rounds) {
+        load_round(xg, r + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      compiler_fence();
+      if (r == 0) FTRACE(k, 1);
+      float c1[N], c2[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) c1[n] = c2[n] = 0.f;
+      const int n_rows = round_rows(r);
+      const uint4* h = half(r);
+      for (int i = 0; i < n_rows; ++i) {
+        float v[N];
+        Pack<T>::unpack(h[i * kFwdThreads], v);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          c1[n] += v[n];
+          c2[n] = __fmaf_rn(v[n], v[n], c2[n]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        s1[n] += c1[n];
+        s2[n] += c2[n];
+      }
+    }
+    block_channel_sums<N>(red, s1, s2, q);
+    for (int g = tid; g < 2 * q.gw; g += kFwdThreads) gpart[g] = block_group_sum(red, g, q);
+    FTRACE(k, 2);
+
+    // 2. the cluster's group sums, every block's read at once, then summed in
+    // rank order. Every block has read the other copy's sums (the last
+    // unit's) before it arrives here, so the next unit may write them
+    cluster_arrive();
+    cluster_wait();
+    FTRACE(k, 3);
+    for (int e = tid; e < K * 2 * q.gw; e += kFwdThreads) {
+      remote[e] = cluster.map_shared_rank(gpart, e / (2 * q.gw))[e % (2 * q.gw)];
+    }
+    __syncthreads();
+    for (int g = tid; g < q.gw; g += kFwdThreads) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int r = 0; r < K; ++r) {
+        t1 += remote[r * 2 * q.gw + g];
+        t2 += remote[r * 2 * q.gw + q.gw + g];
+      }
+      const float mean = t1 / P.n;
+      const float var = __fmaf_rn(-mean, mean, t2 / P.n);
+      const float rstd = rsqrtf(var + P.eps);
+      red[g] = mean;
+      red[q.gw + g] = rstd;
+      if (rank == 0) {
+        const int gg = c0 / q.cg + g;
+        a.stats[b * 2 * P.G + gg] = mean;
+        a.stats[b * 2 * P.G + P.G + gg] = rstd;
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < W; c += kFwdThreads) {
+      const int g = c / q.cg;
+      // the plain version's roundings: one product, then one product and one
+      // difference, each rounded (no fused multiply-add)
+      const float A = __fmul_rn(red[q.gw + g], __ldg(a.gamma + c0 + c));
+      coef[c] = A;
+      coef[W + c] = __fsub_rn(__ldg(a.beta + c0 + c), __fmul_rn(red[g], A));
+    }
+    __syncthreads();
+    FTRACE(k, 4);
+
+    // 3. y of the two rounds on chip, then of the ones before them, the last
+    // first, each loaded while the round after it is written (into the half
+    // that round has left); round 0's slots take the next unit's round 0 as
+    // they free
+    float ca[N], cb[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      ca[n] = coef[q.cp * N + n];
+      cb[n] = coef[W + q.cp * N + n];
+    }
+    for (int r = rounds - 1; r >= 0; --r) {
+      const bool load_prev = r >= 1 && r - 1 < rounds - 2;
+      if (load_prev) load_round(xg, r - 1);
+      if (r < rounds - 2) {  // loaded while round r + 1 was written
+        if (load_prev) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        compiler_fence();
+      }
+      const int n_rows = round_rows(r);
+      uint4* h = half(r);
+      T* out = yg + static_cast<int64_t>(r) * P.slots * stride;
+      const bool refill = r == 0 && xnext != nullptr;
+#pragma unroll 4
+      for (int i = 0; i < n_rows; ++i) {
+        float v[N];
+        Pack<T>::unpack(h[i * kFwdThreads], v);
+#pragma unroll
+        for (int n = 0; n < N; ++n) v[n] = affine<kSwish>(v[n], ca[n], cb[n]);
+        *reinterpret_cast<uint4*>(out + i * stride) = Pack<T>::pack(v);
+        if (refill) cp_async16(smem_addr(h + i * kFwdThreads), xnext + i * stride, 16);
+      }
+    }
+    cp_async_commit();  // the next unit's round 0 (an empty group where there is none)
+    FTRACE(k, 5);
+  }
+  cp_async_wait<0>();
+  // no block leaves while another reads its group sums
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <typename T>
+const void* forward_kernel_of(int with_swish) {
+  return with_swish ? reinterpret_cast<const void*>(gn_fwd_kernel<T, true>)
+                    : reinterpret_cast<const void*>(gn_fwd_kernel<T, false>);
+}
+
+const void* forward_kernel(int dtype, int with_swish) {
+  if (dtype == 0) return forward_kernel_of<float>(with_swish);
+  if (dtype == 1) return forward_kernel_of<__nv_bfloat16>(with_swish);
+  return nullptr;
+}
+
+cudaLaunchConfig_t forward_config(int clusters, int cluster, int smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cluster);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 template <typename T>
 const void* backward_kernel_of(int with_swish, int reread) {
   if (reread) {
@@ -867,27 +1029,80 @@ void gn_backward_limits(int* threads, int* packs, int* slice_packs) {
   *slice_packs = kBwdMaxSlicePacks;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y). gamma, beta: fp32 (C,).
-// partial: fp32 (B, n_tiles, 2, G) scratch; stats: fp32 (B, 2, G) (mean, rstd).
-// The caller checks shapes, alignment and the launch geometry; returns the
-// cudaError_t of the first failed launch, or 0.
-int gn_forward(const void* x, const void* gamma, const void* beta, void* y, void* partial,
-               void* stats, int B, int S, int C, int G, int rows_per_tile, int n_tiles,
-               int threads, float eps, int with_swish, int dtype, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
-  float* p = static_cast<float*>(partial);
-  float* st = static_cast<float*>(stats);
-  if (dtype == 0) {
-    return launch<float>(x, g, bt, y, p, st, B, S, C, G, rows_per_tile, n_tiles, threads, eps,
-                         with_swish, s);
+// Allows the forward kernels `smem` bytes of dynamic shared memory and
+// clusters of up to kFwdMaxCluster blocks (above the portable 8) on the
+// current device; the wrapper calls it once a device. Returns 0 or a
+// cudaError_t.
+int gn_forward_setup(int smem) {
+  for (int dtype = 0; dtype < 2; ++dtype) {
+    for (int swish = 0; swish < 2; ++swish) {
+      const void* fn = forward_kernel(dtype, swish);
+      cudaError_t err =
+          cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      // all of the SM's 228 KB as shared memory, so that two blocks fit
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, g, bt, y, p, st, B, S, C, G, rows_per_tile, n_tiles, threads,
-                                 eps, with_swish, s);
+  return 0;
+}
+
+// How many clusters of `cluster` blocks with `smem` bytes each the device
+// holds at once (cudaOccupancyMaxActiveClusters; 0: the launch cannot run).
+// Returns 0 or a cudaError_t.
+int gn_forward_max_clusters(int dtype, int with_swish, int cluster, int smem, int* count) {
+  const void* fn = forward_kernel(dtype, with_swish);
+  if (fn == nullptr || cluster < 1 || cluster > kFwdMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = forward_config(1, cluster, smem, nullptr, attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(count, fn, &cfg));
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x and y). gamma, beta: fp32 (C,);
+// stats: fp32 (B, 2, G) (mean, rstd). The plan (width, cluster,
+// rows_per_block, slots, halves) and smem come from the wrapper, which checks shapes
+// and alignment and that `clusters` clusters of `cluster` blocks (at most
+// the units, B * C / width) fit on the device at once. One launch on
+// `stream`. Returns 0 or the cudaError_t.
+int gn_forward(const void* x, const void* gamma, const void* beta, void* y, void* stats, int B,
+               int S, int C, int G, int width, int cluster, int clusters, int rows_per_block,
+               int slots, int halves, int smem, float eps, int with_swish, int dtype,
+               void* stream) {
+  FwdArgs a;
+  a.x = x;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.y = y;
+  a.stats = static_cast<float*>(stats);
+  a.p = FwdPlan{B, S, C, G, width, rows_per_block, slots, halves,
+                static_cast<float>(static_cast<int64_t>(S) * (C / G)), eps};
+  const void* fn = forward_kernel(dtype, with_swish);
+  if (fn == nullptr || cluster < 1 || cluster > kFwdMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      forward_config(clusters, cluster, smem, static_cast<cudaStream_t>(stream), attr);
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch: clear it, or the next launch reports it
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward block's threads and the largest cluster, for the wrapper to
+// check its plans against.
+void gn_forward_limits(int* threads, int* max_cluster) {
+  *threads = kFwdThreads;
+  *max_cluster = kFwdMaxCluster;
 }
 
 // Allows the backward kernel of (dtype, with_swish, reread) `smem` bytes of
@@ -950,6 +1165,13 @@ int gn_backward(const void* x, const void* g, const void* stats, const void* gam
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef GN_FWD_TRACE
+int gn_forward_trace(void* buffer) {
+  long long* p = static_cast<long long*>(buffer);
+  return static_cast<int>(cudaMemcpyToSymbol(g_fwd_trace, &p, sizeof(p)));
+}
+#endif
 
 #ifdef GN_BWD_TRACE
 int gn_backward_trace(void* buffer) {

@@ -10,23 +10,26 @@ and ``_bwd_dx_kernel``), which ``_fused_gn_vjp`` joins. The kernels are
 with ctypes.
 
 What bounds them on an H100: device-memory bandwidth, against a few flops
-per element (about 3.35 TB/s on an H100 SXM). The forward reads the
-activation twice (statistics, then normalize) and writes it once, in three
-launches: each pass moves 16 bytes per thread per access (4 fp32 or 8 bf16
-channels), reads and writes each row contiguously over the channels-last
-``(B, S, C)`` view, and sizes the grid to about four blocks per SM; between
-the passes a small launch sums the per-tile partials in a fixed order. The
-backward is one persistent cooperative launch: it walks the call in units (a
-sample and a slice of whole groups over all rows) shared by a team of
-blocks, which meet at one barrier per unit, an integer counter. On the
-"on-chip" route a unit fits in the team's shared memory (x, g) and
-registers (dŷ), so x and the incoming gradient are read once and dx written
-once, and the next unit's loads are in flight across the barrier; where a
-unit would fit only as narrow row slices, the "re-read" route streams whole
-row slices twice. ``backward_plan`` (pure Python) picks the route, the slice
-(any whole number of 16-byte packs; a group wider than a block splits over
-column blocks) and the teams. No float atomics: the outputs are
-deterministic.
+per element (about 3.35 TB/s on an H100 SXM). Both directions walk the call
+in units (a sample and a slice of whole groups over all rows), the slices
+from one rule (``slice_widths``). The forward is one launch of thread-block
+clusters, as many as the device holds, each taking a unit at a time: each
+block loads its rows of the unit into shared memory (in rounds where they
+do not fit at once, the earlier rounds read again after the barrier), the
+blocks fold their sums through distributed shared memory in block order,
+and every block writes its rows of y, so x is read from device memory once
+(the rounds again, from L2 where they still sit there) and y written once.
+``forward_plan`` (pure Python) picks the slice, the blocks of a cluster and
+the packs a thread holds. The backward is
+one persistent cooperative launch: teams of blocks share a unit and meet at
+one barrier per unit, an integer counter. On the "on-chip" route a unit
+fits in the team's shared memory (x, g) and registers (dŷ), so x and the
+incoming gradient are read once and dx written once, and the next unit's
+loads are in flight across the barrier; where a unit would fit only as
+narrow row slices, the "re-read" route streams whole row slices twice.
+``backward_plan`` (pure Python) picks the route, the slice (any whole
+number of 16-byte packs; a group wider than a block splits over column
+blocks) and the teams. No float atomics: the outputs are deterministic.
 
 ``FusedGroupNorm`` saves only the input in its own dtype, the (B, 2, G)
 statistics the forward kernel wrote, and γ, β: no full-size fp32 tensor (the
@@ -69,10 +72,22 @@ grad_copies = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_PER_BLOCK = 232_448  # an H100's opt-in limit (227 KB)
-_MAX_THREADS = 1024
-_MAX_STATIC_SMEM = 48 * 1024  # bytes a block may take without opting in
-_THREADS_TARGET = 256
-_BLOCKS_PER_SM = 4
+SM_SMEM_BYTES = 233_472  # an H100 SM's shared memory, 1 KB of it reserved a block
+_MAX_GROUPS = 1024
+# the forward's block (csrc/groupnorm.cu kFwdThreads, kFwdMaxCluster; the
+# library is checked against them when it loads)
+FWD_THREADS = 256
+FWD_CLUSTERS = (1, 2, 4, 8, 16)  # blocks of a cluster (above 8: non-portable)
+FWD_MAX_BLOCKS_PER_SM = 2  # its launch bounds
+# forward_plan's rule, fitted to every candidate's device time at the path
+# shapes (tools/sweep_gn_bwd.py --forward): row slices of at most this many
+# bytes (the widest whole-group one under it), narrower while a call has
+# fewer units than FWD_MIN_UNITS; the smallest cluster whose blocks take at
+# most FWD_ROUND_PACKS rows a thread (at most 16 blocks); packs held for two
+# blocks an SM
+FWD_ROW_BYTES = 128
+FWD_MIN_UNITS = 4
+FWD_ROUND_PACKS = 16
 # the backward kernel's block (csrc/groupnorm.cu kBwdThreads, kBwdPacks,
 # kBwdMaxSlicePacks; the library is checked against them when it loads)
 BWD_THREADS = 256
@@ -96,15 +111,22 @@ CHUNK_S = 1e-6
 @functools.cache
 def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The built kernel library (built on the first call), with the extra
-    ``-D`` flags ``defines`` (``("-DGN_BWD_TRACE",)``: the backward's phase
-    clock, ``tools/trace_gn_bwd.py``)."""
+    ``-D`` flags ``defines`` (``("-DGN_BWD_TRACE",)``, ``("-DGN_FWD_TRACE",)``:
+    the backward's or the forward's phase clock, ``tools/trace_gn_bwd.py``,
+    ``tools/trace_gn_fwd.py``)."""
     lib = load_library("groupnorm", defines)
     lib.gn_forward.argtypes = (
-        [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     lib.gn_forward.restype = ctypes.c_int
+    lib.gn_forward_setup.argtypes = [ctypes.c_int]
+    lib.gn_forward_setup.restype = ctypes.c_int
+    lib.gn_forward_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gn_forward_max_clusters.restype = ctypes.c_int
+    lib.gn_forward_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.gn_forward_limits.restype = None
     lib.gn_backward.argtypes = (
         [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 14
@@ -122,36 +144,12 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     if tuple(v.value for v in limits) != (BWD_THREADS, BWD_PACKS, BWD_SLICE_PACKS):
         raise RuntimeError(f"csrc/groupnorm.cu's backward block {[v.value for v in limits]} "
                            f"differs from the plan's {[BWD_THREADS, BWD_PACKS, BWD_SLICE_PACKS]}")
+    fwd = [ctypes.c_int(0) for _ in range(2)]
+    lib.gn_forward_limits(*(ctypes.byref(v) for v in fwd))
+    if (fwd[0].value, fwd[1].value) != (FWD_THREADS, max(FWD_CLUSTERS)):
+        raise RuntimeError(f"csrc/groupnorm.cu's forward block {[v.value for v in fwd]} "
+                           f"differs from the plan's {[FWD_THREADS, max(FWD_CLUSTERS)]}")
     return lib
-
-
-def launch_geometry(
-    batch: int, spatial: int, channels: int, element_size: int, num_sms: int
-) -> tuple[int, int, int]:
-    """(threads per block, rows per tile, tiles per batch image) for one
-    forward call.
-
-    A thread owns one 16-byte pack of channels; a block holds whole rows, so
-    its width is a multiple of C / pack. Rows per tile is a multiple of the
-    rows a block has in flight, chosen so the grid has about
-    ``_BLOCKS_PER_SM`` blocks per SM. The statistics pass takes 2 floats per
-    thread's pack of shared memory, the apply pass 2·C."""
-    pack = 16 // element_size
-    if channels % pack:
-        raise ValueError(f"channels {channels} must be a multiple of {pack}")
-    packs = channels // pack
-    if packs > _MAX_THREADS:
-        raise ValueError(f"channels {channels} exceed the kernel's limit")
-    rows_in_flight = max(1, _THREADS_TARGET // packs)
-    threads = rows_in_flight * packs
-    smem = max(2 * threads * pack, 2 * channels) * 4
-    if smem > _MAX_STATIC_SMEM:
-        raise ValueError(f"channels {channels} exceed the kernel's shared memory")
-    tiles_wanted = max(1, math.ceil(_BLOCKS_PER_SM * num_sms / batch))
-    rows = math.ceil(spatial / tiles_wanted)
-    rows_per_tile = math.ceil(rows / rows_in_flight) * rows_in_flight
-    n_tiles = math.ceil(spatial / rows_per_tile)
-    return threads, rows_per_tile, n_tiles
 
 
 def backward_smem_bytes(element_size: int) -> int:
@@ -216,6 +214,25 @@ def _slice_efficiency(row_bytes: int) -> float:
     return max(v for k, v in SLICE_EFFICIENCY.items() if row_bytes >= k)
 
 
+def slice_widths(channels: int, groups: int, element_size: int,
+                 min_bytes: int = 32) -> list[int]:
+    """The slices of channels a unit may take, narrowest first, in both
+    directions: whole groups and whole 16-byte packs that divide C, at most
+    ``PREFERRED_SLICE_PACKS`` packs unless the narrowest is wider (then that
+    one alone), and none narrower than ``min_bytes`` of a row where a wider
+    one exists."""
+    pack = 16 // element_size
+    if channels % pack:
+        raise ValueError(f"channels {channels} must be a multiple of {pack}")
+    if channels % groups:
+        raise ValueError(f"channels {channels} not divisible by num_groups {groups}")
+    step = math.lcm(channels // groups, pack)
+    widths = [w for w in range(step, channels + 1, step) if channels % w == 0]
+    widths = [w for w in widths if w * element_size >= min_bytes] or widths
+    cap = max(PREFERRED_SLICE_PACKS, widths[0] // pack)
+    return [w for w in widths if w // pack <= cap]
+
+
 def backward_candidates(
     batch: int, spatial: int, channels: int, groups: int, element_size: int, num_sms: int,
     smem_per_block: int = MAX_SMEM_PER_BLOCK, blocks_per_sm: int = 2,
@@ -237,24 +254,14 @@ def backward_candidates(
     narrow row slices, ``SLICE_EFFICIENCY``), plus its barrier
     (``BARRIER_S``) and, re-read, ``CHUNK_S`` a chunk a pass."""
     pack = 16 // element_size
-    if channels % pack:
-        raise ValueError(f"channels {channels} must be a multiple of {pack}")
-    if channels % groups:
-        raise ValueError(f"channels {channels} not divisible by num_groups {groups}")
     smem = backward_smem_bytes(element_size)
     if smem > smem_per_block:
         raise ValueError(f"the backward block takes {smem} bytes of shared memory, "
                          f"more than {smem_per_block}")
-    step = math.lcm(channels // groups, pack)
-    widths = [w for w in range(step, channels + 1, step) if channels % w == 0]
-    widths = [w for w in widths if w * element_size >= 32] or widths
-    cap = max(PREFERRED_SLICE_PACKS, widths[0] // pack)
     grid = num_sms * blocks_per_sm
     out = []
-    for width in widths:
+    for width in slice_widths(channels, groups, element_size):
         packs = width // pack
-        if packs > cap:
-            break
         block_packs = math.ceil(packs / math.ceil(packs / BWD_SLICE_PACKS))
         col_blocks = math.ceil(packs / block_packs)
         rows_fit = BWD_PACKS * (BWD_THREADS // block_packs)
@@ -295,6 +302,155 @@ def backward_plan(
     return min(cands, key=lambda pc: pc[1])[0]
 
 
+def forward_red_floats(width: int, packs: int) -> int:
+    """The floats of a forward block's sums' scratch (csrc/groupnorm.cu
+    ``forward_red_floats``): eight warps' rows of both sums where a row's
+    packs are a power of two up to 16, else one row of each in flight plus
+    one."""
+    if packs <= 16 and packs & (packs - 1) == 0:
+        return 16 * width
+    return (FWD_THREADS // packs + 1) * width
+
+
+def forward_smem_bytes(width: int, groups_in_slice: int, element_size: int, slots: int,
+                       cluster: int, halves: int = 1) -> int:
+    """A forward block's dynamic shared memory: ``halves`` times ``slots``
+    16-byte packs a thread, the sums' scratch, two copies of the block's
+    sums of each group of the slice (which the cluster reads), the
+    cluster's sums and two coefficients a channel."""
+    packs = width * element_size // 16
+    return (halves * slots * FWD_THREADS * 16
+            + 4 * (forward_red_floats(width, packs) + (4 + 2 * cluster) * groups_in_slice
+                   + 2 * width))
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """How one forward call walks its units. A unit is one sample and a
+    slice of ``width`` channels (whole groups) over all S rows; as many
+    clusters of ``cluster`` blocks as the device holds at once walk the
+    units, block r of a cluster the rows [r·rows_per_block, (r +
+    1)·rows_per_block) of each. A thread takes its rows of a unit in rounds
+    of up to ``slots`` 16-byte packs in shared memory: one round where they
+    fit (``halves`` 1), else rounds in two halves of slots, each loading
+    while the other is used; the rounds before the last two are read twice
+    (the second time from L2)."""
+
+    width: int
+    cluster: int
+    rows_per_block: int
+    slots: int
+    units: int
+    smem_bytes: int
+    halves: int = 1
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return min(FWD_MAX_BLOCKS_PER_SM, SM_SMEM_BYTES // (self.smem_bytes + 1024))
+
+    def rows_in_flight(self, element_size: int) -> int:
+        return FWD_THREADS // (self.width * element_size // 16)
+
+    def rounds(self, element_size: int) -> int:
+        """Rounds a thread with the most rows takes."""
+        return math.ceil(math.ceil(self.rows_per_block / self.rows_in_flight(element_size))
+                         / self.slots)
+
+    def held_rows(self, spatial: int, element_size: int) -> int:
+        """The rows of a unit its cluster holds in shared memory at once."""
+        cap = self.halves * self.slots * self.rows_in_flight(element_size)
+        return sum(min(cap, max(0, min(spatial, (r + 1) * self.rows_per_block)
+                                - r * self.rows_per_block))
+                   for r in range(self.cluster))
+
+    def describe(self) -> str:
+        held = f"{self.slots} packs" if self.halves == 1 else f"rounds of {self.slots} packs"
+        return (f"{self.units} units of {self.width} channels, clusters of {self.cluster}, "
+                f"{self.rows_per_block} rows a block, {held} a thread, "
+                f"{self.blocks_per_sm} blocks an SM")
+
+
+def _forward_slots(width: int, cluster: int, spatial: int, groups_in_slice: int,
+                   element_size: int, smem_per_block: int, per_sm: int) -> ForwardPlan | None:
+    """The plan (less its units) of ``width`` and ``cluster`` whose blocks
+    fit ``per_sm`` to an SM: each thread holds all its rows of a unit where
+    they fit (one round), else rounds of half the packs that fit; None where
+    not even that fits."""
+    rows = math.ceil(spatial / cluster)
+    need = math.ceil(rows / (FWD_THREADS // (width * element_size // 16)))
+    base = forward_smem_bytes(width, groups_in_slice, element_size, 0, cluster)
+    room = (min(smem_per_block, SM_SMEM_BYTES // per_sm - 1024) - base) // (16 * FWD_THREADS)
+    if need <= room:
+        slots, halves = need, 1
+    elif room >= 2:
+        slots, halves = room // 2, 2
+    else:
+        return None
+    return ForwardPlan(width, cluster, rows, slots, 0, forward_smem_bytes(
+        width, groups_in_slice, element_size, slots, cluster, halves), halves)
+
+
+def _forward_widths(channels: int, groups: int, element_size: int) -> list[int]:
+    pack = 16 // element_size
+    widths = [w for w in slice_widths(channels, groups, element_size, min_bytes=16)
+              if w // pack <= FWD_THREADS]
+    if not widths:
+        raise ValueError(f"no forward plan: a slice of whole groups of {channels // groups} "
+                         f"channels is wider than {FWD_THREADS} packs")
+    return widths
+
+
+def forward_candidates(
+    batch: int, spatial: int, channels: int, groups: int, element_size: int,
+    smem_per_block: int = MAX_SMEM_PER_BLOCK,
+) -> list[ForwardPlan]:
+    """Every plan for one forward call, for ``forward_plan``'s rule to be
+    checked against (``tools/sweep_gn_bwd.py --forward``): every slice of
+    ``slice_widths`` (16-byte ones too) of at most ``FWD_THREADS`` packs,
+    every cluster of ``FWD_CLUSTERS`` whose every block has rows, with the
+    packs held for two blocks an SM and for one."""
+    out = []
+    for width in _forward_widths(channels, groups, element_size):
+        for cluster in FWD_CLUSTERS:
+            if (cluster - 1) * math.ceil(spatial / cluster) >= spatial:
+                break  # a block of the cluster would have no rows
+            for per_sm in (2, 1):
+                plan = _forward_slots(width, cluster, spatial, width // (channels // groups),
+                                      element_size, smem_per_block, per_sm)
+                if plan is not None and plan not in out:
+                    out.append(plan)
+    return [dataclasses.replace(p, units=batch * (channels // p.width)) for p in out]
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(
+    batch: int, spatial: int, channels: int, groups: int, element_size: int,
+    smem_per_block: int = MAX_SMEM_PER_BLOCK,
+) -> ForwardPlan:
+    """The forward's slice, cluster and held packs for one call (pure
+    Python): the widest slice of ``_forward_widths`` of at most
+    ``FWD_ROW_BYTES`` of a row (the narrowest where none is), narrower while
+    the call has fewer than ``FWD_MIN_UNITS`` units; the smallest cluster of
+    ``FWD_CLUSTERS`` whose blocks take at most ``FWD_ROUND_PACKS`` rows a
+    thread, else the largest; the packs held for two blocks an SM, else one.
+    Raises where there is none."""
+    widths = _forward_widths(channels, groups, element_size)
+    narrow = [w for w in widths if w * element_size <= FWD_ROW_BYTES] or widths[:1]
+    width = next((w for w in reversed(narrow) if batch * (channels // w) >= FWD_MIN_UNITS),
+                 narrow[0])
+    rows_in_flight = FWD_THREADS // (width * element_size // 16)
+    cluster = next((k for k in FWD_CLUSTERS
+                    if math.ceil(math.ceil(spatial / k) / rows_in_flight) <= FWD_ROUND_PACKS),
+                   FWD_CLUSTERS[-1])
+    for per_sm in (2, 1):
+        plan = _forward_slots(width, cluster, spatial, width // (channels // groups),
+                              element_size, smem_per_block, per_sm)
+        if plan is not None:
+            return dataclasses.replace(plan, units=batch * (channels // width))
+    raise ValueError(f"no forward plan: a block of the slice of {width} channels does not "
+                     f"fit in {smem_per_block} bytes of shared memory")
+
+
 def channels_last_format(x: torch.Tensor) -> torch.memory_format:
     """The channels-last memory format of a 4-D or 5-D tensor."""
     if x.ndim == 4:
@@ -314,9 +470,9 @@ def _check(x, weight, bias, num_groups):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_group_norm takes float32 or bfloat16, not {x.dtype}")
     c = x.shape[1]
-    if c % num_groups or num_groups > _MAX_THREADS:
+    if c % num_groups or num_groups > _MAX_GROUPS:
         raise ValueError(f"channels {c} not divisible by num_groups {num_groups} "
-                         f"(at most {_MAX_THREADS} groups)")
+                         f"(at most {_MAX_GROUPS} groups)")
     for name, p in (("weight", weight), ("bias", bias)):
         if p.dtype != torch.float32 or tuple(p.shape) != (c,) or not p.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 ({c},) tensor")
@@ -362,40 +518,64 @@ def group_norm_forward(
     num_groups: int = 32,
     eps: float = 1e-6,
     with_swish: bool = False,
+    plan: ForwardPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward, outside autograd: ``(y, stats)``, y in x's dtype and
     channels-last layout, stats the fp32 (B, 2, G) mean and rstd. A CUDA tensor
-    launches kernel #1 (and counts it in ``launches``); a CPU tensor runs
-    the plain version."""
+    launches kernel #1 (and counts it in ``launches``) with ``plan``, by
+    default ``forward_plan``'s; a CPU tensor runs the plain version."""
     _check(x, weight, bias, num_groups)
     if x.device.type == "cpu":
         y, mean, rstd = group_norm_fp32_forward(x, weight, bias, num_groups, eps,
                                                 with_swish)
         return y, torch.stack((mean, rstd), dim=1)
-    return _launch_forward(x, weight, bias, num_groups, eps, with_swish)
+    return _launch_forward(x, weight, bias, num_groups, eps, with_swish, plan)
 
 
-def _launch_forward(x, weight, bias, num_groups, eps, with_swish):
+@functools.cache
+def forward_max_clusters(device_index: int, dtype: torch.dtype, with_swish: bool,
+                         cluster: int, smem: int, defines: tuple[str, ...] = ()) -> int:
+    """Allows the forward kernels their shared memory and clusters of up to
+    16 blocks on the device (once), and returns how many clusters of
+    ``cluster`` blocks of ``smem`` bytes it holds at once (the occupancy
+    API; 0: such a launch cannot run)."""
+    lib = library(defines)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _raise_on(lib.gn_forward_setup(MAX_SMEM_PER_BLOCK), lib, "forward setup")
+        err = lib.gn_forward_max_clusters(_DTYPE_CODES[dtype], int(with_swish), cluster, smem,
+                                          ctypes.byref(count))
+    _raise_on(err, lib, "forward occupancy")
+    return count.value
+
+
+def _launch_forward(x, weight, bias, num_groups, eps, with_swish, plan,
+                    defines: tuple[str, ...] = ()):
     global launches
     b, c = x.shape[:2]
     s = math.prod(x.shape[2:])
     if x.data_ptr() % 16:
         raise ValueError("fused_group_norm needs a 16-byte aligned input")
-    threads, rows_per_tile, n_tiles = launch_geometry(
-        b, s, c, x.element_size(), num_sms(x.device.index)
-    )
-    lib = library()
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if plan is None:
+        plan = forward_plan(b, s, c, num_groups, x.element_size())
+    if plan.halves < 2 and plan.rounds(x.element_size()) > 1:
+        raise ValueError(f"a plan of several rounds needs two halves of slots: {plan}")
+    fit = forward_max_clusters(dev, x.dtype, with_swish, plan.cluster, plan.smem_bytes, defines)
+    if fit < 1:
+        raise RuntimeError(f"the GroupNorm forward's clusters ({plan.describe()}) do not fit "
+                           f"on the device")
+    clusters = min(plan.units, fit)
+    lib = library(defines)
     y = torch.empty_like(x, memory_format=channels_last_format(x))
-    partial = torch.empty((b, n_tiles, 2, num_groups), dtype=torch.float32,
-                          device=x.device)
     stats = torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gn_forward(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(),
-            b, s, c, num_groups, rows_per_tile, n_tiles, threads,
-            eps, int(with_swish), _DTYPE_CODES[x.dtype], stream,
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), stats.data_ptr(),
+            b, s, c, num_groups, plan.width, plan.cluster, clusters, plan.rows_per_block,
+            plan.slots, plan.halves, plan.smem_bytes, eps, int(with_swish),
+            _DTYPE_CODES[x.dtype], stream,
         )
     _raise_on(err, lib, "forward")
     launches += 1
