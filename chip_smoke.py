@@ -195,6 +195,7 @@ TRAIN_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense
 # exps a clock per SM for compute capability 9.0 (CUDA C Programming Guide,
 # arithmetic instruction throughput: base-2 exponential on the SFU)
 SFU_EXPS_PER_CLOCK_SM = 16
@@ -777,92 +778,113 @@ def _library_nearest(z, cb, e_sq):
 
 
 def _library_stats(codes64, z, k, with_sums):
-    """The statistics by PyTorch calls, as a yardstick only: bincount, and
-    index_add_ (float atomics) for the sums."""
-    counts = torch.bincount(codes64, minlength=k)
+    """The statistics by PyTorch calls, as a yardstick only: index_add_
+    (float atomics) of ones for the counts and of z for the sums
+    (``bincount`` would give the counts too, but reads the largest code back
+    to the host, so no CUDA graph can hold it)."""
+    ones = torch.ones(codes64.shape[0], device=z.device)
+    counts = torch.zeros(k, device=z.device).index_add_(0, codes64, ones)
     if with_sums:
         return counts, torch.zeros(k, z.shape[1], device=z.device).index_add_(0, codes64, z)
     return counts, None
 
 
+def _near_tie_codebook(k, d, gen) -> torch.Tensor:
+    """k // 2 random codes, each followed by a twin that differs in the last
+    one or two mantissa bits of every column."""
+    base = torch.randn((k // 2, d), generator=gen, device="cuda")
+    step = torch.randint(0, 4, base.shape, generator=gen, device="cuda", dtype=torch.int32)
+    twin = (base.view(torch.int32) + torch.tensor([-2, -1, 1, 2], device="cuda",
+                                                   dtype=torch.int32)[step]).view(torch.float32)
+    return torch.stack([base, twin], 1).reshape(k, d)
+
+
 def phase_vq_kernels(vq) -> tuple[dict, dict]:
-    """Kernel #4 and #5 against their plain versions. Returns
+    """Kernels #4 and #5 against their plain versions, every time the
+    device's (``device_ms``: calls replayed from a CUDA graph). Each kernel
+    is also called twice on the same inputs, and the two results must be
+    bitwise equal. Returns
     ({case: (gap, kernel_ms, plain_ms, library_ms, bound_ms)},
      {(case, with_sums): (max_abs_err, kernel_ms, plain_ms, library_ms,
-     bound_ms)})."""
+     bound_ms)}); the search's bound is its three TF32 products at 495
+    TFLOP/s, the one-product fp32 bound (67 TFLOP/s) logged beside it."""
     from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
+    from vqgan_tpu_torch.tools.time_vq import zipf_codes
 
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(7)
     nearest, stats = {}, {}
+
+    def check_stats(name, codes, z, k, with_sums):
+        n, d = z.shape
+        counts, sums = vq.code_stats(codes, z, k, with_sums=with_sums)
+        again = vq.code_stats(codes, z, k, with_sums=with_sums)
+        r_counts, r_sums = code_stats_plain(codes, z, k, with_sums)
+        torch.cuda.synchronize()
+        repeat = torch.equal(counts, again[0]) and (not with_sums or torch.equal(sums, again[1]))
+        ok = torch.equal(counts, r_counts) and float(counts.sum()) == n and repeat
+        err = 0.0
+        if with_sums:
+            abs_sums = code_stats_plain(codes, z.abs(), k, True)[1]
+            bound = 2 * (counts[:, None] - 1).clamp_min(0) * VQ_GAP_U * abs_sums + 1e-30
+            diff = (sums - r_sums).abs()
+            err = float(diff.max())
+            ok = ok and bool((diff <= bound).all())
+        codes64 = codes.long()
+        k_ms = device_ms(lambda: vq.code_stats(codes, z, k, with_sums=with_sums), 20)
+        p_ms = device_ms(lambda: code_stats_plain(codes, z, k, with_sums), 5)
+        l_ms = device_ms(lambda: _library_stats(codes64, z, k, with_sums), 5)
+        moved = n * 4 + k * 4 + ((n + k) * d * 4 if with_sums else 0)
+        b_ms = bound_ms(moved)
+        log(f"vq stats {name} N={n} K={k} D={d} {'sums' if with_sums else 'counts'}: "
+            f"counts exact={torch.equal(counts, r_counts)} sum={float(counts.sum()):.0f} "
+            f"largest count {int(counts.max())} sums max_abs_err={err:.3e} bitwise "
+            f"repeatable={repeat} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} {'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError(f"statistics kernel disagrees with plain at {name}")
+        stats[(name, with_sums)] = (err, k_ms, p_ms, l_ms, b_ms)
+
     for name, (n, k, d) in VQ_CASES.items():
         z = torch.randn((n, d), generator=gen, device="cuda")
         cb = torch.randn((k, d), generator=gen, device="cuda")
         got = vq.nearest_codes(z, cb)
+        again = vq.nearest_codes(z, cb)
         ref = nearest_codes_plain(z, cb)
         torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
         gap, tol = vq_distance_gap(z, cb, got, ref)
         agree = int((got == ref).sum())
-        ok = bool((gap.abs() <= tol).all())
+        ok = bool((gap.abs() <= tol).all()) and repeat
         e_sq = (cb * cb).sum(-1)
-        k_ms = cuda_ms(lambda: vq.nearest_codes(z, cb))
-        p_ms = cuda_ms(lambda: nearest_codes_plain(z, cb))
-        l_ms = cuda_ms(lambda: _library_nearest(z, cb, e_sq))
-        b_ms = max(2 * n * k * d / FP32_FLOPS_PER_S,
-                   ((n * d + k * d) * 4 + n * 4) / HBM_BYTES_PER_S) * 1e3
+        k_ms = device_ms(lambda: vq.nearest_codes(z, cb), 20)
+        p_ms = device_ms(lambda: nearest_codes_plain(z, cb), 5)
+        l_ms = device_ms(lambda: _library_nearest(z, cb, e_sq), 5)
+        bytes_ms = ((n * d + k * d) * 4 + n * 4) / HBM_BYTES_PER_S * 1e3
+        fp32_ms = max(2 * n * k * d / FP32_FLOPS_PER_S * 1e3, bytes_ms)
+        b_ms = max(3 * 2 * n * k * d / TF32_FLOPS_PER_S * 1e3, bytes_ms)
         worst = float(gap.max())
         log(f"vq nearest {name} N={n} K={k} D={d}: {agree}/{n} codes equal to plain, "
-            f"max distance gap {worst:.3e} (bound {float(tol.max()):.3e}) kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.4f} "
-            f"{'ok' if ok else 'MISS'}")
+            f"max distance gap {worst:.3e} (bound {float(tol.max()):.3e}), bitwise "
+            f"repeatable={repeat} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"library_ms={l_ms:.4f} bound_ms={b_ms:.4f} (three TF32 products; one fp32 "
+            f"product {fp32_ms:.4f}) {'ok' if ok else 'MISS'}")
         if not ok:
             raise AssertionError(f"search kernel picks farther codes than plain at {name}")
         nearest[name] = (max(worst, 0.0), k_ms, p_ms, l_ms, b_ms)
 
-        codes = ref  # the plain search's codes, with the skew a search gives
-        codes64 = codes.long()
+        # the plain search's codes, with the skew a search gives
         for with_sums in (False, True):
-            counts, sums = vq.code_stats(codes, z, k, with_sums=with_sums)
-            r_counts, r_sums = code_stats_plain(codes, z, k, with_sums)
-            torch.cuda.synchronize()
-            ok = torch.equal(counts, r_counts) and float(counts.sum()) == n
-            err = 0.0
-            if with_sums:
-                abs_sums = code_stats_plain(codes, z.abs(), k, True)[1]
-                bound = 2 * (counts[:, None] - 1).clamp_min(0) * VQ_GAP_U * abs_sums + 1e-30
-                diff = (sums - r_sums).abs()
-                err = float(diff.max())
-                ok = ok and bool((diff <= bound).all())
-            k_ms = cuda_ms(lambda: vq.code_stats(codes, z, k, with_sums=with_sums))
-            p_ms = cuda_ms(lambda: code_stats_plain(codes, z, k, with_sums))
-            l_ms = cuda_ms(lambda: _library_stats(codes64, z, k, with_sums))
-            moved = n * 4 + k * 4 + ((n + k) * d * 4 if with_sums else 0)
-            b_ms = bound_ms(moved)
-            log(f"vq stats {name} N={n} K={k} D={d} {'sums' if with_sums else 'counts'}: "
-                f"counts exact={torch.equal(counts, r_counts)} sum={float(counts.sum()):.0f} "
-                f"sums max_abs_err={err:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} {'ok' if ok else 'MISS'}")
-            if not ok:
-                raise AssertionError(f"statistics kernel disagrees with plain at {name}")
-            stats[(name, with_sums)] = (err, k_ms, p_ms, l_ms, b_ms)
-        del z, cb, got, ref, gap, tol
+            check_stats(name, ref, z, k, with_sums)
+        del z, cb, got, again, ref, gap, tol
 
-    # a collapsed codebook: every token on one code, the longest chain of
-    # matches a thread can get
     n, k, d = VQ_CASES["flagship b8"]
     z = torch.randn((n, d), generator=gen, device="cuda")
-    codes = torch.full((n,), 5, dtype=torch.int32, device="cuda")
-    counts, sums = vq.code_stats(codes, z, k, with_sums=True)
-    r_counts, r_sums = code_stats_plain(codes, z, k, True)
-    err = float((sums - r_sums).abs().max())
-    bound = 2 * (n - 1) * VQ_GAP_U * float(z.abs().sum(0).max())
-    ok = torch.equal(counts, r_counts) and err <= bound
-    k_ms = cuda_ms(lambda: vq.code_stats(codes, z, k, with_sums=True))
-    log(f"vq stats collapsed N={n} K={k} D={d} (every token on code 5): counts exact="
-        f"{torch.equal(counts, r_counts)} sums max_abs_err={err:.3e} (bound {bound:.3e}) "
-        f"kernel_ms={k_ms:.4f} {'ok' if ok else 'MISS'}")
-    if not ok:
-        raise AssertionError("statistics kernel disagrees with plain on a collapsed codebook")
+    # Zipf-skewed codes: long runs in every tile
+    check_stats("zipf", zipf_codes(n, k, gen), z, k, True)
+    # a collapsed codebook: every token on one code, the longest runs there are
+    check_stats("collapsed", torch.full((n,), 5, dtype=torch.int32, device="cuda"), z, k, True)
 
     # every code duplicated, copies in other tiles and splits: first copy wins
     z = torch.randn((n, d), generator=gen, device="cuda")
@@ -876,6 +898,20 @@ def phase_vq_kernels(vq) -> tuple[dict, dict]:
         f"plain {'ok' if ok else 'MISS'}")
     if not ok:
         raise AssertionError("search kernel does not pick the first copy of a tie")
+
+    # twin codes a few ulps apart: which twin wins is rounding, but the chosen
+    # code stays within the bound of plain's, and of its pair
+    cb = _near_tie_codebook(k, d, gen)
+    got, ref = vq.nearest_codes(z, cb), nearest_codes_plain(z, cb)
+    gap, tol = vq_distance_gap(z, cb, got, ref)
+    pairs = float((got // 2 == ref // 2).float().mean())
+    ok = bool((gap.abs() <= tol).all()) and pairs >= 0.99
+    log(f"vq nearest near-tie N={n} K={k} (twins a few ulps apart) D={d}: "
+        f"{int((got == ref).sum())}/{n} equal to plain, {pairs:.4f} of the same pair, max "
+        f"distance gap {float(gap.max()):.3e} (bound {float(tol.max()):.3e}) "
+        f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        raise AssertionError("search kernel misses the bound on a near-tie codebook")
     return nearest, stats
 
 
@@ -2625,15 +2661,16 @@ def main() -> int:
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
         f"K={VQ_CASES['flagship b8'][1]}; statistics with sums); the search's max_abs_err is "
-        f"its largest fp64 distance gap over plain's code; attention launches per flagship "
-        f"attention training step and ms per step, its 2 bf16 calls at B=8, N=1024, H=16, "
+        f"its largest fp64 distance gap over plain's code, its bound_ms its three TF32 "
+        f"products at 495 TFLOP/s (one fp32 product in phase 9's lines); attention "
+        f"launches per flagship attention training step and ms per step, its 2 bf16 calls at B=8, N=1024, H=16, "
         f"D=64 (library: scaled_dot_product_attention, forward, and its backward through "
         f"autograd), max_abs_err over every case of phase 13; Conv3d launches per 16f/128px "
         f"TVAE reconstruct (forward) and per backward of its reconstruct loss (dx), ms summed "
         f"over those 55 and 54 bf16 calls at batch 2 (library: F.conv3d and cuDNN's dgrad, "
         f"bf16, channels_last_3d), max_abs_err over every case of phase 18; geometry probe: "
         f"one entry per case, launches in the probe entry point's run, device ms of one call "
-        f"(library: torch.matmul of the same product); GroupNorm backward and geometry probe "
+        f"(library: torch.matmul of the same product); GroupNorm, VQ and geometry probe "
         f"times from CUDA graph replays")
     log(smi)
 

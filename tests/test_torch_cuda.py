@@ -41,7 +41,7 @@ from vqgan_tpu_torch.ops.normalization import (
 )
 from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
 
-from torch_parity import assert_codes_by_distance
+from torch_parity import assert_codes_by_distance, distance_gap
 
 pytestmark = pytest.mark.cuda
 
@@ -322,7 +322,8 @@ def test_tiny_train_step_goes_through_both_kernels(device):
             np.testing.assert_allclose(losses["cuda"][k], v, rtol=1e-3, atol=1e-5, err_msg=k)
 
 
-VQ_SHAPES = [(700, 256, 16), (512, 2048, 8), (64, 32, 4), (2048, 16384, 16), (5, 3, 20)]
+VQ_SHAPES = [(700, 256, 16), (512, 2048, 8), (64, 32, 4), (2048, 16384, 16), (5, 3, 20),
+             (1024, 4096, 64)]
 
 
 def _vq_data(n, k, d, device, seed=0):
@@ -392,6 +393,107 @@ def test_vq_stats_kernel_collapsed_codebook(device, n, k):
     bound = 2 * (n - 1) * 2.0 ** -24 * z.abs().sum(0)
     assert bool(((sums[k - 1] - ref_sums[k - 1]).abs() <= bound).all())
     assert float(sums[:k - 1].abs().max()) == 0.0
+
+
+def _near_tie_codebook(k, d, seed):
+    """k // 2 random codes, each followed by a twin that differs in the last
+    one or two mantissa bits of every column."""
+    rng = np.random.RandomState(seed)
+    base = rng.randn(k // 2, d).astype(np.float32)
+    bits = base.view(np.int32) + rng.choice([-2, -1, 1, 2], size=base.shape).astype(np.int32)
+    return np.stack([base, bits.view(np.float32)], 1).reshape(k, d)
+
+
+@pytest.mark.parametrize("n,k,d", [(8192, 16384, 16), (2048, 4096, 8), (1000, 512, 64),
+                                   (700, 256, 4)])
+def test_vq_nearest_kernel_near_tie_codebook(device, n, k, d):
+    """Twin codes a few ulps apart: which twin wins is rounding, but every
+    chosen code is within distance_gap's bound of the plain search's code,
+    and of its pair."""
+    cb = torch.from_numpy(_near_tie_codebook(k, d, seed=k + d)).to(device)
+    z = torch.from_numpy(np.random.RandomState(n).randn(n, d).astype(np.float32)).to(device)
+    got = vq_cuda.nearest_codes(z, cb).cpu().numpy()
+    ref = nearest_codes_plain(z, cb).cpu().numpy()
+    gap, tol = distance_gap(z.cpu().numpy(), cb.cpu().numpy(), got, ref)
+    assert (np.abs(gap) <= tol).all(), (np.abs(gap).max(), tol[np.abs(gap).argmax()])
+    assert (got // 2 == ref // 2).mean() >= 0.99
+
+
+@pytest.mark.parametrize("n,k,d", [(8192, 16384, 16), (700, 256, 16), (1024, 4096, 64)])
+def test_vq_nearest_kernel_is_bitwise_repeatable(device, n, k, d):
+    """No atomics and fixed merge orders: two calls give the same codes."""
+    z, cb = _vq_data(n, k, d, device, seed=5)
+    assert torch.equal(vq_cuda.nearest_codes(z, cb), vq_cuda.nearest_codes(z, cb))
+
+
+def _zipf_codes(n, k, device, seed):
+    rng = np.random.RandomState(seed)
+    codes = np.minimum(rng.zipf(1.3, n) - 1, k - 1).astype(np.int32)
+    return torch.from_numpy(codes).to(device)
+
+
+@pytest.mark.parametrize("n,k,d", [(8192, 16384, 16), (2000, 512, 8), (3000, 64, 64)])
+def test_vq_stats_kernel_zipf_codes(device, n, k, d):
+    """A few codes take most tokens (long runs in every tile): counts exact,
+    sums within 2·(m − 1)·2^-24 of Σ|terms|."""
+    z, _ = _vq_data(n, k, d, device, seed=6)
+    codes = _zipf_codes(n, k, device, seed=7)
+    vq_cuda.stats_launches = 0
+    counts, sums = vq_cuda.code_stats(codes, z, k, with_sums=True)
+    torch.cuda.synchronize()
+    assert vq_cuda.stats_launches == 1
+    ref_counts, ref_sums = code_stats_plain(codes, z, k, True)
+    assert torch.equal(counts, ref_counts) and float(counts.sum()) == n
+    abs_sums = code_stats_plain(codes, z.abs(), k, True)[1]
+    bound = 2 * (counts[:, None] - 1).clamp_min(0) * 2.0 ** -24 * abs_sums + 1e-30
+    assert bool(((sums - ref_sums).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kind", ["random", "zipf", "collapsed"])
+def test_vq_stats_kernel_is_bitwise_repeatable(device, kind):
+    """No atomics, sums in token then tile order: two calls give the same
+    counts and sums."""
+    n, k, d = 8192, 16384, 16
+    z, _ = _vq_data(n, k, d, device, seed=8)
+    if kind == "random":
+        codes = torch.from_numpy(np.random.RandomState(9).randint(0, k, n).astype(np.int32))
+        codes = codes.to(device)
+    elif kind == "zipf":
+        codes = _zipf_codes(n, k, device, seed=9)
+    else:
+        codes = torch.full((n,), 3, dtype=torch.int32, device=device)
+    first, second = (vq_cuda.code_stats(codes, z, k, with_sums=True) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_vq_stats_kernel_skips_codes_out_of_range(device):
+    """A code outside [0, K) is counted nowhere; N = 0 gives zeros."""
+    n, k, d = 1000, 64, 16
+    z, _ = _vq_data(n, k, d, device, seed=10)
+    codes = torch.from_numpy(np.random.RandomState(11).randint(0, k, n).astype(np.int32))
+    codes[::7], codes[3::11] = -1, k
+    codes = codes.to(device)
+    counts, sums = vq_cuda.code_stats(codes, z, k, with_sums=True)
+    keep = (codes >= 0) & (codes < k)
+    ref_counts, ref_sums = code_stats_plain(codes[keep], z[keep], k, True)
+    assert torch.equal(counts, ref_counts)
+    abs_sums = code_stats_plain(codes[keep], z[keep].abs(), k, True)[1]
+    bound = 2 * (counts[:, None] - 1).clamp_min(0) * 2.0 ** -24 * abs_sums + 1e-30
+    assert bool(((sums - ref_sums).abs() <= bound).all())
+    empty = torch.zeros((0, d), device=device)
+    counts, sums = vq_cuda.code_stats(torch.zeros(0, dtype=torch.int32, device=device), empty,
+                                      k, with_sums=True)
+    assert float(counts.abs().sum()) == 0 and float(sums.abs().sum()) == 0
+
+
+def test_vq_geometry_matches_the_library(device):
+    """The wrapper's mirror of the kernels' geometry (split planning, the
+    workspaces' sizes) is what the built library reports."""
+    lib = vq_cuda.library()
+    for d in (1, 4, 8, 9, 16, 20, 32, 33, 64):
+        assert lib.vq_search_block_tokens(d) == vq_cuda.search_block_tokens(d)
+    assert lib.vq_stats_tile_tokens() == vq_cuda.STATS_TILE
+    assert lib.vq_stats_merge_codes() == vq_cuda.STATS_MERGE_CODES
 
 
 def test_vq_wrappers_raise_on_what_the_kernels_do_not_take(device):

@@ -6,8 +6,14 @@ Replaces ``vqgan_tpu/ops/pallas/vq.py``: ``_nearest_codes_pallas`` (the
 Pallas TPU kernel ``_nearest_kernel``) and ``_code_stats_pallas``
 (``_stats_kernel``). The kernels are ``csrc/vq.cu``, built by ``nvcc`` for
 ``sm_90a`` at first use and bound with ctypes; the source says what bounds
-each on an H100 and what the design does about it. Neither forms the (N, K)
-distance matrix or one-hot of the plain versions (``ops/vq.py``).
+each on an H100 and what the design does about it: the search is three TF32
+products on the tensor cores (fp32-accurate by splitting each operand into
+two TF32 halves), the statistics a group-by-code in two launches (each
+tile's records sorted by code, then a block per 16 codes adding them up in
+tile order).
+Neither forms the (N, K) distance matrix or one-hot of the plain versions
+(``ops/vq.py``), and neither uses atomics: both results are bitwise
+repeatable.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel, or raises. There is no fallback between the two. The CUDA path takes
@@ -33,49 +39,66 @@ from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
 nearest_launches = 0
 stats_launches = 0
 
-MAX_DIM = 64  # the kernels keep a z row of up to 64 floats in registers
-NEAREST_THREADS = 256  # tokens per block of the search (csrc/vq.cu)
-STATS_CODES = 128  # codes per block of the statistics
-STATS_TILE = 128  # tokens per shared-memory tile of the statistics
-_BLOCKS_PER_SM = 2  # search
-_STATS_BLOCKS_PER_SM = 4
+MAX_DIM = 64  # the search keeps a z row of up to 64 floats in registers
+# The kernels' geometry, which sizes the workspaces below (csrc/vq.cu; the
+# library reports it too: vq_search_block_tokens, vq_stats_tile_tokens,
+# vq_stats_merge_codes)
+SEARCH_WARPS = 8
+SEARCH_MIN_SPLIT_CODES = 64  # no codebook split of the search holds fewer codes
+STATS_TILE = 256  # tokens a tile of the statistics holds: one block of launch 1
+STATS_MERGE_CODES = 16  # codes a block of the statistics' merge owns
+_BLOCKS_PER_SM = 2  # search blocks resident on an SM (~100 KB of shared memory each)
+
+
+def padded_dim(d: int) -> int:
+    """The search's width of a z row: D rounded up to 8, 16, 32 or 64."""
+    return next(p for p in (8, 16, 32, 64) if d <= p)
+
+
+def search_block_tokens(d: int) -> int:
+    """Tokens a block of the search owns: its warps' 16-token m-tiles, as
+    many a warp as its registers hold (4 at D <= 16, 2 at D <= 32, 1)."""
+    return SEARCH_WARPS * 16 * {8: 4, 16: 4, 32: 2, 64: 1}[padded_dim(d)]
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The built kernel library (built on the first call)."""
     lib = load_library("vq")
-    lib.vq_nearest_codes.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.vq_nearest_codes.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.vq_nearest_codes.restype = ctypes.c_int
-    lib.vq_code_stats.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.vq_code_stats.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.vq_code_stats.restype = ctypes.c_int
+    lib.vq_search_block_tokens.argtypes = [ctypes.c_int]
+    lib.vq_search_block_tokens.restype = ctypes.c_int
+    for name in ("vq_stats_tile_tokens", "vq_stats_merge_codes"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.vq_error_string.argtypes = [ctypes.c_int]
     lib.vq_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def nearest_launch_geometry(n: int, k: int, num_sms: int) -> tuple[int, int]:
+def nearest_launch_geometry(n: int, k: int, d: int, num_sms: int) -> tuple[int, int]:
     """(splits, codes per split) of the search: the codebook is cut into
-    contiguous ranges, one per grid row, so that a small N still gives about
-    ``_BLOCKS_PER_SM`` blocks per SM. No range is shorter than one block of
-    tokens' worth of codes, and none is empty."""
-    token_blocks = math.ceil(n / NEAREST_THREADS)
-    splits = math.ceil(_BLOCKS_PER_SM * num_sms / token_blocks)
-    splits = max(1, min(splits, math.ceil(k / NEAREST_THREADS)))
-    per = math.ceil(k / splits)
+    contiguous ranges, one per grid row, so that a small N still fills one
+    wave of ``_BLOCKS_PER_SM`` blocks an SM, and no more than one. No range
+    is much shorter than ``SEARCH_MIN_SPLIT_CODES``; every range but the last
+    holds a whole number of 8-code mma tiles, and none is empty."""
+    token_blocks = math.ceil(n / search_block_tokens(d))
+    splits = max(1, _BLOCKS_PER_SM * num_sms // token_blocks)
+    splits = min(splits, math.ceil(k / SEARCH_MIN_SPLIT_CODES))
+    per = math.ceil(math.ceil(k / splits) / 8) * 8
     return math.ceil(k / per), per
 
 
-def stats_launch_geometry(n: int, k: int, num_sms: int) -> tuple[int, int]:
-    """(splits, tokens per split) of the statistics: the tokens are cut into
-    contiguous ranges of whole tiles, one per grid row, so that the grid has
-    about ``_STATS_BLOCKS_PER_SM`` blocks per SM and no code's chain of
-    matches runs through all N tokens. None is empty."""
-    code_blocks = math.ceil(k / STATS_CODES)
-    splits = math.ceil(_STATS_BLOCKS_PER_SM * num_sms / code_blocks)
-    splits = max(1, min(splits, math.ceil(n / STATS_TILE)))
-    per = math.ceil(math.ceil(n / splits) / STATS_TILE) * STATS_TILE
-    return (math.ceil(n / per) if n else 1), per
+def stats_tile_plan(n: int, k: int) -> tuple[int, int, int]:
+    """(tiles, tokens a tile, index entries a tile) of the statistics: tile i
+    holds tokens [i * STATS_TILE, (i + 1) * STATS_TILE) and writes at most
+    STATS_TILE records, one per code it holds, sorted by code, and an index:
+    for each block b of STATS_MERGE_CODES codes, its first record with a code
+    >= b * STATS_MERGE_CODES (one entry more: the record count)."""
+    return math.ceil(n / STATS_TILE), STATS_TILE, math.ceil(k / STATS_MERGE_CODES) + 1
 
 
 def _check_device(t: torch.Tensor, name: str, like: torch.Tensor) -> None:
@@ -122,16 +145,21 @@ def _launch_nearest(flat, codebook):
     codes = torch.empty(n, dtype=torch.int32, device=flat.device)
     if n == 0:
         return codes
-    splits, per = nearest_launch_geometry(n, k, num_sms(flat.device.index))
+    splits, per = nearest_launch_geometry(n, k, d, num_sms(flat.device.index))
     part = splits if splits > 1 else 0
     part_dist = torch.empty((part, n), dtype=torch.float32, device=flat.device)
     part_idx = torch.empty((part, n), dtype=torch.int32, device=flat.device)
+    # the codebook split into TF32 halves in the kernel's tile layout, and |E|^2
+    n8 = math.ceil(k / 8)
+    split = torch.empty(n8 * 16 * padded_dim(d), dtype=torch.float32, device=flat.device)
+    e_sq = torch.empty(n8 * 8, dtype=torch.float32, device=flat.device)
     lib = library()
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         err = lib.vq_nearest_codes(
-            flat.data_ptr(), codebook.data_ptr(), part_dist.data_ptr(), part_idx.data_ptr(),
-            codes.data_ptr(), n, k, d, splits, per, stream,
+            flat.data_ptr(), codebook.data_ptr(), split.data_ptr(), e_sq.data_ptr(),
+            part_dist.data_ptr(), part_idx.data_ptr(), codes.data_ptr(), n, k, d, splits, per,
+            stream,
         )
     _raise_on(err, lib, "nearest-code")
     nearest_launches += 1
@@ -164,18 +192,21 @@ def _launch_stats(codes, flat, k, with_sums):
     global stats_launches
     n, d = flat.shape
     dev = flat.device
-    splits, per = stats_launch_geometry(n, k, num_sms(dev.index))
-    part = splits if splits > 1 else 0
-    part_counts = torch.empty((part, k), dtype=torch.int32, device=dev)
-    part_sums = torch.empty((part if with_sums else 0, k, d), dtype=torch.float32, device=dev)
+    tiles, tile, index = stats_tile_plan(n, k)
+    rec_first = torch.empty(tiles * index, dtype=torch.int32, device=dev)
+    rec_code = torch.empty(tiles * tile, dtype=torch.int32, device=dev)
+    rec_count = torch.empty(tiles * tile, dtype=torch.int32, device=dev)
+    rec_sum = torch.empty((tiles * tile if with_sums else 0, d), dtype=torch.float32,
+                          device=dev)
     counts = torch.empty(k, dtype=torch.float32, device=dev)
     sums = torch.empty((k, d) if with_sums else (0, d), dtype=torch.float32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vq_code_stats(
-            codes.data_ptr(), flat.data_ptr(), part_counts.data_ptr(), part_sums.data_ptr(),
-            counts.data_ptr(), sums.data_ptr(), n, k, d, int(with_sums), splits, per, stream,
+            codes.data_ptr(), flat.data_ptr(), rec_code.data_ptr(), rec_count.data_ptr(),
+            rec_sum.data_ptr(), rec_first.data_ptr(), counts.data_ptr(), sums.data_ptr(), n, k,
+            d, int(with_sums), stream,
         )
     _raise_on(err, lib, "code-statistics")
     stats_launches += 1
