@@ -166,7 +166,28 @@ Phases, each fatal on failure:
      dim 32 or 16), gaussian + frame D and VQ (K = 1024, EMA, revival) +
      tubelet D at ch_mult 1,8, gaussian + frame D at 1,4: losses and
      gradients within phase 8's bounds with the loss head's decisions
-     replayed, as in phase 8, EMA counts to one token.
+     replayed, as in phase 8, EMA counts to one token;
+ 26. the training job through its entry point, ``vqgan_tpu_torch.cli.main``,
+     at the flagship width (``TRAIN_JOB``: ch 256, ch_mult 1,2,4,4, 2 res
+     blocks, z 16, 256 px, batch 8 from 512 px synthetic images, the
+     sampled Gaussian latent, hinge GAN + LeCam, all bf16, 6 steps, eval
+     every 3): every parameter, optimizer moment and batch on the card;
+     exactly 6 x (50 + 50) GroupNorm launches plus 50 forward launches for
+     each of the 2 evals (after steps 1 and 4); every logged loss finite;
+     each eval line with eval/lpips, eval/rfid_vgg_proxy, eval/psnr and
+     eval/ssim, finite, SSIM in [-1, 1], no eval/metrics_failed; the raw .pt
+     and the full checkpoint written, the .pt served by ``VAEPipeline``
+     (2 images, finite, in [0, 1]); then a second call with ``--max_steps
+     8`` restores step 6, every tensor of the state and the generator's
+     state bitwise those the first call ended with (and saved) right after
+     the restore, and runs 2 more steps (2 x (50 + 50) + 50 launches) with
+     finite losses; ms per step by the host clock with CUDA events beside
+     it, the job's wall time a step and its wait for the batch from the
+     JSONL, eval and save seconds, peak memory, the seconds of phases 26-27;
+ 27. the same job with ``--reg_type vq`` for 3 steps (K = 16,384, EMA 0.99):
+     1 search and 1 statistics launch a step, 1 search more for the eval
+     after step 1; a third Trainer restores its last checkpoint and gets back
+     the state the job ended with, ``vq_ema`` included, bitwise.
 
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
@@ -281,6 +302,17 @@ ATTN_CASES = {
 # (vqgan_tpu_torch/ops/attention.py::rounding_bounds), plus one bf16 ulp of
 # the value for a bf16 output rounded on either side. lse: the logits'
 # D-term sums in other orders, O(1e-6) of |S|
+# the training job of phases 26-27 (the 2D CLI at the flagship width)
+TRAIN_JOB = ["--vae_ch", "256", "--vae_ch_mult", "1,2,4,4", "--vae_num_res_blocks", "2",
+             "--vae_z_channels", "16", "--vae_resolution", "256", "--batch_size", "8",
+             "--image_size", "512", "--synthetic_data", "true", "--do_ganloss",
+             "--disc_type", "hinge", "--use_lecam", "true", "--full_bf16", "true",
+             "--evaluate_every_n_steps", "3", "--eval_batches", "1", "--use_wandb", "false",
+             "--log_every", "1"]
+# GroupNorms of one flagship VAE forward (encode 21 + decode 29): a train
+# step's forward and backward launches each, and an eval's forward launches
+JOB_GN = 50
+JOB_EVAL_KEYS = ("eval/lpips", "eval/rfid_vgg_proxy", "eval/psnr", "eval/ssim")
 ATTN_RTOL = 3e-5
 ATTN_LSE_ATOL = 1e-4
 # the TVAE clip configs: 16 frames x 128 px at batch 2 (TVAEConfig()), and the
@@ -2465,12 +2497,355 @@ def phase_train3d_cross_device(cc, ac, gn, vq: bool, ch_mult=(1, 8)) -> None:
         f"(head_dim {32 * ch_mult[-1] // 8}) 4f/32px",
         2 * 2 * 3 * 4, k if vq else 0)
 
+class JobProbe:
+    """Instruments the port's ``Trainer`` for one call of the CLI: each
+    train step timed by the host clock (to a device sync after it) and by
+    CUDA events on the stream, its batch and state checked to lie on the
+    card; each eval and save timed; each restore compared, bitwise, with
+    the live state that the previous call ended with (and saved), so a save
+    that wrote a wrong tensor or generator state fails too. ``expect`` holds
+    that state's ``device_tree``, one item; the restore takes it out, so its
+    memory is free before the job trains. Patches the trainer module's
+    ``make_train_step`` and the classes' methods while active; a timing or
+    check adds a sync to the run, no work."""
+
+    def __init__(self, expect: list[dict] | None = None):
+        self.expect = expect or []
+        self.steps, self.evals, self.saves, self.restores = [], [], [], []
+
+    @contextlib.contextmanager
+    def active(self):
+        from vqgan_tpu_torch.train import checkpoint as ckpt_mod
+        from vqgan_tpu_torch.train import trainer as trainer_mod
+
+        probe = self
+        real_make = trainer_mod.make_train_step
+        real_eval, real_save = trainer_mod.Trainer.evaluate, trainer_mod.Trainer.save
+        real_restore = ckpt_mod.CheckpointManager.restore
+
+        def make(*args, **kw):
+            step = real_make(*args, **kw)
+
+            def timed(state, batch, do_crop=0, draws=None):
+                if batch.device.type != "cuda":
+                    raise AssertionError(f"the job's batch is on {batch.device}")
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                out = step(state, batch, do_crop, draws)
+                end.record()
+                torch.cuda.synchronize()
+                probe.steps.append((time.perf_counter() - t0, start.elapsed_time(end)))
+                return out
+            return timed
+
+        def timed_method(real, into):
+            def method(self, *args):
+                t0 = time.perf_counter()
+                real(self, *args)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+            return method
+
+        def restore(self, state, step=None):
+            out = real_restore(self, state, step)
+            if out is not None:
+                if not probe.expect:
+                    raise AssertionError("a restore with no live state to hold it against")
+                same, n = same_state(device_tree(state), probe.expect.pop())
+                probe.restores.append((state.step, same, n))
+            return out
+
+        trainer_mod.make_train_step = make
+        trainer_mod.Trainer.evaluate = timed_method(real_eval, self.evals)
+        trainer_mod.Trainer.save = timed_method(real_save, self.saves)
+        ckpt_mod.CheckpointManager.restore = restore
+        try:
+            yield self
+        finally:
+            trainer_mod.make_train_step = real_make
+            trainer_mod.Trainer.evaluate, trainer_mod.Trainer.save = real_eval, real_save
+            ckpt_mod.CheckpointManager.restore = real_restore
+
+
+def device_tree(state) -> dict:
+    """``state_dict_of``'s tree of a train state with every tensor cloned
+    where it lies (on the card; the generator's state on the host): the
+    live state to hold a restore against, with no copy to the host."""
+    from vqgan_tpu_torch.train import checkpoint as ckpt_mod
+
+    def clone(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().clone()
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(clone(v) for v in tree)
+        return tree
+
+    real, ckpt_mod._cpu = ckpt_mod._cpu, clone
+    try:
+        return ckpt_mod.state_dict_of(state)
+    finally:
+        ckpt_mod._cpu = real
+
+
+def same_state(a, b) -> tuple[bool, int]:
+    """Whether every tensor of two ``state_dict_of`` trees is bitwise equal
+    (dtype, shape and values), and how many tensors they hold. Numbers are
+    not compared: a resumed run's schedule sets its own lrs."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b)), 1
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return False, 0
+        results = [same_state(a[k], b[k]) for k in a]
+    elif isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return False, 0
+        results = [same_state(x, y) for x, y in zip(a, b)]
+    else:
+        return True, 0
+    return all(r[0] for r in results), sum(r[1] for r in results)
+
+
+def check_on_card(trainer) -> int:
+    """Every parameter and AdamW moment of the job's models, the LeCam
+    anchors, the EMA statistics and the step's generator on the card;
+    returns the number of tensors checked."""
+    st = trainer.state
+    tensors = [p for m in (trainer.vae, trainer.disc, trainer.lpips) if m is not None
+               for p in m.parameters()]
+    for opt in (st.g_opt, st.d_opt):
+        for per_param in opt.state.values():
+            tensors += [per_param["exp_avg"], per_param["exp_avg_sq"]]
+    tensors += [st.lecam_real, st.lecam_fake] + list((st.vq_ema or {}).values())
+    off = [t.device for t in tensors if t.device.type != "cuda"]
+    if off or st.generator.device.type != "cuda":
+        raise AssertionError(f"{len(off)} state tensors off the card: {off[:3]}; "
+                             f"generator on {st.generator.device}")
+    return len(tensors)
+
+
+def job_lines(run_dir: str, run: str) -> list[dict]:
+    with open(os.path.join(run_dir, f"metrics_{run}.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def check_job_log(lines: list[dict], steps: range, eval_steps: list[int], what: str) -> dict:
+    """The steps' losses logged and finite, the evals' four metrics finite
+    (SSIM in [-1, 1]) at ``eval_steps``, no eval/metrics_failed anywhere;
+    returns the last step's line."""
+    if any("eval/metrics_failed" in ln for ln in lines):
+        raise AssertionError(f"{what}: eval/metrics_failed in the JSONL")
+    losses = {ln["step"]: ln for ln in lines if "overall_vae_loss" in ln}
+    if sorted(s for s in losses if s in steps) != list(steps):
+        raise AssertionError(f"{what}: logged steps {sorted(losses)}, expected {list(steps)}")
+    bad = [(s, k) for s in steps for k, v in losses[s].items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{what}: non-finite logged losses {bad[:5]}")
+    evals = {ln["step"]: ln for ln in lines if "eval/lpips" in ln}
+    if sorted(s for s in evals if s in eval_steps) != eval_steps:
+        raise AssertionError(f"{what}: eval lines at {sorted(evals)}, expected {eval_steps}")
+    for s in eval_steps:
+        vals = [evals[s].get(k) for k in JOB_EVAL_KEYS]
+        if any(v is None or not np.isfinite(v) for v in vals) or not -1 <= vals[3] <= 1:
+            raise AssertionError(f"{what}: eval line at step {s}: {evals[s]}")
+        log(f"{what}: eval at step {s}: " + ", ".join(
+            f"{k}={v:.5g}" for k, v in zip(JOB_EVAL_KEYS, vals)))
+    return losses[steps[-1]]
+
+
+def job_wall(lines: list[dict], steps: range, eval_steps: list[int], what: str) -> dict:
+    """The job's own clock, from its JSONL: ``time_taken_till_load`` (the
+    wait for the batch, the loader's share) and ``time_taken_till_step``
+    (the step and its logging) of each step after the first of the call
+    whose wait holds no eval and save, and their sum, the job's wall time a
+    step."""
+    clean = [s for s in steps[1:] if s not in eval_steps]
+    losses = {ln["step"]: ln for ln in lines if "overall_vae_loss" in ln}
+    load = [losses[s]["time_taken_till_load"] * 1e3 for s in clean]
+    step = [losses[s]["time_taken_till_step"] * 1e3 for s in clean]
+    out = {"load_ms": float(np.mean(load)), "till_step_ms": float(np.mean(step)),
+           "wall_ms": float(np.mean(load) + np.mean(step)), "clean_steps": clean}
+    log(f"{what}: the job's wall time a step by its JSONL, steps {clean}: "
+        f"{out['wall_ms']:.1f} ms = {out['load_ms']:.1f} ms waiting for the batch "
+        f"(time_taken_till_load) + {out['till_step_ms']:.1f} ms the step and its log line "
+        f"(time_taken_till_step); per step: " + ", ".join(
+            f"{s}: {a:.1f} + {b:.1f}" for s, a, b in zip(clean, load, step)))
+    return out
+
+
+def job_timing(probe: JobProbe, what: str) -> dict:
+    """ms per step by the host clock and by CUDA events, over the steps
+    after the first of the call (the first builds cuDNN's plans)."""
+    later = probe.steps[1:] or probe.steps
+    host = float(np.mean([h for h, _ in later])) * 1e3
+    dev = float(np.mean([d for _, d in later]))
+    out = {"step_ms": host, "device_step_ms": dev, "eval_s": list(probe.evals),
+           "save_s": list(probe.saves), "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"{what}: {len(probe.steps)} steps, {host:.1f} ms per step by the host clock (to a "
+        f"sync after each; steps 2-{len(probe.steps)}), {dev:.1f} ms between CUDA events; "
+        f"first step {probe.steps[0][0] * 1e3:.1f} ms; eval "
+        f"{', '.join(f'{t:.2f}' for t in probe.evals)} s; save (the state's host copy; the .pt "
+        f"and the state's file are written in the background) "
+        f"{', '.join(f'{t:.2f}' for t in probe.saves)} s; peak memory "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB")
+    return out
+
+
+def run_job(argv: list[str], what: str,
+            expect: list[dict] | None = None) -> tuple[object, JobProbe, float]:
+    from vqgan_tpu_torch import cli
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with JobProbe(expect).active() as probe:
+        trainer = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    log(f"{what}: cli.main returned in {seconds:.1f} s")
+    return trainer, probe, seconds
+
+
+def phase_train_job(gn, tmp: str) -> dict:
+    """Phase 26: the Gaussian job, then its resume."""
+    import shutil
+
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.data.tar_stream import image_decoders
+    from vqgan_tpu_torch.inference import VAEPipeline
+
+    set_tf32(True)
+    what = "train job gaussian"
+    try:
+        decoders = " then ".join(image_decoders())
+    except RuntimeError:
+        decoders = "none (the tar readers raise; synthetic data needs none)"
+    log(f"{what}: image decoders here: {decoders}")
+    argv = TRAIN_JOB + ["--reg_type", "gaussian", "--ckpt_dir", tmp, "--run_name", "g"]
+    run_dir = os.path.join(tmp, "g")
+    n, steps = 3, 6
+    evals = [s for s in range(1, steps + 1) if s % n == 1]  # after steps 1 and 4
+    gn.launches = gn.bwd_launches = 0
+    trainer, probe, seconds = run_job(argv + ["--max_steps", str(steps)], what)
+    counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches}
+    want = {"gn": steps * JOB_GN + len(evals) * JOB_GN, "gn_bwd": steps * JOB_GN}
+    log(f"{what}: GroupNorm launches {counts}; expected {want}: {steps} steps x "
+        f"({JOB_GN} + {JOB_GN}) "
+        f"and {JOB_GN} forward for each eval (encode 21 + decode 29) after steps {evals}")
+    if counts != want:
+        raise AssertionError(f"{what}: GroupNorm launches {counts}, expected {want}")
+    n_tensors = check_on_card(trainer)
+    lines = job_lines(run_dir, "g")
+    last = check_job_log(lines, range(steps), evals, what)
+    log(f"{what}: {n_tensors} state tensors on the card; last step's losses: " + ", ".join(
+        f"{k}={last[k]:.5g}" for k in ("overall_vae_loss", "perceptual_loss", "kl_loss",
+                                       "gan/discriminator_loss", "gan/generator_gan_loss")))
+    pt = os.path.join(run_dir, f"vae_epoch_final_step_{steps}.pt")
+    full = trainer.ckpt.path(steps)
+    for path in [pt, full] + [os.path.join(run_dir, f"vae_epoch_0_step_{s}.pt") for s in evals]:
+        if not os.path.isfile(path):
+            raise AssertionError(f"{what}: {path} was not written")
+    log(f"{what}: checkpoints {trainer.ckpt.steps()} ({os.path.getsize(full) / 2**30:.3f} GiB "
+        f"each), .pt {os.path.getsize(pt) / 2**30:.3f} GiB; disk free "
+        f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB")
+    timing = job_timing(probe, what)
+    timing.update(job_wall(lines, range(steps), evals, what))
+    # the live state the call ended with, which its final save wrote: the
+    # resume's restore is held against it
+    live = [device_tree(trainer.state)]
+    del trainer
+    torch.cuda.empty_cache()
+
+    pipe = VAEPipeline.from_checkpoint(pt, VAEConfig(reg_type="gaussian"), device="cuda")
+    images = np.random.RandomState(0).randint(0, 256, (2, 256, 256, 3), np.uint8)
+    recon = pipe.reconstruct(images)
+    if recon.shape != (2, 256, 256, 3) or not np.isfinite(recon).all() \
+            or recon.min() < 0 or recon.max() > 1:
+        raise AssertionError(f"{what}: the .pt's reconstruction {recon.shape} "
+                             f"[{recon.min()}, {recon.max()}]")
+    log(f"{what}: {os.path.basename(pt)} served by VAEPipeline: 2 images in "
+        f"[{recon.min():.4f}, {recon.max():.4f}]")
+    del pipe
+    # the resume reads the latest full state alone: drop the older files
+    for s in evals:
+        os.remove(os.path.join(run_dir, f"vae_epoch_0_step_{s}.pt"))
+        os.remove(os.path.join(run_dir, "state", f"step_{s:08d}.pt"))
+
+    what = "train job gaussian resume"
+    gn.launches = gn.bwd_launches = 0
+    trainer, probe, _ = run_job(argv + ["--max_steps", "8"], what, live)
+    if [(s, ok) for s, ok, _ in probe.restores] != [(steps, True)]:
+        raise AssertionError(f"{what}: restores {probe.restores}, expected step {steps} bitwise")
+    log(f"{what}: restored step {steps}: all {probe.restores[0][2]} tensors of the state, the "
+        f"generator's state included, bitwise those the first call ended with")
+    counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches}
+    if counts != {"gn": 3 * JOB_GN, "gn_bwd": 2 * JOB_GN}:
+        raise AssertionError(f"{what}: GroupNorm launches {counts}, expected {3 * JOB_GN} and "
+                             f"{2 * JOB_GN} (2 steps, the eval after step 7)")
+    check_on_card(trainer)
+    check_job_log(job_lines(run_dir, "g"), range(steps, 8), [7], what)
+    if trainer.state.step != 8:
+        raise AssertionError(f"{what}: ended at step {trainer.state.step}")
+    timing["resume_step_ms"] = job_timing(probe, what)["step_ms"]
+    timing["seconds"] = seconds
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir)
+    return timing
+
+
+def phase_train_job_vq(gn, vq, tmp: str) -> dict:
+    """Phase 27: the VQ job for 3 steps, then a restore of its state."""
+    import shutil
+
+    from vqgan_tpu_torch import cli
+    from vqgan_tpu_torch.train.trainer import Trainer
+
+    set_tf32(True)
+    what = "train job vq"
+    argv = TRAIN_JOB + ["--reg_type", "vq", "--ckpt_dir", tmp, "--run_name", "v",
+                        "--max_steps", "3"]
+    gn.launches = gn.bwd_launches = vq.nearest_launches = vq.stats_launches = 0
+    trainer, probe, _ = run_job(argv, what)
+    counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches, "nearest": vq.nearest_launches,
+              "stats": vq.stats_launches}
+    want = {"gn": 4 * JOB_GN, "gn_bwd": 3 * JOB_GN, "nearest": 3 + 1, "stats": 3}
+    log(f"{what}: launches {counts}; expected {want}: 1 search and 1 statistics a step, 1 "
+        f"search for the eval after step 1")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    check_on_card(trainer)
+    lines = job_lines(os.path.join(tmp, "v"), "v")
+    check_job_log(lines, range(3), [1], what)
+    timing = job_timing(probe, what)
+    timing.update(job_wall(lines, range(3), [1], what))
+    live = [device_tree(trainer.state)]
+    del trainer
+    torch.cuda.empty_cache()
+    with JobProbe(live).active() as probe:
+        kw = vars(cli.build_parser().parse_args(argv))
+        cfg, vae_cfg = cli.configs(kw)
+        trainer = Trainer(cfg, vae_cfg, device=kw["device"])
+    if [(s, ok) for s, ok, _ in probe.restores] != [(3, True)] or trainer.state.vq_ema is None:
+        raise AssertionError(f"{what}: restores {probe.restores}, expected step 3 bitwise")
+    log(f"{what}: restored step 3: all {probe.restores[0][2]} tensors bitwise those the job "
+        f"ended with, "
+        f"vq_ema (counts {tuple(trainer.state.vq_ema['counts'].shape)}, sums "
+        f"{tuple(trainer.state.vq_ema['sums'].shape)}) among them")
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "v"))
+    return timing
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
               "a CUDA device", file=sys.stderr)
         return 1
+    t_smoke = time.perf_counter()
 
     from vqgan_tpu_torch.ops import attention_cuda as ac
     from vqgan_tpu_torch.ops import conv3d_cuda as cc
@@ -2573,6 +2948,16 @@ def main() -> int:
     phase_train3d_cross_device(cc, ac, gn, vq=True)
     phase_train3d_cross_device(cc, ac, gn, vq=False, ch_mult=(1, 4))
 
+    # 26. the training job through the CLI, and its resume; 27. the VQ job
+    t_job = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = phase_train_job(gn, tmp)
+        t_vq = time.perf_counter()
+        job_vq = phase_train_job_vq(gn, vq, tmp)
+    t_end = time.perf_counter()
+    log(f"phases 26-27 (the training job): {t_end - t_job:.1f} s (26: {t_vq - t_job:.1f} s, "
+        f"27: {t_end - t_vq:.1f} s) of the {t_end - t_smoke:.1f} s the smoke has run so far")
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -2654,6 +3039,16 @@ def main() -> int:
         log(f"3D {name} step 16f/128px batch {STEP3D_BATCH}: {r['frames_per_s']:.3f} frames/s, "
             f"{r['step_ms']:.1f} ms per step, peak {r['peak_bytes'] / 2**30:.3f} GiB, "
             f"{r['counts']} launches per step")
+    log(f"train job (CLI, flagship width, batch {TRAIN_BATCH}, 512 px images, gaussian, GAN, "
+        f"bf16): {job['step_ms']:.1f} ms per step by the host clock, "
+        f"{job['device_step_ms']:.1f} ms between CUDA events, {job['wall_ms']:.1f} ms of the "
+        f"job's wall time ({job['load_ms']:.1f} waiting for the batch), resumed "
+        f"{job['resume_step_ms']:.1f} ms; eval {', '.join(f'{t:.2f}' for t in job['eval_s'])} s; "
+        f"save {', '.join(f'{t:.2f}' for t in job['save_s'])} s; peak "
+        f"{job['peak_bytes'] / 2**30:.3f} GiB; whole 6-step call {job['seconds']:.1f} s; "
+        f"vq job {job_vq['step_ms']:.1f} ms per step ({job_vq['device_step_ms']:.1f} by "
+        f"events, {job_vq['wall_ms']:.1f} of wall time), peak "
+        f"{job_vq['peak_bytes'] / 2**30:.3f} GiB")
     log(f"geometry probe: {probe_counted} launches in the entry point's run; per case "
         f"(kernel, plain, torch.matmul, bound) ms, device time: " + "; ".join(
             f"{c} {v[1]:.4f}/{v[2]:.4f}/{v[3]:.4f}/{v[4]:.5f}" for c, v in probe.items()))

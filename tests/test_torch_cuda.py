@@ -13,6 +13,9 @@ conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1099,3 +1102,109 @@ def test_tiny_3d_step_on_the_card_matches_cpu(device, gan):
     floor = 1e-6 * max(float(t.abs().max()) for t in g_cpu.values())
     for n, r in g_cpu.items():
         assert float((g_gpu[n] - r).abs().max()) <= 1e-2 * float(r.abs().max()) + floor, n
+
+
+def _job_cfg(tmp_path, max_steps, **kw):
+    from vqgan_tpu_torch.config import TrainConfig
+
+    return TrainConfig(synthetic_data=True, batch_size=2, image_size=64, max_steps=max_steps,
+                       num_epochs=1, evaluate_every_n_steps=0, use_wandb=False, log_every=1,
+                       ckpt_dir=str(tmp_path), run_name="c", do_ganloss=True,
+                       disc_type="hinge", use_lecam=True, do_clamp=True, warmup_steps=1,
+                       **kw)
+
+
+def _same_tensors(a, b) -> int:
+    """Asserts every tensor of two ``state_dict_of`` trees bitwise equal;
+    returns how many there are."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        return 1
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        return sum(_same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        return sum(_same_tensors(x, y) for x, y in zip(a, b))
+    return 0
+
+
+@pytest.mark.parametrize("reg_type", ["gaussian", "vq"])
+def test_trainer_on_the_card_launches_and_resumes(device, tmp_path, reg_type):
+    """A 2-step ``Trainer`` at ch=64 on the card (the training job's entry
+    under the CLI): every GroupNorm runs its kernels once forward and once
+    backward a step, VQ one search and one statistics launch a step; a
+    second Trainer restores step 2 with every tensor of the state, the CUDA
+    generator's state included, bitwise the one the first ended with (and
+    saved), then trains 2 more steps with finite losses."""
+    from vqgan_tpu_torch.train.checkpoint import state_dict_of
+    from vqgan_tpu_torch.train.trainer import Trainer
+
+    vae_cfg = VAEConfig(resolution=32, ch=64, ch_mult=(1, 2), num_res_blocks=1, z_channels=8,
+                        reg_type=reg_type, vq_codebook_size=512)
+    groupnorm_cuda.launches = groupnorm_cuda.bwd_launches = 0
+    vq_cuda.nearest_launches = vq_cuda.stats_launches = 0
+    first = Trainer(_job_cfg(tmp_path, 2), vae_cfg)
+    assert first.device.type == "cuda"
+    first.train()
+    n_gn = sum(isinstance(m, FP32GroupNorm) for m in first.vae.modules())
+    assert (groupnorm_cuda.launches, groupnorm_cuda.bwd_launches) == (2 * n_gn, 2 * n_gn)
+    vq_steps = 2 if reg_type == "vq" else 0
+    assert (vq_cuda.nearest_launches, vq_cuda.stats_launches) == (vq_steps, vq_steps)
+    assert all(p.is_cuda for p in first.vae.parameters())
+    assert first.state.generator.device.type == "cuda"
+    live = state_dict_of(first.state)
+    del first
+
+    second = Trainer(_job_cfg(tmp_path, 4), vae_cfg)
+    assert second.state.step == 2
+    assert _same_tensors(state_dict_of(second.state), live) > 0
+    second.train()
+    assert second.state.step == 4
+    lines = [json.loads(x) for x in open(tmp_path / "c" / "metrics_c.jsonl") if x.strip()]
+    losses = [ln for ln in lines if "overall_vae_loss" in ln]
+    assert [ln["step"] for ln in losses] == [0, 1, 2, 3]
+    assert all(np.isfinite(v) for ln in losses for v in ln.values())
+
+
+def test_trainer_resume_on_the_card_is_bitwise(device, tmp_path, monkeypatch):
+    """On indexed data (a PNG tar shard; sample-exact resume) 4 straight
+    steps on the card equal 2 steps, a resume and 2 more, bit for bit: G,
+    D, both AdamW states, LeCam, the EMA and the CUDA generator, which
+    drew the Gaussian latent's ε. cuDNN is held to its deterministic
+    algorithms, so that the two runs differ only where the resume would."""
+    import tarfile
+
+    from vqgan_tpu_torch.train.checkpoint import state_dict_of
+    from vqgan_tpu_torch.train.trainer import Trainer
+    from vqgan_tpu_torch.utils.logging import write_png
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    rng = np.random.RandomState(1)
+    shard = str(tmp_path / "00000.tar")
+    with tarfile.open(shard, "w") as tf:
+        for i in range(10):
+            png = str(tmp_path / f"{i}.png")
+            write_png(png, rng.randint(0, 256, (80, 96, 3)).astype(np.uint8))
+            tf.add(png, arcname=f"{i:03d}.png")
+    vae_cfg = VAEConfig(resolution=32, ch=64, ch_mult=(1, 2), num_res_blocks=1, z_channels=8,
+                        reg_type="gaussian")
+    kw = dict(synthetic_data=False, dataset_url=shard, num_workers=1, ema_decay=0.5,
+              flip_invariance=True)
+
+    def cfg(run, max_steps):
+        return dataclasses.replace(_job_cfg(tmp_path, max_steps), run_name=run, **kw)
+
+    straight = Trainer(cfg("a", 4), vae_cfg)
+    straight.train()
+    Trainer(cfg("b", 2), vae_cfg).train()
+    resumed = Trainer(cfg("b", 4), vae_cfg)
+    assert resumed.state.step == 2
+    resumed.train()
+    assert _same_tensors(state_dict_of(resumed.state), state_dict_of(straight.state)) > 0
+    losses = []
+    for r in ("a", "b"):
+        lines = map(json.loads, open(tmp_path / r / f"metrics_{r}.jsonl"))
+        losses.append([ln["overall_vae_loss"] for ln in lines if "overall_vae_loss" in ln])
+    assert len(losses[0]) == 4 and losses[0] == losses[1]

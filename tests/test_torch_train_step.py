@@ -7,7 +7,11 @@ and crop offsets, derived from its keys as ``vqgan_tpu/train/step.py`` does
 (``split(state.rng)``, then ``split(rng, 8)``), are handed to the port's step
 as ``draws``. The config is ``TINY_VAE`` of tests/test_train_step.py with
 hinge + LeCam + clamp + flip invariance, fp32, batch 4; three plain steps,
-then one step in crop bucket 1.
+then one step in crop bucket 1. For the sampled Gaussian latent the JAX
+step's ε is a draw too: the normal draw of its "sample" key, read through
+the JAX VAE's own ``regularize`` (``jax_eps_sampler``);
+tests/test_torch_trainer_parity.py holds the Gaussian step against the JAX
+step with it, within this file's bounds.
 """
 
 import dataclasses
@@ -77,8 +81,10 @@ GRAD_RTOL = 1e-2
 ZERO_FLOOR = 1e-6
 
 
-def _jax_draws(rng, z_side, crop_side):
-    """The JAX step's draws for state.rng = ``rng``, and the next rng."""
+def _jax_draws(rng, z_side, crop_side, sample=None):
+    """The JAX step's draws for state.rng = ``rng``, and the next rng.
+    ``sample``: key → the Gaussian's ε drawn from the "sample" key, for
+    ``reg_type="gaussian"``."""
     rng, new_rng = jax.random.split(rng)
     keys = jax.random.split(rng, 8)
     coin = lambda k: bool(jax.random.bernoulli(k))  # noqa: E731
@@ -90,7 +96,18 @@ def _jax_draws(rng, z_side, crop_side):
         crop_w=int(jax.random.randint(koff_w, (), 0, hi)),
         aug_lpips_w=coin(keys[5]), aug_lpips_h=coin(keys[6]),
     )
+    if sample is not None:
+        draws.eps = torch.from_numpy(np.array(sample(keys[1]), np.float32))
     return draws, new_rng
+
+
+def jax_eps_sampler(vae_j, g_params, shape):
+    """key → the ε that the JAX VAE's ``DiagonalGaussian`` draws from the
+    "sample" key ``key`` for a latent of ``shape`` (B, h, w, z_channels):
+    its sample at mean 0 and logvar 0, which is ε itself."""
+    zeros = jnp.zeros(shape[:-1] + (2 * shape[-1],), jnp.float32)
+    return jax.jit(lambda key: vae_j.apply({"params": g_params}, zeros,
+                                           method=vae_j.regularize, rngs={"sample": key}))
 
 
 def _mu_tree(opt_state):
@@ -214,6 +231,30 @@ def test_metric_curve_matches_jax(runs, i):
     for k, v in ref.items():
         np.testing.assert_allclose(got[k], v, rtol=CURVE_RTOL, atol=CURVE_ATOL,
                                    err_msg=f"step {i} {k}")
+
+
+def test_gaussian_step_draws_eps_on_the_state_generator():
+    """Without given draws the step draws ε on the state's generator, in the
+    encoder's dtype: two states seeded alike take equal steps; given draws
+    without ε raise."""
+    vae_cfg = VAEConfig(**{**TINY_VAE, "reg_type": "gaussian"})
+    cfg = TrainConfig(**{**TRAIN, "do_ganloss": False})
+    batch = torch.from_numpy(np.random.RandomState(4).uniform(-1, 1, (2, 32, 32, 3))
+                             .astype(np.float32))
+    out = []
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(5)
+        vae = init_vae(vae_cfg, gen)
+        state = create_train_state(cfg, vae, None, vae_cfg.ch, seed=7)
+        step = make_train_step(cfg, vae_cfg, vae, None, _lpips(gen))
+        for _ in range(2):
+            state, m = step(state, batch)
+        out.append(({k: float(v) for k, v in m.items()},
+                    {k: v.detach().clone() for k, v in vae.state_dict().items()}))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(v, out[1][1][k]) for k, v in out[0][1].items())
+    with pytest.raises(ValueError, match="eps"):
+        step(state, batch, 0, StepDraws(False, False, False, 0, 0, False, False))
 
 
 def test_metric_curve_moves(runs):
@@ -371,9 +412,8 @@ def test_unported_options_raise(kw, what):
     with pytest.raises((NotImplementedError, ValueError), match=what):
         make_train_step(cfg, vae_cfg, VAE(vae_cfg), PatchDiscriminator(), LPIPS())
     g_cfg = VAEConfig(**{**TINY_VAE, "reg_type": "gaussian"})
-    with pytest.raises(NotImplementedError, match="gaussian"):
-        make_train_step(TrainConfig(**TRAIN), g_cfg, VAE(g_cfg), PatchDiscriminator(),
-                        LPIPS())
+    with pytest.raises((NotImplementedError, ValueError), match=what):
+        make_train_step(cfg, g_cfg, VAE(g_cfg), PatchDiscriminator(), LPIPS())
 
 
 def test_train_config_has_every_jax_field_with_its_default():

@@ -163,24 +163,16 @@ class TrainConfig:
 
     The train steps (``train/step.py``, ``train/step3d.py``) read the
     optimization, objective and latent fields, the 3D steps also the video
-    family's ``video_loss_frames`` and ``disc_3d``. No effect in this package
-    yet, each waiting for the port of the training loop (ROADMAP.md, Queue 1
-    item 4) unless named otherwise:
-      - data: ``dataset_url``, ``test_dataset_url``, ``num_epochs``,
-        ``image_size``, ``num_workers``, ``synthetic_data``, ``indexed_data``,
-        ``device_normalize`` (the step normalizes a uint8 batch on the device
-        whatever its value), ``batch_size`` (the step takes the batch it is
-        given);
-      - run management: ``run_name``, ``project_name``,
-        ``evaluate_every_n_steps``, ``eval_batches``, ``eval_bf16``,
-        ``rfid_taps``, ``load_path``, ``ckpt_dir``, ``seed``, ``log_every``,
-        ``use_wandb``, ``nan_guard``, ``profile_dir``;
-      - weights from files: ``lpips_weights``, ``disc_backbone_weights`` (the
-        modules load reference-format state dicts; ``weights.py``);
-      - TPU mesh: ``mesh_shape``; ``full_bf16`` (set ``VAEConfig.enc_dtype``
-        instead);
-      - ``crop_invariance``: the caller picks the crop bucket per step
-        (``do_crop``), as in the JAX package.
+    family's ``video_loss_frames`` and ``disc_3d``; the 2D ``Trainer``
+    (``train/trainer.py``) and the ``train`` CLI read the data, run
+    management and weight-file fields as the JAX trainer does. No effect in
+    this package:
+      - ``mesh_shape``: the port trains on one card; a mesh of several
+        devices raises NotImplementedError (multi-GPU is ROADMAP.md, Queue 1
+        item 8);
+      - ``device_normalize`` for the steps themselves: they normalize a uint8
+        batch on the device whatever its value (the loader reads it);
+      - the 3D loop's fields wait for ``Trainer3D`` (the next slice).
 
     Not ported yet (the train steps raise NotImplementedError):
     ``grad_accum > 1``.

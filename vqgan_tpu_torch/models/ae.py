@@ -160,15 +160,17 @@ class IdentityGaussian(nn.Module):
 class DiagonalGaussian(nn.Module):
     """Reparameterized Gaussian over a 2·z_channels input (reference
     tae.py:253-266; JAX ``models/ae.py::DiagonalGaussian``): split into mean
-    and logvar in z's dtype, clip logvar at −3, mean + exp(logvar/2)·ε with ε
-    from torch's default generator. Serving takes the mean
-    (``VAEPipeline.encode``); the 3D train steps sample in fp32 with the KL
-    and given or drawn ε (``models/tae.py::reparameterize``)."""
+    and logvar in z's dtype, clip logvar at −3, mean + exp(logvar/2)·ε. ε has
+    the mean's shape and dtype: the train step draws it on its state's
+    generator (``train/step.py::draw_step``), eval on a generator seeded 0
+    (``train/evaluate.py``), and both pass it; without it ε comes from
+    torch's default generator (a plain ``VAE``/``TVAE`` forward). Serving
+    takes the mean (``VAEPipeline.encode``)."""
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
         mean, logvar = z.chunk(2, dim=-1)
         std = torch.exp(0.5 * logvar.clamp(min=-3.0))
-        return mean + std * torch.randn_like(mean)
+        return mean + std * (torch.randn_like(mean) if eps is None else eps)
 
 
 def _check_ported(cfg: VAEConfig) -> None:
@@ -225,22 +227,26 @@ class VAE(nn.Module):
         return _nhwc(self.decoder(nchw(z)))
 
     def regularize(self, z: torch.Tensor, ema_state: Optional[dict] = None,
-                   update_stats: bool = False):
-        """z_s for the Gaussian kinds; for VQ the quantizer's ``(z_q, aux,
-        new_ema)`` (JAX ae.py:299-306, where ``new_ema`` is the mutable
-        ``vq_ema`` collection's new value)."""
+                   update_stats: bool = False, eps: Optional[torch.Tensor] = None):
+        """z_s for the Gaussian kinds (the sampled one takes ``eps``); for VQ
+        the quantizer's ``(z_q, aux, new_ema)`` (JAX ae.py:299-306, where
+        ``new_ema`` is the mutable ``vq_ema`` collection's new value)."""
         if isinstance(self.reg, VectorQuantizer):
             return self.reg(z, ema_state, update_stats)
+        if isinstance(self.reg, DiagonalGaussian):
+            return self.reg(z, eps)
         return self.reg(z)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns ``(decoded, z)`` like the reference; VQ quantizes without
-        statistics (JAX ae.py:308-315)."""
+        statistics (JAX ae.py:308-315); the Gaussian samples with ``eps``
+        (by default from torch's default generator)."""
         z = self.encode(x)
         if isinstance(self.reg, VectorQuantizer):
             z_s = self.reg.quantize(z)
         else:
-            z_s = self.regularize(z)
+            z_s = self.regularize(z, eps=eps)
         return self.decode(z_s), z
 
 

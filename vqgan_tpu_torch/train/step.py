@@ -7,8 +7,11 @@ One step, in order:
   - input: a uint8 batch is normalized on the device; area-resize to the
     encoder's and the target's resolution; a random horizontal flip of both;
   - encoder; z statistics (quantiles, kurtosis, skewness) taken before the
-    clamp; clamp; the regularizer: identity, or the VQ latent (nearest code,
-    straight-through z_q, ``vq_loss``, the batch's EMA statistics);
+    clamp; clamp; the regularizer: identity, the Gaussian sample mean +
+    std·ε in the encoder's dtype (the z² penalty stays on the clamped
+    encoder output, no KL; JAX step.py:138-145, 235-242), or the VQ latent
+    (nearest code, straight-through z_q, ``vq_loss``, the batch's EMA
+    statistics);
   - latent flip equivariance: flip z and the target along W and negate latent
     channels [-4, -2), then along H and negate [-2, C);
   - the crop bucket ``do_crop`` (static size, drawn offsets) of z and of the
@@ -29,7 +32,7 @@ One step, in order:
     codebook too.
 
 Randomness: the step's coins (input flip, latent flips, LPIPS augment flips),
-crop offsets and dead-code revival rows are drawn from the state's
+crop offsets, dead-code revival rows and the Gaussian's ε are drawn from the state's
 ``torch.Generator`` on the device, and selected with ``torch.where`` so the host never waits for them. A
 caller that needs given draws (the parity tests feed the JAX step's) passes
 ``draws``.
@@ -44,7 +47,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn as nn
 
-from vqgan_tpu_torch.config import TrainConfig, VAEConfig
+from vqgan_tpu_torch.config import DTYPES, TrainConfig, VAEConfig
 from vqgan_tpu_torch.losses.gan import (
     gan_disc_loss,
     generator_gan_loss,
@@ -66,7 +69,9 @@ class StepDraws:
     the step's device (flip when true); each crop offset an int or a 0-d
     int64 tensor, in latent rows (``crop_h``) and columns (``crop_w``);
     ``revive_idx`` the (K,) int64 rows of the batch's flat z that dead codes
-    take (VQ with ``vq_revive_threshold > 0`` only)."""
+    take (VQ with ``vq_revive_threshold > 0`` only); ``eps`` the Gaussian
+    latent's ε, (B, h, w, z_channels) in the encoder's dtype
+    (``reg_type="gaussian"`` only)."""
 
     flip_in: Any
     flip_w: Any
@@ -76,13 +81,16 @@ class StepDraws:
     aug_lpips_w: Any
     aug_lpips_h: Any
     revive_idx: Optional[torch.Tensor] = None
+    eps: Optional[torch.Tensor] = None
 
 
 def draw_step(generator: torch.Generator, crop_range: tuple[int, int],
-              revive: Optional[tuple[int, int]] = None) -> StepDraws:
-    """Five fair coins and two crop offsets in [0, crop_range[i]], and, for
-    ``revive = (K, N)``, K revival rows in [0, N); on the generator's device
-    (no host synchronisation)."""
+              revive: Optional[tuple[int, int]] = None,
+              eps: Optional[tuple[tuple[int, ...], torch.dtype]] = None) -> StepDraws:
+    """Five fair coins and two crop offsets in [0, crop_range[i]], for
+    ``revive = (K, N)`` K revival rows in [0, N), and for ``eps = (shape,
+    dtype)`` a standard normal ε; on the generator's device (no host
+    synchronisation)."""
     dev = generator.device
     coins = torch.rand(5, generator=generator, device=dev) < 0.5
     off_h, off_w = (torch.randint(0, n + 1, (), generator=generator, device=dev)
@@ -91,9 +99,14 @@ def draw_step(generator: torch.Generator, crop_range: tuple[int, int],
     if revive is not None:
         k, n = revive
         revive_idx = torch.randint(0, n, (k,), generator=generator, device=dev)
+    noise = None
+    if eps is not None:
+        shape, dtype = eps
+        noise = torch.randn(shape, generator=generator, device=dev, dtype=dtype)
     return StepDraws(flip_in=coins[0], flip_w=coins[1], flip_h=coins[2],
                      crop_h=off_h, crop_w=off_w,
-                     aug_lpips_w=coins[3], aug_lpips_h=coins[4], revive_idx=revive_idx)
+                     aug_lpips_w=coins[3], aug_lpips_h=coins[4], revive_idx=revive_idx,
+                     eps=noise)
 
 
 def _where(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -246,12 +259,6 @@ def make_train_step(
             "grad_accum > 1: the microbatched step is not ported yet "
             "(ROADMAP.md, Queue 1: train state and step)"
         )
-    if vae_cfg.reg_type not in ("identity_gaussian", "vq"):
-        raise NotImplementedError(
-            f"reg_type={vae_cfg.reg_type!r}: the train step ports the identity "
-            "Gaussian and the VQ latent; Gaussian sampling waits "
-            "(ROADMAP.md, Queue 1: 2D models)"
-        )
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
     gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
@@ -262,6 +269,8 @@ def make_train_step(
     ds_factor = cfg.downscale_factor * (2 if hr else 1)
     z_side = enc_res // vae_cfg.ffactor
     use_vq = vae_cfg.reg_type == "vq"
+    sampled = vae_cfg.reg_type == "gaussian"
+    enc_dtype = DTYPES[vae_cfg.enc_dtype]
     use_vq_ema = use_vq and vae_cfg.vq_ema_decay > 0
     revive = use_vq_ema and vae_cfg.vq_revive_threshold > 0
 
@@ -289,7 +298,7 @@ def make_train_step(
             z_s, aux, new_ema = vae.regularize(z, vq_ema, update_stats=use_vq_ema)
             aux_loss = aux["vq_loss"]
         else:
-            z_s = vae.regularize(z)
+            z_s = vae.regularize(z, eps=draws.eps)
         if cfg.flip_invariance:
             c = z_s.shape[-1]
             z_s, target = _latent_flip(draws.flip_w, z_s, target, 2, -4, -2)
@@ -341,10 +350,14 @@ def make_train_step(
                 ch, cw = crop_size(do_crop)
                 crop_range = (z_side - ch, z_side - cw)
             n_tokens = batch.shape[0] * z_side * z_side
+            eps = ((batch.shape[0], z_side, z_side, vae_cfg.z_channels), enc_dtype)
             draws = draw_step(state.generator, crop_range,
-                              (vae_cfg.vq_codebook_size, n_tokens) if revive else None)
+                              (vae_cfg.vq_codebook_size, n_tokens) if revive else None,
+                              eps if sampled else None)
         elif revive and draws.revive_idx is None:
             raise ValueError("vq_revive_threshold > 0: draws.revive_idx is needed")
+        elif sampled and draws.eps is None:
+            raise ValueError("reg_type='gaussian': draws.eps is needed")
 
         # --- shared generator forward (one forward, one backward per step) ---
         recon, z, target, z_pre, aux_loss, new_ema = gen_forward(batch, draws, do_crop,

@@ -19,6 +19,7 @@ of arrays, flax names) is mapped here without importing the JAX package:
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -150,9 +151,80 @@ def load_weights(path: str) -> dict[str, torch.Tensor]:
     }
 
 
-def save_weights(model: nn.Module, path: str) -> None:
-    """Write ``model``'s weights as a reference-format ``.pt`` (contiguous fp32
-    CPU tensors, reference key names)."""
-    sd = {k: v.detach().to("cpu", torch.float32).contiguous()
-          for k, v in model.state_dict().items()}
+def save_weights(model: nn.Module | Mapping[str, torch.Tensor], path: str) -> None:
+    """Write a model's weights, or a state dict of reference key names (the
+    trainer's Polyak average), as a reference-format ``.pt``: contiguous fp32
+    CPU tensors."""
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    sd = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
     torch.save(sd, path)
+
+
+def _npz_tree(path: str) -> dict:
+    """A converted-weights ``.npz`` as a nested dict: one pickled
+    ``params`` tree, or flat ``a/b/c`` keys (the JAX package's
+    ``tools/convert_lpips.py`` and ``tools/fetch_lpips.py`` layouts)."""
+    loaded = dict(np.load(path, allow_pickle=True))
+    if "params" in loaded:
+        return loaded["params"].item()
+    tree: dict = {}
+    for key, arr in loaded.items():
+        node = tree
+        *mods, leaf = key.split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+    return tree
+
+
+def _torchvision_vgg16(state_dict: Mapping) -> dict[int, dict[str, torch.Tensor]]:
+    """The 13 VGG16 convs of a torch state dict, by torchvision features
+    index: ``features.{idx}.*``, or the reference's re-wrapped
+    ``net.slice{n}.{idx}.*`` (LPIPS) and ``slice{n}.0.{idx}.*``
+    (discriminator), with ``module.`` prefixes; the key forms the JAX
+    package's ``convert_torch_vgg16`` reads."""
+    convs: dict[int, dict[str, torch.Tensor]] = {}
+    for k, v in state_dict.items():
+        m = re.fullmatch(r"(?:module\.)?(?:net\.)?(?:features|slice\d(?:\.0)?)\.(\d+)\."
+                         r"(weight|bias)", k)
+        if m:
+            convs.setdefault(int(m.group(1)), {})[m.group(2)] = torch.as_tensor(v).float()
+    missing = [i for i in TORCHVISION_CONV_INDICES if len(convs.get(i, {})) != 2]
+    if missing:
+        raise KeyError(f"missing VGG16 convs features.{missing}")
+    return convs
+
+
+def load_lpips_weights(path: str) -> dict[str, torch.Tensor]:
+    """The port's ``LPIPS`` state dict from converted weights: an ``.npz``
+    of the JAX package's LPIPS params, or a torch ``.pth`` (the reference's
+    ``vgg.pth``: the VGG under any key form ``_torchvision_vgg16`` reads,
+    heads ``lin{k}.model.1.weight`` or ``lins.{k}.model.1.weight``); the
+    same files ``vqgan_tpu/losses/lpips.py::load_lpips_params`` reads."""
+    if path.endswith(".npz"):
+        return jax_lpips_params_to_state_dict(_npz_tree(path))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    out = {f"net.slice{slice_of(i)}.{i}.{leaf}": v
+           for i, conv in _torchvision_vgg16(sd).items() for leaf, v in conv.items()}
+    for k in range(5):
+        key = next((key for key in (f"lin{k}.model.1.weight", f"lins.{k}.model.1.weight")
+                    if key in sd), None)
+        if key is None:
+            raise KeyError(f"missing LPIPS lin{k} weight")
+        out[f"lin{k}.model.1.weight"] = sd[key].float().reshape(1, -1, 1, 1)
+    return out
+
+
+def load_disc_backbone(path: str) -> dict[str, torch.Tensor]:
+    """The ``PatchDiscriminator``'s VGG16 backbone (``slice{n}.0.{idx}.*``)
+    from pretrained weights: the ``vgg16_features.npz`` of flat ``a/b/c``
+    keys (a top-level ``vgg`` subtree or not), or a torch ``.pth`` of
+    torchvision vgg16 ``features``; the files
+    ``vqgan_tpu/losses/discriminator.py::load_disc_backbone`` reads. The
+    heads are not in it: they keep their init, as in the reference."""
+    if path.endswith(".npz"):
+        tree = _npz_tree(path)
+        return _vgg_state_dict(tree.get("vgg", tree), "", wrapped=True)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {f"slice{slice_of(i)}.0.{i}.{leaf}": v
+            for i, conv in _torchvision_vgg16(sd).items() for leaf, v in conv.items()}
