@@ -189,6 +189,40 @@ Phases, each fatal on failure:
      after step 1; a third Trainer restores its last checkpoint and gets back
      the state the job ended with, ``vq_ema`` included, bitwise.
 
+ 28. the 3D training job through ``cli.main(["train3d", ...])`` at
+     ``TVAEConfig()``'s width (``TRAIN3D_JOB``: ch 64, ch_mult 1,2,4,4, 2 res
+     blocks, z 16, bf16, 16 frames x 128 px, batch 2; hinge GAN + LeCam on 4
+     of the 16 frames, fp32 LPIPS and frame D, Polyak EMA 0.999, synthetic
+     clips, eval every 3), 6 steps: each step's and each eval's launches of
+     #6 (forward and dx), #1 and #2 equal the model's hooks
+     (``Step3DWatch``), every Conv3d call on the tensor cores, D moves in
+     step 1 and G in step 2, every state tensor on the card, finite losses,
+     each eval line with eval/recon_l2, eval/psnr, eval/ssim and eval/lpips,
+     no eval/metrics_failed, the frame strips written, full states at steps
+     1, 4 and 6; then ``--max_steps 8`` restores step 6 bitwise against the
+     live state the first call ended with, reads the synthetic stream at
+     seed + 6 first and ends at step 8; ms per step by the host clock and
+     CUDA events, the wall time a step and the wait for its batch, eval and
+     save seconds, peak memory;
+ 29. the recon-only VQ job (K = 16,384, EMA 0.99, revival at 0.98) with the
+     chunked mid-block attention (``--attn_chunk 256``: 512 tokens, head_dim
+     32) on tar shards of uint8 clips the smoke writes (8 .npy and 2 .npz of
+     24 frames at 160 x 192, and a test shard), 3 steps and one eval: 1
+     search and 1 statistics launch a step and 1 search an eval, the 2 + 2
+     attention launches of a step on the tensor cores, the EMA counts moved,
+     some but not all codes revived in step 3 and the rest of the codebook
+     the fold, the batches from the shards (the readers' decoder lines), the
+     decode workers stopped when the job ends; then kernels #1, #2 and #6
+     against their plain versions at every shape phases 28-29 ran them that
+     phases 18 and 23 did not (``kernels_at_job_shapes``); #3, #4 and #5 at
+     the jobs' shapes are the "3D job" cases of phases 13 and 9;
+ 30. the native image decoder (``data/native``): built or not (where not,
+     the compiler's first error line and the 2D loader's decoder); a PNG
+     through ``native_pipeline`` bitwise the crop and the normalization of
+     its cv2 decode, ``native_probe``'s size, None for garbage; the train
+     transform's images/s on one thread at 512 px, native beside cv2
+     (``vqgan_tpu_torch/tools/decode_rate.py``; cv2 alone where not built).
+
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits 1 and prints neither.
@@ -279,6 +313,8 @@ VQ_GAP_U = 2.0 ** -24
 VQ_CASES = {
     "flagship b8": (8192, 16384, 16), "flagship b2": (2048, 16384, 16),
     "ragged N": (700, 256, 16), "K tiles": (512, 2048, 8), "small K": (64, 32, 4),
+    # the 3D VQ job of phase 29: 2 clips of a 2 x 16 x 16 x 16 latent
+    "3D job": (1024, 16384, 16),
 }
 VQ_CROSS_K = 1024
 # attention: the flagship's attn_chunk (its mid block has 1,024 tokens) and
@@ -295,6 +331,8 @@ ATTN_CASES = {
     # the TVAE's 8 heads of C/8: ch=32 at ch_mult (1, 4), and ch=256
     "head_dim 16": (2, 4096, 8, 16, 1024, True),
     "head_dim 128": (1, 4096, 8, 128, 1024, True),
+    # the 3D VQ job's mid block (phase 29): 2 x 16 x 16 tokens, attn_chunk 256
+    "3D job": (2, 512, 8, 32, 256, True),
 }
 # kernel vs plain on the same inputs: each output within ATTN_RTOL of its
 # Σ|terms| for fp32 summation orders, plus 2^-9 of it where the kernel rounds
@@ -313,6 +351,24 @@ TRAIN_JOB = ["--vae_ch", "256", "--vae_ch_mult", "1,2,4,4", "--vae_num_res_block
 # step's forward and backward launches each, and an eval's forward launches
 JOB_GN = 50
 JOB_EVAL_KEYS = ("eval/lpips", "eval/rfid_vgg_proxy", "eval/psnr", "eval/ssim")
+# the 3D training jobs of phases 28-29: the train3d CLI at TVAEConfig()'s
+# width (ch 64, ch_mult 1,2,4,4, 2 res blocks, z 16, bf16), 16 frames x 128
+# px, batch 2; phase 28 adds the GAN loss
+JOB3D_BATCH, JOB3D_FRAMES, JOB3D_RES = 2, 16, 128
+TRAIN3D_JOB = ["train3d", "--vae_ch", "64", "--vae_ch_mult", "1,2,4,4",
+               "--vae_num_res_blocks", "2", "--vae_z_channels", "16",
+               "--vae_resolution", str(JOB3D_RES), "--frames", str(JOB3D_FRAMES),
+               "--batch_size", str(JOB3D_BATCH), "--evaluate_every_n_steps", "3",
+               "--eval_batches", "1", "--use_wandb", "false", "--log_every", "1"]
+# phase 29's chunked mid-block attention: 256 of the 2 x 16 x 16 = 512 tokens
+JOB3D_ATTN_CHUNK = 256
+# phase 29's revival threshold: at vq_ema_decay 0.99 a code unused for its 3
+# steps falls to 0.99^3 = 0.9703 and is revived in step 3; a code used at
+# least once keeps at least 0.99^2 = 0.9801
+JOB3D_REVIVE = 0.98
+TRAIN3D_GAN = ["--do_ganloss", "true", "--disc_type", "hinge", "--use_lecam", "true",
+               "--video_loss_frames", "4", "--ema_decay", "0.999"]
+JOB3D_EVAL_KEYS = ("eval/recon_l2", "eval/psnr", "eval/ssim", "eval/lpips")
 ATTN_RTOL = 3e-5
 ATTN_LSE_ATOL = 1e-4
 # the TVAE clip configs: 16 frames x 128 px at batch 2 (TVAEConfig()), and the
@@ -2498,57 +2554,95 @@ def phase_train3d_cross_device(cc, ac, gn, vq: bool, ch_mult=(1, 8)) -> None:
         2 * 2 * 3 * 4, k if vq else 0)
 
 class JobProbe:
-    """Instruments the port's ``Trainer`` for one call of the CLI: each
-    train step timed by the host clock (to a device sync after it) and by
-    CUDA events on the stream, its batch and state checked to lie on the
-    card; each eval and save timed; each restore compared, bitwise, with
-    the live state that the previous call ended with (and saved), so a save
-    that wrote a wrong tensor or generator state fails too. ``expect`` holds
-    that state's ``device_tree``, one item; the restore takes it out, so its
-    memory is free before the job trains. Patches the trainer module's
-    ``make_train_step`` and the classes' methods while active; a timing or
-    check adds a sync to the run, no work."""
+    """Instruments the port's ``Trainer`` or ``Trainer3D`` for one call of
+    the CLI: each train step timed by the host clock (to a device sync after
+    it) and by CUDA events on the stream, its batch and state checked to lie
+    on the card, the call's first batch kept; each eval and save timed;
+    each restore compared, bitwise, with the live state that the previous
+    call ended with (and saved), so a save that wrote a wrong tensor or
+    generator state fails too. ``expect`` holds that state's
+    ``device_tree``, one item; the restore takes it out, so its memory is
+    free before the job trains. For a 3D job it also times each wait for a
+    batch (the loop's ``next`` on ``device_prefetch``), and ``watch`` (a
+    ``Step3DWatch``) checks each step's and each eval's kernel launches.
+    Patches the trainer modules' step factories and the classes' methods
+    while active; a timing or check adds a sync to the run, no work."""
 
-    def __init__(self, expect: list[dict] | None = None):
+    def __init__(self, expect: list[dict] | None = None, watch=None):
         self.expect = expect or []
+        self.watch = watch
         self.steps, self.evals, self.saves, self.restores = [], [], [], []
+        self.marks: list[tuple[float, float]] = []  # host (start, end) of each step
+        self.waits: list[float] = []  # seconds each 3D batch took to arrive
+        self.first_batch = None
 
     @contextlib.contextmanager
     def active(self):
         from vqgan_tpu_torch.train import checkpoint as ckpt_mod
         from vqgan_tpu_torch.train import trainer as trainer_mod
+        from vqgan_tpu_torch.train import trainer3d as trainer3d_mod
 
         probe = self
-        real_make = trainer_mod.make_train_step
-        real_eval, real_save = trainer_mod.Trainer.evaluate, trainer_mod.Trainer.save
-        real_restore = ckpt_mod.CheckpointManager.restore
+        patched = [(trainer_mod, "make_train_step"), (trainer3d_mod, "make_train_step_3d"),
+                   (trainer3d_mod, "make_train_step_3d_gan"),
+                   (trainer3d_mod, "device_prefetch"),
+                   (trainer_mod.Trainer, "evaluate"), (trainer_mod.Trainer, "save"),
+                   (trainer3d_mod.Trainer3D, "_eval"), (trainer3d_mod.Trainer3D, "save"),
+                   (ckpt_mod.CheckpointManager, "restore")]
+        real = {(owner, name): getattr(owner, name) for owner, name in patched}
 
-        def make(*args, **kw):
-            step = real_make(*args, **kw)
-
-            def timed(state, batch, do_crop=0, draws=None):
+        def timed_step(step):
+            def run(state, batch, *args):
                 if batch.device.type != "cuda":
                     raise AssertionError(f"the job's batch is on {batch.device}")
+                if probe.first_batch is None:
+                    probe.first_batch = batch.clone()
+                watching = (probe.watch.step(state) if probe.watch is not None
+                            else contextlib.nullcontext())
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                t0 = time.perf_counter()
-                start.record()
-                out = step(state, batch, do_crop, draws)
-                end.record()
-                torch.cuda.synchronize()
-                probe.steps.append((time.perf_counter() - t0, start.elapsed_time(end)))
+                with watching:
+                    t0 = time.perf_counter()
+                    start.record()
+                    out = step(state, batch, *args)
+                    end.record()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                probe.steps.append((t1 - t0, start.elapsed_time(end)))
+                probe.marks.append((t0, t1))
                 return out
-            return timed
+            return run
 
-        def timed_method(real, into):
+        def make(real_make):
+            return lambda *args, **kw: timed_step(real_make(*args, **kw))
+
+        def prefetch(*args, **kw):
+            batches = real[(trainer3d_mod, "device_prefetch")](*args, **kw)
+
+            def timed():
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(batches)
+                    except StopIteration:
+                        return
+                    probe.waits.append(time.perf_counter() - t0)
+                    yield batch
+            return timed()
+
+        def timed_method(real_method, into, watch_eval=False):
             def method(self, *args):
-                t0 = time.perf_counter()
-                real(self, *args)
-                torch.cuda.synchronize()
-                into.append(time.perf_counter() - t0)
+                watching = (probe.watch.eval(self.eval_model)
+                            if watch_eval and probe.watch is not None
+                            else contextlib.nullcontext())
+                with watching:
+                    t0 = time.perf_counter()
+                    real_method(self, *args)
+                    torch.cuda.synchronize()
+                    into.append(time.perf_counter() - t0)
             return method
 
         def restore(self, state, step=None):
-            out = real_restore(self, state, step)
+            out = real[(ckpt_mod.CheckpointManager, "restore")](self, state, step)
             if out is not None:
                 if not probe.expect:
                     raise AssertionError("a restore with no live state to hold it against")
@@ -2556,16 +2650,23 @@ class JobProbe:
                 probe.restores.append((state.step, same, n))
             return out
 
-        trainer_mod.make_train_step = make
-        trainer_mod.Trainer.evaluate = timed_method(real_eval, self.evals)
-        trainer_mod.Trainer.save = timed_method(real_save, self.saves)
+        trainer_mod.make_train_step = make(real[(trainer_mod, "make_train_step")])
+        for name in ("make_train_step_3d", "make_train_step_3d_gan"):
+            setattr(trainer3d_mod, name, make(real[(trainer3d_mod, name)]))
+        trainer3d_mod.device_prefetch = prefetch
+        trainer_mod.Trainer.evaluate = timed_method(real[(trainer_mod.Trainer, "evaluate")],
+                                                    self.evals)
+        trainer_mod.Trainer.save = timed_method(real[(trainer_mod.Trainer, "save")], self.saves)
+        trainer3d_mod.Trainer3D._eval = timed_method(
+            real[(trainer3d_mod.Trainer3D, "_eval")], self.evals, watch_eval=True)
+        trainer3d_mod.Trainer3D.save = timed_method(real[(trainer3d_mod.Trainer3D, "save")],
+                                                    self.saves)
         ckpt_mod.CheckpointManager.restore = restore
         try:
             yield self
         finally:
-            trainer_mod.make_train_step = real_make
-            trainer_mod.Trainer.evaluate, trainer_mod.Trainer.save = real_eval, real_save
-            ckpt_mod.CheckpointManager.restore = real_restore
+            for (owner, name), value in real.items():
+                setattr(owner, name, value)
 
 
 def device_tree(state) -> dict:
@@ -2611,14 +2712,16 @@ def same_state(a, b) -> tuple[bool, int]:
 
 
 def check_on_card(trainer) -> int:
-    """Every parameter and AdamW moment of the job's models, the LeCam
-    anchors, the EMA statistics and the step's generator on the card;
-    returns the number of tensors checked."""
+    """Every parameter and AdamW moment of the job's models (a ``Trainer``'s
+    or a ``Trainer3D``'s), the Polyak average, the LeCam anchors, the EMA
+    statistics and the step's generator on the card; returns the number of
+    tensors checked."""
     st = trainer.state
-    tensors = [p for m in (trainer.vae, trainer.disc, trainer.lpips) if m is not None
+    tensors = [p for m in (st.g_model, trainer.disc, trainer.lpips) if m is not None
                for p in m.parameters()]
+    tensors += list((st.g_ema or {}).values())
     for opt in (st.g_opt, st.d_opt):
-        for per_param in opt.state.values():
+        for per_param in (opt.state.values() if opt is not None else ()):
             tensors += [per_param["exp_avg"], per_param["exp_avg_sq"]]
     tensors += [st.lecam_real, st.lecam_fake] + list((st.vq_ema or {}).values())
     off = [t.device for t in tensors if t.device.type != "cuda"]
@@ -2633,27 +2736,31 @@ def job_lines(run_dir: str, run: str) -> list[dict]:
         return [json.loads(line) for line in f if line.strip()]
 
 
-def check_job_log(lines: list[dict], steps: range, eval_steps: list[int], what: str) -> dict:
-    """The steps' losses logged and finite, the evals' four metrics finite
-    (SSIM in [-1, 1]) at ``eval_steps``, no eval/metrics_failed anywhere;
-    returns the last step's line."""
+def check_job_log(lines: list[dict], steps: range, eval_steps: list[int], what: str,
+                  loss_key: str = "overall_vae_loss",
+                  eval_keys: tuple = JOB_EVAL_KEYS) -> dict:
+    """The steps' losses logged and finite (the lines with ``loss_key``),
+    the evals' ``eval_keys`` finite (SSIM in [-1, 1]) on a line at each of
+    ``eval_steps``, no eval/metrics_failed anywhere; returns the last step's
+    line."""
     if any("eval/metrics_failed" in ln for ln in lines):
         raise AssertionError(f"{what}: eval/metrics_failed in the JSONL")
-    losses = {ln["step"]: ln for ln in lines if "overall_vae_loss" in ln}
+    losses = {ln["step"]: ln for ln in lines if loss_key in ln}
     if sorted(s for s in losses if s in steps) != list(steps):
         raise AssertionError(f"{what}: logged steps {sorted(losses)}, expected {list(steps)}")
     bad = [(s, k) for s in steps for k, v in losses[s].items() if not np.isfinite(v)]
     if bad:
         raise AssertionError(f"{what}: non-finite logged losses {bad[:5]}")
-    evals = {ln["step"]: ln for ln in lines if "eval/lpips" in ln}
-    if sorted(s for s in evals if s in eval_steps) != eval_steps:
+    evals = {ln["step"]: ln for ln in lines if eval_keys[0] in ln}
+    if sorted(s for s in evals if s in eval_steps) != sorted(set(eval_steps)):
         raise AssertionError(f"{what}: eval lines at {sorted(evals)}, expected {eval_steps}")
     for s in eval_steps:
-        vals = [evals[s].get(k) for k in JOB_EVAL_KEYS]
-        if any(v is None or not np.isfinite(v) for v in vals) or not -1 <= vals[3] <= 1:
+        vals = [evals[s].get(k) for k in eval_keys]
+        if any(v is None or not np.isfinite(v) for v in vals) \
+                or not -1 <= evals[s]["eval/ssim"] <= 1:
             raise AssertionError(f"{what}: eval line at step {s}: {evals[s]}")
         log(f"{what}: eval at step {s}: " + ", ".join(
-            f"{k}={v:.5g}" for k, v in zip(JOB_EVAL_KEYS, vals)))
+            f"{k}={v:.5g}" for k, v in zip(eval_keys, vals)))
     return losses[steps[-1]]
 
 
@@ -2688,20 +2795,20 @@ def job_timing(probe: JobProbe, what: str) -> dict:
     log(f"{what}: {len(probe.steps)} steps, {host:.1f} ms per step by the host clock (to a "
         f"sync after each; steps 2-{len(probe.steps)}), {dev:.1f} ms between CUDA events; "
         f"first step {probe.steps[0][0] * 1e3:.1f} ms; eval "
-        f"{', '.join(f'{t:.2f}' for t in probe.evals)} s; save (the state's host copy; the .pt "
-        f"and the state's file are written in the background) "
+        f"{', '.join(f'{t:.2f}' for t in probe.evals)} s; save (the state's host copy; its "
+        f"files are written in the background) "
         f"{', '.join(f'{t:.2f}' for t in probe.saves)} s; peak memory "
         f"{out['peak_bytes'] / 2**30:.3f} GiB")
     return out
 
 
-def run_job(argv: list[str], what: str,
-            expect: list[dict] | None = None) -> tuple[object, JobProbe, float]:
+def run_job(argv: list[str], what: str, expect: list[dict] | None = None,
+            watch=None) -> tuple[object, JobProbe, float]:
     from vqgan_tpu_torch import cli
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with JobProbe(expect).active() as probe:
+    with JobProbe(expect, watch).active() as probe:
         trainer = cli.main(argv)
     seconds = time.perf_counter() - t0
     log(f"{what}: cli.main returned in {seconds:.1f} s")
@@ -2840,6 +2947,482 @@ def phase_train_job_vq(gn, vq, tmp: str) -> dict:
     return timing
 
 
+class Step3DWatch:
+    """The kernel launches of each step and each eval of a 3D job, checked
+    as they happen (``JobProbe`` calls ``step`` and ``eval`` around them):
+    the wrappers' counts of kernel #6 (forward, dx, and by route) and of #1
+    and #2 against what the model's own hooks count (``count_step_launches``;
+    an eval launches no backward); with ``vq``, one search and one statistics
+    launch a step and one search an eval; with ``ac``, the attention kernel's
+    forward and backward launches and their routes, and the head_dim of the
+    mid-block attentions (hooks on ``AttnBlock3D``). It also records the
+    GroupNorms' (B, C, T, H, W, dtype, swish) of the steps and of the evals
+    (``record_gn_shapes``) and kernel #6's (B, Ci, Co, T, H, W, dtype), so
+    that ``kernels_at_job_shapes`` holds each kernel against its plain
+    version at the job's own shapes. With ``track_moves`` the first two
+    steps of each call record whether G and D moved."""
+
+    def __init__(self, cc, gn, vq=None, ac=None, track_moves: bool = False):
+        self.cc, self.gn, self.vq, self.ac = cc, gn, vq, ac
+        self.steps: list[tuple[dict, dict]] = []  # (by the wrappers, by the hooks)
+        self.evals: list[tuple[dict, dict]] = []
+        self.head_dims: set[int] = set()
+        self.gn_shapes: dict[str, dict] = {"step": {}, "eval": {}}
+        self.conv_shapes: dict[tuple, int] = {}
+        self.moves: list[tuple[bool, bool]] | None = [] if track_moves else None
+
+    def counts(self) -> dict:
+        cc, gn, vq, ac = self.cc, self.gn, self.vq, self.ac
+        out = {"conv3d": cc.launches, "conv3d_dx": cc.bwd_launches, "gn": gn.launches,
+               "gn_bwd": gn.bwd_launches, "conv3d_tc": cc.tc_launches,
+               "conv3d_fma": cc.fma_launches}
+        if vq is not None:
+            out.update(nearest=vq.nearest_launches, stats=vq.stats_launches)
+        if ac is not None:
+            out.update(attn=ac.fwd_launches, attn_bwd=ac.bwd_launches,
+                       attn_tc=ac.tc_launches, attn_fma=ac.fma_launches)
+        return out
+
+    def _attn_hooks(self, model) -> list:
+        from vqgan_tpu_torch.models.tae import NUM_HEADS, AttnBlock3D
+
+        def record(module, args):
+            self.head_dims.add(args[0].shape[1] // NUM_HEADS)
+
+        return [m.register_forward_pre_hook(record) for m in model.modules()
+                if isinstance(m, AttnBlock3D)]
+
+    def _conv_hooks(self, model) -> list:
+        from vqgan_tpu_torch.models.tae import Conv3d
+
+        def record(module, args):
+            x = args[0]
+            if module.uses_kernel(x):  # the kernel takes x cast to the module's dtype
+                key = (x.shape[0], x.shape[1], module.weight.shape[0], *x.shape[2:],
+                       module.dtype)
+                self.conv_shapes[key] = self.conv_shapes.get(key, 0) + 1
+
+        return [m.register_forward_pre_hook(record) for m in model.modules()
+                if isinstance(m, Conv3d)]
+
+    @contextlib.contextmanager
+    def _counted(self, model, into: list, kind: str):
+        seen, hooks = count_step_launches(model)
+        gn_seen, gn_hooks = record_gn_shapes(model)
+        hooks += gn_hooks + self._attn_hooks(model) + self._conv_hooks(model)
+        before = self.counts()
+        try:
+            yield seen
+        finally:
+            for h in hooks:
+                h.remove()
+        after = self.counts()
+        into.append(({k: after[k] - before[k] for k in after}, dict(seen)))
+        shapes = self.gn_shapes[kind]
+        for key, n in gn_seen.items():
+            shapes[key] = shapes.get(key, 0) + n
+
+    @contextlib.contextmanager
+    def step(self, state):
+        models = [m for m in (state.g_model, state.d_model) if m is not None]
+        track = self.moves is not None and len(self.moves) < 2
+        snaps = [[p.detach().clone() for p in m.parameters()] for m in models] if track else None
+        with self._counted(state.g_model, self.steps, "step"):
+            yield
+        if track:
+            moved = [any(not torch.equal(p, q) for p, q in zip(m.parameters(), snap))
+                     for m, snap in zip(models, snaps)]
+            self.moves.append((moved[0], moved[1] if len(moved) > 1 else False))
+
+    def eval(self, model):
+        return self._counted(model, self.evals, "eval")
+
+    def check(self, what: str, n_steps: int, n_evals: int) -> dict:
+        """Each step's and eval's launches as the hooks and the options say;
+        returns the launches summed over the call."""
+        if (len(self.steps), len(self.evals)) != (n_steps, n_evals):
+            raise AssertionError(f"{what}: watched {len(self.steps)} steps and "
+                                 f"{len(self.evals)} evals, expected {n_steps} and {n_evals}")
+        total: dict[str, int] = {}
+        for kind, runs in (("step", self.steps), ("eval", self.evals)):
+            for i, (got, seen) in enumerate(runs):
+                want = dict(seen)
+                if kind == "eval":  # a forward: no backward launches
+                    want.update(conv3d_dx=0, gn_bwd=0)
+                want.update(conv3d_tc=want["conv3d"] + want["conv3d_dx"], conv3d_fma=0)
+                if self.vq is not None:
+                    want.update(nearest=1, stats=1 if kind == "step" else 0)
+                if self.ac is not None:  # the encoder's and the decoder's mid block
+                    want.update(attn=2, attn_bwd=2 if kind == "step" else 0)
+                    want.update(attn_tc=want["attn"] + want["attn_bwd"], attn_fma=0)
+                if got != want:
+                    raise AssertionError(f"{what}: {kind} {i}: launches {got}, expected {want}")
+                for k, v in got.items():
+                    total[k] = total.get(k, 0) + v
+        steps_seen = self.steps[0][1] if self.steps else {}
+        log(f"{what}: every step's launches equal the model's hooks, {steps_seen} a step "
+            f"(kernel #6 all on the tensor cores), each eval's "
+            f"{self.evals[0][0] if self.evals else {}}; the call's total {total}")
+        return total
+
+
+def write_clip_shards(tmp: str, n_train: int = 10, n_test: int = 2, frames: int = 24,
+                      h: int = 160, w: int = 192) -> tuple[str, str]:
+    """Tar shards of uint8 clips (T, H, W, 3) from a seed: the train shard
+    every 5th one an .npz, the rest .npy; the test shard .npy."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(5)
+    t = np.arange(frames)[:, None, None, None]
+    yy, xx = (g[None, ..., None] for g in np.mgrid[0:h, 0:w])
+
+    def clip() -> np.ndarray:
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        wave = np.sin(xx / 9.0 + yy / 13.0 + 0.2 * t + phase)
+        noise = rng.integers(0, 24, (frames, h, w, 3))
+        return np.clip(110 + 100 * wave + noise, 0, 255).astype(np.uint8)
+
+    paths = []
+    for name, n in (("train", n_train), ("test", n_test)):
+        path = os.path.join(tmp, f"{name}-00000.tar")
+        with tarfile.open(path, "w") as tf:
+            for i in range(n):
+                buf = io.BytesIO()
+                if name == "train" and i % 5 == 4:
+                    np.savez(buf, clip=clip())
+                    member = f"{i:05d}.npz"
+                else:
+                    np.save(buf, clip())
+                    member = f"{i:05d}.npy"
+                info = tarfile.TarInfo(member)
+                info.size = buf.tell()
+                buf.seek(0)
+                tf.addfile(info, buf)
+        paths.append(path)
+    return paths[0], paths[1]
+
+
+def job3d_wall(probe: JobProbe, first_step: int, n: int, what: str) -> dict:
+    """The 3D job's own clock: the wall time from one step's start to the
+    next one's, over the steps after the call's first that no eval or save
+    follows, and the loop's wait for each batch (``next`` on
+    ``device_prefetch``: the synthetic clip made on the loop's thread, or
+    a decoded shard batch, and its copy to the card)."""
+    clean = [i for i in range(1, len(probe.marks) - 1)
+             if n <= 0 or not (n == 1 or (first_step + i + 1) % n == 1)]
+    wall = [(probe.marks[i + 1][0] - probe.marks[i][0]) * 1e3 for i in clean]
+    # the wait for step i + 1's batch, where no save's background write ran
+    waits = [probe.waits[i + 1] * 1e3 for i in clean]
+    out = {"wall_ms": float(np.mean(wall)) if wall else float("nan"),
+           "wait_ms": float(np.mean(waits)) if waits else float("nan")}
+    log(f"{what}: wall time a step {out['wall_ms']:.1f} ms (steps "
+        f"{[first_step + i for i in clean]}, start to next start), the loop's wait for the "
+        f"next batch {out['wait_ms']:.1f} ms; every wait: "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in probe.waits)} ms (the first fills the "
+        f"prefetch; one after a save overlaps its background write)")
+    return out
+
+
+def conv3d_at_shapes(cc, shapes, label: str) -> float:
+    """Kernel #6, forward and dx, against its plain versions at each (B, Ci,
+    Co, T, H, W, dtype) of ``shapes``, within the share of the bound that
+    phase 18 holds it to; returns the largest max_abs_err."""
+    from vqgan_tpu_torch.ops.conv3d import (
+        bound_share,
+        conv3d_input_grad_plain,
+        conv3d_plain,
+        flipped_weight,
+    )
+
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    err = 0.0
+    for b, ci, co, t, h, w, dtype in sorted(shapes, key=lambda k: (k[:6], str(k[6]))):
+        x, wt = _conv3d_case(gen, b, ci, co, t, h, w, dtype)
+        dy = _conv3d_case(gen, b, co, ci, t, h, w, dtype)[0]
+        y, dx = cc.conv3d_forward(x, wt), cc.conv3d_input_grad(dy, wt)
+        ref, ref_dx = conv3d_plain(x, wt), conv3d_input_grad_plain(dy, wt)
+        used = [bound_share(y, ref, x, wt), bound_share(dx, ref_dx, dy, flipped_weight(wt))]
+        errs = [float((y.float() - ref.float()).abs().max()),
+                float((dx.float() - ref_dx.float()).abs().max())]
+        ok = max(used) <= 1.0
+        log(f"conv3d {label} B={b} Ci={ci} Co={co} T={t} H={h} W={w} {dtype}: share of the "
+            f"bound used fwd={used[0]:.3f} (max_abs_err {errs[0]:.3e}) dx={used[1]:.3f} "
+            f"(max_abs_err {errs[1]:.3e}) {'ok' if ok else 'MISS'}")
+        if not ok:
+            raise AssertionError(f"conv3d kernel disagrees with plain at {label}'s "
+                                 f"{(b, ci, co, t, h, w, dtype)}: {used}")
+        err = max(err, *errs)
+        del x, wt, dy, y, dx, ref, ref_dx
+    torch.cuda.empty_cache()
+    return err
+
+
+def kernels_at_job_shapes(gn, cc, watches: list, gn_done: dict, conv_done) -> dict:
+    """Kernels #1, #2 and #6 against their plain versions at every shape the
+    3D jobs' steps and evals ran them (``Step3DWatch``) that an earlier
+    phase did not: ``gn_done`` (the 3D steps' GroupNorm shapes, phase 23,
+    forward and backward) and ``conv_done`` (phase 18's bf16 and fp32
+    cases). The forward at every step and eval shape, the backward at every
+    step shape. Returns the largest max_abs_err of each kernel."""
+    fwd, bwd, conv = {}, {}, {}
+    for watch in watches:
+        for kind, shapes in watch.gn_shapes.items():
+            for key, n in shapes.items():
+                fwd[key] = fwd.get(key, 0) + n
+                if kind == "step":
+                    bwd[key] = bwd.get(key, 0) + n
+        for key, n in watch.conv_shapes.items():
+            conv[key] = conv.get(key, 0) + n
+    fwd_new = {k: n for k, n in fwd.items() if k not in gn_done}
+    bwd_new = {k: n for k, n in bwd.items() if k not in gn_done}
+    conv_new = [k for k in conv if k not in conv_done]
+    log(f"3D jobs' shapes: GroupNorm forward {len(fwd)} ({len(fwd_new)} new to this run), "
+        f"backward {len(bwd)} ({len(bwd_new)} new), Conv3d {len(conv)} ({len(conv_new)} new); "
+        f"the new ones against their plain versions:")
+    out = {"gn": 0.0, "gn_bwd": 0.0, "conv3d": 0.0}
+    if fwd_new:
+        out["gn"] = gn_at_clip_shapes(gn, fwd_new, "3D training job")
+    if bwd_new:
+        out["gn_bwd"] = gn_bwd_at_shapes(gn, bwd_new, "3D training job")[0]
+    if conv_new:
+        out["conv3d"] = conv3d_at_shapes(cc, conv_new, "3D training job")
+    return out
+
+
+def phase_train3d_job(gn, cc, tmp: str) -> dict:
+    """Phase 28: the 3D GAN job at TVAEConfig's width, then its resume."""
+    import shutil
+
+    from vqgan_tpu_torch.train.trainer3d import synthetic_video_batches
+
+    set_tf32(True)
+    what = "train3d job gan"
+    argv = TRAIN3D_JOB + TRAIN3D_GAN + ["--ckpt_dir", tmp, "--run_name", "t"]
+    run_dir = os.path.join(tmp, "t")
+    n, steps = 3, 6
+    evals = [s for s in range(steps) if (s + 1) % n == 1] + [steps]  # 0, 3 and the end
+    for m in (cc, gn):
+        for name in ("launches", "bwd_launches"):
+            setattr(m, name, 0)
+    cc.tc_launches = cc.fma_launches = 0
+    watch = first_watch = Step3DWatch(cc, gn, track_moves=True)
+    trainer, probe, seconds = run_job(argv + ["--max_steps", str(steps)], what, watch=watch)
+    total = watch.check(what, steps, len(evals))
+    check_tc_route(cc, what)
+    if watch.moves != [(False, True), (True, True)]:
+        raise AssertionError(f"{what}: (G, D) moved in steps 1-2: {watch.moves}; expected D "
+                             f"in step 1 and G in step 2 (its lr is 0 at step 0)")
+    log(f"{what}: D moved in step 1, G in step 2")
+    n_tensors = check_on_card(trainer)
+    lines = job_lines(run_dir, "t")
+    last = check_job_log(lines, range(steps), evals, what, "loss", JOB3D_EVAL_KEYS)
+    log(f"{what}: {n_tensors} state tensors on the card; last step's losses: " + ", ".join(
+        f"{k}={last[k]:.5g}" for k in ("loss", "perceptual_loss", "recon_l2", "kl",
+                                       "gan/discriminator_loss", "gan/generator_gan_loss")))
+    strips = [os.path.join(run_dir, "eval", f"reconstructed_clip_frames_step{s}.png")
+              for s in evals]
+    missing = [p for p in strips if not os.path.isfile(p)]
+    if missing or trainer.ckpt.steps() != [1, 4, 6]:
+        raise AssertionError(f"{what}: frame strips missing {missing}; full states at "
+                             f"{trainer.ckpt.steps()}, expected [1, 4, 6]")
+    log(f"{what}: frame strips at steps {evals}; full states at steps {trainer.ckpt.steps()} "
+        f"({os.path.getsize(trainer.ckpt.path(steps)) / 2**30:.3f} GiB each)")
+    timing = job_timing(probe, what)
+    timing.update(job3d_wall(probe, 0, n, what))
+    timing["seconds"] = seconds
+    live = [device_tree(trainer.state)]
+    del trainer
+    torch.cuda.empty_cache()
+    for s in (1, 4):  # the resume reads the latest full state alone
+        os.remove(os.path.join(run_dir, "state", f"step_{s:08d}.pt"))
+
+    what = "train3d job gan resume"
+    watch = Step3DWatch(cc, gn)
+    trainer, probe, _ = run_job(argv + ["--max_steps", "8"], what, live, watch=watch)
+    if [(s, ok) for s, ok, _ in probe.restores] != [(steps, True)]:
+        raise AssertionError(f"{what}: restores {probe.restores}, expected step {steps} bitwise")
+    log(f"{what}: restored step {steps}: all {probe.restores[0][2]} tensors of the state, the "
+        f"generator's state included, bitwise those the first call ended with")
+    resumed = watch.check(what, 2, 2)  # evals after step 7 (step_i 6) and at the end
+    for k, v in resumed.items():
+        total[k] += v
+    want = torch.from_numpy(next(synthetic_video_batches(JOB3D_BATCH, JOB3D_FRAMES, JOB3D_RES,
+                                                         seed=42 + steps)))
+    if not torch.equal(probe.first_batch.cpu(), want):
+        raise AssertionError(f"{what}: the first batch is not synthetic_video_batches(seed + "
+                             f"{steps})'s")
+    log(f"{what}: the first batch is the synthetic stream at seed + {steps}, bitwise")
+    check_on_card(trainer)
+    check_job_log(job_lines(run_dir, "t"), range(steps, 8), [6, 8], what, "loss",
+                  JOB3D_EVAL_KEYS)
+    if trainer.state.step != 8:
+        raise AssertionError(f"{what}: ended at step {trainer.state.step}")
+    timing["resume_step_ms"] = job_timing(probe, what)["step_ms"]
+    timing["launches"] = total
+    timing["watches"] = [first_watch, watch]
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir)
+    return timing
+
+
+def phase_train3d_job_vq(gn, cc, vq, ac, tmp: str) -> dict:
+    """Phase 29: the 3D recon-only VQ job with the chunked mid-block
+    attention, on clip shards, for 3 steps and one eval."""
+    import logging
+    import shutil
+    import threading
+
+    from vqgan_tpu_torch.models.quant import apply_ema_codebook_update
+
+    set_tf32(True)
+    what = "train3d job vq"
+    train_tar, test_tar = write_clip_shards(tmp)
+    argv = TRAIN3D_JOB + ["--reg_type", "vq", "--vq_revive_threshold", str(JOB3D_REVIVE),
+                          "--attn_chunk", str(JOB3D_ATTN_CHUNK), "--dataset_url", train_tar,
+                          "--test_dataset_url", test_tar, "--num_workers", "2",
+                          "--evaluate_every_n_steps", "0", "--max_steps", "3",
+                          "--ckpt_dir", tmp, "--run_name", "v"]
+    records: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logger = logging.getLogger("vqgan_tpu_torch")
+    keep = Keep()
+    logger.addHandler(keep)
+    threads = threading.active_count()
+    for m in (cc, gn, ac):
+        m.bwd_launches = 0
+    cc.launches = gn.launches = ac.fwd_launches = 0
+    cc.tc_launches = cc.fma_launches = ac.tc_launches = ac.fma_launches = 0
+    vq.nearest_launches = vq.stats_launches = 0
+    watch = Step3DWatch(cc, gn, vq=vq, ac=ac)
+    try:
+        trainer, probe, seconds = run_job(argv, what, watch=watch)
+    finally:
+        logger.removeHandler(keep)
+    total = watch.check(what, 3, 1)
+    cfg = trainer.tvae_cfg
+    head_dim = cfg.ch * cfg.ch_mult[-1] // 8
+    if watch.head_dims != {head_dim}:
+        raise AssertionError(f"{what}: mid-block head_dim {watch.head_dims}, expected "
+                             f"{head_dim}")
+    log(f"{what}: 1 search and 1 statistics launch a step, 1 search for the eval; the 2 + 2 "
+        f"attention launches of each step on the tensor cores at head_dim {head_dim}")
+    readers = [r for r in records if r.startswith("TarImageStream") and "decode_clip" in r]
+    batch = probe.first_batch.float() * 127.5 + 127.5
+    if len(readers) != 2 or (batch - batch.round()).abs().max() > 1e-3:
+        raise AssertionError(f"{what}: reader lines {readers}; the first batch is "
+                             f"{'not ' if len(readers) == 2 else ''}uint8 clips")
+    log(f"{what}: batches from the clip shards ({readers[0]!r}, {readers[1]!r}); the first "
+        f"batch is uint8 pixels scaled to [-1, 1]")
+    deadline = time.time() + 10
+    while threading.active_count() > threads and time.time() < deadline:
+        time.sleep(0.05)
+    if threading.active_count() != threads:
+        raise AssertionError(f"{what}: {threading.active_count()} threads after the job, "
+                             f"{threads} before: the decode workers did not stop")
+    log(f"{what}: the decode workers stopped ({threads} threads before and after the job)")
+    check_on_card(trainer)
+    ema, reg = trainer.state.vq_ema, trainer.model.reg
+    dead = ema["counts"] < JOB3D_REVIVE
+    revived, k = int(dead.sum()), dead.numel()
+    folded = apply_ema_codebook_update(reg.codebook, ema["counts"], ema["sums"], reg.ema_eps)
+    if torch.equal(ema["counts"], torch.ones_like(ema["counts"])) or not 0 < revived < k \
+            or not torch.equal(reg.codebook[~dead], folded[~dead]) \
+            or torch.equal(reg.codebook[dead], folded[dead]):
+        raise AssertionError(f"{what}: the EMA counts did not move, {revived} of {k} codes "
+                             f"revived, or the codebook is not the fold of the statistics "
+                             f"where no code was revived and something else where one was")
+    used = int((ema["counts"] > 1.0).sum())
+    log(f"{what}: EMA counts moved ({used} codes above 1 after 3 steps); {revived} of {k} "
+        f"codes revived (counts below {JOB3D_REVIVE}) to encoder rows, not the fold; the rest "
+        f"of the codebook is the fold of the statistics")
+    lines = job_lines(os.path.join(tmp, "v"), "v")
+    check_job_log(lines, range(3), [3], what, "loss", JOB3D_EVAL_KEYS[:3])
+    if trainer.ckpt.steps() != [3]:
+        raise AssertionError(f"{what}: full states at {trainer.ckpt.steps()}, expected [3]")
+    timing = job_timing(probe, what)
+    timing.update(job3d_wall(probe, 0, 0, what))
+    timing["seconds"] = seconds
+    timing["launches"] = total
+    timing["watches"] = [watch]
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "v"))
+    return timing
+
+
+def phase_native_decoder(tmp: str) -> dict:
+    """Phase 30: the port's native image decoder on the card's host: built
+    or not (the compiler's first error line and the 2D loader's decoder
+    where not); where built, a PNG through ``native_pipeline`` bitwise the
+    crop (uint8) and the normalization (float32) of its cv2 decode,
+    ``native_probe``'s size, None for garbage; the train transform's
+    images/s on one thread at 512 px (``tools/decode_rate.py``), native
+    beside cv2 where it built, cv2 alone where not."""
+    import tarfile
+
+    import cv2
+
+    from vqgan_tpu_torch.data import native
+    from vqgan_tpu_torch.data.loader import create_dataloader
+    from vqgan_tpu_torch.tools.decode_rate import decode_rates, test_images
+
+    what = "native decoder"
+    t0 = time.perf_counter()
+    built = native.native_available()
+    png = test_images()["png"]
+    path = os.path.join(tmp, "png-00000.tar")
+    with tarfile.open(path, "w") as tf:
+        for i in range(2):
+            name = os.path.join(tmp, f"{i}.png")
+            with open(name, "wb") as f:
+                f.write(png)
+            tf.add(name, arcname=f"{i:05d}.png")
+    stream = create_dataloader(path, 2, num_workers=1, width=512, indexed=False, loop=False)
+    decoder = " then ".join(stream.decoders)
+    if not built:
+        log(f"{what}: decoder.cpp did not build or load ({time.perf_counter() - t0:.2f} s): "
+            f"{native.build_error}; the 2D loader decodes with {decoder}")
+        if decoder == "native":
+            raise AssertionError(f"{what}: the loader took the native transform without it")
+        rates = decode_rates(512)
+        log(f"{what}: the cv2 train transform at 512 px from a 700x600 image, one thread "
+            f"(vqgan_tpu_torch/tools/decode_rate.py): " + "; ".join(
+                f"{name} {rates[(name, 'cv2')]:.1f} images/s" for name in ("jpeg", "png")))
+        return {"built": False, "rates": rates}
+    log(f"{what}: decoder.cpp built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({native.library_path().name}); the 2D loader's train transform: {decoder}")
+    if decoder != "native":
+        raise AssertionError(f"{what}: the loader decodes with {decoder}, not native")
+    decoded = cv2.imdecode(np.frombuffer(png, np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+    fx, fy, size = 0.4, 0.7, 512
+    ox, oy = int(fx * (700 - size + 1)), int(fy * (600 - size + 1))
+    crop = decoded[oy: oy + size, ox: ox + size]
+    out_u8 = native.native_pipeline(png, 0, fx, fy, size, as_uint8=True)
+    out_f32 = native.native_pipeline(png, 0, fx, fy, size)
+    if not (np.array_equal(out_u8, crop) and np.array_equal(
+            out_f32, crop.astype(np.float32) * np.float32(1 / 127.5) - np.float32(1))):
+        raise AssertionError(f"{what}: native_pipeline is not the crop of cv2's decode")
+    if native.native_probe(png) != (700, 600) or native.native_probe(b"garbage") is not None \
+            or native.native_pipeline(b"garbage", 0, 0.0, 0.0, 8) is not None:
+        raise AssertionError(f"{what}: probe {native.native_probe(png)}, garbage not None")
+    log(f"{what}: a 700x600 PNG through native_pipeline is bitwise the 512 px crop of its cv2 "
+        f"decode (uint8) and its normalization (float32); native_probe gives (700, 600); "
+        f"garbage gives None")
+    rates = decode_rates(512)
+    log(f"{what}: train transform at 512 px from a 700x600 image, one thread "
+        f"(vqgan_tpu_torch/tools/decode_rate.py): " + "; ".join(
+            f"{name} native {rates[(name, 'native')]:.1f} images/s, cv2 "
+            f"{rates[(name, 'cv2')]:.1f}" for name in ("jpeg", "png")))
+    return {"built": True, "rates": rates}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
@@ -2958,6 +3541,27 @@ def main() -> int:
     log(f"phases 26-27 (the training job): {t_end - t_job:.1f} s (26: {t_vq - t_job:.1f} s, "
         f"27: {t_end - t_vq:.1f} s) of the {t_end - t_smoke:.1f} s the smoke has run so far")
 
+    # 28. the 3D GAN job through the train3d CLI at TVAEConfig()'s width, and
+    # its resume; 29. the 3D recon-only VQ job with attention on clip shards;
+    # 30. the native image decoder
+    t28 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        job3d = phase_train3d_job(gn, cc, tmp)
+        t29 = time.perf_counter()
+        job3d_vq = phase_train3d_job_vq(gn, cc, vq, ac, tmp)
+        t30 = time.perf_counter()
+        native_dec = phase_native_decoder(tmp)
+    t_end = time.perf_counter()
+    log(f"phases 28-30 (the 3D training job, the native decoder): {t_end - t28:.1f} s (28: "
+        f"{t29 - t28:.1f} s, 29: {t30 - t29:.1f} s, 30: {t_end - t30:.1f} s) of the "
+        f"{t_end - t_smoke:.1f} s the smoke has run so far")
+    job_launches = {k: job3d["launches"].get(k, 0) + job3d_vq["launches"].get(k, 0)
+                    for k in job3d_vq["launches"]}
+    # kernels #1, #2 and #6 at the jobs' own shapes (#3, #4 and #5: the "3D
+    # job" cases of phases 9 and 13)
+    job3d_err = kernels_at_job_shapes(gn, cc, job3d["watches"] + job3d_vq["watches"],
+                                      step3d_gn, conv_fwd)
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -3049,10 +3653,27 @@ def main() -> int:
         f"vq job {job_vq['step_ms']:.1f} ms per step ({job_vq['device_step_ms']:.1f} by "
         f"events, {job_vq['wall_ms']:.1f} of wall time), peak "
         f"{job_vq['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"train3d job (CLI, TVAEConfig() width, 16f/128px, batch 2, gaussian, hinge GAN + "
+        f"LeCam, Polyak EMA): {job3d['step_ms']:.1f} ms per step by the host clock, "
+        f"{job3d['device_step_ms']:.1f} ms between CUDA events, {job3d['wall_ms']:.1f} ms of "
+        f"wall time a step ({job3d['wait_ms']:.1f} waiting for the batch), resumed "
+        f"{job3d['resume_step_ms']:.1f} ms; eval {', '.join(f'{t:.2f}' for t in job3d['eval_s'])}"
+        f" s; save {', '.join(f'{t:.2f}' for t in job3d['save_s'])} s; peak "
+        f"{job3d['peak_bytes'] / 2**30:.3f} GiB; whole 6-step call {job3d['seconds']:.1f} s; "
+        f"vq job on clip shards (attn_chunk 256) {job3d_vq['step_ms']:.1f} ms per step "
+        f"({job3d_vq['device_step_ms']:.1f} by events, {job3d_vq['wall_ms']:.1f} of wall time, "
+        f"{job3d_vq['wait_ms']:.1f} waiting for the batch), peak "
+        f"{job3d_vq['peak_bytes'] / 2**30:.3f} GiB; native decoder "
+        f"{'built' if native_dec['built'] else 'not built'}, the train transform at 512 px: "
+        + "; ".join(f"{name} {label} {r:.1f} images/s"
+                    for (name, label), r in native_dec["rates"].items()))
     log(f"geometry probe: {probe_counted} launches in the entry point's run; per case "
         f"(kernel, plain, torch.matmul, bound) ms, device time: " + "; ".join(
             f"{c} {v[1]:.4f}/{v[2]:.4f}/{v[3]:.4f}/{v[4]:.5f}" for c, v in probe.items()))
-    log(f"kernels line: GroupNorm launches per identity training step and ms per step at "
+    log(f"kernels line: launches on the main paths, each path's counts set to 0 just before "
+        f"it and read just after: the earlier paths' below, plus the 3D training jobs' "
+        f"(phases 28-29: {job_launches}); GroupNorm launches per identity training step and "
+        f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
         f"K={VQ_CASES['flagship b8'][1]}; statistics with sums); the search's max_abs_err is "
@@ -3083,29 +3704,38 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
-              train_counts["gn"], max([v[0] for res in fwd.values() for v in res.values()]
-                                      + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err]),
+              train_counts["gn"] + job_launches["gn"],
+              max([v[0] for res in fwd.values() for v in res.values()]
+                                      + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err,
+                                         job3d_err["gn"]]),
               fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
-              train_counts["gn_bwd"], max([v[0] for v in bwd.values()] + [bwd3d_err]), bwd_step,
+              train_counts["gn_bwd"] + job_launches["gn_bwd"],
+              max([v[0] for v in bwd.values()] + [bwd3d_err, job3d_err["gn_bwd"]]), bwd_step,
               "bytes"),
-        entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113", vq_counts["nearest"],
+        entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113",
+              vq_counts["nearest"] + job_launches["nearest"],
               max(v[0] for v in vq_nearest.values()), vq_nearest["flagship b8"][1:],
               "operations"),
-        entry("code_stats", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:223", vq_counts["stats"],
+        entry("code_stats", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:223",
+              vq_counts["stats"] + job_launches["stats"],
               max(v[0] for v in vq_stats.values()), vq_stats[("flagship b8", True)][1:],
               "bytes"),
         entry("flash_attention", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
-              attn_counts["attn"], max(v[0] for key, v in attn.items() if key[2] == "fwd"),
+              attn_counts["attn"] + job_launches["attn"],
+              max(v[0] for key, v in attn.items() if key[2] == "fwd"),
               attn_step["fwd"], "operations"),
         entry("flash_attention_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
-              attn_counts["attn_bwd"], max(v[0] for key, v in attn.items() if key[2] == "bwd"),
+              attn_counts["attn_bwd"] + job_launches["attn_bwd"],
+              max(v[0] for key, v in attn.items() if key[2] == "bwd"),
               attn_step["bwd"], "operations"),
         entry("conv3d_ttap", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:243",
-              clip_counts["conv3d"], max(v[0] for v in conv_fwd.values()), conv_step,
+              clip_counts["conv3d"] + job_launches["conv3d"],
+              max([v[0] for v in conv_fwd.values()] + [job3d_err["conv3d"]]), conv_step,
               "operations"),
         entry("conv3d_ttap_dx", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:316",
-              clip_grad["conv3d_dx"], max(v[0] for v in conv_dx.values()), dx_step,
+              clip_grad["conv3d_dx"] + job_launches["conv3d_dx"],
+              max([v[0] for v in conv_dx.values()] + [job3d_err["conv3d"]]), dx_step,
               "operations"),
         *probe_entries,
     ]}))

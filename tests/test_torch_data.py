@@ -21,9 +21,11 @@ from vqgan_tpu.data import indexed as jax_indexed
 from vqgan_tpu.data import synthetic as jax_synthetic
 from vqgan_tpu.data import tar_stream as jax_tar_stream
 from vqgan_tpu.data import transforms as jax_transforms
+from vqgan_tpu.data.loader import create_dataloader as jax_create_dataloader
 from vqgan_tpu.utils.logging import MetricLogger as JaxMetricLogger
 from vqgan_tpu_torch.data import indexed, synthetic, tar_stream, transforms
 from vqgan_tpu_torch.data.loader import create_dataloader, device_prefetch
+from vqgan_tpu_torch.data.native import native_available
 from vqgan_tpu_torch.utils.logging import MetricLogger, write_png
 
 SIZES = [(48, 64), (80, 40), (24, 30), (64, 64), (33, 95), (70, 70)]
@@ -119,15 +121,34 @@ def test_tar_stream_matches_jax(shard):
 
 
 def test_indexed_batch_at_matches_jax(shard):
-    """Position-addressed batches with the train transform's per-position
-    rng: every step bit for bit, across the epoch boundary, with 2 workers."""
+    """Position-addressed batches with the cv2 train transform's
+    per-position rng (the reader a host without the native decoder runs):
+    every step bit for bit, across the epoch boundary, with 2 workers."""
     url, paths, _ = shard
-    ours = create_dataloader(url, 4, num_workers=2, width=32, seed=7, device_normalize=True,
-                             indexed=True, start_step=1)
+    ours = indexed.IndexedTarDataset(
+        paths, transforms.make_train_transform(32, 7, as_uint8=True), global_batch=4,
+        seed=7, start_step=1, num_workers=2)
     theirs = jax_indexed.IndexedTarDataset(
         paths, jax_transforms.make_train_transform(32, 7, as_uint8=True), global_batch=4,
         seed=7, start_step=1, num_workers=2)
+    assert len(ours) == 6 and ours.decoders == ("cv2", "PIL")
+    for step in range(4):
+        np.testing.assert_array_equal(ours.batch_at(step), theirs.batch_at(step))
+    first = next(iter(ours))
+    np.testing.assert_array_equal(first, theirs.batch_at(1))
+
+
+def test_loader_takes_the_native_transform_as_jax_does(shard):
+    """The indexed ``create_dataloader`` against JAX's: both take the native
+    C++ transform where it builds (as here), else cv2's; each states which;
+    every step bit for bit, across the epoch boundary, with 2 workers."""
+    url, paths, _ = shard
+    ours = create_dataloader(url, 4, num_workers=2, width=32, seed=7, device_normalize=True,
+                             indexed=True, start_step=1)
+    theirs = jax_create_dataloader(url, 4, num_workers=2, width=32, seed=7,
+                                   device_normalize=True, indexed=True, start_step=1)
     assert isinstance(ours, indexed.IndexedTarDataset) and len(ours) == 6
+    assert ours.decoders == (("native",) if native_available() else ("cv2", "PIL"))
     for step in range(4):
         np.testing.assert_array_equal(ours.batch_at(step), theirs.batch_at(step))
     first = next(iter(ours))

@@ -448,6 +448,10 @@ def test_profile_dir_traces_steps_10_to_15(tmp_path):
 
 
 def test_cli_runs_a_job_and_refuses_train3d(tmp_path):
+    """``train`` and ``train3d`` each run a tiny job on the CPU through
+    ``cli.main``; ``train3d`` refuses what the port does not train yet,
+    ``--grad_accum 2`` and a mesh of several devices, each naming its
+    ROADMAP.md item."""
     argv = ["train", "--device", "cpu", "--vae_ch", "32", "--vae_ch_mult", "1,2",
             "--vae_num_res_blocks", "1", "--vae_z_channels", "8", "--vae_resolution", "32",
             "--batch_size", "2", "--image_size", "32", "--synthetic_data", "true",
@@ -456,7 +460,74 @@ def test_cli_runs_a_job_and_refuses_train3d(tmp_path):
     trainer = cli.main(argv)
     assert trainer.state.step == 2 and trainer.ckpt.latest_step() == 2
     assert trainer.vae_cfg.reg_type == "gaussian" and trainer.cfg.max_steps == 2
-    with pytest.raises(NotImplementedError, match="train3d"):
-        cli.main(["train3d"])
+    argv3d = ["train3d", "--device", "cpu", "--vae_ch", "32", "--vae_ch_mult", "1,2",
+              "--vae_num_res_blocks", "1", "--vae_z_channels", "4", "--vae_resolution", "16",
+              "--frames", "4", "--batch_size", "2", "--max_steps", "2",
+              "--evaluate_every_n_steps", "0", "--use_wandb", "false",
+              "--ckpt_dir", str(tmp_path), "--log_every", "1"]
+    trainer3d = cli.main(argv3d)
+    assert trainer3d.state.step == 2 and trainer3d.ckpt.steps() == [2]
+    assert trainer3d.frames == 4 and trainer3d.cfg.synthetic_data and not trainer3d.use_gan
+    lines = _lines(tmp_path / "tvae_run" / "metrics_tvae_run.jsonl")
+    assert [ln["step"] for ln in lines] == [0, 1, 2]  # the final eval at max_steps
+    assert set(lines[2]) == {"step", "eval/recon_l2", "eval/psnr", "eval/ssim"}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        cli.main(argv3d + ["--grad_accum", "2"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        cli.main(argv3d + ["--mesh_shape", "data=2"])
     with pytest.raises(SystemExit):
         cli.main(["--do_attn", "maybe"])
+
+
+def _click_params_3d():
+    from vqgan_tpu.cli import train3d
+
+    return {p.name: p for p in train3d.params}
+
+
+def test_train3d_flags_and_defaults_match_jax():
+    """Every flag of ``vqgan_tpu.cli train3d`` by the same name, default and
+    kind (every one takes a value, ``--do_ganloss true`` too), and only
+    ``--device`` beside them."""
+    ours = {a.dest: a for a in cli.build_parser_3d()._actions if a.dest != "help"}
+    theirs = _click_params_3d()
+    assert set(ours) == set(theirs) | {"device"}
+    for name, p in theirs.items():
+        a = ours[name]
+        assert a.default == p.default, name
+        assert a.nargs != 0 and not p.is_flag, name
+    assert ours["device"].default == "cuda"
+    assert cli.build_parser_3d().parse_args(["--do_ganloss", "true"]).do_ganloss is True
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--do_ganloss", "true", "--vae_ch", "32", "--vae_ch_mult", "1,2,4", "--reg_type", "vq",
+     "--vq_ema_decay", "0.9", "--conv3d_impl", "pallas", "--attn_chunk", "256",
+     "--disc_3d", "tubelet", "--video_loss_frames", "4", "--use_lecam", "on",
+     "--disc_type", "hinge", "--ema_decay", "0.999", "--dataset_url", "clips.tar",
+     "--load_path", "w.pt", "--frames", "16", "--fused_gn_swish", "1", "--use_wandb", "f"],
+])
+def test_train3d_builds_the_jax_configs(argv, monkeypatch):
+    """The same ``train3d`` flags give the same TrainConfig and TVAEConfig
+    fields and frame count as the JAX CLI builds (its Trainer3D replaced by
+    a recorder)."""
+    import vqgan_tpu.train.trainer3d as jax_trainer3d
+    from vqgan_tpu.cli import train3d
+
+    seen = {}
+
+    class Recorder:
+        def __init__(self, cfg, tvae_cfg, frames):
+            seen.update(cfg=cfg, tvae_cfg=tvae_cfg, frames=frames)
+
+        def train(self):
+            pass
+
+    monkeypatch.setattr(jax_trainer3d, "Trainer3D", Recorder)
+    train3d.main(argv, standalone_mode=False)
+    kw = vars(cli.build_parser_3d().parse_args(argv))
+    cfg, tvae_cfg = cli.configs_3d(kw)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(seen["cfg"])
+    assert dataclasses.asdict(tvae_cfg) == dataclasses.asdict(seen["tvae_cfg"])
+    assert kw["frames"] == seen["frames"]

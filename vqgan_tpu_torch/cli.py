@@ -1,28 +1,27 @@
-"""CLI — the training command with the JAX package's flag surface
+"""CLI — the training commands with the JAX package's flag surface
 (counterpart of ``vqgan_tpu/cli.py``; the reference's flags,
 vae_trainer.py:224-338), in argparse.
 
 Launch:  python -m vqgan_tpu_torch.cli [flags]          (defaults to ``train``)
          python -m vqgan_tpu_torch.cli train [flags] [--device cpu]
+         python -m vqgan_tpu_torch.cli train3d [flags] [--device cpu]
 
-Every flag of ``vqgan_tpu.cli train`` is here with the same name and default.
-``--do_ganloss`` and ``--do_clamp`` are switches; every other boolean takes a
-value (1/0, true/false, t/f, yes/no, y/n, on/off), as click parses
-``type=bool``. ``--device`` (default ``cuda``) picks the card, or the CPU
-when asked; a missing card raises.
+Every flag of ``vqgan_tpu.cli train`` and of ``vqgan_tpu.cli train3d`` is
+here with the same name and default. In ``train``, ``--do_ganloss`` and
+``--do_clamp`` are switches; every other boolean, and every boolean of
+``train3d`` (``--do_ganloss true``), takes a value (1/0, true/false, t/f,
+yes/no, y/n, on/off), as click parses ``type=bool``. ``--device`` (default
+``cuda``) picks the card, or the CPU when asked; a missing card raises.
 
-Flags that steer TPU lowerings are accepted and have no effect here, each
-saying so in its help: ``--do_compile``, ``--use_pallas_gn`` (the CUDA
-GroupNorm kernels are the only GroupNorm), ``--remat`` and
-``--remat_policy`` (activations are kept; rematerialization is not ported),
-``--upsample_impl`` (every value computes the direct form), and
-``--max_spatial_dim``, which the JAX CLI reads into nothing either.
-``--mesh_shape`` must describe one device; a mesh of several raises
-NotImplementedError, as do ``--use_wavelet true`` and ``--grad_accum`` above
-1, which the port does not train yet.
-
-``train3d`` raises NotImplementedError: the 3D training loop is the next
-slice of the port.
+Flags that steer TPU lowerings are accepted, each saying in its help what it
+does here: ``--do_compile``, ``--use_pallas_gn`` (the CUDA GroupNorm kernels
+are the only GroupNorm), ``--remat`` and ``--remat_policy`` (activations are
+kept; rematerialization is not ported), ``--upsample_impl`` (every value
+computes the direct form), ``--conv3d_impl`` (which values run the Conv3d
+kernel) and ``--max_spatial_dim``, which the JAX CLI reads into nothing
+either. ``--mesh_shape`` must describe one device; a mesh of several raises
+NotImplementedError, as do ``--use_wavelet true`` and ``--grad_accum``
+above 1, which the port does not train yet.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-from vqgan_tpu_torch.config import TrainConfig, VAEConfig, parse_ch_mult
+from vqgan_tpu_torch.config import TrainConfig, TVAEConfig, VAEConfig, parse_ch_mult
 from vqgan_tpu_torch.inference import _bool
 
 NO_EFFECT = " (no effect in the PyTorch port: {})"
@@ -245,13 +244,163 @@ def train(argv: Optional[Sequence[str]] = None):
     return trainer
 
 
+def build_parser_3d() -> argparse.ArgumentParser:
+    """The flags of ``vqgan_tpu.cli train3d``, same names and defaults, and
+    ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="python -m vqgan_tpu_torch.cli train3d",
+        description="Train the 3D video VAE (TVAE) on one CUDA device. Data: tar shards of "
+                    ".npy/.npz clips via --dataset_url, or synthetic moving patterns.",
+    )
+    add = p.add_argument
+    add("--dataset_url", type=str, default="",
+        help="Tar shards of .npy/.npz uint8 (T,H,W,3) clip samples (brace ranges OK); "
+             "empty = synthetic moving-pattern clips")
+    add("--test_dataset_url", type=str, default="",
+        help="Held-out clip shards for eval (defaults to dataset_url)")
+    add("--num_workers", type=int, default=4, help="Decode workers")
+    add("--batch_size", type=int, default=4, help="Clips per step")
+    add("--vae_ch", type=int, default=64, help="Base channel size")
+    add("--vae_ch_mult", type=str, default="1,2,4,4", help="Channel multipliers")
+    add("--vae_num_res_blocks", type=int, default=2, help="Residual blocks per level")
+    add("--vae_z_channels", type=int, default=16, help="Latent channels")
+    add("--vae_resolution", type=int, default=64, help="Frame resolution")
+    add("--frames", type=int, default=8, help="Clip length T")
+    add("--reg_type", type=str, default="gaussian", help="gaussian | vq")
+    add("--vq_codebook_size", type=int, default=16384, help="VQ codebook size (reg_type=vq)")
+    add("--vq_ema_decay", type=float, default=0.99,
+        help="EMA codebook update decay (reg_type=vq; 0 = loss-based codebook training)")
+    add("--vq_revive_threshold", type=float, default=0.0,
+        help="Reseed codes with EMA count below this from batch latents (0=off)")
+    add("--remat", type=_bool, default=False,
+        help="Level+block rematerialization"
+             + NO_EFFECT.format("activations are kept; not ported"))
+    add("--remat_policy", type=str, default="full",
+        help="Remat residual policy: full | conv"
+             + NO_EFFECT.format("rematerialization is not ported"))
+    add("--conv3d_impl", type=str, default="auto",
+        help="3x3x3 conv compute: auto and pallas run the Conv3d kernel on a CUDA tensor "
+             "(pallas its plain version on the CPU, auto cuDNN's F.conv3d there); mixed "
+             "the kernel where both channel counts are >= 128; direct, tap2d and tap2dfat "
+             "(TPU lowerings of the same function) run F.conv3d")
+    add("--attn_chunk", type=int, default=0,
+        help="Exact chunked mid-block attention over this many k/v tokens (0 = dense)")
+    add("--attn_impl", type=str, default="auto",
+        help="auto | pallas | lax: a CUDA tensor runs the attention kernel whatever the "
+             "value; another value raises")
+    add("--upsample_impl", type=str, default="auto",
+        help="Decoder Upsample3D blocks: direct | fused | dilated | auto"
+             + NO_EFFECT.format("every value computes the direct form"))
+    add("--fused_gn_swish", type=_bool, default=False,
+        help="Fold norm->silu into the GroupNorm kernel (numerics unchanged)")
+    add("--learning_rate_vae", type=float, default=1e-2, help="Learning rate for the TVAE")
+    add("--do_ganloss", type=_bool, default=False,
+        help="Full per-frame GAN/LPIPS stack (PatchDiscriminator + LPIPS + GradNorm "
+             "branches + LeCam), D and LPIPS in fp32")
+    add("--disc_type", type=str, default="bce", help="bce | hinge")
+    add("--use_lecam", type=_bool, default=False, help="LeCam regularization")
+    add("--learning_rate_disc", type=float, default=2e-4, help="Learning rate for D")
+    add("--video_loss_frames", type=int, default=0,
+        help="Frames per clip fed to the perceptual/GAN branches (strided subset, random "
+             "phase; 0 = all frames)")
+    add("--disc_3d", type=str, default="frame",
+        help="Video discriminator: frame (2D patch disc per frame) | tubelet "
+             "(spatio-temporal: + identity-init depthwise temporal mixers)")
+    add("--ema_decay", type=float, default=0.0,
+        help="Polyak EMA of generator weights (GAN path); eval scores the averaged "
+             "weights. 0 = off")
+    add("--grad_accum", type=int, default=1,
+        help="Microbatches per optimizer step (not ported: above 1 raises)")
+    add("--max_steps", type=int, default=1000, help="Steps to train to")
+    add("--run_name", type=str, default="tvae_run", help="Name of the run")
+    add("--mesh_shape", type=str, default="data=-1",
+        help="Device mesh; the port trains on one device, so every axis must be 1 or -1 "
+             "(several devices, and a context axis, raise NotImplementedError)")
+    add("--use_wandb", type=_bool, default=True,
+        help="Log to wandb when available (JSONL always)")
+    add("--log_every", type=int, default=5, help="Metric logging cadence in steps")
+    add("--eval_batches", type=int, default=2,
+        help="Eval on one fixed clip batch when above 0")
+    add("--evaluate_every_n_steps", type=int, default=250,
+        help="Eval and checkpoint cadence (0 = final save only)")
+    add("--ckpt_dir", type=str, default="./ckpt", help="Checkpoint root directory")
+    add("--load_path", type=str, default=None,
+        help="Reference-format .pt to start G from; otherwise the run dir's latest full "
+             "state resumes")
+    add("--seed", type=int, default=42, help="Seed")
+    add("--device", type=str, default="cuda",
+        help="Device to train on: cuda (default; raises without a card) or cpu")
+    return p
+
+
+def configs_3d(kw: dict) -> tuple[TrainConfig, TVAEConfig]:
+    """The configs a parsed ``train3d`` flag set describes, built as the JAX
+    CLI builds them."""
+    tvae_cfg = TVAEConfig(
+        resolution=kw["vae_resolution"],
+        ch=kw["vae_ch"],
+        ch_mult=parse_ch_mult(kw["vae_ch_mult"]),
+        num_res_blocks=kw["vae_num_res_blocks"],
+        z_channels=kw["vae_z_channels"],
+        reg_type=kw["reg_type"],
+        vq_codebook_size=kw["vq_codebook_size"],
+        vq_ema_decay=kw["vq_ema_decay"],
+        vq_revive_threshold=kw["vq_revive_threshold"],
+        remat=kw["remat"],
+        remat_policy=kw["remat_policy"],
+        conv3d_impl=kw["conv3d_impl"],
+        attn_chunk=kw["attn_chunk"],
+        attn_impl=kw["attn_impl"],
+        upsample_impl=kw["upsample_impl"],
+        fused_gn_swish=kw["fused_gn_swish"],
+    )
+    cfg = TrainConfig(
+        batch_size=kw["batch_size"],
+        dataset_url=kw["dataset_url"],
+        test_dataset_url=kw["test_dataset_url"],
+        synthetic_data=not kw["dataset_url"],
+        num_workers=kw["num_workers"],
+        learning_rate_vae=kw["learning_rate_vae"],
+        do_ganloss=kw["do_ganloss"],
+        disc_type=kw["disc_type"],
+        use_lecam=kw["use_lecam"],
+        learning_rate_disc=kw["learning_rate_disc"],
+        video_loss_frames=kw["video_loss_frames"],
+        disc_3d=kw["disc_3d"],
+        ema_decay=kw["ema_decay"],
+        grad_accum=kw["grad_accum"],
+        max_steps=kw["max_steps"],
+        run_name=kw["run_name"],
+        mesh_shape=kw["mesh_shape"],
+        use_wandb=kw["use_wandb"],
+        log_every=kw["log_every"],
+        eval_batches=kw["eval_batches"],
+        evaluate_every_n_steps=kw["evaluate_every_n_steps"],
+        ckpt_dir=kw["ckpt_dir"],
+        load_path=kw["load_path"],
+        seed=kw["seed"],
+    )
+    return cfg, tvae_cfg
+
+
+def train3d(argv: Optional[Sequence[str]] = None):
+    """Parse the train3d flags and run the job; returns the finished
+    ``Trainer3D``."""
+    from vqgan_tpu_torch.train.trainer3d import Trainer3D
+
+    kw = vars(build_parser_3d().parse_args(argv))
+    cfg, tvae_cfg = configs_3d(kw)
+    trainer = Trainer3D(cfg, tvae_cfg, frames=kw["frames"], device=kw["device"])
+    trainer.train()
+    return trainer
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """``[train] [flags]`` runs ``train``; ``train3d`` raises."""
+    """``[train] [flags]`` runs ``train``, ``train3d [flags]`` runs
+    ``train3d``; each returns its finished trainer."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "train3d":
-        raise NotImplementedError(
-            "train3d: the 3D training loop (Trainer3D, data/video.py) is the next slice "
-            "of the port (ROADMAP.md, Queue 1 item 3)")
+        return train3d(argv[1:])
     if argv and argv[0] == "train":
         argv = argv[1:]
     return train(argv)

@@ -99,7 +99,8 @@ class IndexedTarDataset:
         # straddle epoch boundaries on small datasets)
         self._perm_lock = threading.Lock()
         self._wants_bytes = bool(getattr(transform, "wants_bytes", False))
-        self.decoders = ("transform",) if self._wants_bytes else image_decoders()
+        self.decoders = ((getattr(transform, "decoder_name", "transform"),)
+                         if self._wants_bytes else image_decoders())
         logger.info("IndexedTarDataset: %d samples, decoder %s", len(self.index),
                     " then ".join(self.decoders))
         # per-position augmentation rng: transform randomness must be a pure

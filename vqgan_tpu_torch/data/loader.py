@@ -2,11 +2,12 @@
 device feed (counterpart of ``vqgan_tpu/data/loader.py``).
 
 ``create_dataloader`` mirrors the reference signature
-(vae_trainer.py:119-140) and returns an iterator of (B, W, W, 3) NHWC
-batches: float32 in [-1, 1], or uint8 with ``device_normalize`` (the train
-and eval steps normalize a uint8 batch on the device). The dataset URL is
-honored (the reference overwrites it with hardcoded paths,
-vae_trainer.py:380-387).
+(vae_trainer.py:119-140); its train transform is the native C++ pipeline
+(``data/native``) wherever that builds, else cv2's. It returns an iterator
+of (B, W, W, 3) NHWC batches: float32 in [-1, 1], or uint8 with
+``device_normalize`` (the train and eval steps normalize a uint8 batch on
+the device). The dataset URL is honored (the reference overwrites it with
+hardcoded paths, vae_trainer.py:380-387).
 
 ``device_prefetch`` keeps ``depth`` batches in flight to one device: each
 host batch is put in pinned memory and copied ``non_blocking``, so the copy
@@ -22,8 +23,13 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from vqgan_tpu_torch.data.native import native_available
 from vqgan_tpu_torch.data.tar_stream import TarImageStream, expand_braces
-from vqgan_tpu_torch.data.transforms import make_eval_transform, make_train_transform
+from vqgan_tpu_torch.data.transforms import (
+    make_eval_transform,
+    make_native_train_transform,
+    make_train_transform,
+)
 
 
 def create_dataloader(
@@ -49,6 +55,11 @@ def create_dataloader(
     shards = expand_braces(url)
     if just_resize:
         transform = make_eval_transform(width, as_uint8=device_normalize)
+    elif native_available():
+        # the C++ decode-and-transform pipeline wherever it builds, as the
+        # JAX loader chooses (vqgan_tpu/data/loader.py:66-74); the reader
+        # logs "decoder native", a failed build its compiler's first error
+        transform = make_native_train_transform(width, seed, as_uint8=device_normalize)
     else:
         transform = make_train_transform(width, seed, as_uint8=device_normalize)
     if indexed:

@@ -13,10 +13,12 @@ per-sample transform. This module implements the same contract:
   - a shuffle buffer, then batch assembly into numpy arrays that
     ``loader.device_prefetch`` pins and copies to the card.
 
-The decoder is cv2, then PIL, as in the JAX package. Unlike it, a stream
-that decodes images finds out at construction which of them import, says
-so, and raises at once where neither does (the JAX reader would drop every
-sample as undecodable and wait on an empty queue).
+The decoder is cv2, then PIL, as in the JAX package, unless the transform
+takes the member's bytes itself (``wants_bytes``: the native pipeline,
+``data/native``, which the stream logs as its ``decoder_name``). Unlike the
+JAX package, a stream that decodes images finds out at construction which
+of them import, says so, and raises at once where neither does (the JAX
+reader would drop every sample as undecodable and wait on an empty queue).
 """
 
 from __future__ import annotations
@@ -150,9 +152,10 @@ class TarImageStream:
         self.exts = tuple(exts)
         self.decoder = decoder
         # which decoder reads the samples, stated at construction; where the
-        # transform decodes the bytes itself, the decoder is not used
+        # transform decodes the bytes itself ("native": data/native), the
+        # decoder is not used
         if getattr(transform, "wants_bytes", False):
-            self.decoders: tuple[str, ...] = ("transform",)
+            self.decoders: tuple[str, ...] = (getattr(transform, "decoder_name", "transform"),)
         elif decoder is _decode_image:
             self.decoders = image_decoders()
         else:

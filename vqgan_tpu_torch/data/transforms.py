@@ -1,7 +1,7 @@
 """Host-side image transforms matching the reference's torchvision pipelines
 (vae_trainer.py:93-116), on numpy and cv2 (a copy of
-``vqgan_tpu/data/transforms.py``; the C++ decode-and-transform pipeline is
-not ported yet).
+``vqgan_tpu/data/transforms.py``), and the train path through the C++
+decode-and-transform pipeline (``data/native``).
 
 Train path (this_transform_random_crop_resize): normalize to [-1,1]; with
 p=0.5 random-crop directly at `width`, else resize-shorter-side-to-width then
@@ -13,6 +13,9 @@ transform without cv2 raises at once.
 from __future__ import annotations
 
 import numpy as np
+
+from vqgan_tpu_torch.data.native import native_pipeline
+from vqgan_tpu_torch.data.tar_stream import _decode_image
 
 
 def require_cv2():
@@ -92,6 +95,37 @@ def make_train_transform(width: int = 512, seed: int = 0, as_uint8: bool = False
         return out if as_uint8 else _to_float(out)
 
     transform.accepts_rng = True
+    return transform
+
+
+def make_native_train_transform(width: int = 512, seed: int = 0, as_uint8: bool = False):
+    """The train path on bytes, through the C++ decode + resize + crop +
+    normalize pipeline (``data/native``). The randomness stays here: the
+    p=0.5 crop-or-resize branch and the fractional crop offsets
+    (vae_trainer.py:105-116). Bytes the library cannot decode go through the
+    cv2 decode and ``make_train_transform`` (seeded ``seed + 1``), as in the
+    JAX package.
+
+    The returned callable has ``wants_bytes = True``, so the readers hand it
+    the member's bytes, and ``decoder_name = "native"``, which they log."""
+    shared_rng = np.random.default_rng(seed)
+    fallback = make_train_transform(width, seed + 1, as_uint8=as_uint8)
+
+    def transform(data: bytes, rng=None) -> np.ndarray:
+        r = shared_rng if rng is None else rng
+        resize_to = 0 if r.random() < 0.5 else width
+        out = native_pipeline(data, resize_to, float(r.random()), float(r.random()), width,
+                              as_uint8=as_uint8)
+        if out is None:
+            img = _decode_image(data)
+            if img is None:
+                raise ValueError("undecodable image")
+            return fallback(img, rng=rng)
+        return out
+
+    transform.wants_bytes = True
+    transform.accepts_rng = True
+    transform.decoder_name = "native"
     return transform
 
 

@@ -88,7 +88,7 @@ def _check(cfg: TrainConfig, tvae_cfg: TVAEConfig) -> None:
     if cfg.grad_accum > 1:
         raise NotImplementedError(
             "grad_accum > 1: the microbatched 3D step is not ported yet "
-            "(ROADMAP.md, Queue 1: the 3D training step)")
+            "(ROADMAP.md, Queue 1 item 5)")
     if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
         raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
     if tvae_cfg.reg_type not in ("gaussian", "vq"):
