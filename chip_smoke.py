@@ -195,7 +195,7 @@ Phases, each fatal on failure:
      of the 16 frames, fp32 LPIPS and frame D, Polyak EMA 0.999, synthetic
      clips, eval every 3), 6 steps: each step's and each eval's launches of
      #6 (forward and dx), #1 and #2 equal the model's hooks
-     (``Step3DWatch``), every Conv3d call on the tensor cores, D moves in
+     (``JobWatch``), every Conv3d call on the tensor cores, D moves in
      step 1 and G in step 2, every state tensor on the card, finite losses,
      each eval line with eval/recon_l2, eval/psnr, eval/ssim and eval/lpips,
      no eval/metrics_failed, the frame strips written, full states at steps
@@ -221,7 +221,47 @@ Phases, each fatal on failure:
      through ``native_pipeline`` bitwise the crop and the normalization of
      its cv2 decode, ``native_probe``'s size, None for garbage; the train
      transform's images/s on one thread at 512 px, native beside cv2
-     (``vqgan_tpu_torch/tools/decode_rate.py``; cv2 alone where not built).
+     (``vqgan_tpu_torch/tools/decode_rate.py``; cv2 alone where not built);
+ 31. the HDR recipe's job through ``cli.main`` at its own flags
+     (``TRAIN_HDR_JOB``: ``tools/launch_hdr.sh``'s flag list, ch 128,
+     ch_mult 1,2,4,4,4, z 64, the wavelet encoder at 256 px and the HR
+     decoder to 512 px, batch 32, hinge + LeCam, clamp 8, flip and crop
+     invariance; plus synthetic 512 px images, ``--grad_accum 4`` (4
+     microbatches of 8), 4 steps, an eval every 2, no wandb): each step's and each
+     eval's #1 and #2 launches equal the model's hooks (``JobWatch``: every
+     GroupNorm call, D's pass's forwards included, and a backward where the
+     backward reaches the call's output), D moves in step 1 and G in step
+     2, finite losses and eval lines, the .pt served by ``VAEPipeline`` (256
+     px in, 512 px out, finite, in [0, 1]), then ``--max_steps 5`` restores
+     step 4 bitwise and runs a step and an eval; ms a step by the host clock
+     and CUDA events, the job's wall time a step, eval and save seconds,
+     peak memory, the card's name and power limit;
+ 32. remat and accumulation at the recipe's width: one step at a
+     microbatch of 8 from one state with remat off, "full" and "conv":
+     losses and G's and D's first moments within phase 8's bounds of the
+     step without remat, each recomputed GroupNorm call's output equal to
+     its forward's (fp64 sums), peak memory full < conv < off, ms of each;
+     then the job with ``--grad_accum 2 --remat true`` (microbatches of 16)
+     for 2 steps, its launches against the hooks, ms and peak memory;
+ 33. the 3D GAN job at ``TVAEConfig()``'s width (phase 28's flags) with
+     ``--reg_type vq --grad_accum 2 --remat true`` (``TRAIN3D_ACCUM``), 3
+     steps and a resume to 4 (bitwise restore): #6, #1, #2 and #4 against the
+     hooks, #4 2 x 2 and #5 exactly 2 launches a step (D's pass quantizes
+     without statistics), every Conv3d on the tensor cores, D moves in step
+     1 and G in step 2, the EMA counts moved; ms and peak memory;
+ 34. the microbatched step with the HDR recipe's features on the CPU and on
+     the card (phase 8's reduced width with the wavelet encoder, the HR
+     decoder, crop bucket 1, the heatmap-masked L1, 96 px images for a 64
+     px encoder and a 128 px target, batch 4 in 2 microbatches, remat on
+     both devices, the decisions of LPIPS and D, recomputed calls included,
+     recorded on the CPU and replayed on the card): losses and gradients
+     within phase 8's bounds. Then kernels #1, #2 and #6 against their plain
+     versions at every shape the jobs of phases 28-29 and 31-33 ran that
+     earlier phases did not (``kernels_at_job_shapes``), the HDR decoder's
+     512 px level at microbatches of 8 and 16 and the eval's batch of 32
+     among them. Phase 32 also prints, for each remat mode, what is live at a
+     step's peak by the port's allocating line (``peak_by_line``); phase 31
+     holds the nearest upsample at the eval's 2^31 outputs row by row.
 
 The kernels are built in parallel, one nvcc per source. The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
@@ -234,6 +274,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -347,6 +388,33 @@ TRAIN_JOB = ["--vae_ch", "256", "--vae_ch_mult", "1,2,4,4", "--vae_num_res_block
              "--disc_type", "hinge", "--use_lecam", "true", "--full_bf16", "true",
              "--evaluate_every_n_steps", "3", "--eval_batches", "1", "--use_wandb", "false",
              "--log_every", "1"]
+# the HDR recipe's job of phases 31-32: tools/launch_hdr.sh's flag list as its
+# command line for the JAX CLI gives it (its variables' empty defaults, the
+# lr 2**-7 evaluated; tests/test_torch_hdr_jobs.py holds the two together),
+# then these overrides (argparse keeps the last of a repeated flag): the
+# synthetic 512 px images, 4 microbatches of 8, 4 steps, an eval every 2, and
+# no wandb (the recipe's default would start it; the card's machine has no
+# network, and a failed wandb.init leaves its error reporter holding the
+# Trainer)
+HDR_RECIPE = ["--dataset_url", "", "--vae_ch", "128", "--vae_ch_mult", "1,2,4,4,4",
+              "--vae_z_channels", "64", "--use_wavelet", "true",
+              "--decoder_also_perform_hr", "true", "--batch_size", "32",
+              "--learning_rate_vae", "0.0078125", "--learning_rate_disc", "3e-5",
+              "--do_ganloss", "--disc_type", "hinge", "--use_lecam", "true", "--do_clamp",
+              "--clamp_th", "8.0", "--flip_invariance", "true", "--crop_invariance", "true",
+              "--max_steps", "100000", "--evaluate_every_n_steps", "1000",
+              "--run_name", "hdr_stage4"]
+HDR_OVERRIDES = ["--synthetic_data", "true", "--grad_accum", "4", "--max_steps", "4",
+                 "--evaluate_every_n_steps", "2", "--eval_batches", "1", "--log_every", "1",
+                 "--use_wandb", "false"]
+TRAIN_HDR_JOB = HDR_RECIPE + HDR_OVERRIDES
+HDR_RUN = "hdr_stage4"
+# the recipe's model, to serve its .pt: ch 128, ch_mult 1,2,4,4,4, z 64, the
+# wavelet encoder (256 px in) and the HR decoder (512 px out)
+HDR_VAE = dict(ch=128, ch_mult=(1, 2, 4, 4, 4), z_channels=64, use_wavelet=True,
+               decoder_also_perform_hr=True)
+# phase 32's single steps: one microbatch of phase 31's job
+HDR_MICROBATCH = 8
 # GroupNorms of one flagship VAE forward (encode 21 + decode 29): a train
 # step's forward and backward launches each, and an eval's forward launches
 JOB_GN = 50
@@ -368,6 +436,9 @@ JOB3D_ATTN_CHUNK = 256
 JOB3D_REVIVE = 0.98
 TRAIN3D_GAN = ["--do_ganloss", "true", "--disc_type", "hinge", "--use_lecam", "true",
                "--video_loss_frames", "4", "--ema_decay", "0.999"]
+# phase 33: phase 28's GAN job with the VQ latent, 2 microbatches of 1 clip and
+# the model's levels and blocks, LPIPS and D rematerialized
+TRAIN3D_ACCUM = ["--reg_type", "vq", "--grad_accum", "2", "--remat", "true"]
 JOB3D_EVAL_KEYS = ("eval/recon_l2", "eval/psnr", "eval/ssim", "eval/lpips")
 ATTN_RTOL = 3e-5
 ATTN_LSE_ATOL = 1e-4
@@ -651,25 +722,37 @@ def phase_backward_vs_plain(gn, group_norm_fp32_backward, batch: int) -> dict:
     return out
 
 
+def _shape_order(key: tuple) -> tuple:
+    """A sort key of a (B, C, *spatial, dtype, swish) GroupNorm call."""
+    return (len(key), key[:-2], str(key[-2]), key[-1])
+
+
+def _shape_label(key: tuple) -> str:
+    b, c, *spatial, _, _ = key
+    names = "THW"[-len(spatial):]
+    return (f"B={b} C={c} " + " ".join(f"{n}={v}" for n, v in zip(names, spatial))
+            + f" (S={int(np.prod(spatial))})")
+
+
 def gn_bwd_at_shapes(gn, shapes: dict, label: str) -> tuple[float, list]:
     """Kernel #2 against its plain version (``gn_bwd_check``) at each (B, C,
-    T, H, W, dtype, swish) of ``shapes``, 5-D channels_last_3d, as a step's
-    hooks recorded them; logs the sums of (kernel, plain, library, bound) ms
+    T, H, W, dtype, swish) of ``shapes``, 5-D channels_last_3d, or (B, C, H,
+    W, dtype, swish), 4-D channels_last, as a step's hooks recorded them; logs the sums of (kernel, plain, library, bound) ms
     over the calls and returns the largest max_abs_err and those sums."""
     from vqgan_tpu_torch.ops.normalization import group_norm_fp32_backward
 
     gen = torch.Generator(device="cuda").manual_seed(24)
     err, sums = 0.0, [0.0] * 4
-    for key in sorted(shapes, key=lambda k: (k[:5], str(k[5]), k[6])):
-        b, c, t, h, w, dtype, swish = key
-        x, wt, bs = _gn_inputs(gen, b, 0, c, dtype, (t, h, w))
-        g = _gn_inputs(gen, b, 0, c, dtype, (t, h, w))[0] - 0.3
+    for key in sorted(shapes, key=_shape_order):
+        b, c, *spatial, dtype, swish = key
+        x, wt, bs = _gn_inputs(gen, b, 0, c, dtype, tuple(spatial))
+        g = _gn_inputs(gen, b, 0, c, dtype, tuple(spatial))[0] - 0.3
         res = gn_bwd_check(gn, group_norm_fp32_backward, x, g, wt, bs, swish,
-                           f"{label} B={b} C={c} T={t} H={h} W={w} (S={t * h * w})")
+                           f"{label} {_shape_label(key)}")
         err = max(err, res[0])
         sums = [acc + shapes[key] * v for acc, v in zip(sums, res[1:])]
         del x, g
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     log(f"GN backward per {label} ({sum(shapes.values())} calls): kernel {sums[0]:.4f} ms, "
         f"plain {sums[1]:.4f} ms, library {sums[2]:.4f} ms, bound {sums[3]:.4f} ms (device time)")
     return err, sums
@@ -1982,7 +2065,8 @@ def record_conv3d_shapes(model) -> tuple[dict, list]:
 
 def record_gn_shapes(model) -> tuple[dict, list]:
     """Forward pre-hooks on the model's GroupNorms that count the calls by
-    (B, C, T, H, W, dtype, swish): the dict and the hooks."""
+    (B, C, T, H, W, dtype, swish), or (B, C, H, W, dtype, swish) for a 2D
+    model: the dict and the hooks."""
     from vqgan_tpu_torch.models.blocks import FP32GroupNorm
 
     seen = {}
@@ -1998,17 +2082,17 @@ def record_gn_shapes(model) -> tuple[dict, list]:
 def gn_at_clip_shapes(gn, shapes: dict, label: str) -> float:
     """Kernel #1 against its plain version (``gn_check``) at each (B, C, T,
     H, W, dtype, swish) of ``shapes``, 5-D channels_last_3d, as a clip
-    reconstruct or a 3D step ran them; logs the sums of (kernel, plain,
+    reconstruct or a 3D step ran them, or (B, C, H, W, dtype, swish), 4-D
+    channels_last, as a 2D job ran them; logs the sums of (kernel, plain,
     library, bound) ms over the calls and returns the largest max_abs_err."""
     from vqgan_tpu_torch.ops.normalization import group_norm_fp32
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     err, sums = 0.0, [0.0] * 4
-    for key in sorted(shapes, key=lambda k: (k[:5], str(k[5]), k[6])):
-        b, c, t, h, w, dtype, swish = key
-        x, wt, bs = _gn_inputs(gen, b, 0, c, dtype, (t, h, w))
-        res = gn_check(gn, group_norm_fp32, x, wt, bs, swish,
-                       f"{label} B={b} C={c} T={t} H={h} W={w} (S={t * h * w})")
+    for key in sorted(shapes, key=_shape_order):
+        b, c, *spatial, dtype, swish = key
+        x, wt, bs = _gn_inputs(gen, b, 0, c, dtype, tuple(spatial))
+        res = gn_check(gn, group_norm_fp32, x, wt, bs, swish, f"{label} {_shape_label(key)}")
         err = max(err, res[0])
         sums = [acc + shapes[key] * v for acc, v in zip(sums, res[1:])]
         del x
@@ -2334,27 +2418,48 @@ def phase_geometry_probe(gpc) -> tuple[int, dict]:
 
 
 def count_step_launches(model) -> tuple[dict, list]:
-    """Forward pre-hooks that count what one training step launches from the
-    model: kernel #6 at each Conv3d that takes it (``conv3d``) and, where its
-    input takes a gradient, its dx in the backward (``conv3d_dx``); a
-    GroupNorm forward and backward at each norm (its affine params always
-    take a gradient). Returns the dict and the hooks."""
+    """Forward hooks that count what one training step launches from the
+    model: kernel #6 at each call of a Conv3d that takes it (``conv3d``) and
+    a GroupNorm forward at each call of a norm (``gn``), counted as the call
+    enters, the calls that a rematerialized region makes again in the
+    backward included; a backward
+    launch where the backward reaches the call's output (a hook on it): the
+    GroupNorm's (``gn_bwd``), kernel #6's dx where the input takes a gradient
+    too (``conv3d_dx``). A forward without autograd (D's pass under
+    accumulation, an eval) and a recompute, whose outputs the backward does
+    not reach, launch no backward. Returns the dict (the backward counts are
+    whole once the step's backward has run) and the hooks."""
     from vqgan_tpu_torch.models.blocks import FP32GroupNorm
     from vqgan_tpu_torch.models.tae import Conv3d
 
     seen = {"conv3d": 0, "conv3d_dx": 0, "gn": 0, "gn_bwd": 0}
 
-    def conv(module, args):
-        if module.uses_kernel(args[0]):
-            seen["conv3d"] += 1
-            seen["conv3d_dx"] += int(args[0].requires_grad)
+    def when_reached(out, key):
+        if out.requires_grad:
+            out.register_hook(lambda g: seen.__setitem__(key, seen[key] + 1))
 
-    def norm(module, args):
+    # the forward launch is counted on entry: a recompute that stops early
+    # (once it has what the backward needs) may stop inside the module, after
+    # its kernel ran
+    def conv_in(module, args):
+        seen["conv3d"] += int(module.uses_kernel(args[0]))
+
+    def conv_out(module, args, out):
+        if module.uses_kernel(args[0]) and args[0].requires_grad:
+            when_reached(out, "conv3d_dx")
+
+    def norm_in(module, args):
         seen["gn"] += 1
-        seen["gn_bwd"] += 1
 
-    hooks = [m.register_forward_pre_hook(conv if isinstance(m, Conv3d) else norm)
-             for m in model.modules() if isinstance(m, (Conv3d, FP32GroupNorm))]
+    def norm_out(module, args, out):
+        when_reached(out, "gn_bwd")
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, (Conv3d, FP32GroupNorm)):
+            conv = isinstance(m, Conv3d)
+            hooks += [m.register_forward_pre_hook(conv_in if conv else norm_in),
+                      m.register_forward_hook(conv_out if conv else norm_out)]
     return seen, hooks
 
 
@@ -2563,8 +2668,9 @@ class JobProbe:
     generator state fails too. ``expect`` holds that state's
     ``device_tree``, one item; the restore takes it out, so its memory is
     free before the job trains. For a 3D job it also times each wait for a
-    batch (the loop's ``next`` on ``device_prefetch``), and ``watch`` (a
-    ``Step3DWatch``) checks each step's and each eval's kernel launches.
+    batch (the loop's ``next`` on ``device_prefetch``). ``watch`` (a
+    ``JobWatch``) checks each step's and each eval's kernel launches, of a
+    2D job or a 3D one.
     Patches the trainer modules' step factories and the classes' methods
     while active; a timing or check adds a sync to the run, no work."""
 
@@ -2575,6 +2681,7 @@ class JobProbe:
         self.marks: list[tuple[float, float]] = []  # host (start, end) of each step
         self.waits: list[float] = []  # seconds each 3D batch took to arrive
         self.first_batch = None
+        self.base_bytes = 0  # device memory allocated when the call starts
 
     @contextlib.contextmanager
     def active(self):
@@ -2631,7 +2738,10 @@ class JobProbe:
 
         def timed_method(real_method, into, watch_eval=False):
             def method(self, *args):
-                watching = (probe.watch.eval(self.eval_model)
+                # the 3D trainer's eval model, or the 2D eval step's
+                model = getattr(self, "eval_model", None) or getattr(
+                    getattr(self, "_eval_step", None), "model", None)
+                watching = (probe.watch.eval(model)
                             if watch_eval and probe.watch is not None
                             else contextlib.nullcontext())
                 with watching:
@@ -2655,7 +2765,7 @@ class JobProbe:
             setattr(trainer3d_mod, name, make(real[(trainer3d_mod, name)]))
         trainer3d_mod.device_prefetch = prefetch
         trainer_mod.Trainer.evaluate = timed_method(real[(trainer_mod.Trainer, "evaluate")],
-                                                    self.evals)
+                                                    self.evals, watch_eval=True)
         trainer_mod.Trainer.save = timed_method(real[(trainer_mod.Trainer, "save")], self.saves)
         trainer3d_mod.Trainer3D._eval = timed_method(
             real[(trainer3d_mod.Trainer3D, "_eval")], self.evals, watch_eval=True)
@@ -2791,14 +2901,16 @@ def job_timing(probe: JobProbe, what: str) -> dict:
     host = float(np.mean([h for h, _ in later])) * 1e3
     dev = float(np.mean([d for _, d in later]))
     out = {"step_ms": host, "device_step_ms": dev, "eval_s": list(probe.evals),
-           "save_s": list(probe.saves), "peak_bytes": torch.cuda.max_memory_allocated()}
+           "save_s": list(probe.saves), "peak_bytes": torch.cuda.max_memory_allocated(),
+           "base_bytes": probe.base_bytes}
     log(f"{what}: {len(probe.steps)} steps, {host:.1f} ms per step by the host clock (to a "
         f"sync after each; steps 2-{len(probe.steps)}), {dev:.1f} ms between CUDA events; "
         f"first step {probe.steps[0][0] * 1e3:.1f} ms; eval "
         f"{', '.join(f'{t:.2f}' for t in probe.evals)} s; save (the state's host copy; its "
         f"files are written in the background) "
         f"{', '.join(f'{t:.2f}' for t in probe.saves)} s; peak memory "
-        f"{out['peak_bytes'] / 2**30:.3f} GiB")
+        f"{out['peak_bytes'] / 2**30:.3f} GiB ({out['base_bytes'] / 2**30:.3f} of it allocated "
+        f"before the call)")
     return out
 
 
@@ -2809,6 +2921,7 @@ def run_job(argv: list[str], what: str, expect: list[dict] | None = None,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with JobProbe(expect, watch).active() as probe:
+        probe.base_bytes = torch.cuda.memory_allocated()
         trainer = cli.main(argv)
     seconds = time.perf_counter() - t0
     log(f"{what}: cli.main returned in {seconds:.1f} s")
@@ -2947,13 +3060,14 @@ def phase_train_job_vq(gn, vq, tmp: str) -> dict:
     return timing
 
 
-class Step3DWatch:
-    """The kernel launches of each step and each eval of a 3D job, checked
-    as they happen (``JobProbe`` calls ``step`` and ``eval`` around them):
-    the wrappers' counts of kernel #6 (forward, dx, and by route) and of #1
-    and #2 against what the model's own hooks count (``count_step_launches``;
-    an eval launches no backward); with ``vq``, one search and one statistics
-    launch a step and one search an eval; with ``ac``, the attention kernel's
+class JobWatch:
+    """The kernel launches of each step and each eval of a 2D or 3D job,
+    checked as they happen (``JobProbe`` calls ``step`` and ``eval`` around
+    them): the wrappers' counts of kernel #6 (forward, dx, and by route) and
+    of #1 and #2 against what the model's own hooks count
+    (``count_step_launches``: every call a rematerialized region makes again
+    included; an eval launches no backward); with ``vq``, ``vq_per_step``
+    (search, statistics) launches a step and one search an eval; with ``ac``, the attention kernel's
     forward and backward launches and their routes, and the head_dim of the
     mid-block attentions (hooks on ``AttnBlock3D``). It also records the
     GroupNorms' (B, C, T, H, W, dtype, swish) of the steps and of the evals
@@ -2962,8 +3076,10 @@ class Step3DWatch:
     version at the job's own shapes. With ``track_moves`` the first two
     steps of each call record whether G and D moved."""
 
-    def __init__(self, cc, gn, vq=None, ac=None, track_moves: bool = False):
+    def __init__(self, cc, gn, vq=None, ac=None, track_moves: bool = False,
+                 vq_per_step: tuple[int, int] = (1, 1)):
         self.cc, self.gn, self.vq, self.ac = cc, gn, vq, ac
+        self.vq_per_step = vq_per_step
         self.steps: list[tuple[dict, dict]] = []  # (by the wrappers, by the hooks)
         self.evals: list[tuple[dict, dict]] = []
         self.head_dims: set[int] = set()
@@ -3022,15 +3138,22 @@ class Step3DWatch:
         for key, n in gn_seen.items():
             shapes[key] = shapes.get(key, 0) + n
 
+    @staticmethod
+    def _trained(model) -> list:
+        """The params an optimizer moves: all but an EMA codebook, which the
+        step folds from its statistics whatever the lr."""
+        return [p for n, p in model.named_parameters() if not n.endswith("reg.codebook")]
+
     @contextlib.contextmanager
     def step(self, state):
         models = [m for m in (state.g_model, state.d_model) if m is not None]
         track = self.moves is not None and len(self.moves) < 2
-        snaps = [[p.detach().clone() for p in m.parameters()] for m in models] if track else None
+        snaps = ([[p.detach().clone() for p in self._trained(m)] for m in models] if track
+                 else None)
         with self._counted(state.g_model, self.steps, "step"):
             yield
         if track:
-            moved = [any(not torch.equal(p, q) for p, q in zip(m.parameters(), snap))
+            moved = [any(not torch.equal(p, q) for p, q in zip(self._trained(m), snap))
                      for m, snap in zip(models, snaps)]
             self.moves.append((moved[0], moved[1] if len(moved) > 1 else False))
 
@@ -3051,7 +3174,8 @@ class Step3DWatch:
                     want.update(conv3d_dx=0, gn_bwd=0)
                 want.update(conv3d_tc=want["conv3d"] + want["conv3d_dx"], conv3d_fma=0)
                 if self.vq is not None:
-                    want.update(nearest=1, stats=1 if kind == "step" else 0)
+                    want.update(nearest=self.vq_per_step[0] if kind == "step" else 1,
+                                stats=self.vq_per_step[1] if kind == "step" else 0)
                 if self.ac is not None:  # the encoder's and the decoder's mid block
                     want.update(attn=2, attn_bwd=2 if kind == "step" else 0)
                     want.update(attn_tc=want["attn"] + want["attn_bwd"], attn_fma=0)
@@ -3060,8 +3184,9 @@ class Step3DWatch:
                 for k, v in got.items():
                     total[k] = total.get(k, 0) + v
         steps_seen = self.steps[0][1] if self.steps else {}
-        log(f"{what}: every step's launches equal the model's hooks, {steps_seen} a step "
-            f"(kernel #6 all on the tensor cores), each eval's "
+        log(f"{what}: every step's launches equal the model's hooks, {steps_seen} a step"
+            + (" (kernel #6 all on the tensor cores)" if total.get("conv3d") else "")
+            + f", each eval's "
             f"{self.evals[0][0] if self.evals else {}}; the call's total {total}")
         return total
 
@@ -3161,7 +3286,7 @@ def conv3d_at_shapes(cc, shapes, label: str) -> float:
 
 def kernels_at_job_shapes(gn, cc, watches: list, gn_done: dict, conv_done) -> dict:
     """Kernels #1, #2 and #6 against their plain versions at every shape the
-    3D jobs' steps and evals ran them (``Step3DWatch``) that an earlier
+    2D and 3D jobs' steps and evals ran them (``JobWatch``) that an earlier
     phase did not: ``gn_done`` (the 3D steps' GroupNorm shapes, phase 23,
     forward and backward) and ``conv_done`` (phase 18's bf16 and fp32
     cases). The forward at every step and eval shape, the backward at every
@@ -3178,16 +3303,16 @@ def kernels_at_job_shapes(gn, cc, watches: list, gn_done: dict, conv_done) -> di
     fwd_new = {k: n for k, n in fwd.items() if k not in gn_done}
     bwd_new = {k: n for k, n in bwd.items() if k not in gn_done}
     conv_new = [k for k in conv if k not in conv_done]
-    log(f"3D jobs' shapes: GroupNorm forward {len(fwd)} ({len(fwd_new)} new to this run), "
+    log(f"the jobs' shapes: GroupNorm forward {len(fwd)} ({len(fwd_new)} new to this run), "
         f"backward {len(bwd)} ({len(bwd_new)} new), Conv3d {len(conv)} ({len(conv_new)} new); "
         f"the new ones against their plain versions:")
     out = {"gn": 0.0, "gn_bwd": 0.0, "conv3d": 0.0}
     if fwd_new:
-        out["gn"] = gn_at_clip_shapes(gn, fwd_new, "3D training job")
+        out["gn"] = gn_at_clip_shapes(gn, fwd_new, "training job")
     if bwd_new:
-        out["gn_bwd"] = gn_bwd_at_shapes(gn, bwd_new, "3D training job")[0]
+        out["gn_bwd"] = gn_bwd_at_shapes(gn, bwd_new, "training job")[0]
     if conv_new:
-        out["conv3d"] = conv3d_at_shapes(cc, conv_new, "3D training job")
+        out["conv3d"] = conv3d_at_shapes(cc, conv_new, "training job")
     return out
 
 
@@ -3207,7 +3332,7 @@ def phase_train3d_job(gn, cc, tmp: str) -> dict:
         for name in ("launches", "bwd_launches"):
             setattr(m, name, 0)
     cc.tc_launches = cc.fma_launches = 0
-    watch = first_watch = Step3DWatch(cc, gn, track_moves=True)
+    watch = first_watch = JobWatch(cc, gn, track_moves=True)
     trainer, probe, seconds = run_job(argv + ["--max_steps", str(steps)], what, watch=watch)
     total = watch.check(what, steps, len(evals))
     check_tc_route(cc, what)
@@ -3239,7 +3364,7 @@ def phase_train3d_job(gn, cc, tmp: str) -> dict:
         os.remove(os.path.join(run_dir, "state", f"step_{s:08d}.pt"))
 
     what = "train3d job gan resume"
-    watch = Step3DWatch(cc, gn)
+    watch = JobWatch(cc, gn)
     trainer, probe, _ = run_job(argv + ["--max_steps", "8"], what, live, watch=watch)
     if [(s, ok) for s, ok, _ in probe.restores] != [(steps, True)]:
         raise AssertionError(f"{what}: restores {probe.restores}, expected step {steps} bitwise")
@@ -3300,7 +3425,7 @@ def phase_train3d_job_vq(gn, cc, vq, ac, tmp: str) -> dict:
     cc.launches = gn.launches = ac.fwd_launches = 0
     cc.tc_launches = cc.fma_launches = ac.tc_launches = ac.fma_launches = 0
     vq.nearest_launches = vq.stats_launches = 0
-    watch = Step3DWatch(cc, gn, vq=vq, ac=ac)
+    watch = JobWatch(cc, gn, vq=vq, ac=ac)
     try:
         trainer, probe, seconds = run_job(argv, what, watch=watch)
     finally:
@@ -3355,6 +3480,455 @@ def phase_train3d_job_vq(gn, cc, vq, ac, tmp: str) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(tmp, "v"))
     return timing
+
+
+def _reset_counts(gn, cc, vq=None) -> None:
+    """Every launch count of kernels #1, #2, #6 (and #4, #5) to 0."""
+    gn.launches = gn.bwd_launches = 0
+    cc.launches = cc.bwd_launches = cc.tc_launches = cc.fma_launches = 0
+    if vq is not None:
+        vq.nearest_launches = vq.stats_launches = 0
+
+
+def _add_launches(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _check_moves(watch, what: str) -> None:
+    if watch.moves != [(False, True), (True, True)]:
+        raise AssertionError(f"{what}: (G, D) moved in steps 1-2: {watch.moves}; expected D "
+                             f"in step 1 and G in step 2 (its lr is 0 at step 0)")
+    log(f"{what}: D moved in step 1, G in step 2")
+
+
+def phase_hdr_job(gn, cc, tmp: str) -> dict:
+    """Phase 31: the HDR recipe's job (``TRAIN_HDR_JOB``) through
+    ``cli.main``, its .pt served, then a resume to step 5."""
+    import shutil
+
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.inference import VAEPipeline
+
+    set_tf32(True)
+    what = "hdr job"
+    argv = TRAIN_HDR_JOB + ["--ckpt_dir", tmp]
+    run_dir = os.path.join(tmp, HDR_RUN)
+    n, steps = 2, 4
+    evals = [s for s in range(1, steps + 1) if s % n == 1]  # after steps 1 and 3
+    _reset_counts(gn, cc)
+    watch = first_watch = JobWatch(cc, gn, track_moves=True)
+    trainer, probe, seconds = run_job(argv, what, watch=watch)
+    cfg, vae_cfg = trainer.cfg, trainer.vae_cfg
+    log(f"{what}: batch {cfg.batch_size} in {cfg.grad_accum} microbatches of "
+        f"{cfg.batch_size // cfg.grad_accum}, {cfg.image_size} px images, encoder "
+        f"{vae_cfg.resolution} px (wavelet), HR decoder {2 * vae_cfg.resolution} px, decoder "
+        f"ch_mult {vae_cfg.decoder_ch_mult}; G {sum(p.numel() for p in trainer.vae.parameters())}"
+        f" params, D {sum(p.numel() for p in trainer.disc.parameters())}")
+    total = watch.check(what, steps, len(evals))
+    _check_moves(watch, what)
+    n_tensors = check_on_card(trainer)
+    lines = job_lines(run_dir, HDR_RUN)
+    last = check_job_log(lines, range(steps), evals, what)
+    log(f"{what}: {n_tensors} state tensors on the card; last step's losses: " + ", ".join(
+        f"{k}={last[k]:.5g}" for k in ("overall_vae_loss", "perceptual_loss", "kl_loss",
+                                       "gan/discriminator_loss", "gan/generator_gan_loss",
+                                       "gan/lecam_loss")))
+    pt = os.path.join(run_dir, f"vae_epoch_final_step_{steps}.pt")
+    if not os.path.isfile(pt) or trainer.ckpt.steps() != evals + [steps]:
+        raise AssertionError(f"{what}: {pt} missing or full states at {trainer.ckpt.steps()}")
+    log(f"{what}: full states at {trainer.ckpt.steps()} "
+        f"({os.path.getsize(trainer.ckpt.path(steps)) / 2**30:.3f} GiB each)")
+    timing = job_timing(probe, what)
+    timing.update(job_wall(lines, range(steps), evals, what))
+    timing["seconds"] = seconds
+    live = [device_tree(trainer.state)]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve_cfg = VAEConfig(**HDR_VAE)
+    side = serve_cfg.resolution
+    pipe = VAEPipeline.from_checkpoint(pt, serve_cfg, device="cuda")
+    images = np.random.RandomState(0).randint(0, 256, (2, side, side, 3), np.uint8)
+    recon = pipe.reconstruct(images)
+    if recon.shape != (2, 2 * side, 2 * side, 3) or not np.isfinite(recon).all() \
+            or recon.min() < 0 or recon.max() > 1:
+        raise AssertionError(f"{what}: the .pt's reconstruction {recon.shape} "
+                             f"[{recon.min()}, {recon.max()}]")
+    log(f"{what}: {os.path.basename(pt)} served by VAEPipeline (wavelet encoder, HR "
+        f"decoder): 2 images of {side} px to {recon.shape[1]} px in "
+        f"[{recon.min():.4f}, {recon.max():.4f}]")
+    del pipe
+    torch.cuda.empty_cache()
+    for s in evals:  # the resume reads the latest full state alone
+        os.remove(os.path.join(run_dir, f"vae_epoch_0_step_{s}.pt"))
+        os.remove(os.path.join(run_dir, "state", f"step_{s:08d}.pt"))
+
+    what = "hdr job resume"
+    watch = JobWatch(cc, gn)
+    trainer, probe, _ = run_job(argv + ["--max_steps", str(steps + 1)], what, live, watch=watch)
+    if [(s, ok) for s, ok, _ in probe.restores] != [(steps, True)]:
+        raise AssertionError(f"{what}: restores {probe.restores}, expected step {steps} bitwise")
+    log(f"{what}: restored step {steps}: all {probe.restores[0][2]} tensors of the state, the "
+        f"generator's state included, bitwise those the first call ended with")
+    _add_launches(total, watch.check(what, 1, 1))  # the eval after step 5
+    check_on_card(trainer)
+    check_job_log(job_lines(run_dir, HDR_RUN), range(steps, steps + 1), [steps + 1], what)
+    if trainer.state.step != steps + 1:
+        raise AssertionError(f"{what}: ended at step {trainer.state.step}")
+    timing["resume_step_ms"] = job_timing(probe, what)["step_ms"]
+    timing["launches"] = total
+    timing["watches"] = [first_watch, watch]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir)
+    log(f"{what}: {_card()}")
+    return timing
+
+
+def _gn_output_sums(model) -> tuple[dict, list]:
+    """Forward hooks that keep, per GroupNorm of ``model``, the fp64 sum and
+    absolute sum of each call's output: a recomputed call's against the
+    forward's."""
+    from vqgan_tpu_torch.models.blocks import FP32GroupNorm
+
+    sums: dict[str, list] = {}
+
+    def record(name):
+        def hook(module, args, out):
+            with torch.no_grad():  # no graph: the sums hold no activation
+                o = out.detach()
+                sums.setdefault(name, []).append(
+                    (torch.sum(o, dtype=torch.float64), torch.sum(o.abs(), dtype=torch.float64)))
+        return hook
+
+    return sums, [m.register_forward_hook(record(n)) for n, m in model.named_modules()
+                  if isinstance(m, FP32GroupNorm)]
+
+
+def peak_by_line(run) -> tuple[int, list]:
+    """``run()`` with the allocator's history on: the traced peak and the
+    bytes live at it, summed by the port's source line that allocated them
+    (the first ``vqgan_tpu_torch`` frame; "other" where none), largest
+    first."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=400_000)
+    try:
+        total = torch.cuda.memory_allocated()
+        run()
+        torch.cuda.synchronize()
+        trace = torch.cuda.memory._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+
+    def where(frames):
+        for fr in frames:
+            name = fr.get("filename", "")
+            if "vqgan_tpu_torch" in name:
+                return f"{name.split('vqgan_tpu_torch/')[-1]}:{fr.get('line')}:{fr.get('name')}"
+        return "other"
+
+    live, best, at_best = {}, total, {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = (ev["size"], where(ev.get("frames", [])))
+            total += ev["size"]
+            if total > best:
+                best, at_best = total, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            total -= live.pop(ev["addr"])[0]
+    by_line: dict[str, int] = {}
+    for size, line in at_best.values():
+        by_line[line] = by_line.get(line, 0) + size
+    return best, sorted(by_line.items(), key=lambda kv: -kv[1])
+
+
+def check_large_upsample() -> None:
+    """The decoder's nearest upsample at the HDR eval's 32 x 256 x 512 x 512
+    = 2^31 outputs (one past the largest 32-bit index): rows 0, 15 and 31
+    bitwise the upsample of that row alone."""
+    from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(32, 256, 256, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = nearest_upsample_2x(x)
+    ok = all(torch.equal(y[i:i + 1], nearest_upsample_2x(x[i:i + 1])) for i in (0, 15, 31))
+    log(f"nearest upsample to {tuple(y.shape)} ({y.numel()} outputs): rows 0, 15, 31 equal "
+        f"the upsample of the row alone: {ok}")
+    del x, y
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the nearest upsample is wrong at 2^31 outputs")
+
+
+def phase_hdr_remat(gn, cc, tmp: str) -> dict:
+    """Phase 32: one HDR step at a microbatch of 8 from one state with remat
+    off, "full" and "conv"; then the job at ``--grad_accum 2 --remat true``
+    (microbatches of 16) for 2 steps."""
+    import shutil
+
+    from vqgan_tpu_torch import cli
+    from vqgan_tpu_torch.data.loader import to_device
+    from vqgan_tpu_torch.data.synthetic import synthetic_dataloader
+    from vqgan_tpu_torch.train.step import StepDraws
+    from vqgan_tpu_torch.train.trainer import Trainer
+
+    set_tf32(True)
+    kw = vars(cli.build_parser().parse_args(
+        TRAIN_HDR_JOB + ["--batch_size", str(HDR_MICROBATCH), "--grad_accum", "1",
+                         "--ckpt_dir", tmp, "--run_name", "remat"]))
+    cfg, vae_cfg = cli.configs(kw)
+    batch = to_device(next(synthetic_dataloader(HDR_MICROBATCH, cfg.image_size, seed=3)),
+                      torch.device("cuda"))
+    draws = StepDraws(flip_in=True, flip_w=True, flip_h=False, crop_h=0, crop_w=0,
+                      aug_lpips_w=False, aug_lpips_h=False)
+    # D's logits: a (S/16)^2 patch grid of the HR target, real and fake
+    n_logits = 2 * HDR_MICROBATCH * (2 * vae_cfg.resolution // 16) ** 2
+    runs, out = {}, {}
+
+    def timed(trainer, state):
+        """One step: its host and CUDA-event ms, its peak memory, what was
+        allocated before it, and the (state, metrics)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        result = trainer._step(state, batch, 0, dataclasses.replace(draws))
+        end.record()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3, start.elapsed_time(end),
+                torch.cuda.max_memory_allocated(), base, result)
+
+    for mode, remat, policy in (("off", False, "full"), ("full", True, "full"),
+                                ("conv", True, "conv")):
+        what = f"hdr step remat {mode}"
+        trainer = Trainer(cfg, dataclasses.replace(vae_cfg, remat=remat, remat_policy=policy),
+                          device="cuda")
+        sums, hooks = _gn_output_sums(trainer.vae)
+        _reset_counts(gn, cc)
+        # step 1 builds AdamW's moments and cuDNN's plans (and their
+        # workspaces); step 2 is the steady step
+        first = timed(trainer, trainer.state)
+        state, metrics = first[4]
+        for h in hooks:
+            h.remove()
+        counts = {"gn": gn.launches, "gn_bwd": gn.bwd_launches}
+        moments = {side: {n: opt.state[p]["exp_avg"].cpu() for n, p in model.named_parameters()
+                          if p in opt.state}
+                   for side, model, opt in (("G", trainer.vae, state.g_opt),
+                                            ("D", trainer.disc, state.d_opt))}
+        runs[mode] = ({k: float(v) for k, v in metrics.items()}, moments)
+        # a recomputed GroupNorm reproduces the forward's output
+        again = {name: len(v) - 1 for name, v in sums.items() if len(v) > 1}
+        same = all(bool(torch.equal(torch.stack(c), torch.stack(v[0])))
+                   for v in sums.values() for c in v[1:])
+        if remat and (not again or not same):
+            raise AssertionError(f"{what}: {len(again)} GroupNorms recomputed; every recompute "
+                                 f"equal to its forward: {same}")
+        if not remat and again:
+            raise AssertionError(f"{what}: GroupNorms called again without remat: {again}")
+        ms_host, ms_dev, peak, base = timed(trainer, state)[:4]
+        # a third step with the allocator's history on: what is live at its peak
+        traced, by_line = peak_by_line(
+            lambda: trainer._step(state, batch, 0, dataclasses.replace(draws)))
+        out[mode] = {"peak_bytes": peak, "base_bytes": base, "first_peak_bytes": first[2],
+                     "step_ms": ms_host, "device_step_ms": ms_dev, "counts": counts,
+                     "recomputed": sum(again.values())}
+        log(f"{what}: at step 3's traced peak, {traced / 2**30:.3f} GiB, by the allocating line: "
+            + "; ".join(f"{line} {size / 2**30:.3f}" for line, size in by_line[:8]))
+        log(f"{what}: batch {HDR_MICROBATCH} at {cfg.image_size} px, step 2 {ms_host:.1f} ms by "
+            f"the host clock, {ms_dev:.1f} ms between CUDA events, peak memory "
+            f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} of it the state before the step); step "
+            f"1 (AdamW's moments made, cuDNN's plans built) {first[0]:.1f} / {first[1]:.1f} ms, "
+            f"peak {first[2] / 2**30:.3f} GiB; GroupNorm launches in step 1 {counts}, "
+            f"{sum(again.values())} recomputed calls of {len(again)} GroupNorms, each bitwise "
+            f"its forward's output (fp64 sums): {same}")
+        del trainer, state, metrics, moments, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    for mode in ("full", "conv"):
+        worst_loss, worst, bad_loss, bad_grad = step_bound_shares(runs["off"], runs[mode],
+                                                                  n_logits)
+        bitwise = runs[mode][0] == runs["off"][0]
+        log(f"hdr step remat {mode} against off: the worst loss uses {worst_loss:.3f} of phase "
+            f"8's bound, G's worst first moment {worst['G'][0]} {worst['G'][1]:.3f}, D's "
+            f"{worst['D'][0]} {worst['D'][1]:.3f}; losses bitwise equal: {bitwise}")
+        if bad_loss or bad_grad:
+            raise AssertionError(f"remat {mode}: the step differs from remat off: "
+                                 f"{(bad_loss + bad_grad)[:5]}")
+    peaks = [out[m]["peak_bytes"] for m in ("full", "conv", "off")]
+    if not peaks[0] < peaks[1] < peaks[2]:
+        raise AssertionError(f"steady peak memory full/conv/off {[p / 2**30 for p in peaks]} "
+                             f"GiB: expected full < conv < off")
+    log(f"hdr step at microbatch {HDR_MICROBATCH}: steady peak memory full "
+        f"{peaks[0] / 2**30:.3f} < conv {peaks[1] / 2**30:.3f} < off {peaks[2] / 2**30:.3f} GiB; "
+        f"{_card()}")
+
+    what = "hdr job accum 2 remat"
+    argv = TRAIN_HDR_JOB + ["--grad_accum", "2", "--remat", "true", "--max_steps", "2",
+                            "--evaluate_every_n_steps", "0", "--ckpt_dir", tmp,
+                            "--run_name", "accum2"]
+    _reset_counts(gn, cc)
+    watch = JobWatch(cc, gn)
+    trainer, probe, seconds = run_job(argv, what, watch=watch)
+    if (trainer.cfg.grad_accum, trainer.vae_cfg.remat) != (2, True):
+        raise AssertionError(f"{what}: the job ran grad_accum {trainer.cfg.grad_accum}, remat "
+                             f"{trainer.vae_cfg.remat}")
+    launches = watch.check(what, 2, 0)
+    check_job_log(job_lines(os.path.join(tmp, "accum2"), "accum2"), range(2), [], what)
+    out["accum2"] = job_timing(probe, what)
+    out["accum2"]["seconds"] = seconds
+    out["launches"] = launches
+    out["watches"] = [watch]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "accum2"))
+    shutil.rmtree(os.path.join(tmp, "remat"), ignore_errors=True)
+    return out
+
+
+def phase_train3d_accum_job(gn, cc, vq, tmp: str) -> dict:
+    """Phase 33: the 3D GAN job at TVAEConfig()'s width with the VQ latent,
+    ``--grad_accum 2 --remat true`` (``TRAIN3D_ACCUM``), 3 steps, then a
+    resume to step 4."""
+    import shutil
+
+    set_tf32(True)
+    what = "train3d job accum 2 remat"
+    accum = int(TRAIN3D_ACCUM[TRAIN3D_ACCUM.index("--grad_accum") + 1])
+    argv = TRAIN3D_JOB + TRAIN3D_GAN + TRAIN3D_ACCUM + ["--ckpt_dir", tmp, "--run_name", "a"]
+    run_dir = os.path.join(tmp, "a")
+    n, steps = 3, 3
+    evals = [s for s in range(steps) if (s + 1) % n == 1] + [steps]
+    # a step: D's pass searches each microbatch without statistics, G's
+    # searches and takes statistics of each
+    per_step = (2 * accum, accum)
+    _reset_counts(gn, cc, vq)
+    watch = first_watch = JobWatch(cc, gn, vq=vq, track_moves=True, vq_per_step=per_step)
+    trainer, probe, seconds = run_job(argv + ["--max_steps", str(steps)], what, watch=watch)
+    if (trainer.cfg.grad_accum, trainer.tvae_cfg.remat) != (accum, True):
+        raise AssertionError(f"{what}: grad_accum {trainer.cfg.grad_accum}, remat "
+                             f"{trainer.tvae_cfg.remat}")
+    total = watch.check(what, steps, len(evals))
+    log(f"{what}: kernel #5 (statistics) {per_step[1]} launches a step, one a microbatch of "
+        f"G's pass; #4 (search) {per_step[0]}, D's pass and G's")
+    check_tc_route(cc, what)
+    _check_moves(watch, what)
+    check_on_card(trainer)
+    counts = trainer.state.vq_ema["counts"]
+    if torch.equal(counts, torch.ones_like(counts)):
+        raise AssertionError(f"{what}: the EMA counts did not move")
+    lines = job_lines(run_dir, "a")
+    last = check_job_log(lines, range(steps), evals, what, "loss", JOB3D_EVAL_KEYS)
+    log(f"{what}: last step's losses: " + ", ".join(
+        f"{k}={last[k]:.5g}" for k in ("loss", "perceptual_loss", "recon_l2", "kl",
+                                       "gan/discriminator_loss", "gan/generator_gan_loss")))
+    timing = job_timing(probe, what)
+    timing["seconds"] = seconds
+    live = [device_tree(trainer.state)]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    what = "train3d job accum 2 remat resume"
+    watch = JobWatch(cc, gn, vq=vq, vq_per_step=per_step)
+    trainer, probe, _ = run_job(argv + ["--max_steps", str(steps + 1)], what, live, watch=watch)
+    if [(s, ok) for s, ok, _ in probe.restores] != [(steps, True)]:
+        raise AssertionError(f"{what}: restores {probe.restores}, expected step {steps} bitwise")
+    log(f"{what}: restored step {steps}: all {probe.restores[0][2]} tensors of the state, the "
+        f"generator's state included, bitwise those the first call ended with")
+    _add_launches(total, watch.check(what, 1, 2))  # evals at step 3 and at the end
+    check_on_card(trainer)
+    if trainer.state.step != steps + 1:
+        raise AssertionError(f"{what}: ended at step {trainer.state.step}")
+    timing["resume_step_ms"] = job_timing(probe, what)["step_ms"]
+    timing["launches"] = total
+    timing["watches"] = [first_watch, watch]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir)
+    log(f"{what}: {_card()}")
+    return timing
+
+
+def phase_hdr_cross_device() -> None:
+    """Phase 34: the microbatched step with the HDR recipe's features on the
+    CPU and on the card, at phase 8's reduced width (ch 64, ch_mult 1,2,4)
+    with the wavelet encoder and the HR decoder, crop bucket 1, the
+    heatmap-masked L1, 96 px images for a 64 px encoder and a 128 px
+    target, batch 4 in 2 microbatches, remat ("full") on both devices (the
+    decision tape records the recomputed calls on the CPU and replays them
+    on the card); fp32, TF32 off. Losses and first moments within phase 8's
+    bounds."""
+    from vqgan_tpu_torch.config import TrainConfig, VAEConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step import StepDraws, make_train_step
+
+    set_tf32(False)
+    vae_cfg = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
+                        z_channels=16, use_wavelet=True, decoder_also_perform_hr=True,
+                        enc_dtype="float32", dec_dtype="float32", remat=True)
+    cfg = TrainConfig(batch_size=4, image_size=96, max_steps=10_000, grad_accum=2,
+                      do_ganloss=True, disc_type="hinge", use_lecam=True, do_clamp=True,
+                      flip_invariance=True, crop_invariance=True, downscale_factor=4,
+                      do_pool_recon=False, recon_weight=1.0, learning_rate_disc=1e-8)
+    sd_vae = _perturbed_state_dict(dataclasses.replace(vae_cfg, remat=False), seed=5)
+    gen = torch.Generator().manual_seed(6)
+    disc_ref = PatchDiscriminator()
+    init_discriminator_(disc_ref, gen)
+    with torch.no_grad():  # non-zero final heads: the GAN branch reaches G
+        for k in range(1, 6):
+            getattr(disc_ref, f"binary_classifier{k}")[-1].weight.normal_(0.0, 0.05,
+                                                                          generator=gen)
+    lpips_ref = LPIPS()
+    init_lpips_(lpips_ref, gen)
+    images = np.random.RandomState(7).uniform(-1, 1, (4, 96, 96, 3)).astype(np.float32)
+    runs, tape = {}, DecisionTape()
+    for run in ("cpu", "cuda", "cuda free"):
+        dev = run.split()[0]
+        with torch.device(dev):
+            vae, disc, lpips = VAE(vae_cfg), PatchDiscriminator(), LPIPS()
+        vae.load_state_dict(sd_vae, strict=True)
+        disc.load_state_dict(disc_ref.state_dict(), strict=True)
+        lpips.load_state_dict(lpips_ref.state_dict(), strict=True)
+        state = create_train_state(cfg, vae, disc, vae_cfg.ch)
+        step = make_train_step(cfg, vae_cfg, vae, disc, lpips)
+        draws = StepDraws(flip_in=True, flip_w=False, flip_h=True, crop_h=1, crop_w=3,
+                          aug_lpips_w=False, aug_lpips_h=False)
+        head = {"lpips": lpips, "disc": disc}
+        t0 = time.perf_counter()
+        with (tape.recording(head) if run == "cpu" else
+              tape.replaying(head) if run == "cuda" else contextlib.nullcontext()):
+            state, metrics = step(state, torch.from_numpy(images).to(dev), 1, draws)
+        seconds = time.perf_counter() - t0
+        moments = {side: {n: opt.state[p]["exp_avg"].cpu() for n, p in model.named_parameters()
+                          if p in opt.state}
+                   for side, model, opt in (("G", vae, state.g_opt), ("D", disc, state.d_opt))}
+        runs[run] = ({k: float(v) for k, v in metrics.items()}, moments, {})
+        log(f"train cross-device hdr accum {run}: step {seconds:.1f} s, recon_loss "
+            f"{runs[run][0]['recon_loss']:.6f}")
+    log(f"train cross-device hdr accum: {tape.describe()} recorded on the CPU (recomputed "
+        f"calls included), replayed on the card")
+    # D's logits: a 8x8 patch grid of the 128 px target, real and fake, a microbatch of 2
+    compare_step_across_devices(runs, "hdr accum 2 wavelet + HR + crop + heatmap ch=64 "
+                                "(1,2,4) 96px -> 64/128 batch 4", 2 * 2 * 64, 0)
 
 
 def phase_native_decoder(tmp: str) -> dict:
@@ -3439,10 +4013,7 @@ def main() -> int:
     from vqgan_tpu_torch.ops.normalization import group_norm_fp32, group_norm_fp32_backward
 
     # 1. environment
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = _card()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -3555,12 +4126,36 @@ def main() -> int:
     log(f"phases 28-30 (the 3D training job, the native decoder): {t_end - t28:.1f} s (28: "
         f"{t29 - t28:.1f} s, 29: {t30 - t29:.1f} s, 30: {t_end - t30:.1f} s) of the "
         f"{t_end - t_smoke:.1f} s the smoke has run so far")
-    job_launches = {k: job3d["launches"].get(k, 0) + job3d_vq["launches"].get(k, 0)
-                    for k in job3d_vq["launches"]}
+
+    # 31. the HDR recipe's job through the CLI at its own flags, its .pt
+    # served, its resume; 32. remat off/full/conv at its microbatch, and
+    # --grad_accum 2 --remat true; 33. the 3D GAN VQ job with accumulation
+    # and remat; 34. the microbatched HDR step, CPU vs card
+    t31 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        hdr = phase_hdr_job(gn, cc, tmp)
+        check_large_upsample()
+        t32 = time.perf_counter()
+        hdr_remat = phase_hdr_remat(gn, cc, tmp)
+        t33 = time.perf_counter()
+        job3d_accum = phase_train3d_accum_job(gn, cc, vq, tmp)
+    t34 = time.perf_counter()
+    phase_hdr_cross_device()
+    t_end = time.perf_counter()
+    log(f"phases 31-34 (the HDR job, remat and accumulation, the 3D accumulated job, the "
+        f"microbatched step across devices): {t_end - t31:.1f} s (31: {t32 - t31:.1f} s, 32: "
+        f"{t33 - t32:.1f} s, 33: {t34 - t33:.1f} s, 34: {t_end - t34:.1f} s) of the "
+        f"{t_end - t_smoke:.1f} s the smoke has run so far")
+    jobs = (job3d, job3d_vq, hdr, hdr_remat, job3d_accum)
+    job_launches: dict[str, int] = {}
+    for job_run in jobs:
+        _add_launches(job_launches, job_run["launches"])
     # kernels #1, #2 and #6 at the jobs' own shapes (#3, #4 and #5: the "3D
     # job" cases of phases 9 and 13)
-    job3d_err = kernels_at_job_shapes(gn, cc, job3d["watches"] + job3d_vq["watches"],
+    job3d_err = kernels_at_job_shapes(gn, cc, [w for j in jobs for w in j["watches"]],
                                       step3d_gn, conv_fwd)
+    t_end = time.perf_counter()
+    log(f"the jobs' kernels against plain at their shapes: done at {t_end - t_smoke:.1f} s")
 
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
@@ -3670,9 +4265,31 @@ def main() -> int:
     log(f"geometry probe: {probe_counted} launches in the entry point's run; per case "
         f"(kernel, plain, torch.matmul, bound) ms, device time: " + "; ".join(
             f"{c} {v[1]:.4f}/{v[2]:.4f}/{v[3]:.4f}/{v[4]:.5f}" for c, v in probe.items()))
+    r = hdr_remat
+    log(f"hdr job (CLI, tools/launch_hdr.sh's flags: ch 128, ch_mult 1,2,4,4,4, z 64, wavelet "
+        f"+ HR, batch 32 = 4 x 8, 512 px images, hinge + LeCam, clamp, flip and crop): "
+        f"{hdr['step_ms']:.1f} ms per step by the host clock, {hdr['device_step_ms']:.1f} ms "
+        f"between CUDA events, {hdr['wall_ms']:.1f} ms of the job's wall time "
+        f"({hdr['load_ms']:.1f} waiting for the batch), resumed {hdr['resume_step_ms']:.1f} ms; "
+        f"eval {', '.join(f'{t:.2f}' for t in hdr['eval_s'])} s; save "
+        f"{', '.join(f'{t:.2f}' for t in hdr['save_s'])} s; peak "
+        f"{hdr['peak_bytes'] / 2**30:.3f} GiB; whole 4-step call {hdr['seconds']:.1f} s")
+    log(f"hdr step at microbatch {HDR_MICROBATCH}: remat off {r['off']['device_step_ms']:.1f} "
+        f"ms, peak {r['off']['peak_bytes'] / 2**30:.3f} GiB; full "
+        f"{r['full']['device_step_ms']:.1f} ms, {r['full']['peak_bytes'] / 2**30:.3f} GiB; conv "
+        f"{r['conv']['device_step_ms']:.1f} ms, {r['conv']['peak_bytes'] / 2**30:.3f} GiB "
+        f"(CUDA events); hdr job --grad_accum 2 --remat true (microbatch 16): "
+        f"{r['accum2']['step_ms']:.1f} ms per step by the host clock, "
+        f"{r['accum2']['device_step_ms']:.1f} by events, peak "
+        f"{r['accum2']['peak_bytes'] / 2**30:.3f} GiB")
+    log(f"train3d job accum 2 remat (TVAEConfig() width, 16f/128px, batch 2 = 2 x 1, VQ, "
+        f"frame D): {job3d_accum['step_ms']:.1f} ms per step by the host clock, "
+        f"{job3d_accum['device_step_ms']:.1f} ms between CUDA events, resumed "
+        f"{job3d_accum['resume_step_ms']:.1f} ms; peak {job3d_accum['peak_bytes'] / 2**30:.3f} "
+        f"GiB")
     log(f"kernels line: launches on the main paths, each path's counts set to 0 just before "
-        f"it and read just after: the earlier paths' below, plus the 3D training jobs' "
-        f"(phases 28-29: {job_launches}); GroupNorm launches per identity training step and "
+        f"it and read just after: the earlier paths' below, plus the training jobs' "
+        f"(phases 28-29 and 31-33: {job_launches}); GroupNorm launches per identity training step and "
         f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "

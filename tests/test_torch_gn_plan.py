@@ -275,3 +275,19 @@ def test_the_forward_rule_is_a_candidate_at_every_path_shape():
         for element_size in (2, 4):
             cands = forward_candidates(b, s, c, 32, element_size)
             assert forward_plan(b, s, c, 32, element_size) in cands and len(cands) > 1
+
+
+# (B, S, C) of the HDR recipe's job (tools/launch_hdr.sh): the HR decoder's
+# 512 px level (C = 256) at its microbatches of 8 and 16 and at its eval's
+# batch of 32, which holds 2^31 elements, one past the largest 32-bit index
+# (the kernels form element offsets in 64 bits); its 256 px level (C = 512)
+HDR = [(8, 512 * 512, 256), (16, 512 * 512, 256), (32, 512 * 512, 256), (8, 256 * 256, 512)]
+
+
+@pytest.mark.parametrize("element_size", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,s,c", HDR, ids=[f"B{b}-S{s}-C{c}" for b, s, c in HDR])
+def test_hdr_shapes_have_plans(b, s, c, element_size):
+    assert b * s * c <= 2**31
+    _check(backward_plan(b, s, c, 32, element_size, NUM_SMS, blocks_per_sm=BLOCKS_PER_SM),
+           b, s, c, 32, element_size)
+    _check_forward(forward_plan(b, s, c, 32, element_size), b, s, c, 32, element_size)

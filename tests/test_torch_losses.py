@@ -25,6 +25,7 @@ from vqgan_tpu.losses.recon import vae_loss_function as jax_vae_loss
 from vqgan_tpu.losses.vgg import VGG16Features as JaxVGG
 from vqgan_tpu.ops.gradnorm import gradnorm as jax_gradnorm
 from vqgan_tpu.ops.resize import area_downsample as jax_area_downsample
+from vqgan_tpu.ops.resize import resize_area as jax_resize_area
 from vqgan_tpu_torch.losses import gan
 from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
 from vqgan_tpu_torch.losses.lpips import LPIPS
@@ -229,9 +230,14 @@ def test_vae_loss_function_matches_jax(recon_weight):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-6, err_msg=k)
     if recon_weight:
         assert float(m["recon_loss"]) > 0
-        with pytest.raises(NotImplementedError, match="heatmap"):
-            vae_loss_function(torch.from_numpy(x), torch.from_numpy(xr),
-                              torch.from_numpy(z), False, recon_weight, 0.1)
+        # do_pool=False: the L1 masked by the target's blurriness heatmap
+        loss, m = vae_loss_function(torch.from_numpy(x), torch.from_numpy(xr),
+                                    torch.from_numpy(z), False, recon_weight, 0.1)
+        jloss, jm = jax_vae_loss(jnp.asarray(x), jnp.asarray(xr), jnp.asarray(z), False,
+                                 recon_weight, 0.1)
+        assert float(m["recon_loss"]) > 0
+        np.testing.assert_allclose(float(m["recon_loss"]), float(jm["recon_loss"]), rtol=1e-6)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-6)
 
 
 def test_area_downsample_and_resize_area():
@@ -243,8 +249,11 @@ def test_area_downsample_and_resize_area():
     xt = torch.from_numpy(x)
     assert resize_area(xt, (32, 32)) is xt
     assert tuple(resize_area(xt, (8, 8)).shape) == (2, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="non-integer"):
-        resize_area(xt, (24, 24))
+    # not one integer factor: the antialiased linear resize, as JAX's
+    # jax.image.resize fallback (tests/test_torch_heatmap.py holds more sizes)
+    np.testing.assert_allclose(resize_area(xt, (24, 24)).numpy(),
+                               np.asarray(jax_resize_area(jnp.asarray(x), (24, 24))),
+                               atol=1e-5)
     with pytest.raises(ValueError, match="divisible"):
         area_downsample(xt, 5)
 

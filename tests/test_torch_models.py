@@ -146,12 +146,23 @@ def test_config_has_every_jax_field_with_its_default():
     assert DTYPES[VAEConfig().dec_dtype] == torch.bfloat16
 
 
-@pytest.mark.parametrize("kw,what", [
-    ({"use_wavelet": True}, "use_wavelet"),
+@pytest.mark.parametrize("kw,conv_in,z_side", [
+    ({"use_wavelet": True}, (64, 12, 3, 3), 16),
+    ({"use_wavelet": True, "ch_mult": (1, 2, 4)}, (64, 12, 3, 3), 8),
 ])
-def test_unported_features_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        ae.VAE(VAEConfig(**TINY, **kw))
+def test_wavelet_model_builds_and_runs(kw, conv_in, z_side):
+    """The wavelet front end (JAX ae.py:114-131): conv_in takes the 4·3
+    wavelet channels to 2·ch; level 0 keeps its resolution, so the latent
+    side is the resolution over 2^(levels - 1) as without it
+    (tests/test_torch_wavelet.py holds it against JAX)."""
+    model = ae.init_vae(VAEConfig(**{**TINY, **kw}), torch.Generator().manual_seed(0))
+    assert tuple(model.encoder.conv_in.weight.shape) == conv_in
+    assert model.encoder.down[0].downsample is None
+    with torch.no_grad():
+        z = model.encode(torch.from_numpy(_x((1, 32, 32, 3))))
+        dec = model.decode(z)
+    assert z.shape == (1, z_side, z_side, 8) and dec.shape == (1, 32, 32, 3)
+    assert torch.isfinite(dec.float()).all()
 
 
 def test_vae_dtype_policy():

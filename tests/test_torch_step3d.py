@@ -164,12 +164,13 @@ def run_recon_only(tvae_kw, steps=STEPS):
     return out
 
 
-def run_gan(tvae_kw, disc_3d, steps=STEPS):
-    """make_train_step_3d_gan on both sides with ``disc_3d``: per step the
-    metrics, params, EMA statistics and Polyak EMA; step 1's first moments
-    of G and D."""
+def run_gan(tvae_kw, disc_3d, steps=STEPS, **train_kw):
+    """make_train_step_3d_gan on both sides with ``disc_3d`` and the
+    TrainConfig fields ``train_kw`` over ``TRAIN``: per step the metrics,
+    params, EMA statistics and Polyak EMA; step 1's first moments of G and
+    D."""
     tvae_cfg_j, model_j, g_params, vq_ema_j, model, vq_ema = _models(tvae_kw)
-    train = {**TRAIN, "disc_3d": disc_3d}
+    train = {**TRAIN, "disc_3d": disc_3d, **train_kw}
     cfg_j, cfg = JaxTrainConfig(**train), TrainConfig(**train)
     k = cfg.video_loss_frames
     if disc_3d == "tubelet":
@@ -336,12 +337,7 @@ def test_gan_frame_polyak_ema_matches_jax(gan_frame):
 
 
 def test_unported_options_raise():
-    cfg = dataclasses.replace(TrainConfig(**TRAIN), grad_accum=2)
     tvae_cfg = TVAEConfig(**TINY)
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        make_train_step_3d(cfg, tvae_cfg, TVAE(tvae_cfg))
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        make_train_step_3d_gan(cfg, tvae_cfg, TVAE(tvae_cfg), PatchDiscriminator(), LPIPS())
     with pytest.raises(ValueError, match="disc_3d"):
         make_train_step_3d_gan(dataclasses.replace(TrainConfig(**TRAIN), disc_3d="bogus"),
                                tvae_cfg, TVAE(tvae_cfg), PatchDiscriminator(), LPIPS())

@@ -403,7 +403,6 @@ def test_z_statistics_population_moments():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"grad_accum": 2}, "grad_accum"),
     ({"gradnorm_mode": "bogus"}, "gradnorm_mode"),
 ])
 def test_unported_options_raise(kw, what):

@@ -309,7 +309,6 @@ def test_trainer_device_is_explicit(tmp_path):
 @pytest.mark.parametrize("kw,err,what", [
     (dict(crop_invariance=True, downscale_factor=16), ValueError, "downscale_factor"),
     (dict(mesh_shape="data=2"), NotImplementedError, "mesh_shape"),
-    (dict(grad_accum=2), NotImplementedError, "grad_accum"),
     (dict(grad_accum=3), ValueError, "grad_accum"),
 ])
 def test_trainer_validates_its_config(tmp_path, kw, err, what):
@@ -449,9 +448,8 @@ def test_profile_dir_traces_steps_10_to_15(tmp_path):
 
 def test_cli_runs_a_job_and_refuses_train3d(tmp_path):
     """``train`` and ``train3d`` each run a tiny job on the CPU through
-    ``cli.main``; ``train3d`` refuses what the port does not train yet,
-    ``--grad_accum 2`` and a mesh of several devices, each naming its
-    ROADMAP.md item."""
+    ``cli.main``; ``train3d`` refuses what the port does not train yet, a
+    mesh of several devices, naming its ROADMAP.md item."""
     argv = ["train", "--device", "cpu", "--vae_ch", "32", "--vae_ch_mult", "1,2",
             "--vae_num_res_blocks", "1", "--vae_z_channels", "8", "--vae_resolution", "32",
             "--batch_size", "2", "--image_size", "32", "--synthetic_data", "true",
@@ -471,9 +469,7 @@ def test_cli_runs_a_job_and_refuses_train3d(tmp_path):
     lines = _lines(tmp_path / "tvae_run" / "metrics_tvae_run.jsonl")
     assert [ln["step"] for ln in lines] == [0, 1, 2]  # the final eval at max_steps
     assert set(lines[2]) == {"step", "eval/recon_l2", "eval/psnr", "eval/ssim"}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cli.main(argv3d + ["--grad_accum", "2"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1: multi-GPU"):
         cli.main(argv3d + ["--mesh_shape", "data=2"])
     with pytest.raises(SystemExit):
         cli.main(["--do_attn", "maybe"])

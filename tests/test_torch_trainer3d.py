@@ -358,8 +358,7 @@ def test_eval_scores_the_polyak_weights(gan_job):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(grad_accum=2), "Queue 1 item 5"),
-    (dict(mesh_shape="data=2"), "Queue 1 item 8"),
+    (dict(mesh_shape="data=2"), "Queue 1: multi-GPU"),
     (dict(mesh_shape="data=1,context=2"), "context=2 needs several devices"),
 ])
 def test_unported_options_raise(tmp_path, kw, match):

@@ -13,15 +13,18 @@ here with the same name and default. In ``train``, ``--do_ganloss`` and
 yes/no, y/n, on/off), as click parses ``type=bool``. ``--device`` (default
 ``cuda``) picks the card, or the CPU when asked; a missing card raises.
 
+``--use_wavelet``, ``--grad_accum`` (microbatches a step), ``--remat`` and
+``--remat_policy`` (``torch.utils.checkpoint`` regions over the model's levels
+and blocks, LPIPS and D) run as in the JAX package; the repo's HDR recipe
+(``tools/launch_hdr.sh``) trains here with the same flags.
+
 Flags that steer TPU lowerings are accepted, each saying in its help what it
 does here: ``--do_compile``, ``--use_pallas_gn`` (the CUDA GroupNorm kernels
-are the only GroupNorm), ``--remat`` and ``--remat_policy`` (activations are
-kept; rematerialization is not ported), ``--upsample_impl`` (every value
-computes the direct form), ``--conv3d_impl`` (which values run the Conv3d
-kernel) and ``--max_spatial_dim``, which the JAX CLI reads into nothing
-either. ``--mesh_shape`` must describe one device; a mesh of several raises
-NotImplementedError, as do ``--use_wavelet true`` and ``--grad_accum``
-above 1, which the port does not train yet.
+are the only GroupNorm), ``--upsample_impl`` (every value computes the direct
+form), ``--conv3d_impl`` (which values run the Conv3d kernel) and
+``--max_spatial_dim``, which the JAX CLI reads into nothing either.
+``--mesh_shape`` must describe one device; a mesh of several raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--do_compile", type=_bool, default=True,
         help="Kept for flag parity" + NO_EFFECT.format("the step runs eagerly"))
     add("--use_wavelet", type=_bool, default=False,
-        help="Whether to use wavelet transform in the encoder (not ported: true raises)")
+        help="Whether to use wavelet transform in the encoder")
     add("--augment_before_perceptual_loss", type=_bool, default=False,
         help="Whether to augment the images before the perceptual loss")
     add("--downscale_factor", type=int, default=16,
@@ -102,11 +105,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="Device mesh; the port trains on one device, so every axis must be 1 "
              "or -1 (several devices raise NotImplementedError)")
     add("--remat", type=_bool, default=False,
-        help="Activation rematerialization"
-             + NO_EFFECT.format("activations are kept; not ported"))
+        help="Activation rematerialization (fit large configs in device memory)")
     add("--remat_policy", type=str, default="full",
-        help="Remat residual policy: full | conv"
-             + NO_EFFECT.format("rematerialization is not ported"))
+        help="Remat residual policy: full (recompute everything) | "
+             "conv (save conv outputs, recompute elementwise only)")
     add("--use_pallas_gn", type=_bool, default=False,
         help="Use the Pallas fused GroupNorm+swish kernel"
              + NO_EFFECT.format("the CUDA GroupNorm kernels are the only GroupNorm"))
@@ -155,7 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="Polyak EMA of generator weights (e.g. 0.999); eval and a *_ema.pt "
              "artifact use the averaged weights. 0 = off (reference behavior)")
     add("--grad_accum", type=int, default=1,
-        help="Microbatches per optimizer step (not ported: above 1 raises)")
+        help="Microbatches per optimizer step: effective batches beyond device "
+             "memory (D updates before G sees it, as one big step)")
     add("--device", type=str, default="cuda",
         help="Device to train on: cuda (default; raises without a card) or cpu")
     return p
@@ -273,11 +276,10 @@ def build_parser_3d() -> argparse.ArgumentParser:
     add("--vq_revive_threshold", type=float, default=0.0,
         help="Reseed codes with EMA count below this from batch latents (0=off)")
     add("--remat", type=_bool, default=False,
-        help="Level+block rematerialization"
-             + NO_EFFECT.format("activations are kept; not ported"))
+        help="Level+block rematerialization (memory for long clips)")
     add("--remat_policy", type=str, default="full",
-        help="Remat residual policy: full | conv"
-             + NO_EFFECT.format("rematerialization is not ported"))
+        help="Remat residual policy: full (recompute everything) | "
+             "conv (save conv outputs, recompute elementwise only)")
     add("--conv3d_impl", type=str, default="auto",
         help="3x3x3 conv compute: auto and pallas run the Conv3d kernel on a CUDA tensor "
              "(pallas its plain version on the CPU, auto cuDNN's F.conv3d there); mixed "
@@ -310,7 +312,8 @@ def build_parser_3d() -> argparse.ArgumentParser:
         help="Polyak EMA of generator weights (GAN path); eval scores the averaged "
              "weights. 0 = off")
     add("--grad_accum", type=int, default=1,
-        help="Microbatches per optimizer step (not ported: above 1 raises)")
+        help="Microbatches per optimizer step: effective clip batches beyond device "
+             "memory (D updates before G sees it, as one big step)")
     add("--max_steps", type=int, default=1000, help="Steps to train to")
     add("--run_name", type=str, default="tvae_run", help="Name of the run")
     add("--mesh_shape", type=str, default="data=-1",

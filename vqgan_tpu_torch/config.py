@@ -38,10 +38,6 @@ class VAEConfig:
       - ``use_pallas_gn``: on CUDA the hand-written GroupNorm kernel is the only
         GroupNorm (``ops/groupnorm_cuda.py``); a CPU tensor takes its plain
         version;
-      - ``remat``, ``remat_policy``: activation rematerialization is a training
-        memory lever; its counterpart here, ``torch.utils.checkpoint``, is not
-        ported yet, so the train step keeps every activation (the flagship step
-        fits on an 80 GB card without it) and serving keeps none;
       - ``upsample_impl``: "fused", "dilated" and "auto" compute the same
         function with the same params as "direct" (TPU lowerings); every value
         runs the direct nearest-2× + conv form;
@@ -58,8 +54,15 @@ class VAEConfig:
     tiles, so on the card the value only selects the path; on the CPU it is
     the plain version's k/v chunk.
 
-    Not ported yet (model construction raises NotImplementedError):
-    ``use_wavelet``.
+    ``use_wavelet``: the wavelet front end (``ops/wavelet.py``) before the
+    encoder's conv_in, ch_mult[0] doubled, no downsample at level 0.
+
+    ``remat``: where autograd records, each encoder and decoder level is a
+    ``torch.utils.checkpoint`` region, its ResnetBlocks regions nested in it,
+    and each mid block one too (``models/blocks.py::remat_call``); the train
+    steps also recompute LPIPS and D. ``remat_policy``: "full" keeps only a
+    region's inputs, "conv" also its conv outputs; another value raises
+    ValueError. Serving (no autograd) is unchanged.
     """
 
     resolution: int = 256
@@ -125,10 +128,11 @@ class TVAEConfig:
     The stride-2 downsample conv always runs ``F.conv3d``, as the JAX
     "pallas" keeps it off the kernel.
 
+    ``remat``, ``remat_policy``: as in ``VAEConfig``, over the 3D levels and
+    mid blocks.
+
     No effect in this package: ``upsample_impl`` (every value runs the direct
-    nearest-2× + conv form, as ``VAEConfig`` says); ``remat``,
-    ``remat_policy`` (training memory levers; serving keeps no activations);
-    ``attn_impl`` (as in ``VAEConfig``: a CUDA tensor runs kernel #3, a CPU
+    nearest-2× + conv form, as ``VAEConfig`` says); ``attn_impl`` (as in ``VAEConfig``: a CUDA tensor runs kernel #3, a CPU
     tensor its chunked plain version). ``attn_chunk``: 0, or a token count at
     or above the mid block's T·H·W, runs dense attention; else the
     memory-efficient path, and it must divide T·H·W.
@@ -168,14 +172,13 @@ class TrainConfig:
     management and weight-file fields as the JAX trainer does. No effect in
     this package:
       - ``mesh_shape``: the port trains on one card; a mesh of several
-        devices raises NotImplementedError (multi-GPU is ROADMAP.md, Queue 1
-        item 8);
+        devices raises NotImplementedError (ROADMAP.md, Queue 1: multi-GPU);
       - ``device_normalize`` for the steps themselves: they normalize a uint8
-        batch on the device whatever its value (the loader reads it);
-      - the 3D loop's fields wait for ``Trainer3D`` (the next slice).
+        batch on the device whatever its value (the loader reads it).
 
-    Not ported yet (the train steps raise NotImplementedError):
-    ``grad_accum > 1``.
+    ``grad_accum > 1``: each step splits its batch into that many
+    microbatches, and its peak memory is one microbatch's graph (the
+    ``step_accum`` of ``train/step.py`` and ``train/step3d.py``).
     """
 
     # data

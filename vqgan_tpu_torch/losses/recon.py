@@ -2,7 +2,8 @@
 ``vqgan_tpu/losses/recon.py``; reference vae_trainer.py:179-217).
 
 ``recon_weight · recon + z_reg_weight · mean(z²)``, where the recon term is an
-L1 between the 16× area-downsampled images (``do_pool``) and is skipped
+L1 between the 16× area-downsampled images (``do_pool``), or the L1 masked
+by the target's blurriness heatmap (``ops/heatmap.py``), and is skipped
 entirely when its weight is 0, the reference's default.
 """
 
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from vqgan_tpu_torch.ops.heatmap import blurriness_heatmap
 from vqgan_tpu_torch.ops.resize import area_downsample
 
 
@@ -26,14 +28,11 @@ def vae_loss_function(
     zf = z.float()
     zloss = zf.square().mean()
     if recon_weight != 0.0:
-        if not do_pool:
-            raise NotImplementedError(
-                "do_pool_recon=False: the blurriness-heatmap recon loss "
-                "(vqgan_tpu/ops/heatmap.py) is not ported yet (ROADMAP.md, "
-                "Queue 1: losses)"
-            )
         xr, xt = x_reconstructed.float(), x.float()
-        recon = (area_downsample(xr, 16) - area_downsample(xt, 16)).abs().mean()
+        if do_pool:  # area-downsample ×1/16, then L1 (vae_trainer.py:183-187)
+            recon = (area_downsample(xr, 16) - area_downsample(xt, 16)).abs().mean()
+        else:  # the blurriness-masked L1 (vae_trainer.py:189-196)
+            recon = ((xr - xt) * blurriness_heatmap(xt)).abs().mean()
     else:
         recon = torch.zeros((), device=zf.device)
     loss = recon * recon_weight + zloss * z_reg_weight

@@ -2,9 +2,16 @@
 
 Encoder: conv_in → per-level ResnetBlocks + Downsample (not at the last
 level) → mid (block_1, attn_1 with ``use_attn``, block_2) → GroupNorm+swish →
-conv_out. Decoder: conv_in ← z → mid → levels in reverse, each
-(num_res_blocks + 1) ResnetBlocks + Upsample (not at level 0) →
-GroupNorm+swish → conv_out.
+conv_out. In wavelet mode (``use_wavelet``) the wavelet transform
+(``ops/wavelet.py``) comes first, conv_in maps 4·in_channels to 2·ch,
+ch_mult[0] is doubled and level 0 has no Downsample (JAX ``ae.py:114-131``).
+Decoder: conv_in ← z → mid → levels in reverse, each (num_res_blocks + 1)
+ResnetBlocks + Upsample (not at level 0) → GroupNorm+swish → conv_out; it
+takes ``cfg.decoder_ch_mult`` (the HR level, the wavelet quirk).
+
+With ``remat`` (JAX ``ae.py:58, 81, 127, 146, 183, 191``) each level is a
+rematerialized region, its ResnetBlocks regions nested inside it, and the
+mid blocks regions of their own (``blocks.remat_call``).
 
 Module names give the reference state-dict keys, e.g.
 ``encoder.down.0.block.1.conv1.weight``, ``encoder.mid.block_1.norm1.weight``,
@@ -33,21 +40,29 @@ from vqgan_tpu_torch.models.blocks import (
     conv3x3,
     init_weights_,
     nchw,
+    remat_call,
+    remat_policy_of,
 )
 from vqgan_tpu_torch.models.quant import VectorQuantizer
+from vqgan_tpu_torch.ops.wavelet import wavelet_transform_nchw
 
 
 class DownLevel(nn.Module):
     def __init__(self, block_in: int, block_out: int, num_res_blocks: int,
-                 has_downsample: bool, dtype: torch.dtype):
+                 has_downsample: bool, dtype: torch.dtype,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat_policy = remat_policy
         self.block = nn.ModuleList(
-            ResnetBlock(block_in if i == 0 else block_out, block_out, dtype)
+            ResnetBlock(block_in if i == 0 else block_out, block_out, dtype, remat_policy)
             for i in range(num_res_blocks)
         )
         self.downsample = Downsample(block_out, dtype) if has_downsample else None
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return remat_call(self._forward, self.remat_policy, h)
+
+    def _forward(self, h: torch.Tensor) -> torch.Tensor:
         for blk in self.block:
             h = blk(h)
         if self.downsample is not None:
@@ -57,15 +72,20 @@ class DownLevel(nn.Module):
 
 class UpLevel(nn.Module):
     def __init__(self, block_in: int, block_out: int, num_res_blocks: int,
-                 has_upsample: bool, dtype: torch.dtype):
+                 has_upsample: bool, dtype: torch.dtype,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat_policy = remat_policy
         self.block = nn.ModuleList(
-            ResnetBlock(block_in if i == 0 else block_out, block_out, dtype)
+            ResnetBlock(block_in if i == 0 else block_out, block_out, dtype, remat_policy)
             for i in range(num_res_blocks + 1)
         )
         self.upsample = Upsample(block_out, dtype) if has_upsample else None
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return remat_call(self._forward, self.remat_policy, h)
+
+    def _forward(self, h: torch.Tensor) -> torch.Tensor:
         for blk in self.block:
             h = blk(h)
         if self.upsample is not None:
@@ -78,12 +98,13 @@ class Mid(nn.Module):
     ``ae.py:146-153``)."""
 
     def __init__(self, channels: int, dtype: torch.dtype, use_attn: bool = False,
-                 attn_chunk: int = 0, attn_impl: str = "auto"):
+                 attn_chunk: int = 0, attn_impl: str = "auto",
+                 remat_policy: Optional[str] = None):
         super().__init__()
-        self.block_1 = ResnetBlock(channels, channels, dtype)
+        self.block_1 = ResnetBlock(channels, channels, dtype, remat_policy)
         self.attn_1 = (AttnBlock(channels, dtype, attn_chunk=attn_chunk, attn_impl=attn_impl)
                        if use_attn else None)
-        self.block_2 = ResnetBlock(channels, channels, dtype)
+        self.block_2 = ResnetBlock(channels, channels, dtype, remat_policy)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         h = self.block_1(h)
@@ -94,27 +115,38 @@ class Mid(nn.Module):
 
 class Encoder(nn.Module):
     """Reference ae.py:170-257. Emits z_channels, or 2·z_channels (mean,
-    logvar) with ``double_z``."""
+    logvar) with ``double_z``; ``use_wavelet``: the wavelet front end
+    (reference ae.py:188-203)."""
 
     def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
                  z_channels: int, in_channels: int = 3, double_z: bool = False,
                  dtype: torch.dtype = torch.float32, use_attn: bool = False,
-                 attn_chunk: int = 0, attn_impl: str = "auto"):
+                 attn_chunk: int = 0, attn_impl: str = "auto",
+                 use_wavelet: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
         n = len(ch_mult)
-        self.conv_in = conv3x3(in_channels, ch, dtype)
-        in_mult = (1,) + tuple(ch_mult)
+        self.use_wavelet = use_wavelet
+        ch_mult = list(ch_mult)
+        stem = ch
+        if use_wavelet:
+            ch_mult[0] *= 2
+            stem, in_channels = 2 * ch, 4 * in_channels
+        self.conv_in = conv3x3(in_channels, stem, dtype)
+        level_in = [stem] + [ch * m for m in ch_mult[:-1]]
         self.down = nn.ModuleList(
-            DownLevel(ch * in_mult[i], ch * ch_mult[i], num_res_blocks,
-                      has_downsample=i != n - 1, dtype=dtype)
+            DownLevel(level_in[i], ch * ch_mult[i], num_res_blocks,
+                      has_downsample=i != n - 1 and not (use_wavelet and i == 0),
+                      dtype=dtype, remat_policy=remat_policy)
             for i in range(n)
         )
         block_in = ch * ch_mult[-1]
-        self.mid = Mid(block_in, dtype, use_attn, attn_chunk, attn_impl)
+        self.mid = Mid(block_in, dtype, use_attn, attn_chunk, attn_impl, remat_policy)
         self.norm_out = FP32GroupNorm(block_in, fused_swish=True)
         self.conv_out = conv3x3(block_in, z_channels * (2 if double_z else 1), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_wavelet:
+            x = wavelet_transform_nchw(x).contiguous(memory_format=torch.channels_last)
         h = self.conv_in(x)
         for level in self.down:
             h = level(h)
@@ -127,16 +159,17 @@ class Decoder(nn.Module):
     def __init__(self, ch: int, out_ch: int, ch_mult: Sequence[int],
                  num_res_blocks: int, z_channels: int,
                  dtype: torch.dtype = torch.float32, use_attn: bool = False,
-                 attn_chunk: int = 0, attn_impl: str = "auto"):
+                 attn_chunk: int = 0, attn_impl: str = "auto",
+                 remat_policy: Optional[str] = None):
         super().__init__()
         n = len(ch_mult)
         block_in = ch * ch_mult[-1]
         self.conv_in = conv3x3(z_channels, block_in, dtype)
-        self.mid = Mid(block_in, dtype, use_attn, attn_chunk, attn_impl)
+        self.mid = Mid(block_in, dtype, use_attn, attn_chunk, attn_impl, remat_policy)
         level_in = [ch * ch_mult[min(i + 1, n - 1)] for i in range(n)]
         self.up = nn.ModuleList(
             UpLevel(level_in[i], ch * ch_mult[i], num_res_blocks,
-                    has_upsample=i != 0, dtype=dtype)
+                    has_upsample=i != 0, dtype=dtype, remat_policy=remat_policy)
             for i in range(n)
         )
         self.norm_out = FP32GroupNorm(ch * ch_mult[0], fused_swish=True)
@@ -173,12 +206,7 @@ class DiagonalGaussian(nn.Module):
         return mean + std * (torch.randn_like(mean) if eps is None else eps)
 
 
-def _check_ported(cfg: VAEConfig) -> None:
-    if cfg.use_wavelet:
-        raise NotImplementedError(
-            "use_wavelet: the wavelet front end is not ported yet "
-            "(ROADMAP.md, Queue 1: 2D models)"
-        )
+def _check_config(cfg: VAEConfig) -> None:
     if cfg.reg_type not in ("identity_gaussian", "gaussian", "vq"):
         raise ValueError(f"unknown reg_type {cfg.reg_type!r}")
 
@@ -195,15 +223,17 @@ class VAE(nn.Module):
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         attn = dict(use_attn=cfg.use_attn, attn_chunk=cfg.attn_chunk,
-                    attn_impl=cfg.attn_impl)
+                    attn_impl=cfg.attn_impl,
+                    remat_policy=remat_policy_of(cfg.remat, cfg.remat_policy))
         self.encoder = Encoder(
             cfg.ch, cfg.ch_mult, cfg.num_res_blocks, cfg.z_channels,
             in_channels=cfg.in_channels,
             double_z=cfg.reg_type == "gaussian",
             dtype=DTYPES[cfg.enc_dtype],
+            use_wavelet=cfg.use_wavelet,
             **attn,
         )
         self.decoder = Decoder(

@@ -9,15 +9,30 @@ keys (``conv1.weight``, ``norm1.weight``, ``nin_shortcut.bias``, ...).
 Init follows the reference (``init_weights_``): torch's default Conv2d init
 (U(±1/√fan_in)), ResnetBlock.conv2 normal with std 1e-4/out_ch, AttnBlock's
 proj_out normal with std 0.2/√C, every bias zero, GroupNorm weight 1.
+
+Rematerialization (``remat_call``; JAX ``blocks.py:43-66``): a module with a
+remat policy runs its forward as a ``torch.utils.checkpoint`` region where
+autograd records, so the backward recomputes what the region did not keep.
+"full" keeps only the region's inputs; "conv" also keeps the output of every
+``aten.convolution`` inside it (a selective-checkpoint policy), the convs
+the JAX package tags saveable. The CUDA kernels' launches are not aten ops,
+so no policy keeps their outputs: a recompute launches them again.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_attention
@@ -33,6 +48,38 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)  # x * sigmoid(x), reference ae.py:13-14
+
+
+REMAT_POLICIES = ("full", "conv")
+
+
+def remat_policy_of(remat: bool, policy: str) -> Optional[str]:
+    """The policy a model's regions take: None without ``remat``; an unknown
+    policy raises ValueError, as the JAX package's ``remat_with_policy``."""
+    if not remat:
+        return None
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return policy
+
+
+def _save_convs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn: Callable, policy: Optional[str], *args):
+    """``fn(*args)``, as a rematerialized region under ``policy`` ("full" or
+    "conv") where autograd records; a plain call without a policy or under
+    ``no_grad``."""
+    if policy is None or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "conv":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_convs))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class FP32GroupNorm(nn.Module):
@@ -111,10 +158,13 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class ResnetBlock(nn.Module):
-    """norm→swish→conv ×2 with ~identity start (reference ae.py:96-140)."""
+    """norm→swish→conv ×2 with ~identity start (reference ae.py:96-140);
+    a region of its own under ``remat_policy``."""
 
-    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype):
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype,
+                 remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat_policy = remat_policy
         self.norm1 = FP32GroupNorm(in_channels, fused_swish=True)
         self.conv1 = conv3x3(in_channels, out_channels, dtype)
         self.norm2 = FP32GroupNorm(out_channels, fused_swish=True)
@@ -127,6 +177,9 @@ class ResnetBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat_call(self._forward, self.remat_policy, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)

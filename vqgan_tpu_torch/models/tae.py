@@ -18,6 +18,12 @@ layout: clips (B, T, H, W, C) and latents (B, t, h, w, z). Inside, tensors are
 physically NDHWC: cuDNN's 3D layout and the (B, T·H·W, C) view the GroupNorm
 and Conv3d kernels read. The model computes in ``compute_dtype``; params are
 fp32 and GroupNorm computes in fp32.
+
+With ``remat`` (JAX ``tae.py:645, 669, 702, 720, 762-763``) each level is a
+rematerialized region with its ResnetBlock3Ds nested inside it, and the mid
+blocks are regions of their own (``blocks.remat_call``; kernel #6's launches
+are not aten ops, so the "conv" policy keeps only the ``F.conv3d`` outputs,
+and the backward launches #6 again for the rest).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch.nn.functional as F
 
 from vqgan_tpu_torch.config import CONV3D_IMPLS, DTYPES, TVAEConfig
 from vqgan_tpu_torch.models.ae import DiagonalGaussian
-from vqgan_tpu_torch.models.blocks import FP32GroupNorm
+from vqgan_tpu_torch.models.blocks import FP32GroupNorm, remat_call, remat_policy_of
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_attention
 from vqgan_tpu_torch.ops.conv3d_cuda import conv3d_ttap
@@ -124,9 +130,11 @@ class ResnetBlock3D(nn.Module):
     activation dtype (JAX ``tae.py:392-441``; the 3D default is unfused)."""
 
     def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype,
-                 fused_swish: bool = False, conv3d_impl: str = "direct"):
+                 fused_swish: bool = False, conv3d_impl: str = "direct",
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.fused_swish = fused_swish
+        self.remat_policy = remat_policy
         self.norm1 = FP32GroupNorm(in_channels, fused_swish=fused_swish)
         self.conv1 = Conv3d(in_channels, out_channels, 3, padding=1, dtype=dtype,
                             impl=conv3d_impl)
@@ -140,6 +148,9 @@ class ResnetBlock3D(nn.Module):
         return h if self.fused_swish else F.silu(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat_call(self._forward, self.remat_policy, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(self._act(self.norm1(x)))
         h = self.conv2(self._act(self.norm2(h)))
         if self.nin_shortcut is not None:
@@ -212,16 +223,20 @@ class Upsample3D(nn.Module):
 class DownLevel3D(nn.Module):
     def __init__(self, block_in: int, block_out: int, num_res_blocks: int,
                  has_downsample: bool, dtype: torch.dtype, fused_swish: bool,
-                 conv3d_impl: str):
+                 conv3d_impl: str, remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat_policy = remat_policy
         self.block = nn.ModuleList(
             ResnetBlock3D(block_in if i == 0 else block_out, block_out, dtype, fused_swish,
-                          conv3d_impl)
+                          conv3d_impl, remat_policy)
             for i in range(num_res_blocks)
         )
         self.downsample = Downsample3D(block_out, dtype) if has_downsample else None
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return remat_call(self._forward, self.remat_policy, h)
+
+    def _forward(self, h: torch.Tensor) -> torch.Tensor:
         for blk in self.block:
             h = blk(h)
         if self.downsample is not None:
@@ -232,16 +247,20 @@ class DownLevel3D(nn.Module):
 class UpLevel3D(nn.Module):
     def __init__(self, block_in: int, block_out: int, num_res_blocks: int,
                  has_upsample: bool, dtype: torch.dtype, fused_swish: bool,
-                 conv3d_impl: str):
+                 conv3d_impl: str, remat_policy: Optional[str] = None):
         super().__init__()
+        self.remat_policy = remat_policy
         self.block = nn.ModuleList(
             ResnetBlock3D(block_in if i == 0 else block_out, block_out, dtype, fused_swish,
-                          conv3d_impl)
+                          conv3d_impl, remat_policy)
             for i in range(num_res_blocks + 1)
         )
         self.upsample = Upsample3D(block_out, dtype, conv3d_impl) if has_upsample else None
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return remat_call(self._forward, self.remat_policy, h)
+
+    def _forward(self, h: torch.Tensor) -> torch.Tensor:
         for blk in self.block:
             h = blk(h)
         if self.upsample is not None:
@@ -253,11 +272,14 @@ class Mid3D(nn.Module):
     """block_1, the AttnBlock3D ``attn_1``, block_2."""
 
     def __init__(self, channels: int, dtype: torch.dtype, fused_swish: bool,
-                 conv3d_impl: str, attn_chunk: int, attn_impl: str):
+                 conv3d_impl: str, attn_chunk: int, attn_impl: str,
+                 remat_policy: Optional[str] = None):
         super().__init__()
-        self.block_1 = ResnetBlock3D(channels, channels, dtype, fused_swish, conv3d_impl)
+        self.block_1 = ResnetBlock3D(channels, channels, dtype, fused_swish, conv3d_impl,
+                                     remat_policy)
         self.attn_1 = AttnBlock3D(channels, dtype, attn_chunk, attn_impl)
-        self.block_2 = ResnetBlock3D(channels, channels, dtype, fused_swish, conv3d_impl)
+        self.block_2 = ResnetBlock3D(channels, channels, dtype, fused_swish, conv3d_impl,
+                                     remat_policy)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.block_2(self.attn_1(self.block_1(h)))
@@ -269,7 +291,8 @@ class Encoder3D(nn.Module):
     def __init__(self, ch: int, ch_mult: Sequence[int], num_res_blocks: int,
                  z_channels: int, in_channels: int = 3, double_z: bool = True,
                  dtype: torch.dtype = torch.float32, fused_swish: bool = False,
-                 conv3d_impl: str = "direct", attn_chunk: int = 0, attn_impl: str = "auto"):
+                 conv3d_impl: str = "direct", attn_chunk: int = 0, attn_impl: str = "auto",
+                 remat_policy: Optional[str] = None):
         super().__init__()
         n = len(ch_mult)
         self.fused_swish = fused_swish
@@ -277,11 +300,12 @@ class Encoder3D(nn.Module):
         in_mult = (1,) + tuple(ch_mult)
         self.down = nn.ModuleList(
             DownLevel3D(ch * in_mult[i], ch * ch_mult[i], num_res_blocks, i != n - 1, dtype,
-                        fused_swish, conv3d_impl)
+                        fused_swish, conv3d_impl, remat_policy)
             for i in range(n)
         )
         block_in = ch * ch_mult[-1]
-        self.mid = Mid3D(block_in, dtype, fused_swish, conv3d_impl, attn_chunk, attn_impl)
+        self.mid = Mid3D(block_in, dtype, fused_swish, conv3d_impl, attn_chunk, attn_impl,
+                         remat_policy)
         self.norm_out = FP32GroupNorm(block_in, fused_swish=fused_swish)
         self.conv_out = Conv3d(block_in, z_channels * (2 if double_z else 1), 3, padding=1,
                                dtype=dtype, impl=conv3d_impl)
@@ -300,17 +324,19 @@ class Decoder3D(nn.Module):
     def __init__(self, ch: int, out_ch: int, ch_mult: Sequence[int], num_res_blocks: int,
                  z_channels: int, dtype: torch.dtype = torch.float32,
                  fused_swish: bool = False, conv3d_impl: str = "direct",
-                 attn_chunk: int = 0, attn_impl: str = "auto"):
+                 attn_chunk: int = 0, attn_impl: str = "auto",
+                 remat_policy: Optional[str] = None):
         super().__init__()
         n = len(ch_mult)
         self.fused_swish = fused_swish
         block_in = ch * ch_mult[-1]
         self.conv_in = Conv3d(z_channels, block_in, 3, padding=1, dtype=dtype, impl=conv3d_impl)
-        self.mid = Mid3D(block_in, dtype, fused_swish, conv3d_impl, attn_chunk, attn_impl)
+        self.mid = Mid3D(block_in, dtype, fused_swish, conv3d_impl, attn_chunk, attn_impl,
+                         remat_policy)
         level_in = [ch * ch_mult[min(i + 1, n - 1)] for i in range(n)]
         self.up = nn.ModuleList(
             UpLevel3D(level_in[i], ch * ch_mult[i], num_res_blocks, i != 0, dtype, fused_swish,
-                      conv3d_impl)
+                      conv3d_impl, remat_policy)
             for i in range(n)
         )
         self.norm_out = FP32GroupNorm(ch * ch_mult[0], fused_swish=fused_swish)
@@ -346,11 +372,12 @@ class TVAE(nn.Module):
         if ring_axis is not None:
             raise NotImplementedError(
                 "ring_axis: ring attention over a mesh axis is not ported yet "
-                "(ROADMAP.md, Queue 1 item 11)")
+                "(ROADMAP.md, Queue 1: multi-GPU)")
         self.cfg = cfg
         dtype = DTYPES[cfg.compute_dtype]
         kw = dict(dtype=dtype, fused_swish=cfg.fused_gn_swish, conv3d_impl=cfg.conv3d_impl,
-                  attn_chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl)
+                  attn_chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl,
+                  remat_policy=remat_policy_of(cfg.remat, cfg.remat_policy))
         self.encoder = Encoder3D(cfg.ch, cfg.ch_mult, cfg.num_res_blocks, cfg.z_channels,
                                  in_channels=cfg.in_channels,
                                  double_z=cfg.reg_type == "gaussian", **kw)

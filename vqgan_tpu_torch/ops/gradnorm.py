@@ -54,6 +54,6 @@ def gradnorm(
     if axis_name is not None:
         raise NotImplementedError(
             "gradnorm axis_name: averaging the norm across processes "
-            "(DDP) is not ported yet (ROADMAP.md, Queue 1: training loop)"
+            "(DDP) is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
         )
     return GradNorm.apply(x, weight, shards)

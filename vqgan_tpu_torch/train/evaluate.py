@@ -39,7 +39,8 @@ def make_eval_step(cfg: TrainConfig, vae_cfg: VAEConfig, vae: nn.Module) -> Eval
     z_channels) in the eval encoder's dtype; by default drawn from a
     generator seeded 0 on the device, the same every call. Returns fp32
     (recon, target) in [0, 1] on the device, recon at the decoder's
-    resolution and target at the batch's."""
+    resolution and target at the batch's. The eval model is
+    ``eval_step.model``."""
     device = next(vae.parameters()).device
     if cfg.eval_bf16:
         # the reference's bf16-autocast eval (vae_trainer.py:821,841): bf16
@@ -90,6 +91,7 @@ def make_eval_step(cfg: TrainConfig, vae_cfg: VAEConfig, vae: nn.Module) -> Eval
             recon = recon.flip((1, 2))  # flip the output back (:852-855)
         return recon, target
 
+    eval_step.model = model
     return eval_step
 
 

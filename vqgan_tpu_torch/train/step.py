@@ -1,8 +1,7 @@
 """The GAN train step (counterpart of ``vqgan_tpu/train/step.py``,
-``make_train_step`` with ``grad_accum <= 1``; reference
-vae_trainer.py:524-704).
+``make_train_step``; reference vae_trainer.py:524-704).
 
-One step, in order:
+One step at ``grad_accum <= 1``, in order:
 
   - input: a uint8 batch is normalized on the device; area-resize to the
     encoder's and the target's resolution; a random horizontal flip of both;
@@ -31,18 +30,43 @@ One step, in order:
   - the Polyak EMA of G's params when ``ema_decay > 0``, over the folded
     codebook too.
 
+With ``grad_accum`` = k > 1 (JAX ``step_accum``, ``step.py:419-577``) the
+batch is k microbatches and the step is one step at the whole batch, in two
+passes over them:
+
+  - D's pass: each microbatch's generator forward without autograd, then D's
+    gradient on its detached recon; the LeCam anchors advance once a
+    microbatch; the gradients are averaged as the JAX scan does (a + g/k, in
+    microbatch order), then one D AdamW step;
+  - G's pass against the updated D: each microbatch's generator forward and
+    backward, the parameter gradients averaged the same way (not the loss:
+    GradNorm's backward sets each branch's norm, so a scaled loss would keep
+    1/k on the z² term alone), then one G AdamW step and one scheduler step;
+  - VQ with EMA: the statistics run through G's pass from microbatch to
+    microbatch (D's pass quantizes without them), revival samples the z of
+    every microbatch; then the Polyak EMA;
+  - metrics: the mean over the microbatches; the anchors their last values.
+
+Its peak memory is one microbatch's graph. GradNorm normalizes each
+microbatch's branch by that microbatch's own norm.
+
+With ``vae_cfg.remat`` LPIPS and D are rematerialized regions too (JAX
+``step.py:171-177``).
+
 Randomness: the step's coins (input flip, latent flips, LPIPS augment flips),
 crop offsets, dead-code revival rows and the Gaussian's ε are drawn from the state's
 ``torch.Generator`` on the device, and selected with ``torch.where`` so the host never waits for them. A
 caller that needs given draws (the parity tests feed the JAX step's) passes
-``draws``.
+``draws``. Under accumulation one set of coins and crop offsets serves the
+whole step, microbatch i takes rows [i·B/k, (i+1)·B/k) of ε in both passes,
+and the revival rows index the z of the whole batch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -55,6 +79,7 @@ from vqgan_tpu_torch.losses.gan import (
     update_lecam_anchors,
 )
 from vqgan_tpu_torch.losses.recon import vae_loss_function
+from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.quant import apply_ema_codebook_update, revive_dead_codes
 from vqgan_tpu_torch.ops.gradnorm import gradnorm
 from vqgan_tpu_torch.ops.resize import resize_area
@@ -157,18 +182,17 @@ def z_statistics(z: torch.Tensor) -> dict[str, torch.Tensor]:
     return out
 
 
-def discriminator_update(cfg: TrainConfig, disc: nn.Module, state: TrainState,
-                         real: torch.Tensor, fake: torch.Tensor,
-                         metrics: dict[str, torch.Tensor]) -> None:
-    """One AdamW step of D on the real and the (detached) fake inputs: the GAN
-    loss, the LeCam anchors EMA'd from the logits first and the penalty taken
-    against the new anchors (reference :639-655); D's metrics go to
-    ``metrics``."""
+def discriminator_loss(cfg: TrainConfig, disc: Callable, anchors: tuple,
+                       real: torch.Tensor, fake: torch.Tensor):
+    """D's loss on the real and the (detached) fake inputs: the GAN loss, the
+    LeCam anchors EMA'd from the logits first and the penalty taken against
+    the new anchors (reference :639-655). Returns ``(total, metrics, new
+    anchors)``."""
     real_preds = disc(real)
     fake_preds = disc(fake)
     d_loss, d_metrics = gan_disc_loss(real_preds, fake_preds, cfg.disc_type)
     new_real, new_fake = update_lecam_anchors(
-        state.lecam_real, state.lecam_fake,
+        anchors[0], anchors[1],
         d_metrics["avg_real_logits"].detach(),
         d_metrics["avg_fake_logits"].detach(),
         cfg.lecam_beta,
@@ -178,18 +202,87 @@ def discriminator_update(cfg: TrainConfig, disc: nn.Module, state: TrainState,
     if cfg.use_lecam:
         lecam_val = lecam_penalty(real_preds, fake_preds, new_real, new_fake)
         total_d = total_d + cfg.lecam_weight * lecam_val
+    metrics = {
+        "gan/discriminator_loss": d_loss.detach(),
+        "gan/discriminator_accuracy": d_metrics["disc_acc"],
+        "gan/avg_real_logits": d_metrics["avg_real_logits"].detach(),
+        "gan/avg_fake_logits": d_metrics["avg_fake_logits"].detach(),
+        "gan/lecam_loss": lecam_val.detach(),
+    }
+    return total_d, metrics, (new_real, new_fake)
+
+
+def discriminator_update(cfg: TrainConfig, disc: Callable, state: TrainState,
+                         pairs: Iterable[tuple[torch.Tensor, torch.Tensor]], accum: int,
+                         metrics: dict[str, torch.Tensor]) -> None:
+    """One AdamW step of D (``state.d_model``, called through ``disc``) on
+    the mean of its gradients over ``pairs``, each microbatch's (real,
+    detached fake) inputs (one pair without accumulation), taken a pair at a
+    time: ``discriminator_loss``, the LeCam anchors advancing a pair at a
+    time (JAX's D scan). The mean of D's metrics and the last anchors go to
+    ``metrics``."""
+    grads = GradMean(state.d_model.parameters(), accum)
+    anchors = (state.lecam_real, state.lecam_fake)
+    outs = []
     state.d_opt.zero_grad(set_to_none=True)
-    total_d.backward()
+    for real, fake in pairs:
+        total_d, d_metrics, anchors = discriminator_loss(cfg, disc, anchors, real, fake)
+        total_d.backward()
+        grads.take()
+        outs.append(d_metrics)
+    grads.put()
     state.d_opt.step()
     state.d_opt.zero_grad(set_to_none=True)
-    state.lecam_real, state.lecam_fake = new_real, new_fake
-    metrics["gan/discriminator_loss"] = d_loss.detach()
-    metrics["gan/discriminator_accuracy"] = d_metrics["disc_acc"]
-    metrics["gan/avg_real_logits"] = d_metrics["avg_real_logits"].detach()
-    metrics["gan/avg_fake_logits"] = d_metrics["avg_fake_logits"].detach()
-    metrics["gan/lecam_loss"] = lecam_val.detach()
-    metrics["gan/lecam_anchor_real_logits"] = new_real
-    metrics["gan/lecam_anchor_fake_logits"] = new_fake
+    state.lecam_real, state.lecam_fake = anchors
+    metrics.update(mean_metrics(outs))
+    metrics["gan/lecam_anchor_real_logits"] = anchors[0]
+    metrics["gan/lecam_anchor_fake_logits"] = anchors[1]
+
+
+def microbatches(batch: torch.Tensor, accum: int) -> list[torch.Tensor]:
+    """``batch`` split along dim 0 into ``accum`` equal microbatches (views)."""
+    b = batch.shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
+    return list(batch.split(b // accum))
+
+
+class GradMean:
+    """The mean of the parameters' gradients over ``accum`` backwards, summed
+    as the JAX scan sums them: acc ← acc + g/accum in call order, so that a
+    power-of-two ``accum`` gives the full-batch mean's rounding. ``take()``
+    after each backward moves the ``.grad`` tensors in and clears them;
+    ``put()`` sets each ``.grad`` to its mean (None where no backward
+    reached it)."""
+
+    def __init__(self, params, accum: int):
+        self.params = list(params)
+        self.accum = accum
+        self.sums: list[Optional[torch.Tensor]] = [None] * len(self.params)
+
+    def take(self) -> None:
+        have = [(i, p.grad) for i, p in enumerate(self.params) if p.grad is not None]
+        if not have:
+            return
+        torch._foreach_div_([g for _, g in have], float(self.accum))
+        old = [(self.sums[i], g) for i, g in have if self.sums[i] is not None]
+        if old:
+            torch._foreach_add_([a for a, _ in old], [g for _, g in old])
+        for i, g in have:
+            if self.sums[i] is None:
+                self.sums[i] = g
+        for p in self.params:
+            p.grad = None
+
+    def put(self) -> None:
+        for p, g in zip(self.params, self.sums):
+            p.grad = g
+        self.sums = [None] * len(self.params)
+
+
+def mean_metrics(outs: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """Each metric's mean over the microbatches' dicts."""
+    return {k: torch.stack([o[k].detach().float() for o in outs]).mean() for k in outs[0]}
 
 
 @contextlib.contextmanager
@@ -254,11 +347,6 @@ def make_train_step(
     ``cfg.gradnorm_mode = "mean_shard_norm"``; 1 = global-norm mode."""
     if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
         raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
-    if cfg.grad_accum > 1:
-        raise NotImplementedError(
-            "grad_accum > 1: the microbatched step is not ported yet "
-            "(ROADMAP.md, Queue 1: train state and step)"
-        )
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
     gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
@@ -282,7 +370,19 @@ def make_train_step(
         side = max(1, int(round(frac * z_side)))
         return side, side
 
-    def gen_forward(batch, draws, do_crop, vq_ema):
+    # LPIPS and D as rematerialized regions with remat (JAX step.py:171-177)
+    loss_policy = "full" if vae_cfg.remat else None
+
+    def disc_apply(x):
+        return remat_call(disc, loss_policy, x)
+
+    def lpips_apply(x, y):
+        return remat_call(lpips, loss_policy, x, y)
+
+    def gen_forward(batch, draws, do_crop, vq_ema, stats: bool = True):
+        """→ (recon, z, target, z_pre, aux_loss, new_ema). ``stats=False``
+        (D's pass under accumulation): VQ quantizes without its loss and
+        statistics."""
         if batch.dtype == torch.uint8:
             batch = batch.float() / 127.5 - 1.0
         x_enc = resize_area(batch, (enc_res, enc_res))
@@ -294,7 +394,9 @@ def make_train_step(
         if cfg.do_clamp:
             z = z.clamp(-cfg.clamp_th, cfg.clamp_th)
         aux_loss = new_ema = None
-        if use_vq:
+        if use_vq and not stats:
+            z_s = vae.reg.quantize(z)
+        elif use_vq:
             z_s, aux, new_ema = vae.regularize(z, vq_ema, update_stats=use_vq_ema)
             aux_loss = aux["vq_loss"]
         else:
@@ -319,7 +421,7 @@ def make_train_step(
         if cfg.augment_before_perceptual_loss:
             recon_lpips, target_aug = _flip_if(draws.aug_lpips_w, (recon_lpips, target_aug), 2)
             recon_lpips, target_aug = _flip_if(draws.aug_lpips_h, (recon_lpips, target_aug), 1)
-        percep = lpips(recon_lpips.float(), target_aug).mean()
+        percep = lpips_apply(recon_lpips.float(), target_aug).mean()
         metrics["perceptual_loss"] = percep
 
         recon_mse = gradnorm(recon, cfg.gradnorm_mse, None, gn_shards)
@@ -334,7 +436,7 @@ def make_train_step(
             total = total + aux_loss
         if cfg.do_ganloss:
             recon_gan = gradnorm(recon, cfg.gradnorm_gan, None, gn_shards)
-            g_gan = generator_gan_loss(disc(recon_gan.float()), cfg.disc_type)
+            g_gan = generator_gan_loss(disc_apply(recon_gan.float()), cfg.disc_type)
             metrics["gan/generator_gan_loss"] = g_gan
             total = total + g_gan
         metrics["overall_vae_loss"] = total
@@ -342,8 +444,8 @@ def make_train_step(
             metrics["vq_loss"] = aux_loss
         return total, metrics
 
-    def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
-             draws: Optional[StepDraws] = None):
+    def step_draws(state: TrainState, batch: torch.Tensor, do_crop: int,
+                   draws: Optional[StepDraws]) -> StepDraws:
         if draws is None:
             crop_range = (0, 0)
             if do_crop:
@@ -358,6 +460,11 @@ def make_train_step(
             raise ValueError("vq_revive_threshold > 0: draws.revive_idx is needed")
         elif sampled and draws.eps is None:
             raise ValueError("reg_type='gaussian': draws.eps is needed")
+        return draws
+
+    def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
+             draws: Optional[StepDraws] = None):
+        draws = step_draws(state, batch, do_crop, draws)
 
         # --- shared generator forward (one forward, one backward per step) ---
         recon, z, target, z_pre, aux_loss, new_ema = gen_forward(batch, draws, do_crop,
@@ -366,7 +473,8 @@ def make_train_step(
 
         # --- discriminator update, before G ---
         if cfg.do_ganloss:
-            discriminator_update(cfg, disc, state, target, recon.detach().float(), metrics)
+            discriminator_update(cfg, disc_apply, state, [(target, recon.detach().float())],
+                                 1, metrics)
 
         # --- generator update against the updated D; D's params take no
         # gradient from this backward ---
@@ -388,4 +496,62 @@ def make_train_step(
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
         return state, metrics
 
-    return step
+    if cfg.grad_accum <= 1:
+        return step
+    accum = cfg.grad_accum
+
+    def step_accum(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
+                   draws: Optional[StepDraws] = None):
+        mbs = microbatches(batch, accum)
+        draws = step_draws(state, batch, do_crop, draws)
+        mb = mbs[0].shape[0]
+
+        def mb_draws(i: int) -> StepDraws:
+            if draws.eps is None:
+                return draws
+            return dataclasses.replace(draws, eps=draws.eps[i * mb:(i + 1) * mb])
+
+        def d_pairs():
+            """D's pass: each microbatch's generator without autograd."""
+            for i, xb in enumerate(mbs):
+                with torch.no_grad():
+                    recon, _, target, _, _, _ = gen_forward(xb, mb_draws(i), do_crop,
+                                                            state.vq_ema, stats=False)
+                yield target, recon.float()
+
+        metrics: dict[str, torch.Tensor] = {}
+        if cfg.do_ganloss:
+            discriminator_update(cfg, disc_apply, state, d_pairs(), accum, metrics)
+
+        # --- G's pass against the updated D: forward and backward a
+        # microbatch, the mean gradient ---
+        g_grads = GradMean(vae.parameters(), accum)
+        vq_ema = state.vq_ema
+        g_outs, z_all = [], []
+        state.g_opt.zero_grad(set_to_none=True)
+        for i, xb in enumerate(mbs):
+            recon, z, target, z_pre, aux_loss, new_ema = gen_forward(xb, mb_draws(i), do_crop,
+                                                                     vq_ema)
+            with frozen(disc if cfg.do_ganloss else None):
+                total, g_m = g_losses(recon, z, aux_loss, target, mb_draws(i))
+            total.backward()
+            g_grads.take()
+            g_m.update(z_statistics(z_pre))
+            g_outs.append(g_m)
+            z_all.append(z.detach())
+            if use_vq_ema:
+                vq_ema = new_ema
+        g_grads.put()
+        state.g_opt.step()
+        state.g_sched.step()
+        state.g_opt.zero_grad(set_to_none=True)
+        if use_vq_ema:
+            fold_codebook(state, vae, vq_ema, torch.cat(z_all), draws.revive_idx,
+                          vae_cfg.vq_revive_threshold)
+        if cfg.ema_decay > 0:
+            polyak_update(state, vae, cfg.ema_decay)
+        state.step += 1
+        metrics.update(mean_metrics(g_outs))
+        return state, metrics
+
+    return step_accum

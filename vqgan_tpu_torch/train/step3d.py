@@ -1,7 +1,6 @@
 """The train steps of the 3D video VAE (TVAE): recon-only and full GAN
 (counterparts of ``vqgan_tpu/train/trainer3d.py::make_train_step_3d`` and
-``vqgan_tpu/train/step3d.py::make_train_step_3d_gan``, both at
-``grad_accum <= 1``).
+``vqgan_tpu/train/step3d.py::make_train_step_3d_gan``).
 
 Clips are (B, T, H, W, 3) floats in [-1, 1]. The latent is the
 reparameterized Gaussian (``models/tae.py::reparameterize``: a sample and its
@@ -26,9 +25,24 @@ The GAN step, in order (the JAX order):
   - one backward, G's AdamW step and its scheduler step;
   - VQ with EMA: the fold and the revival; then the Polyak EMA.
 
+With ``grad_accum`` = k > 1 the clip batch is k microbatches and the step
+is one step at the whole batch, as the 2D ``step_accum`` (``train/step.py``):
+the recon-only step takes each microbatch's forward and backward and one
+AdamW step on the mean gradient (JAX ``trainer3d.py:115-150``); the GAN step
+runs D's pass (each microbatch's generator forward without autograd, VQ
+without statistics as JAX's ``gen_forward_nostats``, D's mean gradient, the
+anchors a microbatch at a time, one D step), then G's pass against the
+updated D (JAX ``step3d.py:333-494``). The VQ statistics run through the
+microbatches of the one pass that takes them; revival samples every
+microbatch's z. With ``tvae_cfg.remat`` LPIPS and D are rematerialized
+regions too.
+
 Randomness: ε, the frame phase u and the revival rows are drawn from the
 state's ``torch.Generator`` on the device, or given as ``Step3DDraws`` (the
-parity tests feed the JAX step's).
+parity tests feed the JAX step's). Under accumulation one phase u serves the
+step, microbatch i takes rows [i·B/k, (i+1)·B/k) of ε in both passes (drawn
+a microbatch at a time when not given), and the revival rows index the z of
+the whole batch.
 """
 
 from __future__ import annotations
@@ -41,13 +55,17 @@ import torch.nn as nn
 
 from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
 from vqgan_tpu_torch.losses.gan import generator_gan_loss
+from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.tae import reparameterize
 from vqgan_tpu_torch.ops.gradnorm import gradnorm
 from vqgan_tpu_torch.train.state import TrainState
 from vqgan_tpu_torch.train.step import (
+    GradMean,
     discriminator_update,
     fold_codebook,
     frozen,
+    mean_metrics,
+    microbatches,
     polyak_update,
 )
 
@@ -85,10 +103,6 @@ def flat_frames(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(cfg: TrainConfig, tvae_cfg: TVAEConfig) -> None:
-    if cfg.grad_accum > 1:
-        raise NotImplementedError(
-            "grad_accum > 1: the microbatched 3D step is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
     if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
         raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
     if tvae_cfg.reg_type not in ("gaussian", "vq"):
@@ -106,15 +120,20 @@ class _Latent:
         self.revive_threshold = tvae_cfg.vq_revive_threshold if self.use_vq_ema else 0.0
         self.codebook_size = tvae_cfg.vq_codebook_size
 
-    def __call__(self, z: torch.Tensor, state: TrainState, draws: Step3DDraws):
-        """→ (z_s, reg_loss, new_ema or None); fills ``draws.eps``."""
+    def __call__(self, z: torch.Tensor, generator: torch.Generator,
+                 vq_ema: Optional[dict], draws: Step3DDraws, stats: bool = True):
+        """→ (z_s, reg_loss, new_ema or None); fills ``draws.eps``.
+        ``stats=False`` (D's pass under accumulation): VQ quantizes without
+        its loss and statistics (reg_loss None)."""
         if self.gaussian:
             if draws.eps is None:
                 draws.eps = torch.randn(*z.shape[:-1], z.shape[-1] // 2,
-                                        generator=state.generator, device=z.device)
+                                        generator=generator, device=z.device)
             z_s, kl = reparameterize(z, draws.eps)
             return z_s, kl, None
-        z_s, aux, new_ema = self.model.regularize(z, state.vq_ema, self.use_vq_ema)
+        if not stats:
+            return self.model.reg.quantize(z), None, None
+        z_s, aux, new_ema = self.model.regularize(z, vq_ema, self.use_vq_ema)
         return z_s, aux["vq_loss"], new_ema
 
     def fold(self, state: TrainState, new_ema, z: torch.Tensor, draws: Step3DDraws) -> None:
@@ -129,6 +148,26 @@ class _Latent:
         fold_codebook(state, self.model, new_ema, z, draws.revive_idx, self.revive_threshold)
 
 
+class _Microbatches:
+    """A step's clip batch as ``accum`` microbatches and each one's draws:
+    rows of the step's ε when it is given, else ε drawn a microbatch at a
+    time and kept for both passes; ``gather()`` puts the whole batch's ε
+    into the step's draws."""
+
+    def __init__(self, batch: torch.Tensor, accum: int, draws: Step3DDraws):
+        self.clips = microbatches(batch, accum)
+        self.draws = draws
+        mb = self.clips[0].shape[0]
+        self.each = [Step3DDraws(eps=None if draws.eps is None
+                                 else draws.eps[i * mb:(i + 1) * mb],
+                                 frame_u=draws.frame_u)
+                     for i in range(accum)]
+
+    def gather(self) -> None:
+        if self.draws.eps is None and self.each[0].eps is not None:
+            self.draws.eps = torch.cat([d.eps for d in self.each])
+
+
 def make_train_step_3d(
     cfg: TrainConfig, tvae_cfg: TVAEConfig, model: nn.Module,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
@@ -139,22 +178,40 @@ def make_train_step_3d(
     in place."""
     _check(cfg, tvae_cfg)
     latent = _Latent(tvae_cfg, model)
+    accum = max(1, cfg.grad_accum)
 
-    def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
-        draws = Step3DDraws() if draws is None else draws
-        batch = clips.float()
+    def loss(state, batch, vq_ema, draws):
+        """One microbatch's (total, metrics, z, new EMA statistics)."""
         z = model.encode(batch)
-        z_s, reg, new_ema = latent(z, state, draws)
+        z_s, reg, new_ema = latent(z, state.generator, vq_ema, draws)
         recon = model.decode(z_s)
         rec = (recon.float() - batch).square().mean()
         total = rec + cfg.z_reg_weight * reg
+        metrics = {"recon_l2": rec.detach(), "kl": reg.detach(), "loss": total.detach()}
+        return total, metrics, z, new_ema
+
+    def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
+        draws = Step3DDraws() if draws is None else draws
+        mbs = _Microbatches(clips.float(), accum, draws)
+        grads = GradMean(model.parameters(), accum)
+        new_ema, outs, zs = state.vq_ema, [], []
         state.g_opt.zero_grad(set_to_none=True)
-        total.backward()
+        for xb, d in zip(mbs.clips, mbs.each):
+            total, m, z, ema = loss(state, xb, new_ema, d)
+            total.backward()
+            grads.take()
+            outs.append(m)
+            zs.append(z.detach())
+            if latent.use_vq_ema:
+                new_ema = ema
+        grads.put()
+        mbs.gather()
+        metrics, z = mean_metrics(outs), torch.cat(zs)
         state.g_opt.step()
         state.g_opt.zero_grad(set_to_none=True)
         latent.fold(state, new_ema, z, draws)
         state.step += 1
-        return state, {"recon_l2": rec.detach(), "kl": reg.detach(), "loss": total.detach()}
+        return state, metrics
 
     return step
 
@@ -182,6 +239,15 @@ def make_train_step_3d_gan(
     latent = _Latent(tvae_cfg, model)
     tubelet = cfg.disc_3d == "tubelet"
     k = cfg.video_loss_frames
+    accum = max(1, cfg.grad_accum)
+    # LPIPS and D as rematerialized regions with remat (JAX step3d.py:159-161)
+    loss_policy = "full" if tvae_cfg.remat else None
+
+    def disc_apply(x):
+        return remat_call(disc, loss_policy, x)
+
+    def lpips_apply(x, y):
+        return remat_call(lpips, loss_policy, x, y)
 
     def disc_in(clip: torch.Tensor) -> torch.Tensor:
         """The frame disc takes a (B·T) frame batch, the tubelet disc the
@@ -194,7 +260,8 @@ def make_train_step_3d_gan(
         # LPIPS and the GAN branch see the frame subset, L2 every frame
         recon_f, target_f = frame_subset((recon, batch), k, u)
         recon_lpips = gradnorm(recon_f, cfg.gradnorm_lpips, None, gn_shards)
-        percep = lpips(flat_frames(recon_lpips.float()), flat_frames(target_f.float())).mean()
+        percep = lpips_apply(flat_frames(recon_lpips.float()),
+                             flat_frames(target_f.float())).mean()
         metrics["perceptual_loss"] = percep
         recon_mse = gradnorm(recon, cfg.gradnorm_mse, None, gn_shards)
         rec = (recon_mse.float() - batch).square().mean()
@@ -203,7 +270,7 @@ def make_train_step_3d_gan(
         total = percep + rec + cfg.z_reg_weight * reg_loss
         if cfg.do_ganloss:
             recon_gan = gradnorm(recon_f, cfg.gradnorm_gan, None, gn_shards)
-            g_gan = generator_gan_loss(disc(disc_in(recon_gan)), cfg.disc_type)
+            g_gan = generator_gan_loss(disc_apply(disc_in(recon_gan)), cfg.disc_type)
             metrics["gan/generator_gan_loss"] = g_gan
             total = total + g_gan
         metrics["overall_vae_loss"] = total
@@ -215,18 +282,20 @@ def make_train_step_3d_gan(
         batch = clips.float()
         if draws.frame_u is None and 0 < k < batch.shape[1]:
             draws.frame_u = torch.rand((), generator=state.generator, device=batch.device)
+        if accum > 1:
+            return step_accum(state, batch, draws)
 
         # --- the one generator forward; its graph stays alive ---
         z = model.encode(batch)
-        z_s, reg, new_ema = latent(z, state, draws)
+        z_s, reg, new_ema = latent(z, state.generator, state.vq_ema, draws)
         recon = model.decode(z_s)
         metrics = {}
 
         # --- D's update before G, on the same frame subset ---
         if cfg.do_ganloss:
             recon_f, target_f = frame_subset((recon.detach().float(), batch), k, draws.frame_u)
-            discriminator_update(cfg, disc, state, disc_in(target_f), disc_in(recon_f),
-                                 metrics)
+            discriminator_update(cfg, disc_apply, state, [(disc_in(target_f), disc_in(recon_f))],
+                                 1, metrics)
 
         # --- G against the updated D; D's params take no gradient ---
         with frozen(disc if cfg.do_ganloss else None):
@@ -241,6 +310,52 @@ def make_train_step_3d_gan(
             polyak_update(state, model, cfg.ema_decay)
         state.step += 1
         metrics.update({name: v.detach() for name, v in g_metrics.items()})
+        return state, metrics
+
+    def step_accum(state: TrainState, batch: torch.Tensor, draws: Step3DDraws):
+        mbs = _Microbatches(batch, accum, draws)
+
+        def d_pairs():
+            """D's pass: each microbatch's generator without autograd or VQ
+            statistics, on the step's frame subset."""
+            for xb, d in zip(mbs.clips, mbs.each):
+                with torch.no_grad():
+                    z_s, _, _ = latent(model.encode(xb), state.generator, state.vq_ema, d,
+                                       stats=False)
+                    recon = model.decode(z_s)
+                recon_f, target_f = frame_subset((recon.float(), xb), k, draws.frame_u)
+                yield disc_in(target_f), disc_in(recon_f)
+
+        metrics: dict[str, torch.Tensor] = {}
+        if cfg.do_ganloss:
+            discriminator_update(cfg, disc_apply, state, d_pairs(), accum, metrics)
+
+        # --- G's pass against the updated D ---
+        g_grads = GradMean(model.parameters(), accum)
+        vq_ema, g_outs, zs = state.vq_ema, [], []
+        state.g_opt.zero_grad(set_to_none=True)
+        for xb, d in zip(mbs.clips, mbs.each):
+            z = model.encode(xb)
+            z_s, reg, new_ema = latent(z, state.generator, vq_ema, d)
+            recon = model.decode(z_s)
+            with frozen(disc if cfg.do_ganloss else None):
+                total, g_m = g_losses(recon, reg, xb, draws.frame_u)
+            total.backward()
+            g_grads.take()
+            g_outs.append(g_m)
+            zs.append(z.detach())
+            if latent.use_vq_ema:
+                vq_ema = new_ema
+        g_grads.put()
+        mbs.gather()
+        state.g_opt.step()
+        state.g_sched.step()
+        state.g_opt.zero_grad(set_to_none=True)
+        latent.fold(state, vq_ema, torch.cat(zs), draws)
+        if cfg.ema_decay > 0:
+            polyak_update(state, model, cfg.ema_decay)
+        state.step += 1
+        metrics.update(mean_metrics(g_outs))
         return state, metrics
 
     return step

@@ -4,7 +4,7 @@ the reference's ``train_ddp``, vae_trainer.py:339-912).
 
 The JAX trainer's mesh, multi-host and context-parallel feed are not
 ported: the port trains on one card (``mesh_shape`` must describe one
-device; multi-GPU is ROADMAP.md Queue 1 item 8). Everything else keeps the
+device; multi-GPU is an item of ROADMAP.md Queue 1). Everything else keeps the
 JAX trainer's order and cadence: the seeded init, ``load_path`` /
 ``lpips_weights`` / ``disc_backbone_weights``, the full-state resume, the
 data stream reseeded by the resume step (indexed data resumes sample-exact),
@@ -76,8 +76,8 @@ def one_device_mesh(mesh_shape: str) -> None:
         if int(extent) not in (1, -1):
             raise NotImplementedError(
                 f"mesh_shape {mesh_shape!r}: axis {name.strip()}={extent} needs several "
-                "devices; the port trains on one card (multi-GPU is ROADMAP.md, "
-                "Queue 1 item 8)")
+                "devices; the port trains on one card (ROADMAP.md, Queue 1: "
+                "multi-GPU)")
 
 
 class Trainer:

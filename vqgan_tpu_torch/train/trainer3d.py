@@ -14,10 +14,11 @@ sample-exact). The eval batch is fixed once per run. Every
 ``evaluate_every_n_steps`` (``(step + 1) % n == 1``) the NaN guard, the eval
 and a full-state checkpoint; at the end the same at ``max_steps``.
 
-Not ported: the mesh, the multi-host feed and the context-parallel ring
-attention (a mesh of several devices raises NotImplementedError, ROADMAP.md
-Queue 1 item 8), and ``grad_accum > 1`` (NotImplementedError from the step,
-Queue 1 item 5).
+``grad_accum > 1`` splits each batch into microbatches
+(``train/step3d.py``); ``remat`` makes the model's levels and blocks
+rematerialized regions. Not ported: the mesh, the multi-host feed and the
+context-parallel ring attention (a mesh of several devices raises
+NotImplementedError, ROADMAP.md Queue 1: multi-GPU).
 
 One deliberate difference from the JAX trainer: ``load_path`` loads G before
 the train state is built, so the Polyak EMA and the VQ EMA statistics start
