@@ -261,9 +261,30 @@ Phases, each fatal on failure:
      512 px level at microbatches of 8 and 16 and the eval's batch of 32
      among them. Phase 32 also prints, for each remat mode, what is live at a
      step's peak by the port's allocating line (``peak_by_line``); phase 31
-     holds the nearest upsample at the eval's 2^31 outputs row by row.
+     holds the nearest upsample at the eval's 2^31 outputs row by row;
+ 35. the flagship 2D serving artifacts (``vqgan_tpu_torch.export``): phase
+     5's identity model's .pt exported by the CLI in a subprocess, and a
+     flagship VQ model (phase 10's K) with the mid-block attention (phase
+     14's chunk) by ``export_vae`` in process; each loaded by
+     ``ExportedVAE.load`` and called at batches 8, 1 and 3: encode, decode
+     and reconstruct within 1e-6 of ``VAEPipeline`` on the same weights and
+     inputs, and a reconstruct's launches of #1, #3 and #4 equal to the
+     pipeline's (50; 52, 2 and 1); export seconds, img/s of the artifact and
+     of the pipeline at batch 8 by the host clock and CUDA events, peak
+     memory;
+ 36. the TVAE artifact at ``TVAEConfig()``'s width, 16f/128px, batch 2 (and
+     1): within 1e-6 of ``TVAEPipeline`` at ``conv3d_impl="direct"``, which
+     the export pins, #1's 52 launches as the pipeline's, none of #6;
+     frames/s of the artifact, the direct pipeline and the "auto" one;
+ 37. portability: a 2D VQ + attention artifact at phase 12's reduced width
+     and a TVAE artifact at phase 21's, traced on the card and run on the
+     CPU, within phase 21's bounds of the CPU pipelines; traced on the CPU
+     and run on the card, the kernels launched as the card's pipeline
+     launches them (#1, #3, #4; #1, #3), within the same bounds of it.
 
-The kernels are built in parallel, one nvcc per source. The second-to-last
+The kernels are built in parallel, one nvcc per source. The ``kernels``
+line's launches add the main paths' (phases 6, 11, 16, 19), the training
+jobs' (28-29, 31-33) and the served artifacts' (35-37). The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits 1 and prints neither.
 """
@@ -3997,6 +4018,293 @@ def phase_native_decoder(tmp: str) -> dict:
     return {"built": True, "rates": rates}
 
 
+# the serving artifacts of phases 35-37: encode, decode and reconstruct at
+# these batches, all from one artifact, against the pipelines within
+# EXPORT_ATOL (the same kernels on the same inputs)
+EXPORT_BATCHES = (8, 1, 3)
+EXPORT_ATOL = 1e-6
+# kernel launches of one reconstruct of each artifact (and of its pipeline):
+# the flagship identity model's 50 GroupNorms; with the mid-block attention
+# 52 and 2 attention calls, and one search for VQ; the TVAE's 52 GroupNorms
+EXPORT_LAUNCHES = {"identity": {"gn": 50, "attn": 0, "nearest": 0},
+                   "vq_attn": {"gn": 52, "attn": 2, "nearest": 1},
+                   "tvae": {"gn": 52, "attn": 0, "nearest": 0}}
+
+
+def _zero_serving(gn, ac, vq, cc=None) -> None:
+    gn.launches = ac.fwd_launches = ac.tc_launches = ac.fma_launches = 0
+    vq.nearest_launches = 0
+    if cc is not None:
+        cc.launches = cc.tc_launches = cc.fma_launches = 0
+
+
+def _serving_counts(gn, ac, vq) -> dict:
+    return {"gn": gn.launches, "attn": ac.fwd_launches, "nearest": vq.nearest_launches}
+
+
+def _max_err(a, b) -> float:
+    a = a.float().cpu() if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    b = b.float().cpu() if isinstance(b, torch.Tensor) else torch.from_numpy(np.asarray(b))
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {tuple(a.shape)} and {tuple(b.shape)}")
+    return float((a - b).abs().max())
+
+
+def check_artifact(art, pipe, inputs, batches, what: str, gn, ac, vq, expect: dict) -> dict:
+    """Encode, decode (of the pipeline's latents) and reconstruct of the
+    artifact against the pipeline at each batch of ``batches`` (the first
+    ``b`` items of ``inputs``), each within EXPORT_ATOL; then the launches
+    of one reconstruct of the first batch on each side, counted from 0: equal,
+    and equal to ``expect``. Returns the artifact's counts and the largest
+    error."""
+    worst = 0.0
+    for b in batches:
+        x = inputs[:b]
+        z, z_ref = art.encode(x), pipe.encode(x)
+        if z.dtype != torch.float32 or z.device != art.device:
+            raise AssertionError(f"{what}: latents {z.dtype} on {z.device}")
+        errs = (_max_err(z, z_ref), _max_err(art.decode(z_ref), pipe.decode(z_ref)),
+                _max_err(art.reconstruct(x), pipe.reconstruct(x)))
+        log(f"{what} batch {b}: artifact vs pipeline max_abs_err encode {errs[0]:.3e}, "
+            f"decode {errs[1]:.3e}, reconstruct {errs[2]:.3e}")
+        if max(errs) > EXPORT_ATOL:
+            raise AssertionError(f"{what}: the artifact differs from the pipeline at batch {b}")
+        worst = max(worst, *errs)
+    x = inputs[:batches[0]]
+    counts = {}
+    for side, fn in (("artifact", art.reconstruct), ("pipeline", pipe.reconstruct)):
+        _zero_serving(gn, ac, vq)
+        fn(x)
+        counts[side] = _serving_counts(gn, ac, vq)
+    log(f"{what}: launches of one reconstruct at batch {batches[0]} {counts}")
+    if counts["artifact"] != counts["pipeline"] or counts["artifact"] != expect:
+        raise AssertionError(f"{what}: expected {expect} launches on both sides")
+    return {"launches": counts["artifact"], "err": worst}
+
+
+def time_serving(reconstruct, x, items: int, iters: int = 3) -> dict:
+    """Items/s (``items`` a call: images or clip frames) of
+    ``reconstruct(x)`` (ends in a device-to-host copy) by the host clock
+    over ``iters`` calls after one untimed, ms a call between CUDA events,
+    and the peak memory of the timed calls."""
+    reconstruct(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        reconstruct(x)
+    seconds = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated()
+    ms = cuda_ms(lambda: reconstruct(x), iters=iters, warmup=0)
+    return {"items_per_s": items / seconds, "host_ms": seconds * 1e3, "event_ms": ms,
+            "peak_bytes": peak}
+
+
+def _timing_line(name: str, t: dict, unit: str, items: int) -> str:
+    return (f"{name} {t['items_per_s']:.3f} {unit}/s ({t['host_ms']:.1f} ms a reconstruct by the "
+            f"host clock, {t['event_ms']:.1f} ms between CUDA events, {items * 1e3 / t['event_ms']:.3f} "
+            f"{unit}/s by events), peak {t['peak_bytes'] / 2**30:.3f} GiB")
+
+
+def phase_export_2d(gn, ac, vq, tmp: str) -> dict:
+    """Phase 35: the flagship 2D artifacts on the card. The phase 5 identity
+    model's .pt exported by the CLI in a subprocess, a flagship VQ model with
+    the mid-block attention (phase 14's chunk, phase 10's K) exported in
+    process; each loaded and held against ``VAEPipeline``."""
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.export import ExportedVAE, export_vae
+    from vqgan_tpu_torch.inference import VAEPipeline
+    from vqgan_tpu_torch.models.ae import init_vae
+    from vqgan_tpu_torch.weights import save_weights
+
+    set_tf32(True)
+    out = {"launches": {}}
+    cfg = VAEConfig()
+    images = np.random.RandomState(35).randint(
+        0, 256, (max(EXPORT_BATCHES), cfg.resolution, cfg.resolution, 3), np.uint8)
+    path = os.path.join(tmp, "export_flagship.pt")
+    save_weights(init_vae(cfg, torch.Generator().manual_seed(0)), path)
+    art_dir = os.path.join(tmp, "art_flagship")
+    cmd = [sys.executable, "-m", "vqgan_tpu_torch.export", "--checkpoint", path,
+           "--out_dir", art_dir, "--device", "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    out["cli_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the export CLI failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout}{proc.stderr}")
+    log(f"export 2D: {' '.join(cmd[1:])} in a subprocess: {out['cli_s']:.1f} s; "
+        f"{proc.stdout.strip()}")
+    t0 = time.perf_counter()
+    art = ExportedVAE.load(art_dir)
+    log(f"export 2D: ExportedVAE.load {time.perf_counter() - t0:.1f} s, device {art.device}, "
+        f"manifest {art.manifest['format']} torch {art.manifest['torch_version']}")
+    pipe = VAEPipeline.from_checkpoint(path, cfg, device="cuda")
+    res = check_artifact(art, pipe, images, EXPORT_BATCHES, "export 2D identity", gn, ac, vq,
+                         EXPORT_LAUNCHES["identity"])
+    out["launches"]["identity"], out["err"] = res["launches"], res["err"]
+    x = images[:SERVE_BATCH]
+    out["identity"] = {"artifact": time_serving(art.reconstruct, x, SERVE_BATCH),
+                       "pipeline": time_serving(pipe.reconstruct, x, SERVE_BATCH)}
+    for side, t in out["identity"].items():
+        log(_timing_line(f"export 2D identity batch {SERVE_BATCH}: {side}", t, "img",
+                         SERVE_BATCH))
+    del art, pipe
+    torch.cuda.empty_cache()
+
+    cfg = VAEConfig(use_attn=True, attn_chunk=ATTN_CHUNK, reg_type="vq", vq_ema_decay=0.0)
+    sd = init_vae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    art_dir = os.path.join(tmp, "art_flagship_vq_attn")
+    t0 = time.perf_counter()
+    export_vae(cfg, sd, art_dir, device="cuda")
+    out["export_s"] = time.perf_counter() - t0
+    art = ExportedVAE.load(art_dir)
+    log(f"export 2D: export_vae of the VQ + attention flagship (K={cfg.vq_codebook_size}, "
+        f"attn_chunk={cfg.attn_chunk}) in process: {out['export_s']:.1f} s")
+    pipe = VAEPipeline(cfg, sd, device="cuda")
+    res = check_artifact(art, pipe, images, EXPORT_BATCHES, "export 2D vq + attention", gn, ac,
+                         vq, EXPORT_LAUNCHES["vq_attn"])
+    out["launches"]["vq_attn"], out["err"] = res["launches"], max(out["err"], res["err"])
+    out["vq_attn"] = {"artifact": time_serving(art.reconstruct, x, SERVE_BATCH),
+                      "pipeline": time_serving(pipe.reconstruct, x, SERVE_BATCH)}
+    for side, t in out["vq_attn"].items():
+        log(_timing_line(f"export 2D vq + attention batch {SERVE_BATCH}: {side}", t, "img",
+                         SERVE_BATCH))
+    del art, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_export_tvae(gn, cc, ac, vq, tmp: str) -> dict:
+    """Phase 36: the TVAE artifact at ``TVAEConfig()``'s width, 16f/128px,
+    batch 2, against ``TVAEPipeline`` at ``conv3d_impl="direct"`` (the
+    export pins it, so kernel #6 is not in the artifact)."""
+    from vqgan_tpu_torch.config import TVAEConfig
+    from vqgan_tpu_torch.export import ExportedTVAE, export_tvae
+    from vqgan_tpu_torch.inference import TVAEPipeline
+    from vqgan_tpu_torch.weights import load_weights
+
+    set_tf32(True)
+    cfg = TVAEConfig(resolution=CLIP_RES)
+    auto, path = _clip_model(cfg, tmp, "tvae_export.pt")
+    direct = TVAEPipeline.from_checkpoint(path, dataclasses.replace(cfg, conv3d_impl="direct"),
+                                          device="cuda")
+    art_dir = os.path.join(tmp, "art_tvae")
+    t0 = time.perf_counter()
+    export_tvae(cfg, load_weights(path), art_dir, frames=CLIP_FRAMES, device="cuda")
+    out = {"export_s": time.perf_counter() - t0}
+    art = ExportedTVAE.load(art_dir)
+    log(f"export TVAE: export_tvae 16f/128px {out['export_s']:.1f} s; manifest "
+        f"{art.manifest['encode_input']} -> {art.manifest['encode_output']}")
+    clips = np.random.RandomState(36).randint(
+        0, 256, (CLIP_BATCH, CLIP_FRAMES, CLIP_RES, CLIP_RES, 3), np.uint8)
+    res = check_artifact(art, direct, clips, (CLIP_BATCH, 1), "export TVAE 16f/128px", gn, ac,
+                         vq, EXPORT_LAUNCHES["tvae"])
+    out["launches"], out["err"] = res["launches"], res["err"]
+    cc.launches = 0
+    art.reconstruct(clips)
+    if cc.launches:
+        raise AssertionError(f"{cc.launches} Conv3d kernel launches in the TVAE artifact")
+    frames = CLIP_BATCH * CLIP_FRAMES
+    out["timing"] = {"artifact": time_serving(art.reconstruct, clips, frames),
+                     "pipeline direct": time_serving(direct.reconstruct, clips, frames),
+                     "pipeline auto": time_serving(auto.reconstruct, clips, frames)}
+    for side, t in out["timing"].items():
+        log(_timing_line(f"export TVAE 16f/128px batch {CLIP_BATCH}: {side}", t, "frames",
+                         CLIP_BATCH * CLIP_FRAMES))
+    del art, direct, auto
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_across(got, ref, fp32: bool, what: str) -> None:
+    """Phase 21's bounds: ATOL_PATH_FP32 for an fp32 path, the bf16 path's
+    max and mean bounds else."""
+    got, ref = (t.float().cpu() if isinstance(t, torch.Tensor) else torch.from_numpy(t)
+                for t in (got, ref))
+    err = (got - ref).abs()
+    log(f"{what}: max_abs_err={float(err.max()):.3e} mean={float(err.mean()):.3e}")
+    ok = (float(err.max()) <= ATOL_PATH_FP32 if fp32 else
+          float(err.max()) <= MAX_TOL_PATH_BF16 and float(err.mean()) <= MEAN_TOL_PATH_BF16)
+    if not ok:
+        raise AssertionError(f"{what}: outside phase 21's bounds")
+
+
+def phase_export_portability(gn, ac, vq, tmp: str) -> dict:
+    """Phase 37: an artifact traced on the card, loaded on the CPU, against
+    the CPU pipeline; one traced on the CPU, loaded onto the card, launches
+    the kernels there, against the card's pipeline. A 2D VQ model with the
+    mid-block attention at phase 12's reduced width (kernels #1, #3, #4), and
+    the TVAE at phase 21's (#1, #3)."""
+    from vqgan_tpu_torch.config import TVAEConfig, VAEConfig
+    from vqgan_tpu_torch.export import ExportedTVAE, ExportedVAE, export_tvae, export_vae
+    from vqgan_tpu_torch.inference import TVAEPipeline, VAEPipeline
+    from vqgan_tpu_torch.models.tae import init_tvae
+
+    set_tf32(False)
+    vae_cfg = VAEConfig(resolution=64, ch=64, ch_mult=(1, 2, 4), num_res_blocks=2,
+                        z_channels=16, reg_type="vq", vq_codebook_size=VQ_CROSS_K,
+                        vq_ema_decay=0.0, **_attn_kw(True))
+    vae_sd = _perturbed_state_dict(vae_cfg, seed=37)
+    vae_sd["reg.codebook"] = torch.from_numpy(
+        (0.5 * np.random.RandomState(37).randn(VQ_CROSS_K, 16)).astype(np.float32))
+    tvae_cfg = TVAEConfig(resolution=32, ch=32, ch_mult=(1, 8), num_res_blocks=1,
+                          attn_chunk=64)
+    gen = torch.Generator().manual_seed(37)
+    model = init_tvae(tvae_cfg, gen)
+    with torch.no_grad():  # non-trivial GroupNorm affines, as in phase 21
+        for name, p in model.named_parameters():
+            if p.ndim == 1 and ".norm" in name:
+                p.normal_(1.0 if name.endswith(".weight") else 0.0, 0.2, generator=gen)
+    tvae_sd = model.state_dict()
+    images = np.random.RandomState(38).randint(0, 256, (2, 64, 64, 3), np.uint8)
+    clips = np.random.RandomState(39).randint(0, 256, (2, 4, 32, 32, 3), np.uint8)
+    cases = (
+        ("2D vq + attention", ExportedVAE, export_vae, {}, vae_cfg, vae_sd, images,
+         lambda d: VAEPipeline(vae_cfg, vae_sd, device=d), ("gn", "attn", "nearest")),
+        ("TVAE", ExportedTVAE, export_tvae, {"frames": 4}, tvae_cfg, tvae_sd, clips,
+         lambda d: TVAEPipeline(dataclasses.replace(tvae_cfg, conv3d_impl="direct"), tvae_sd,
+                                device=d), ("gn", "attn")),
+    )
+    launches: dict[str, int] = {}
+    for what, loader, export, kw, cfg, sd, x, pipeline, kernels in cases:
+        fp32_z = what.startswith("2D")  # the TVAE computes in bf16
+        # traced on the card, run on the CPU
+        card_dir = os.path.join(tmp, f"port_card_{loader.__name__}")
+        export(cfg, sd, card_dir, device="cuda", **kw)
+        art = loader.load(card_dir, device="cpu")
+        cpu = pipeline("cpu")
+        _check_across(art.encode(x), cpu.encode(x), fp32_z,
+                      f"export {what}: traced on the card, run on the CPU, latents vs the CPU "
+                      f"pipeline")
+        _check_across(art.reconstruct(x), cpu.reconstruct(x), False,
+                      f"export {what}: traced on the card, run on the CPU, reconstruct vs the "
+                      f"CPU pipeline")
+        # traced on the CPU, run on the card
+        cpu_dir = os.path.join(tmp, f"port_cpu_{loader.__name__}")
+        export(cfg, sd, cpu_dir, device="cpu", **kw)
+        art = loader.load(cpu_dir, device="cuda")
+        card = pipeline("cuda")
+        _zero_serving(gn, ac, vq)
+        got = art.reconstruct(x)
+        counted = _serving_counts(gn, ac, vq)
+        _zero_serving(gn, ac, vq)
+        ref = card.reconstruct(x)
+        log(f"export {what}: traced on the CPU ({art.manifest['device']}), run on "
+            f"{art.device}: launches {counted}, the card's pipeline {_serving_counts(gn, ac, vq)}")
+        if counted != _serving_counts(gn, ac, vq) or not all(counted[k] for k in kernels):
+            raise AssertionError(f"export {what}: expected the pipeline's launches, none of "
+                                 f"{kernels} zero")
+        _add_launches(launches, counted)
+        _check_across(art.encode(x), card.encode(x), fp32_z,
+                      f"export {what}: traced on the CPU, run on the card, latents vs the card's "
+                      f"pipeline")
+        _check_across(got, ref, False, f"export {what}: traced on the CPU, run on the card, "
+                                       f"reconstruct vs the card's pipeline")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
@@ -4157,6 +4465,23 @@ def main() -> int:
     t_end = time.perf_counter()
     log(f"the jobs' kernels against plain at their shapes: done at {t_end - t_smoke:.1f} s")
 
+    # 35. the flagship 2D serving artifacts; 36. the TVAE artifact; 37. the
+    # artifacts between the card and the CPU
+    t35 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        export2d = phase_export_2d(gn, ac, vq, tmp)
+        t36 = time.perf_counter()
+        export3d = phase_export_tvae(gn, cc, ac, vq, tmp)
+        t37 = time.perf_counter()
+        port_launches = phase_export_portability(gn, ac, vq, tmp)
+    t_end = time.perf_counter()
+    log(f"phases 35-37 (the serving artifacts): {t_end - t35:.1f} s (35: {t36 - t35:.1f} s, "
+        f"36: {t37 - t36:.1f} s, 37: {t_end - t37:.1f} s) of the {t_end - t_smoke:.1f} s the "
+        f"smoke has run so far")
+    export_launches: dict[str, int] = {}
+    for counted in (*export2d["launches"].values(), export3d["launches"], port_launches):
+        _add_launches(export_launches, counted)
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -4287,9 +4612,22 @@ def main() -> int:
         f"{job3d_accum['device_step_ms']:.1f} ms between CUDA events, resumed "
         f"{job3d_accum['resume_step_ms']:.1f} ms; peak {job3d_accum['peak_bytes'] / 2**30:.3f} "
         f"GiB")
+    for name, key, unit, items in (("identity", "identity", "img", SERVE_BATCH),
+                                   ("vq + attention", "vq_attn", "img", SERVE_BATCH)):
+        for side, t in export2d[key].items():
+            log(_timing_line(f"served artifact (phase 35) 2D {name} batch {items}: {side}", t,
+                             unit, items))
+    for side, t in export3d["timing"].items():
+        log(_timing_line(f"served artifact (phase 36) TVAE 16f/128px batch {CLIP_BATCH}: "
+                         f"{side}", t, "frames", CLIP_BATCH * CLIP_FRAMES))
+    log(f"export seconds: the CLI in a subprocess (flagship identity) {export2d['cli_s']:.1f}, "
+        f"export_vae (flagship vq + attention) {export2d['export_s']:.1f}, export_tvae "
+        f"(16f/128px) {export3d['export_s']:.1f}; artifacts vs pipelines max_abs_err "
+        f"{max(export2d['err'], export3d['err']):.3e}")
     log(f"kernels line: launches on the main paths, each path's counts set to 0 just before "
         f"it and read just after: the earlier paths' below, plus the training jobs' "
-        f"(phases 28-29 and 31-33: {job_launches}); GroupNorm launches per identity training step and "
+        f"(phases 28-29 and 31-33: {job_launches}) and the served artifacts' reconstructs "
+        f"(phases 35-37: {export_launches}); GroupNorm launches per identity training step and "
         f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
@@ -4321,7 +4659,7 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
-              train_counts["gn"] + job_launches["gn"],
+              train_counts["gn"] + job_launches["gn"] + export_launches["gn"],
               max([v[0] for res in fwd.values() for v in res.values()]
                                       + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err,
                                          job3d_err["gn"]]),
@@ -4331,7 +4669,7 @@ def main() -> int:
               max([v[0] for v in bwd.values()] + [bwd3d_err, job3d_err["gn_bwd"]]), bwd_step,
               "bytes"),
         entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113",
-              vq_counts["nearest"] + job_launches["nearest"],
+              vq_counts["nearest"] + job_launches["nearest"] + export_launches["nearest"],
               max(v[0] for v in vq_nearest.values()), vq_nearest["flagship b8"][1:],
               "operations"),
         entry("code_stats", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:223",
@@ -4339,7 +4677,7 @@ def main() -> int:
               max(v[0] for v in vq_stats.values()), vq_stats[("flagship b8", True)][1:],
               "bytes"),
         entry("flash_attention", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
-              attn_counts["attn"] + job_launches["attn"],
+              attn_counts["attn"] + job_launches["attn"] + export_launches["attn"],
               max(v[0] for key, v in attn.items() if key[2] == "fwd"),
               attn_step["fwd"], "operations"),
         entry("flash_attention_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",

@@ -162,6 +162,29 @@ def test_pipeline_goes_through_the_kernel(device):
     np.testing.assert_allclose(got, cpu.reconstruct(imgs), atol=1e-4)
 
 
+def test_flagship_artifact_equals_the_pipeline(device, tmp_path):
+    """The serving artifact of the flagship config (``VAEConfig()``) traced
+    and run on the card: encode and reconstruct within 1e-6 of
+    ``VAEPipeline`` on the same weights, and kernel #1 launched 50 times a
+    reconstruct, as the pipeline launches it."""
+    from vqgan_tpu_torch.export import ExportedVAE, export_vae
+
+    cfg = VAEConfig()
+    sd = init_vae(cfg, torch.Generator().manual_seed(0)).state_dict()
+    export_vae(cfg, sd, str(tmp_path), device=device)
+    art = ExportedVAE.load(str(tmp_path))
+    assert art.device.type == "cuda"
+    pipe = VAEPipeline(cfg, sd, device=device)
+    imgs = np.random.RandomState(0).randint(0, 256, (2, 256, 256, 3), np.uint8)
+    assert float((art.encode(imgs) - pipe.encode(imgs)).abs().max()) <= 1e-6
+    groupnorm_cuda.launches = 0
+    got = art.reconstruct(imgs)
+    launches, groupnorm_cuda.launches = groupnorm_cuda.launches, 0
+    ref = pipe.reconstruct(imgs)
+    assert launches == groupnorm_cuda.launches == 50
+    assert np.abs(got - ref).max() <= 1e-6
+
+
 def _sum_bounds(x, g, stats):
     """Per-channel Σ|terms| of dβ and dγ (an upper bound: |dŷ| <= 1.1·|g|
     for the swish derivative)."""

@@ -179,6 +179,7 @@ def test_importing_the_port_loads_no_jax():
         "import vqgan_tpu_torch.ops.vq_cuda, vqgan_tpu_torch.ops.attention_cuda\n"
         "import vqgan_tpu_torch.models.tae, vqgan_tpu_torch.ops.conv3d_cuda\n"
         "import vqgan_tpu_torch.tools.profile_serving\n"
+        "import vqgan_tpu_torch.export, vqgan_tpu_torch.ops.custom_ops\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'vqgan_tpu')]\n"
         "assert not bad, bad\n"

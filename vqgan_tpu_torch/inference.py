@@ -27,6 +27,7 @@ import torch
 from vqgan_tpu_torch.config import TVAEConfig, VAEConfig, parse_ch_mult
 from vqgan_tpu_torch.models.ae import VAE
 from vqgan_tpu_torch.models.tae import TVAE
+from vqgan_tpu_torch.serving_io import model_input, to_device, unit_range
 from vqgan_tpu_torch.weights import load_weights
 
 
@@ -104,25 +105,21 @@ def build_tvae_config(kw: Mapping, attn_chunk: int = 0) -> TVAEConfig:
     )
 
 
-def _to_device(a, device: torch.device) -> torch.Tensor:
-    if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.array(a))  # a writable host copy
-    return a.to(device)
-
-
-def _model_input(a, device: torch.device, one_ndim: int) -> torch.Tensor:
-    """uint8 [0, 255] → float [-1, 1] on the device; a single item (``one_ndim``
-    dimensions) gains a batch dimension."""
-    x = _to_device(a, device)
-    if x.dtype == torch.uint8:
-        x = x.float() / 127.5 - 1.0
-    if x.ndim == one_ndim:
-        x = x[None]
-    return x.float()
-
-
-def _to_unit_range(dec: torch.Tensor) -> np.ndarray:
-    return (dec.float() * 0.5 + 0.5).clamp(0.0, 1.0).cpu().numpy()
+def vae_latents(model: VAE, x: torch.Tensor, *, do_clamp: bool, clamp_th: float) -> torch.Tensor:
+    """The served latents of a model input x (B,H,W,C) in [-1, 1]: encode,
+    clamp to ±clamp_th where ``do_clamp``, then the Gaussian mean or, for VQ,
+    the nearest-code embeddings (the search and the gather only: the
+    statistics the JAX package's jit drops are never computed). In the
+    encoder's dtype; ``VAEPipeline.encode`` and the exported encode
+    (``export.py``) both compute this."""
+    z = model.encode(x)
+    if do_clamp:
+        z = z.clamp(-clamp_th, clamp_th)
+    if model.cfg.reg_type == "gaussian":
+        z = z.chunk(2, dim=-1)[0]  # mean
+    elif model.cfg.reg_type == "vq":
+        z = model.reg.quantize(z)
+    return z
 
 
 class VAEPipeline:
@@ -151,27 +148,20 @@ class VAEPipeline:
         return cls(cfg, load_weights(path), device=device, **kw)
 
     def _to_model_input(self, images) -> torch.Tensor:
-        return _model_input(images, self.device, one_ndim=3)
+        return model_input(images, self.device, one_ndim=3)
 
     @torch.inference_mode()
     def encode(self, images) -> torch.Tensor:
         """Images (B,H,W,3) uint8 [0,255] or float [-1,1] → latents (B,h,w,z)
         on the device, clamped to ±clamp_th like the published model; for VQ
-        the nearest-code embeddings (the search and the gather only: the
-        statistics the JAX package's jit drops are never computed)."""
-        z = self.model.encode(self._to_model_input(images))
-        if self.do_clamp:
-            z = z.clamp(-self.clamp_th, self.clamp_th)
-        if self.cfg.reg_type == "gaussian":
-            z = z.chunk(2, dim=-1)[0]  # mean
-        elif self.cfg.reg_type == "vq":
-            z = self.model.reg.quantize(z)
-        return z
+        the nearest-code embeddings (``vae_latents``)."""
+        return vae_latents(self.model, self._to_model_input(images),
+                           do_clamp=self.do_clamp, clamp_th=self.clamp_th)
 
     @torch.inference_mode()
     def decode(self, z) -> np.ndarray:
         """Latents (B,h,w,z) → float images (B,H,W,3) in [0,1], on the host."""
-        return _to_unit_range(self.model.decode(_to_device(z, self.device)))
+        return unit_range(self.model.decode(to_device(z, self.device))).cpu().numpy()
 
     def reconstruct(self, images) -> np.ndarray:
         return self.decode(self.encode(images))
@@ -199,7 +189,7 @@ class TVAEPipeline:
         return cls(cfg, load_weights(path), device=device)
 
     def _to_model_input(self, clips) -> torch.Tensor:
-        return _model_input(clips, self.device, one_ndim=4)
+        return model_input(clips, self.device, one_ndim=4)
 
     @torch.inference_mode()
     def encode(self, clips) -> torch.Tensor:
@@ -211,7 +201,7 @@ class TVAEPipeline:
     def decode(self, z) -> np.ndarray:
         """Latents (B,t,h,w,z) → float clips (B,T,H,W,3) in [0,1], on the
         host."""
-        return _to_unit_range(self.model.decode(_to_device(z, self.device)))
+        return unit_range(self.model.decode(to_device(z, self.device))).cpu().numpy()
 
     def reconstruct(self, clips) -> np.ndarray:
         return self.decode(self.encode(clips))

@@ -1,9 +1,10 @@
 """Vector-quantized latent layer: codebook, straight-through estimator, EMA
 codebook statistics (counterpart of ``vqgan_tpu/models/quant.py``).
 
-The nearest-code search and the per-code statistics go through
-``ops/vq_cuda.py``: the hand-written CUDA kernels for a CUDA tensor, their
-plain versions for a CPU tensor. The EMA statistics are not module state:
+The nearest-code search goes through the operator
+``vqgan_tpu_torch::nearest_codes`` (``ops/custom_ops.py``) and the per-code
+statistics through ``ops/vq_cuda.py``: the hand-written CUDA kernels for a
+CUDA tensor, their plain versions for a CPU tensor. The EMA statistics are not module state:
 the JAX package keeps them in a mutable ``vq_ema`` collection, the port in
 ``TrainState.vq_ema``, and ``forward`` takes the old ones and returns the new
 ones. So a serving state dict holds the codebook alone (``reg.codebook``).
@@ -17,7 +18,8 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 
-from vqgan_tpu_torch.ops.vq_cuda import code_stats, nearest_codes
+from vqgan_tpu_torch.ops import custom_ops
+from vqgan_tpu_torch.ops.vq_cuda import code_stats
 
 
 class VectorQuantizer(nn.Module):
@@ -55,7 +57,8 @@ class VectorQuantizer(nn.Module):
             raise ValueError(f"z has {d} channels, the codebook {self.embedding_dim}")
         zf = z.float()
         flat = zf.reshape(-1, d).contiguous()  # (N, D); a view for an NHWC z
-        codes = nearest_codes(flat, self.codebook)  # (N,) int32
+        # (N,) int32 through the operator; the codes carry no gradient
+        codes = custom_ops.nearest_codes(flat.detach(), self.codebook.detach())
         z_q = self.codebook.index_select(0, codes).reshape(zf.shape)
         return zf, flat, codes, z_q
 

@@ -13,7 +13,10 @@ logsumexp: the JAX residuals (``vqgan_tpu/ops/chunked_attention.py``), all
 O(N·D). A CUDA tensor launches the kernels, or raises; a CPU tensor runs the
 chunked plain versions (``ops/attention.py``), with k/v chunks of ``chunk``
 tokens. There is no fallback between the two. The kernels take any N >= 1
-and choose their own tiles, so ``chunk`` does not reach them.
+and choose their own tiles, so ``chunk`` does not reach them. The forward
+goes through the operator ``vqgan_tpu_torch::attention_forward``
+(``ops/custom_ops.py``), which makes that choice by device and which
+``torch.export`` traces; the backward is a plain call.
 
 Inputs are (B, N, H, D), fp32 or bf16, all of one dtype and device. The
 dtype alone picks the kernels' route (``route``): bf16 the tensor cores
@@ -34,10 +37,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from vqgan_tpu_torch.ops.attention import (
-    chunked_attention_backward,
-    chunked_attention_forward,
-)
+from vqgan_tpu_torch.ops.attention import chunked_attention_backward
 from vqgan_tpu_torch.ops.cuda_build import load_library
 
 # Kernel launches since the count was last set to 0: one per forward
@@ -77,7 +77,9 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, *others: torch.Tensor) -> None:
+def check_inputs(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raises unless q is a (B, N, H, D) fp32 or bf16 tensor on the CPU or a
+    CUDA device and every other tensor has its shape, dtype and device."""
     if q.ndim != 4:
         raise ValueError(f"attention takes (B, N, H, D) tensors, got shape {tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODES:
@@ -140,13 +142,11 @@ def attention_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward, outside autograd: ``(out, lse)``, out (B, N, H, D)
     contiguous in q's dtype, lse the fp32 (B, H, N) logsumexp of the scaled
-    scores. A CUDA tensor launches kernel #3's forward (and counts it in
-    ``fwd_launches`` and on its route); a CPU tensor runs the plain
-    version."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return chunked_attention_forward(q, k, v, chunk)
-    return _launch_forward(q, k, v)
+    scores, through the operator ``vqgan_tpu_torch::attention_forward``
+    (``ops/custom_ops.py``): a CUDA tensor launches kernel #3's forward (and
+    counts it in ``fwd_launches`` and on its route), a CPU tensor runs the
+    plain version."""
+    return custom_ops.attention_forward(q, k, v, chunk)
 
 
 def _launch_forward(q, k, v):
@@ -181,7 +181,7 @@ def attention_backward(
     launches kernel #3's backward (delta, dK/dV, dQ; counted once in
     ``bwd_launches`` and once on its route); a CPU tensor runs the plain
     version."""
-    _check(q, k, v, out, g)
+    check_inputs(q, k, v, out, g)
     b, n, h, _ = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
             or not lse.is_contiguous() or lse.device != q.device):
@@ -228,3 +228,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, out, lse, g.contiguous(), ctx.chunk)
         return dq, dk, dv, None
+
+
+# the operator that the forward goes through; it binds this module's launch
+# and checks, so it is imported once they are defined
+from vqgan_tpu_torch.ops import custom_ops  # noqa: E402

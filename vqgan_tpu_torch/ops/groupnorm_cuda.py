@@ -42,7 +42,9 @@ in ``torch.channels_last_3d``, physically (B, T·H·W, C), and is
 differentiable. A
 tensor on the CPU goes to the plain versions (``ops/normalization.py``); a
 CUDA tensor launches the kernels, or raises. There is no fallback between the
-two.
+two. The forward goes through the operator ``vqgan_tpu_torch::gn_forward``
+(``ops/custom_ops.py``), whose dispatcher makes that choice by device, so
+``torch.export`` traces it; the backward is a plain call.
 """
 
 from __future__ import annotations
@@ -56,10 +58,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from vqgan_tpu_torch.ops.cuda_build import load_library, num_sms
-from vqgan_tpu_torch.ops.normalization import (
-    group_norm_fp32_backward,
-    group_norm_fp32_forward,
-)
+from vqgan_tpu_torch.ops.normalization import group_norm_fp32_backward
 
 # Kernel launches since the count was last set to 0: one per forward
 # (``launches``) or backward (``bwd_launches``) call that reached the CUDA
@@ -460,13 +459,21 @@ def channels_last_format(x: torch.Tensor) -> torch.memory_format:
     raise ValueError(f"expected (B, C, H, W) or (B, C, T, H, W), got shape {tuple(x.shape)}")
 
 
-def _check(x, weight, bias, num_groups):
+def check_layout(x: torch.Tensor) -> None:
+    """Raises unless x is channels-last: (B, C, H, W) in channels_last or
+    (B, C, T, H, W) in channels_last_3d."""
     if not x.is_contiguous(memory_format=channels_last_format(x)):
         raise ValueError(
             "fused_group_norm needs a torch.channels_last-contiguous input "
             "(channels_last_3d for 5-D; physically (B, ..., C)); convert it "
             "once where it is made"
         )
+
+
+def check_operands(x, weight, bias, num_groups) -> None:
+    """Raises unless x is fp32 or bf16 on the CPU or a CUDA device, its
+    channels split into ``num_groups`` groups, and weight and bias are
+    contiguous fp32 (C,) tensors on its device."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_group_norm takes float32 or bfloat16, not {x.dtype}")
     c = x.shape[1]
@@ -480,6 +487,12 @@ def _check(x, weight, bias, num_groups):
             raise ValueError(f"{name} is on {p.device}, x on {x.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_group_norm runs on cpu or cuda, not {x.device}")
+
+
+def check_inputs(x, weight, bias, num_groups) -> None:
+    """``check_layout`` and ``check_operands``."""
+    check_layout(x)
+    check_operands(x, weight, bias, num_groups)
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
@@ -521,14 +534,17 @@ def group_norm_forward(
     plan: ForwardPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward, outside autograd: ``(y, stats)``, y in x's dtype and
-    channels-last layout, stats the fp32 (B, 2, G) mean and rstd. A CUDA tensor
-    launches kernel #1 (and counts it in ``launches``) with ``plan``, by
-    default ``forward_plan``'s; a CPU tensor runs the plain version."""
-    _check(x, weight, bias, num_groups)
-    if x.device.type == "cpu":
-        y, mean, rstd = group_norm_fp32_forward(x, weight, bias, num_groups, eps,
-                                                with_swish)
-        return y, torch.stack((mean, rstd), dim=1)
+    channels-last layout, stats the fp32 (B, 2, G) mean and rstd, through the
+    operator ``vqgan_tpu_torch::gn_forward`` (``ops/custom_ops.py``): a CUDA
+    tensor launches kernel #1 with ``forward_plan``'s plan (and counts it in
+    ``launches``), a CPU tensor runs the plain version. A ``plan`` (CUDA
+    only; the tools that time candidate plans) launches the kernel with that
+    plan instead, outside the operator."""
+    if plan is None:
+        return custom_ops.gn_forward(x, weight, bias, num_groups, eps, with_swish)
+    check_inputs(x, weight, bias, num_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"a forward plan is for kernel #1 on a CUDA device, not {x.device}")
     return _launch_forward(x, weight, bias, num_groups, eps, with_swish, plan)
 
 
@@ -597,7 +613,7 @@ def group_norm_backward(
     shape, dtype and channels-last layout. A CUDA tensor launches kernel #2
     (and counts it in ``bwd_launches``) with ``plan``, by default
     ``backward_plan``'s; a CPU tensor runs the plain version."""
-    _check(x, weight, bias, num_groups)
+    check_inputs(x, weight, bias, num_groups)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(
             f"gradient {tuple(g.shape)} {g.dtype} on {g.device} does not match "
@@ -688,3 +704,8 @@ def fused_group_norm(
     (B, C, T, H, W) tensor with fp32 statistics and arithmetic; returns x's
     dtype and layout, and is differentiable in x, weight and bias."""
     return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, with_swish)
+
+
+# the operator that the forward goes through; it binds this module's launch
+# and checks, so it is imported once they are defined
+from vqgan_tpu_torch.ops import custom_ops  # noqa: E402

@@ -20,6 +20,9 @@ kernel, or raises. There is no fallback between the two. The CUDA path takes
 any N and any K >= 1 (the kernels mask the ragged edges), so the Pallas
 package's 128-multiple rule (``supports_vq_kernel``) has no counterpart here.
 Codes carry no gradient: both functions run under ``torch.no_grad()``.
+The search goes through the operator ``vqgan_tpu_torch::nearest_codes``
+(``ops/custom_ops.py``), which makes the device choice and which
+``torch.export`` traces; the statistics are a plain call.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from typing import Optional
 import torch
 
 from vqgan_tpu_torch.ops.cuda_build import load_library, num_sms
-from vqgan_tpu_torch.ops.vq import code_stats_plain, nearest_codes_plain
+from vqgan_tpu_torch.ops.vq import code_stats_plain
 
 # Kernel launches since the count was last set to 0: one per call that
 # reached the CUDA kernels; calls on CPU tensors do not count.
@@ -121,21 +124,25 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(f"VQ {what} kernel launch failed: {lib.vq_error_string(err).decode()}")
 
 
-@torch.no_grad()
-def nearest_codes(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Nearest-code indices (N,) int32 of (N, D) fp32 tokens against a (K, D)
-    fp32 codebook; the first index wins an exact tie. A CUDA tensor launches
-    kernel #4 (and counts it in ``nearest_launches``); a CPU tensor runs the
-    plain version."""
+def check_nearest(flat: torch.Tensor, codebook: torch.Tensor) -> None:
+    """Raises unless z and the codebook are contiguous fp32 (N, D) and (K, D)
+    tensors, 1 <= D <= ``MAX_DIM``, K >= 1, on one CPU or CUDA device."""
     _check_rows(flat, "z")
     _check_rows(codebook, "the codebook")
     _check_device(codebook, "the codebook", flat)
     if codebook.shape[1] != flat.shape[1] or codebook.shape[0] < 1:
         raise ValueError(f"codebook {tuple(codebook.shape)} does not match z "
                          f"{tuple(flat.shape)}")
-    if flat.device.type == "cpu":
-        return nearest_codes_plain(flat, codebook)
-    return _launch_nearest(flat, codebook)
+
+
+@torch.no_grad()
+def nearest_codes(flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Nearest-code indices (N,) int32 of (N, D) fp32 tokens against a (K, D)
+    fp32 codebook; the first index wins an exact tie. Through the operator
+    ``vqgan_tpu_torch::nearest_codes`` (``ops/custom_ops.py``): a CUDA tensor
+    launches kernel #4 (and counts it in ``nearest_launches``), a CPU tensor
+    runs the plain version."""
+    return custom_ops.nearest_codes(flat, codebook)
 
 
 def _launch_nearest(flat, codebook):
@@ -211,3 +218,8 @@ def _launch_stats(codes, flat, k, with_sums):
     _raise_on(err, lib, "code-statistics")
     stats_launches += 1
     return counts, (sums if with_sums else None)
+
+
+# the operator that the search goes through; it binds this module's launch
+# and checks, so it is imported once they are defined
+from vqgan_tpu_torch.ops import custom_ops  # noqa: E402

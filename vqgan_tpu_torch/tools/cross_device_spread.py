@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 import chip_smoke
-from vqgan_tpu_torch.ops import groupnorm_cuda
+from vqgan_tpu_torch.ops import custom_ops, groupnorm_cuda
 from vqgan_tpu_torch.ops.normalization import (
     group_norm_fp32_backward,
     group_norm_fp32_forward,
@@ -191,16 +191,18 @@ def build_step(small: bool):
 
 @contextlib.contextmanager
 def patched(forward, backward):
-    """The CPU wrapper's plain forward and backward replaced, for one run."""
-    saved = groupnorm_cuda.group_norm_fp32_forward, groupnorm_cuda.group_norm_fp32_backward
+    """The plain forward of the GroupNorm operator's CPU implementation
+    (``ops/custom_ops.py``) and the CPU wrapper's plain backward replaced,
+    for one run."""
+    saved = custom_ops.group_norm_fp32_forward, groupnorm_cuda.group_norm_fp32_backward
     if forward is not None:
-        groupnorm_cuda.group_norm_fp32_forward = forward
+        custom_ops.group_norm_fp32_forward = forward
     if backward is not None:
         groupnorm_cuda.group_norm_fp32_backward = backward
     try:
         yield
     finally:
-        groupnorm_cuda.group_norm_fp32_forward, groupnorm_cuda.group_norm_fp32_backward = saved
+        custom_ops.group_norm_fp32_forward, groupnorm_cuda.group_norm_fp32_backward = saved
 
 
 def flips(ref_tape, tape, ref_seen, seen, clamp: float) -> str:

@@ -17,6 +17,7 @@ import json
 import logging
 import os
 import struct
+import threading
 import time
 import zlib
 from typing import Dict, Optional
@@ -52,6 +53,36 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
+def _init_wandb(project: str, name: str, config: dict, logger: logging.Logger):
+    """``wandb`` after ``wandb.init``, or None where it does not import or
+    its init raises (no login, no network).
+
+    The init runs on a thread of its own, so no frame of the caller is on
+    its stack. Where it raises, wandb's error reporter keeps the exception,
+    and a traceback reaches every frame above the raise through ``f_back``:
+    called from a trainer's ``__init__``, that would pin the trainer, its
+    model and its optimizer states on the card for the life of the process.
+    On this thread the frames above the init are the thread's own, which
+    hold the project, the run name and the config alone."""
+    result = {}
+
+    def init():
+        try:
+            import wandb
+
+            wandb.init(project=project, name=name, config=config)
+            result["wandb"] = wandb
+        except Exception as e:
+            result["error"] = f"{type(e).__name__}: {e}"
+
+    thread = threading.Thread(target=init, name="wandb-init")
+    thread.start()
+    thread.join()
+    if "error" in result:
+        logger.warning(f"wandb off: {result['error']}")
+    return result.get("wandb")
+
+
 class MetricLogger:
     def __init__(
         self,
@@ -71,13 +102,7 @@ class MetricLogger:
             )
             self.logger.addHandler(handler)
         if use_wandb:
-            try:
-                import wandb
-
-                wandb.init(project=project_name, name=run_name, config=config or {})
-                self.wandb = wandb
-            except Exception:
-                self.wandb = None
+            self.wandb = _init_wandb(project_name, run_name, config or {}, self.logger)
         os.makedirs(out_dir, exist_ok=True)
         self._path = os.path.join(out_dir, f"metrics_{run_name}.jsonl")
         self._file = open(self._path, "a")
