@@ -1404,6 +1404,7 @@ class DecisionTape:
     def __init__(self):
         self.calls: dict[str, list[torch.Tensor]] = {}
         self._next: dict[str, int] = {}
+        self.code_flips = 0
 
     @staticmethod
     def decision_modules(modules: dict) -> list:
@@ -1448,19 +1449,66 @@ class DecisionTape:
             for h in handles:
                 h.remove()
 
-    def recording(self, modules: dict):
+    @contextlib.contextmanager
+    def recording(self, modules: dict, codes: bool = False):
         self.calls.clear()
-        return self._hooked(modules, self._record)
+        with self._hooked(modules, self._record), self._codes(codes, record=True):
+            yield self
 
     @contextlib.contextmanager
-    def replaying(self, modules: dict):
+    def replaying(self, modules: dict, codes: bool = False):
         self._next.clear()
-        with self._hooked(modules, self._replay):
+        self.code_flips = 0
+        with self._hooked(modules, self._replay), self._codes(codes, record=False):
             yield self
         unused = {k: len(v) - self._next.get(k, 0) for k, v in self.calls.items()
                   if len(v) != self._next.get(k, 0)}
         if unused:
             raise AssertionError(f"recorded decisions left unused: {unused}")
+
+    @contextlib.contextmanager
+    def _codes(self, active: bool, record: bool):
+        """With ``active``, the VQ search's codes as one more decision
+        (``custom_ops.nearest_codes``, kernel #4 on the card): recorded, or,
+        after the search has run (and launched), replaced by the recorded
+        codes, the tokens that took another code counted in
+        ``code_flips``. A bf16 encoder's z moves by its rounding, and a token
+        near a tie between two codes then takes the other one."""
+        if not active:
+            yield
+            return
+        from vqgan_tpu_torch.ops import custom_ops
+
+        real, key = custom_ops.nearest_codes, "vq.nearest_codes"
+
+        def search(flat, codebook):
+            codes = real(flat, codebook)
+            if record:
+                self.calls.setdefault(key, []).append(codes.detach().cpu())
+                return codes
+            i = self._next.get(key, 0)
+            if i >= len(self.calls.get(key, ())):
+                raise AssertionError(f"{key} called more often than on the recorded run")
+            self._next[key] = i + 1
+            recorded = self.calls[key][i].to(codes.device)
+            self.code_flips += int((codes != recorded).sum())
+            return recorded
+
+        custom_ops.nearest_codes = search
+        try:
+            yield
+        finally:
+            custom_ops.nearest_codes = real
+
+    def rows(self, rank: int, n: int) -> "DecisionTape":
+        """The tape a data-parallel rank replays: every recorded decision's
+        ``rank``-th of ``n`` equal blocks along dim 0 (the rank's rows of
+        each call's batch, for a tape recorded on the global batch)."""
+        tape = DecisionTape()
+        for key, calls in self.calls.items():
+            tape.calls[key] = [d.reshape((n, d.shape[0] // n) + tuple(d.shape[1:]))[rank]
+                               for d in calls]
+        return tape
 
     def describe(self) -> str:
         n = sum(len(v) for v in self.calls.values())
@@ -1502,7 +1550,8 @@ def step_bound_shares(ref: tuple, got: tuple, n_logits: int) -> tuple:
     return worst_loss, worst, bad_loss, bad_grad
 
 
-def compare_step_across_devices(runs: dict, what: str, n_logits: int, vq_k: int) -> None:
+def compare_step_across_devices(runs: dict, what: str, n_logits: int, vq_k: int,
+                                labels: tuple[str, str] = ("cpu", "card")) -> None:
     """One training step's (metrics, AdamW first moments of G and D, VQ
     statistics) on the CPU (``runs["cpu"]``, its loss head's decisions
     recorded) and on the card with those decisions replayed
@@ -1513,17 +1562,19 @@ def compare_step_across_devices(runs: dict, what: str, n_logits: int, vq_k: int)
     codebook to ATOL_PATH_FP32, some code revived. ``runs["cuda free"]``,
     where given, is the card's step without the replay: its losses, which
     the flips move only a little, are held to the same loss bounds, and its
-    gradients' share is printed for information."""
+    gradients' share is printed for information. ``labels``: the two runs'
+    names in the log lines (phases 38-40 compare one rank with two)."""
     (m_cpu, _, x_cpu), (m_gpu, _, x_gpu) = runs["cpu"], runs["cuda"]
     worst_loss, worst, bad_loss, bad_grad = step_bound_shares(runs["cpu"], runs["cuda"],
                                                               n_logits)
     bad = bad_loss + bad_grad
-    log(f"train cross-device {what}: overall_vae_loss cpu="
-        f"{m_cpu['overall_vae_loss']:.6f} card={m_gpu['overall_vae_loss']:.6f}; the worst "
-        f"loss uses {worst_loss:.3f} of its bound")
+    log(f"train cross-device {what}: overall_vae_loss {labels[0]}="
+        f"{m_cpu['overall_vae_loss']:.6f} {labels[1]}={m_gpu['overall_vae_loss']:.6f}; the "
+        f"worst loss uses {worst_loss:.3f} of its bound")
+    source = "the CPU" if labels[0] == "cpu" else f"the {labels[0]} run"
     for side, (name, share) in worst.items():
         log(f"train cross-device {what} {side} step-1 gradients (AdamW exp_avg), the loss "
-            f"head's decisions replayed from the CPU: the worst tensor, {name}, uses "
+            f"head's decisions replayed from {source}: the worst tensor, {name}, uses "
             f"{share:.3f} of its bound (rtol {GRAD_RTOL:g}, floor {GRAD_FLOOR:g} of the largest "
             f"entry)")
     if "cuda free" in runs:
@@ -2824,11 +2875,12 @@ def device_tree(state) -> dict:
 
 def same_state(a, b) -> tuple[bool, int]:
     """Whether every tensor of two ``state_dict_of`` trees is bitwise equal
-    (dtype, shape and values), and how many tensors they hold. Numbers are
-    not compared: a resumed run's schedule sets its own lrs."""
+    (dtype, shape and values; b's tensors taken to a's device), and how many
+    tensors they hold. Numbers are not compared: a resumed run's schedule
+    sets its own lrs."""
     if isinstance(a, torch.Tensor):
         return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
-                and torch.equal(a, b)), 1
+                and torch.equal(a, b.to(a.device))), 1
     if isinstance(a, dict):
         if not isinstance(b, dict) or set(a) != set(b):
             return False, 0
@@ -4305,11 +4357,586 @@ def phase_export_portability(gn, ac, vq, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 38-41: data parallelism, the data mesh axis (parallel/mesh.py)
+
+# two ranks, each a process: on one card they time-slice it and talk over
+# gloo; where the host has a card a rank, over NCCL
+DP_RANKS = 2
+DP_STEPS = 2
+# the global batches: 8 flagship images (4 a rank), 2 16f/128px clips (1 a rank)
+DP_BATCH, DP_CLIPS = 8, 2
+# phase 39's revival as phase 12's: threshold 0.5, the EMA counts started from
+# a numpy draw in [0.3, 1.3) (sums = counts x codebook), so that a code
+# unused in step 1 with 0.99·c < 0.5 is revived
+DP_VQ_REVIVE = 0.5
+# phases 38-40's cases and each one's logits, real and fake (D's accuracy is
+# held to one of them): a 16x16 patch grid at 256 px, 8x8 at 128 px
+DP_CASES = {"flagship": 2 * DP_BATCH * 256, "flagship vq": 2 * DP_BATCH * 256,
+            "3d gan": 2 * DP_CLIPS * 4 * 64}
+# the models: VAEConfig() in bf16 (bench.py:51-55), and TVAEConfig()'s width
+# (ch 64, ch_mult 1,2,4,4, 2 res blocks, z 16) at 128 px with the mid-block
+# attention chunked so that kernel #3 runs, in fp32 as phase 25's 3D step:
+# in bf16, 2 clips on one rank and 1 clip on each of two ranks round apart
+# (other plans and cuDNN algorithms at another batch) by 11-14 times phase
+# 8's bound on the encoder's moments, with dense attention and with cuDNN's
+# Conv3d alike, where fp32 stays at 0.2 of it
+DP_VAE = dict(enc_dtype="bfloat16", dec_dtype="bfloat16")
+DP_TVAE = dict(resolution=JOB3D_RES, attn_chunk=JOB3D_ATTN_CHUNK, compute_dtype="float32")
+# D's lr as phase 8's: AdamW's first step moves every D param by ±lr·sign(grad),
+# and where a gradient is rounding noise two batch splits step apart, which G's
+# GAN branch through the updated D carries into G's gradient
+DP_D_LR = 1e-8
+# phase 41: TRAIN_JOB (phase 26's flagship job) under torchrun: 3 steps with
+# an eval and a save after steps 1 and 3, then a resume to step 4; then 2
+# steps at one rank over NCCL against the same 2 steps in one plain process
+DP_JOB = TRAIN_JOB + ["--mesh_shape", "data=-1"]
+DP_JOB_FIRST = ["--max_steps", "3", "--evaluate_every_n_steps", "2"]
+DP_JOB_RESUME = ["--max_steps", "4", "--evaluate_every_n_steps", "2"]
+DP_JOB_PLAIN = ["--max_steps", "2", "--evaluate_every_n_steps", "0"]
+
+
+def dp_counts() -> dict:
+    """The launch counts of every kernel wrapper of the training paths."""
+    from vqgan_tpu_torch.ops import attention_cuda as ac
+    from vqgan_tpu_torch.ops import conv3d_cuda as cc
+    from vqgan_tpu_torch.ops import groupnorm_cuda as gn
+    from vqgan_tpu_torch.ops import vq_cuda as vq
+
+    return {"gn": gn.launches, "gn_bwd": gn.bwd_launches, "nearest": vq.nearest_launches,
+            "stats": vq.stats_launches, "attn": ac.fwd_launches, "attn_bwd": ac.bwd_launches,
+            "conv3d": cc.launches, "conv3d_dx": cc.bwd_launches}
+
+
+def dp_zero_counts() -> None:
+    from vqgan_tpu_torch.ops import attention_cuda as ac
+    from vqgan_tpu_torch.ops import conv3d_cuda as cc
+    from vqgan_tpu_torch.ops import groupnorm_cuda as gn
+    from vqgan_tpu_torch.ops import vq_cuda as vq
+
+    _reset_counts(gn, cc, vq)
+    ac.fwd_launches = ac.bwd_launches = ac.tc_launches = ac.fma_launches = 0
+
+
+def dp_models() -> dict:
+    """The sizes phases 38-40 run at, which the parent hands its ranks."""
+    return {"vae": DP_VAE, "tvae": DP_TVAE, "batch": DP_BATCH, "clips": DP_CLIPS,
+            "frames": JOB3D_FRAMES}
+
+
+def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
+    """Case ``name`` of phases 38-40 on ``device``, its step data-parallel
+    across ``group`` (None: one process on the global batch): the same
+    seeded random weights in every process, D's final heads made non-zero
+    (the GAN branch then reaches G), the global batch on the device, and
+    LPIPS and D (the loss head, ``DecisionTape``'s modules). The step draws
+    its coins, ε, the frame phase and the revival rows for the global batch
+    from the state's generator, seeded alike in every process.
+
+    "flagship": ``bench.py``'s step (``profile_step.build_flagship_step``'s
+    models: bf16 encoder, decoder, LPIPS and D, hinge + LeCam + clamp,
+    identity Gaussian); "flagship vq": the same with the VQ latent (K =
+    16,384, D = 16, EMA 0.99), phase 12's revival (``DP_VQ_REVIVE``) and
+    ``VAEConfig()``'s fp32 encoder; "3d gan":
+    ``TVAEConfig()``'s width in fp32 at 16f/128px with phase 28's GAN
+    (hinge + LeCam on 4 frames, frame D, fp32 D and LPIPS) and the mid-block
+    attention chunked at ``JOB3D_ATTN_CHUNK``, so that kernel #3 runs.
+    ``models``: the sizes (``dp_models()``'s where None)."""
+    from vqgan_tpu_torch.config import TrainConfig, TVAEConfig, VAEConfig
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
+    from vqgan_tpu_torch.models import blocks, tae
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.train.state import create_train_state
+    from vqgan_tpu_torch.train.step import make_train_step
+    from vqgan_tpu_torch.train.step3d import make_train_step_3d_gan
+    from vqgan_tpu_torch.train.trainer3d import synthetic_video_batches
+
+    sizes = models or dp_models()
+
+    def seeded(seed: int) -> torch.Generator:
+        return torch.Generator(device).manual_seed(seed)
+
+    if name == "3d gan":
+        model_cfg = TVAEConfig(**sizes["tvae"])
+        cfg = TrainConfig(batch_size=sizes["clips"], image_size=model_cfg.resolution,
+                          max_steps=10_000, do_ganloss=True, disc_type="hinge", use_lecam=True,
+                          video_loss_frames=4, ema_decay=0.999, disc_3d="frame",
+                          learning_rate_disc=DP_D_LR)
+        with torch.device(device):
+            model, disc, lpips = tae.TVAE(model_cfg), PatchDiscriminator(), LPIPS()
+        tae.init_weights_(model, seeded(0))
+        batch = torch.from_numpy(next(synthetic_video_batches(
+            sizes["clips"], sizes["frames"], model_cfg.resolution, seed=0))).to(device)
+    else:
+        # the VQ case's encoder in fp32, VAEConfig()'s own dtypes: revival
+        # copies z rows into the codebook, and a bf16 z moves by one bf16 ulp
+        # between batch 8 and 4 (2^-8 at |z| in [1, 2)), past phase 12's fp32
+        # bound on the folded codebook
+        extra = dict(reg_type="vq", vq_revive_threshold=DP_VQ_REVIVE,
+                     enc_dtype="float32") if name == "flagship vq" else {}
+        model_cfg = VAEConfig(**{**sizes["vae"], **extra})
+        cfg = TrainConfig(batch_size=sizes["batch"], image_size=model_cfg.resolution,
+                          max_steps=10_000, do_ganloss=True, disc_type="hinge",
+                          use_lecam=True, do_clamp=True, learning_rate_disc=DP_D_LR)
+        with torch.device(device):
+            model = VAE(model_cfg)
+            disc, lpips = PatchDiscriminator(torch.bfloat16), LPIPS(torch.bfloat16)
+        blocks.init_weights_(model, seeded(0))
+        batch = torch.from_numpy(np.random.RandomState(0).uniform(
+            -1, 1, (sizes["batch"], model_cfg.resolution, model_cfg.resolution, 3)).astype(
+                np.float32)).to(device)
+    init_discriminator_(disc, seeded(1))
+    init_lpips_(lpips, seeded(2))
+    heads = seeded(3)
+    with torch.no_grad():
+        for k in range(1, 6):
+            getattr(disc, f"binary_classifier{k}")[-1].weight.normal_(0.0, 0.05,
+                                                                      generator=heads)
+    vq_ema = None
+    if name == "flagship vq":
+        counts = torch.from_numpy(np.random.RandomState(4).uniform(
+            0.3, 1.3, model_cfg.vq_codebook_size).astype(np.float32)).to(device)
+        vq_ema = {"counts": counts, "sums": counts[:, None] * model.reg.codebook.detach()}
+    state = create_train_state(cfg, model, disc, model_cfg.ch, vq_ema=vq_ema)
+    if name == "3d gan":
+        step = make_train_step_3d_gan(cfg, model_cfg, model, disc, lpips,
+                                      gradnorm_shards=DP_RANKS, group=group)
+    else:
+        base = make_train_step(cfg, model_cfg, model, disc, lpips, gradnorm_shards=DP_RANKS,
+                               group=group)
+
+        def step(state, batch):
+            return base(state, batch, 0)
+    return {"state": state, "step": step, "batch": batch, "head": {"lpips": lpips, "disc": disc},
+            "model": model, "disc": disc, "vq": name == "flagship vq"}
+
+
+def dp_run_case(case: dict, rows: slice, tape, record: bool, after_step=None) -> dict:
+    """DP_STEPS steps of ``case`` on its batch's ``rows``, step 1's loss-head
+    decisions recorded on ``tape`` (``record``) or replayed from it: each
+    step's metrics, kernel launches, host and CUDA-event ms; step 1's AdamW
+    first moments of G and D (host copies) and, for VQ, the EMA statistics
+    and the folded codebook; the peak memory. ``after_step(state)`` runs
+    after each step, outside its timing."""
+    state, step, batch = case["state"], case["step"], case["batch"][rows]
+    out = {"metrics": [], "launches": [], "ms": [], "host_ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DP_STEPS):
+        # step 1 with the tape; later steps take their own decisions
+        with ((tape.recording if record else tape.replaying)(case["head"], codes=case["vq"])
+              if i == 0 else contextlib.nullcontext()):
+            dp_zero_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["ms"].append(start.elapsed_time(end))
+            out["launches"].append(dp_counts())
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+            if after_step is not None:
+                after_step(state)
+            if i == 0:
+                out["code_flips"] = tape.code_flips
+                out["moments"] = {
+                    side: {n: opt.state[p]["exp_avg"].float().cpu()
+                           for n, p in model.named_parameters() if p in opt.state}
+                    for side, model, opt in (("G", case["model"], state.g_opt),
+                                             ("D", case["disc"], state.d_opt))}
+                out["extra"] = {}
+                if case["vq"]:
+                    out["extra"] = {"counts": state.vq_ema["counts"].cpu(),
+                                    "sums": state.vq_ema["sums"].cpu(),
+                                    "codebook": case["model"].reg.codebook.detach().cpu()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    bad = [k for m in out["metrics"] for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite metrics: {bad[:5]}")
+    return out
+
+
+def dp_on_card(state) -> None:
+    """Every parameter, AdamW moment, EMA and anchor of a train state, and
+    its generator, on the card (AdamW's step counts live on the host)."""
+    tensors = [p for m in (state.g_model, state.d_model) for p in m.parameters()]
+    for opt in (state.g_opt, state.d_opt):
+        for per in opt.state.values():
+            tensors += [per["exp_avg"], per["exp_avg_sq"]]
+    tensors += [state.lecam_real, state.lecam_fake, *(state.g_ema or {}).values(),
+                *(state.vq_ema or {}).values()]
+    off = [t.device for t in tensors if t.device.type != "cuda"]
+    if off or state.generator.device.type != "cuda":
+        raise AssertionError(f"{len(off)} state tensors off the card; generator on "
+                             f"{state.generator.device}")
+
+
+def dp_ranks_main(spec_path: str) -> int:
+    """One rank of phases 38-40 (``chip_smoke.py --dp-ranks SPEC`` under
+    torchrun): joins the process group (``init_distributed``), then runs
+    each case of the spec on its rows of the global batch, replaying its
+    rows of the one-rank run's loss-head decisions; after each step holds
+    the ranks' whole train states equal bit for bit; times the gradient
+    all-reduces; writes its results to ``{out}/rank{r}.pt``."""
+    import torch.distributed as dist
+
+    from vqgan_tpu_torch.parallel.mesh import create_mesh, init_distributed, replicas_equal
+    from vqgan_tpu_torch.train import step as step_mod
+    from vqgan_tpu_torch.train import step3d as step3d_mod
+    from vqgan_tpu_torch.train.state import state_tensors
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    for cfg in (spec["models"]["vae"], spec["models"]["tvae"]):  # JSON's lists: tuples
+        cfg.update({k: tuple(v) for k, v in cfg.items() if isinstance(v, list)})
+    device = init_distributed("cuda")
+    mesh = create_mesh({"data": -1})
+    if device.type != "cuda":
+        raise AssertionError(f"rank {mesh.rank} on {device}")
+    set_tf32(spec["tf32"])
+    reduces: list[tuple[int, float]] = []
+    real_reduce = step_mod.reduce_gradients
+
+    def timed_reduce(params, group):
+        params = list(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(params, group)
+        torch.cuda.synchronize()
+        reduces.append((sum(p.grad.numel() * p.grad.element_size() for p in params
+                            if p.grad is not None), time.perf_counter() - t0))
+
+    step_mod.reduce_gradients = step3d_mod.reduce_gradients = timed_reduce
+    out = {"rank": mesh.rank, "device": str(device), "backend": dist.get_backend(mesh.group),
+           "cases": {}}
+    n = mesh.world_size
+    for name in spec["cases"]:
+        case = dp_case(name, device, mesh.group, spec["models"])
+        rows_n = case["batch"].shape[0] // n
+        tape = DecisionTape()
+        tape.calls = torch.load(os.path.join(spec["dir"], f"tape_{name.replace(' ', '_')}.pt"),
+                                weights_only=True)
+        tape = tape.rows(mesh.rank, n)
+        reduces.clear()
+        equal = []
+        got = dp_run_case(case, slice(mesh.rank * rows_n, (mesh.rank + 1) * rows_n), tape,
+                          record=False, after_step=lambda state: equal.append(
+                              replicas_equal(state_tensors(state), mesh.group)))
+        got["replicas_equal"] = equal
+        got["reduces"] = list(reduces)
+        dp_on_card(case["state"])
+        if mesh.rank != 0:
+            got.pop("moments")
+            got.pop("extra")
+        out["cases"][name] = got
+        del case, tape
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(spec["dir"], f"rank{mesh.rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_launch(args: list[str], nproc: int, log_path: str, timeout: int = 600) -> None:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc`` with ``args``, its output to ``log_path``; raises with its last
+    lines unless every rank exits 0."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               f"--nproc_per_node={nproc}", *args],
+                              stdout=logf, stderr=subprocess.STDOUT, timeout=timeout,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    with open(log_path) as logf:
+        text = logf.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(args[:2])} exited {proc.returncode}:\n"
+                             f"{text[-6000:]}")
+    log(f"torchrun --nproc_per_node={nproc} {' '.join(args[:2])}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_data_parallel_steps(tmp: str) -> dict:
+    """Phases 38-40: each case's two steps at one rank on the global batch,
+    recording the loss head's decisions, then at ``DP_RANKS`` ranks (one
+    torchrun launch for all cases) replaying their rows of them. Each rank
+    launches the one-rank run's kernels a step; after each step the ranks'
+    states are bitwise equal; step 1 (losses, AdamW first moments of G and
+    D, VQ statistics) within phase 8's bounds of the one-rank step
+    (``compare_step_across_devices``), VQ's summed counts bitwise the
+    one-rank counts. Where the host has a card a rank the flagship case runs
+    again over NCCL. Returns the ranks' launches and the timings."""
+    cases = list(DP_CASES)
+    ref, tf32 = {}, torch.backends.cudnn.allow_tf32
+    for name in cases:
+        case = dp_case(name, "cuda")
+        tape = DecisionTape()
+        ref[name] = dp_run_case(case, slice(None), tape, record=True)
+        torch.save(tape.calls, os.path.join(tmp, f"tape_{name.replace(' ', '_')}.pt"))
+        log(f"data parallel {name}: the one-rank run on the global batch recorded "
+            f"{tape.describe()}; launches a step {ref[name]['launches']}")
+        del case, tape
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs = [("gloo", 1)]
+    if torch.cuda.device_count() >= DP_RANKS:
+        runs.append(("nccl", DP_RANKS))
+    log(f"data parallel: runs {[r[0] for r in runs]} (cards {torch.cuda.device_count()}); "
+        f"the NCCL run needs {DP_RANKS} cards")
+    launches: dict[str, int] = {}
+    timing = {"ref": ref}
+    for backend, cards in runs:
+        run_cases = cases if backend == "gloo" else ["flagship"]
+        spec = {"cases": run_cases, "dir": tmp, "tf32": tf32, "models": dp_models()}
+        spec_path = os.path.join(tmp, "dp_spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env_cards = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if cards == 1:  # both ranks on the first card: gloo
+            os.environ["CUDA_VISIBLE_DEVICES"] = "0" if env_cards is None else \
+                env_cards.split(",")[0]
+        try:
+            dp_launch([os.path.abspath(__file__), "--dp-ranks", spec_path], DP_RANKS,
+                      os.path.join(tmp, f"dp_{backend}.log"))
+        finally:
+            if env_cards is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = env_cards
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+        if [r["backend"] for r in ranks] != [backend] * DP_RANKS:
+            raise AssertionError(f"backends {[r['backend'] for r in ranks]}, expected {backend}")
+        for name in run_cases:
+            dp_check_case(name, ref[name], [r["cases"][name] for r in ranks], backend, ranks)
+            for r in ranks:
+                for counted in r["cases"][name]["launches"]:
+                    _add_launches(launches, counted)
+        timing[backend] = ranks
+    timing["launches"] = launches
+    return timing
+
+
+def dp_check_case(name: str, ref: dict, ranks: list[dict], backend: str, info: list) -> None:
+    what = f"data parallel {name} ({DP_RANKS} ranks, {backend})"
+    for r, got in enumerate(ranks):
+        if got["launches"] != ref["launches"]:
+            raise AssertionError(f"{what}: rank {r} launched {got['launches']}, the one-rank "
+                                 f"run {ref['launches']}")
+        if got["replicas_equal"] != [True] * DP_STEPS:
+            raise AssertionError(f"{what}: the ranks' states differ after the steps "
+                                 f"{got['replicas_equal']}")
+    if ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise AssertionError(f"{what}: the ranks logged different metrics")
+    log(f"{what}: ranks on {[i['device'] for i in info]}; each rank's launches a step "
+        f"{ranks[0]['launches']} (the one-rank run's); after each of the {DP_STEPS} steps "
+        f"every tensor of the ranks' train states bitwise equal")
+    runs = {"cpu": (ref["metrics"][0], ref["moments"], ref["extra"]),
+            "cuda": (ranks[0]["metrics"][0], ranks[0]["moments"], ranks[0]["extra"])}
+    vq_k = 16384 if name == "flagship vq" else 0
+    compare_step_across_devices(runs, f"{what}, step 1 against one rank on the global batch",
+                                DP_CASES[name], vq_k, labels=("one rank", f"{DP_RANKS} ranks"))
+    if vq_k:
+        same = torch.equal(ref["extra"]["counts"], ranks[0]["extra"]["counts"])
+        revived = int((ref["extra"]["counts"] < DP_VQ_REVIVE).sum())
+        log(f"{what}: step 1's search took another code than the one-rank run's for "
+            f"{[r['code_flips'] for r in ranks]} tokens of the ranks (near ties under the bf16 "
+            f"encoder's rounding), replayed with the one-rank codes as the loss head's "
+            f"decisions are; the EMA counts after step 1 bitwise the one-rank run's: {same} "
+            f"({revived} codes revived)")
+        if not same or revived == 0:
+            raise AssertionError(f"{what}: summed counts differ from the one-rank counts, or "
+                                 f"no code revived ({revived})")
+    m_ref, m_got = ref["metrics"][-1], ranks[0]["metrics"][-1]
+    log(f"{what}: step {DP_STEPS} (each run's own loss-head decisions, for information) "
+        f"overall_vae_loss one rank {m_ref['overall_vae_loss']:.6f}, {DP_RANKS} ranks "
+        f"{m_got['overall_vae_loss']:.6f}")
+
+
+def dp_job_main(report: str, live_in: str, live_out: str, argv: list[str]) -> int:
+    """One rank of phase 41 (``chip_smoke.py --dp-job REPORT LIVE_IN
+    LIVE_OUT -- ARGV`` under torchrun): ``vqgan_tpu_torch.cli.main(ARGV)``
+    under ``JobProbe`` (each step timed and checked on the card, each eval
+    and save timed, a restore held bitwise against ``LIVE_IN``, the live
+    state a previous launch ended with, read to the host), the kernels'
+    launches counted. Rank 0 writes the live state it ends with to
+    ``LIVE_OUT``; each rank its report to ``REPORT.rank{r}.json``. cuDNN
+    deterministic throughout (an empty ``LIVE_IN`` or ``LIVE_OUT``: none)."""
+    import torch.distributed as dist
+
+    from vqgan_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed("cuda")
+    torch.backends.cudnn.deterministic = True
+    expect = [torch.load(live_in, map_location="cpu", weights_only=True)] if live_in else None
+    dp_zero_counts()
+    trainer, probe, seconds = run_job(argv, f"data parallel job rank {dist.get_rank()}", expect)
+    rank = trainer.mesh.rank
+    checked = check_on_card(trainer)
+    if live_out and rank == 0:
+        from vqgan_tpu_torch.train.checkpoint import state_dict_of
+
+        torch.save(state_dict_of(trainer.state), live_out)  # a host copy
+    later = probe.steps[1:] or probe.steps
+    out = {"rank": rank, "world": trainer.mesh.world_size, "device": str(trainer.device),
+           "backend": dist.get_backend(trainer.mesh.group), "is_master": trainer.is_master,
+           "local_batch": trainer.local_batch, "launches": dp_counts(), "steps": probe.steps,
+           "step_ms": float(np.mean([h for h, _ in later])) * 1e3,
+           "device_step_ms": float(np.mean([d for _, d in later])),
+           "evals": probe.evals, "saves": probe.saves, "restores": probe.restores,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "on_card": checked,
+           "seconds": seconds, "state_step": int(trainer.state.step)}
+    with open(f"{report}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    del trainer
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_job(tmp: str, extra: list[str], nproc: int, tag: str, live_in: str = "",
+           live_out: str = "") -> list[dict]:
+    """One torchrun launch of ``DP_JOB + extra`` at ``nproc`` ranks; the
+    ranks' reports."""
+    report = os.path.join(tmp, f"job_{tag}")
+    argv = DP_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt")] + extra
+    dp_launch([os.path.abspath(__file__), "--dp-job", report, live_in, live_out, "--",
+               *argv], nproc, os.path.join(tmp, f"job_{tag}.log"), timeout=900)
+    reports = []
+    for r in range(nproc):
+        with open(f"{report}.rank{r}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_data_parallel_job(tmp: str) -> dict:
+    """Phase 41: ``TRAIN_JOB`` (the flagship job, batch 8 of 512 px
+    synthetic images, hinge + LeCam, bf16) through ``python -m
+    torch.distributed.run --nproc_per_node 2`` and ``vqgan_tpu_torch.cli``:
+    3 steps, an eval and a save after steps 1 and 3; then a second launch
+    resumes to step 4, its restore bitwise the live state the first ended
+    with, on both ranks. Only rank 0 evaluates, logs and saves:
+    the JSONL holds one config header a launch and each step once. Then
+    the job at one rank over NCCL, 2 steps, ends in the state that the same
+    2 steps in this process (no torchrun, no process group) end in, bitwise
+    (cuDNN deterministic in both). Returns the launches and timings."""
+    import shutil
+
+    ranks = dp_job(tmp, DP_JOB_FIRST + ["--run_name", "dp"], DP_RANKS, "first",
+                   live_out=os.path.join(tmp, "live_first.pt"))
+    resumed = dp_job(tmp, DP_JOB_RESUME + ["--run_name", "dp"], DP_RANKS, "resume",
+                     live_in=os.path.join(tmp, "live_first.pt"))
+    what = f"data parallel job ({DP_RANKS} ranks)"
+    for launch, steps, evals in ((ranks, 3, 2), (resumed, 1, 0)):
+        if [r["backend"] for r in launch] != ["gloo"] * DP_RANKS \
+                or [r["local_batch"] for r in launch] != [TRAIN_BATCH // DP_RANKS] * DP_RANKS:
+            raise AssertionError(f"{what}: {[(r['backend'], r['local_batch']) for r in launch]}")
+        if [r["is_master"] for r in launch] != [True, False] \
+                or [len(r["evals"]) for r in launch] != [evals, 0]:
+            raise AssertionError(f"{what}: rank 0 alone evaluates "
+                                 f"{[(r['is_master'], len(r['evals'])) for r in launch]}")
+        for r in launch:
+            if len(r["steps"]) != steps or r["launches"]["gn_bwd"] != JOB_GN * steps \
+                    or r["launches"]["gn"] != JOB_GN * (steps + len(r["evals"])):
+                raise AssertionError(f"{what}: rank {r['rank']}: {len(r['steps'])} steps, "
+                                     f"launches {r['launches']}")
+    for r in resumed:
+        if [(s, same) for s, same, _ in r["restores"]] != [(3, True)]:
+            raise AssertionError(f"{what}: rank {r['rank']} restored {r['restores']}")
+    run_dir = os.path.join(tmp, "ckpt", "dp")
+    lines = job_lines(run_dir, "dp")
+    headers = [ln for ln in lines if "_config" in ln]
+    check_job_log(lines, range(0, 4), [1, 3], what)
+    logged = [ln["step"] for ln in lines if "overall_vae_loss" in ln]
+    saved = sorted(os.listdir(os.path.join(run_dir, "state")))
+    if len(headers) != 2 or logged != [0, 1, 2, 3] or saved != [
+            "step_00000001.pt", "step_00000003.pt", "step_00000004.pt"]:
+        raise AssertionError(f"{what}: {len(headers)} config headers, steps logged {logged}, "
+                             f"saved {saved}")
+    log(f"{what}: launch 1 {ranks[0]['seconds']:.1f} s, resume {resumed[0]['seconds']:.1f} s; "
+        f"ranks on {[r['device'] for r in ranks]} over gloo, {TRAIN_BATCH // DP_RANKS} images a "
+        f"rank; the restore of step 3 bitwise the live state on both ranks "
+        f"({resumed[0]['restores'][0][2]} tensors); rank 0 alone evaluated and wrote: "
+        f"{len(headers)} config headers, steps {logged} logged once each, {saved}")
+    shutil.rmtree(os.path.join(tmp, "ckpt"))
+    os.remove(os.path.join(tmp, "live_first.pt"))
+
+    nccl = dp_job(tmp, DP_JOB_PLAIN + ["--run_name", "nccl"], 1, "nccl",
+                  live_out=os.path.join(tmp, "live_nccl.pt"))
+    if nccl[0]["backend"] != "nccl":
+        raise AssertionError(f"the one-rank job's backend: {nccl[0]['backend']}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dp_zero_counts()
+        plain, _, _ = run_job(TRAIN_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"),
+                                           "--run_name", "plain"] + DP_JOB_PLAIN,
+                              "data parallel job, one plain process")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain_launches = dp_counts()
+    same, n = same_state(device_tree(plain.state),
+                         torch.load(os.path.join(tmp, "live_nccl.pt"), map_location="cpu",
+                                    weights_only=True))
+    if plain.mesh.group is not None:
+        raise AssertionError("the plain job has a process group")
+    log(f"data parallel job at one rank over NCCL ({nccl[0]['device']}) against one plain "
+        f"process, 2 steps: {n} state tensors bitwise equal: {same}; launches "
+        f"{nccl[0]['launches']} and {plain_launches}")
+    if not same or nccl[0]["launches"] != plain_launches:
+        raise AssertionError("the one-rank NCCL job and the plain job end apart")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "ckpt"))
+    launches: dict[str, int] = {}
+    for r in (*ranks, *resumed, *nccl):
+        _add_launches(launches, r["launches"])
+    return {"first": ranks, "resume": resumed, "nccl": nccl, "launches": launches}
+
+
+def dp_timing_lines(card: str, steps: dict, jobs: dict) -> None:
+    """Phases 38-41's readings, each line with the card's name and power
+    limit: ms a step at world size 1 and 2 (CUDA events on each rank's
+    stream; two ranks time-slice one card, so this is no scaling figure),
+    the bytes of each step's gradient all-reduces (D's, then G's) and their
+    time (host clock between syncs), each rank's peak memory."""
+    for name, ref in steps["ref"].items():
+        log(f"[{card}] data parallel {name}: world size 1 (global batch): step 2 "
+            f"{ref['ms'][-1]:.1f} ms by events ({ref['host_ms'][-1]:.1f} host), peak "
+            f"{ref['peak_bytes'] / 2**30:.3f} GiB")
+        for backend in ("gloo", "nccl"):
+            for r in steps.get(backend, ()):
+                got = r["cases"].get(name)
+                if got is None:
+                    continue
+                last = got["reduces"][-len(got["reduces"]) // DP_STEPS:]
+                log(f"[{card}] data parallel {name}: world size {DP_RANKS} over {backend}, rank "
+                    f"{r['rank']} on {r['device']}: step 2 {got['ms'][-1]:.1f} ms by events "
+                    f"({got['host_ms'][-1]:.1f} host); gradient all-reduces a step " + ", ".join(
+                        f"{b / 2**20:.1f} MiB in {t * 1e3:.1f} ms" for b, t in last)
+                    + f"; peak {got['peak_bytes'] / 2**30:.3f} GiB")
+    for tag in ("first", "resume", "nccl"):
+        for r in jobs[tag]:
+            log(f"[{card}] data parallel job ({tag}, world size {r['world']}, {r['backend']}, "
+                f"rank {r['rank']}): {r['step_ms']:.1f} ms a step by the host clock, "
+                f"{r['device_step_ms']:.1f} by events; eval "
+                f"{', '.join(f'{t:.2f}' for t in r['evals']) or 'none'} s; save "
+                f"{', '.join(f'{t:.2f}' for t in r['saves'])} s; peak "
+                f"{r['peak_bytes'] / 2**30:.3f} GiB; the launch {r['seconds']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
               "a CUDA device", file=sys.stderr)
         return 1
+    # a rank of phases 38-40 or 41, launched by this script through torchrun
+    if len(sys.argv) > 2 and sys.argv[1] == "--dp-ranks":
+        return dp_ranks_main(sys.argv[2])
+    if len(sys.argv) > 5 and sys.argv[1] == "--dp-job":
+        return dp_job_main(*sys.argv[2:5], sys.argv[sys.argv.index("--") + 1:])
     t_smoke = time.perf_counter()
 
     from vqgan_tpu_torch.ops import attention_cuda as ac
@@ -4482,6 +5109,21 @@ def main() -> int:
     for counted in (*export2d["launches"].values(), export3d["launches"], port_launches):
         _add_launches(export_launches, counted)
 
+    # 38. the flagship step at two ranks against one; 39. its VQ variant; 40.
+    # the 3D GAN step at TVAEConfig()'s width; 41. the flagship job under
+    # torchrun: two ranks, a resume, one rank over NCCL against one process
+    t38 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_steps = phase_data_parallel_steps(tmp)
+        t41 = time.perf_counter()
+        dp_jobs = phase_data_parallel_job(tmp)
+    t_end = time.perf_counter()
+    log(f"phases 38-41 (data parallelism): {t_end - t38:.1f} s (38-40: {t41 - t38:.1f} s, 41: "
+        f"{t_end - t41:.1f} s) of the {t_end - t_smoke:.1f} s the smoke has run so far")
+    dp_launches: dict[str, int] = {}
+    for counted in (dp_steps["launches"], dp_jobs["launches"]):
+        _add_launches(dp_launches, counted)
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -4620,14 +5262,16 @@ def main() -> int:
     for side, t in export3d["timing"].items():
         log(_timing_line(f"served artifact (phase 36) TVAE 16f/128px batch {CLIP_BATCH}: "
                          f"{side}", t, "frames", CLIP_BATCH * CLIP_FRAMES))
+    dp_timing_lines(smi, dp_steps, dp_jobs)
     log(f"export seconds: the CLI in a subprocess (flagship identity) {export2d['cli_s']:.1f}, "
         f"export_vae (flagship vq + attention) {export2d['export_s']:.1f}, export_tvae "
         f"(16f/128px) {export3d['export_s']:.1f}; artifacts vs pipelines max_abs_err "
         f"{max(export2d['err'], export3d['err']):.3e}")
     log(f"kernels line: launches on the main paths, each path's counts set to 0 just before "
         f"it and read just after: the earlier paths' below, plus the training jobs' "
-        f"(phases 28-29 and 31-33: {job_launches}) and the served artifacts' reconstructs "
-        f"(phases 35-37: {export_launches}); GroupNorm launches per identity training step and "
+        f"(phases 28-29 and 31-33: {job_launches}), the served artifacts' reconstructs "
+        f"(phases 35-37: {export_launches}) and the data-parallel ranks' steps and jobs, every "
+        f"rank's (phases 38-41: {dp_launches}); GroupNorm launches per identity training step and "
         f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
@@ -4659,37 +5303,40 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
-              train_counts["gn"] + job_launches["gn"] + export_launches["gn"],
+              train_counts["gn"] + job_launches["gn"] + export_launches["gn"]
+              + dp_launches["gn"],
               max([v[0] for res in fwd.values() for v in res.values()]
                                       + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err,
                                          job3d_err["gn"]]),
               fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
-              train_counts["gn_bwd"] + job_launches["gn_bwd"],
+              train_counts["gn_bwd"] + job_launches["gn_bwd"] + dp_launches["gn_bwd"],
               max([v[0] for v in bwd.values()] + [bwd3d_err, job3d_err["gn_bwd"]]), bwd_step,
               "bytes"),
         entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113",
-              vq_counts["nearest"] + job_launches["nearest"] + export_launches["nearest"],
+              vq_counts["nearest"] + job_launches["nearest"] + export_launches["nearest"]
+              + dp_launches["nearest"],
               max(v[0] for v in vq_nearest.values()), vq_nearest["flagship b8"][1:],
               "operations"),
         entry("code_stats", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:223",
-              vq_counts["stats"] + job_launches["stats"],
+              vq_counts["stats"] + job_launches["stats"] + dp_launches["stats"],
               max(v[0] for v in vq_stats.values()), vq_stats[("flagship b8", True)][1:],
               "bytes"),
         entry("flash_attention", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
-              attn_counts["attn"] + job_launches["attn"] + export_launches["attn"],
+              attn_counts["attn"] + job_launches["attn"] + export_launches["attn"]
+              + dp_launches["attn"],
               max(v[0] for key, v in attn.items() if key[2] == "fwd"),
               attn_step["fwd"], "operations"),
         entry("flash_attention_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
-              attn_counts["attn_bwd"] + job_launches["attn_bwd"],
+              attn_counts["attn_bwd"] + job_launches["attn_bwd"] + dp_launches["attn_bwd"],
               max(v[0] for key, v in attn.items() if key[2] == "bwd"),
               attn_step["bwd"], "operations"),
         entry("conv3d_ttap", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:243",
-              clip_counts["conv3d"] + job_launches["conv3d"],
+              clip_counts["conv3d"] + job_launches["conv3d"] + dp_launches["conv3d"],
               max([v[0] for v in conv_fwd.values()] + [job3d_err["conv3d"]]), conv_step,
               "operations"),
         entry("conv3d_ttap_dx", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:316",
-              clip_grad["conv3d_dx"] + job_launches["conv3d_dx"],
+              clip_grad["conv3d_dx"] + job_launches["conv3d_dx"] + dp_launches["conv3d_dx"],
               max([v[0] for v in conv_dx.values()] + [job3d_err["conv3d"]]), dx_step,
               "operations"),
         *probe_entries,

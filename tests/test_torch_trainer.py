@@ -308,8 +308,12 @@ def test_trainer_device_is_explicit(tmp_path):
 
 @pytest.mark.parametrize("kw,err,what", [
     (dict(crop_invariance=True, downscale_factor=16), ValueError, "downscale_factor"),
-    (dict(mesh_shape="data=2"), NotImplementedError, "mesh_shape"),
+    (dict(mesh_shape="data=1,fsdp=2"), NotImplementedError, "mesh_shape"),
     (dict(grad_accum=3), ValueError, "grad_accum"),
+    # one process without torch.distributed is one rank
+    (dict(mesh_shape="data=2"), ValueError, "torchrun --nproc_per_node"),
+    (dict(mesh_shape="data=1,tensor=2"), NotImplementedError, "Queue 1: tensor sharding"),
+    (dict(mesh_shape="data=1,context=2"), NotImplementedError, "Queue 1: context"),
 ])
 def test_trainer_validates_its_config(tmp_path, kw, err, what):
     with pytest.raises(err, match=what):
@@ -469,7 +473,9 @@ def test_cli_runs_a_job_and_refuses_train3d(tmp_path):
     lines = _lines(tmp_path / "tvae_run" / "metrics_tvae_run.jsonl")
     assert [ln["step"] for ln in lines] == [0, 1, 2]  # the final eval at max_steps
     assert set(lines[2]) == {"step", "eval/recon_l2", "eval/psnr", "eval/ssim"}
-    with pytest.raises(NotImplementedError, match="Queue 1: multi-GPU"):
+    with pytest.raises(NotImplementedError, match="Queue 1: context"):
+        cli.main(argv3d + ["--mesh_shape", "data=1,context=2"])
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(argv3d + ["--mesh_shape", "data=2"])
     with pytest.raises(SystemExit):
         cli.main(["--do_attn", "maybe"])

@@ -358,8 +358,9 @@ def test_eval_scores_the_polyak_weights(gan_job):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh_shape="data=2"), "Queue 1: multi-GPU"),
+    (dict(mesh_shape="data=1,fsdp=2"), "Queue 1: fsdp"),
     (dict(mesh_shape="data=1,context=2"), "context=2 needs several devices"),
+    (dict(mesh_shape="tensor=2,data=-1"), "Queue 1: tensor sharding"),
 ])
 def test_unported_options_raise(tmp_path, kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -23,8 +23,12 @@ does here: ``--do_compile``, ``--use_pallas_gn`` (the CUDA GroupNorm kernels
 are the only GroupNorm), ``--upsample_impl`` (every value computes the direct
 form), ``--conv3d_impl`` (which values run the Conv3d kernel) and
 ``--max_spatial_dim``, which the JAX CLI reads into nothing either.
-``--mesh_shape`` must describe one device; a mesh of several raises
-NotImplementedError.
+Data parallelism: ``torchrun --nproc_per_node N -m vqgan_tpu_torch.cli
+train|train3d --mesh_shape data=-1 ...`` runs N ranks, each on its card
+(``cuda:LOCAL_RANK``; ranks that share a card talk over gloo), with
+``--batch_size`` the global batch. ``--mesh_shape`` axes ``fsdp``,
+``tensor`` and ``context`` above 1 raise NotImplementedError naming their
+ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ NO_EFFECT = " (no effect in the PyTorch port: {})"
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m vqgan_tpu_torch.cli [train]",
-        description="Train the 2D image VAE (optionally GAN) on one CUDA device.",
+        description="Train the 2D image VAE (optionally GAN) on a CUDA device, or data-"
+                    "parallel on several under torchrun.",
     )
     add = p.add_argument
     add("--dataset_url", type=str, default="", help="URL for the training dataset")
@@ -102,8 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--vq_revive_threshold", type=float, default=0.0,
         help="Reseed codes with EMA count below this from batch samples (0=off)")
     add("--mesh_shape", type=str, default="data=-1",
-        help="Device mesh; the port trains on one device, so every axis must be 1 "
-             "or -1 (several devices raise NotImplementedError)")
+        help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
+             "torchrun ranks; fsdp, tensor and context above 1 raise NotImplementedError "
+             "(not ported)")
     add("--remat", type=_bool, default=False,
         help="Activation rematerialization (fit large configs in device memory)")
     add("--remat_policy", type=str, default="full",
@@ -160,7 +166,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="Microbatches per optimizer step: effective batches beyond device "
              "memory (D updates before G sees it, as one big step)")
     add("--device", type=str, default="cuda",
-        help="Device to train on: cuda (default; raises without a card) or cpu")
+        help="Device to train on: cuda (default; raises without a card; under torchrun "
+             "cuda:LOCAL_RANK) or cpu (gloo between ranks)")
     return p
 
 
@@ -252,7 +259,8 @@ def build_parser_3d() -> argparse.ArgumentParser:
     ``--device``."""
     p = argparse.ArgumentParser(
         prog="python -m vqgan_tpu_torch.cli train3d",
-        description="Train the 3D video VAE (TVAE) on one CUDA device. Data: tar shards of "
+        description="Train the 3D video VAE (TVAE) on a CUDA device, or data-parallel on "
+                    "several under torchrun. Data: tar shards of "
                     ".npy/.npz clips via --dataset_url, or synthetic moving patterns.",
     )
     add = p.add_argument
@@ -317,8 +325,9 @@ def build_parser_3d() -> argparse.ArgumentParser:
     add("--max_steps", type=int, default=1000, help="Steps to train to")
     add("--run_name", type=str, default="tvae_run", help="Name of the run")
     add("--mesh_shape", type=str, default="data=-1",
-        help="Device mesh; the port trains on one device, so every axis must be 1 or -1 "
-             "(several devices, and a context axis, raise NotImplementedError)")
+        help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
+             "torchrun ranks; fsdp, tensor and context (ring attention) above 1 raise "
+             "NotImplementedError (not ported)")
     add("--use_wandb", type=_bool, default=True,
         help="Log to wandb when available (JSONL always)")
     add("--log_every", type=int, default=5, help="Metric logging cadence in steps")
@@ -332,7 +341,8 @@ def build_parser_3d() -> argparse.ArgumentParser:
              "state resumes")
     add("--seed", type=int, default=42, help="Seed")
     add("--device", type=str, default="cuda",
-        help="Device to train on: cuda (default; raises without a card) or cpu")
+        help="Device to train on: cuda (default; raises without a card; under torchrun "
+             "cuda:LOCAL_RANK) or cpu (gloo between ranks)")
     return p
 
 

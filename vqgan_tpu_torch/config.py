@@ -169,12 +169,14 @@ class TrainConfig:
     optimization, objective and latent fields, the 3D steps also the video
     family's ``video_loss_frames`` and ``disc_3d``; the 2D ``Trainer``
     (``train/trainer.py``) and the ``train`` CLI read the data, run
-    management and weight-file fields as the JAX trainer does. No effect in
-    this package:
-      - ``mesh_shape``: the port trains on one card; a mesh of several
-        devices raises NotImplementedError (ROADMAP.md, Queue 1: multi-GPU);
-      - ``device_normalize`` for the steps themselves: they normalize a uint8
-        batch on the device whatever its value (the loader reads it).
+    management and weight-file fields as the JAX trainer does.
+    ``mesh_shape``: both trainers run one rank a process under torchrun,
+    the global ``batch_size`` split over the ``data`` axis
+    (``parallel/mesh.py``); ``fsdp``, ``tensor`` and ``context`` above 1
+    raise NotImplementedError naming their ROADMAP.md Queue 1 items. No
+    effect in this package: ``device_normalize`` for the steps themselves
+    (they normalize a uint8 batch on the device whatever its value; the
+    loader reads it).
 
     ``grad_accum > 1``: each step splits its batch into that many
     microbatches, and its peak memory is one microbatch's graph (the
@@ -255,3 +257,14 @@ def parse_ch_mult(s: str | Sequence[int]) -> Tuple[int, ...]:
     if isinstance(s, str):
         return tuple(int(x) for x in s.split(","))
     return tuple(int(x) for x in s)
+
+
+def parse_mesh_shape(s: str) -> dict:
+    """Parse "data=4,fsdp=2,tensor=1" into an ordered axis dict."""
+    out = {}
+    for part in s.split(","):
+        if not part:
+            continue
+        k, v = part.split("=")
+        out[k.strip()] = int(v)
+    return out

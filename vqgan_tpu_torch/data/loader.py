@@ -11,8 +11,8 @@ hardcoded paths, vae_trainer.py:380-387).
 
 ``device_prefetch`` keeps ``depth`` batches in flight to one device: each
 host batch is put in pinned memory and copied ``non_blocking``, so the copy
-overlaps the step that runs before it. There is no mesh: one card, the
-JAX package's ``data=1`` case.
+overlaps the step that runs before it. Under data parallelism each rank
+feeds its own card its share of the global batch.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from vqgan_tpu_torch.data.native import native_available
-from vqgan_tpu_torch.data.tar_stream import TarImageStream, expand_braces
+from vqgan_tpu_torch.data.tar_stream import TarImageStream, expand_braces, split_shards
 from vqgan_tpu_torch.data.transforms import (
     make_eval_transform,
     make_native_train_transform,
@@ -44,14 +44,20 @@ def create_dataloader(
     device_normalize: bool = False,
     indexed: bool = False,
     start_step: int = 0,
+    process_index: int = 0,
+    process_count: int = 1,
 ):
     """``device_normalize``: emit uint8 batches, normalized on the device by
     the step (4x less host-to-device traffic for the same numbers).
 
     ``indexed``: the position-addressable dataset (data/indexed.py) —
     per-epoch perfect shuffle, sample-exact resume at ``start_step`` with no
-    saved iterator state. One process reads every shard (the port trains on
-    one card)."""
+    saved iterator state.
+
+    ``batch_size`` is this process's share of the global batch, as in the
+    JAX loader: ``process_index`` of ``process_count`` ranks reads its slots
+    of each indexed global batch of ``batch_size · process_count``, or its
+    shards of a streamed dataset (``split_shards``)."""
     shards = expand_braces(url)
     if just_resize:
         transform = make_eval_transform(width, as_uint8=device_normalize)
@@ -68,14 +74,16 @@ def create_dataloader(
         return IndexedTarDataset(
             shards,
             transform,
-            global_batch=batch_size,
+            global_batch=batch_size * process_count,
             seed=seed,
             start_step=start_step,
             num_workers=num_workers,
+            process_index=process_index,
+            process_count=process_count,
             do_shuffle=do_shuffle,
         )
     return TarImageStream(
-        shards,
+        split_shards(shards, process_index, process_count),
         transform,
         batch_size=batch_size,
         num_workers=num_workers,

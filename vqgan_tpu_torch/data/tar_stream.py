@@ -7,8 +7,8 @@ workers (split_by_worker), sample shuffle buffer of 1000, jpg/png decode,
 per-sample transform. This module implements the same contract:
 
   - brace expansion of `{AAAAA..BBBBB}.tar` URL patterns,
-  - shard assignment: round-robin over processes (one here: the port trains
-    on one card), then over decode workers,
+  - shard assignment: round-robin over processes (the data-parallel ranks),
+    then over decode workers,
   - a thread pool of decode workers (cv2/PIL decode releases the GIL),
   - a shuffle buffer, then batch assembly into numpy arrays that
     ``loader.device_prefetch`` pins and copies to the card.

@@ -14,9 +14,9 @@ array in [-1, 1]:
     ``size``, then a center crop (in uint8, cheap on the host);
   - normalized to [-1, 1], as the image pipeline is.
 
-One process reads every shard: the port trains on one card, so
-``process_index`` is 0 and ``process_count`` 1 unless the caller says
-otherwise.
+``process_index`` of ``process_count`` processes reads its round-robin
+share of the shards (``split_shards``); the defaults, 0 of 1, read every
+shard. ``Trainer3D`` passes its rank and the world size.
 """
 
 from __future__ import annotations

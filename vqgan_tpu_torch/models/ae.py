@@ -257,12 +257,14 @@ class VAE(nn.Module):
         return _nhwc(self.decoder(nchw(z)))
 
     def regularize(self, z: torch.Tensor, ema_state: Optional[dict] = None,
-                   update_stats: bool = False, eps: Optional[torch.Tensor] = None):
+                   update_stats: bool = False, eps: Optional[torch.Tensor] = None,
+                   group=None):
         """z_s for the Gaussian kinds (the sampled one takes ``eps``); for VQ
         the quantizer's ``(z_q, aux, new_ema)`` (JAX ae.py:299-306, where
-        ``new_ema`` is the mutable ``vq_ema`` collection's new value)."""
+        ``new_ema`` is the mutable ``vq_ema`` collection's new value), its
+        statistics summed across ``group``'s ranks where one is given."""
         if isinstance(self.reg, VectorQuantizer):
-            return self.reg(z, ema_state, update_stats)
+            return self.reg(z, ema_state, update_stats, group)
         if isinstance(self.reg, DiagonalGaussian):
             return self.reg(z, eps)
         return self.reg(z)

@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from vqgan_tpu_torch.ops import custom_ops
 from vqgan_tpu_torch.ops.vq_cuda import code_stats
+from vqgan_tpu_torch.parallel.mesh import all_reduce_
 
 
 class VectorQuantizer(nn.Module):
@@ -74,11 +75,15 @@ class VectorQuantizer(nn.Module):
         return self._straight_through(z, zf, z_q)
 
     def forward(self, z: torch.Tensor, ema_state: Optional[dict] = None,
-                update_stats: bool = False) -> tuple[torch.Tensor, dict[str, Any], Optional[dict]]:
+                update_stats: bool = False, group=None
+                ) -> tuple[torch.Tensor, dict[str, Any], Optional[dict]]:
         """z (..., D) → ``(z_q_ste, aux, new_ema)`` as ``quant.py:60-117``.
 
         ``new_ema`` is None unless EMA is on and ``update_stats``: then it is
-        decay·``ema_state`` + (1 − decay)·(counts, sums) of this batch."""
+        decay·``ema_state`` + (1 − decay)·(counts, sums) of this batch.
+        ``group``: a process group whose ranks hold the rest of the batch;
+        the counts and sums (and so the perplexity, the usage and the new
+        statistics) are summed across it, the global batch's."""
         zf, flat, codes, z_q = self._search(z)
         commitment = (zf - z_q.detach()).square().mean()
         codebook_loss = (zf.detach() - z_q).square().mean()
@@ -91,6 +96,8 @@ class VectorQuantizer(nn.Module):
         if need_sums and ema_state is None:
             raise ValueError("update_stats with EMA needs the old statistics (ema_state)")
         counts, sums = code_stats(codes, flat, self.codebook_size, with_sums=need_sums)
+        # integer counts: their sum over the ranks is exact
+        all_reduce_([counts] if sums is None else [counts, sums], group)
         probs = counts / counts.sum().clamp_min(1.0)
         perplexity = torch.exp(-(probs * torch.log(probs + 1e-10)).sum())
 

@@ -372,7 +372,7 @@ class TVAE(nn.Module):
         if ring_axis is not None:
             raise NotImplementedError(
                 "ring_axis: ring attention over a mesh axis is not ported yet "
-                "(ROADMAP.md, Queue 1: multi-GPU)")
+                "(ROADMAP.md, Queue 1: context (ring attention and the 2D halo))")
         self.cfg = cfg
         dtype = DTYPES[cfg.compute_dtype]
         kw = dict(dtype=dtype, fused_swish=cfg.fused_gn_swish, conv3d_impl=cfg.conv3d_impl,
@@ -399,11 +399,12 @@ class TVAE(nn.Module):
         return _ndhwc(self.decoder(ncdhw(z)))
 
     def regularize(self, z: torch.Tensor, ema_state: Optional[dict] = None,
-                   update_stats: bool = False):
+                   update_stats: bool = False, group=None):
         """The Gaussian's sample in z's dtype, or for VQ the quantizer's
-        ``(z_q, aux, new_ema)``."""
+        ``(z_q, aux, new_ema)``, its statistics summed across ``group``'s
+        ranks where one is given."""
         if isinstance(self.reg, VectorQuantizer):
-            return self.reg(z, ema_state, update_stats)
+            return self.reg(z, ema_state, update_stats, group)
         return self.reg(z)
 
     def deterministic_latent(self, z: torch.Tensor) -> torch.Tensor:

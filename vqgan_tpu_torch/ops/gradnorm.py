@@ -11,49 +11,68 @@ Modes: ``shards == 1`` divides by the Frobenius norm of the whole gradient;
 ``shards > 1`` by the mean of the norms of ``shards`` contiguous equal blocks
 of dim 0 (the reference's average of per-rank norms for a batch split that
 way; ``TrainConfig.gradnorm_mode = "mean_shard_norm"``).
+
+Across ranks (``axis_name``, a process group or ``"data"``, each rank
+holding its rows of the global gradient) the norm is the global one: with
+``global_norm`` the square root of the squared sums of every rank, else the
+mean of every rank's block norms (JAX's ``lax.pmean`` of the per-rank norm),
+each one ``all_reduce`` inside the backward.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from vqgan_tpu_torch.parallel.mesh import data_group
 
 
 class GradNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, shards):
+    def forward(ctx, x, weight, shards, group, global_norm):
         ctx.weight = weight
         ctx.shards = shards
+        ctx.group = group
+        ctx.global_norm = global_norm
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         gf = g.float()
-        shards = ctx.shards
-        if shards > 1:
+        shards, group = ctx.shards, ctx.group
+        if group is not None and ctx.global_norm:
+            sq = gf.square().sum().reshape(1)
+            dist.all_reduce(sq, group=group)
+            norm = sq[0].sqrt()
+        elif shards > 1 or group is not None:
             b = gf.shape[0]
             if b % shards:
                 raise ValueError(f"gradnorm shards {shards} must divide the batch {b}")
             sq = gf.square().reshape(b, -1).sum(dim=1)  # per example
-            norm = sq.reshape(shards, b // shards).sum(dim=1).sqrt().mean()
+            norms = sq.reshape(shards, b // shards).sum(dim=1).sqrt()
+            if group is None:
+                norm = norms.mean()
+            else:  # the mean over every rank's blocks
+                total = norms.sum().reshape(1)
+                dist.all_reduce(total, group=group)
+                norm = total[0] / (shards * dist.get_world_size(group))
         else:
             norm = gf.square().sum().sqrt()
         out = (ctx.weight * gf / (norm + 1e-8)).to(g.dtype)
-        return out, None, None
+        return out, None, None, None, None
 
 
 def gradnorm(
     x: torch.Tensor,
     weight: float = 1.0,
-    axis_name: str | None = None,
+    axis_name=None,
     shards: int = 1,
+    global_norm: bool = False,
 ) -> torch.Tensor:
     """Identity forward; the backward rescales the gradient to norm
-    ``weight`` (see the module docstring). ``axis_name`` names a JAX mapped
-    axis to average the norm over; a single-GPU step has none, so passing
-    one raises."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "gradnorm axis_name: averaging the norm across processes "
-            "(DDP) is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
-        )
-    return GradNorm.apply(x, weight, shards)
+    ``weight`` (see the module docstring). ``axis_name``: None for one
+    process, else a process group or ``"data"`` (the current mesh's group),
+    across which the norm is taken; ``global_norm`` then picks the
+    Frobenius norm over every rank, else the mean of the ranks' norms."""
+    group = None if axis_name is None else data_group(axis_name)
+    return GradNorm.apply(x, weight, shards, group, global_norm)

@@ -97,6 +97,7 @@ def load_state_into(state: TrainState, saved: dict) -> TrainState:
     if state.g_sched is not None:
         sched = state.g_sched
         sched.last_epoch = saved["g_sched"]["last_epoch"]
+        sched._step_count = saved["g_sched"]["_step_count"]
         for group, base, fn in zip(state.g_opt.param_groups, sched.base_lrs, sched.lr_lambdas):
             group["lr"] = base * fn(sched.last_epoch)
         sched._last_lr = [group["lr"] for group in state.g_opt.param_groups]

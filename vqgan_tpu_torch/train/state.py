@@ -173,3 +173,24 @@ def create_train_state(
         g_ema=g_ema,
         vq_ema=vq_ema,
     )
+
+
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor of the train state in a fixed order: G's and D's
+    parameters and buffers, their optimizers' per-parameter state, the
+    LeCam anchors, the generator's state, the Polyak and VQ EMAs. Equal
+    on every rank of a data-parallel job."""
+    out: list[torch.Tensor] = []
+    for model, opt in ((state.g_model, state.g_opt), (state.d_model, state.d_opt)):
+        if model is None:
+            continue
+        out += [t.detach() for t in model.parameters()] + list(model.buffers())
+        for group in opt.param_groups:
+            for p in group["params"]:
+                per = opt.state.get(p, {})
+                out += [per[k] for k in sorted(per) if isinstance(per[k], torch.Tensor)]
+    out += [state.lecam_real, state.lecam_fake, state.generator.get_state()]
+    for tree in (state.g_ema, state.vq_ema):
+        if tree is not None:
+            out += [tree[k] for k in sorted(tree)]
+    return out

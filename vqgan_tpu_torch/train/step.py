@@ -60,6 +60,22 @@ caller that needs given draws (the parity tests feed the JAX step's) passes
 ``draws``. Under accumulation one set of coins and crop offsets serves the
 whole step, microbatch i takes rows [i·B/k, (i+1)·B/k) of ε in both passes,
 and the revival rows index the z of the whole batch.
+
+Data parallelism (``group``, the ``data`` axis's process group; JAX's
+global-batch ``jit``, ``vqgan_tpu/parallel/mesh.py``): each of the N ranks
+takes ``batch`` as its B rows of a global batch of N·B, and the step is the
+one-process step on that global batch. Each rank's losses enter the
+backward over N (its share of the global mean); G's and D's gradients are
+summed across the ranks before their AdamW steps; GradNorm's norm is the
+global batch's (``ops/gradnorm.py``; ``mean_shard_norm`` takes each rank's
+rows as its shards); the LeCam anchors take the global mean logits; the VQ
+counts and sums are summed across the ranks; the z statistics are taken on
+the gathered z and every metric is the mean over the ranks. The draws are
+the global batch's on every rank (the coins and offsets from the same
+generator state; ε and the revival rows for N·B rows), and a rank takes its
+own rows of ε. Under accumulation the global microbatch i is the ranks'
+microbatches i in rank order, so the global batch is microbatch-major:
+[mb 0 of rank 0, mb 0 of rank 1, ..., mb 1 of rank 0, ...].
 """
 
 from __future__ import annotations
@@ -83,6 +99,13 @@ from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.quant import apply_ema_codebook_update, revive_dead_codes
 from vqgan_tpu_torch.ops.gradnorm import gradnorm
 from vqgan_tpu_torch.ops.resize import resize_area
+from vqgan_tpu_torch.parallel.mesh import (
+    gather_rows,
+    group_rank,
+    group_size,
+    mean_across,
+    reduce_gradients,
+)
 from vqgan_tpu_torch.train.state import TrainState
 
 QUANTILES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
@@ -183,14 +206,19 @@ def z_statistics(z: torch.Tensor) -> dict[str, torch.Tensor]:
 
 
 def discriminator_loss(cfg: TrainConfig, disc: Callable, anchors: tuple,
-                       real: torch.Tensor, fake: torch.Tensor):
+                       real: torch.Tensor, fake: torch.Tensor, group=None):
     """D's loss on the real and the (detached) fake inputs: the GAN loss, the
     LeCam anchors EMA'd from the logits first and the penalty taken against
     the new anchors (reference :639-655). Returns ``(total, metrics, new
-    anchors)``."""
+    anchors)``. Under ``group`` the anchors take the global batch's mean
+    logits."""
     real_preds = disc(real)
     fake_preds = disc(fake)
     d_loss, d_metrics = gan_disc_loss(real_preds, fake_preds, cfg.disc_type)
+    if group is not None:
+        avg = mean_across(torch.stack([d_metrics["avg_real_logits"].detach(),
+                                       d_metrics["avg_fake_logits"].detach()]), group)
+        d_metrics["avg_real_logits"], d_metrics["avg_fake_logits"] = avg[0], avg[1]
     new_real, new_fake = update_lecam_anchors(
         anchors[0], anchors[1],
         d_metrics["avg_real_logits"].detach(),
@@ -214,23 +242,25 @@ def discriminator_loss(cfg: TrainConfig, disc: Callable, anchors: tuple,
 
 def discriminator_update(cfg: TrainConfig, disc: Callable, state: TrainState,
                          pairs: Iterable[tuple[torch.Tensor, torch.Tensor]], accum: int,
-                         metrics: dict[str, torch.Tensor]) -> None:
+                         metrics: dict[str, torch.Tensor], group=None) -> None:
     """One AdamW step of D (``state.d_model``, called through ``disc``) on
     the mean of its gradients over ``pairs``, each microbatch's (real,
     detached fake) inputs (one pair without accumulation), taken a pair at a
     time: ``discriminator_loss``, the LeCam anchors advancing a pair at a
     time (JAX's D scan). The mean of D's metrics and the last anchors go to
-    ``metrics``."""
+    ``metrics``. Under ``group`` each rank's loss enters the backward over
+    the ranks' count and the gradients are summed across them."""
     grads = GradMean(state.d_model.parameters(), accum)
     anchors = (state.lecam_real, state.lecam_fake)
     outs = []
     state.d_opt.zero_grad(set_to_none=True)
     for real, fake in pairs:
-        total_d, d_metrics, anchors = discriminator_loss(cfg, disc, anchors, real, fake)
-        total_d.backward()
+        total_d, d_metrics, anchors = discriminator_loss(cfg, disc, anchors, real, fake, group)
+        backward_share(total_d, group)
         grads.take()
         outs.append(d_metrics)
     grads.put()
+    reduce_gradients(state.d_model.parameters(), group)
     state.d_opt.step()
     state.d_opt.zero_grad(set_to_none=True)
     state.lecam_real, state.lecam_fake = anchors
@@ -245,6 +275,61 @@ def microbatches(batch: torch.Tensor, accum: int) -> list[torch.Tensor]:
     if b % accum:
         raise ValueError(f"batch {b} not divisible by grad_accum {accum}")
     return list(batch.split(b // accum))
+
+
+def backward_share(loss: torch.Tensor, group) -> None:
+    """``loss.backward()``; under ``group`` of N ranks the backward of
+    loss / N, this rank's share of the global batch's mean (the ranks'
+    gradients are then summed)."""
+    if group is None:
+        loss.backward()
+    else:
+        (loss * (1.0 / group_size(group))).backward()
+
+
+def global_rows(local: torch.Tensor, group, accum: int = 1) -> torch.Tensor:
+    """The global batch's rows of a per-rank tensor whose dim 0 is this
+    rank's batch (``accum`` microbatches of it): gathered across ``group``,
+    microbatch-major as the step orders the global batch."""
+    if group is None:
+        return local
+    n, b = group_size(group), local.shape[0]
+    rows = gather_rows(local, group)
+    if accum > 1:
+        rest = tuple(rows.shape[1:])
+        rows = rows.reshape((n, accum, b // accum) + rest).transpose(0, 1).reshape((n * b,) + rest)
+    return rows
+
+
+def rank_rows(global_t: torch.Tensor, group, accum: int = 1) -> torch.Tensor:
+    """This rank's rows of a global-batch tensor (``global_rows``' inverse)."""
+    if group is None:
+        return global_t
+    n = group_size(group)
+    b = global_t.shape[0] // n
+    rest = tuple(global_t.shape[1:])
+    return global_t.reshape((accum, n, b // accum) + rest)[:, group_rank(group)].reshape(
+        (b,) + rest)
+
+
+def global_metrics(metrics: dict[str, torch.Tensor], group) -> dict[str, torch.Tensor]:
+    """Each metric's mean over the ranks, in one all_reduce."""
+    if group is None or not metrics:
+        return metrics
+    names = list(metrics)
+    means = mean_across(torch.stack([metrics[k].detach().float() for k in names]), group)
+    return dict(zip(names, means.unbind()))
+
+
+def z_metrics(z_pre: torch.Tensor, z: torch.Tensor, group) -> dict[str, torch.Tensor]:
+    """``z_statistics`` of the pre-clamp z, over the ranks' gathered rows
+    under ``group``, with the clamped z's ``std_of_abs_z`` taken the same
+    way (the other z metrics are means)."""
+    if group is None:
+        return z_statistics(z_pre)
+    out = z_statistics(gather_rows(z_pre.float(), group))
+    out["std_of_abs_z"] = gather_rows(z.detach().float(), group).abs().std(correction=0)
+    return out
 
 
 class GradMean:
@@ -329,6 +414,23 @@ def polyak_update(state: TrainState, model: nn.Module, decay: float) -> None:
     torch._foreach_add_(ema, [params[n] for n in names], alpha=1.0 - decay)
 
 
+def gradnorm_branch(cfg: TrainConfig, gradnorm_shards: int, group) -> Callable:
+    """``(x, weight) -> gradnorm(x, ...)`` for the step's mode: the global
+    Frobenius norm, or with ``cfg.gradnorm_mode = "mean_shard_norm"`` the
+    mean of ``gradnorm_shards`` block norms (1: the global norm again). Under
+    ``group`` the norm is the global batch's: the blocks are split evenly
+    over the ranks (JAX's ``gradnorm_shards = n_data``: one a rank)."""
+    gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
+    if group is None:
+        return lambda x, w: gradnorm(x, w, None, gn_shards)
+    if gn_shards == 1:
+        return lambda x, w: gradnorm(x, w, group, 1, global_norm=True)
+    n = group_size(group)
+    if gn_shards % n:
+        raise ValueError(f"gradnorm_shards {gn_shards} must divide by the {n} ranks")
+    return lambda x, w: gradnorm(x, w, group, gn_shards // n)
+
+
 def make_train_step(
     cfg: TrainConfig,
     vae_cfg: VAEConfig,
@@ -336,6 +438,7 @@ def make_train_step(
     disc: Optional[nn.Module],
     lpips: nn.Module,
     gradnorm_shards: int = 1,
+    group=None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """Returns ``step(state, batch, do_crop=0, draws=None) -> (state,
     metrics)``. ``state`` is a ``TrainState`` of these models and is updated
@@ -344,12 +447,16 @@ def make_train_step(
     ``cfg.crop_fractions``; metrics are 0-d device tensors.
 
     ``gradnorm_shards``: the data-parallel extent for
-    ``cfg.gradnorm_mode = "mean_shard_norm"``; 1 = global-norm mode."""
+    ``cfg.gradnorm_mode = "mean_shard_norm"``; 1 = global-norm mode.
+    ``group``: the data axis's process group (see the module docstring);
+    ``batch`` is then this rank's rows, ``draws.eps`` the global batch's."""
     if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
         raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
-    gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
+    branch = gradnorm_branch(cfg, gradnorm_shards, group)
+    n_ranks = group_size(group)
+    accum = max(1, cfg.grad_accum)
 
     enc_res = vae_cfg.resolution
     hr = vae_cfg.decoder_also_perform_hr
@@ -397,7 +504,7 @@ def make_train_step(
         if use_vq and not stats:
             z_s = vae.reg.quantize(z)
         elif use_vq:
-            z_s, aux, new_ema = vae.regularize(z, vq_ema, update_stats=use_vq_ema)
+            z_s, aux, new_ema = vae.regularize(z, vq_ema, update_stats=use_vq_ema, group=group)
             aux_loss = aux["vq_loss"]
         else:
             z_s = vae.regularize(z, eps=draws.eps)
@@ -416,7 +523,7 @@ def make_train_step(
     def g_losses(recon, z, aux_loss, target, draws):
         """All generator loss branches (reference vae_trainer.py:662-698)."""
         metrics = {}
-        recon_lpips = gradnorm(recon, cfg.gradnorm_lpips, None, gn_shards)
+        recon_lpips = branch(recon, cfg.gradnorm_lpips)
         target_aug = target
         if cfg.augment_before_perceptual_loss:
             recon_lpips, target_aug = _flip_if(draws.aug_lpips_w, (recon_lpips, target_aug), 2)
@@ -424,7 +531,7 @@ def make_train_step(
         percep = lpips_apply(recon_lpips.float(), target_aug).mean()
         metrics["perceptual_loss"] = percep
 
-        recon_mse = gradnorm(recon, cfg.gradnorm_mse, None, gn_shards)
+        recon_mse = branch(recon, cfg.gradnorm_mse)
         vae_loss, vae_metrics = vae_loss_function(
             target, recon_mse.float(), z, do_pool=cfg.do_pool_recon,
             recon_weight=cfg.recon_weight, z_reg_weight=cfg.z_reg_weight,
@@ -435,7 +542,7 @@ def make_train_step(
         if aux_loss is not None:
             total = total + aux_loss
         if cfg.do_ganloss:
-            recon_gan = gradnorm(recon, cfg.gradnorm_gan, None, gn_shards)
+            recon_gan = branch(recon, cfg.gradnorm_gan)
             g_gan = generator_gan_loss(disc_apply(recon_gan.float()), cfg.disc_type)
             metrics["gan/generator_gan_loss"] = g_gan
             total = total + g_gan
@@ -446,13 +553,15 @@ def make_train_step(
 
     def step_draws(state: TrainState, batch: torch.Tensor, do_crop: int,
                    draws: Optional[StepDraws]) -> StepDraws:
+        """The global batch's draws; ε cut to this rank's rows."""
+        rows = batch.shape[0] * n_ranks
         if draws is None:
             crop_range = (0, 0)
             if do_crop:
                 ch, cw = crop_size(do_crop)
                 crop_range = (z_side - ch, z_side - cw)
-            n_tokens = batch.shape[0] * z_side * z_side
-            eps = ((batch.shape[0], z_side, z_side, vae_cfg.z_channels), enc_dtype)
+            n_tokens = rows * z_side * z_side
+            eps = ((rows, z_side, z_side, vae_cfg.z_channels), enc_dtype)
             draws = draw_step(state.generator, crop_range,
                               (vae_cfg.vq_codebook_size, n_tokens) if revive else None,
                               eps if sampled else None)
@@ -460,6 +569,11 @@ def make_train_step(
             raise ValueError("vq_revive_threshold > 0: draws.revive_idx is needed")
         elif sampled and draws.eps is None:
             raise ValueError("reg_type='gaussian': draws.eps is needed")
+        if group is not None and draws.eps is not None:
+            if draws.eps.shape[0] != rows:
+                raise ValueError(f"draws.eps has {draws.eps.shape[0]} rows; the global batch "
+                                 f"{rows}")
+            draws = dataclasses.replace(draws, eps=rank_rows(draws.eps, group, accum))
         return draws
 
     def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
@@ -469,36 +583,38 @@ def make_train_step(
         # --- shared generator forward (one forward, one backward per step) ---
         recon, z, target, z_pre, aux_loss, new_ema = gen_forward(batch, draws, do_crop,
                                                                  state.vq_ema)
-        metrics = z_statistics(z_pre)
+        z_m = z_metrics(z_pre, z, group)
+        metrics = dict(z_m)
 
         # --- discriminator update, before G ---
         if cfg.do_ganloss:
             discriminator_update(cfg, disc_apply, state, [(target, recon.detach().float())],
-                                 1, metrics)
+                                 1, metrics, group)
 
         # --- generator update against the updated D; D's params take no
         # gradient from this backward ---
         with frozen(disc if cfg.do_ganloss else None):
             total, g_metrics = g_losses(recon, z, aux_loss, target, draws)
         state.g_opt.zero_grad(set_to_none=True)
-        total.backward()
+        backward_share(total, group)
+        reduce_gradients(vae.parameters(), group)
         state.g_opt.step()
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         if use_vq_ema:
-            # revival from the clamped, unflipped z
-            fold_codebook(state, vae, new_ema, z, draws.revive_idx,
-                          vae_cfg.vq_revive_threshold)
+            # revival from the clamped, unflipped z (the global batch's)
+            fold_codebook(state, vae, new_ema, global_rows(z.detach().float(), group),
+                          draws.revive_idx, vae_cfg.vq_revive_threshold)
 
         if cfg.ema_decay > 0:
             polyak_update(state, vae, cfg.ema_decay)
         state.step += 1
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
-        return state, metrics
+        metrics.update(z_m)  # under a group: the gathered z's std_of_abs_z
+        return state, global_metrics(metrics, group)
 
-    if cfg.grad_accum <= 1:
+    if accum == 1:
         return step
-    accum = cfg.grad_accum
 
     def step_accum(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
                    draws: Optional[StepDraws] = None):
@@ -521,7 +637,7 @@ def make_train_step(
 
         metrics: dict[str, torch.Tensor] = {}
         if cfg.do_ganloss:
-            discriminator_update(cfg, disc_apply, state, d_pairs(), accum, metrics)
+            discriminator_update(cfg, disc_apply, state, d_pairs(), accum, metrics, group)
 
         # --- G's pass against the updated D: forward and backward a
         # microbatch, the mean gradient ---
@@ -534,24 +650,25 @@ def make_train_step(
                                                                      vq_ema)
             with frozen(disc if cfg.do_ganloss else None):
                 total, g_m = g_losses(recon, z, aux_loss, target, mb_draws(i))
-            total.backward()
+            backward_share(total, group)
             g_grads.take()
-            g_m.update(z_statistics(z_pre))
+            g_m.update(z_metrics(z_pre, z, group))
             g_outs.append(g_m)
             z_all.append(z.detach())
             if use_vq_ema:
                 vq_ema = new_ema
         g_grads.put()
+        reduce_gradients(vae.parameters(), group)
         state.g_opt.step()
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         if use_vq_ema:
-            fold_codebook(state, vae, vq_ema, torch.cat(z_all), draws.revive_idx,
-                          vae_cfg.vq_revive_threshold)
+            fold_codebook(state, vae, vq_ema, global_rows(torch.cat(z_all).float(), group, accum),
+                          draws.revive_idx, vae_cfg.vq_revive_threshold)
         if cfg.ema_decay > 0:
             polyak_update(state, vae, cfg.ema_decay)
         state.step += 1
         metrics.update(mean_metrics(g_outs))
-        return state, metrics
+        return state, global_metrics(metrics, group)
 
     return step_accum

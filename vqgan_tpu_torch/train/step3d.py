@@ -43,6 +43,15 @@ parity tests feed the JAX step's). Under accumulation one phase u serves the
 step, microbatch i takes rows [i·B/k, (i+1)·B/k) of ε in both passes (drawn
 a microbatch at a time when not given), and the revival rows index the z of
 the whole batch.
+
+Data parallelism (``group``): as the 2D step (``train/step.py``), each rank
+holds its B clips of a global batch of N·B and the step is the one-process
+step on it. The losses enter the backward over N, the gradients are summed
+across the ranks, GradNorm takes the global norm, the LeCam anchors the
+global mean logits, VQ the summed counts and sums; the phase u is drawn
+once from the same generator state on every rank, ε and the revival rows
+for the global batch (a rank takes its rows of ε), and every metric is the
+mean over the ranks.
 """
 
 from __future__ import annotations
@@ -57,16 +66,21 @@ from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
 from vqgan_tpu_torch.losses.gan import generator_gan_loss
 from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.tae import reparameterize
-from vqgan_tpu_torch.ops.gradnorm import gradnorm
+from vqgan_tpu_torch.parallel.mesh import group_size, reduce_gradients
 from vqgan_tpu_torch.train.state import TrainState
 from vqgan_tpu_torch.train.step import (
     GradMean,
+    backward_share,
     discriminator_update,
     fold_codebook,
     frozen,
+    global_metrics,
+    global_rows,
+    gradnorm_branch,
     mean_metrics,
     microbatches,
     polyak_update,
+    rank_rows,
 )
 
 
@@ -113,8 +127,11 @@ class _Latent:
     """The regularizer of one step and its draws: the Gaussian's sample and
     KL, or the VQ latent with its loss and new EMA statistics."""
 
-    def __init__(self, tvae_cfg: TVAEConfig, model: nn.Module):
+    def __init__(self, tvae_cfg: TVAEConfig, model: nn.Module, group=None, accum: int = 1):
         self.model = model
+        self.group = group
+        self.n_ranks = group_size(group)
+        self.accum = accum
         self.gaussian = tvae_cfg.reg_type == "gaussian"
         self.use_vq_ema = not self.gaussian and tvae_cfg.vq_ema_decay > 0
         self.revive_threshold = tvae_cfg.vq_revive_threshold if self.use_vq_ema else 0.0
@@ -127,13 +144,15 @@ class _Latent:
         its loss and statistics (reg_loss None)."""
         if self.gaussian:
             if draws.eps is None:
-                draws.eps = torch.randn(*z.shape[:-1], z.shape[-1] // 2,
-                                        generator=generator, device=z.device)
+                # the global batch's ε from the shared generator state
+                eps = torch.randn(z.shape[0] * self.n_ranks, *z.shape[1:-1], z.shape[-1] // 2,
+                                  generator=generator, device=z.device)
+                draws.eps = rank_rows(eps, self.group)
             z_s, kl = reparameterize(z, draws.eps)
             return z_s, kl, None
         if not stats:
             return self.model.reg.quantize(z), None, None
-        z_s, aux, new_ema = self.model.regularize(z, vq_ema, self.use_vq_ema)
+        z_s, aux, new_ema = self.model.regularize(z, vq_ema, self.use_vq_ema, self.group)
         return z_s, aux["vq_loss"], new_ema
 
     def fold(self, state: TrainState, new_ema, z: torch.Tensor, draws: Step3DDraws) -> None:
@@ -142,10 +161,20 @@ class _Latent:
         if not self.use_vq_ema:
             return
         if self.revive_threshold > 0 and draws.revive_idx is None:
-            n = z[..., 0].numel()
+            n = z[..., 0].numel() * self.n_ranks
             draws.revive_idx = torch.randint(0, n, (self.codebook_size,),
                                              generator=state.generator, device=z.device)
+        if self.revive_threshold > 0:
+            z = global_rows(z.float(), self.group, self.accum)
         fold_codebook(state, self.model, new_ema, z, draws.revive_idx, self.revive_threshold)
+
+
+def _own_rows(draws: Optional[Step3DDraws], group, accum: int) -> Step3DDraws:
+    """The step's draws, a caller's global ε cut to this rank's rows."""
+    draws = Step3DDraws() if draws is None else draws
+    if group is not None and draws.eps is not None:
+        draws.eps = rank_rows(draws.eps, group, accum)
+    return draws
 
 
 class _Microbatches:
@@ -169,16 +198,16 @@ class _Microbatches:
 
 
 def make_train_step_3d(
-    cfg: TrainConfig, tvae_cfg: TVAEConfig, model: nn.Module,
+    cfg: TrainConfig, tvae_cfg: TVAEConfig, model: nn.Module, group=None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """The recon-only step (``trainer3d.py:49-163``): returns ``step(state,
     clips, draws=None) -> (state, metrics)`` with metrics ``recon_l2``,
     ``kl`` (the VQ loss for VQ) and ``loss``, 0-d device tensors. ``state``
     comes from ``create_train_state(..., recon_only=True)`` and is updated
-    in place."""
+    in place. ``group``: the data axis's process group (module docstring)."""
     _check(cfg, tvae_cfg)
-    latent = _Latent(tvae_cfg, model)
     accum = max(1, cfg.grad_accum)
+    latent = _Latent(tvae_cfg, model, group, accum)
 
     def loss(state, batch, vq_ema, draws):
         """One microbatch's (total, metrics, z, new EMA statistics)."""
@@ -191,27 +220,28 @@ def make_train_step_3d(
         return total, metrics, z, new_ema
 
     def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
-        draws = Step3DDraws() if draws is None else draws
+        draws = _own_rows(draws, group, accum)
         mbs = _Microbatches(clips.float(), accum, draws)
         grads = GradMean(model.parameters(), accum)
         new_ema, outs, zs = state.vq_ema, [], []
         state.g_opt.zero_grad(set_to_none=True)
         for xb, d in zip(mbs.clips, mbs.each):
             total, m, z, ema = loss(state, xb, new_ema, d)
-            total.backward()
+            backward_share(total, group)
             grads.take()
             outs.append(m)
             zs.append(z.detach())
             if latent.use_vq_ema:
                 new_ema = ema
         grads.put()
+        reduce_gradients(model.parameters(), group)
         mbs.gather()
         metrics, z = mean_metrics(outs), torch.cat(zs)
         state.g_opt.step()
         state.g_opt.zero_grad(set_to_none=True)
         latent.fold(state, new_ema, z, draws)
         state.step += 1
-        return state, metrics
+        return state, global_metrics(metrics, group)
 
     return step
 
@@ -223,23 +253,25 @@ def make_train_step_3d_gan(
     disc: Optional[nn.Module],
     lpips: nn.Module,
     gradnorm_shards: int = 1,
+    group=None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """The full-GAN step (``step3d.py:66-331``): returns ``step(state, clips,
     draws=None) -> (state, metrics)``. ``disc`` is a ``PatchDiscriminator``
     (``cfg.disc_3d == "frame"``) or a ``TubeletDiscriminator`` built for the
     subset's frame count (``"tubelet"``); ``state`` comes from
     ``create_train_state`` and is updated in place. ``gradnorm_shards``: the
-    data-parallel extent for ``cfg.gradnorm_mode = "mean_shard_norm"``."""
+    data-parallel extent for ``cfg.gradnorm_mode = "mean_shard_norm"``;
+    ``group``: the data axis's process group (module docstring)."""
     _check(cfg, tvae_cfg)
     if cfg.disc_3d not in ("frame", "tubelet"):
         raise ValueError(f"unknown disc_3d {cfg.disc_3d!r}")
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
-    gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
-    latent = _Latent(tvae_cfg, model)
+    branch = gradnorm_branch(cfg, gradnorm_shards, group)
+    accum = max(1, cfg.grad_accum)
+    latent = _Latent(tvae_cfg, model, group, accum)
     tubelet = cfg.disc_3d == "tubelet"
     k = cfg.video_loss_frames
-    accum = max(1, cfg.grad_accum)
     # LPIPS and D as rematerialized regions with remat (JAX step3d.py:159-161)
     loss_policy = "full" if tvae_cfg.remat else None
 
@@ -259,17 +291,17 @@ def make_train_step_3d_gan(
         metrics = {}
         # LPIPS and the GAN branch see the frame subset, L2 every frame
         recon_f, target_f = frame_subset((recon, batch), k, u)
-        recon_lpips = gradnorm(recon_f, cfg.gradnorm_lpips, None, gn_shards)
+        recon_lpips = branch(recon_f, cfg.gradnorm_lpips)
         percep = lpips_apply(flat_frames(recon_lpips.float()),
                              flat_frames(target_f.float())).mean()
         metrics["perceptual_loss"] = percep
-        recon_mse = gradnorm(recon, cfg.gradnorm_mse, None, gn_shards)
+        recon_mse = branch(recon, cfg.gradnorm_mse)
         rec = (recon_mse.float() - batch).square().mean()
         metrics["recon_l2"] = rec
         metrics["kl"] = reg_loss
         total = percep + rec + cfg.z_reg_weight * reg_loss
         if cfg.do_ganloss:
-            recon_gan = gradnorm(recon_f, cfg.gradnorm_gan, None, gn_shards)
+            recon_gan = branch(recon_f, cfg.gradnorm_gan)
             g_gan = generator_gan_loss(disc_apply(disc_in(recon_gan)), cfg.disc_type)
             metrics["gan/generator_gan_loss"] = g_gan
             total = total + g_gan
@@ -278,7 +310,7 @@ def make_train_step_3d_gan(
         return total, metrics
 
     def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
-        draws = Step3DDraws() if draws is None else draws
+        draws = _own_rows(draws, group, accum)
         batch = clips.float()
         if draws.frame_u is None and 0 < k < batch.shape[1]:
             draws.frame_u = torch.rand((), generator=state.generator, device=batch.device)
@@ -295,13 +327,14 @@ def make_train_step_3d_gan(
         if cfg.do_ganloss:
             recon_f, target_f = frame_subset((recon.detach().float(), batch), k, draws.frame_u)
             discriminator_update(cfg, disc_apply, state, [(disc_in(target_f), disc_in(recon_f))],
-                                 1, metrics)
+                                 1, metrics, group)
 
         # --- G against the updated D; D's params take no gradient ---
         with frozen(disc if cfg.do_ganloss else None):
             total, g_metrics = g_losses(recon, reg, batch, draws.frame_u)
         state.g_opt.zero_grad(set_to_none=True)
-        total.backward()
+        backward_share(total, group)
+        reduce_gradients(model.parameters(), group)
         state.g_opt.step()
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
@@ -310,7 +343,7 @@ def make_train_step_3d_gan(
             polyak_update(state, model, cfg.ema_decay)
         state.step += 1
         metrics.update({name: v.detach() for name, v in g_metrics.items()})
-        return state, metrics
+        return state, global_metrics(metrics, group)
 
     def step_accum(state: TrainState, batch: torch.Tensor, draws: Step3DDraws):
         mbs = _Microbatches(batch, accum, draws)
@@ -328,7 +361,7 @@ def make_train_step_3d_gan(
 
         metrics: dict[str, torch.Tensor] = {}
         if cfg.do_ganloss:
-            discriminator_update(cfg, disc_apply, state, d_pairs(), accum, metrics)
+            discriminator_update(cfg, disc_apply, state, d_pairs(), accum, metrics, group)
 
         # --- G's pass against the updated D ---
         g_grads = GradMean(model.parameters(), accum)
@@ -340,13 +373,14 @@ def make_train_step_3d_gan(
             recon = model.decode(z_s)
             with frozen(disc if cfg.do_ganloss else None):
                 total, g_m = g_losses(recon, reg, xb, draws.frame_u)
-            total.backward()
+            backward_share(total, group)
             g_grads.take()
             g_outs.append(g_m)
             zs.append(z.detach())
             if latent.use_vq_ema:
                 vq_ema = new_ema
         g_grads.put()
+        reduce_gradients(model.parameters(), group)
         mbs.gather()
         state.g_opt.step()
         state.g_sched.step()
@@ -356,6 +390,6 @@ def make_train_step_3d_gan(
             polyak_update(state, model, cfg.ema_decay)
         state.step += 1
         metrics.update(mean_metrics(g_outs))
-        return state, metrics
+        return state, global_metrics(metrics, group)
 
     return step

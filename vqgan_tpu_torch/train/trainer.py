@@ -1,11 +1,18 @@
 """Training orchestration: models, data, the train step, eval and
-checkpoints on one device (counterpart of ``vqgan_tpu/train/trainer.py``;
-the reference's ``train_ddp``, vae_trainer.py:339-912).
+checkpoints (counterpart of ``vqgan_tpu/train/trainer.py``; the
+reference's ``train_ddp``, vae_trainer.py:339-912).
 
-The JAX trainer's mesh, multi-host and context-parallel feed are not
-ported: the port trains on one card (``mesh_shape`` must describe one
-device; multi-GPU is an item of ROADMAP.md Queue 1). Everything else keeps the
-JAX trainer's order and cadence: the seeded init, ``load_path`` /
+Data parallelism: under ``torchrun --nproc_per_node N`` with
+``mesh_shape`` ``data=-1`` (or ``data=N``) each rank is a process on its
+card (``cuda:LOCAL_RANK``), ``batch_size`` is the global batch and each
+rank feeds ``batch_size / N`` of it; the step is the one-process step on
+the global batch (``train/step.py``, ``parallel/mesh.py``). Every rank
+initializes from the seed, rank 0's parameters are broadcast and the
+ranks' states are checked equal; rank 0 alone evaluates, logs and writes
+checkpoints, the others waiting at a barrier; every rank resumes from the
+same file. The ``fsdp``, ``tensor`` and ``context`` axes and the
+context-parallel feed are not ported (ROADMAP.md Queue 1). Everything else
+keeps the JAX trainer's order and cadence: the seeded init, ``load_path`` /
 ``lpips_weights`` / ``disc_backbone_weights``, the full-state resume, the
 data stream reseeded by the resume step (indexed data resumes sample-exact),
 the crop coin from ``np.random.default_rng(seed)``, the log cadence, the NaN
@@ -27,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vqgan_tpu_torch.config import TrainConfig, VAEConfig
+from vqgan_tpu_torch.config import TrainConfig, VAEConfig, parse_mesh_shape
 from vqgan_tpu_torch.data.loader import create_dataloader, device_prefetch, to_device
 from vqgan_tpu_torch.data.synthetic import synthetic_dataloader
 from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
@@ -38,9 +45,16 @@ from vqgan_tpu_torch.models.ae import VAE
 from vqgan_tpu_torch.models.blocks import init_weights_
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.resize import resize_area
+from vqgan_tpu_torch.parallel.mesh import (
+    Mesh,
+    broadcast_,
+    create_mesh,
+    init_distributed,
+    replicas_equal,
+)
 from vqgan_tpu_torch.train.checkpoint import CheckpointManager
 from vqgan_tpu_torch.train.evaluate import make_eval_step, tile_grid
-from vqgan_tpu_torch.train.state import create_train_state
+from vqgan_tpu_torch.train.state import TrainState, create_train_state, state_tensors
 from vqgan_tpu_torch.train.step import make_train_step
 from vqgan_tpu_torch.utils.logging import MetricLogger
 from vqgan_tpu_torch.weights import (
@@ -66,18 +80,39 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def one_device_mesh(mesh_shape: str) -> None:
-    """The port trains on one card: every mesh axis must have extent 1, or
-    -1 (fill the devices, which is 1 here)."""
-    for part in mesh_shape.split(","):
-        if not part:
-            continue
-        name, extent = part.split("=")
-        if int(extent) not in (1, -1):
-            raise NotImplementedError(
-                f"mesh_shape {mesh_shape!r}: axis {name.strip()}={extent} needs several "
-                "devices; the port trains on one card (ROADMAP.md, Queue 1: "
-                "multi-GPU)")
+def data_parallel(cfg: TrainConfig, device: str | torch.device) -> tuple[torch.device, Mesh]:
+    """This rank's device and the job's mesh (``init_distributed``,
+    ``create_mesh``), with the JAX trainer's batch checks: the global
+    ``batch_size`` divides by the data-parallel extent, and by ``grad_accum``
+    times it."""
+    device = init_distributed(resolve_device(device))
+    try:
+        mesh = create_mesh(parse_mesh_shape(cfg.mesh_shape))
+    except (ValueError, NotImplementedError) as e:
+        raise type(e)(f"mesh_shape {cfg.mesh_shape!r}: {e}") from None
+    n = mesh.n_data
+    if cfg.batch_size % n:
+        raise ValueError(f"global batch_size {cfg.batch_size} must be divisible by the "
+                         f"data-parallel extent {n} of mesh {mesh.shape}")
+    if cfg.grad_accum > 1 and cfg.batch_size % (cfg.grad_accum * n):
+        raise ValueError(f"global batch_size {cfg.batch_size} must be divisible by "
+                         f"grad_accum {cfg.grad_accum} x data-parallel extent {n}")
+    return device, mesh
+
+
+@torch.no_grad()
+def replicate(mesh: Mesh, modules, extra=()) -> None:
+    """Every rank's ``modules`` (their parameters and buffers) and ``extra``
+    tensors take rank 0's values."""
+    tensors = [t.detach() for m in modules if m is not None
+               for t in (*m.parameters(), *m.buffers())]
+    broadcast_(tensors + list(extra), mesh.group)
+
+
+def check_replicas(mesh: Mesh, state: TrainState, what: str) -> None:
+    """Raise unless every rank holds rank 0's train state bit for bit."""
+    if not replicas_equal(state_tensors(state), mesh.group):
+        raise RuntimeError(f"the ranks' train states differ {what}")
 
 
 class Trainer:
@@ -86,11 +121,8 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, vae_cfg: VAEConfig,
                  device: str | torch.device = "cuda"):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        one_device_mesh(cfg.mesh_shape)
-        if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum:
-            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by "
-                             f"grad_accum {cfg.grad_accum}")
+        self.device, self.mesh = data_parallel(cfg, device)
+        self.is_master = self.mesh.is_master
         if cfg.crop_invariance and cfg.downscale_factor != vae_cfg.ffactor:
             # the crop step addresses the target at latent_offset *
             # downscale_factor; a mismatch slices out of bounds
@@ -142,9 +174,14 @@ class Trainer:
         if cfg.lpips_weights:
             self.lpips.load_state_dict(load_lpips_weights(cfg.lpips_weights), strict=True)
 
+        # every rank starts from rank 0's weights (the seeded init is the
+        # same everywhere; the broadcast makes it so by construction)
+        replicate(self.mesh, (self.vae, self.disc, self.lpips),
+                  vq_ema.values() if vq_ema is not None else ())
         self.state = create_train_state(cfg, self.vae, self.disc, vae_cfg.ch, seed=s_state,
                                         vq_ema=vq_ema)
-        self._step = make_train_step(cfg, vae_cfg, self.vae, self.disc, self.lpips)
+        self._step = make_train_step(cfg, vae_cfg, self.vae, self.disc, self.lpips,
+                                     gradnorm_shards=self.mesh.n_data, group=self.mesh.group)
         self._eval_step = make_eval_step(cfg, vae_cfg, self.vae)
 
         run_dir = os.path.join(cfg.ckpt_dir, cfg.run_name)
@@ -154,17 +191,29 @@ class Trainer:
             config={**vae_cfg.__dict__, **cfg.__dict__},
             use_wandb=cfg.use_wandb,
             out_dir=run_dir,
+            is_master=self.is_master,
         )
         self.ckpt = CheckpointManager(os.path.join(run_dir, "state"))
         self._np_rng = np.random.default_rng(cfg.seed)
+        if self.mesh.group is not None:
+            self.logger.info(f"mesh {self.mesh.shape}: {self.mesh.world_size} ranks, backend "
+                             f"{torch.distributed.get_backend(self.mesh.group)}, rank 0 on "
+                             f"{self.device}; {self.local_batch} of the global batch "
+                             f"{cfg.batch_size} a rank")
 
         # preemption recovery: with no explicit --load_path, resume the full
         # train state from the latest checkpoint of this run — exact
         # continuation, unlike the reference's weights-only restarts
-        # (vae_trainer.py:505-513)
+        # (vae_trainer.py:505-513); every rank reads the same file
         if not cfg.load_path and self.ckpt.latest_step() is not None:
             if self.ckpt.restore(self.state) is not None:
                 self.logger.info(f"Resumed full train state from step {self.state.step}")
+        check_replicas(self.mesh, self.state, "at the start")
+
+    @property
+    def local_batch(self) -> int:
+        """This rank's share of the global batch (JAX ``_local_batch``)."""
+        return self.cfg.batch_size // self.mesh.n_data
 
     # ------------------------------------------------------------------
     def _data_epoch_offset(self, train: bool) -> int:
@@ -181,7 +230,8 @@ class Trainer:
         if cfg.synthetic_data or not (cfg.dataset_url if train else cfg.test_dataset_url):
             # multiplicative fold, so a resumed train stream never takes the
             # eval stream's seed 1
-            return synthetic_dataloader(cfg.batch_size, cfg.image_size,
+            # every rank makes the same samples, as the JAX trainer's do
+            return synthetic_dataloader(self.local_batch, cfg.image_size,
                                         seed=(0 if train else 1) + 1_000_003 * off)
         url = cfg.dataset_url if train else cfg.test_dataset_url
         # indexed mode: the batch at step S is position-addressed, so resume
@@ -190,7 +240,7 @@ class Trainer:
         return iter(
             create_dataloader(
                 url,
-                cfg.batch_size,
+                self.local_batch,
                 num_workers=cfg.num_workers,
                 do_shuffle=train,
                 just_resize=not train,
@@ -199,6 +249,8 @@ class Trainer:
                 device_normalize=cfg.device_normalize,
                 indexed=indexed,
                 start_step=off if indexed else 0,
+                process_index=self.mesh.rank,
+                process_count=self.mesh.world_size,
             )
         )
 
@@ -221,7 +273,7 @@ class Trainer:
         cfg = self.cfg
         self._install_preemption_handler()
         loader = device_prefetch(self._make_loader(True), self.device)
-        test_loader = self._make_loader(False)
+        test_loader = self._make_loader(False) if self.is_master else None
         global_step = int(self.state.step)
         t0 = time.time()
         metrics = {}
@@ -233,17 +285,18 @@ class Trainer:
             for batch in loader:
                 if global_step >= cfg.max_steps:
                     break
-                if self._preempted:
+                if self.mesh.any(self._preempted):  # every rank stops at this step
                     self.logger.info(
                         f"Preemption signal received — checkpointing at step {global_step}")
                     self._guard_latest(metrics_device, metrics_checked, global_step)
                     self.save(global_step, epoch)
                     self.ckpt.wait()
+                    self.mesh.barrier()
                     return
                 time_taken_till_load = time.time() - t0
                 t0 = time.time()
 
-                if cfg.profile_dir and global_step == 10:
+                if cfg.profile_dir and global_step == 10 and self.is_master:
                     profiler = self._start_profiler()
 
                 # 50/50 crop step (reference :577), uniform over the static
@@ -294,7 +347,8 @@ class Trainer:
                     # last line of defense before overwriting checkpoints
                     metrics_checked = self._guard_latest(metrics_device, metrics_checked,
                                                          global_step)
-                    self.evaluate(global_step, epoch, test_loader)
+                    if self.is_master:  # the others wait at the save's barrier
+                        self.evaluate(global_step, epoch, test_loader)
                     self.save(global_step, epoch)
             if global_step >= cfg.max_steps:
                 break
@@ -303,6 +357,7 @@ class Trainer:
         self._guard_latest(metrics_device, metrics_checked, global_step)
         self.save(global_step, None)
         self.ckpt.wait()
+        self.mesh.barrier()  # the last checkpoint is on disk for every rank
         self.logger.close()
 
     # ------------------------------------------------------------------
@@ -424,7 +479,14 @@ class Trainer:
         reference-format ``.pt``, with the Polyak average beside it as
         ``*_ema.pt`` when EMA is on. The loop waits for one host copy of the
         state; the manager's background thread writes all three files
-        (``self.ckpt.wait()`` joins it)."""
+        (``self.ckpt.wait()`` joins it). Rank 0 alone saves, between two
+        barriers of every rank."""
+        self.mesh.barrier()
+        if self.is_master:
+            self._save(step, epoch)
+        self.mesh.barrier()
+
+    def _save(self, step: int, epoch: Optional[int]) -> None:
         path = os.path.join(
             self.cfg.ckpt_dir,
             self.cfg.run_name,

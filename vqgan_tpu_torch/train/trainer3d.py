@@ -1,5 +1,5 @@
-"""Training orchestration for the 3D video VAE (TVAE) on one device
-(counterpart of ``vqgan_tpu/train/trainer3d.py``).
+"""Training orchestration for the 3D video VAE (TVAE) (counterpart of
+``vqgan_tpu/train/trainer3d.py``).
 
 ``Trainer3D(cfg, tvae_cfg, frames, device="cuda").train()`` runs the JAX
 trainer's job: the recon-only step (L2 + ``z_reg_weight``·KL, or the VQ loss
@@ -16,9 +16,14 @@ and a full-state checkpoint; at the end the same at ``max_steps``.
 
 ``grad_accum > 1`` splits each batch into microbatches
 (``train/step3d.py``); ``remat`` makes the model's levels and blocks
-rematerialized regions. Not ported: the mesh, the multi-host feed and the
-context-parallel ring attention (a mesh of several devices raises
-NotImplementedError, ROADMAP.md Queue 1: multi-GPU).
+rematerialized regions. Under ``torchrun --nproc_per_node N`` the ``data``
+axis splits the global ``batch_size`` over N ranks as the 2D ``Trainer``
+does (``train/trainer.py``): a rank a process, rank 0's weights broadcast,
+the states checked equal, rank 0 alone evaluating, logging and saving, each
+rank reading its share of the clips (its shards, or the same synthetic
+clips on every rank, as in JAX). Not ported: the ``fsdp``, ``tensor`` and
+``context`` axes (ring attention), which raise NotImplementedError naming
+their ROADMAP.md Queue 1 items.
 
 One deliberate difference from the JAX trainer: ``load_path`` loads G before
 the train state is built, so the Polyak EMA and the VQ EMA statistics start
@@ -55,8 +60,9 @@ from vqgan_tpu_torch.train.step3d import flat_frames, make_train_step_3d, make_t
 from vqgan_tpu_torch.train.trainer import (
     DivergenceError,
     _host_metrics,
-    one_device_mesh,
-    resolve_device,
+    check_replicas,
+    data_parallel,
+    replicate,
 )
 from vqgan_tpu_torch.utils.logging import MetricLogger
 from vqgan_tpu_torch.weights import load_lpips_weights, load_weights
@@ -95,11 +101,10 @@ class Trainer3D:
         self.cfg = cfg
         self.tvae_cfg = tvae_cfg
         self.frames = frames
-        self.device = resolve_device(device)
-        one_device_mesh(cfg.mesh_shape)  # a context axis too: no ring attention
-        if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum:
-            raise ValueError(f"--batch_size {cfg.batch_size} must divide by grad_accum "
-                             f"{cfg.grad_accum}")
+        self.device, self.mesh = data_parallel(cfg, device)
+        self.is_master = self.mesh.is_master
+        self.local_batch = cfg.batch_size // self.mesh.n_data
+        group = self.mesh.group
         self.use_gan = cfg.do_ganloss
 
         # one generator for each of G, D, LPIPS and the step's draws, from
@@ -133,15 +138,20 @@ class Trainer3D:
             init_lpips_(self.lpips, gen(s_lpips))
             if cfg.lpips_weights:
                 self.lpips.load_state_dict(load_lpips_weights(cfg.lpips_weights), strict=True)
+        # every rank starts from rank 0's weights
+        replicate(self.mesh, (self.model, self.disc, self.lpips),
+                  vq_ema.values() if vq_ema is not None else ())
+        if self.use_gan:
             self.state = create_train_state(cfg, self.model, self.disc, tvae_cfg.ch,
                                             seed=s_state, vq_ema=vq_ema)
             self._step = make_train_step_3d_gan(cfg, tvae_cfg, self.model, self.disc,
-                                                self.lpips)
+                                                self.lpips, gradnorm_shards=self.mesh.n_data,
+                                                group=group)
         else:
             # one AdamW at the constant lr learning_rate_vae / ch
             self.state = create_train_state(cfg, self.model, None, tvae_cfg.ch, seed=s_state,
                                             vq_ema=vq_ema, recon_only=True)
-            self._step = make_train_step_3d(cfg, tvae_cfg, self.model)
+            self._step = make_train_step_3d(cfg, tvae_cfg, self.model, group=group)
 
         # the eval's model: the deterministic latent, scored with the Polyak
         # weights where they are tracked
@@ -152,13 +162,15 @@ class Trainer3D:
 
         run_dir = os.path.join(cfg.ckpt_dir, cfg.run_name)
         self.logger = MetricLogger(cfg.run_name, cfg.project_name, use_wandb=cfg.use_wandb,
-                                   out_dir=run_dir)
+                                   out_dir=run_dir, is_master=self.is_master)
         self.ckpt = CheckpointManager(os.path.join(run_dir, "state"))
         self._eval_metric_failures = 0
         # startup weights: load_path (above), else the run's latest full state
+        # (every rank reads the same file)
         if not cfg.load_path and self.ckpt.latest_step() is not None:
             if self.ckpt.restore(self.state) is not None:
                 self.logger.info(f"Resumed 3D train state from step {self.state.step}")
+        check_replicas(self.mesh, self.state, "at the start")
 
     @property
     def start_step(self) -> int:
@@ -172,26 +184,33 @@ class Trainer3D:
 
     def save(self, step: int) -> None:
         """The full train state as step ``step`` (host copy now, the file
-        written in the background)."""
-        self.ckpt.save(step, self.state)
+        written in the background), by rank 0 between two barriers of every
+        rank."""
+        self.mesh.barrier()
+        if self.is_master:
+            self.ckpt.save(step, self.state)
+        self.mesh.barrier()
 
     # ------------------------------------------------------------------
     def _train_source(self):
         cfg = self.cfg
         seed = cfg.seed + self.start_step  # a fresh order on resume
         if cfg.dataset_url and not cfg.synthetic_data:
-            return create_video_dataloader(cfg.dataset_url, cfg.batch_size, self.frames,
+            return create_video_dataloader(cfg.dataset_url, self.local_batch, self.frames,
                                            self.tvae_cfg.resolution,
-                                           num_workers=cfg.num_workers, seed=seed)
-        return synthetic_video_batches(cfg.batch_size, self.frames, self.tvae_cfg.resolution,
+                                           num_workers=cfg.num_workers, seed=seed,
+                                           process_index=self.mesh.rank,
+                                           process_count=self.mesh.world_size)
+        return synthetic_video_batches(self.local_batch, self.frames, self.tvae_cfg.resolution,
                                        seed=seed)
 
     def _eval_batch(self) -> Optional[torch.Tensor]:
-        """The fixed eval batch, the same across restarts: real data reads
-        ``test_dataset_url`` (or the train shards, with a logged caveat)
-        unshuffled at ``seed``; synthetic data its own seed stream."""
+        """The fixed eval batch of ``local_batch`` clips, the same across
+        restarts (rank 0 only): real data reads ``test_dataset_url`` (or the
+        train shards, with a logged caveat) unshuffled at ``seed``;
+        synthetic data its own seed stream."""
         cfg = self.cfg
-        if cfg.eval_batches <= 0:
+        if cfg.eval_batches <= 0 or not self.is_master:
             return None
         res = self.tvae_cfg.resolution
         if cfg.dataset_url and not cfg.synthetic_data:
@@ -199,7 +218,7 @@ class Trainer3D:
             if not cfg.test_dataset_url:
                 self.logger.info("3d eval: no --test_dataset_url; eval clips come from the "
                                  "training shards (metrics optimistic)")
-            src = create_video_dataloader(url, cfg.batch_size, self.frames, res,
+            src = create_video_dataloader(url, self.local_batch, self.frames, res,
                                           num_workers=1, do_shuffle=False, seed=cfg.seed,
                                           loop=False)
             try:
@@ -207,7 +226,7 @@ class Trainer3D:
             finally:
                 src.close()  # one batch is enough: stop the decode worker
         else:
-            batch = next(synthetic_video_batches(cfg.batch_size, self.frames, res,
+            batch = next(synthetic_video_batches(self.local_batch, self.frames, res,
                                                  seed=cfg.seed + EVAL_SEED_OFFSET))
         return to_device(np.asarray(batch), self.device)
 
@@ -294,5 +313,6 @@ class Trainer3D:
             self._eval(cfg.max_steps, eval_batch)
         self.save(cfg.max_steps)
         self.ckpt.wait()
+        self.mesh.barrier()  # the last checkpoint is on disk for every rank
         self.logger.close()
         return self.model

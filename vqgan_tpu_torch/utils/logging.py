@@ -91,10 +91,17 @@ class MetricLogger:
         config: Optional[dict] = None,
         use_wandb: bool = True,
         out_dir: str = ".",
+        is_master: bool = True,
     ):
+        """``is_master`` False (a rank other than 0): log nothing, write no
+        file, start no wandb run."""
+        self.is_master = is_master
         self.wandb = None
+        self._file = None
         self.logger = logging.getLogger("vqgan_tpu_torch")
         self.logger.setLevel(logging.INFO)
+        if not is_master:
+            return
         if not self.logger.handlers:
             handler = logging.StreamHandler()
             handler.setFormatter(
@@ -111,6 +118,8 @@ class MetricLogger:
             self._file.flush()
 
     def log(self, metrics: Dict, step: int):
+        if not self.is_master:
+            return
         flat = {}
         for k, v in metrics.items():
             fv = _to_float(v)
@@ -125,6 +134,8 @@ class MetricLogger:
         """images: name → (H, W, 3) float in [0, 1]. Saved as
         ``{name}_step{step}.png``; also sent to wandb when it imports
         (vae_trainer.py:892-901)."""
+        if not self.is_master:
+            return
         os.makedirs(out_dir, exist_ok=True)
         for name, arr in images.items():
             img = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
@@ -133,7 +144,9 @@ class MetricLogger:
                 self.wandb.log({name: [self.wandb.Image(img)]}, step=step)
 
     def info(self, msg: str):
-        self.logger.info(msg)
+        if self.is_master:
+            self.logger.info(msg)
 
     def close(self):
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
