@@ -280,11 +280,32 @@ Phases, each fatal on failure:
      and a TVAE artifact at phase 21's, traced on the card and run on the
      CPU, within phase 21's bounds of the CPU pipelines; traced on the CPU
      and run on the card, the kernels launched as the card's pipeline
-     launches them (#1, #3, #4; #1, #3), within the same bounds of it.
+     launches them (#1, #3, #4; #1, #3), within the same bounds of it;
+ 38-41. data parallelism (``parallel/mesh.py``): the flagship, flagship VQ
+     and 3D GAN steps at two ranks on the card over gloo against one rank
+     on the global batch, and the flagship job under torchrun, and at one
+     rank over NCCL against one plain process (``phase_data_parallel_steps``,
+     ``phase_data_parallel_jobs``); the ranks also run the flagship step at
+     ``grad_accum`` 2 and take each step's state digest for phase 42;
+ 42. the same ranks, after each case's whole run, with the train state
+     sharded over ``fsdp`` (``parallel/fsdp.py``): each step's gathered
+     state bitwise the whole run's (or, where it is not, within phase 8's
+     bounds, with each rank's allocator OOMs printed), their launches,
+     each rank's memory between steps against the rule's saving, peaks and
+     the gathers' MiB and ms (``phase_fsdp_steps``);
+ 43. the flagship job at ``data=1,fsdp=2`` under torchrun (in phase 41's
+     launch; 3 steps, eval and saves by rank 0), its save resumed at
+     ``data=2`` under torchrun and in one process, each restore bitwise the
+     live sharded state (its digest);
+ 44. the tools (``vqgan_tpu_torch/tools``): one ``adjust_weight_init``
+     iteration at ``VAEConfig()``, ``make_alt_lpips``, and
+     ``recompute_eval_metrics`` over phase 43's two ``.pt`` files with the
+     default and the alternate judge: rows finite, judges >= 0.
 
 The kernels are built in parallel, one nvcc per source. The ``kernels``
 line's launches add the main paths' (phases 6, 11, 16, 19), the training
-jobs' (28-29, 31-33) and the served artifacts' (35-37). The second-to-last
+jobs' (28-29, 31-33), the served artifacts' (35-37), every data-parallel
+and sharded rank's (38-43) and the tools' (44). The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits 1 and prints neither.
 """
@@ -300,6 +321,7 @@ import json
 import os
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 
@@ -2738,9 +2760,10 @@ class JobProbe:
     each restore compared, bitwise, with the live state that the previous
     call ended with (and saved), so a save that wrote a wrong tensor or
     generator state fails too. ``expect`` holds that state's
-    ``device_tree``, one item; the restore takes it out, so its memory is
-    free before the job trains. For a 3D job it also times each wait for a
-    batch (the loop's ``next`` on ``device_prefetch``). ``watch`` (a
+    ``device_tree`` (or its ``state_digest`` sums), one item; the restore
+    takes it out, so its memory is free before the job trains. For a 3D
+    job it also times each wait for a batch (the loop's ``next`` on
+    ``device_prefetch``). ``watch`` (a
     ``JobWatch``) checks each step's and each eval's kernel launches, of a
     2D job or a 3D one.
     Patches the trainer modules' step factories and the classes' methods
@@ -2828,7 +2851,12 @@ class JobProbe:
             if out is not None:
                 if not probe.expect:
                     raise AssertionError("a restore with no live state to hold it against")
-                same, n = same_state(device_tree(state), probe.expect.pop())
+                expected = probe.expect.pop()
+                if isinstance(expected, list):  # a ``state_digest``'s sums
+                    sums = state_digest(state)[1]
+                    same, n = sums == expected, len(sums) // 2
+                else:
+                    same, n = same_state(device_tree(state), expected)
                 probe.restores.append((state.step, same, n))
             return out
 
@@ -2853,9 +2881,10 @@ class JobProbe:
 
 def device_tree(state) -> dict:
     """``state_dict_of``'s tree of a train state with every tensor cloned
-    where it lies (on the card; the generator's state on the host): the
-    live state to hold a restore against, with no copy to the host."""
-    from vqgan_tpu_torch.train import checkpoint as ckpt_mod
+    where it lies (on the card; the generator's state on the host; a
+    sharded state gathered on the card): the live state to hold a restore
+    against, with no copy to the host."""
+    from vqgan_tpu_torch.train.checkpoint import state_tree
 
     def clone(tree):
         if isinstance(tree, torch.Tensor):
@@ -2866,11 +2895,7 @@ def device_tree(state) -> dict:
             return type(tree)(clone(v) for v in tree)
         return tree
 
-    real, ckpt_mod._cpu = ckpt_mod._cpu, clone
-    try:
-        return ckpt_mod.state_dict_of(state)
-    finally:
-        ckpt_mod._cpu = real
+    return clone(state.layout.gather_tree(state, state_tree(state), host=False))
 
 
 def same_state(a, b) -> tuple[bool, int]:
@@ -4388,12 +4413,32 @@ DP_TVAE = dict(resolution=JOB3D_RES, attn_chunk=JOB3D_ATTN_CHUNK, compute_dtype=
 # GAN branch through the updated D carries into G's gradient
 DP_D_LR = 1e-8
 # phase 41: TRAIN_JOB (phase 26's flagship job) under torchrun: 3 steps with
-# an eval and a save after steps 1 and 3, then a resume to step 4; then 2
-# steps at one rank over NCCL against the same 2 steps in one plain process
+# an eval and a save after step 1 and the final save (phase 43's resume to
+# step 4 runs at this mesh); then 2 steps at one rank over NCCL against the
+# same 2 steps in one plain process
 DP_JOB = TRAIN_JOB + ["--mesh_shape", "data=-1"]
-DP_JOB_FIRST = ["--max_steps", "3", "--evaluate_every_n_steps", "2"]
+DP_JOB_FIRST = ["--max_steps", "3", "--evaluate_every_n_steps", "3"]
 DP_JOB_RESUME = ["--max_steps", "4", "--evaluate_every_n_steps", "2"]
 DP_JOB_PLAIN = ["--max_steps", "2", "--evaluate_every_n_steps", "0"]
+# phase 42: the ranks of phases 38-40 again with the train state sharded over
+# fsdp (parallel/fsdp.py), and both launches run the flagship step at
+# grad_accum 2 (microbatches of 2 a rank) beside DP_CASES; every rank of both
+# runs cuDNN deterministic with its benchmark off, so that each step's
+# gathered state is the data=2 run's bit for bit
+FSDP_MESH = {"data": 1, "fsdp": 2}
+DP_ACCUM = "flagship accum"
+# phase 43: TRAIN_JOB under torchrun with its state sharded (in phase 41's
+# launch, after its job), 3 steps, an eval and a save after step 1, the final
+# save after step 3; that save resumed at data=2 under torchrun and in one
+# plain process, each for a fourth step
+FSDP_JOB_FIRST = ["--mesh_shape", "data=1,fsdp=2", "--max_steps", "3",
+                  "--evaluate_every_n_steps", "3"]
+# phase 44: the tools at the flagship width (VAEConfig() as it is, which
+# TRAIN_JOB's model is): the calibrator's batch, and the recompute tool's
+# eval set (2 batches of 8 PNG images at the model's resolution in a tar)
+TOOLS_VAE: dict = {}
+TOOLS_CALIB_BATCH = 2
+TOOLS_EVAL_BATCH, TOOLS_EVAL_BATCHES = 8, 2
 
 
 def dp_counts() -> dict:
@@ -4440,7 +4485,8 @@ def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
     ``VAEConfig()``'s fp32 encoder; "3d gan":
     ``TVAEConfig()``'s width in fp32 at 16f/128px with phase 28's GAN
     (hinge + LeCam on 4 frames, frame D, fp32 D and LPIPS) and the mid-block
-    attention chunked at ``JOB3D_ATTN_CHUNK``, so that kernel #3 runs.
+    attention chunked at ``JOB3D_ATTN_CHUNK``, so that kernel #3 runs;
+    "flagship accum" (phase 42): "flagship" at ``grad_accum`` 2.
     ``models``: the sizes (``dp_models()``'s where None)."""
     from vqgan_tpu_torch.config import TrainConfig, TVAEConfig, VAEConfig
     from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
@@ -4478,7 +4524,8 @@ def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
         model_cfg = VAEConfig(**{**sizes["vae"], **extra})
         cfg = TrainConfig(batch_size=sizes["batch"], image_size=model_cfg.resolution,
                           max_steps=10_000, do_ganloss=True, disc_type="hinge",
-                          use_lecam=True, do_clamp=True, learning_rate_disc=DP_D_LR)
+                          use_lecam=True, do_clamp=True, learning_rate_disc=DP_D_LR,
+                          grad_accum=2 if name == DP_ACCUM else 1)
         with torch.device(device):
             model = VAE(model_cfg)
             disc, lpips = PatchDiscriminator(torch.bfloat16), LPIPS(torch.bfloat16)
@@ -4514,19 +4561,23 @@ def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
 
 def dp_run_case(case: dict, rows: slice, tape, record: bool, after_step=None) -> dict:
     """DP_STEPS steps of ``case`` on its batch's ``rows``, step 1's loss-head
-    decisions recorded on ``tape`` (``record``) or replayed from it: each
-    step's metrics, kernel launches, host and CUDA-event ms; step 1's AdamW
-    first moments of G and D (host copies) and, for VQ, the EMA statistics
-    and the folded codebook; the peak memory. ``after_step(state)`` runs
-    after each step, outside its timing."""
+    decisions recorded on ``tape`` (``record``) or replayed from it (None:
+    each step takes its own): each step's metrics, kernel launches, host
+    and CUDA-event ms, the device memory allocated after it and the
+    caching allocator's count of OOMs so far (each an allocation that
+    failed, such as a cuDNN plan's workspace, after which cuDNN tries
+    another plan); step 1's AdamW first moments of G and D and, for VQ, the
+    EMA statistics and the folded codebook, whole (``step1_state``); the
+    peak memory. ``after_step(state)`` runs after each step, outside its
+    timing."""
     state, step, batch = case["state"], case["step"], case["batch"][rows]
-    out = {"metrics": [], "launches": [], "ms": [], "host_ms": []}
+    out = {"metrics": [], "launches": [], "ms": [], "host_ms": [], "allocated": [], "ooms": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(DP_STEPS):
         # step 1 with the tape; later steps take their own decisions
         with ((tape.recording if record else tape.replaying)(case["head"], codes=case["vq"])
-              if i == 0 else contextlib.nullcontext()):
+              if i == 0 and tape is not None else contextlib.nullcontext()):
             dp_zero_counts()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0 = time.perf_counter()
@@ -4537,26 +4588,40 @@ def dp_run_case(case: dict, rows: slice, tape, record: bool, after_step=None) ->
             out["host_ms"].append((time.perf_counter() - t0) * 1e3)
             out["ms"].append(start.elapsed_time(end))
             out["launches"].append(dp_counts())
+            out["allocated"].append(torch.cuda.memory_allocated())
+            out["ooms"].append(torch.cuda.memory_stats().get("num_ooms", 0))
             out["metrics"].append({k: float(v) for k, v in metrics.items()})
             if after_step is not None:
                 after_step(state)
             if i == 0:
-                out["code_flips"] = tape.code_flips
-                out["moments"] = {
-                    side: {n: opt.state[p]["exp_avg"].float().cpu()
-                           for n, p in model.named_parameters() if p in opt.state}
-                    for side, model, opt in (("G", case["model"], state.g_opt),
-                                             ("D", case["disc"], state.d_opt))}
-                out["extra"] = {}
-                if case["vq"]:
-                    out["extra"] = {"counts": state.vq_ema["counts"].cpu(),
-                                    "sums": state.vq_ema["sums"].cpu(),
-                                    "codebook": case["model"].reg.codebook.detach().cpu()}
+                out["code_flips"] = tape.code_flips if tape is not None else 0
+                out["moments"], out["extra"] = step1_state(case, state)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     bad = [k for m in out["metrics"] for k, v in m.items() if not np.isfinite(v)]
     if bad:
         raise AssertionError(f"non-finite metrics: {bad[:5]}")
     return out
+
+
+def step1_state(case: dict, state) -> tuple[dict, dict]:
+    """The AdamW first moments of G and D by name and, for VQ, the EMA
+    counts and sums and the folded codebook, as host copies of the whole
+    tensors (a sharded state's gathered: collective)."""
+    layout = state.layout
+    moments = {}
+    for side, prefix, model, opt in (("G", "g_model", case["model"], state.g_opt),
+                                     ("D", "d_model", case["disc"], state.d_opt)):
+        mine = {n: opt.state[p]["exp_avg"] for n, p in model.named_parameters()
+                if p in opt.state}
+        moments[side] = {n: t.float().cpu()
+                         for n, t in layout.gather_named(mine, prefix=prefix).items()}
+    extra = {}
+    if case["vq"]:
+        sums = layout.gather_named({"sums": state.vq_ema["sums"]}, prefix="vq_ema")["sums"]
+        codebook = layout.gather_named({"reg.codebook": case["model"].reg.codebook})
+        extra = {"counts": state.vq_ema["counts"].cpu(), "sums": sums.cpu(),
+                 "codebook": codebook["reg.codebook"].detach().cpu()}
+    return moments, extra
 
 
 def dp_on_card(state) -> None:
@@ -4574,15 +4639,77 @@ def dp_on_card(state) -> None:
                              f"{state.generator.device}")
 
 
+def state_digest(state) -> tuple[list[str], list[int]]:
+    """Two integer sums of every tensor's bits in a train state's
+    ``state_dict_of`` tree, gathered on the card (a sharded state's
+    collective): the plain sum and one weighted by each element's position,
+    in the tree's order, with each tensor's path. Two states with equal
+    digests are bitwise equal but for a collision of both sums."""
+    from vqgan_tpu_torch.train.checkpoint import state_tree
+
+    # a stack, not a recursive closure: a closure that calls itself is a
+    # reference cycle, which would keep the gathered tree on the card until
+    # the next garbage collection
+    flat: list[torch.Tensor] = []
+    paths: list[str] = []
+    stack = [("", state.layout.gather_tree(state, state_tree(state), host=False))]
+    while stack:
+        path, tree = stack.pop()
+        if isinstance(tree, torch.Tensor):
+            flat.append(tree)
+            paths.append(path)
+        elif isinstance(tree, dict):
+            stack += [(f"{path}/{k}", tree[k]) for k in sorted(tree, key=str, reverse=True)]
+        elif isinstance(tree, (list, tuple)):
+            stack += [(f"{path}/{i}", v) for i, v in reversed(list(enumerate(tree)))]
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums = []
+    for t in flat:
+        flat_t = t.detach().to("cuda").contiguous().view(-1)
+        b = flat_t.view(bits[flat_t.element_size()]).to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+        sums += [b.sum(), (b * w).sum()]
+    return paths, torch.stack(sums).tolist()
+
+
+def fsdp_saving(state) -> int:
+    """The bytes a rank of F saves at rest by the fsdp rule, reckoned from
+    the parameter counts before any step: each sharded parameter of G and D
+    with its two AdamW moments (none for the codebook under the VQ EMA,
+    which takes no gradient) and its Polyak EMA, and the VQ sums; (F - 1) /
+    F of each."""
+    sh = state.layout
+    total = 0
+    for path, plan in sh.plans.items():
+        n = int(np.prod(plan.shape)) * 4
+        if path == "vq_ema.sums":
+            total += n
+            continue
+        copies = 1 + 2
+        if path.endswith("reg.codebook") and state.vq_ema is not None:
+            copies -= 2
+        if path.startswith("g_model.") and state.g_ema is not None:
+            copies += 1
+        total += n * copies
+    return total * (sh.n - 1) // sh.n
+
+
 def dp_ranks_main(spec_path: str) -> int:
-    """One rank of phases 38-40 (``chip_smoke.py --dp-ranks SPEC`` under
-    torchrun): joins the process group (``init_distributed``), then runs
-    each case of the spec on its rows of the global batch, replaying its
-    rows of the one-rank run's loss-head decisions; after each step holds
-    the ranks' whole train states equal bit for bit; times the gradient
-    all-reduces; writes its results to ``{out}/rank{r}.pt``."""
+    """One rank of phases 38-40 and 42 (``chip_smoke.py --dp-ranks SPEC``
+    under torchrun): joins the process group (``init_distributed``) on the
+    spec's mesh (``FSDP_MESH`` for the gloo launch: its data-parallel group
+    is every rank, as ``data=2``'s), then runs each case of the spec on its
+    rows of the global batch with the state whole, and each of
+    ``fsdp_cases`` again with it sharded (phase 42), replaying its rows of
+    the one-rank run's loss-head decisions where there is a tape
+    (``DP_ACCUM`` has none); after each step holds the ranks' whole
+    tensors (and blocks across the data axis) equal bit for bit and takes
+    the gathered state's digest and the gathers' bytes and seconds; times
+    the gradient all-reduces; cuDNN deterministic, its benchmark off;
+    writes its results to ``{out}/rank{r}.pt``."""
     import torch.distributed as dist
 
+    from vqgan_tpu_torch.parallel.fsdp import FSDP, shard_state
     from vqgan_tpu_torch.parallel.mesh import create_mesh, init_distributed, replicas_equal
     from vqgan_tpu_torch.train import step as step_mod
     from vqgan_tpu_torch.train import step3d as step3d_mod
@@ -4593,10 +4720,12 @@ def dp_ranks_main(spec_path: str) -> int:
     for cfg in (spec["models"]["vae"], spec["models"]["tvae"]):  # JSON's lists: tuples
         cfg.update({k: tuple(v) for k, v in cfg.items() if isinstance(v, list)})
     device = init_distributed("cuda")
-    mesh = create_mesh({"data": -1})
+    mesh = create_mesh(spec.get("mesh", {"data": -1}))
     if device.type != "cuda":
         raise AssertionError(f"rank {mesh.rank} on {device}")
     set_tf32(spec["tf32"])
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     reduces: list[tuple[int, float]] = []
     real_reduce = step_mod.reduce_gradients
 
@@ -4610,30 +4739,83 @@ def dp_ranks_main(spec_path: str) -> int:
                             if p.grad is not None), time.perf_counter() - t0))
 
     step_mod.reduce_gradients = step3d_mod.reduce_gradients = timed_reduce
+    gathers_now: list[tuple[int, float]] = []  # this step's (bytes in, seconds)
+    real_gather = FSDP.gather
+
+    def timed_gather(self, blocks, plans, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_gather(self, blocks, plans, *args, **kw)
+        torch.cuda.synchronize()
+        gathers_now.append((sum(b.numel() * b.element_size() for b in blocks)
+                            * (self.n - 1), time.perf_counter() - t0))
+        return out
+
+    FSDP.gather = timed_gather
+    real_step1_state = step1_state
+
+    def step1_state_uncounted(case, state):
+        got = real_step1_state(case, state)
+        gathers_now.clear()  # the moments' gather after step 1 is no step's
+        return got
+
+    globals()["step1_state"] = step1_state_uncounted
     out = {"rank": mesh.rank, "device": str(device), "backend": dist.get_backend(mesh.group),
-           "cases": {}}
+           "mesh": mesh.shape, "cases": {}, "fsdp": {}}
     n = mesh.world_size
-    for name in spec["cases"]:
+
+    def run(name: str, sharded: bool) -> dict:
         case = dp_case(name, device, mesh.group, spec["models"])
+        saving = 0
+        if sharded:
+            shard_state(case["state"], mesh)
+            saving = fsdp_saving(case["state"])
         rows_n = case["batch"].shape[0] // n
-        tape = DecisionTape()
-        tape.calls = torch.load(os.path.join(spec["dir"], f"tape_{name.replace(' ', '_')}.pt"),
-                                weights_only=True)
-        tape = tape.rows(mesh.rank, n)
+        tape = None
+        tape_path = os.path.join(spec["dir"], f"tape_{name.replace(' ', '_')}.pt")
+        if os.path.exists(tape_path):
+            tape = DecisionTape()
+            tape.calls = torch.load(tape_path, weights_only=True)
+            tape = tape.rows(mesh.rank, n)
         reduces.clear()
-        equal = []
+        gathers_now.clear()
+        equal, digests, gathers, digest_paths = [], [], [], []
+
+        def after_step(state):
+            whole = replicas_equal(state_tensors(state, sharded=False), mesh.group)
+            blocks = replicas_equal(state_tensors(state, sharded=True), mesh.replica_group)
+            equal.append(whole and blocks)
+            gathers.append((sum(b for b, _ in gathers_now), sum(t for _, t in gathers_now)))
+            paths, sums = state_digest(state)
+            digests.append(sums)
+            digest_paths[:] = paths
+            gathers_now.clear()  # the digest's own gather is no step's
+            # the cache back to CUDA: the other rank's cuDNN workspaces then
+            # find the card's memory as every run of the case left it
+            torch.cuda.empty_cache()
+
         got = dp_run_case(case, slice(mesh.rank * rows_n, (mesh.rank + 1) * rows_n), tape,
-                          record=False, after_step=lambda state: equal.append(
-                              replicas_equal(state_tensors(state), mesh.group)))
-        got["replicas_equal"] = equal
-        got["reduces"] = list(reduces)
-        dp_on_card(case["state"])
-        if mesh.rank != 0:
+                          record=False, after_step=after_step)
+        got.update(replicas_equal=equal, digests=digests, digest_paths=digest_paths,
+                   reduces=list(reduces), saving=saving, gathers=gathers)
+        if sharded and digests[:1] == out["cases"][name]["digests"][:1]:
+            # step 1 bitwise the whole run's: so are its moments (host copies
+            # of ~1.3 GB a 2D case, kept only where phase 42 needs them)
             got.pop("moments")
             got.pop("extra")
-        out["cases"][name] = got
+        dp_on_card(case["state"])
+        if mesh.rank != 0:
+            got.pop("moments", None)
+            got.pop("extra", None)
         del case, tape
+        gc.collect()
         torch.cuda.empty_cache()
+        return got
+
+    for name in spec["cases"]:
+        out["cases"][name] = run(name, sharded=False)
+        if name in spec.get("fsdp_cases", ()):  # phase 42: the same rows, sharded
+            out["fsdp"][name] = run(name, sharded=True)
     torch.save(out, os.path.join(spec["dir"], f"rank{mesh.rank}.pt"))
     dist.destroy_process_group()
     return 0
@@ -4667,7 +4849,15 @@ def phase_data_parallel_steps(tmp: str) -> dict:
     D, VQ statistics) within phase 8's bounds of the one-rank step
     (``compare_step_across_devices``), VQ's summed counts bitwise the
     one-rank counts. Where the host has a card a rank the flagship case runs
-    again over NCCL. Returns the ranks' launches and the timings."""
+    again over NCCL. The gloo launch also runs ``DP_ACCUM`` (no one-rank
+    run: phase 42 holds it against the sharded ranks), takes each step's
+    state digest (``state_digest``) and runs phase 42's sharded layout of
+    every case after the whole one. Returns the ranks' launches (the whole
+    runs') and the timings."""
+    # PyTorch's defaults, which the trainers run with (TF32 convolutions),
+    # whatever the phase before left: phases 38-42 drive the data-parallel
+    # and sharded steps as a job runs them
+    set_tf32(True)
     cases = list(DP_CASES)
     ref, tf32 = {}, torch.backends.cudnn.allow_tf32
     for name in cases:
@@ -4686,10 +4876,12 @@ def phase_data_parallel_steps(tmp: str) -> dict:
     log(f"data parallel: runs {[r[0] for r in runs]} (cards {torch.cuda.device_count()}); "
         f"the NCCL run needs {DP_RANKS} cards")
     launches: dict[str, int] = {}
-    timing = {"ref": ref}
+    timing = {"ref": ref, "tf32": tf32}
     for backend, cards in runs:
-        run_cases = cases if backend == "gloo" else ["flagship"]
+        run_cases = cases + [DP_ACCUM] if backend == "gloo" else ["flagship"]
         spec = {"cases": run_cases, "dir": tmp, "tf32": tf32, "models": dp_models()}
+        if backend == "gloo":  # phase 42's sharded runs in the same ranks
+            spec.update(mesh=FSDP_MESH, fsdp_cases=run_cases)
         spec_path = os.path.join(tmp, "dp_spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
@@ -4710,7 +4902,11 @@ def phase_data_parallel_steps(tmp: str) -> dict:
         if [r["backend"] for r in ranks] != [backend] * DP_RANKS:
             raise AssertionError(f"backends {[r['backend'] for r in ranks]}, expected {backend}")
         for name in run_cases:
-            dp_check_case(name, ref[name], [r["cases"][name] for r in ranks], backend, ranks)
+            if name == DP_ACCUM:
+                dp_check_ranks(name, [r["cases"][name] for r in ranks], backend)
+            else:
+                dp_check_case(name, ref[name], [r["cases"][name] for r in ranks], backend,
+                              ranks)
             for r in ranks:
                 for counted in r["cases"][name]["launches"]:
                     _add_launches(launches, counted)
@@ -4719,17 +4915,27 @@ def phase_data_parallel_steps(tmp: str) -> dict:
     return timing
 
 
-def dp_check_case(name: str, ref: dict, ranks: list[dict], backend: str, info: list) -> None:
-    what = f"data parallel {name} ({DP_RANKS} ranks, {backend})"
+def dp_check_ranks(name: str, ranks: list[dict], backend: str, ref: dict | None = None,
+                   what: str = "data parallel") -> str:
+    """The ranks of a case: each the launches of ``ref`` (another run of
+    the case, or rank 0), their states equal after every step (the blocks
+    across the data axis), the same metrics."""
+    what = f"{what} {name} ({DP_RANKS} ranks, {backend})"
+    ref = ref or ranks[0]
     for r, got in enumerate(ranks):
         if got["launches"] != ref["launches"]:
-            raise AssertionError(f"{what}: rank {r} launched {got['launches']}, the one-rank "
+            raise AssertionError(f"{what}: rank {r} launched {got['launches']}, the reference "
                                  f"run {ref['launches']}")
         if got["replicas_equal"] != [True] * DP_STEPS:
             raise AssertionError(f"{what}: the ranks' states differ after the steps "
                                  f"{got['replicas_equal']}")
     if ranks[0]["metrics"] != ranks[1]["metrics"]:
         raise AssertionError(f"{what}: the ranks logged different metrics")
+    return what
+
+
+def dp_check_case(name: str, ref: dict, ranks: list[dict], backend: str, info: list) -> None:
+    what = dp_check_ranks(name, ranks, backend, ref)
     log(f"{what}: ranks on {[i['device'] for i in info]}; each rank's launches a step "
         f"{ranks[0]['launches']} (the one-rank run's); after each of the {DP_STEPS} steps "
         f"every tensor of the ranks' train states bitwise equal")
@@ -4755,115 +4961,297 @@ def dp_check_case(name: str, ref: dict, ranks: list[dict], backend: str, info: l
         f"{m_got['overall_vae_loss']:.6f}")
 
 
-def dp_job_main(report: str, live_in: str, live_out: str, argv: list[str]) -> int:
-    """One rank of phase 41 (``chip_smoke.py --dp-job REPORT LIVE_IN
-    LIVE_OUT -- ARGV`` under torchrun): ``vqgan_tpu_torch.cli.main(ARGV)``
-    under ``JobProbe`` (each step timed and checked on the card, each eval
-    and save timed, a restore held bitwise against ``LIVE_IN``, the live
-    state a previous launch ended with, read to the host), the kernels'
-    launches counted. Rank 0 writes the live state it ends with to
-    ``LIVE_OUT``; each rank its report to ``REPORT.rank{r}.json``. cuDNN
-    deterministic throughout (an empty ``LIVE_IN`` or ``LIVE_OUT``: none)."""
+def dp_jobs_main(spec_path: str) -> int:
+    """One rank of phases 41 and 43 (``chip_smoke.py --dp-jobs SPEC`` under
+    torchrun): for each job of the spec in turn, ``vqgan_tpu_torch.cli.main``
+    of its argv under ``JobProbe`` (each step timed and checked on the card,
+    each eval and save timed, a restore held bitwise against ``expect``, the
+    ``state_digest`` of the live state a previous job ended with), the
+    kernels' launches counted; with ``digest_out`` rank 0 writes the digest
+    of the live state the job ends with (every rank takes part: a sharded
+    state is gathered). Writes the ranks' reports, a list a rank, to
+    ``{spec's report}.rank{r}.json``. cuDNN deterministic throughout."""
     import torch.distributed as dist
 
     from vqgan_tpu_torch.parallel.mesh import init_distributed
 
+    with open(spec_path) as f:
+        spec = json.load(f)
     init_distributed("cuda")
     torch.backends.cudnn.deterministic = True
-    expect = [torch.load(live_in, map_location="cpu", weights_only=True)] if live_in else None
-    dp_zero_counts()
-    trainer, probe, seconds = run_job(argv, f"data parallel job rank {dist.get_rank()}", expect)
-    rank = trainer.mesh.rank
-    checked = check_on_card(trainer)
-    if live_out and rank == 0:
-        from vqgan_tpu_torch.train.checkpoint import state_dict_of
-
-        torch.save(state_dict_of(trainer.state), live_out)  # a host copy
-    later = probe.steps[1:] or probe.steps
-    out = {"rank": rank, "world": trainer.mesh.world_size, "device": str(trainer.device),
-           "backend": dist.get_backend(trainer.mesh.group), "is_master": trainer.is_master,
-           "local_batch": trainer.local_batch, "launches": dp_counts(), "steps": probe.steps,
-           "step_ms": float(np.mean([h for h, _ in later])) * 1e3,
-           "device_step_ms": float(np.mean([d for _, d in later])),
-           "evals": probe.evals, "saves": probe.saves, "restores": probe.restores,
-           "peak_bytes": torch.cuda.max_memory_allocated(), "on_card": checked,
-           "seconds": seconds, "state_step": int(trainer.state.step)}
-    with open(f"{report}.rank{rank}.json", "w") as f:
-        json.dump(out, f)
-    del trainer
+    rank = dist.get_rank()
+    reports = []
+    for job in spec["jobs"]:
+        expect = None
+        if job["expect"]:
+            with open(job["expect"]) as f:
+                expect = [json.load(f)]
+        dp_zero_counts()
+        trainer, probe, seconds = run_job(job["argv"], f"{job['name']} rank {rank}", expect)
+        checked = check_on_card(trainer)
+        if job["digest_out"]:
+            digest = state_digest(trainer.state)[1]
+            if rank == 0:
+                with open(job["digest_out"], "w") as f:
+                    json.dump(digest, f)
+        later = probe.steps[1:] or probe.steps
+        reports.append({
+            "name": job["name"], "rank": rank, "world": trainer.mesh.world_size,
+            "device": str(trainer.device), "backend": dist.get_backend(trainer.mesh.group),
+            "is_master": trainer.is_master, "local_batch": trainer.local_batch,
+            "launches": dp_counts(), "steps": probe.steps,
+            "step_ms": float(np.mean([h for h, _ in later])) * 1e3,
+            "device_step_ms": float(np.mean([d for _, d in later])),
+            "evals": probe.evals, "saves": probe.saves, "restores": probe.restores,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "on_card": checked,
+            "seconds": seconds, "state_step": int(trainer.state.step),
+            "mesh": trainer.mesh.shape, "sharded": trainer.state.layout.sharded})
+        del trainer, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(f"{spec['report']}.rank{rank}.json", "w") as f:
+        json.dump(reports, f)
     dist.destroy_process_group()
     return 0
 
 
-def dp_job(tmp: str, extra: list[str], nproc: int, tag: str, live_in: str = "",
-           live_out: str = "") -> list[dict]:
-    """One torchrun launch of ``DP_JOB + extra`` at ``nproc`` ranks; the
-    ranks' reports."""
+def dp_jobs(tmp: str, jobs: list[dict], nproc: int, tag: str) -> list[list[dict]]:
+    """One torchrun launch at ``nproc`` ranks running ``jobs`` in turn
+    (each ``{"name", "argv", "expect", "digest_out"}``, its argv after
+    ``DP_JOB`` and the run's ``--ckpt_dir``); each job's reports by rank."""
     report = os.path.join(tmp, f"job_{tag}")
-    argv = DP_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt")] + extra
-    dp_launch([os.path.abspath(__file__), "--dp-job", report, live_in, live_out, "--",
-               *argv], nproc, os.path.join(tmp, f"job_{tag}.log"), timeout=900)
-    reports = []
+    spec = {"report": report, "jobs": [
+        {**job, "argv": DP_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt")] + job["argv"]}
+        for job in jobs]}
+    spec_path = f"{report}.json"
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    dp_launch([os.path.abspath(__file__), "--dp-jobs", spec_path], nproc,
+              os.path.join(tmp, f"job_{tag}.log"), timeout=900)
+    by_rank = []
     for r in range(nproc):
         with open(f"{report}.rank{r}.json") as f:
-            reports.append(json.load(f))
-    return reports
+            by_rank.append(json.load(f))
+    return [[by_rank[r][j] for r in range(nproc)] for j in range(len(jobs))]
 
 
-def phase_data_parallel_job(tmp: str) -> dict:
-    """Phase 41: ``TRAIN_JOB`` (the flagship job, batch 8 of 512 px
+def phase_fsdp_steps(dp_steps: dict) -> dict:
+    """Phase 42: the cases of phases 38-40 and ``DP_ACCUM`` at ``DP_RANKS``
+    ranks sharing the card over gloo on ``FSDP_MESH`` with the train state
+    sharded at rest (``parallel/fsdp.py``), run by phase 38-40's ranks
+    after each case's whole run, replaying the same rows of the one-rank
+    run's loss-head decisions. After each step every rank's gathered state
+    is its whole run's bit for bit (their digests; cuDNN deterministic with
+    the benchmark off), or, where it is not, within phase 8's bounds
+    (``fsdp_within_bounds``); each rank launches the whole run's kernels a step
+    (the one-rank run's, where there is one); each rank's device memory
+    between steps is the whole run's less what the rule saves, reckoned
+    from the parameter counts before the first step (``fsdp_saving``),
+    within 2 % + 32 MiB. Returns the ranks' results and launches."""
+    cases = list(DP_CASES) + [DP_ACCUM]
+    ranks = dp_steps["gloo"]
+    if [r["mesh"] for r in ranks] != [FSDP_MESH] * DP_RANKS:
+        raise AssertionError(f"fsdp ranks' meshes {[r['mesh'] for r in ranks]}")
+    launches: dict[str, int] = {}
+    apart = []  # (case, rank, step, the paths of the tensors that differ)
+    for name in cases:
+        got = [r["fsdp"][name] for r in ranks]
+        base = [r["cases"][name] for r in ranks]
+        one = dp_steps["ref"].get(name)
+        what = dp_check_ranks(name, got, "gloo", ref=one or base[0], what="fsdp")
+        if got[0]["launches"] != base[0]["launches"]:
+            raise AssertionError(f"{what}: launches {got[0]['launches']}, the data=2 rank's "
+                                 f"{base[0]['launches']}")
+        for r in range(DP_RANKS):
+            for i, (a, b) in enumerate(zip(got[r]["digests"], base[r]["digests"])):
+                if a != b:
+                    paths = got[r]["digest_paths"]
+                    apart.append((name, r, i + 1, [paths[j // 2] for j in range(0, len(a), 2)
+                                                   if a[j:j + 2] != b[j:j + 2]]))
+            for i in range(DP_STEPS):
+                measured = base[r]["allocated"][i] - got[r]["allocated"][i]
+                predicted = got[r]["saving"]
+                if abs(measured - predicted) > 0.02 * predicted + (32 << 20):
+                    raise AssertionError(
+                        f"{what}: rank {r} after step {i + 1} holds {measured / 2**20:.1f} MiB "
+                        f"less than the data=2 rank, the rule saves {predicted / 2**20:.1f}")
+            for counted in got[r]["launches"]:
+                _add_launches(launches, counted)
+        log(f"{what}: each rank's gathered state after each of the {DP_STEPS} steps bitwise the "
+            f"data=2 rank's (phases 38-40; {len(got[0]['digests'][0]) // 2} tensors, digests): "
+            f"{not any(a[0] == name for a in apart)}; launches a step {got[0]['launches'][0]} "
+            f"(the {'one-rank' if one else 'data=2'} run's)")
+    for name, r, i, paths in apart:
+        log(f"fsdp {name}: rank {r} after step {i}: {len(paths)} tensors differ from the data=2 "
+            f"rank's: {paths[:12]}")
+    for name in sorted({a[0] for a in apart}):
+        fsdp_within_bounds(name, [r["fsdp"][name] for r in ranks],
+                           [r["cases"][name] for r in ranks], dp_steps["ref"].get(name),
+                           dp_steps["tf32"])
+    return {"ranks": ranks, "launches": launches, "apart": apart}
+
+
+def fsdp_within_bounds(name: str, got: list[dict], base: list[dict], one: dict | None,
+                       tf32: bool) -> None:
+    """Phase 42 for a case whose sharded state is not the data=2 run's bit
+    for bit: what the run shows of why (each rank's caching-allocator OOMs
+    after each step in both layouts: an allocation that failed, such as a
+    cuDNN plan's workspace, sends cuDNN to another plan, whose sums round
+    apart), then the sharded run held to phase 8's bounds: where step 1
+    differs, its losses, AdamW first moments and VQ statistics against the
+    one-rank run on the global batch (the data=2 run where there is none),
+    the same loss-head decisions replayed; each later step's losses against
+    the data=2 run's (each run's own decisions)."""
+    what = f"fsdp {name} ({DP_RANKS} ranks, gloo)"
+    log(f"{what}: not bitwise the data=2 run (cuDNN deterministic, its benchmark off, TF32 "
+        f"convolutions {tf32}); allocator OOMs so far after each step: sharded "
+        f"{[g['ooms'] for g in got]}, data=2 {[b['ooms'] for b in base]}; held to phase 8's "
+        f"bounds instead")
+    n_logits = DP_CASES.get(name, DP_CASES["flagship"])
+    ref, label = (one, "one rank") if one else (base[0], "data=2")
+    if "moments" in got[0]:  # step 1 differs
+        compare_step_across_devices(
+            {"cpu": (ref["metrics"][0], ref["moments"], ref["extra"]),
+             "cuda": (got[0]["metrics"][0], got[0]["moments"], got[0]["extra"])},
+            f"{what}, step 1 against {label}", n_logits,
+            16384 if name == "flagship vq" else 0, labels=(label, "fsdp=2"))
+    for i in range(1, DP_STEPS):
+        m_ref, m_got = base[0]["metrics"][i], got[0]["metrics"][i]
+        atol = {k: 1.0 / n_logits if k == "gan/discriminator_accuracy" else LOSS_ATOL
+                for k in m_ref}
+        bad = [(k, v, m_got[k]) for k, v in m_ref.items()
+               if abs(m_got[k] - v) > atol[k] + LOSS_RTOL * abs(v)]
+        worst = max(abs(m_got[k] - v) / (LOSS_ATOL + LOSS_RTOL * abs(v))
+                    for k, v in m_ref.items() if k != "gan/discriminator_accuracy")
+        log(f"{what}: step {i + 1}'s losses against the data=2 run's: the worst uses "
+            f"{worst:.3f} of its bound")
+        if bad:
+            raise AssertionError(f"{what}: step {i + 1}'s losses past phase 8's bounds: "
+                                 f"{bad[:5]}")
+
+
+def fsdp_timing_lines(card: str, fsdp: dict) -> None:
+    """Phase 42's readings, each with the card's name and power limit: a
+    rank's memory allocated between steps at data=2 and sharded, against
+    the saving reckoned from the parameter counts; each rank's peak; the
+    gathers' MiB and ms a step (host clock between syncs), the step's ms by
+    events beside the data=2 rank's."""
+    for name in fsdp["ranks"][0]["fsdp"]:
+        for r, rank in enumerate(fsdp["ranks"]):
+            g, b = rank["fsdp"][name], rank["cases"][name]
+            log(f"[{card}] fsdp {name}: rank {r} between steps {g['allocated'][-1] / 2**20:.1f} "
+                f"MiB allocated, the data=2 rank {b['allocated'][-1] / 2**20:.1f} MiB: "
+                f"{(b['allocated'][-1] - g['allocated'][-1]) / 2**20:.1f} MiB less, the rule's "
+                f"reckoning {g['saving'] / 2**20:.1f} MiB; peak {g['peak_bytes'] / 2**30:.3f} "
+                f"GiB (data=2 {b['peak_bytes'] / 2**30:.3f}); gathers a step " + ", ".join(
+                    f"{nb / 2**20:.1f} MiB in {t * 1e3:.1f} ms" for nb, t in g["gathers"])
+                + f"; step {DP_STEPS} {g['ms'][-1]:.1f} ms by events ({g['host_ms'][-1]:.1f} "
+                f"host), data=2 {b['ms'][-1]:.1f} ({b['host_ms'][-1]:.1f})")
+
+
+def phase_data_parallel_jobs(tmp: str) -> dict:
+    """Phases 41 and 43: ``TRAIN_JOB`` (the flagship job, batch 8 of 512 px
     synthetic images, hinge + LeCam, bf16) through ``python -m
-    torch.distributed.run --nproc_per_node 2`` and ``vqgan_tpu_torch.cli``:
-    3 steps, an eval and a save after steps 1 and 3; then a second launch
-    resumes to step 4, its restore bitwise the live state the first ended
-    with, on both ranks. Only rank 0 evaluates, logs and saves:
-    the JSONL holds one config header a launch and each step once. Then
-    the job at one rank over NCCL, 2 steps, ends in the state that the same
-    2 steps in this process (no torchrun, no process group) end in, bitwise
-    (cuDNN deterministic in both). Returns the launches and timings."""
+    torch.distributed.run --nproc_per_node 2`` and ``vqgan_tpu_torch.cli``,
+    the ranks sharing the card over gloo. One launch runs phase 41's job at
+    ``data=2`` (``DP_JOB_FIRST``: 3 steps, an eval and a save after step 1,
+    the final save) and then phase 43's at ``data=1,fsdp=2``
+    (``FSDP_JOB_FIRST``: the same with the state sharded, the other rank
+    gathering with rank 0 for its eval and saves); only rank 0 evaluates,
+    logs and writes. A second launch resumes the sharded job's step-3 save
+    at ``data=2`` and one plain process resumes it too, each restore
+    bitwise the live state the sharded ranks ended with (its
+    ``state_digest``), each training step 4. Then the job at one rank over
+    NCCL, 2 steps, ends in the state (digest) that the same 2 steps in this
+    process end in (no torchrun, no process group; cuDNN deterministic in
+    both). Leaves the sharded job's two reference ``.pt`` files in
+    ``{tmp}/tools_ckpt`` for phase 44. Returns the reports and launches."""
     import shutil
 
-    ranks = dp_job(tmp, DP_JOB_FIRST + ["--run_name", "dp"], DP_RANKS, "first",
-                   live_out=os.path.join(tmp, "live_first.pt"))
-    resumed = dp_job(tmp, DP_JOB_RESUME + ["--run_name", "dp"], DP_RANKS, "resume",
-                     live_in=os.path.join(tmp, "live_first.pt"))
-    what = f"data parallel job ({DP_RANKS} ranks)"
-    for launch, steps, evals in ((ranks, 3, 2), (resumed, 1, 0)):
-        if [r["backend"] for r in launch] != ["gloo"] * DP_RANKS \
-                or [r["local_batch"] for r in launch] != [TRAIN_BATCH // DP_RANKS] * DP_RANKS:
-            raise AssertionError(f"{what}: {[(r['backend'], r['local_batch']) for r in launch]}")
+    digest_fsdp = os.path.join(tmp, "digest_fsdp.json")
+    digest_nccl = os.path.join(tmp, "digest_nccl.json")
+    weights = ["vae_epoch_0_step_1.pt", "vae_epoch_final_step_3.pt"]
+    dp_first, fsdp_first = dp_jobs(tmp, [
+        {"name": "data parallel job", "argv": DP_JOB_FIRST + ["--run_name", "dp"],
+         "expect": "", "digest_out": ""},
+        {"name": "fsdp job", "argv": FSDP_JOB_FIRST + ["--run_name", "fsdp"],
+         "expect": "", "digest_out": digest_fsdp}], DP_RANKS, "first")
+    for launch, name, mesh in ((dp_first, "dp", {"data": DP_RANKS}),
+                               (fsdp_first, "fsdp", FSDP_MESH)):
+        what = f"{launch[0]['name']} ({DP_RANKS} ranks, {mesh})"
+        seen = [(r["backend"], r["local_batch"], r["mesh"], r["sharded"]) for r in launch]
+        if seen != [("gloo", TRAIN_BATCH // DP_RANKS, mesh, name == "fsdp")] * DP_RANKS:
+            raise AssertionError(f"{what}: (backend, local batch, mesh, sharded) {seen}")
         if [r["is_master"] for r in launch] != [True, False] \
-                or [len(r["evals"]) for r in launch] != [evals, 0]:
+                or [len(r["evals"]) for r in launch] != [1, 0]:
             raise AssertionError(f"{what}: rank 0 alone evaluates "
                                  f"{[(r['is_master'], len(r['evals'])) for r in launch]}")
         for r in launch:
-            if len(r["steps"]) != steps or r["launches"]["gn_bwd"] != JOB_GN * steps \
-                    or r["launches"]["gn"] != JOB_GN * (steps + len(r["evals"])):
+            if len(r["steps"]) != 3 or r["launches"]["gn_bwd"] != JOB_GN * 3 \
+                    or r["launches"]["gn"] != JOB_GN * (3 + len(r["evals"])):
                 raise AssertionError(f"{what}: rank {r['rank']}: {len(r['steps'])} steps, "
                                      f"launches {r['launches']}")
-    for r in resumed:
-        if [(s, same) for s, same, _ in r["restores"]] != [(3, True)]:
-            raise AssertionError(f"{what}: rank {r['rank']} restored {r['restores']}")
-    run_dir = os.path.join(tmp, "ckpt", "dp")
-    lines = job_lines(run_dir, "dp")
-    headers = [ln for ln in lines if "_config" in ln]
-    check_job_log(lines, range(0, 4), [1, 3], what)
-    logged = [ln["step"] for ln in lines if "overall_vae_loss" in ln]
-    saved = sorted(os.listdir(os.path.join(run_dir, "state")))
-    if len(headers) != 2 or logged != [0, 1, 2, 3] or saved != [
-            "step_00000001.pt", "step_00000003.pt", "step_00000004.pt"]:
-        raise AssertionError(f"{what}: {len(headers)} config headers, steps logged {logged}, "
-                             f"saved {saved}")
-    log(f"{what}: launch 1 {ranks[0]['seconds']:.1f} s, resume {resumed[0]['seconds']:.1f} s; "
-        f"ranks on {[r['device'] for r in ranks]} over gloo, {TRAIN_BATCH // DP_RANKS} images a "
-        f"rank; the restore of step 3 bitwise the live state on both ranks "
-        f"({resumed[0]['restores'][0][2]} tensors); rank 0 alone evaluated and wrote: "
-        f"{len(headers)} config headers, steps {logged} logged once each, {saved}")
-    shutil.rmtree(os.path.join(tmp, "ckpt"))
-    os.remove(os.path.join(tmp, "live_first.pt"))
+        run_dir = os.path.join(tmp, "ckpt", name)
+        lines = job_lines(run_dir, name)
+        check_job_log(lines, range(0, 3), [1], what)
+        logged = [ln["step"] for ln in lines if "overall_vae_loss" in ln]
+        headers = [ln for ln in lines if "_config" in ln]
+        saved = sorted(os.listdir(os.path.join(run_dir, "state")))
+        written = sorted(n for n in os.listdir(run_dir) if n.endswith(".pt"))
+        if len(headers) != 1 or logged != [0, 1, 2] \
+                or saved != ["step_00000001.pt", "step_00000003.pt"] or written != weights:
+            raise AssertionError(f"{what}: {len(headers)} config headers, steps logged "
+                                 f"{logged}, saved {saved}, {written}")
+        log(f"{what}: {launch[0]['seconds']:.1f} s; ranks on {[r['device'] for r in launch]} "
+            f"over gloo, {TRAIN_BATCH // DP_RANKS} images a rank; rank 0 alone evaluated and "
+            f"wrote: one config header, steps {logged} logged once each, {saved}, {written}")
+    run_dir = os.path.join(tmp, "ckpt", "fsdp")
+    tools_dir = os.path.join(tmp, "tools_ckpt")
+    os.makedirs(tools_dir)
+    for n in weights:
+        os.link(os.path.join(run_dir, n), os.path.join(tools_dir, n))
+    one_dir = os.path.join(tmp, "ckpt", "fsdp_one", "state")
+    os.makedirs(one_dir)
+    os.link(os.path.join(run_dir, "state", "step_00000003.pt"),
+            os.path.join(one_dir, "step_00000003.pt"))
+    shutil.rmtree(os.path.join(tmp, "ckpt", "dp"))
 
-    nccl = dp_job(tmp, DP_JOB_PLAIN + ["--run_name", "nccl"], 1, "nccl",
-                  live_out=os.path.join(tmp, "live_nccl.pt"))
+    what = f"the fsdp job's save ({FSDP_MESH})"
+    (resumed,) = dp_jobs(tmp, [{"name": "data parallel resume of the fsdp job",
+                                "argv": DP_JOB_RESUME + ["--run_name", "fsdp"],
+                                "expect": digest_fsdp, "digest_out": ""}], DP_RANKS, "resume")
+    for r in resumed:
+        if r["sharded"] or r["mesh"] != {"data": DP_RANKS} or len(r["steps"]) != 1 \
+                or [(s, same) for s, same, _ in r["restores"]] != [(3, True)]:
+            raise AssertionError(f"{what}: the data=2 resume, rank {r['rank']}: sharded "
+                                 f"{r['sharded']}, restored {r['restores']}, "
+                                 f"{len(r['steps'])} steps")
+    lines = job_lines(run_dir, "fsdp")
+    logged = [ln["step"] for ln in lines if "overall_vae_loss" in ln]
+    if len([ln for ln in lines if "_config" in ln]) != 2 or logged != [0, 1, 2, 3]:
+        raise AssertionError(f"{what}: after the data=2 resume, steps logged {logged}")
+    with open(digest_fsdp) as f:
+        expect = [json.load(f)]
+    dp_zero_counts()
+    plain, probe, _ = run_job(TRAIN_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"),
+                                           "--run_name", "fsdp_one"] + DP_JOB_RESUME,
+                              f"{what}: resumed in one plain process", expect)
+    one_launches = dp_counts()
+    if plain.mesh.group is not None or [(s, same) for s, same, _ in probe.restores] != [
+            (3, True)] or len(probe.steps) != 1:
+        raise AssertionError(f"{what}: the one-process resume restored {probe.restores}, "
+                             f"{len(probe.steps)} steps")
+    log(f"{what}: restored bitwise the live state the sharded ranks ended with "
+        f"({resumed[0]['restores'][0][2]} tensors, digests) on both ranks of a data=2 launch "
+        f"({resumed[0]['seconds']:.1f} s) and in one plain process; each trained step 4")
+    del plain, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "ckpt"))
+
+    (nccl,) = dp_jobs(tmp, [{"name": "data parallel job over NCCL",
+                             "argv": DP_JOB_PLAIN + ["--run_name", "nccl"], "expect": "",
+                             "digest_out": digest_nccl}], 1, "nccl")
     if nccl[0]["backend"] != "nccl":
         raise AssertionError(f"the one-rank job's backend: {nccl[0]['backend']}")
     deterministic = torch.backends.cudnn.deterministic
@@ -4876,13 +5264,12 @@ def phase_data_parallel_job(tmp: str) -> dict:
     finally:
         torch.backends.cudnn.deterministic = deterministic
     plain_launches = dp_counts()
-    same, n = same_state(device_tree(plain.state),
-                         torch.load(os.path.join(tmp, "live_nccl.pt"), map_location="cpu",
-                                    weights_only=True))
+    with open(digest_nccl) as f:
+        same = state_digest(plain.state)[1] == json.load(f)
     if plain.mesh.group is not None:
         raise AssertionError("the plain job has a process group")
     log(f"data parallel job at one rank over NCCL ({nccl[0]['device']}) against one plain "
-        f"process, 2 steps: {n} state tensors bitwise equal: {same}; launches "
+        f"process, 2 steps: the states bitwise equal (digests): {same}; launches "
         f"{nccl[0]['launches']} and {plain_launches}")
     if not same or nccl[0]["launches"] != plain_launches:
         raise AssertionError("the one-rank NCCL job and the plain job end apart")
@@ -4891,9 +5278,108 @@ def phase_data_parallel_job(tmp: str) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(tmp, "ckpt"))
     launches: dict[str, int] = {}
-    for r in (*ranks, *resumed, *nccl):
-        _add_launches(launches, r["launches"])
-    return {"first": ranks, "resume": resumed, "nccl": nccl, "launches": launches}
+    for counted in (*[r["launches"] for r in (*dp_first, *fsdp_first, *resumed, *nccl)],
+                    one_launches):
+        _add_launches(launches, counted)
+    return {"first": dp_first, "fsdp_first": fsdp_first, "resume": resumed, "nccl": nccl,
+            "launches": launches, "weights": [os.path.join(tools_dir, n) for n in weights]}
+
+
+def write_image_shard(path: str, n: int, size: int) -> None:
+    """A tar shard of ``n`` seeded PNG images, ``size`` px square:
+    smooth stripes and noise, so the recompute tool scores a real
+    reconstruction."""
+    from vqgan_tpu_torch.utils.logging import write_png
+
+    rng = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    with tarfile.open(path, "w") as tf:
+        for i in range(n):
+            img = 127 + 90 * np.sin(xx[..., None] / (4 + i) + yy[..., None] / (7 + i % 5)
+                                    + np.arange(3)) + rng.randint(-25, 25, (size, size, 3))
+            png = f"{path}.{i}.png"
+            write_png(png, np.clip(img, 0, 255).astype(np.uint8))
+            tf.add(png, arcname=f"img{i:03d}.png")
+            os.remove(png)
+
+
+def phase_tools(tmp: str, weights: list[str]) -> dict:
+    """Phase 44: the three tools on the card at the flagship width
+    (``VAEConfig()``): one ``adjust_weight_init`` iteration (muP start, a
+    batch of ``TOOLS_CALIB_BATCH`` 256 px images, three forwards: 3 x 50
+    GroupNorm launches); ``make_alt_lpips``'s judge file; then
+    ``recompute_eval_metrics`` over phase 43's two ``.pt`` files on a shard
+    of 16 PNG images, judged by the default net and that file (2 x 2 x 50
+    GroupNorm launches). Every row printed; the stds, PSNR, SSIM and both
+    judges finite, the judges >= 0. Returns the launches."""
+    import contextlib as ctx
+    import io
+
+    from vqgan_tpu_torch.config import VAEConfig
+    from vqgan_tpu_torch.models.ae import VAE
+    from vqgan_tpu_torch.models.blocks import init_weights_
+    from vqgan_tpu_torch.tools import make_alt_lpips, recompute_eval_metrics
+    from vqgan_tpu_torch.tools.unit_activation_reinit import adjust_weight_init
+
+    launches: dict[str, int] = {}
+    cfg = VAEConfig(**TOOLS_VAE)
+    gen = torch.Generator("cuda").manual_seed(0)
+    with torch.device("cuda"):
+        model = VAE(cfg)
+    init_weights_(model, gen)
+    batch = torch.rand((TOOLS_CALIB_BATCH, cfg.resolution, cfg.resolution, 3), generator=gen,
+                       device="cuda") * 2 - 1
+    dp_zero_counts()
+    t0 = time.perf_counter()
+    _, report = adjust_weight_init(model, batch, max_iters=1, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted = dp_counts()
+    _add_launches(launches, counted)
+    finals = {k: v for k, v in report.items() if "final_act_std" in v}
+    if counted["gn"] != 3 * JOB_GN or not finals or not all(
+            np.isfinite([v["initial_act_std"], v["final_act_std"]]).all()
+            for v in finals.values()):
+        raise AssertionError(f"tools: adjust_weight_init launched {counted}, report "
+                             f"{list(report.items())[:3]}")
+    log(f"tools: adjust_weight_init, one iteration at VAEConfig() (batch {TOOLS_CALIB_BATCH}, "
+        f"{cfg.resolution} px), {seconds:.1f} s, launches {counted}; layer: initial -> final "
+        f"std: " + "; ".join(f"{k}: {v['initial_act_std']:.3f} -> {v['final_act_std']:.3f}"
+                            for k, v in sorted(finals.items())))
+    del model, batch
+    torch.cuda.empty_cache()
+
+    judge = os.path.join(tmp, "alt_lpips.npz")
+    make_alt_lpips.main(["--seed", "7", "--out", judge])
+    shard = os.path.join(tmp, "eval_images.tar")
+    write_image_shard(shard, TOOLS_EVAL_BATCH * TOOLS_EVAL_BATCHES, cfg.resolution)
+    args = recompute_eval_metrics.build_parser().parse_args([
+        "--ckpt_glob", os.path.join(os.path.dirname(weights[0]), "vae_epoch_*_step_*.pt"),
+        "--test_dataset_url", shard, "--batch_size", str(TOOLS_EVAL_BATCH),
+        "--eval_batches", str(TOOLS_EVAL_BATCHES), "--judge_lpips", f"default,{judge}",
+        "--vae_ch", str(cfg.ch), "--vae_ch_mult", ",".join(map(str, cfg.ch_mult)),
+        "--vae_z_channels", str(cfg.z_channels), "--vae_resolution", str(cfg.resolution),
+        "--image_size", str(cfg.resolution), "--device", "cuda"])
+    dp_zero_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(printed):
+        rows = recompute_eval_metrics.recompute(args)
+    seconds = time.perf_counter() - t0
+    counted = dp_counts()
+    _add_launches(launches, counted)
+    for line in printed.getvalue().splitlines():
+        log(f"tools: recompute_eval_metrics row: {line}")
+    keys = ("eval/psnr", "eval/ssim", "eval/lpips_judge_default", "eval/lpips_judge_alt_lpips")
+    if [r["step"] for r in rows] != [1, 3] or any(
+            not np.isfinite(r[k]) for r in rows for k in keys) or any(
+            r[k] < 0 for r in rows for k in keys[2:]) \
+            or counted["gn"] != len(rows) * TOOLS_EVAL_BATCHES * JOB_GN:
+        raise AssertionError(f"tools: recompute_eval_metrics rows {rows}, launches {counted}")
+    log(f"tools: recompute_eval_metrics over phase 43's {len(rows)} checkpoints, "
+        f"{TOOLS_EVAL_BATCHES} x {TOOLS_EVAL_BATCH} PNG images, 2 judges: {seconds:.1f} s, "
+        f"launches {counted}")
+    return {"launches": launches}
 
 
 def dp_timing_lines(card: str, steps: dict, jobs: dict) -> None:
@@ -4917,9 +5403,9 @@ def dp_timing_lines(card: str, steps: dict, jobs: dict) -> None:
                     f"({got['host_ms'][-1]:.1f} host); gradient all-reduces a step " + ", ".join(
                         f"{b / 2**20:.1f} MiB in {t * 1e3:.1f} ms" for b, t in last)
                     + f"; peak {got['peak_bytes'] / 2**30:.3f} GiB")
-    for tag in ("first", "resume", "nccl"):
+    for tag in ("first", "fsdp_first", "resume", "nccl"):
         for r in jobs[tag]:
-            log(f"[{card}] data parallel job ({tag}, world size {r['world']}, {r['backend']}, "
+            log(f"[{card}] {r['name']} ({tag}, mesh {r['mesh']}, {r['backend']}, "
                 f"rank {r['rank']}): {r['step_ms']:.1f} ms a step by the host clock, "
                 f"{r['device_step_ms']:.1f} by events; eval "
                 f"{', '.join(f'{t:.2f}' for t in r['evals']) or 'none'} s; save "
@@ -4935,8 +5421,8 @@ def main() -> int:
     # a rank of phases 38-40 or 41, launched by this script through torchrun
     if len(sys.argv) > 2 and sys.argv[1] == "--dp-ranks":
         return dp_ranks_main(sys.argv[2])
-    if len(sys.argv) > 5 and sys.argv[1] == "--dp-job":
-        return dp_job_main(*sys.argv[2:5], sys.argv[sys.argv.index("--") + 1:])
+    if len(sys.argv) > 2 and sys.argv[1] == "--dp-jobs":
+        return dp_jobs_main(sys.argv[2])
     t_smoke = time.perf_counter()
 
     from vqgan_tpu_torch.ops import attention_cuda as ac
@@ -5112,17 +5598,26 @@ def main() -> int:
     # 38. the flagship step at two ranks against one; 39. its VQ variant; 40.
     # the 3D GAN step at TVAEConfig()'s width; 41. the flagship job under
     # torchrun: two ranks, a resume, one rank over NCCL against one process
+    # 42. the cases of 38-40 and the flagship step at grad_accum 2 with the
+    # train state sharded over fsdp (run by 38-40's ranks); 43. the flagship
+    # job at data=1,fsdp=2 (in 41's launch), resumed at data=2 and in one
+    # process; 44. the three tools
     t38 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         dp_steps = phase_data_parallel_steps(tmp)
+        fsdp_steps = phase_fsdp_steps(dp_steps)
         t41 = time.perf_counter()
-        dp_jobs = phase_data_parallel_job(tmp)
+        dp_jobs_out = phase_data_parallel_jobs(tmp)
+        t44 = time.perf_counter()
+        tools = phase_tools(tmp, dp_jobs_out["weights"])
     t_end = time.perf_counter()
-    log(f"phases 38-41 (data parallelism): {t_end - t38:.1f} s (38-40: {t41 - t38:.1f} s, 41: "
-        f"{t_end - t41:.1f} s) of the {t_end - t_smoke:.1f} s the smoke has run so far")
+    log(f"phases 38-44 (data parallelism, fsdp, the tools): {t_end - t38:.1f} s (38-40 and "
+        f"42: {t41 - t38:.1f} s, 41 and 43: {t44 - t41:.1f} s, 44: {t_end - t44:.1f} s) of the "
+        f"{t_end - t_smoke:.1f} s the smoke has run so far")
     dp_launches: dict[str, int] = {}
-    for counted in (dp_steps["launches"], dp_jobs["launches"]):
+    for counted in (dp_steps["launches"], fsdp_steps["launches"], dp_jobs_out["launches"]):
         _add_launches(dp_launches, counted)
+    tool_launches = tools["launches"]
 
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
@@ -5262,7 +5757,8 @@ def main() -> int:
     for side, t in export3d["timing"].items():
         log(_timing_line(f"served artifact (phase 36) TVAE 16f/128px batch {CLIP_BATCH}: "
                          f"{side}", t, "frames", CLIP_BATCH * CLIP_FRAMES))
-    dp_timing_lines(smi, dp_steps, dp_jobs)
+    dp_timing_lines(smi, dp_steps, dp_jobs_out)
+    fsdp_timing_lines(smi, fsdp_steps)
     log(f"export seconds: the CLI in a subprocess (flagship identity) {export2d['cli_s']:.1f}, "
         f"export_vae (flagship vq + attention) {export2d['export_s']:.1f}, export_tvae "
         f"(16f/128px) {export3d['export_s']:.1f}; artifacts vs pipelines max_abs_err "
@@ -5271,7 +5767,8 @@ def main() -> int:
         f"it and read just after: the earlier paths' below, plus the training jobs' "
         f"(phases 28-29 and 31-33: {job_launches}), the served artifacts' reconstructs "
         f"(phases 35-37: {export_launches}) and the data-parallel ranks' steps and jobs, every "
-        f"rank's (phases 38-41: {dp_launches}); GroupNorm launches per identity training step and "
+        f"rank's (phases 38-43: {dp_launches}), the tools' (phase 44: {tool_launches}); "
+        f"GroupNorm launches per identity training step and "
         f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
         f"training step and ms of its one call (N={VQ_CASES['flagship b8'][0]}, "
@@ -5304,7 +5801,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
               train_counts["gn"] + job_launches["gn"] + export_launches["gn"]
-              + dp_launches["gn"],
+              + dp_launches["gn"] + tool_launches["gn"],
               max([v[0] for res in fwd.values() for v in res.values()]
                                       + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err,
                                          job3d_err["gn"]]),

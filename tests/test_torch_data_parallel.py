@@ -102,7 +102,7 @@ JAX_CASES = ("2d-global", "2d-mean_shard_norm", "2d-vq", "3d-gan")
 CASES = JAX_CASES + ("2d-accum",)
 
 
-def _launch(spec: dict, tmp) -> tuple[subprocess.Popen, str]:
+def _launch(spec: dict, tmp, nproc: int = RANKS) -> tuple[subprocess.Popen, str, int]:
     os.makedirs(tmp, exist_ok=True)
     spec_path = os.path.join(tmp, "spec.pt")
     torch.save(spec, spec_path)
@@ -111,17 +111,17 @@ def _launch(spec: dict, tmp) -> tuple[subprocess.Popen, str]:
     env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(RANKS), WORKER, spec_path, str(tmp)],
+         "--nproc_per_node", str(nproc), WORKER, spec_path, str(tmp)],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, str(tmp)
+    return proc, str(tmp), nproc
 
 
 def _collect(launched) -> list[dict]:
-    proc, tmp = launched
+    proc, tmp, nproc = launched
     out, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, out[-5000:]
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(RANKS)]
+            for r in range(nproc)]
 
 
 # ---------------------------------------------------------------------------
@@ -383,15 +383,16 @@ def test_mesh_extents_match_jax(eight_devices, shape):
 
 def test_create_mesh_in_one_process():
     """Without torchrun the mesh is one rank with no process group, and a
-    data axis of 2 says how to get a second rank; the unported axes raise
-    naming their ROADMAP items."""
+    data or fsdp axis of 2 says how to get a second rank; the unported axes
+    raise naming their ROADMAP items."""
     mesh = create_mesh({"data": -1})
     assert (mesh.shape, mesh.rank, mesh.world_size, mesh.group) == ({"data": 1}, 0, 1, None)
     assert mesh.is_master and mesh.n_data == 1
     assert mesh.any(True) and not mesh.any(False)
-    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
-        create_mesh({"data": 2})
-    for axis, item in (("fsdp", "fsdp"), ("tensor", "tensor sharding"), ("context", "context")):
+    for axes in ({"data": 2}, {"data": 1, "fsdp": 2}):
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+            create_mesh(axes)
+    for axis, item in (("tensor", "tensor sharding"), ("context", "context")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
             create_mesh({"data": 1, axis: 2})
     with pytest.raises(ValueError, match="unknown mesh axes"):

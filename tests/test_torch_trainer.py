@@ -257,7 +257,7 @@ def test_checkpoint_manager(tmp_path, monkeypatch):
     mngr = CheckpointManager(str(tmp_path / "m"), max_to_keep=2)
     assert mngr.latest_step() is None and mngr.restore(trainer.state) is None
     for s in (3, 1, 7):
-        mngr.save(s, trainer.state)
+        mngr.save(s, state_dict_of(trainer.state))
     assert mngr.steps() == [3, 7] and mngr.latest_step() == 7
     assert sorted(os.listdir(mngr.directory)) == ["step_00000003.pt", "step_00000007.pt"]
     saved = torch.load(mngr.path(7), map_location="cpu", weights_only=True)
@@ -270,7 +270,7 @@ def test_checkpoint_manager(tmp_path, monkeypatch):
         raise OSError("no space left on device")
 
     monkeypatch.setattr(torch, "save", full_disk)
-    mngr.save(8, trainer.state)
+    mngr.save(8, state_dict_of(trainer.state))
     with pytest.raises(OSError, match="no space"):
         mngr.wait()
     assert mngr.steps() == [3, 7]
@@ -283,7 +283,7 @@ def test_checkpoint_manager_writes_reference_weights(tmp_path):
     trainer = Trainer(_cfg(tmp_path, ema_decay=0.9), VAEConfig(**TINY), device="cpu")
     mngr = CheckpointManager(str(tmp_path / "m"))
     raw, ema, direct = (str(tmp_path / n) for n in ("raw.pt", "ema.pt", "direct.pt"))
-    mngr.save(4, trainer.state, {raw: "g_model", ema: "g_ema"})
+    mngr.save(4, state_dict_of(trainer.state), {raw: "g_model", ema: "g_ema"})
     mngr.wait()
     save_weights(trainer.vae, direct)
     for written, want in ((load_weights(raw), load_weights(direct)),
@@ -308,7 +308,8 @@ def test_trainer_device_is_explicit(tmp_path):
 
 @pytest.mark.parametrize("kw,err,what", [
     (dict(crop_invariance=True, downscale_factor=16), ValueError, "downscale_factor"),
-    (dict(mesh_shape="data=1,fsdp=2"), NotImplementedError, "mesh_shape"),
+    # fsdp is ported: in one process it asks for ranks, as data does
+    (dict(mesh_shape="data=1,fsdp=2"), ValueError, "mesh_shape.*torchrun"),
     (dict(grad_accum=3), ValueError, "grad_accum"),
     # one process without torch.distributed is one rank
     (dict(mesh_shape="data=2"), ValueError, "torchrun --nproc_per_node"),

@@ -357,13 +357,14 @@ def test_eval_scores_the_polyak_weights(gan_job):
     assert line["eval/psnr"] == pytest.approx(ema, rel=1e-6)
 
 
-@pytest.mark.parametrize("kw, match", [
-    (dict(mesh_shape="data=1,fsdp=2"), "Queue 1: fsdp"),
-    (dict(mesh_shape="data=1,context=2"), "context=2 needs several devices"),
-    (dict(mesh_shape="tensor=2,data=-1"), "Queue 1: tensor sharding"),
+@pytest.mark.parametrize("kw, err, match", [
+    # fsdp is ported: in one process it asks for ranks, as data does
+    (dict(mesh_shape="data=1,fsdp=2"), ValueError, "torchrun --nproc_per_node"),
+    (dict(mesh_shape="data=1,context=2"), NotImplementedError, "context=2 needs several devices"),
+    (dict(mesh_shape="tensor=2,data=-1"), NotImplementedError, "Queue 1: tensor sharding"),
 ])
-def test_unported_options_raise(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise(tmp_path, kw, err, match):
+    with pytest.raises(err, match=match):
         _trainer(tmp_path, **kw)
 
 

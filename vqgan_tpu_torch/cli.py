@@ -26,9 +26,10 @@ form), ``--conv3d_impl`` (which values run the Conv3d kernel) and
 Data parallelism: ``torchrun --nproc_per_node N -m vqgan_tpu_torch.cli
 train|train3d --mesh_shape data=-1 ...`` runs N ranks, each on its card
 (``cuda:LOCAL_RANK``; ranks that share a card talk over gloo), with
-``--batch_size`` the global batch. ``--mesh_shape`` axes ``fsdp``,
-``tensor`` and ``context`` above 1 raise NotImplementedError naming their
-ROADMAP.md items.
+``--batch_size`` the global batch; ``--mesh_shape data=D,fsdp=F`` (or
+``fsdp=-1``) also shards the train state over F ranks. ``--mesh_shape``
+axes ``tensor`` and ``context`` above 1 raise NotImplementedError naming
+their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -108,8 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="Reseed codes with EMA count below this from batch samples (0=off)")
     add("--mesh_shape", type=str, default="data=-1",
         help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
-             "torchrun ranks; fsdp, tensor and context above 1 raise NotImplementedError "
-             "(not ported)")
+             "torchrun ranks; data=D,fsdp=F (or fsdp=-1) also shards the train state over "
+             "F ranks; tensor and context above 1 raise NotImplementedError (not ported)")
     add("--remat", type=_bool, default=False,
         help="Activation rematerialization (fit large configs in device memory)")
     add("--remat_policy", type=str, default="full",
@@ -326,7 +327,8 @@ def build_parser_3d() -> argparse.ArgumentParser:
     add("--run_name", type=str, default="tvae_run", help="Name of the run")
     add("--mesh_shape", type=str, default="data=-1",
         help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
-             "torchrun ranks; fsdp, tensor and context (ring attention) above 1 raise "
+             "torchrun ranks; data=D,fsdp=F (or fsdp=-1) also shards the train state over "
+             "F ranks; tensor and context (ring attention) above 1 raise "
              "NotImplementedError (not ported)")
     add("--use_wandb", type=_bool, default=True,
         help="Log to wandb when available (JSONL always)")

@@ -171,9 +171,10 @@ class TrainConfig:
     (``train/trainer.py``) and the ``train`` CLI read the data, run
     management and weight-file fields as the JAX trainer does.
     ``mesh_shape``: both trainers run one rank a process under torchrun,
-    the global ``batch_size`` split over the ``data`` axis
-    (``parallel/mesh.py``); ``fsdp``, ``tensor`` and ``context`` above 1
-    raise NotImplementedError naming their ROADMAP.md Queue 1 items. No
+    the global ``batch_size`` split over the ``data`` and ``fsdp`` axes
+    (``parallel/mesh.py``), the train state sharded at rest over ``fsdp``
+    (``parallel/fsdp.py``); ``tensor`` and ``context`` above 1 raise
+    NotImplementedError naming their ROADMAP.md Queue 1 items. No
     effect in this package: ``device_normalize`` for the steps themselves
     (they normalize a uint8 batch on the device whatever its value; the
     loader reads it).

@@ -4,11 +4,11 @@ and the collectives the data-parallel train steps use (counterpart of
 vae_trainer.py:391-397).
 
 The JAX package declares a mesh and lets XLA insert the collectives: under
-``jit`` the batch is one global array sharded over the ``data`` axis, and
-every loss, norm and statistic is taken over the global batch. The port
-runs one process per rank (``torchrun --nproc_per_node N``), each holding a
-replica of the parameters and ``batch_size / N`` samples, and makes the
-same step by hand:
+``jit`` the batch is one global array sharded over the ``data`` and
+``fsdp`` axes (``_data_axes``), and every loss, norm and statistic is taken
+over the global batch. The port runs one process per rank (``torchrun
+--nproc_per_node N``), each holding ``batch_size / N`` samples, and makes
+the same step by hand:
 
   - each rank's loss is its local mean over ``N`` (its share of the global
     mean), and the parameters' gradients are summed across the ranks;
@@ -19,14 +19,22 @@ same step by hand:
     the ranks before they are used.
 
 So a step on N ranks is the step on the concatenation of their batches.
-Only ``all_reduce`` and ``broadcast`` move tensors: gloo takes both on CUDA
-tensors, which is how several ranks share one card; a gather is an
-``all_reduce`` of a zero-padded buffer whose bits are summed as integers.
+The ranks are laid out as JAX orders the axes, ``fsdp`` the faster: rank r
+is data index r // F and fsdp index r % F. With ``fsdp`` F > 1 the ranks of
+one data index (``Mesh.fsdp_group``) each hold at rest only their block of
+every train-state tensor that ``param_spec`` shards, as JAX's
+``state_shardings`` lays the state out (``parallel/fsdp.py``); the ranks of
+one fsdp index (``Mesh.replica_group``) hold the same blocks.
 
-Only the ``data`` axis is ported. ``fsdp``, ``tensor`` and ``context``
-extents above 1 raise ``NotImplementedError`` naming their ROADMAP.md items;
-the JAX ``split_dcn_axes`` (multi-node) and ``process_batch_block`` (the
-context feed) are not ported yet.
+Only ``all_reduce`` and ``broadcast`` move tensors: gloo takes both on CUDA
+tensors, which is how several ranks share one card; a gather of rows is an
+``all_reduce`` of a zero-padded buffer whose bits are summed as integers,
+and a gather of shards a broadcast from each owner.
+
+The ``data`` and ``fsdp`` axes are ported. ``tensor`` and ``context``
+extents above 1 raise ``NotImplementedError`` naming their ROADMAP.md
+items; the JAX ``split_dcn_axes`` (multi-node) and ``process_batch_block``
+(the context feed) are not ported yet.
 """
 
 from __future__ import annotations
@@ -44,7 +52,6 @@ AXES = ("data", "fsdp", "tensor", "context")
 
 # the ROADMAP.md items that port the other axes
 UNPORTED_AXES = {
-    "fsdp": "ROADMAP.md, Queue 1: fsdp (FSDP2)",
     "tensor": "ROADMAP.md, Queue 1: tensor sharding",
     "context": "ROADMAP.md, Queue 1: context (ring attention and the 2D halo)",
 }
@@ -58,21 +65,43 @@ _log = logging.getLogger("vqgan_tpu_torch")
 @dataclasses.dataclass
 class Mesh:
     """The axis extents, this process's rank and the world size. ``group``
-    is the ``data`` axis's process group (every rank), None for one process
-    without ``torch.distributed``; ``control`` a gloo group of the same
-    ranks for host-side flags and barriers (the group itself where its
-    backend is gloo)."""
+    is the batch's process group, the ranks the global batch is split over
+    (every rank: data x fsdp), None for one process without
+    ``torch.distributed``; ``control`` a gloo group of the same ranks for
+    host-side flags and barriers (the group itself where its backend is
+    gloo). With ``fsdp`` > 1, ``fsdp_group`` holds the ranks of this rank's
+    data index, which share out the train state, and ``replica_group`` the
+    ranks of its fsdp index, which hold the same shards (None for a lone
+    rank); with ``fsdp`` 1 both are None and every rank holds everything."""
 
     shape: dict[str, int]
     rank: int = 0
     world_size: int = 1
     group: Optional[dist.ProcessGroup] = None
     control: Optional[dist.ProcessGroup] = None
+    fsdp_group: Optional[dist.ProcessGroup] = None
+    replica_group: Optional[dist.ProcessGroup] = None
 
     @property
     def n_data(self) -> int:
-        """The data-parallel extent: the ranks a global batch is split over."""
-        return self.shape.get("data", 1)
+        """The data-parallel extent: the ranks a global batch is split over,
+        data x fsdp (JAX ``_data_axes``)."""
+        return self.shape.get("data", 1) * self.shape.get("fsdp", 1)
+
+    @property
+    def n_fsdp(self) -> int:
+        return self.shape.get("fsdp", 1)
+
+    @property
+    def fsdp_index(self) -> int:
+        """This rank's index on the fsdp axis: which block of a sharded
+        tensor it holds."""
+        return self.rank % self.n_fsdp
+
+    def fsdp_ranks(self) -> list[int]:
+        """The global ranks of this rank's fsdp group, in fsdp index order."""
+        first = self.rank - self.fsdp_index
+        return list(range(first, first + self.n_fsdp))
 
     @property
     def is_master(self) -> bool:
@@ -159,10 +188,11 @@ def mesh_extents(shape: Optional[dict[str, int]], n: int) -> dict[str, int]:
 
 def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
     """The mesh of this job's ranks (one rank without ``torch.distributed``)
-    for an axis dict like ``{"data": -1}`` (``mesh_extents``). ``fsdp``,
-    ``tensor`` and ``context`` above 1 raise NotImplementedError. Its group
-    is what ``axis_name="data"`` names (``data_group``). Collective where
-    the process group is up: every rank calls it."""
+    for an axis dict like ``{"data": -1}`` or ``{"data": 1, "fsdp": -1}``
+    (``mesh_extents``). ``tensor`` and ``context`` above 1 raise
+    NotImplementedError. Its group is what ``axis_name="data"`` names
+    (``data_group``). Collective where the process group is up: every rank
+    calls it."""
     global _MESH
     up = dist.is_initialized()
     world = dist.get_world_size() if up else 1
@@ -172,7 +202,7 @@ def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
             if axes.get(axis, 1) > 1:
                 raise NotImplementedError(
                     f"{axis}={axes[axis]} needs several devices on the {axis} axis, which is not "
-                    f"ported yet ({item}); only the data axis is")
+                    f"ported yet ({item}); only the data and fsdp axes are")
 
     refuse_unported(dict(shape or {}))
     try:
@@ -183,12 +213,61 @@ def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
         raise ValueError(f"{e}: one process without torch.distributed is one rank; launch "
                          f"several with torchrun --nproc_per_node N") from None
     refuse_unported(extents)
-    group = control = None
+    group = control = fsdp_group = replica_group = None
+    rank = dist.get_rank() if up else 0
     if up:
         group = dist.group.WORLD
         control = group if dist.get_backend(group) == "gloo" else dist.new_group(backend="gloo")
-    _MESH = Mesh(extents, dist.get_rank() if up else 0, world, group, control)
+        n_fsdp, n_rep = extents.get("fsdp", 1), world // extents.get("fsdp", 1)
+        if n_fsdp > 1:
+            # every rank makes every group, in one order
+            fsdp_group = group if n_rep == 1 else _member_group(
+                [list(range(d * n_fsdp, (d + 1) * n_fsdp)) for d in range(n_rep)], rank)
+            if n_rep > 1:
+                replica_group = _member_group(
+                    [list(range(f, world, n_fsdp)) for f in range(n_fsdp)], rank)
+    _MESH = Mesh(extents, rank, world, group, control, fsdp_group, replica_group)
     return _MESH
+
+
+def _member_group(partition: list[list[int]], rank: int) -> dist.ProcessGroup:
+    """The group of ``rank``'s part of ``partition``; every rank makes
+    every part's group (``new_group`` is collective)."""
+    mine = None
+    for ranks in partition:
+        made = dist.new_group(ranks)
+        if rank in ranks:
+            mine = made
+    return mine
+
+
+def param_spec(shape: Sequence[int], extents: dict[str, int],
+               rows: bool = False) -> tuple[Optional[str], ...]:
+    """The mesh axis each dim of a train-state tensor of ``shape`` is split
+    over, None where it is whole: JAX ``_param_spec``
+    (``vqgan_tpu/parallel/mesh.py:207-224``) in the port's layouts. JAX
+    splits a kernel's input dim (-2 of HWIO, DHWIO, a Dense (in, out)) over
+    ``fsdp`` and its output dim (-1) over ``tensor``, each where the extent
+    divides it and it is at least twice the extent; 1-D tensors stay whole.
+    A torch weight (OIHW, OIDHW, (out, in)) has them at dims 1 and 0;
+    ``rows`` tensors (the codebook and the VQ sums, (K, D) in both
+    packages) keep JAX's layout, K at dim 0 for ``fsdp``."""
+    nd = len(shape)
+    spec: list[Optional[str]] = [None] * nd
+    if nd < 2:
+        return tuple(spec)
+    out_dim, in_dim = (nd - 1, nd - 2) if rows else (0, 1)
+    for axis, dim in (("tensor", out_dim), ("fsdp", in_dim)):
+        n = extents.get(axis, 1)
+        if n > 1 and shape[dim] % n == 0 and shape[dim] >= 2 * n:
+            spec[dim] = axis
+    return tuple(spec)
+
+
+def rows_layout(name: str) -> bool:
+    """Whether the train-state tensor ``name`` (a parameter's or an EMA
+    statistic's) is laid out as JAX lays it out: the VQ codebook (K, D)."""
+    return name.rsplit(".", 1)[-1] in ("codebook", "sums")
 
 
 def data_group(axis_name) -> dist.ProcessGroup:
@@ -266,9 +345,11 @@ def reduce_gradients(params: Iterable[torch.Tensor],
 
 def broadcast_(tensors: Sequence[torch.Tensor], group: Optional[dist.ProcessGroup],
                src: int = 0) -> None:
-    """Every rank's tensors take rank ``src``'s values, in buckets."""
+    """Every rank's tensors take the values of ``group``'s member ``src``
+    (its rank in the group), in buckets."""
     if group is not None:
-        _bucketed(tensors, group, lambda flat: dist.broadcast(flat, src, group=group))
+        root = dist.get_global_rank(group, src)
+        _bucketed(tensors, group, lambda flat: dist.broadcast(flat, root, group=group))
 
 
 def mean_across(values: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
@@ -303,15 +384,18 @@ def gather_rows(local: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torc
 
 
 def replicas_equal(tensors: Sequence[torch.Tensor], group: Optional[dist.ProcessGroup]) -> bool:
-    """Whether every rank holds rank 0's tensors bit for bit (the same
-    answer on every rank)."""
+    """Whether every rank of ``group`` holds its first member's tensors bit
+    for bit (the same answer on every rank of the group)."""
     if group is None:
         return True
+    # ``broadcast`` takes a global rank: the first member of a replica group
+    # (the ranks of one fsdp index) is rank 0 only in the first group
+    root = dist.get_global_rank(group, 0)
     mismatched = 0
     for run in _buckets([t.detach() for t in tensors]):
         mine = _on_backend(torch.cat([t.reshape(-1) for t in run]), group)
         theirs = mine.clone()
-        dist.broadcast(theirs, 0, group=group)
+        dist.broadcast(theirs, root, group=group)
         bits = _BITS[mine.element_size()]  # compare bits: NaN == NaN, -0.0 != 0.0
         mismatched += int(not torch.equal(mine.view(bits), theirs.view(bits)))
     # the count of mismatched buckets over the ranks: SUM, which every

@@ -13,8 +13,8 @@ the loop. Prints, for each run: the job's wall time a step by the host clock
 two), the
 step's device time between CUDA events recorded around each call, the
 loader's time to make a batch (``next`` of the train loader, on the loop's
-thread), and the final save's parts: the call to ``CheckpointManager.save``
-that the loop waits for (the host copy of the state), and the background
+thread), and the final save's parts: the call to ``Trainer.save`` that the
+loop waits for (the host copy of the state), and the background
 write of the reference ``.pt`` and the state's file that the loop's last
 ``wait`` joins. Then the card's name and power limit, and one JSON line.
 Needs a CUDA device.
@@ -48,7 +48,7 @@ def instrumented(record: dict):
     from vqgan_tpu_torch.train import trainer as trainer_mod
 
     real_make, real_loader = trainer_mod.make_train_step, trainer_mod.Trainer._make_loader
-    real_save, real_wait = ckpt_mod.CheckpointManager.save, ckpt_mod.CheckpointManager.wait
+    real_save, real_wait = trainer_mod.Trainer.save, ckpt_mod.CheckpointManager.wait
 
     def make(*args, **kw):
         step = real_make(*args, **kw)
@@ -91,14 +91,14 @@ def instrumented(record: dict):
 
     trainer_mod.make_train_step = make
     trainer_mod.Trainer._make_loader = loader
-    ckpt_mod.CheckpointManager.save = clocked(real_save, "ckpt_save_s", sync=True)
+    trainer_mod.Trainer.save = clocked(real_save, "ckpt_save_s", sync=True)
     ckpt_mod.CheckpointManager.wait = clocked(real_wait, "wait_s")
     try:
         yield record
     finally:
         trainer_mod.make_train_step = real_make
         trainer_mod.Trainer._make_loader = real_loader
-        ckpt_mod.CheckpointManager.save, ckpt_mod.CheckpointManager.wait = real_save, real_wait
+        trainer_mod.Trainer.save, ckpt_mod.CheckpointManager.wait = real_save, real_wait
 
 
 def run(log_every: int) -> dict:
@@ -134,7 +134,7 @@ def main() -> int:
         print(f"gaussian job, log every {every}: {r['wall_ms']:.1f} ms a step by the "
               f"host clock (steps 3-{STEPS}), {r['device_ms']:.1f} ms between CUDA "
               f"events; a batch {r['batch_ms']:.1f} ms on the loop's thread; the final save: "
-              f"CheckpointManager.save {r['ckpt_save_s'][-1]:.2f} s, then the background "
+              f"Trainer.save {r['ckpt_save_s'][-1]:.2f} s, then the background "
               f"write of the .pt and the state {r['background_write_s']:.2f} s; the call "
               f"{r['call_s']:.1f} s", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

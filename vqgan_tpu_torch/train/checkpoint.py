@@ -48,9 +48,10 @@ def _cpu(tree: Any) -> Any:
     return tree
 
 
-def state_dict_of(state: TrainState) -> dict:
-    """The full train state as a tree of CPU tensors and plain numbers."""
-    out = {
+def state_tree(state: TrainState) -> dict:
+    """The train state as a tree of its live tensors and plain numbers: of
+    this rank's blocks where the state is sharded over fsdp."""
+    return {
         "step": int(state.step),
         "g_model": state.g_model.state_dict(),
         "g_opt": state.g_opt.state_dict(),
@@ -63,7 +64,16 @@ def state_dict_of(state: TrainState) -> dict:
         "g_ema": state.g_ema,
         "vq_ema": state.vq_ema,
     }
-    return _cpu(out)
+
+
+def state_dict_of(state: TrainState, keep: bool = True) -> Optional[dict]:
+    """The full train state as a tree of CPU tensors and plain numbers.
+    Sharded over fsdp the tree is gathered whole, the same tree as an
+    unsharded state's: every rank of the fsdp group must call it, and a
+    rank that passes ``keep=False`` (one that writes nothing) takes part in
+    the gathers and gets None."""
+    tree = state.layout.gather_tree(state, state_tree(state), keep=keep)
+    return None if tree is None else _cpu(tree)
 
 
 def _same_parts(state: TrainState, saved: dict) -> None:
@@ -90,8 +100,11 @@ def load_state_into(state: TrainState, saved: dict) -> TrainState:
     other tensor is copied into the state's own (on its device), the
     generator takes its state. G's schedule resumes at the saved step with
     this run's lambda (a resumed run may have another ``max_steps``, and the
-    JAX schedule is a function of the step and the current config)."""
+    JAX schedule is a function of the step and the current config).
+    Sharded over fsdp, the state takes this rank's blocks of the whole
+    tree, so a checkpoint of any layout loads."""
     _same_parts(state, saved)
+    saved = state.layout.shard_tree(state, saved)
     state.g_model.load_state_dict(saved["g_model"], strict=True)
     _load_optimizer(state.g_opt, saved["g_opt"])
     if state.g_sched is not None:
@@ -142,16 +155,14 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState,
-             weights: Optional[dict[str, str]] = None) -> str:
-        """Copy the state to the host now, then write it as step ``step``
-        (through a temporary name) and drop all but the newest
+    def save(self, step: int, tree: dict, weights: Optional[dict[str, str]] = None) -> str:
+        """Write ``tree``, the state's host copy (``state_dict_of``), as
+        step ``step`` (through a temporary name) and drop all but the newest
         ``max_to_keep``, on a background thread. ``weights`` maps the paths
         of reference-format ``.pt`` files to the keys of their state dicts
-        in the state's tree (``"g_model"``, ``"g_ema"``): the same thread
-        writes them first, from the same host copy. Returns the path."""
+        in the tree (``"g_model"``, ``"g_ema"``): the same thread writes
+        them first. Returns the path."""
         self.wait()
-        tree = state_dict_of(state)
         path = self.path(step)
 
         def write():

@@ -6,7 +6,9 @@ on G and the LeCam EMA anchors beside its models (vae_trainer.py:455-490,
 optimizers update in place), the optimizers and G's scheduler, the anchors as
 0-d device tensors, the step count, the step's ``torch.Generator`` on the
 models' device, an optional Polyak-averaged copy of G's parameters and, for a
-VQ latent with EMA, the codebook's EMA statistics.
+VQ latent with EMA, the codebook's EMA statistics. Sharded over the fsdp
+mesh axis (``parallel/fsdp.py``) the state holds a rank's blocks between
+steps.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch.optim.lr_scheduler import LambdaLR
 
 from vqgan_tpu_torch.config import TrainConfig
 from vqgan_tpu_torch.models.quant import VectorQuantizer
+from vqgan_tpu_torch.parallel.fsdp import Whole
 
 
 @dataclasses.dataclass
@@ -39,6 +42,9 @@ class TrainState:
     # EMA codebook statistics {"counts": (K,), "sums": (K, D)}, fp32 on the
     # device (reg_type="vq" with vq_ema_decay > 0); None otherwise
     vq_ema: Optional[dict[str, torch.Tensor]] = None
+    # the layout (``parallel/fsdp.py``): ``Whole``, or ``FSDP``, with which
+    # each >= 2-D tensor its rule splits is this rank's block between steps
+    layout: Whole = dataclasses.field(default_factory=Whole)
 
 
 def hf_cosine_schedule(base_lr: float, warmup_steps: int,
@@ -175,22 +181,29 @@ def create_train_state(
     )
 
 
-def state_tensors(state: TrainState) -> list[torch.Tensor]:
-    """Every tensor of the train state in a fixed order: G's and D's
-    parameters and buffers, their optimizers' per-parameter state, the
-    LeCam anchors, the generator's state, the Polyak and VQ EMAs. Equal
-    on every rank of a data-parallel job."""
-    out: list[torch.Tensor] = []
+def state_tensors(state: TrainState, sharded: Optional[bool] = None) -> list[torch.Tensor]:
+    """Every tensor of the train state that this rank holds, in a fixed
+    order: G's and D's parameters and buffers, their optimizers'
+    per-parameter state, the LeCam anchors, the generator's state, the
+    Polyak and VQ EMAs. Equal on every rank of a data-parallel job; under
+    fsdp a sharded tensor is this rank's block, equal on the ranks of its
+    fsdp index. ``sharded``: only the blocks (True) or only the whole
+    tensors (False)."""
+    is_block = state.layout.is_block
+    items: list[tuple[torch.Tensor, bool]] = []
     for model, opt in ((state.g_model, state.g_opt), (state.d_model, state.d_opt)):
         if model is None:
             continue
-        out += [t.detach() for t in model.parameters()] + list(model.buffers())
+        items += [(t.detach(), is_block(t)) for t in model.parameters()]
+        items += [(t, False) for t in model.buffers()]
         for group in opt.param_groups:
             for p in group["params"]:
                 per = opt.state.get(p, {})
-                out += [per[k] for k in sorted(per) if isinstance(per[k], torch.Tensor)]
-    out += [state.lecam_real, state.lecam_fake, state.generator.get_state()]
-    for tree in (state.g_ema, state.vq_ema):
+                items += [(per[k], is_block(p) and per[k].ndim >= 2) for k in sorted(per)
+                          if isinstance(per[k], torch.Tensor)]
+    items += [(state.lecam_real, False), (state.lecam_fake, False),
+              (state.generator.get_state(), False)]
+    for prefix, tree in (("g_model", state.g_ema), ("vq_ema", state.vq_ema)):
         if tree is not None:
-            out += [tree[k] for k in sorted(tree)]
-    return out
+            items += [(tree[k], is_block(path=f"{prefix}.{k}")) for k in sorted(tree)]
+    return [t for t, block in items if sharded is None or block == sharded]

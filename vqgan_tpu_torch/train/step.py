@@ -76,6 +76,15 @@ generator state; ε and the revival rows for N·B rows), and a rank takes its
 own rows of ε. Under accumulation the global microbatch i is the ranks'
 microbatches i in rank order, so the global batch is microbatch-major:
 [mb 0 of rank 0, mb 0 of rank 1, ..., mb 1 of rank 0, ...].
+
+Sharded over the fsdp axis (``state.layout``, ``parallel/fsdp.py``) the step
+starts by gathering G and D whole (``begin_step``), takes the same global
+all_reduce of the gradients, then each rank keeps its block of each
+parameter and gradient and AdamW steps on the blocks (``optimizer_step``);
+D is gathered again for G's losses; the codebook fold runs on the whole
+codebook; the Polyak EMA on the blocks; ``end_step`` leaves the blocks.
+Accumulation keeps whole gradients over the microbatches and one reduction
+a step.
 """
 
 from __future__ import annotations
@@ -249,7 +258,8 @@ def discriminator_update(cfg: TrainConfig, disc: Callable, state: TrainState,
     time: ``discriminator_loss``, the LeCam anchors advancing a pair at a
     time (JAX's D scan). The mean of D's metrics and the last anchors go to
     ``metrics``. Under ``group`` each rank's loss enters the backward over
-    the ranks' count and the gradients are summed across them."""
+    the ranks' count and the gradients are summed across them; under fsdp
+    D steps on this rank's blocks and is gathered whole again."""
     grads = GradMean(state.d_model.parameters(), accum)
     anchors = (state.lecam_real, state.lecam_fake)
     outs = []
@@ -260,13 +270,23 @@ def discriminator_update(cfg: TrainConfig, disc: Callable, state: TrainState,
         grads.take()
         outs.append(d_metrics)
     grads.put()
-    reduce_gradients(state.d_model.parameters(), group)
-    state.d_opt.step()
+    optimizer_step(state, state.d_opt, state.d_model, group)
     state.d_opt.zero_grad(set_to_none=True)
+    state.layout.gather_(state.d_model)  # G's losses run through the updated D
     state.lecam_real, state.lecam_fake = anchors
     metrics.update(mean_metrics(outs))
     metrics["gan/lecam_anchor_real_logits"] = anchors[0]
     metrics["gan/lecam_anchor_fake_logits"] = anchors[1]
+
+
+def optimizer_step(state: TrainState, opt: torch.optim.Optimizer, model: nn.Module,
+                   group) -> None:
+    """``opt``'s step on ``model``'s gradients summed across ``group``;
+    under fsdp on this rank's blocks of the parameters and gradients (the
+    all_reduce, then each rank keeps its block)."""
+    reduce_gradients(model.parameters(), group)
+    state.layout.shard_(model)
+    opt.step()
 
 
 def microbatches(batch: torch.Tensor, accum: int) -> list[torch.Tensor]:
@@ -392,7 +412,9 @@ def fold_codebook(state: TrainState, model: nn.Module, new_ema: dict[str, torch.
     codebook in place (overwriting whatever AdamW did; in EMA mode the
     codebook takes no gradient), then, for ``revive_threshold`` > 0, dead
     codes revived from the rows ``revive_idx`` of the flat z; the statistics
-    stored in the state (JAX step.py:364-388)."""
+    stored in the state (JAX step.py:364-388). Under fsdp the fold and the
+    revival run on the whole statistics and codebook, the same on every
+    rank, and the state keeps this rank's blocks."""
     codebook = model.reg.codebook
     new_cb = apply_ema_codebook_update(codebook, new_ema["counts"], new_ema["sums"],
                                        model.reg.ema_eps)
@@ -400,13 +422,14 @@ def fold_codebook(state: TrainState, model: nn.Module, new_ema: dict[str, torch.
         flat_z = z.detach().float().reshape(-1, z.shape[-1])
         new_cb = revive_dead_codes(new_cb, new_ema["counts"], flat_z, revive_idx,
                                    revive_threshold)
-    codebook.copy_(new_cb)
-    state.vq_ema = new_ema
+    state.layout.assign_(codebook, new_cb)
+    state.vq_ema = state.layout.shard_vq(new_ema)
 
 
 @torch.no_grad()
 def polyak_update(state: TrainState, model: nn.Module, decay: float) -> None:
-    """state.g_ema ← decay·g_ema + (1 − decay)·params, by name."""
+    """state.g_ema ← decay·g_ema + (1 − decay)·params, by name (under fsdp
+    on this rank's blocks of both, after G's sharded AdamW step)."""
     names = list(state.g_ema)
     params = dict(model.named_parameters())
     ema = [state.g_ema[n] for n in names]
@@ -579,6 +602,7 @@ def make_train_step(
     def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
              draws: Optional[StepDraws] = None):
         draws = step_draws(state, batch, do_crop, draws)
+        state.layout.begin_step(state)
 
         # --- shared generator forward (one forward, one backward per step) ---
         recon, z, target, z_pre, aux_loss, new_ema = gen_forward(batch, draws, do_crop,
@@ -597,8 +621,7 @@ def make_train_step(
             total, g_metrics = g_losses(recon, z, aux_loss, target, draws)
         state.g_opt.zero_grad(set_to_none=True)
         backward_share(total, group)
-        reduce_gradients(vae.parameters(), group)
-        state.g_opt.step()
+        optimizer_step(state, state.g_opt, vae, group)
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         if use_vq_ema:
@@ -608,6 +631,7 @@ def make_train_step(
 
         if cfg.ema_decay > 0:
             polyak_update(state, vae, cfg.ema_decay)
+        state.layout.end_step(state)
         state.step += 1
         metrics.update({k: v.detach() for k, v in g_metrics.items()})
         metrics.update(z_m)  # under a group: the gathered z's std_of_abs_z
@@ -620,6 +644,7 @@ def make_train_step(
                    draws: Optional[StepDraws] = None):
         mbs = microbatches(batch, accum)
         draws = step_draws(state, batch, do_crop, draws)
+        state.layout.begin_step(state)
         mb = mbs[0].shape[0]
 
         def mb_draws(i: int) -> StepDraws:
@@ -658,8 +683,7 @@ def make_train_step(
             if use_vq_ema:
                 vq_ema = new_ema
         g_grads.put()
-        reduce_gradients(vae.parameters(), group)
-        state.g_opt.step()
+        optimizer_step(state, state.g_opt, vae, group)
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         if use_vq_ema:
@@ -667,6 +691,7 @@ def make_train_step(
                           draws.revive_idx, vae_cfg.vq_revive_threshold)
         if cfg.ema_decay > 0:
             polyak_update(state, vae, cfg.ema_decay)
+        state.layout.end_step(state)
         state.step += 1
         metrics.update(mean_metrics(g_outs))
         return state, global_metrics(metrics, group)

@@ -51,7 +51,9 @@ across the ranks, GradNorm takes the global norm, the LeCam anchors the
 global mean logits, VQ the summed counts and sums; the phase u is drawn
 once from the same generator state on every rank, ε and the revival rows
 for the global batch (a rank takes its rows of ε), and every metric is the
-mean over the ranks.
+mean over the ranks. Sharded over fsdp (``state.layout``) G and D are
+gathered at the start, each AdamW steps on this rank's blocks and the step
+ends on the blocks, as in the 2D step.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
 from vqgan_tpu_torch.losses.gan import generator_gan_loss
 from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.tae import reparameterize
-from vqgan_tpu_torch.parallel.mesh import group_size, reduce_gradients
+from vqgan_tpu_torch.parallel.mesh import group_size
 from vqgan_tpu_torch.train.state import TrainState
 from vqgan_tpu_torch.train.step import (
     GradMean,
@@ -79,6 +81,7 @@ from vqgan_tpu_torch.train.step import (
     gradnorm_branch,
     mean_metrics,
     microbatches,
+    optimizer_step,
     polyak_update,
     rank_rows,
 )
@@ -222,6 +225,7 @@ def make_train_step_3d(
     def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
         draws = _own_rows(draws, group, accum)
         mbs = _Microbatches(clips.float(), accum, draws)
+        state.layout.begin_step(state)
         grads = GradMean(model.parameters(), accum)
         new_ema, outs, zs = state.vq_ema, [], []
         state.g_opt.zero_grad(set_to_none=True)
@@ -234,12 +238,12 @@ def make_train_step_3d(
             if latent.use_vq_ema:
                 new_ema = ema
         grads.put()
-        reduce_gradients(model.parameters(), group)
         mbs.gather()
         metrics, z = mean_metrics(outs), torch.cat(zs)
-        state.g_opt.step()
+        optimizer_step(state, state.g_opt, model, group)
         state.g_opt.zero_grad(set_to_none=True)
         latent.fold(state, new_ema, z, draws)
+        state.layout.end_step(state)
         state.step += 1
         return state, global_metrics(metrics, group)
 
@@ -316,6 +320,7 @@ def make_train_step_3d_gan(
             draws.frame_u = torch.rand((), generator=state.generator, device=batch.device)
         if accum > 1:
             return step_accum(state, batch, draws)
+        state.layout.begin_step(state)
 
         # --- the one generator forward; its graph stays alive ---
         z = model.encode(batch)
@@ -334,19 +339,20 @@ def make_train_step_3d_gan(
             total, g_metrics = g_losses(recon, reg, batch, draws.frame_u)
         state.g_opt.zero_grad(set_to_none=True)
         backward_share(total, group)
-        reduce_gradients(model.parameters(), group)
-        state.g_opt.step()
+        optimizer_step(state, state.g_opt, model, group)
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         latent.fold(state, new_ema, z, draws)
         if cfg.ema_decay > 0:
             polyak_update(state, model, cfg.ema_decay)
+        state.layout.end_step(state)
         state.step += 1
         metrics.update({name: v.detach() for name, v in g_metrics.items()})
         return state, global_metrics(metrics, group)
 
     def step_accum(state: TrainState, batch: torch.Tensor, draws: Step3DDraws):
         mbs = _Microbatches(batch, accum, draws)
+        state.layout.begin_step(state)
 
         def d_pairs():
             """D's pass: each microbatch's generator without autograd or VQ
@@ -380,14 +386,14 @@ def make_train_step_3d_gan(
             if latent.use_vq_ema:
                 vq_ema = new_ema
         g_grads.put()
-        reduce_gradients(model.parameters(), group)
         mbs.gather()
-        state.g_opt.step()
+        optimizer_step(state, state.g_opt, model, group)
         state.g_sched.step()
         state.g_opt.zero_grad(set_to_none=True)
         latent.fold(state, vq_ema, torch.cat(zs), draws)
         if cfg.ema_decay > 0:
             polyak_update(state, model, cfg.ema_decay)
+        state.layout.end_step(state)
         state.step += 1
         metrics.update(mean_metrics(g_outs))
         return state, global_metrics(metrics, group)

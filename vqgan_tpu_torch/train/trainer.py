@@ -3,15 +3,20 @@ checkpoints (counterpart of ``vqgan_tpu/train/trainer.py``; the
 reference's ``train_ddp``, vae_trainer.py:339-912).
 
 Data parallelism: under ``torchrun --nproc_per_node N`` with
-``mesh_shape`` ``data=-1`` (or ``data=N``) each rank is a process on its
-card (``cuda:LOCAL_RANK``), ``batch_size`` is the global batch and each
-rank feeds ``batch_size / N`` of it; the step is the one-process step on
-the global batch (``train/step.py``, ``parallel/mesh.py``). Every rank
-initializes from the seed, rank 0's parameters are broadcast and the
-ranks' states are checked equal; rank 0 alone evaluates, logs and writes
-checkpoints, the others waiting at a barrier; every rank resumes from the
-same file. The ``fsdp``, ``tensor`` and ``context`` axes and the
-context-parallel feed are not ported (ROADMAP.md Queue 1). Everything else
+``mesh_shape`` ``data=-1`` (or ``data=N``, or ``data=D,fsdp=F`` with D·F =
+N) each rank is a process on its card (``cuda:LOCAL_RANK``),
+``batch_size`` is the global batch and each rank feeds ``batch_size / N``
+of it; the step is the one-process step on the global batch
+(``train/step.py``, ``parallel/mesh.py``). Every rank initializes from the
+seed and rank 0's parameters are broadcast; with ``fsdp`` F > 1 each rank
+then keeps its block of every tensor the rule shards
+(``parallel/fsdp.py``); the ranks' states are checked equal, block by
+block across the data axis. Rank 0 alone evaluates, logs and writes
+checkpoints, the others waiting at a barrier (under fsdp every rank first
+takes part in gathering what eval scores and what a save writes); every
+rank resumes from the same file, of any layout. The ``tensor`` and
+``context`` axes and the context-parallel feed are not ported (ROADMAP.md
+Queue 1). Everything else
 keeps the JAX trainer's order and cadence: the seeded init, ``load_path`` /
 ``lpips_weights`` / ``disc_backbone_weights``, the full-state resume, the
 data stream reseeded by the resume step (indexed data resumes sample-exact),
@@ -45,6 +50,7 @@ from vqgan_tpu_torch.models.ae import VAE
 from vqgan_tpu_torch.models.blocks import init_weights_
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.resize import resize_area
+from vqgan_tpu_torch.parallel.fsdp import shard_state
 from vqgan_tpu_torch.parallel.mesh import (
     Mesh,
     broadcast_,
@@ -52,7 +58,7 @@ from vqgan_tpu_torch.parallel.mesh import (
     init_distributed,
     replicas_equal,
 )
-from vqgan_tpu_torch.train.checkpoint import CheckpointManager
+from vqgan_tpu_torch.train.checkpoint import CheckpointManager, state_dict_of
 from vqgan_tpu_torch.train.evaluate import make_eval_step, tile_grid
 from vqgan_tpu_torch.train.state import TrainState, create_train_state, state_tensors
 from vqgan_tpu_torch.train.step import make_train_step
@@ -83,8 +89,8 @@ def resolve_device(device: str | torch.device) -> torch.device:
 def data_parallel(cfg: TrainConfig, device: str | torch.device) -> tuple[torch.device, Mesh]:
     """This rank's device and the job's mesh (``init_distributed``,
     ``create_mesh``), with the JAX trainer's batch checks: the global
-    ``batch_size`` divides by the data-parallel extent, and by ``grad_accum``
-    times it."""
+    ``batch_size`` divides by the data-parallel extent (data x fsdp), and by
+    ``grad_accum`` times it."""
     device = init_distributed(resolve_device(device))
     try:
         mesh = create_mesh(parse_mesh_shape(cfg.mesh_shape))
@@ -110,9 +116,24 @@ def replicate(mesh: Mesh, modules, extra=()) -> None:
 
 
 def check_replicas(mesh: Mesh, state: TrainState, what: str) -> None:
-    """Raise unless every rank holds rank 0's train state bit for bit."""
-    if not replicas_equal(state_tensors(state), mesh.group):
+    """Raise unless every rank holds rank 0's train state bit for bit:
+    under fsdp the whole tensors on every rank, the blocks on the ranks of
+    one fsdp index (the data axis)."""
+    whole = replicas_equal(state_tensors(state, sharded=False), mesh.group)
+    blocks = replicas_equal(state_tensors(state, sharded=True), mesh.replica_group)
+    if not (whole and blocks):
         raise RuntimeError(f"the ranks' train states differ {what}")
+
+
+def eval_params(state: TrainState, keep: bool) -> Optional[dict[str, torch.Tensor]]:
+    """What eval scores, whole: the Polyak EMA weights when tracked, else
+    G's, by name; None where ``keep`` is false (a rank that does not
+    evaluate). Under fsdp a gather: every rank calls it, before rank 0
+    alone evaluates (JAX ``evaluate``'s order, ``vqgan_tpu/train/
+    trainer.py:453-458``: a gather behind the master gate deadlocks)."""
+    params = (state.g_ema if state.g_ema is not None
+              else {n: p.detach() for n, p in state.g_model.named_parameters()})
+    return state.layout.gather_named(params, keep=keep)
 
 
 class Trainer:
@@ -178,8 +199,8 @@ class Trainer:
         # same everywhere; the broadcast makes it so by construction)
         replicate(self.mesh, (self.vae, self.disc, self.lpips),
                   vq_ema.values() if vq_ema is not None else ())
-        self.state = create_train_state(cfg, self.vae, self.disc, vae_cfg.ch, seed=s_state,
-                                        vq_ema=vq_ema)
+        self.state = shard_state(create_train_state(cfg, self.vae, self.disc, vae_cfg.ch,
+                                                    seed=s_state, vq_ema=vq_ema), self.mesh)
         self._step = make_train_step(cfg, vae_cfg, self.vae, self.disc, self.lpips,
                                      gradnorm_shards=self.mesh.n_data, group=self.mesh.group)
         self._eval_step = make_eval_step(cfg, vae_cfg, self.vae)
@@ -290,8 +311,7 @@ class Trainer:
                         f"Preemption signal received — checkpointing at step {global_step}")
                     self._guard_latest(metrics_device, metrics_checked, global_step)
                     self.save(global_step, epoch)
-                    self.ckpt.wait()
-                    self.mesh.barrier()
+                    self._finish()
                     return
                 time_taken_till_load = time.time() - t0
                 t0 = time.time()
@@ -347,8 +367,11 @@ class Trainer:
                     # last line of defense before overwriting checkpoints
                     metrics_checked = self._guard_latest(metrics_device, metrics_checked,
                                                          global_step)
+                    # every rank: a gather under fsdp
+                    params = eval_params(self.state, keep=self.is_master)
                     if self.is_master:  # the others wait at the save's barrier
-                        self.evaluate(global_step, epoch, test_loader)
+                        self.evaluate(global_step, epoch, test_loader, params)
+                    del params
                     self.save(global_step, epoch)
             if global_step >= cfg.max_steps:
                 break
@@ -356,9 +379,16 @@ class Trainer:
             self._stop_profiler(profiler)
         self._guard_latest(metrics_device, metrics_checked, global_step)
         self.save(global_step, None)
-        self.ckpt.wait()
-        self.mesh.barrier()  # the last checkpoint is on disk for every rank
+        self._finish()
         self.logger.close()
+
+    def _finish(self) -> None:
+        """The end of ``train``: the last checkpoint on disk for every rank,
+        and under fsdp ``vae`` and ``disc`` whole again on every rank (a
+        gather), so that the trained modules can be used as they are."""
+        self.ckpt.wait()
+        self.mesh.barrier()
+        self.state.layout.gather_models(self.state)
 
     # ------------------------------------------------------------------
     def _start_profiler(self):
@@ -400,11 +430,10 @@ class Trainer:
             raise DivergenceError(f"non-finite metrics at step {step}: {bad}")
 
     # ------------------------------------------------------------------
-    def evaluate(self, step: int, epoch: int, test_loader) -> None:
-        # score the Polyak-averaged weights when EMA is on (training itself
-        # stays on the raw weights)
-        g_params = (self.state.g_ema if self.state.g_ema is not None
-                    else dict(self.vae.named_parameters()))
+    def evaluate(self, step: int, epoch: int, test_loader,
+                 g_params: dict[str, torch.Tensor]) -> None:
+        # ``g_params``: ``eval_params``' (the Polyak-averaged weights when
+        # EMA is on; training itself stays on the raw weights)
         # a fixed eval set: the reference restarts its test dataloader every
         # eval, so it always scores the same first batches
         # (vae_trainer.py:815-861) — cache them once
@@ -480,13 +509,16 @@ class Trainer:
         ``*_ema.pt`` when EMA is on. The loop waits for one host copy of the
         state; the manager's background thread writes all three files
         (``self.ckpt.wait()`` joins it). Rank 0 alone saves, between two
-        barriers of every rank."""
+        barriers of every rank; a sharded state's ranks first gather the
+        tree together (``state_dict_of``)."""
         self.mesh.barrier()
+        self.ckpt.wait()  # one host copy at a time
+        tree = state_dict_of(self.state, keep=self.is_master)
         if self.is_master:
-            self._save(step, epoch)
+            self._save(step, epoch, tree)
         self.mesh.barrier()
 
-    def _save(self, step: int, epoch: Optional[int]) -> None:
+    def _save(self, step: int, epoch: Optional[int], tree: dict) -> None:
         path = os.path.join(
             self.cfg.ckpt_dir,
             self.cfg.run_name,
@@ -497,7 +529,7 @@ class Trainer:
             # the production artifact: the Polyak-averaged weights, in the
             # same reference-layout .pt
             weights[path[:-3] + "_ema.pt"] = "g_ema"
-        self.ckpt.save(step, self.state, weights)
+        self.ckpt.save(step, tree, weights)
         self.logger.info(f"Saving checkpoint to {' and '.join(weights)} and the full state "
                          f"(written in the background)")
 

@@ -21,9 +21,11 @@ axis splits the global ``batch_size`` over N ranks as the 2D ``Trainer``
 does (``train/trainer.py``): a rank a process, rank 0's weights broadcast,
 the states checked equal, rank 0 alone evaluating, logging and saving, each
 rank reading its share of the clips (its shards, or the same synthetic
-clips on every rank, as in JAX). Not ported: the ``fsdp``, ``tensor`` and
-``context`` axes (ring attention), which raise NotImplementedError naming
-their ROADMAP.md Queue 1 items.
+clips on every rank, as in JAX). ``data=D,fsdp=F`` splits the batch over
+D·F ranks and shards the train state over F of them (``parallel/fsdp.py``),
+every rank taking part in the gathers before eval and saves. Not ported:
+the ``tensor`` and ``context`` axes (ring attention), which raise
+NotImplementedError naming their ROADMAP.md Queue 1 items.
 
 One deliberate difference from the JAX trainer: ``load_path`` loads G before
 the train state is built, so the Polyak EMA and the VQ EMA statistics start
@@ -54,7 +56,8 @@ from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
 from vqgan_tpu_torch.losses.metrics import psnr, ssim
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.models.tae import TVAE, init_weights_
-from vqgan_tpu_torch.train.checkpoint import CheckpointManager
+from vqgan_tpu_torch.parallel.fsdp import shard_state
+from vqgan_tpu_torch.train.checkpoint import CheckpointManager, state_dict_of
 from vqgan_tpu_torch.train.state import create_train_state, to_channels_last
 from vqgan_tpu_torch.train.step3d import flat_frames, make_train_step_3d, make_train_step_3d_gan
 from vqgan_tpu_torch.train.trainer import (
@@ -62,6 +65,7 @@ from vqgan_tpu_torch.train.trainer import (
     _host_metrics,
     check_replicas,
     data_parallel,
+    eval_params,
     replicate,
 )
 from vqgan_tpu_torch.utils.logging import MetricLogger
@@ -144,6 +148,7 @@ class Trainer3D:
         if self.use_gan:
             self.state = create_train_state(cfg, self.model, self.disc, tvae_cfg.ch,
                                             seed=s_state, vq_ema=vq_ema)
+            shard_state(self.state, self.mesh)
             self._step = make_train_step_3d_gan(cfg, tvae_cfg, self.model, self.disc,
                                                 self.lpips, gradnorm_shards=self.mesh.n_data,
                                                 group=group)
@@ -151,6 +156,7 @@ class Trainer3D:
             # one AdamW at the constant lr learning_rate_vae / ch
             self.state = create_train_state(cfg, self.model, None, tvae_cfg.ch, seed=s_state,
                                             vq_ema=vq_ema, recon_only=True)
+            shard_state(self.state, self.mesh)
             self._step = make_train_step_3d(cfg, tvae_cfg, self.model, group=group)
 
         # the eval's model: the deterministic latent, scored with the Polyak
@@ -176,19 +182,15 @@ class Trainer3D:
     def start_step(self) -> int:
         return int(self.state.step)
 
-    def _eval_params(self) -> dict[str, torch.Tensor]:
-        """What eval scores: the Polyak EMA weights when tracked, else G's."""
-        if self.state.g_ema is not None:
-            return self.state.g_ema
-        return dict(self.model.named_parameters())
-
     def save(self, step: int) -> None:
         """The full train state as step ``step`` (host copy now, the file
         written in the background), by rank 0 between two barriers of every
-        rank."""
+        rank; a sharded state's ranks first gather the tree together."""
         self.mesh.barrier()
+        self.ckpt.wait()  # one host copy at a time
+        tree = state_dict_of(self.state, keep=self.is_master)
         if self.is_master:
-            self.ckpt.save(step, self.state)
+            self.ckpt.save(step, tree)
         self.mesh.barrier()
 
     # ------------------------------------------------------------------
@@ -231,13 +233,13 @@ class Trainer3D:
         return to_device(np.asarray(batch), self.device)
 
     @torch.no_grad()
-    def _eval(self, step: int, batch: torch.Tensor) -> None:
+    def _eval(self, step: int, batch: torch.Tensor, params: dict[str, torch.Tensor]) -> None:
         """Deterministic reconstruction of the eval clips (the posterior mean,
         or straight quantization without a statistics update), quality
         metrics over the B·T frames, and a strip of the first clip's frames,
-        originals above reconstructions."""
+        originals above reconstructions. ``params``: what ``eval_params``
+        gathered (the Polyak EMA weights when tracked, else G's)."""
         model = self.eval_model
-        params = self._eval_params()
         for name, p in model.named_parameters():
             p.copy_(params[name])
         z = model.encode(batch)
@@ -270,6 +272,15 @@ class Trainer3D:
         self.logger.log_images({"reconstructed_clip_frames": strip}, step,
                                os.path.join(self.cfg.ckpt_dir, self.cfg.run_name, "eval"))
 
+    def _eval_on_master(self, step: int, eval_batch: Optional[torch.Tensor]) -> None:
+        """``_eval`` where the eval batch is (rank 0, eval on); under fsdp
+        every rank takes part in the gather first, when eval is on."""
+        if self.cfg.eval_batches <= 0:
+            return
+        params = eval_params(self.state, keep=eval_batch is not None)
+        if eval_batch is not None:
+            self._eval(step, eval_batch, params)
+
     def _guard_finite(self, metrics: Optional[dict], step: int) -> None:
         """The NaN guard at every checkpoint site: halt before overwriting
         the last good state."""
@@ -283,7 +294,8 @@ class Trainer3D:
             raise DivergenceError(f"non-finite metrics at step {step}: {bad}")
 
     def train(self) -> TVAE:
-        """Train to ``max_steps``; returns G."""
+        """Train to ``max_steps``; returns G (under fsdp gathered whole
+        again on every rank)."""
         cfg = self.cfg
         src = self._train_source()
         eval_batch = self._eval_batch()
@@ -301,18 +313,17 @@ class Trainer3D:
                 n = cfg.evaluate_every_n_steps
                 if n > 0 and (n == 1 or (step + 1) % n == 1):
                     self._guard_finite(metrics, step)
-                    if eval_batch is not None:
-                        self._eval(step, eval_batch)
+                    self._eval_on_master(step, eval_batch)
                     self.save(step + 1)
         finally:
             # stop the decode workers whether the loop finished or raised
             if hasattr(src, "close"):
                 src.close()
         self._guard_finite(metrics, cfg.max_steps)
-        if eval_batch is not None:
-            self._eval(cfg.max_steps, eval_batch)
+        self._eval_on_master(cfg.max_steps, eval_batch)
         self.save(cfg.max_steps)
         self.ckpt.wait()
         self.mesh.barrier()  # the last checkpoint is on disk for every rank
+        self.state.layout.gather_models(self.state)
         self.logger.close()
         return self.model

@@ -108,6 +108,23 @@ def jax_lpips_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def lpips_state_dict_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's ``LPIPS`` state dict → JAX ``LPIPS`` params as numpy
+    (``vgg/conv_{j}/{kernel,bias}`` HWIO, ``lin_{k}`` (C,)): the inverse of
+    ``jax_lpips_params_to_state_dict``, for writing a weight file both
+    packages read."""
+    vgg = {}
+    for j, idx in enumerate(TORCHVISION_CONV_INDICES):
+        key = f"net.slice{slice_of(idx)}.{idx}"
+        w = sd[f"{key}.weight"].detach().float().cpu().numpy()
+        vgg[f"conv_{j}"] = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                            "bias": sd[f"{key}.bias"].detach().float().cpu().numpy()}
+    out: dict = {"vgg": vgg}
+    for k in range(5):
+        out[f"lin_{k}"] = sd[f"lin{k}.model.1.weight"].detach().float().cpu().numpy().reshape(-1)
+    return out
+
+
 # JAX head conv name → reference Sequential index (utils.py:156-185)
 _DISC_HEADS = {
     "bc1_conv0": "binary_classifier1.0",
