@@ -301,11 +301,27 @@ Phases, each fatal on failure:
      iteration at ``VAEConfig()``, ``make_alt_lpips``, and
      ``recompute_eval_metrics`` over phase 43's two ``.pt`` files with the
      default and the alternate judge: rows finite, judges >= 0.
+ 45. ring attention (``ops/ring_attention.py``) over two context ranks
+     sharing the card over gloo, at the long clip's and TVAEConfig()'s
+     16f/128px mid blocks, forward and backward, against one rank's kernel
+     #3 over the whole sequence within ``rounding_bounds``; the ring's
+     launch (#3 with fp32 outputs) at its block against its plain version
+     and timed (phases 45-48: one torchrun launch, ``--ctx-ranks``);
+ 46. kernels #1 and #2 in their two-pass form (sums, apply; backward sums,
+     dx) against their plain versions and the one-launch kernels at the
+     GroupNorm shapes a context rank's steps ran in phases 47 (fp32) and
+     48 (bf16), as hooks recorded them, bitwise repeatable, by device time;
+ 47. phase 40's 3D GAN step, frame and tubelet D, at ``data=1,context=2``
+     against one rank on whole clips: phase 8's bounds with the decisions
+     replayed, the ranks bitwise equal, the launches by route;
+ 48. phase 28's job at ``data=1,context=2`` under torchrun (3 steps, eval
+     and saves by rank 0), its save resumed bitwise in one process.
 
 The kernels are built in parallel, one nvcc per source. The ``kernels``
 line's launches add the main paths' (phases 6, 11, 16, 19), the training
 jobs' (28-29, 31-33), the served artifacts' (35-37), every data-parallel
-and sharded rank's (38-43) and the tools' (44). The second-to-last
+and sharded rank's (38-43), the tools' (44) and the context ranks' and
+their job's (47-48). The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits 1 and prints neither.
 """
@@ -4446,21 +4462,28 @@ def dp_counts() -> dict:
     from vqgan_tpu_torch.ops import attention_cuda as ac
     from vqgan_tpu_torch.ops import conv3d_cuda as cc
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
+    from vqgan_tpu_torch.ops import ring_attention as ring
     from vqgan_tpu_torch.ops import vq_cuda as vq
 
     return {"gn": gn.launches, "gn_bwd": gn.bwd_launches, "nearest": vq.nearest_launches,
             "stats": vq.stats_launches, "attn": ac.fwd_launches, "attn_bwd": ac.bwd_launches,
-            "conv3d": cc.launches, "conv3d_dx": cc.bwd_launches}
+            "conv3d": cc.launches, "conv3d_dx": cc.bwd_launches,
+            "gn_ctx_sums": gn.ctx_sums_launches, "gn_ctx_apply": gn.ctx_apply_launches,
+            "gn_ctx_bwd_sums": gn.ctx_bwd_sums_launches, "gn_ctx_dx": gn.ctx_dx_launches,
+            "ring": ring.fwd_launches, "ring_bwd": ring.bwd_launches}
 
 
 def dp_zero_counts() -> None:
     from vqgan_tpu_torch.ops import attention_cuda as ac
     from vqgan_tpu_torch.ops import conv3d_cuda as cc
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
+    from vqgan_tpu_torch.ops import ring_attention as ring
     from vqgan_tpu_torch.ops import vq_cuda as vq
 
     _reset_counts(gn, cc, vq)
     ac.fwd_launches = ac.bwd_launches = ac.tc_launches = ac.fma_launches = 0
+    gn.ctx_sums_launches = gn.ctx_apply_launches = gn.ctx_bwd_sums_launches = 0
+    gn.ctx_dx_launches = ring.fwd_launches = ring.bwd_launches = 0
 
 
 def dp_models() -> dict:
@@ -4469,7 +4492,7 @@ def dp_models() -> dict:
             "frames": JOB3D_FRAMES}
 
 
-def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
+def dp_case(name: str, device, group=None, models: dict | None = None, context=None) -> dict:
     """Case ``name`` of phases 38-40 on ``device``, its step data-parallel
     across ``group`` (None: one process on the global batch): the same
     seeded random weights in every process, D's final heads made non-zero
@@ -4486,10 +4509,17 @@ def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
     ``TVAEConfig()``'s width in fp32 at 16f/128px with phase 28's GAN
     (hinge + LeCam on 4 frames, frame D, fp32 D and LPIPS) and the mid-block
     attention chunked at ``JOB3D_ATTN_CHUNK``, so that kernel #3 runs;
-    "flagship accum" (phase 42): "flagship" at ``grad_accum`` 2.
-    ``models``: the sizes (``dp_models()``'s where None)."""
+    "flagship accum" (phase 42): "flagship" at ``grad_accum`` 2; "3d gan
+    tubelet" (phase 47): "3d gan" with the tubelet D on the 4 frames.
+    ``models``: the sizes (``dp_models()``'s where None); ``context``: the
+    group of ranks that split each clip's frames (phase 47), with which the
+    model and step are built (the caller cuts the batch's T)."""
     from vqgan_tpu_torch.config import TrainConfig, TVAEConfig, VAEConfig
-    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discriminator_
+    from vqgan_tpu_torch.losses.discriminator import (
+        PatchDiscriminator,
+        TubeletDiscriminator,
+        init_discriminator_,
+    )
     from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
     from vqgan_tpu_torch.models import blocks, tae
     from vqgan_tpu_torch.models.ae import VAE
@@ -4503,14 +4533,18 @@ def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
     def seeded(seed: int) -> torch.Generator:
         return torch.Generator(device).manual_seed(seed)
 
-    if name == "3d gan":
+    three_d = name.startswith("3d gan")
+    if three_d:
+        tubelet = name == "3d gan tubelet"
         model_cfg = TVAEConfig(**sizes["tvae"])
         cfg = TrainConfig(batch_size=sizes["clips"], image_size=model_cfg.resolution,
                           max_steps=10_000, do_ganloss=True, disc_type="hinge", use_lecam=True,
-                          video_loss_frames=4, ema_decay=0.999, disc_3d="frame",
-                          learning_rate_disc=DP_D_LR)
+                          video_loss_frames=4, ema_decay=0.999,
+                          disc_3d="tubelet" if tubelet else "frame", learning_rate_disc=DP_D_LR)
         with torch.device(device):
-            model, disc, lpips = tae.TVAE(model_cfg), PatchDiscriminator(), LPIPS()
+            model = tae.TVAE(model_cfg, context=context)
+            disc = TubeletDiscriminator(4) if tubelet else PatchDiscriminator()
+            lpips = LPIPS()
         tae.init_weights_(model, seeded(0))
         batch = torch.from_numpy(next(synthetic_video_batches(
             sizes["clips"], sizes["frames"], model_cfg.resolution, seed=0))).to(device)
@@ -4546,9 +4580,10 @@ def dp_case(name: str, device, group=None, models: dict | None = None) -> dict:
             0.3, 1.3, model_cfg.vq_codebook_size).astype(np.float32)).to(device)
         vq_ema = {"counts": counts, "sums": counts[:, None] * model.reg.codebook.detach()}
     state = create_train_state(cfg, model, disc, model_cfg.ch, vq_ema=vq_ema)
-    if name == "3d gan":
+    if three_d:
         step = make_train_step_3d_gan(cfg, model_cfg, model, disc, lpips,
-                                      gradnorm_shards=DP_RANKS, group=group)
+                                      gradnorm_shards=1 if context is not None else DP_RANKS,
+                                      group=group, context=context)
     else:
         base = make_train_step(cfg, model_cfg, model, disc, lpips, gradnorm_shards=DP_RANKS,
                                group=group)
@@ -4963,14 +4998,9 @@ def dp_check_case(name: str, ref: dict, ranks: list[dict], backend: str, info: l
 
 def dp_jobs_main(spec_path: str) -> int:
     """One rank of phases 41 and 43 (``chip_smoke.py --dp-jobs SPEC`` under
-    torchrun): for each job of the spec in turn, ``vqgan_tpu_torch.cli.main``
-    of its argv under ``JobProbe`` (each step timed and checked on the card,
-    each eval and save timed, a restore held bitwise against ``expect``, the
-    ``state_digest`` of the live state a previous job ended with), the
-    kernels' launches counted; with ``digest_out`` rank 0 writes the digest
-    of the live state the job ends with (every rank takes part: a sharded
-    state is gathered). Writes the ranks' reports, a list a rank, to
-    ``{spec's report}.rank{r}.json``. cuDNN deterministic throughout."""
+    torchrun): the spec's jobs in turn (``rank_jobs``). Writes the ranks'
+    reports, a list a rank, to ``{spec's report}.rank{r}.json``. cuDNN
+    deterministic throughout."""
     import torch.distributed as dist
 
     from vqgan_tpu_torch.parallel.mesh import init_distributed
@@ -4979,21 +5009,80 @@ def dp_jobs_main(spec_path: str) -> int:
         spec = json.load(f)
     init_distributed("cuda")
     torch.backends.cudnn.deterministic = True
+    reports = rank_jobs(spec["jobs"])
+    with open(f"{spec['report']}.rank{dist.get_rank()}.json", "w") as f:
+        json.dump(reports, f)
+    dist.destroy_process_group()
+    return 0
+
+
+class GnShapeWatch:
+    """A ``JobProbe`` watch that records the GroupNorms' (B, C, T, H, W,
+    dtype, swish) of each training step (``record_gn_shapes`` on the
+    step's G), summed over the steps in ``shapes``; evals are not
+    recorded."""
+
+    def __init__(self):
+        self.shapes: dict[tuple, int] = {}
+
+    @contextlib.contextmanager
+    def step(self, state):
+        seen, hooks = record_gn_shapes(state.g_model)
+        try:
+            yield
+        finally:
+            for h in hooks:
+                h.remove()
+        for key, n in seen.items():
+            self.shapes[key] = self.shapes.get(key, 0) + n
+
+    def eval(self, model):
+        return contextlib.nullcontext()
+
+
+def gn_shape_rows(shapes: dict, steps: int = 1) -> list[list]:
+    """``record_gn_shapes``' counts as JSON rows [B, C, T, H, W, dtype
+    name, swish, calls a step] over ``steps`` steps, in phase 3's order."""
+    rows = []
+    for key in sorted(shapes, key=_shape_order):
+        b, c, t, h, w, dtype, swish = key
+        if shapes[key] % steps:
+            raise AssertionError(f"GroupNorm {key}: {shapes[key]} calls in {steps} steps")
+        rows.append([b, c, t, h, w, str(dtype)[6:], bool(swish), shapes[key] // steps])
+    return rows
+
+
+def rank_jobs(jobs: list[dict]) -> list[dict]:
+    """In a torchrun rank: for each job in turn, ``vqgan_tpu_torch.cli.main``
+    of its argv under ``JobProbe`` (each step timed and checked on the card,
+    each eval and save timed, a restore held bitwise against ``expect``, the
+    ``state_digest`` of the live state a previous job ended with, read when
+    the job starts), the kernels' launches counted; with ``digest_out`` rank
+    0 writes the digest of the live state the job ends with (every rank
+    takes part: a sharded state is gathered), and every rank waits for it
+    before the next job; with ``gn_shapes`` the report holds the steps'
+    GroupNorm shapes (``GnShapeWatch``, rows of ``gn_shape_rows``). Returns
+    this rank's reports."""
+    import torch.distributed as dist
+
     rank = dist.get_rank()
     reports = []
-    for job in spec["jobs"]:
+    for job in jobs:
         expect = None
         if job["expect"]:
             with open(job["expect"]) as f:
                 expect = [json.load(f)]
+        watch = GnShapeWatch() if job.get("gn_shapes") else None
         dp_zero_counts()
-        trainer, probe, seconds = run_job(job["argv"], f"{job['name']} rank {rank}", expect)
+        trainer, probe, seconds = run_job(job["argv"], f"{job['name']} rank {rank}", expect,
+                                          watch)
         checked = check_on_card(trainer)
         if job["digest_out"]:
             digest = state_digest(trainer.state)[1]
             if rank == 0:
                 with open(job["digest_out"], "w") as f:
                     json.dump(digest, f)
+            dist.barrier()  # a later job may restore against the file
         later = probe.steps[1:] or probe.steps
         reports.append({
             "name": job["name"], "rank": rank, "world": trainer.mesh.world_size,
@@ -5005,23 +5094,23 @@ def dp_jobs_main(spec_path: str) -> int:
             "evals": probe.evals, "saves": probe.saves, "restores": probe.restores,
             "peak_bytes": torch.cuda.max_memory_allocated(), "on_card": checked,
             "seconds": seconds, "state_step": int(trainer.state.step),
-            "mesh": trainer.mesh.shape, "sharded": trainer.state.layout.sharded})
+            "mesh": trainer.mesh.shape, "sharded": trainer.state.layout.sharded,
+            "gn_shapes": None if watch is None else gn_shape_rows(watch.shapes,
+                                                                  len(probe.steps))})
         del trainer, probe
         gc.collect()
         torch.cuda.empty_cache()
-    with open(f"{spec['report']}.rank{rank}.json", "w") as f:
-        json.dump(reports, f)
-    dist.destroy_process_group()
-    return 0
+    return reports
 
 
-def dp_jobs(tmp: str, jobs: list[dict], nproc: int, tag: str) -> list[list[dict]]:
+def dp_jobs(tmp: str, jobs: list[dict], nproc: int, tag: str,
+            base: list[str] = DP_JOB) -> list[list[dict]]:
     """One torchrun launch at ``nproc`` ranks running ``jobs`` in turn
     (each ``{"name", "argv", "expect", "digest_out"}``, its argv after
-    ``DP_JOB`` and the run's ``--ckpt_dir``); each job's reports by rank."""
+    ``base`` and the run's ``--ckpt_dir``); each job's reports by rank."""
     report = os.path.join(tmp, f"job_{tag}")
     spec = {"report": report, "jobs": [
-        {**job, "argv": DP_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt")] + job["argv"]}
+        {**job, "argv": base + ["--ckpt_dir", os.path.join(tmp, "ckpt")] + job["argv"]}
         for job in jobs]}
     spec_path = f"{report}.json"
     with open(spec_path, "w") as f:
@@ -5158,24 +5247,31 @@ def phase_data_parallel_jobs(tmp: str) -> dict:
     the final save) and then phase 43's at ``data=1,fsdp=2``
     (``FSDP_JOB_FIRST``: the same with the state sharded, the other rank
     gathering with rank 0 for its eval and saves); only rank 0 evaluates,
-    logs and writes. A second launch resumes the sharded job's step-3 save
-    at ``data=2`` and one plain process resumes it too, each restore
+    logs and writes. Then the same launch resumes the sharded job's step-3
+    save at ``data=2`` (a third job, which saves a launch's ~30 s of process
+    and CUDA start), and one plain process resumes it too, each restore
     bitwise the live state the sharded ranks ended with (its
     ``state_digest``), each training step 4. Then the job at one rank over
-    NCCL, 2 steps, ends in the state (digest) that the same 2 steps in this
-    process end in (no torchrun, no process group; cuDNN deterministic in
-    both). Leaves the sharded job's two reference ``.pt`` files in
+    NCCL (a torchrun launch of its own), 2 steps, ends in the state
+    (digest) that the same 2 steps in this process end in with no process
+    group (cuDNN deterministic in both). Leaves the sharded job's two reference ``.pt`` files in
     ``{tmp}/tools_ckpt`` for phase 44. Returns the reports and launches."""
     import shutil
 
     digest_fsdp = os.path.join(tmp, "digest_fsdp.json")
     digest_nccl = os.path.join(tmp, "digest_nccl.json")
     weights = ["vae_epoch_0_step_1.pt", "vae_epoch_final_step_3.pt"]
-    dp_first, fsdp_first = dp_jobs(tmp, [
+    dp_first, fsdp_first, resumed = dp_jobs(tmp, [
         {"name": "data parallel job", "argv": DP_JOB_FIRST + ["--run_name", "dp"],
          "expect": "", "digest_out": ""},
         {"name": "fsdp job", "argv": FSDP_JOB_FIRST + ["--run_name", "fsdp"],
-         "expect": "", "digest_out": digest_fsdp}], DP_RANKS, "first")
+         "expect": "", "digest_out": digest_fsdp},
+        {"name": "data parallel resume of the fsdp job",
+         "argv": DP_JOB_RESUME + ["--run_name", "fsdp"], "expect": digest_fsdp,
+         "digest_out": ""}], DP_RANKS, "first")
+    # what the fsdp job wrote, before its data=2 resume (which adds the step-4
+    # save and weights and logs step 3 under a second config header)
+    resume_files = {"state": ["step_00000004.pt"], "weights": ["vae_epoch_final_step_4.pt"]}
     for launch, name, mesh in ((dp_first, "dp", {"data": DP_RANKS}),
                                (fsdp_first, "fsdp", FSDP_MESH)):
         what = f"{launch[0]['name']} ({DP_RANKS} ranks, {mesh})"
@@ -5193,11 +5289,16 @@ def phase_data_parallel_jobs(tmp: str) -> dict:
                                      f"launches {r['launches']}")
         run_dir = os.path.join(tmp, "ckpt", name)
         lines = job_lines(run_dir, name)
+        first_header = [i for i, ln in enumerate(lines) if "_config" in ln][:2]
+        if name == "fsdp":  # the job's own lines, before its resume's header
+            lines = lines[:first_header[1]] if len(first_header) > 1 else lines
         check_job_log(lines, range(0, 3), [1], what)
         logged = [ln["step"] for ln in lines if "overall_vae_loss" in ln]
         headers = [ln for ln in lines if "_config" in ln]
-        saved = sorted(os.listdir(os.path.join(run_dir, "state")))
-        written = sorted(n for n in os.listdir(run_dir) if n.endswith(".pt"))
+        later = resume_files if name == "fsdp" else {"state": [], "weights": []}
+        saved = sorted(set(os.listdir(os.path.join(run_dir, "state"))) - set(later["state"]))
+        written = sorted({n for n in os.listdir(run_dir) if n.endswith(".pt")}
+                         - set(later["weights"]))
         if len(headers) != 1 or logged != [0, 1, 2] \
                 or saved != ["step_00000001.pt", "step_00000003.pt"] or written != weights:
             raise AssertionError(f"{what}: {len(headers)} config headers, steps logged "
@@ -5217,9 +5318,6 @@ def phase_data_parallel_jobs(tmp: str) -> dict:
     shutil.rmtree(os.path.join(tmp, "ckpt", "dp"))
 
     what = f"the fsdp job's save ({FSDP_MESH})"
-    (resumed,) = dp_jobs(tmp, [{"name": "data parallel resume of the fsdp job",
-                                "argv": DP_JOB_RESUME + ["--run_name", "fsdp"],
-                                "expect": digest_fsdp, "digest_out": ""}], DP_RANKS, "resume")
     for r in resumed:
         if r["sharded"] or r["mesh"] != {"data": DP_RANKS} or len(r["steps"]) != 1 \
                 or [(s, same) for s, same, _ in r["restores"]] != [(3, True)]:
@@ -5242,7 +5340,7 @@ def phase_data_parallel_jobs(tmp: str) -> dict:
         raise AssertionError(f"{what}: the one-process resume restored {probe.restores}, "
                              f"{len(probe.steps)} steps")
     log(f"{what}: restored bitwise the live state the sharded ranks ended with "
-        f"({resumed[0]['restores'][0][2]} tensors, digests) on both ranks of a data=2 launch "
+        f"({resumed[0]['restores'][0][2]} tensors, digests) on both ranks at data=2 "
         f"({resumed[0]['seconds']:.1f} s) and in one plain process; each trained step 4")
     del plain, probe
     gc.collect()
@@ -5413,6 +5511,587 @@ def dp_timing_lines(card: str, steps: dict, jobs: dict) -> None:
                 f"{r['peak_bytes'] / 2**30:.3f} GiB; the launch {r['seconds']:.1f} s")
 
 
+# phases 45-48: the context mesh axis of the 3D job (parallel/context.py):
+# ``--mesh_shape data=1,context=2``, two ranks sharing the card over gloo,
+# each holding half of every clip's T frames
+
+CTX_RANKS = 2
+CTX_MESH = {"data": 1, "context": CTX_RANKS}
+# phase 45: ring attention at the mid blocks, (B, N, H, D, dtype): the long
+# clip's (48 x 256 px at ch 64, ch_mult 1,2,4: 12 x 64 x 64 tokens of 256
+# channels, phase 13's "long clip" case) and TVAEConfig()'s at 16f/128px (2 x
+# 16 x 16 tokens of 256 channels, batch 2) in bf16, and in fp32 as phase 47's
+# step runs it; each rank holds half the tokens
+RING_CASES = {"48f/256px mid block": (1, 49152, 8, 32, torch.bfloat16),
+              "16f/128px mid block": (2, 512, 8, 32, torch.bfloat16),
+              "16f/128px mid block fp32": (2, 512, 8, 32, torch.float32)}
+RING_FWD_CASE, RING_BWD_CASE = "48f/256px mid block", "16f/128px mid block fp32"
+# phase 47: phase 40's 3D GAN step (TVAEConfig()'s width in fp32, 16f/128px,
+# 2 clips, hinge + LeCam on 4 frames) with the frame D and with the tubelet D
+CTX_CASES = ("3d gan", "3d gan tubelet")
+# phase 48: phase 28's GAN job at data=1,context=2 (3 steps, an eval after
+# step 1 and at the end, saves after step 1 and at the end; run by phases
+# 45-47's ranks after them, which saves a torchrun launch's ~25 s of process
+# and CUDA start), then its save resumed in one plain process for a fourth
+# step
+CTX_JOB = TRAIN3D_JOB + TRAIN3D_GAN
+CTX_JOB_FIRST = ["--mesh_shape", "data=1,context=2", "--max_steps", "3",
+                 "--evaluate_every_n_steps", "3"]
+CTX_JOB_RESUME = ["--mesh_shape", "data=1", "--max_steps", "4", "--evaluate_every_n_steps",
+                  "0"]
+
+
+def _ring_chunk(n: int) -> int:
+    """The plain version's k/v chunk for a block of ``n`` tokens."""
+    return n if n <= 1024 else 1024
+
+
+def ring_check(group, rank: int) -> dict:
+    """Phase 45 in a rank: for each of ``RING_CASES`` the ring over
+    ``group`` on this rank's half of seeded global q, k, v and cotangent g
+    (the same on every rank), forward and backward through autograd, twice,
+    the second run timed by CUDA events on each rank (the ranks time-slice
+    the card; the first pays the collectives' and kernels' first use). Rank
+    0 then holds the joined out, dq, dk, dv against one rank's kernel #3
+    over the whole sequence: within twice ``rounding_bounds`` at ATTN_RTOL
+    (both sides round their sums), plus, in bf16, one bf16 ulp of the value
+    for the output's cast (phase 13's rule; the ring's partials stay fp32
+    until then). At the ring's block (the local queries against one
+    visiting block) it holds the launch the ring makes, kernel #3 with fp32
+    outputs, forward and backward, against its plain version's fp32 sums
+    within ``rounding_bounds`` alone, and times it, its plain version, SDPA
+    and the bound, by device time, the other rank waiting. Returns rank 0's
+    results by case."""
+    from vqgan_tpu_torch.ops import attention_cuda as ac
+    from vqgan_tpu_torch.ops import ring_attention as ring
+    from vqgan_tpu_torch.ops.attention import (
+        chunked_attention_backward,
+        chunked_attention_forward,
+        rounding_bounds,
+    )
+    from vqgan_tpu_torch.parallel.context import owned_blocks
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
+    import torch.distributed as dist
+
+    f32 = torch.float32
+    out = {}
+    for name, (b, n, h, d, dtype) in RING_CASES.items():
+        bf16 = dtype == torch.bfloat16
+        gen = torch.Generator(device="cuda").manual_seed(45)
+        q, k, v, g = (torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype)
+                      for _ in range(4))
+        nl, chunk = n // CTX_RANKS, _ring_chunk(n // CTX_RANKS)
+        blk = slice(rank * nl, (rank + 1) * nl)
+        for _ in range(2):
+            ql, kl, vl = (t[:, blk].detach().requires_grad_() for t in (q, k, v))
+            dist.barrier(group)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            o = ring.ring_attention(ql, kl, vl, group, chunk)
+            ev[1].record()
+            o.backward(g[:, blk].contiguous())
+            ev[2].record()
+            torch.cuda.synchronize()
+        res = {"ring_fwd_ms": ev[0].elapsed_time(ev[1]), "ring_bwd_ms": ev[1].elapsed_time(ev[2])}
+        blocks = owned_blocks([o.detach(), ql.grad, kl.grad, vl.grad], group)
+        del o, ql, kl, vl
+        if rank == 0:
+            got = dict(zip(("out", "dq", "dk", "dv"),
+                           (torch.cat([blocks[r][i] for r in range(CTX_RANKS)], dim=1)
+                            for i in range(4))))
+            del blocks
+            ro, rlse = ac.attention_forward(q, k, v, chunk)
+            want = dict(zip(("out", "dq", "dk", "dv"),
+                            (ro, *ac.attention_backward(q, k, v, ro, rlse, g, chunk))))
+            delta = (g.float() * ro.float()).sum(-1).transpose(1, 2)
+            bounds = rounding_bounds(q, k, v, rlse, ATTN_RTOL, bf16, g, delta)
+            shares, errs = {}, {}
+            for key, w in want.items():
+                diff = (got[key].float() - w.float()).abs()
+                tol = 2 * bounds[key] + 1e-7
+                if bf16:
+                    tol = tol + 2.0 ** -7 * w.float().abs()
+                shares[key], errs[key] = float((diff / tol).max()), float(diff.max())
+            del got, want, bounds, delta, diff, tol
+            # the ring's launch at its block (fp32 outputs), against its plain
+            # version's fp32 sums, and timed beside them and SDPA
+            qb, kb, vb, gb = (t[:, :nl] for t in (q, k, v, g))
+            ob, lseb = ac.attention_forward(qb, kb, vb, chunk, out_dtype=f32)
+            pob, plseb = chunked_attention_forward(qb, kb, vb, chunk, out_dtype=f32)
+            narrow = pob.to(dtype)  # the out the ring's backward is given
+            grads = ac.attention_backward(qb, kb, vb, narrow, plseb, gb, chunk, grad_dtype=f32)
+            pgrads = chunked_attention_backward(qb, kb, vb, narrow, plseb, gb, chunk,
+                                                grad_dtype=f32)
+            delta = (gb.float() * narrow.float()).sum(-1).transpose(1, 2)
+            bounds = rounding_bounds(qb, kb, vb, plseb, ATTN_RTOL, bf16, gb, delta)
+            block = {}
+            for key, got_b, want_b in zip(("out", "dq", "dk", "dv"), (ob, *grads),
+                                          (pob, *pgrads)):
+                if got_b.dtype != f32:
+                    raise AssertionError(f"ring attention {name}: the block's {key} is "
+                                         f"{got_b.dtype}, not fp32")
+                block[key] = float(((got_b - want_b).abs() / (bounds[key] + 1e-7)).max())
+            del grads, pgrads, bounds, delta
+            iters = 2 if nl > 4096 else 20
+            times = {
+                "fwd": (device_ms(lambda: ac.attention_forward(qb, kb, vb, chunk, out_dtype=f32),
+                                  iters),
+                        device_ms(lambda: chunked_attention_forward(qb, kb, vb, chunk,
+                                                                    out_dtype=f32), iters),
+                        device_ms(lambda: _library_attention(qb, kb, vb), iters),
+                        attention_bound_ms(b, nl, h, d, dtype, backward=False))}
+            if name == RING_BWD_CASE:
+                lf_ms = times["fwd"][2]
+                ql, kl, vl = (t.detach().requires_grad_() for t in (qb, kb, vb))
+
+                def fwd_bwd():
+                    torch.autograd.grad(_library_attention(ql, kl, vl), (ql, kl, vl),
+                                        gb.transpose(1, 2))
+
+                times["bwd"] = (
+                    device_ms(lambda: ac.attention_backward(qb, kb, vb, narrow, plseb, gb, chunk,
+                                                            grad_dtype=f32), iters),
+                    device_ms(lambda: chunked_attention_backward(qb, kb, vb, narrow, plseb, gb,
+                                                                 chunk, grad_dtype=f32), iters),
+                    device_ms(fwd_bwd, iters) - lf_ms,
+                    attention_bound_ms(b, nl, h, d, dtype, backward=True))
+            res.update(shares=shares, errs=errs, block=block, times=times)
+            log(f"ring attention {name} (B={b} N={n} H={h} D={d} {str(dtype)[6:]}, "
+                f"{CTX_RANKS} ranks of {nl} tokens): against one rank's kernel #3 over the "
+                f"whole sequence max_abs_err " + " ".join(f"{k_}={v_:.3e}" for k_, v_ in
+                                                            errs.items())
+                + "; share of the bound used " + " ".join(f"{k_}={v_:.3f}" for k_, v_ in
+                                                          shares.items())
+                + "; the ring's launch at its block (fp32 outputs) against plain, share of "
+                "rounding_bounds used " + " ".join(f"{k_}={v_:.3f}" for k_, v_ in block.items())
+                + f"; the ring on rank 0 {res['ring_fwd_ms']:.3f} ms forward, "
+                f"{res['ring_bwd_ms']:.3f} ms backward (CUDA events, both ranks on the card); "
+                f"kernel #3 at the block: " + "; ".join(
+                    f"{kind} kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+                    f"bound_ms={t[3]:.4f}" for kind, t in times.items()))
+            if any(s_ > 1.0 for s_ in (*shares.values(), *block.values())):
+                raise AssertionError(f"ring attention {name}: outside its bound: {shares}, "
+                                     f"at the block {block}")
+            out[name] = res
+            del ro, rlse, qb, kb, vb, gb, ob, lseb, pob, plseb, narrow
+        del q, k, v, g
+        torch.cuda.empty_cache()
+        dist.barrier(group)
+    return out
+
+
+def gn_two_pass_check(gn, x, g, w, b, swish: bool, label: str) -> dict:
+    """Kernels #1 and #2 in their two-pass form (one rank, no group)
+    against their plain versions on (x, g): the forward sums and the
+    backward's group sums, dγ and dβ within SUM_RTOL of Σ|terms|; y (from
+    the kernel's stats) within ATOL_FP32 or one bf16 ulp; dx within ATOL_DX
+    or one bf16 ulp; and against the one-launch kernels within twice those
+    (each side lies within them of the plain version); every launch
+    bitwise repeatable. Times are the device's (CUDA graph replays) for
+    each launch, its plain version and, for the apply and dx launches,
+    F.group_norm's forward and backward (library); each bound counts what
+    the launch must read and write once. Returns {launch: (max_abs_err,
+    kernel_ms, plain_ms, library_ms or None, bound_ms)}."""
+    from vqgan_tpu_torch.ops import normalization as plain
+    from vqgan_tpu_torch.tools.sweep_conv3d import device_ms
+
+    c = x.shape[1]
+    count = x[0, 0].numel() * (c // 32)
+    bf16 = x.dtype == torch.bfloat16
+    sums = gn.group_norm_partial_sums(x, 32)
+    stats = plain.group_norm_stats_from_sums(sums, count, 1e-6)
+    y = gn.group_norm_apply(x, stats, w, b, 32, swish)
+    gs, dw, db = gn.group_norm_backward_partial(x, g, stats, w, b, 32, swish)
+    dx = gn.group_norm_backward_dx(x, g, stats, gs, count, w, b, 32, swish)
+    again = (gn.group_norm_partial_sums(x, 32), gn.group_norm_apply(x, stats, w, b, 32, swish),
+             *gn.group_norm_backward_partial(x, g, stats, w, b, 32, swish),
+             gn.group_norm_backward_dx(x, g, stats, gs, count, w, b, 32, swish))
+    same = all(torch.equal(p, q) for p, q in zip((sums, y, gs, dw, db, dx), again))
+    del again
+    psums = plain.group_norm_partial_sums(x, 32)
+    py = plain.group_norm_apply(x, stats, w, b, 32, swish)
+    pgs, pdw, pdb = plain.group_norm_backward_partial(x, g, stats, w, b, 32, swish)
+    pdx = plain.group_norm_backward_dx(x, g, stats, gs, count, w, b, 32, swish)
+    y1, stats1 = gn.group_norm_forward(x, w, b, 32, 1e-6, swish)
+    dx1, dw1, db1 = gn.group_norm_backward(x, g, stats1, w, b, 32, swish)
+    torch.cuda.synchronize()
+    # Σ|terms|: of the sums, and (|dŷ| <= 1.1·|g| with the swish) of the backward's
+    xf = x.float()
+    xa = xf.abs().movedim(1, -1).reshape(x.shape[0], -1, 32, c // 32)
+    t_sums = torch.stack([xa.sum(dim=(1, 3)), xa.square().sum(dim=(1, 3))], dim=1)
+    ga = 1.1 * g.float().abs()
+    mean_c = stats[:, 0].repeat_interleave(c // 32, dim=-1)
+    rstd_c = stats[:, 1].repeat_interleave(c // 32, dim=-1)
+    shape = (x.shape[0], c) + (1,) * (x.ndim - 2)
+    xh = ((xf - mean_c.view(shape)) * rstd_c.view(shape)).abs()
+    dims = tuple(range(2, x.ndim))
+    t0 = (ga.sum(dim=dims) * w.abs()).view(x.shape[0], 32, -1).sum(-1)
+    t1 = ((ga * xh).sum(dim=dims) * w.abs()).view(x.shape[0], 32, -1).sum(-1)
+    t_dw, t_db = (ga * xh).sum(dim=(0, *dims)), ga.sum(dim=(0, *dims))
+    del xf, xa, ga, xh
+
+    def within_sum(got, want, terms):
+        return bool(((got - want).abs() <= SUM_RTOL * terms + 1e-6).all())
+
+    def within_ulp(got, want, atol, times=1):
+        diff = (got.float() - want.float()).abs()
+        if bf16:
+            return bool((diff <= times * (atol + RTOL_BF16 * want.float().abs())).all())
+        return float(diff.max()) <= times * atol
+
+    checks = {
+        "sums": within_sum(sums, psums, t_sums),
+        "y": within_ulp(y, py, 1e-6 if bf16 else ATOL_FP32),
+        "y one-launch": within_ulp(y, y1, 1e-6 if bf16 else ATOL_FP32, 2),
+        "gsums": within_sum(gs, pgs, torch.stack([t0, t1], dim=1)),
+        "dgamma": within_sum(dw, pdw, t_dw), "dbeta": within_sum(db, pdb, t_db),
+        "dgamma one-launch": within_sum(dw, dw1, 2 * t_dw),
+        "dbeta one-launch": within_sum(db, db1, 2 * t_db),
+        "dx": within_ulp(dx, pdx, ATOL_DX),
+        "dx one-launch": within_ulp(dx, dx1, ATOL_DX, 2),
+        "bitwise repeat": same,
+    }
+    errs = {"sums": float((sums - psums).abs().max()),
+            "apply": float((y.float() - py.float()).abs().max()),
+            "bwd_sums": max(float((gs - pgs).abs().max()), float((dw - pdw).abs().max()),
+                            float((db - pdb).abs().max())),
+            "dx": float((dx.float() - pdx.float()).abs().max())}
+    del psums, py, pgs, pdw, pdb, pdx, y1, dx1
+    iters = 3 if x.numel() * 4 > 2**29 else 20
+    es = x.element_size()
+    xl = x.detach().requires_grad_()
+    wl, bl = (t.detach().to(x.dtype).requires_grad_() for t in (w, b))
+    lf_ms = device_ms(lambda: _library_forward(xl, wl, bl, swish), iters)
+    lfb_ms = device_ms(lambda: torch.autograd.grad(_library_forward(xl, wl, bl, swish),
+                                                   (xl, wl, bl), g), iters)
+    del xl, wl, bl
+    out = {
+        "sums": (errs["sums"], device_ms(lambda: gn.group_norm_partial_sums(x, 32), 20),
+                 device_ms(lambda: plain.group_norm_partial_sums(x, 32), iters), None,
+                 bound_ms(x.numel() * es)),
+        "apply": (errs["apply"],
+                  device_ms(lambda: gn.group_norm_apply(x, stats, w, b, 32, swish), 20),
+                  device_ms(lambda: plain.group_norm_apply(x, stats, w, b, 32, swish), iters),
+                  lf_ms, bound_ms(2 * x.numel() * es)),
+        "bwd_sums": (errs["bwd_sums"],
+                     device_ms(lambda: gn.group_norm_backward_partial(x, g, stats, w, b, 32,
+                                                                      swish), 20),
+                     device_ms(lambda: plain.group_norm_backward_partial(x, g, stats, w, b, 32,
+                                                                         swish), iters),
+                     None, bound_ms(2 * x.numel() * es)),
+        "dx": (errs["dx"],
+               device_ms(lambda: gn.group_norm_backward_dx(x, g, stats, gs, count, w, b, 32,
+                                                           swish), 20),
+               device_ms(lambda: plain.group_norm_backward_dx(x, g, stats, gs, count, w, b, 32,
+                                                              swish), iters),
+               lfb_ms - lf_ms, bound_ms(3 * x.numel() * es)),
+    }
+    name = "bf16" if bf16 else "fp32"
+    ok = all(checks.values())
+    log(f"gn two-pass {label} {name} swish={int(swish)}: max_abs_err " + " ".join(
+        f"{k_}={v_[0]:.3e}" for k_, v_ in out.items()) + "; device ms (kernel/plain/library/"
+        "bound) " + "; ".join(
+            f"{k_} {v_[1]:.4f}/{v_[2]:.4f}/{'-' if v_[3] is None else f'{v_[3]:.4f}'}/"
+            f"{v_[4]:.4f}" for k_, v_ in out.items())
+        + f"; {'ok' if ok else 'MISS ' + str([k_ for k_, v_ in checks.items() if not v_])}")
+    if not ok:
+        raise AssertionError(f"two-pass GroupNorm at {label} {name} swish={swish}: {checks}")
+    return out
+
+
+def gn_two_pass_at_shapes(gn, shapes: list, label: str) -> dict:
+    """Phase 46: ``gn_two_pass_check`` at each (B, C, T, H, W, dtype,
+    swish, calls) of ``shapes`` (a context rank's GroupNorms of one step of
+    a path, as its hooks recorded them: ``gn_shape_rows``); returns per
+    launch the largest max_abs_err and the (kernel, plain, library, bound)
+    ms summed over the step's calls."""
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    total = {}
+    for b, c, t, h, w_, dtype, swish, calls in shapes:
+        dt = getattr(torch, dtype)
+        x, wt, bs = _gn_inputs(gen, b, 0, c, dt, (t, h, w_))
+        g = _gn_inputs(gen, b, 0, c, dt, (t, h, w_))[0] - 0.3
+        res = gn_two_pass_check(gn, x, g, wt, bs, swish, f"B={b} C={c} T={t} H={h} W={w_}")
+        for launch, (err, *ms) in res.items():
+            acc = total.setdefault(launch, [0.0, 0.0, 0.0, 0.0, 0.0])
+            acc[0] = max(acc[0], err)
+            for i, v in enumerate(ms):
+                acc[i + 1] = None if v is None or acc[i + 1] is None else acc[i + 1] + calls * v
+        del x, g
+        torch.cuda.empty_cache()
+    calls = sum(s[-1] for s in shapes)
+    log(f"GN two-pass at a context rank's step of {label} ({calls} calls a launch, device "
+        f"time, kernel/plain/library/bound ms): " + "; ".join(
+            f"{k_} " + "/".join("-" if v_ is None else f"{v_:.4f}" for v_ in acc[1:])
+            for k_, acc in total.items()))
+    return {k_: tuple(v_) for k_, v_ in total.items()}
+
+
+def ctx_ranks_main(spec_path: str) -> int:
+    """One rank of phases 45-48 (``chip_smoke.py --ctx-ranks SPEC`` under
+    torchrun): joins the process group on ``CTX_MESH``; phase 45 on both
+    ranks (``ring_check``); phase 47: each of ``CTX_CASES`` on this rank's
+    half of every clip's frames, its model and step built with the context
+    group, replaying the one-rank run's loss-head decisions, the ranks'
+    states compared bit for bit after each step, each step's launches,
+    CUDA-event ms and peak memory recorded, the model's GroupNorm shapes
+    recorded by hooks; phase 48: the spec's job (``rank_jobs``, its steps'
+    GroupNorm shapes recorded); then phase 46 on rank 0 while the other
+    waits: the two-pass launches at the GroupNorm shapes of phase 47's
+    step (fp32) and of phase 48's (bf16) (``gn_two_pass_at_shapes``).
+    cuDNN deterministic, its benchmark off, TF32 convolutions as the spec
+    says. Writes its results to ``{dir}/ctx_rank{r}.pt``."""
+    import torch.distributed as dist
+
+    from vqgan_tpu_torch.ops import groupnorm_cuda as gn
+    from vqgan_tpu_torch.parallel.mesh import create_mesh, init_distributed, replicas_equal
+    from vqgan_tpu_torch.train.state import state_tensors
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    for cfg in (spec["models"]["vae"], spec["models"]["tvae"]):  # JSON's lists: tuples
+        cfg.update({k: tuple(v) for k, v in cfg.items() if isinstance(v, list)})
+    device = init_distributed("cuda")
+    mesh = create_mesh(CTX_MESH, context=True)
+    group = mesh.context_group
+    set_tf32(spec["tf32"])
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {"rank": mesh.rank, "device": str(device), "mesh": mesh.shape,
+           "backend": dist.get_backend(group), "cases": {}}
+    t0 = time.perf_counter()
+    out["ring"] = ring_check(group, mesh.rank)
+    t47 = time.perf_counter()
+    for name in CTX_CASES:
+        case = dp_case(name, device, group, spec["models"], context=group)
+        t = case["batch"].shape[1] // CTX_RANKS
+        case["batch"] = case["batch"][:, mesh.context_index * t:(mesh.context_index + 1) * t]
+        tape = DecisionTape()
+        tape.calls = torch.load(os.path.join(spec["dir"], f"ctx_tape_{name.replace(' ', '_')}.pt"),
+                                weights_only=True)
+        equal = []
+
+        def after_step(state):
+            equal.append(replicas_equal(state_tensors(state), group))
+
+        shapes, hooks = record_gn_shapes(case["model"])
+        try:
+            got = dp_run_case(case, slice(None), tape, record=False, after_step=after_step)
+        finally:
+            for h in hooks:
+                h.remove()
+        got["replicas_equal"] = equal
+        got["gn_shapes"] = gn_shape_rows(shapes, DP_STEPS)
+        if mesh.rank != 0:
+            got.pop("moments", None)
+            got.pop("extra", None)
+        out["cases"][name] = got
+        del case, tape
+        gc.collect()
+        torch.cuda.empty_cache()
+    t48 = time.perf_counter()
+    out["jobs"] = rank_jobs(spec["jobs"])
+    t46 = time.perf_counter()
+    if mesh.rank == 0:
+        job = out["jobs"][0]
+        out["gn"] = {
+            "step": gn_two_pass_at_shapes(gn, out["cases"]["3d gan"]["gn_shapes"],
+                                          "phase 47's 3d gan (fp32)"),
+            "job": gn_two_pass_at_shapes(gn, job["gn_shapes"], "phase 48's job (bf16)")}
+    dist.barrier(group)
+    out["seconds"] = {"45": t47 - t0, "47": t48 - t47, "48": t46 - t48,
+                      "46": time.perf_counter() - t46}
+    torch.save(out, os.path.join(spec["dir"], f"ctx_rank{mesh.rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_context_steps(tmp: str) -> dict:
+    """Phases 45-47: each of ``CTX_CASES`` at one rank on the whole clips,
+    recording the loss head's decisions, then one torchrun launch of
+    ``CTX_RANKS`` ranks on the card over gloo (``ctx_ranks_main``): phase
+    45's ring attention, phase 47's steps at ``CTX_MESH``, phase 48's job
+    (``phase_context_job`` checks it), then phase 46's two-pass GroupNorm
+    at the shapes phase 47's and phase 48's steps ran it (their hooks').
+    Phase 47 holds: the ranks' states bitwise equal after
+    every step, the same metrics on both; step 1 within phase 8's bounds of
+    the one-rank step (``compare_step_across_devices``); each rank's
+    launches a step: the one-rank run's GroupNorms all in the two-pass
+    form (sums, apply, backward sums, dx), none one-launch, kernel #3
+    CTX_RANKS times a one-rank call (the ring), #6 and its dx the one-rank
+    run's (on halo-extended blocks); the GroupNorm calls its hooks recorded,
+    the two-pass launches a step, the same for both D. Returns the ranks'
+    results and launches."""
+    set_tf32(True)
+    tf32 = torch.backends.cudnn.allow_tf32
+    ref = {}
+    for name in CTX_CASES:
+        case = dp_case(name, "cuda")
+        tape = DecisionTape()
+        ref[name] = dp_run_case(case, slice(None), tape, record=True)
+        torch.save(tape.calls, os.path.join(tmp, f"ctx_tape_{name.replace(' ', '_')}.pt"))
+        log(f"context {name}: the one-rank run on whole clips recorded {tape.describe()}; "
+            f"launches a step {ref[name]['launches']}")
+        del case, tape
+        gc.collect()
+        torch.cuda.empty_cache()
+    job = {"name": "context job", "expect": "", "digest_out": os.path.join(tmp, "digest_ctx.json"),
+           "argv": CTX_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"), "--run_name", "ctx"]
+           + CTX_JOB_FIRST, "gn_shapes": True}
+    spec = {"dir": tmp, "tf32": tf32, "models": dp_models(), "jobs": [job]}
+    spec_path = os.path.join(tmp, "ctx_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env_cards = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0" if env_cards is None else env_cards.split(",")[0]
+    try:
+        dp_launch([os.path.abspath(__file__), "--ctx-ranks", spec_path], CTX_RANKS,
+                  os.path.join(tmp, "ctx_ranks.log"))
+    finally:
+        if env_cards is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = env_cards
+    ranks = [torch.load(os.path.join(tmp, f"ctx_rank{r}.pt"), weights_only=False)
+             for r in range(CTX_RANKS)]
+    if [(r["mesh"], r["backend"]) for r in ranks] != [(CTX_MESH, "gloo")] * CTX_RANKS:
+        raise AssertionError(f"context ranks: {[(r['mesh'], r['backend']) for r in ranks]}")
+    launches: dict[str, int] = {}
+    for name in CTX_CASES:
+        what = f"context {name} ({CTX_MESH}, gloo)"
+        got = [r["cases"][name] for r in ranks]
+        one = ref[name]["launches"][0]
+        want = {**{k_: 0 for k_ in one}, "gn_ctx_sums": one["gn"], "gn_ctx_apply": one["gn"],
+                "gn_ctx_bwd_sums": one["gn_bwd"], "gn_ctx_dx": one["gn_bwd"],
+                "ring": CTX_RANKS * one["attn"], "ring_bwd": CTX_RANKS * one["attn_bwd"],
+                "attn": CTX_RANKS * one["attn"], "attn_bwd": CTX_RANKS * one["attn_bwd"],
+                "conv3d": one["conv3d"], "conv3d_dx": one["conv3d_dx"],
+                "nearest": one["nearest"], "stats": one["stats"]}
+        for r, g_ in enumerate(got):
+            if any(step != want for step in g_["launches"]):
+                raise AssertionError(f"{what}: rank {r} launched {g_['launches']}, expected "
+                                     f"{want} a step")
+            if g_["replicas_equal"] != [True] * DP_STEPS:
+                raise AssertionError(f"{what}: the ranks' states differ after the steps "
+                                     f"{g_['replicas_equal']}")
+            calls = sum(row[-1] for row in g_["gn_shapes"])
+            if calls != want["gn_ctx_sums"] or g_["gn_shapes"] != got[0]["gn_shapes"] \
+                    or g_["gn_shapes"] != ranks[0]["cases"]["3d gan"]["gn_shapes"]:
+                raise AssertionError(f"{what}: rank {r}'s GroupNorm shapes {g_['gn_shapes']} "
+                                     f"({calls} calls a step)")
+            for counted in g_["launches"]:
+                _add_launches(launches, counted)
+        if got[0]["metrics"] != got[1]["metrics"]:
+            raise AssertionError(f"{what}: the ranks logged different metrics")
+        log(f"{what}: each rank's launches a step {want}; after each of the {DP_STEPS} steps "
+            f"every tensor of the ranks' train states bitwise equal")
+        runs = {"cpu": (ref[name]["metrics"][0], ref[name]["moments"], ref[name]["extra"]),
+                "cuda": (got[0]["metrics"][0], got[0]["moments"], got[0]["extra"])}
+        compare_step_across_devices(runs, f"{what}, step 1 against one rank on whole clips",
+                                    DP_CASES["3d gan"], 0,
+                                    labels=("one rank", f"{CTX_RANKS} context ranks"))
+        log(f"{what}: a step {np.mean(got[0]['ms']):.1f} / {np.mean(got[1]['ms']):.1f} ms by "
+            f"CUDA events on ranks 0 / 1 (the one-rank run {np.mean(ref[name]['ms']):.1f} ms); "
+            f"peak {got[0]['peak_bytes'] / 2**30:.3f} / {got[1]['peak_bytes'] / 2**30:.3f} GiB "
+            f"a rank (one rank {ref[name]['peak_bytes'] / 2**30:.3f} GiB)")
+    for name, r in ranks[0]["ring"].items():
+        log(f"ring attention {name} ({CTX_RANKS} ranks, phase 45): against one rank's kernel #3 "
+            f"over the whole sequence, max_abs_err " + " ".join(
+                f"{k_}={v_:.3e}" for k_, v_ in r["errs"].items()) + "; share of the bound used "
+            + " ".join(f"{k_}={v_:.3f}" for k_, v_ in r["shares"].items())
+            + "; the ring's launch at its block (fp32 outputs) against plain, share of "
+            "rounding_bounds used " + " ".join(f"{k_}={v_:.3f}" for k_, v_ in r["block"].items())
+            + f"; the ring {r['ring_fwd_ms']:.3f} ms forward, {r['ring_bwd_ms']:.3f} ms backward "
+            f"on rank 0 (CUDA events, both ranks on the card); kernel #3 at the block " + "; ".join(
+                f"{kind} kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
+                f"bound_ms={t[3]:.4f}" for kind, t in r["times"].items()))
+    for path, label in (("step", "phase 47's 3d gan step (TVAEConfig() width, fp32)"),
+                        ("job", "phase 48's job step (TVAEConfig() width, bf16)")):
+        log(f"GN two-pass (phase 46) at the GroupNorms of a context rank's {label}, as its "
+            f"hooks recorded them, every check within its bound; max_abs_err and device ms "
+            f"summed over the step's calls (kernel/plain/library/bound): "
+            + "; ".join(f"{k_} {v_[0]:.3e}, " + "/".join("-" if t is None else f"{t:.4f}"
+                                                         for t in v_[1:])
+                        for k_, v_ in ranks[0]["gn"][path].items()))
+    log(f"context ranks: phase seconds in the launch {ranks[0]['seconds']}")
+    return {"ref": ref, "ranks": ranks, "launches": launches, "ring": ranks[0]["ring"],
+            "gn": ranks[0]["gn"]}
+
+
+def phase_context_job(tmp: str, ctx_steps: dict) -> dict:
+    """Phase 48: phase 28's job (``CTX_JOB``) at ``data=1,context=2``
+    (``CTX_JOB_FIRST``), run by phases 45-47's ranks after them, sharing
+    the card over gloo, each holding half of every clip's frames: 3 steps,
+    rank 0 alone evaluating
+    (whole clips, no group) after step 1 and at the end, logging and saving
+    after step 1 and at the end; every rank's two-pass GroupNorm and ring
+    launches 3 times phase 47's "3d gan" step's, no one-launch backward,
+    and no one-launch forward but rank 0's evals'.
+    Then one plain process resumes the step-3 save, bitwise the live state
+    the ranks ended with (its ``state_digest``), and trains step 4 on whole
+    clips. Returns the reports and launches."""
+    import shutil
+
+    digest = os.path.join(tmp, "digest_ctx.json")
+    first = [r["jobs"][0] for r in ctx_steps["ranks"]]
+    step_launches = ctx_steps["ranks"][0]["cases"]["3d gan"]["launches"][0]
+    what = f"context job ({CTX_RANKS} ranks, {CTX_MESH})"
+    seen = [(r["backend"], r["local_batch"], r["mesh"]) for r in first]
+    if seen != [("gloo", JOB3D_BATCH, CTX_MESH)] * CTX_RANKS:
+        raise AssertionError(f"{what}: (backend, local batch, mesh) {seen}")
+    if [r["is_master"] for r in first] != [True, False] \
+            or [len(r["evals"]) for r in first] != [2, 0]:
+        raise AssertionError(f"{what}: rank 0 alone evaluates "
+                             f"{[(r['is_master'], len(r['evals'])) for r in first]}")
+    keys = ("gn_ctx_sums", "gn_ctx_apply", "gn_ctx_bwd_sums", "gn_ctx_dx", "ring", "ring_bwd")
+    for r in first:
+        per = r["launches"]
+        if sum(row[-1] for row in r["gn_shapes"]) != step_launches["gn_ctx_sums"] \
+                or r["gn_shapes"] != first[0]["gn_shapes"]:
+            raise AssertionError(f"{what}: rank {r['rank']}'s GroupNorm shapes a step "
+                                 f"{r['gn_shapes']}")
+        if len(r["steps"]) != 3 or any(per[k] != 3 * step_launches[k] for k in keys) \
+                or per["gn_bwd"] != 0 or (per["gn"] == 0) != (r["rank"] != 0):
+            raise AssertionError(f"{what}: rank {r['rank']}: {len(r['steps'])} steps, "
+                                 f"launches {per}, phase 47's a step {step_launches}")
+    run_dir = os.path.join(tmp, "ckpt", "ctx")
+    lines = job_lines(run_dir, "ctx")
+    check_job_log(lines, range(0, 3), [0, 3], what, "loss", JOB3D_EVAL_KEYS)
+    saved = sorted(os.listdir(os.path.join(run_dir, "state")))
+    if saved != ["step_00000001.pt", "step_00000003.pt"]:
+        raise AssertionError(f"{what}: saved {saved}")
+    log(f"{what}: {first[0]['seconds']:.1f} s; ranks on {[r['device'] for r in first]} over "
+        f"gloo, {JOB3D_BATCH} clips of {JOB3D_FRAMES // CTX_RANKS} frames a rank; rank 0 alone "
+        f"evaluated and wrote {saved}; a step {first[0]['step_ms']:.1f} / "
+        f"{first[1]['step_ms']:.1f} ms by the host clock, {first[0]['device_step_ms']:.1f} / "
+        f"{first[1]['device_step_ms']:.1f} by CUDA events on ranks 0 / 1; peak "
+        f"{first[0]['peak_bytes'] / 2**30:.3f} / {first[1]['peak_bytes'] / 2**30:.3f} GiB; "
+        f"launches {first[0]['launches']} / {first[1]['launches']}")
+    with open(digest) as f:
+        expect = [json.load(f)]
+    dp_zero_counts()
+    plain, probe, _ = run_job(CTX_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"), "--run_name",
+                                         "ctx"] + CTX_JOB_RESUME,
+                              f"{what}: resumed in one plain process", expect)
+    one_launches = dp_counts()
+    if plain.mesh.group is not None or plain.mesh.n_context != 1 \
+            or [(s, same) for s, same, _ in probe.restores] != [(3, True)] \
+            or len(probe.steps) != 1:
+        raise AssertionError(f"{what}: the one-process resume restored {probe.restores}, "
+                             f"{len(probe.steps)} steps")
+    log(f"{what}: the step-3 save restored in one plain process bitwise the live state the "
+        f"ranks ended with ({probe.restores[0][2]} tensors, digests); it trained step 4 on "
+        f"whole clips in {probe.steps[0][1]:.1f} ms by CUDA events")
+    del plain, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(tmp, "ckpt"))
+    launches: dict[str, int] = {}
+    for counted in (*[r["launches"] for r in first], one_launches):
+        _add_launches(launches, counted)
+    return {"first": first, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this run needs "
@@ -5423,6 +6102,9 @@ def main() -> int:
         return dp_ranks_main(sys.argv[2])
     if len(sys.argv) > 2 and sys.argv[1] == "--dp-jobs":
         return dp_jobs_main(sys.argv[2])
+    # a rank of phases 45-47
+    if len(sys.argv) > 2 and sys.argv[1] == "--ctx-ranks":
+        return ctx_ranks_main(sys.argv[2])
     t_smoke = time.perf_counter()
 
     from vqgan_tpu_torch.ops import attention_cuda as ac
@@ -5619,6 +6301,27 @@ def main() -> int:
         _add_launches(dp_launches, counted)
     tool_launches = tools["launches"]
 
+    # 45. ring attention on kernel #3 over two context ranks; 46. kernels #1 and
+    # #2 in their two-pass form at the 3D step's GroupNorms cut in T; 47. the 3D
+    # GAN step, frame and tubelet D, at data=1,context=2 against one rank
+    # (45-47: one torchrun launch, whose ranks then run 48); 48. phase 28's job
+    # at data=1,context=2, its save resumed in one plain process
+    t45 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx_steps = phase_context_steps(tmp)
+        t48 = time.perf_counter()
+        ctx_job = phase_context_job(tmp, ctx_steps)
+    t_end = time.perf_counter()
+    log(f"phases 45-48 (the context axis): {t_end - t45:.1f} s (the launch of 45-48 and the "
+        f"one-rank runs: {t48 - t45:.1f} s, 48's checks and its one-process resume: "
+        f"{t_end - t48:.1f} s) of the {t_end - t_smoke:.1f} s the smoke has run so far")
+    ctx_launches: dict[str, int] = {}
+    for counted in (ctx_steps["launches"], ctx_job["launches"]):
+        _add_launches(ctx_launches, counted)
+    ring, gn_ctx_job = ctx_steps["ring"], ctx_steps["gn"]["job"]
+    gn_ctx = {k_: (max(v_[0], gn_ctx_job[k_][0]), *v_[1:])
+              for k_, v_ in ctx_steps["gn"]["step"].items()}
+
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
     training = {"enc": torch.bfloat16, "dec": torch.bfloat16}
     for b, res in fwd.items():
@@ -5767,7 +6470,8 @@ def main() -> int:
         f"it and read just after: the earlier paths' below, plus the training jobs' "
         f"(phases 28-29 and 31-33: {job_launches}), the served artifacts' reconstructs "
         f"(phases 35-37: {export_launches}) and the data-parallel ranks' steps and jobs, every "
-        f"rank's (phases 38-43: {dp_launches}), the tools' (phase 44: {tool_launches}); "
+        f"rank's (phases 38-43: {dp_launches}), the tools' (phase 44: {tool_launches}), the "
+        f"context ranks' steps and job and the job's resume (phases 47-48: {ctx_launches}); "
         f"GroupNorm launches per identity training step and "
         f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
@@ -5783,7 +6487,16 @@ def main() -> int:
         f"bf16, channels_last_3d), max_abs_err over every case of phase 18; geometry probe: "
         f"one entry per case, launches in the probe entry point's run, device ms of one call "
         f"(library: torch.matmul of the same product); GroupNorm, VQ and geometry probe "
-        f"times from CUDA graph replays")
+        f"times from CUDA graph replays; the two-pass GroupNorm entries (phase 46): launches "
+        f"on phases 47-48's paths, max_abs_err over both paths' shapes (phase 47's fp32, "
+        f"phase 48's bf16), ms summed over the calls of a context rank's step of phase 47 "
+        f"(fp32; phase 48's bf16 step in the lines above), library "
+        f"F.group_norm's whole forward (apply) or backward (dx), none for the sums; the ring "
+        f"entries (phase 45): launches of kernel #3 that the ring made on "
+        f"phases 47-48's paths, max_abs_err over phase 45's cases against one rank over the "
+        f"whole sequence, ms of one call of the ring's launch (fp32 outputs) at its block "
+        f"({RING_FWD_CASE} forward, {RING_BWD_CASE} backward) with its plain version, SDPA "
+        f"and bound")
     log(smi)
 
     def entry(name, source, replaces, launches, err, times, bound_by):
@@ -5801,13 +6514,14 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("fused_group_norm", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:91",
               train_counts["gn"] + job_launches["gn"] + export_launches["gn"]
-              + dp_launches["gn"] + tool_launches["gn"],
+              + dp_launches["gn"] + tool_launches["gn"] + ctx_launches["gn"],
               max([v[0] for res in fwd.values() for v in res.values()]
                                       + [clip_serve["gn_err"], long_clip["gn_err"], fwd3d_err,
                                          job3d_err["gn"]]),
               fwd_step, "bytes"),
         entry("fused_group_norm_bwd", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:194",
-              train_counts["gn_bwd"] + job_launches["gn_bwd"] + dp_launches["gn_bwd"],
+              train_counts["gn_bwd"] + job_launches["gn_bwd"] + dp_launches["gn_bwd"]
+              + ctx_launches["gn_bwd"],
               max([v[0] for v in bwd.values()] + [bwd3d_err, job3d_err["gn_bwd"]]), bwd_step,
               "bytes"),
         entry("nearest_codes", "vq.cu", "vqgan_tpu/ops/pallas/vq.py:113",
@@ -5821,21 +6535,41 @@ def main() -> int:
               "bytes"),
         entry("flash_attention", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
               attn_counts["attn"] + job_launches["attn"] + export_launches["attn"]
-              + dp_launches["attn"],
+              + dp_launches["attn"] + ctx_launches["attn"] - ctx_launches["ring"],
               max(v[0] for key, v in attn.items() if key[2] == "fwd"),
               attn_step["fwd"], "operations"),
         entry("flash_attention_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
-              attn_counts["attn_bwd"] + job_launches["attn_bwd"] + dp_launches["attn_bwd"],
+              attn_counts["attn_bwd"] + job_launches["attn_bwd"] + dp_launches["attn_bwd"]
+              + ctx_launches["attn_bwd"] - ctx_launches["ring_bwd"],
               max(v[0] for key, v in attn.items() if key[2] == "bwd"),
               attn_step["bwd"], "operations"),
         entry("conv3d_ttap", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:243",
-              clip_counts["conv3d"] + job_launches["conv3d"] + dp_launches["conv3d"],
+              clip_counts["conv3d"] + job_launches["conv3d"] + dp_launches["conv3d"]
+              + ctx_launches["conv3d"],
               max([v[0] for v in conv_fwd.values()] + [job3d_err["conv3d"]]), conv_step,
               "operations"),
         entry("conv3d_ttap_dx", "conv3d.cu", "vqgan_tpu/ops/pallas/conv3d.py:316",
-              clip_grad["conv3d_dx"] + job_launches["conv3d_dx"] + dp_launches["conv3d_dx"],
+              clip_grad["conv3d_dx"] + job_launches["conv3d_dx"] + dp_launches["conv3d_dx"]
+              + ctx_launches["conv3d_dx"],
               max([v[0] for v in conv_dx.values()] + [job3d_err["conv3d"]]), dx_step,
               "operations"),
+        entry("group_norm_partial_sums", "groupnorm.cu",
+              "vqgan_tpu/ops/pallas/groupnorm.py:112", ctx_launches["gn_ctx_sums"],
+              gn_ctx["sums"][0], gn_ctx["sums"][1:], "bytes"),
+        entry("group_norm_apply", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:131",
+              ctx_launches["gn_ctx_apply"], gn_ctx["apply"][0], gn_ctx["apply"][1:], "bytes"),
+        entry("group_norm_backward_partial", "groupnorm.cu",
+              "vqgan_tpu/ops/pallas/groupnorm.py:218", ctx_launches["gn_ctx_bwd_sums"],
+              gn_ctx["bwd_sums"][0], gn_ctx["bwd_sums"][1:], "bytes"),
+        entry("group_norm_backward_dx", "groupnorm.cu", "vqgan_tpu/ops/pallas/groupnorm.py:244",
+              ctx_launches["gn_ctx_dx"], gn_ctx["dx"][0], gn_ctx["dx"][1:], "bytes"),
+        entry("flash_attention_ring", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
+              ctx_launches["ring"], max(r["errs"]["out"] for r in ring.values()),
+              ring[RING_FWD_CASE]["times"]["fwd"], "operations"),
+        entry("flash_attention_ring_bwd", "attention.cu", "vqgan_tpu/ops/flash_attention.py:90",
+              ctx_launches["ring_bwd"],
+              max(r["errs"][k] for r in ring.values() for k in ("dq", "dk", "dv")),
+              ring[RING_BWD_CASE]["times"]["bwd"], "operations"),
         *probe_entries,
     ]}))
     log(json.dumps({"ok": True, "device": {

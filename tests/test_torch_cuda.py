@@ -667,6 +667,32 @@ def test_attention_kernel_matches_plain(device, shape, dtype):
     assert all(u <= 1.0 for u in used.values()), used
 
 
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_attention_kernel_fp32_outputs_match_plain(device, shape):
+    """bf16 inputs with fp32 outputs (the ring's partials): out, dq, dk, dv
+    against the plain versions' fp32 sums before the cast, within the
+    rounding bounds alone (no output is rounded to bf16); on the tensor
+    cores."""
+    q, k, v, g = _attn_inputs(shape, torch.bfloat16, device)
+    n = q.shape[1]
+    f32 = torch.float32
+    attention_cuda.tc_launches = attention_cuda.fma_launches = 0
+    out, lse = attention_cuda.attention_forward(q, k, v, n, out_dtype=f32)
+    ref_out, ref_lse = chunked_attention_forward(q, k, v, n, out_dtype=f32)
+    narrow, _ = chunked_attention_forward(q, k, v, n)
+    grads = attention_cuda.attention_backward(q, k, v, narrow, ref_lse, g, n, grad_dtype=f32)
+    ref_grads = chunked_attention_backward(q, k, v, narrow, ref_lse, g, n, grad_dtype=f32)
+    torch.cuda.synchronize()
+    assert (attention_cuda.tc_launches, attention_cuda.fma_launches) == (2, 0)
+    delta = (g.float() * narrow.float()).sum(-1).transpose(1, 2)
+    bounds = rounding_bounds(q, k, v, ref_lse, ATTN_RTOL, True, g, delta)
+    assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref_out, *ref_grads)):
+        assert got.dtype == f32 and got.shape == q.shape and got.is_contiguous()
+        used = float(((got - want).abs() / (bounds[name] + 1e-7)).max())
+        assert used <= 1.0, (name, used)
+
+
 def test_attention_kernel_is_deterministic(device):
     q, k, v, g = _attn_inputs((2, 333, 2, 64), torch.bfloat16, device)
     runs = []

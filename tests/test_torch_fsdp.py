@@ -119,11 +119,19 @@ def fsdp(tmp_path_factory):
 
 
 def test_unported_axes_still_raise():
-    """``tensor`` and ``context`` above 1 raise naming their ROADMAP items;
-    ``fsdp`` above 1 asks for ranks, as ``data`` does."""
-    for axis, item in (("tensor", "tensor sharding"), ("context", "context")):
+    """``tensor`` above 1 (for either job), ``context`` above 1 for the 2D
+    job and ``fsdp`` with ``context`` both above 1 for the 3D job raise
+    naming their ROADMAP items; ``fsdp`` above 1 asks for ranks, as
+    ``data`` does."""
+    for axis, item in (("tensor", "tensor sharding"), ("context", "context: the 2D halo")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
             create_mesh({"data": 1, axis: 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: tensor sharding"):
+        create_mesh({"data": 1, "tensor": 2}, context=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1: fsdp x context"):
+        create_mesh({"data": 1, "fsdp": 2, "context": 2}, context=True)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+        create_mesh({"data": 1, "context": 2}, context=True)
     with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
         create_mesh({"data": 1, "fsdp": 2})
     mesh = create_mesh({"data": 1, "fsdp": -1})

@@ -260,8 +260,13 @@ def test_conv3d_impl_resolution():
     assert not tae.Conv3d(8, 8, 1, impl="pallas").uses_kernel(x)
     with pytest.raises(ValueError, match="conv3d_impl"):
         tae.TVAE(TVAEConfig(**dict(TINY, conv3d_impl="fat")))
-    with pytest.raises(NotImplementedError, match="ring"):
-        tae.TVAE(TVAEConfig(**TINY), ring_axis="context")
+    # a context group reaches every conv, GroupNorm, downsample and attention
+    # block; the parameter tree is the one without
+    model = tae.TVAE(TVAEConfig(**TINY), context="group")
+    assert all(m.context == "group" for m in model.modules()
+               if isinstance(m, (tae.Conv3d, tae.FP32GroupNorm, tae.Downsample3D,
+                                 tae.AttnBlock3D)))
+    assert list(model.state_dict()) == list(tae.TVAE(TVAEConfig(**TINY)).state_dict())
 
 
 def test_tvae_weights_load_strictly():

@@ -474,8 +474,11 @@ def test_cli_runs_a_job_and_refuses_train3d(tmp_path):
     lines = _lines(tmp_path / "tvae_run" / "metrics_tvae_run.jsonl")
     assert [ln["step"] for ln in lines] == [0, 1, 2]  # the final eval at max_steps
     assert set(lines[2]) == {"step", "eval/recon_l2", "eval/psnr", "eval/ssim"}
-    with pytest.raises(NotImplementedError, match="Queue 1: context"):
+    # the 3D job takes the context axis: one process is one rank
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(argv3d + ["--mesh_shape", "data=1,context=2"])
+    with pytest.raises(NotImplementedError, match="Queue 1: fsdp x context"):
+        cli.main(argv3d + ["--mesh_shape", "data=1,fsdp=2,context=2"])
     with pytest.raises(ValueError, match="torchrun"):
         cli.main(argv3d + ["--mesh_shape", "data=2"])
     with pytest.raises(SystemExit):

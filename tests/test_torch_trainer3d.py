@@ -360,7 +360,9 @@ def test_eval_scores_the_polyak_weights(gan_job):
 @pytest.mark.parametrize("kw, err, match", [
     # fsdp is ported: in one process it asks for ranks, as data does
     (dict(mesh_shape="data=1,fsdp=2"), ValueError, "torchrun --nproc_per_node"),
-    (dict(mesh_shape="data=1,context=2"), NotImplementedError, "context=2 needs several devices"),
+    # the context axis is ported for the 3D job: in one process it asks for ranks
+    (dict(mesh_shape="data=1,context=2"), ValueError, "torchrun --nproc_per_node"),
+    (dict(mesh_shape="data=1,fsdp=2,context=2"), NotImplementedError, "Queue 1: fsdp x context"),
     (dict(mesh_shape="tensor=2,data=-1"), NotImplementedError, "Queue 1: tensor sharding"),
 ])
 def test_unported_options_raise(tmp_path, kw, err, match):

@@ -40,9 +40,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vqgan_tpu_torch.config import TrainConfig, TVAEConfig, VAEConfig
-from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator
+from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, TubeletDiscriminator
 from vqgan_tpu_torch.losses.lpips import LPIPS
 from vqgan_tpu_torch.models.ae import VAE
 from vqgan_tpu_torch.models.tae import TVAE
@@ -68,7 +69,7 @@ def _draws(kind: str, d: dict):
 
 
 def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
-             mesh=None, trees: bool = False) -> dict:
+             mesh=None, trees: bool = False, context=None) -> dict:
     """The case's steps on rank ``rank``'s rows of each global batch
     (``group=None``: one process, the whole batch). Returns each step's
     metrics and whether the ranks' states were bitwise equal after it, step
@@ -88,17 +89,23 @@ def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
     ``trees`` and no mesh, the ranks are not compared). ``trees``:
     each step's gathered state (``out["trees"]``) and the bytes held at rest
     (``held_bytes``) are kept, and the moments and final tensors read from
-    the gathered trees."""
+    the gathered trees.
+
+    ``context`` (a 3D case): the group of ranks that split this rank's
+    clips' frames; ``rank`` and ``n`` are then the data index and extent,
+    and the rank takes its T block of its clips (tests/test_torch_context.py)."""
     cfg = TrainConfig(**case["train"])
     shards = case["gradnorm_shards"]
     three_d = case["kind"] == "3d"
     if three_d:
         model_cfg = TVAEConfig(**case["model"])
-        vae = TVAE(model_cfg)
+        vae = TVAE(model_cfg, context=context)
     else:
         model_cfg = VAEConfig(**case["model"])
         vae = VAE(model_cfg)
-    disc, lpips = PatchDiscriminator(), LPIPS()
+    disc = (TubeletDiscriminator(case["tubelet_frames"]) if three_d and cfg.disc_3d == "tubelet"
+            else PatchDiscriminator())
+    lpips = LPIPS()
     vae.load_state_dict(case["sd"]["g"], strict=True)
     disc.load_state_dict(case["sd"]["d"], strict=True)
     lpips.load_state_dict(case["sd"]["lpips"], strict=True)
@@ -107,7 +114,7 @@ def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
         shard_state(state, mesh)
     if three_d:
         step = make_train_step_3d_gan(cfg, model_cfg, vae, disc, lpips,
-                                      gradnorm_shards=shards, group=group)
+                                      gradnorm_shards=shards, group=group, context=context)
     else:
         step = make_train_step(cfg, model_cfg, vae, disc, lpips, gradnorm_shards=shards,
                                group=group)
@@ -115,7 +122,7 @@ def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
     head = {"lpips": lpips, "disc": disc}
     with (contextlib.nullcontext() if tape is None else tape.recording(head) if group is None
           else tape.rows(rank, n).replaying(head)):
-        _steps(case, step, state, vae, disc, group, rank, n, out, mesh, trees)
+        _steps(case, step, state, vae, disc, group, rank, n, out, mesh, trees, context)
     if trees:
         out["param_names"] = {"g": [k for k, _ in vae.named_parameters()],
                               "d": [k for k, _ in disc.named_parameters()]}
@@ -141,13 +148,17 @@ def _moments(tree: dict, side: str, model, opt) -> dict:
 
 
 def _steps(case, step, state, vae, disc, group, rank, n, out, mesh=None,
-           trees: bool = False) -> None:
+           trees: bool = False, context=None) -> None:
     three_d = case["kind"] == "3d"
     order = case.get("one_process_order")
     for i, (batch, d) in enumerate(zip(case["batches"], case["draws"])):
         if group is None and order is not None:
             batch = batch[order]
-        x = torch.from_numpy(_rows(batch, rank, n))
+        x = _rows(batch, rank, n)
+        if context is not None:
+            t = x.shape[1] // dist.get_world_size(context)
+            x = x[:, dist.get_rank(context) * t:(dist.get_rank(context) + 1) * t]
+        x = torch.from_numpy(np.ascontiguousarray(x))
         draws = _draws(case["kind"], d)
         if three_d:
             state, m = step(state, x, draws)
@@ -211,6 +222,7 @@ def run_trainer(argv: list[str]) -> dict:
     built = state_dict_of(trainer.state)
     trainer.train()
     trained = state_dict_of(trainer.state)
+    equal = replicas_equal(state_tensors(trainer.state, sharded=False), trainer.mesh.group)
     # the modules the caller keeps: G (and D) whole again on every rank
     modules = {"g_model": trainer.vae if hasattr(trainer, "vae") else trainer.model,
                "d_model": trainer.disc}
@@ -218,8 +230,8 @@ def run_trainer(argv: list[str]) -> dict:
                 for key, module in modules.items() if module is not None
                 for name, p in module.named_parameters())
     return {"built": built, "trained": trained, "whole_after_train": whole,
-            "local_batch": trainer.local_batch, "mesh": trainer.mesh.shape,
-            "logs": trainer.logger.is_master}
+            "replicas_equal": equal, "local_batch": trainer.local_batch,
+            "mesh": trainer.mesh.shape, "logs": trainer.logger.is_master}
 
 
 def same_tree(a, b) -> bool:
@@ -260,14 +272,105 @@ def _tape(path: str, timeout_s: float = 600.0):
     return tape
 
 
+def _block(x: np.ndarray, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``group``'s split of x along ``dim``."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(x, np.arange(r * size, (r + 1) * size), axis=dim)))
+
+
+def run_ring(spec: dict, groups: dict) -> dict:
+    """Ring attention over each group of ``groups`` ({ranks: group}) on its
+    blocks of the spec's global (B, N, H, D) q, k, v and cotangent g, in
+    each dtype: this rank's out, dq, dk, dv (fp32 copies)."""
+    from vqgan_tpu_torch.ops.ring_attention import ring_attention
+
+    out = {}
+    for ranks, group in groups.items():
+        if dist.get_rank() not in ranks:
+            continue
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q, k, v = (_block(spec[name], group, 1).to(dt).requires_grad_(True)
+                       for name in ("q", "k", "v"))
+            o = ring_attention(q, k, v, group, spec["chunk"])
+            o.backward(_block(spec["g"], group, 1).to(dt))
+            out[(len(ranks), dtype)] = {"out": o.detach().float(), "dq": q.grad.float(),
+                                        "dk": k.grad.float(), "dv": v.grad.float()}
+    return out
+
+
+def run_context_units(spec: dict, mesh) -> dict:
+    """The context axis's pieces on this rank's T blocks of the spec's
+    global tensors: ``halo_t`` over every rank and its backward for a
+    cotangent; the two-pass GroupNorm over every rank, forward and
+    backward; the tiny TVAE's forward and parameter gradients at
+    data=1,context=2 (the ranks of this rank's context group) and at
+    data=2,context=2 (every rank)."""
+    from vqgan_tpu_torch.ops.groupnorm_cuda import context_group_norm
+    from vqgan_tpu_torch.parallel.context import halo_t
+
+    world = mesh.group
+    out = {}
+    for before, after in ((1, 1), (0, 1)):
+        x = _block(spec["halo_x"], world, 2).contiguous(
+            memory_format=torch.channels_last_3d).requires_grad_(True)
+        y = halo_t(x, before, after, world)
+        cot = spec["halo_g"][(before, after)][dist.get_rank()]
+        y.backward(torch.from_numpy(cot))
+        out[("halo", before, after)] = {"y": y.detach(), "dx": x.grad}
+    for swish in (False, True):
+        x = _block(spec["gn_x"], world, 2).contiguous(
+            memory_format=torch.channels_last_3d).requires_grad_(True)
+        w, b = (torch.from_numpy(spec[k]).requires_grad_(True) for k in ("gn_w", "gn_b"))
+        y = context_group_norm(x, w, b, 32, 1e-6, swish, world)
+        y.backward(_block(spec["gn_g"], world, 2).contiguous(
+            memory_format=torch.channels_last_3d))
+        out[("gn", swish)] = {"y": y.detach(), "dx": x.grad, "dw": w.grad, "db": b.grad}
+    for layout, group, rows in (("d1c2", mesh.context_group, (0, 1)),
+                                ("d2c2", world, (mesh.data_index, mesh.n_data))):
+        model = TVAE(TVAEConfig(**spec["tvae"]), context=mesh.context_group)
+        model.load_state_dict(spec["tvae_sd"], strict=True)
+        x = _block(_rows(spec["tvae_x"], *rows), mesh.context_group, 1)
+        z = model.encode(x)
+        y = model.decode(z[..., :z.shape[-1] // 2])
+        loss = (y * _block(_rows(spec["tvae_wy"], *rows), mesh.context_group, 1)).sum() + (
+            z * _block(_rows(spec["tvae_wz"], *rows), mesh.context_group, 1)).sum()
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        for g in grads.values():
+            dist.all_reduce(g, group=group)
+        out[("tvae", layout)] = {"y": y.detach(), "z": z.detach(), "grads": grads}
+    return out
+
+
 def main() -> None:
     torch.set_num_threads(1)
     spec_path, out_dir = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
     spec = torch.load(spec_path, weights_only=False)
-    mesh = create_mesh(spec.get("mesh", {"data": -1}))
+    axes = spec.get("mesh", {"data": -1})
+    mesh = create_mesh(axes, context="context" in axes)
     rank, n = mesh.rank, mesh.world_size
     out = {}
+    if "ring" in spec:
+        groups = {tuple(range(mesh.world_size)): mesh.group}
+        for pair in ((0, 1), (2, 3)):  # every rank makes every group
+            groups[pair] = dist.new_group(list(pair))
+        out["ring"] = run_ring(spec["ring"], groups)
+    if "context_units" in spec:
+        out["context_units"] = run_context_units(spec["context_units"], mesh)
+    for i, case in enumerate(spec.get("context_cases", ())):
+        tape = _tape(os.path.join(out_dir, f"ctx_tape{i}.pt"))
+        if case["layout"] == "d1c2":
+            got = run_case(case, mesh.context_group, 0, 1, tape, context=mesh.context_group)
+        else:
+            got = run_case(case, mesh.group, mesh.data_index, mesh.n_data, tape,
+                           context=mesh.context_group)
+        if rank != 0:  # the others' moments and params: shapes only (D's are ~60 MB)
+            got = meta_tree(got)
+        out[case["name"]] = got
     if "gradnorm" in spec:
         out["gradnorm"] = run_gradnorm(spec["gradnorm"], mesh.group, rank, n)
     for i, case in enumerate(spec.get("cases", ())):
@@ -284,6 +387,9 @@ def main() -> None:
             continue
         out[case["name"]] = run_case(case, mesh.group, rank, n, tape)
     out["trainer"] = [run_trainer(argv) for argv in spec.get("trainer", ())]
+    if "context_cases" in spec and rank != 0:  # rank 0's trees stand for every rank's
+        out["trainer"] = [{k: meta_tree(v) if k in ("built", "trained") else v
+                           for k, v in run.items()} for run in out["trainer"]]
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 

@@ -27,8 +27,10 @@ Data parallelism: ``torchrun --nproc_per_node N -m vqgan_tpu_torch.cli
 train|train3d --mesh_shape data=-1 ...`` runs N ranks, each on its card
 (``cuda:LOCAL_RANK``; ranks that share a card talk over gloo), with
 ``--batch_size`` the global batch; ``--mesh_shape data=D,fsdp=F`` (or
-``fsdp=-1``) also shards the train state over F ranks. ``--mesh_shape``
-axes ``tensor`` and ``context`` above 1 raise NotImplementedError naming
+``fsdp=-1``) also shards the train state over F ranks; ``train3d
+--mesh_shape data=D,context=C`` splits each clip's frames over C ranks
+(ring attention, T halos). ``tensor`` above 1, ``context`` above 1 for
+``train`` and ``fsdp`` with ``context`` raise NotImplementedError naming
 their ROADMAP.md items.
 """
 
@@ -110,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--mesh_shape", type=str, default="data=-1",
         help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
              "torchrun ranks; data=D,fsdp=F (or fsdp=-1) also shards the train state over "
-             "F ranks; tensor and context above 1 raise NotImplementedError (not ported)")
+             "F ranks; tensor above 1 and context above 1 (the 2D halo) raise "
+             "NotImplementedError (not ported)")
     add("--remat", type=_bool, default=False,
         help="Activation rematerialization (fit large configs in device memory)")
     add("--remat_policy", type=str, default="full",
@@ -328,8 +331,9 @@ def build_parser_3d() -> argparse.ArgumentParser:
     add("--mesh_shape", type=str, default="data=-1",
         help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
              "torchrun ranks; data=D,fsdp=F (or fsdp=-1) also shards the train state over "
-             "F ranks; tensor and context (ring attention) above 1 raise "
-             "NotImplementedError (not ported)")
+             "F ranks; data=D,context=C splits each clip's T frames over C ranks (ring "
+             "attention over the mid block, T halos around every conv); tensor above 1, "
+             "and fsdp with context, raise NotImplementedError (not ported)")
     add("--use_wandb", type=_bool, default=True,
         help="Log to wandb when available (JSONL always)")
     add("--log_every", type=int, default=5, help="Metric logging cadence in steps")

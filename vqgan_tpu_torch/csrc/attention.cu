@@ -15,6 +15,11 @@
 // strides whose last is 1 and whose others are multiples of 4 elements (fp32)
 // or 8 (bf16), 16-byte aligned, so q, k and v can be views of the qkv conv's
 // channels-last output (token stride 3C). lse and delta are fp32 (B, H, N).
+// The output (the forward's out, the backward's dq, dk and dv) has the
+// inputs' type, or fp32 for bf16 inputs where the caller asks (ring
+// attention, ops/ring_attention.py, sums each ring step's partial in fp32
+// and casts once at the end, as the JAX ring does): the same accumulators,
+// stored without the cast.
 // The backward is three launches: delta = sum_d dO*O per row (from O as
 // stored), a dK/dV kernel (one key tile per block, looping over query tiles)
 // and a dQ kernel (one query tile per block, looping over key tiles). Every
@@ -582,10 +587,10 @@ __device__ __forceinline__ void mask_past(float (&s)[NT][4], int c0, int n, int 
 }
 
 // Rows r0 + g and r0 + g + 8 of a warp's 16 x D accumulator, divided by
-// div[0] and div[1], as bf16 pairs into the (b, h) slice of dst; rows at or
-// past n are not written.
-template <int D>
-__device__ __forceinline__ void store_acc(bf16* __restrict__ dst, const Strides& s, int b, int h,
+// div[0] and div[1], as pairs of TO (bf16, or fp32 for the ring's partials)
+// into the (b, h) slice of dst; rows at or past n are not written.
+template <int D, typename TO>
+__device__ __forceinline__ void store_acc(TO* __restrict__ dst, const Strides& s, int b, int h,
                                           int r0, int n, const float (&acc)[D / 8][4],
                                           const float (&div)[2], int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -593,11 +598,15 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, const Strides&
   for (int half = 0; half < 2; ++half) {
     const int row = r0 + g + 8 * half;
     if (row >= n) continue;
-    bf16* out = dst + offset(s, b, row, h) + 2 * t;
+    TO* out = dst + offset(s, b, row, h) + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          pack_bf16(acc[j][2 * half] / div[half], acc[j][2 * half + 1] / div[half]);
+      const float x = acc[j][2 * half] / div[half], y = acc[j][2 * half + 1] / div[half];
+      if constexpr (std::is_same_v<TO, float>) {
+        *reinterpret_cast<float2*>(out + 8 * j) = make_float2(x, y);
+      } else {
+        *reinterpret_cast<uint32_t*>(out + 8 * j) = pack_bf16(x, y);
+      }
     }
   }
 }
@@ -628,10 +637,10 @@ __device__ __forceinline__ void ring_step(int i, int steps, LoadStep load_step) 
 
 // Two blocks an SM, except at D = 128, whose tiles take more than half an
 // SM's shared memory (its registers may then grow to 255).
-template <int D>
+template <int D, typename TO>
 __global__ void __launch_bounds__(kTcThreads, D > 64 ? 1 : 2)
     attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                       const bf16* __restrict__ v, TO* __restrict__ o, float* __restrict__ lse,
                        Strides sq, Strides sk, Strides sv, Strides so, int heads, int n,
                        float scale) {
   constexpr int kStep = kTcStep<D>, kNt = kStep / 8;
@@ -704,7 +713,7 @@ __global__ void __launch_bounds__(kTcThreads, D > 64 ? 1 : 2)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   const int r0 = q0 + warp * 16;
-  store_acc<D>(o, so, b, h, r0, n, acc, l, lane);
+  store_acc<D, TO>(o, so, b, h, r0, n, acc, l, lane);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -714,12 +723,12 @@ __global__ void __launch_bounds__(kTcThreads, D > 64 ? 1 : 2)
   }
 }
 
-template <int D>
+template <int D, typename TO>
 __global__ void __launch_bounds__(kTcThreads)
     attn_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ g,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
+                       TO* __restrict__ dk, TO* __restrict__ dv, Strides sq, Strides sk,
                        Strides sv, Strides sg, Strides sdk, Strides sdv, int heads, int n,
                        float scale) {
   constexpr int kStep = kTcStep<D>, kNt = kStep / 8;
@@ -788,16 +797,16 @@ __global__ void __launch_bounds__(kTcThreads)
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(dk, sdk, b, h, k0 + warp * 16, n, dk_acc, one, lane);
-  store_acc<D>(dv, sdv, b, h, k0 + warp * 16, n, dv_acc, one, lane);
+  store_acc<D, TO>(dk, sdk, b, h, k0 + warp * 16, n, dk_acc, one, lane);
+  store_acc<D, TO>(dv, sdv, b, h, k0 + warp * 16, n, dv_acc, one, lane);
 }
 
-template <int D>
+template <int D, typename TO>
 __global__ void __launch_bounds__(kTcThreads)
     attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ g,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sg,
+                      TO* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sg,
                       Strides sdq, int heads, int n, float scale) {
   constexpr int kStep = kTcStep<D>, kNt = kStep / 8;
   constexpr int kLd = D + 8, kStage = 2 * kStep * kLd;
@@ -854,7 +863,7 @@ __global__ void __launch_bounds__(kTcThreads)
   }
   cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  store_acc<D>(dq, sdq, b, h, q0 + warp * 16, n, dq_acc, one, lane);
+  store_acc<D, TO>(dq, sdq, b, h, q0 + warp * 16, n, dq_acc, one, lane);
 }
 
 template <int D>
@@ -900,7 +909,10 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 Strides strides_at(const int64_t* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
 // The dtype picks the route: bf16 the tensor-core kernels, fp32 the FMA ones.
-template <typename T, int D>
+// TO is the type of the output (the forward's out, the backward's dq, dk,
+// dv): T, or fp32 for bf16 inputs (the ring's partials, summed in fp32
+// across ring steps and cast once).
+template <typename T, typename TO, int D>
 cudaError_t launch_forward(const void* q, const void* k, const void* v, void* o, float* lse,
                            const int64_t* s, int batch, int heads, int n, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -908,11 +920,11 @@ cudaError_t launch_forward(const void* q, const void* k, const void* v, void* o,
           *tv = static_cast<const T*>(v);
   cudaError_t err;
   if constexpr (std::is_same_v<T, bf16>) {
-    auto kernel = attn_fwd_tc_kernel<D>;
+    auto kernel = attn_fwd_tc_kernel<D, TO>;
     if ((err = allow_smem(kernel, tc_fwd_smem<D>())) != cudaSuccess) return err;
     const dim3 grid((n + kTcRows - 1) / kTcRows, batch * heads);
     kernel<<<grid, kTcThreads, tc_fwd_smem<D>(), stream>>>(
-        tq, tk, tv, static_cast<T*>(o), lse, strides_at(s, 0), strides_at(s, 1),
+        tq, tk, tv, static_cast<TO*>(o), lse, strides_at(s, 0), strides_at(s, 1),
         strides_at(s, 2), strides_at(s, 3), heads, n, scale);
   } else {
     auto kernel = attn_fwd_kernel<T, D>;
@@ -925,7 +937,7 @@ cudaError_t launch_forward(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename TO, int D>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* o,
                             const void* g, const float* lse, float* delta, void* dq, void* dk,
                             void* dv, const int64_t* s, int batch, int heads, int n,
@@ -942,17 +954,17 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
 
   if constexpr (std::is_same_v<T, bf16>) {
     const dim3 grid((n + kTcRows - 1) / kTcRows, batch * heads);
-    auto dkv = attn_bwd_dkv_tc_kernel<D>;
+    auto dkv = attn_bwd_dkv_tc_kernel<D, TO>;
     if ((err = allow_smem(dkv, tc_dkv_smem<D>())) != cudaSuccess) return err;
     dkv<<<grid, kTcThreads, tc_dkv_smem<D>(), stream>>>(
-        tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), strides_at(s, 0),
+        tq, tk, tv, tg, lse, delta, static_cast<TO*>(dk), static_cast<TO*>(dv), strides_at(s, 0),
         strides_at(s, 1), strides_at(s, 2), strides_at(s, 4), strides_at(s, 6),
         strides_at(s, 7), heads, n, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    auto dqk = attn_bwd_dq_tc_kernel<D>;
+    auto dqk = attn_bwd_dq_tc_kernel<D, TO>;
     if ((err = allow_smem(dqk, tc_dq_smem<D>())) != cudaSuccess) return err;
     dqk<<<grid, kTcThreads, tc_dq_smem<D>(), stream>>>(
-        tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), strides_at(s, 0), strides_at(s, 1),
+        tq, tk, tv, tg, lse, delta, static_cast<TO*>(dq), strides_at(s, 0), strides_at(s, 1),
         strides_at(s, 2), strides_at(s, 4), strides_at(s, 5), heads, n, scale);
   } else {
     const dim3 grid((n + kTile - 1) / kTile, batch * heads);
@@ -976,21 +988,23 @@ bool valid(int batch, int heads, int n) {
   return batch >= 1 && heads >= 1 && n >= 1 && static_cast<int64_t>(batch) * heads <= 65535;
 }
 
-// go(T{}, std::integral_constant<int, D>{}) for dtype 0 (fp32) or 1 (bf16)
-// and head_dim D of 16, 32, 64 or 128; cudaErrorInvalidValue for any other.
+// go(T{}, TO{}, std::integral_constant<int, D>{}) for dtype 0 (fp32) or 1
+// (bf16), out_dtype 0 (fp32) or the dtype, and head_dim D of 16, 32, 64 or
+// 128; cudaErrorInvalidValue for any other.
 template <typename Go>
-cudaError_t by_type_and_dim(int dtype, int head_dim, Go go) {
-  auto by_dim = [&](auto t) -> cudaError_t {
+cudaError_t by_type_and_dim(int dtype, int out_dtype, int head_dim, Go go) {
+  auto by_dim = [&](auto t, auto to) -> cudaError_t {
     switch (head_dim) {
-      case 16: return go(t, std::integral_constant<int, 16>{});
-      case 32: return go(t, std::integral_constant<int, 32>{});
-      case 64: return go(t, std::integral_constant<int, 64>{});
-      case 128: return go(t, std::integral_constant<int, 128>{});
+      case 16: return go(t, to, std::integral_constant<int, 16>{});
+      case 32: return go(t, to, std::integral_constant<int, 32>{});
+      case 64: return go(t, to, std::integral_constant<int, 64>{});
+      case 128: return go(t, to, std::integral_constant<int, 128>{});
       default: return cudaErrorInvalidValue;
     }
   };
-  if (dtype == 0) return by_dim(float{});
-  if (dtype == 1) return by_dim(bf16{});
+  if (dtype == 0 && out_dtype == 0) return by_dim(float{}, float{});
+  if (dtype == 1 && out_dtype == 1) return by_dim(bf16{}, bf16{});
+  if (dtype == 1 && out_dtype == 0) return by_dim(bf16{}, float{});
   return cudaErrorInvalidValue;
 }
 
@@ -1000,35 +1014,41 @@ extern "C" {
 
 // out and lse (fp32, B x H x N contiguous) of softmax(Q.K^T / sqrt(D)).V.
 // strides: 3 int64 (batch, token, head) for each of q, k, v, out, in that
-// order. dtype 0 = fp32, 1 = bf16; head_dim 16, 32, 64 or 128. Returns a
+// order. dtype 0 = fp32, 1 = bf16, of q, k and v; out_dtype that of out: the
+// dtype, or 0 (fp32) for bf16 inputs; head_dim 16, 32, 64 or 128. Returns a
 // cudaError_t.
 int attn_forward(const void* q, const void* k, const void* v, void* out, float* lse,
                  const int64_t* strides, int batch, int heads, int n, int head_dim, int dtype,
-                 void* stream) {
+                 int out_dtype, void* stream) {
   if (!valid(batch, heads, n)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto t, auto d) {
+  auto go = [&](auto t, auto to, auto d) {
     using T = decltype(t);
-    return launch_forward<T, decltype(d)::value>(q, k, v, out, lse, strides, batch, heads, n, st);
+    using TO = decltype(to);
+    return launch_forward<T, TO, decltype(d)::value>(q, k, v, out, lse, strides, batch, heads,
+                                                     n, st);
   };
-  return static_cast<int>(by_type_and_dim(dtype, head_dim, go));
+  return static_cast<int>(by_type_and_dim(dtype, out_dtype, head_dim, go));
 }
 
 // dq, dk, dv of the forward above for the incoming gradient g of out; delta
 // is fp32 scratch of B x H x N. strides: 3 int64 for each of q, k, v, out,
-// g, dq, dk, dv, in that order. Returns a cudaError_t.
+// g, dq, dk, dv, in that order. out and g are of dtype; grad_dtype is that
+// of dq, dk and dv: the dtype, or 0 (fp32) for bf16 inputs. Returns a
+// cudaError_t.
 int attn_backward(const void* q, const void* k, const void* v, const void* out, const void* g,
                   const float* lse, float* delta, void* dq, void* dk, void* dv,
                   const int64_t* strides, int batch, int heads, int n, int head_dim, int dtype,
-                  void* stream) {
+                  int grad_dtype, void* stream) {
   if (!valid(batch, heads, n)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto t, auto d) {
+  auto go = [&](auto t, auto to, auto d) {
     using T = decltype(t);
-    return launch_backward<T, decltype(d)::value>(q, k, v, out, g, lse, delta, dq, dk, dv,
-                                                  strides, batch, heads, n, st);
+    using TO = decltype(to);
+    return launch_backward<T, TO, decltype(d)::value>(q, k, v, out, g, lse, delta, dq, dk, dv,
+                                                      strides, batch, heads, n, st);
   };
-  return static_cast<int>(by_type_and_dim(dtype, head_dim, go));
+  return static_cast<int>(by_type_and_dim(dtype, grad_dtype, head_dim, go));
 }
 
 const char* attn_error_string(int err) {

@@ -1018,6 +1018,309 @@ const void* backward_kernel(int dtype, int with_swish, int reread) {
   return nullptr;
 }
 
+// ---------------------------------------------------------------------------
+// the two-pass form (a GroupNorm over a clip whose frames are split over the
+// ranks of a context group): the per-(b, group) sums of this rank's rows,
+// then, after the caller sums them across the ranks, the normalisation; and
+// backward the same seam. The structure of the Pallas kernels themselves
+// (groupnorm.py:112 partial sums, :131 normalise; :218 backward sums, :244
+// dx), which the one-launch kernels above fuse away. Each is one launch:
+//   gn_ctx_sums_kernel   grid (splits, B): a block sums its rows' x and x^2
+//                        (the backward's partial: dyhat and dyhat*xhat) per
+//                        channel, in order, then per group; the last block
+//                        to finish folds every block's partials in block
+//                        order (an integer counter, as the backward's
+//                        barrier; no float atomics);
+//   gn_ctx_apply_kernel  grid (blocks, B): y = x*A + B (+ swish) from the
+//                        given stats; the dx kernel likewise from the summed
+//                        backward terms.
+// Bound: device-memory bandwidth, as the one-launch kernels: the sums read x
+// (and g) once, the apply pass reads them again and writes y (dx) once, so
+// the two-pass form moves one more read of the activation than the fused one.
+// Thread t of a block owns channel pack lane = t % lanes of rows slot, slot +
+// rows_par, ... where lanes = min(C / N, 256), rows_par = 256 / lanes.
+// ---------------------------------------------------------------------------
+
+constexpr int kCtxThreads = 256;
+
+struct CtxArgs {
+  const void* x;
+  const void* g;          // the incoming gradient (backward), or null
+  const float* stats;     // (B, 2, G) mean, rstd (apply, backward)
+  const float* gsums;     // (B, 2, G) summed Σγ·dyhat, Σγ·dyhat·xhat (dx)
+  const float* gamma;
+  const float* beta;
+  void* y;                // y or dx
+  float* out;             // the sums kernel's result: (B, 2, G); backward also dgamma, dbeta (2, C)
+  float* partial;         // [B * splits][2][G] (forward) or [B * splits][2][C] (backward)
+  int* counter;           // zeroed by the launch function
+  int B, S, C, G, splits;
+  float n;                // the elements of a group over every rank (dx)
+};
+
+// Rows [r0, r1) of sample b: each thread's V-channel sums of f(x, g, c) over
+// its rows, for the packs lane, lane + lanes, ...; the block's per-channel
+// sums into chan[2][C] in slot order. Every thread calls it.
+template <typename T, typename F>
+__device__ void ctx_channel_sums(const CtxArgs& a, int b, int r0, int r1, float* red,
+                                 float* chan, F f) {
+  constexpr int N = Pack<T>::N;
+  const int P = a.C / N;
+  const int lanes = min(P, kCtxThreads);
+  const int rows_par = kCtxThreads / lanes;
+  const int lane = threadIdx.x % lanes, slot = threadIdx.x / lanes;
+  const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * a.S * a.C;
+  const T* g = a.g == nullptr ? nullptr
+                              : static_cast<const T*>(a.g) + static_cast<int64_t>(b) * a.S * a.C;
+  for (int pc = 0; pc < P; pc += lanes) {
+    const int p = pc + lane;
+    float s0[N], s1[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) s0[i] = s1[i] = 0.f;
+    if (slot < rows_par && p < P) {
+      for (int r = r0 + slot; r < r1; r += rows_par) {
+        const int64_t off = static_cast<int64_t>(r) * a.C + p * N;
+        float xv[N], gv[N];
+        Pack<T>::load(x + off, xv);
+        if (g != nullptr) Pack<T>::load(g + off, gv);
+#pragma unroll
+        for (int i = 0; i < N; ++i) f(xv[i], g != nullptr ? gv[i] : 0.f, p * N + i, s0[i], s1[i]);
+      }
+    }
+    if (slot < rows_par) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        red[(slot * lanes + lane) * N + i] = s0[i];
+        red[(kCtxThreads + slot * lanes + lane) * N + i] = s1[i];
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < lanes * N; j += kCtxThreads) {
+      const int c = pc * N + j;
+      if (c < a.C) {
+        float t0 = 0.f, t1 = 0.f;
+        for (int s = 0; s < rows_par; ++s) {
+          t0 += red[s * lanes * N + j];
+          t1 += red[(kCtxThreads * N) + s * lanes * N + j];
+        }
+        chan[c] = t0;
+        chan[a.C + c] = t1;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The last block of the grid to arrive (an integer counter) returns true;
+// every block's writes before the call are visible to it.
+__device__ __forceinline__ bool ctx_last_block(int* counter, int blocks) {
+  __shared__ bool last;
+  __threadfence();  // this thread's partials, before the block arrives
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1) == blocks - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  return last;
+}
+
+// Forward sums: out[b][0][g] = Σ x, out[b][1][g] = Σ x^2 over this rank's
+// rows of group g, fp32.
+template <typename T>
+__global__ void __launch_bounds__(kCtxThreads) gn_ctx_sums_kernel(const CtxArgs a) {
+  extern __shared__ float ctx_smem[];
+  constexpr int N = Pack<T>::N;
+  float* red = ctx_smem;                          // [2][256][N]
+  float* chan = ctx_smem + 2 * kCtxThreads * N;   // [2][C]
+  const int b = blockIdx.y, split = blockIdx.x;
+  const int rows = (a.S + a.splits - 1) / a.splits;
+  const int r0 = min(a.S, split * rows), r1 = min(a.S, r0 + rows);
+  ctx_channel_sums<T>(a, b, r0, r1, red, chan,
+                      [](float x, float, int, float& s0, float& s1) {
+                        s0 += x;
+                        s1 = fmaf(x, x, s1);
+                      });
+  const int cg = a.C / a.G;
+  float* mine = a.partial + (static_cast<int64_t>(b) * a.splits + split) * 2 * a.G;
+  for (int j = threadIdx.x; j < 2 * a.G; j += kCtxThreads) {
+    const int which = j / a.G, grp = j % a.G;
+    float t = 0.f;
+    for (int c = grp * cg; c < (grp + 1) * cg; ++c) t += chan[which * a.C + c];
+    mine[j] = t;
+  }
+  if (!ctx_last_block(a.counter, a.B * a.splits)) return;
+  for (int j = threadIdx.x; j < a.B * 2 * a.G; j += kCtxThreads) {
+    const int bb = j / (2 * a.G), k = j % (2 * a.G);
+    float t = 0.f;
+    for (int s = 0; s < a.splits; ++s) t += a.partial[(static_cast<int64_t>(bb) * a.splits + s) * 2 * a.G + k];
+    a.out[j] = t;
+  }
+}
+
+// Per channel of sample b: A = rstd*gamma, B = beta - mean*A (the forward's
+// roundings) into coef[2][C].
+__device__ void ctx_affine(const CtxArgs& a, int b, float* coef) {
+  const int cg = a.C / a.G;
+  for (int c = threadIdx.x; c < a.C; c += kCtxThreads) {
+    const float mean = a.stats[(b * 2) * a.G + c / cg];
+    const float rstd = a.stats[(b * 2 + 1) * a.G + c / cg];
+    const float A = __fmul_rn(rstd, a.gamma[c]);
+    coef[c] = A;
+    coef[a.C + c] = __fsub_rn(a.beta[c], __fmul_rn(mean, A));
+  }
+  __syncthreads();
+}
+
+template <typename T, bool kSwish>
+__global__ void __launch_bounds__(kCtxThreads) gn_ctx_apply_kernel(const CtxArgs a) {
+  extern __shared__ float ctx_smem[];
+  float* coef = ctx_smem;  // [2][C]
+  constexpr int N = Pack<T>::N;
+  const int b = blockIdx.y;
+  ctx_affine(a, b, coef);
+  const int P = a.C / N;
+  const int64_t packs = static_cast<int64_t>(a.S) * P;
+  const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(b) * a.S * a.C;
+  T* y = static_cast<T*>(a.y) + static_cast<int64_t>(b) * a.S * a.C;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kCtxThreads) + threadIdx.x; i < packs;
+       i += static_cast<int64_t>(gridDim.x) * kCtxThreads) {
+    const int c0 = static_cast<int>(i % P) * N;
+    float v[N];
+    Pack<T>::load(x + i * N, v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = affine<kSwish>(v[k], coef[c0 + k], coef[a.C + c0 + k]);
+    Pack<T>::store(y + i * N, v);
+  }
+}
+
+// Backward sums: per (b, group) Σ γ·dyhat and Σ γ·dyhat·xhat over this
+// rank's rows into out[b][2][G], and this rank's dgamma = Σ_b Σ dyhat·xhat,
+// dbeta = Σ_b Σ dyhat into out + B*2*G (2, C).
+template <typename T, bool kSwish>
+__global__ void __launch_bounds__(kCtxThreads) gn_ctx_bwd_sums_kernel(const CtxArgs a) {
+  extern __shared__ float ctx_smem[];
+  constexpr int N = Pack<T>::N;
+  float* red = ctx_smem;                          // [2][256][N]
+  float* chan = ctx_smem + 2 * kCtxThreads * N;   // [2][C]
+  float* coef = chan + 2 * a.C;               // [2][C]: A, B
+  float* norm = coef + 2 * a.C;               // [2][C]: mean, rstd of the channel's group
+  const int b = blockIdx.y, split = blockIdx.x;
+  ctx_affine(a, b, coef);
+  const int cg = a.C / a.G;
+  for (int c = threadIdx.x; c < a.C; c += kCtxThreads) {
+    norm[c] = a.stats[(b * 2) * a.G + c / cg];
+    norm[a.C + c] = a.stats[(b * 2 + 1) * a.G + c / cg];
+  }
+  __syncthreads();
+  const int rows = (a.S + a.splits - 1) / a.splits;
+  const int r0 = min(a.S, split * rows), r1 = min(a.S, r0 + rows);
+  const int C = a.C;
+  ctx_channel_sums<T>(a, b, r0, r1, red, chan,
+                      [coef, norm, C](float x, float g, int c, float& s0, float& s1) {
+                        const float dy = kSwish ? d_yhat(x, g, coef[c], coef[C + c]) : g;
+                        const float xhat = __fmul_rn(__fsub_rn(x, norm[c]), norm[C + c]);
+                        s0 += dy;
+                        s1 = fmaf(dy, xhat, s1);
+                      });
+  float* mine = a.partial + (static_cast<int64_t>(b) * a.splits + split) * 2 * a.C;
+  for (int j = threadIdx.x; j < 2 * a.C; j += kCtxThreads) mine[j] = chan[j];
+  if (!ctx_last_block(a.counter, a.B * a.splits)) return;
+  // the last block: per (b, c) the splits in order, then per group, and
+  // dgamma, dbeta over b in order
+  float* dgamma = a.out + a.B * 2 * a.G;
+  for (int c = threadIdx.x; c < a.C; c += kCtxThreads) dgamma[c] = dgamma[a.C + c] = 0.f;
+  for (int bb = 0; bb < a.B; ++bb) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < a.C; c += kCtxThreads) {
+      float t0 = 0.f, t1 = 0.f;
+      for (int s = 0; s < a.splits; ++s) {
+        const float* p = a.partial + (static_cast<int64_t>(bb) * a.splits + s) * 2 * a.C;
+        t0 += p[c];
+        t1 += p[a.C + c];
+      }
+      chan[c] = t0;
+      chan[a.C + c] = t1;
+      dgamma[a.C + c] += t0;  // dbeta
+      dgamma[c] += t1;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < 2 * a.G; j += kCtxThreads) {
+      const int which = j / a.G, grp = j % a.G;
+      float t = 0.f;
+      for (int c = grp * cg; c < (grp + 1) * cg; ++c) {
+        t = fmaf(a.gamma[c], chan[which * a.C + c], t);
+      }
+      a.out[bb * 2 * a.G + j] = t;
+    }
+  }
+}
+
+// dx = dyhat*ca + x*cb + cc with ca = r*gamma, cb = -r^2*m2, cc = mean*r^2*m2
+// - r*m1, m1 = Σγ·dyhat / n, m2 = Σγ·dyhat·xhat / n from the summed gsums.
+template <typename T, bool kSwish>
+__global__ void __launch_bounds__(kCtxThreads) gn_ctx_dx_kernel(const CtxArgs a) {
+  extern __shared__ float ctx_smem[];
+  float* coef = ctx_smem;  // [5][C]: A, B, ca, cb, cc
+  constexpr int N = Pack<T>::N;
+  const int b = blockIdx.y;
+  ctx_affine(a, b, coef);
+  const int cg = a.C / a.G;
+  for (int c = threadIdx.x; c < a.C; c += kCtxThreads) {
+    const int grp = c / cg;
+    const float mean = a.stats[(b * 2) * a.G + grp];
+    const float r = a.stats[(b * 2 + 1) * a.G + grp];
+    const float m1 = a.gsums[(b * 2) * a.G + grp] / a.n;
+    const float m2 = a.gsums[(b * 2 + 1) * a.G + grp] / a.n;
+    const float r2m2 = r * r * m2;
+    coef[2 * a.C + c] = r * a.gamma[c];
+    coef[3 * a.C + c] = -r2m2;
+    coef[4 * a.C + c] = mean * r2m2 - r * m1;
+  }
+  __syncthreads();
+  const int P = a.C / N;
+  const int64_t packs = static_cast<int64_t>(a.S) * P;
+  const int64_t base = static_cast<int64_t>(b) * a.S * a.C;
+  const T* x = static_cast<const T*>(a.x) + base;
+  const T* g = static_cast<const T*>(a.g) + base;
+  T* dx = static_cast<T*>(a.y) + base;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kCtxThreads) + threadIdx.x; i < packs;
+       i += static_cast<int64_t>(gridDim.x) * kCtxThreads) {
+    const int c0 = static_cast<int>(i % P) * N;
+    float xv[N], gv[N];
+    Pack<T>::load(x + i * N, xv);
+    Pack<T>::load(g + i * N, gv);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int c = c0 + k;
+      const float dy = kSwish ? d_yhat(xv[k], gv[k], coef[c], coef[a.C + c]) : gv[k];
+      gv[k] = fmaf(dy, coef[2 * a.C + c], fmaf(xv[k], coef[3 * a.C + c], coef[4 * a.C + c]));
+    }
+    Pack<T>::store(dx + i * N, gv);
+  }
+}
+
+template <typename T>
+const void* ctx_kernel_of(int kind, int with_swish) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(gn_ctx_sums_kernel<T>);
+    case 1: return with_swish ? reinterpret_cast<const void*>(gn_ctx_apply_kernel<T, true>)
+                              : reinterpret_cast<const void*>(gn_ctx_apply_kernel<T, false>);
+    case 2: return with_swish ? reinterpret_cast<const void*>(gn_ctx_bwd_sums_kernel<T, true>)
+                              : reinterpret_cast<const void*>(gn_ctx_bwd_sums_kernel<T, false>);
+    case 3: return with_swish ? reinterpret_cast<const void*>(gn_ctx_dx_kernel<T, true>)
+                              : reinterpret_cast<const void*>(gn_ctx_dx_kernel<T, false>);
+  }
+  return nullptr;
+}
+
+const void* ctx_kernel(int kind, int dtype, int with_swish) {
+  if (dtype == 0) return ctx_kernel_of<float>(kind, with_swish);
+  if (dtype == 1) return ctx_kernel_of<__nv_bfloat16>(kind, with_swish);
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1179,6 +1482,86 @@ int gn_backward_trace(void* buffer) {
   return static_cast<int>(cudaMemcpyToSymbol(g_trace, &p, sizeof(p)));
 }
 #endif
+
+// The two-pass form's sums (gn_ctx_sums_kernel, backward = 0: out (B, 2, G)
+// Σx, Σx^2; gn_ctx_bwd_sums_kernel, backward = 1: out (B, 2, G) Σγ·dyhat,
+// Σγ·dyhat·xhat, then (2, C) dgamma, dbeta), over `splits` row ranges of
+// each sample. workspace: 4 int words (the counter, zeroed here), then the
+// blocks' partials, B * splits * 2 * (G forward, C backward) floats. g,
+// stats, gamma, beta: the backward's (null forward). One launch on `stream`.
+// Returns 0 or the cudaError_t.
+int gn_ctx_sums(const void* x, const void* g, const void* stats, const void* gamma,
+                const void* beta, void* out, void* workspace, int B, int S, int C, int G,
+                int splits, int backward, int with_swish, int dtype, void* stream) {
+  CtxArgs a = {};
+  a.x = x;
+  a.g = g;
+  a.stats = static_cast<const float*>(stats);
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.out = static_cast<float*>(out);
+  a.counter = static_cast<int*>(workspace);
+  a.partial = static_cast<float*>(workspace) + 4;
+  a.B = B;
+  a.S = S;
+  a.C = C;
+  a.G = G;
+  a.splits = splits;
+  const void* fn = ctx_kernel(backward ? 2 : 0, dtype, with_swish);
+  if (fn == nullptr || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int pack = dtype == 0 ? 4 : 8;
+  const size_t smem = (2 * kCtxThreads * pack + (backward ? 6 : 2) * C) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(a.counter, 0, 4 * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&a};
+  err = cudaLaunchKernel(fn, dim3(splits, B), dim3(kCtxThreads), args, smem, s);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The two-pass form's second pass: backward = 0, y = x*A + B (+ swish) from
+// stats (B, 2, G) mean, rstd (gn_ctx_apply_kernel); backward = 1, dx from x,
+// g, stats and the summed gsums (B, 2, G) over n elements a group
+// (gn_ctx_dx_kernel). `blocks` blocks a sample. One launch on `stream`.
+// Returns 0 or the cudaError_t.
+int gn_ctx_apply(const void* x, const void* g, const void* stats, const void* gsums,
+                 const void* gamma, const void* beta, void* y, int B, int S, int C, int G,
+                 int blocks, float n, int backward, int with_swish, int dtype, void* stream) {
+  CtxArgs a = {};
+  a.x = x;
+  a.g = g;
+  a.stats = static_cast<const float*>(stats);
+  a.gsums = static_cast<const float*>(gsums);
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.y = y;
+  a.B = B;
+  a.S = S;
+  a.C = C;
+  a.G = G;
+  a.n = n;
+  const void* fn = ctx_kernel(backward ? 3 : 1, dtype, with_swish);
+  if (fn == nullptr || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (backward ? 5 : 2) * C * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&a};
+  err = cudaLaunchKernel(fn, dim3(blocks, B), dim3(kCtxThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 const char* gn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

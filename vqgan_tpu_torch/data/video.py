@@ -16,7 +16,9 @@ array in [-1, 1]:
 
 ``process_index`` of ``process_count`` processes reads its round-robin
 share of the shards (``split_shards``); the defaults, 0 of 1, read every
-shard. ``Trainer3D`` passes its rank and the world size.
+shard. ``Trainer3D`` passes its data index and the data-parallel extent:
+the context ranks of one data index read the same clips, each keeping its T
+block of them.
 """
 
 from __future__ import annotations

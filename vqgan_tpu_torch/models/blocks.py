@@ -36,7 +36,7 @@ from torch.utils.checkpoint import (
 
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_attention
-from vqgan_tpu_torch.ops.groupnorm_cuda import FusedGroupNorm
+from vqgan_tpu_torch.ops.groupnorm_cuda import ContextGroupNorm, FusedGroupNorm
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
 
 
@@ -86,7 +86,10 @@ class FP32GroupNorm(nn.Module):
     """GroupNorm(32, eps=1e-6) computed in fp32 (reference ae.py:41-53), with
     the following swish fused when ``fused_swish``. Goes through the
     ``FusedGroupNorm`` autograd Function: a CUDA tensor runs the hand-written
-    kernels forward and backward; a CPU tensor their plain versions."""
+    kernels forward and backward; a CPU tensor their plain versions. With a
+    ``context`` process group (a clip's frames split over its ranks, set by
+    ``TVAE``) the two-pass ``ContextGroupNorm``, whose statistics span every
+    rank's frames."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  fused_swish: bool = False):
@@ -94,10 +97,14 @@ class FP32GroupNorm(nn.Module):
         self.num_groups = num_groups
         self.eps = eps
         self.fused_swish = fused_swish
+        self.context = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.context is not None:
+            return ContextGroupNorm.apply(x, self.weight, self.bias, self.num_groups,
+                                          self.eps, self.fused_swish, self.context)
         return FusedGroupNorm.apply(x, self.weight, self.bias, self.num_groups,
                                     self.eps, self.fused_swish)
 

@@ -19,6 +19,17 @@ physically NDHWC: cuDNN's 3D layout and the (B, T·H·W, C) view the GroupNorm
 and Conv3d kernels read. The model computes in ``compute_dtype``; params are
 fp32 and GroupNorm computes in fp32.
 
+With a ``context`` process group (``TVAE(cfg, context=group)``; JAX
+``TVAE(mesh, ring_axis)``) each rank holds a contiguous block of the clip's
+T frames and the model computes the whole clip's function on it
+(``parallel/context.py``): every stride-1 3×3×3 conv runs on its block with
+one halo frame of each neighbour (``halo_t``), VALID in T; the downsample's
+(0, 1) T pad is a right halo of one frame, zeros on the last rank; the
+upsample doubles its block and its conv takes halos; every GroupNorm takes
+the two-pass form across the group (``ContextGroupNorm``); the mid-block
+attention runs as exact ring attention (``ops/ring_attention.py``, kernel
+#3 once a ring step). The parameter tree is the same with or without it.
+
 With ``remat`` (JAX ``tae.py:645, 669, 702, 720, 762-763``) each level is a
 rematerialized region with its ResnetBlock3Ds nested inside it, and the mid
 blocks are regions of their own (``blocks.remat_call``; kernel #6's launches
@@ -42,6 +53,9 @@ from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_attention
 from vqgan_tpu_torch.ops.conv3d_cuda import conv3d_ttap
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x_3d
+from vqgan_tpu_torch.ops.ring_attention import ring_attention
+from vqgan_tpu_torch.parallel.context import halo_t
+from vqgan_tpu_torch.parallel.mesh import group_size
 
 NUM_HEADS = 8  # reference tae.py:17-18, for every width
 
@@ -64,7 +78,13 @@ class Conv3d(nn.Module):
     a CUDA tensor, its plain version on a CPU tensor; the bias is added after
     the kernel's cast, in the output dtype, as ``Conv3DTapPallas`` does. Every
     other conv runs ``F.conv3d``. ``init_std``: normal init with this std
-    instead of torch's default; ``bias=False``: no bias parameter."""
+    instead of torch's default; ``bias=False``: no bias parameter.
+
+    With a ``context`` group (set by ``TVAE``) a 3×3×3 stride-1 conv runs on
+    its T block with a halo frame of each neighbour: the kernel computes
+    SAME on the extended block and its two end frames are dropped (SAME on
+    the extended block is VALID in T on the clip; the backward's dy is
+    zero-padded to match), ``F.conv3d`` pads H and W only."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dtype: torch.dtype = torch.float32,
@@ -80,6 +100,7 @@ class Conv3d(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *(kernel_size,) * 3))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         self.fused_tap = (kernel_size, stride, padding) == (3, 1, 1)
+        self.context = None
 
     def uses_kernel(self, x: torch.Tensor) -> bool:
         """Whether this call goes through ``conv3d_ttap``."""
@@ -93,12 +114,26 @@ class Conv3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.context is not None and self.fused_tap:
+            return self._forward_halo(x.to(dt))
         if self.uses_kernel(x):
             out = conv3d_ttap(x.to(dt), self.weight.to(dt))
             return out if self.bias is None else out + self.bias.to(dt).view(-1, 1, 1, 1)
         bias = None if self.bias is None else self.bias.to(dt)
         y = F.conv3d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
         return y.contiguous(memory_format=torch.channels_last_3d)
+
+    def _forward_halo(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        xe = halo_t(x, 1, 1, self.context)
+        bias = None if self.bias is None else self.bias.to(dt)
+        if self.uses_kernel(x):
+            out = conv3d_ttap(xe, self.weight.to(dt))[:, :, 1:-1]
+            if bias is not None:
+                out = out + bias.view(-1, 1, 1, 1)
+        else:
+            out = F.conv3d(xe, self.weight.to(dt), bias, 1, (0, 1, 1))
+        return out.contiguous(memory_format=torch.channels_last_3d)
 
 
 @torch.no_grad()
@@ -165,13 +200,17 @@ class AttnBlock3D(nn.Module):
     v) and each third into heads, attention with scale head_dim^-½, a
     bias-free 1×1×1 proj_out, residual add. ``attn_chunk`` as in the 2D
     ``AttnBlock``: above it the memory-efficient path (kernel #3 on the card,
-    the chunked plain version on the CPU), and it must divide T·H·W."""
+    the chunked plain version on the CPU), and it must divide T·H·W. With a
+    ``context`` group (set by ``TVAE``) the tokens are this rank's T block
+    and the attention is ring attention over the group, whatever
+    ``attn_chunk``."""
 
     def __init__(self, channels: int, dtype: torch.dtype, attn_chunk: int = 0,
                  attn_impl: str = "auto"):
         super().__init__()
         self.attn_chunk = attn_chunk
         self.attn_impl = attn_impl
+        self.context = None
         self.norm = FP32GroupNorm(channels)
         self.qkv = Conv3d(channels, 3 * channels, 1, dtype=dtype, bias=False)
         self.proj_out = Conv3d(channels, channels, 1, dtype=dtype, bias=False,
@@ -183,7 +222,9 @@ class AttnBlock3D(nn.Module):
         qkv = self.qkv(self.norm(x))
         # channels_last_3d qkv is physically (B, N, 3C): q, k, v are views
         q, k, v = _ndhwc(qkv).reshape(b, n, 3, NUM_HEADS, c // NUM_HEADS).unbind(2)
-        if self.attn_chunk and n > self.attn_chunk:
+        if self.context is not None:
+            out = ring_attention(q, k, v, self.context, self.attn_chunk)
+        elif self.attn_chunk and n > self.attn_chunk:
             if n % self.attn_chunk:
                 raise ValueError(
                     f"attn_chunk {self.attn_chunk} must divide the mid-block token count "
@@ -197,14 +238,20 @@ class AttnBlock3D(nn.Module):
 class Downsample3D(nn.Module):
     """Stride-2 VALID 3×3×3 conv after a (0, 1) pad of T, H and W (reference
     tae.py:93-104); always ``F.conv3d``, as the JAX "pallas" impl keeps it off
-    the kernel."""
+    the kernel. With a ``context`` group the T pad is the next rank's first
+    frame (zeros on the last rank), so each rank's even T block gives its
+    half of the output frames."""
 
     def __init__(self, channels: int, dtype: torch.dtype):
         super().__init__()
         self.conv = Conv3d(channels, channels, 3, stride=2, dtype=dtype)
+        self.context = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x, (0, 1, 0, 1, 0, 1))
+        if self.context is None:
+            x = F.pad(x, (0, 1, 0, 1, 0, 1))
+        else:
+            x = F.pad(halo_t(x.to(self.conv.dtype), 0, 1, self.context), (0, 1, 0, 1))
         return self.conv(x.contiguous(memory_format=torch.channels_last_3d))
 
 
@@ -358,22 +405,35 @@ def _check_ported(cfg: TVAEConfig) -> None:
         raise ValueError(f"unknown conv3d_impl {cfg.conv3d_impl!r}")
 
 
+def check_context_frames(frames: int, ch_mult: Sequence[int], n_context: int) -> None:
+    """JAX ``Trainer3D``'s check (``trainer3d.py:199-207``): the clip's T
+    after the encoder's downsamples must split evenly over the context
+    ranks, so that every level's T block is whole (and even where it is
+    downsampled)."""
+    t_mid = frames // 2 ** (len(ch_mult) - 1)
+    if t_mid % n_context:
+        raise ValueError(
+            f"mid-block temporal extent {t_mid} (frames {frames} / "
+            f"2^{len(ch_mult) - 1} downsamples) must divide "
+            f"by the context extent {n_context}")
+
+
 class TVAE(nn.Module):
     """Encoder + real DiagonalGaussian (or VQ) + decoder (reference
     tae.py:269-297).
 
-    ``ring_axis`` (the JAX package's context-parallel ring attention over a
-    mesh axis) is not ported yet and raises NotImplementedError. Params are
-    allocated, not initialized: load a state dict, or use ``init_tvae``."""
+    ``context``: a process group whose ranks each hold a contiguous block of
+    every clip's T frames (JAX ``TVAE(mesh, ring_axis="context")``; the
+    module docstring says how the model computes on them); ``encode``
+    checks the clip's frames against it (``check_context_frames``). Params
+    are allocated, not initialized: load a state dict, or use
+    ``init_tvae``."""
 
-    def __init__(self, cfg: TVAEConfig, ring_axis: Optional[str] = None):
+    def __init__(self, cfg: TVAEConfig, context=None):
         super().__init__()
         _check_ported(cfg)
-        if ring_axis is not None:
-            raise NotImplementedError(
-                "ring_axis: ring attention over a mesh axis is not ported yet "
-                "(ROADMAP.md, Queue 1: context (ring attention and the 2D halo))")
         self.cfg = cfg
+        self.context = context
         dtype = DTYPES[cfg.compute_dtype]
         kw = dict(dtype=dtype, fused_swish=cfg.fused_gn_swish, conv3d_impl=cfg.conv3d_impl,
                   attn_chunk=cfg.attn_chunk, attn_impl=cfg.attn_impl,
@@ -388,10 +448,17 @@ class TVAE(nn.Module):
                                        cfg.vq_ema_decay)
         else:
             self.reg = DiagonalGaussian()
+        for m in self.modules():
+            if isinstance(m, (Conv3d, FP32GroupNorm, Downsample3D, AttnBlock3D)):
+                m.context = context
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, in_channels) → (B, t, h, w, z or 2·z) in the compute
-        dtype."""
+        dtype; with a context group x is this rank's T block and so is the
+        latent."""
+        if self.context is not None:
+            check_context_frames(x.shape[1] * group_size(self.context), self.cfg.ch_mult,
+                                 group_size(self.context))
         return _ndhwc(self.encoder(ncdhw(x)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -32,11 +32,12 @@ def _check_chunk(n: int, chunk: int) -> None:
 
 
 def chunked_attention_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int,
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)``: out (B, N, H, D) in q's dtype, lse the fp32 (B, H, N)
-    per-query logsumexp of the scaled scores. Scale D^-½; q is scaled before
-    the products, as in the JAX ``_forward``."""
+    """``(out, lse)``: out (B, N, H, D) in q's dtype (or ``out_dtype``), lse
+    the fp32 (B, H, N) per-query logsumexp of the scaled scores. Scale D^-½;
+    q is scaled before the products, as in the JAX ``_forward``."""
     b, n, h, d = q.shape
     _check_chunk(n, chunk)
     qf = _heads_first(q) * d ** -0.5
@@ -53,7 +54,7 @@ def chunked_attention_forward(
         l = l * corr + p.sum(dim=-1)
         o = o * corr[..., None] + p @ vb
         m = m_new
-    out = (o / l[..., None]).transpose(1, 2).to(q.dtype)
+    out = (o / l[..., None]).transpose(1, 2).to(out_dtype or q.dtype)
     return out, m + torch.log(l)
 
 
@@ -65,10 +66,12 @@ def chunked_attention_backward(
     lse: torch.Tensor,
     g: torch.Tensor,
     chunk: int,
+    grad_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` for the incoming gradient g of out, in q's, k's and
-    v's dtypes (the JAX ``_bwd_rule``): delta = Σ dO·O in fp32 from out as
-    stored, and P = exp(S − lse) recomputed chunk by chunk."""
+    v's dtypes (or ``grad_dtype``) (the JAX ``_bwd_rule``): delta = Σ dO·O
+    in fp32 from out as stored, and P = exp(S − lse) recomputed chunk by
+    chunk."""
     b, n, h, d = q.shape
     _check_chunk(n, chunk)
     scale = d ** -0.5
@@ -87,9 +90,9 @@ def chunked_attention_backward(
         ds = p * (dp - delta[..., None]) * scale
         dq = dq + ds @ kb
         dks.append(ds.transpose(-1, -2) @ qf)
-    return (dq.transpose(1, 2).to(q.dtype),
-            torch.cat(dks, dim=2).transpose(1, 2).to(k.dtype),
-            torch.cat(dvs, dim=2).transpose(1, 2).to(v.dtype))
+    return (dq.transpose(1, 2).to(grad_dtype or q.dtype),
+            torch.cat(dks, dim=2).transpose(1, 2).to(grad_dtype or k.dtype),
+            torch.cat(dvs, dim=2).transpose(1, 2).to(grad_dtype or v.dtype))
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from vqgan_tpu_torch.ops.attention import chunked_attention_backward
+from vqgan_tpu_torch.ops.attention import chunked_attention_backward, chunked_attention_forward
 from vqgan_tpu_torch.ops.cuda_build import load_library
 
 # Kernel launches since the count was last set to 0: one per forward
@@ -68,9 +68,9 @@ TC_STEP_ROWS = {16: 64, 32: 64, 64: 64, 128: 32}
 def library() -> ctypes.CDLL:
     """The built kernel library (built on the first call)."""
     lib = load_library("attention")
-    lib.attn_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.attn_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.attn_forward.restype = ctypes.c_int
-    lib.attn_backward.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.attn_backward.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.attn_backward.restype = ctypes.c_int
     lib.attn_error_string.argtypes = [ctypes.c_int]
     lib.attn_error_string.restype = ctypes.c_char_p
@@ -137,22 +137,39 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
             f"attention {what} kernel launch failed: {lib.attn_error_string(err).decode()}")
 
 
+def _out_dtype(q: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
+    """The outputs' dtype: q's, or fp32 where asked (the ring's partials)."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype
+    if out_dtype != torch.float32:
+        raise TypeError(f"attention outputs are q's dtype or float32, not {out_dtype}")
+    return out_dtype
+
+
 def attention_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int,
+    out_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward, outside autograd: ``(out, lse)``, out (B, N, H, D)
     contiguous in q's dtype, lse the fp32 (B, H, N) logsumexp of the scaled
     scores, through the operator ``vqgan_tpu_torch::attention_forward``
     (``ops/custom_ops.py``): a CUDA tensor launches kernel #3's forward (and
     counts it in ``fwd_launches`` and on its route), a CPU tensor runs the
-    plain version."""
-    return custom_ops.attention_forward(q, k, v, chunk)
+    plain version. ``out_dtype=torch.float32`` gives a bf16 call's out in
+    fp32, uncast (the ring's partials); that call goes to the launch or the
+    plain version directly, not through the operator."""
+    if _out_dtype(q, out_dtype) == q.dtype:
+        return custom_ops.attention_forward(q, k, v, chunk)
+    check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return chunked_attention_forward(q, k, v, chunk, out_dtype=torch.float32)
+    return _launch_forward(q, k, v, torch.float32)
 
 
-def _launch_forward(q, k, v):
+def _launch_forward(q, k, v, out_dtype: torch.dtype | None = None):
     global fwd_launches
     b, n, h, d = q.shape
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = torch.empty(q.shape, dtype=_out_dtype(q, out_dtype), device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     strides = _kernel_strides(q, k, v, out)
     lib = library()
@@ -160,7 +177,7 @@ def _launch_forward(q, k, v):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.attn_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                lse.data_ptr(), ctypes.addressof(strides), b, h, n, d,
-                               _DTYPE_CODES[q.dtype], stream)
+                               _DTYPE_CODES[q.dtype], _DTYPE_CODES[out.dtype], stream)
     _raise_on(err, lib, "forward")
     fwd_launches += 1
     _count_route(q.dtype)
@@ -175,26 +192,30 @@ def attention_backward(
     lse: torch.Tensor,
     g: torch.Tensor,
     chunk: int,
+    grad_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward, outside autograd: ``(dq, dk, dv)`` for the incoming
     gradient g of out, given the forward's out and lse. A CUDA tensor
     launches kernel #3's backward (delta, dK/dV, dQ; counted once in
     ``bwd_launches`` and once on its route); a CPU tensor runs the plain
-    version."""
+    version. ``grad_dtype=torch.float32`` gives a bf16 call's gradients in
+    fp32, uncast (the ring's per-step gradients)."""
     check_inputs(q, k, v, out, g)
     b, n, h, _ = q.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, n)
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {n}) tensor on {q.device}")
+    grad_dtype = _out_dtype(q, grad_dtype)
     if q.device.type == "cpu":
-        return chunked_attention_backward(q, k, v, out, lse, g, chunk)
-    return _launch_backward(q, k, v, out, lse, g)
+        return chunked_attention_backward(q, k, v, out, lse, g, chunk, grad_dtype)
+    return _launch_backward(q, k, v, out, lse, g, grad_dtype)
 
 
-def _launch_backward(q, k, v, out, lse, g):
+def _launch_backward(q, k, v, out, lse, g, grad_dtype: torch.dtype | None = None):
     global bwd_launches
     b, n, h, d = q.shape
-    grads = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in (q, k, v)]
+    grads = [torch.empty(q.shape, dtype=_out_dtype(q, grad_dtype), device=q.device)
+             for _ in range(3)]
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     strides = _kernel_strides(q, k, v, out, g, *grads)
     lib = library()
@@ -203,7 +224,8 @@ def _launch_backward(q, k, v, out, lse, g):
         err = lib.attn_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in grads),
-            ctypes.addressof(strides), b, h, n, d, _DTYPE_CODES[q.dtype], stream)
+            ctypes.addressof(strides), b, h, n, d, _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[grads[0].dtype], stream)
     _raise_on(err, lib, "backward")
     bwd_launches += 1
     _count_route(q.dtype)

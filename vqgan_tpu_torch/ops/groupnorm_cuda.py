@@ -31,6 +31,17 @@ narrow row slices, the "re-read" route streams whole row slices twice.
 number of 16-byte packs; a group wider than a block splits over column
 blocks) and the teams. No float atomics: the outputs are deterministic.
 
+The two-pass form (``ContextGroupNorm``) takes a GroupNorm whose rows are
+split over the ranks of a context group (a clip's frames, ``parallel/
+context.py``): kernel #1 as two launches, the partial sums of this rank's
+rows, then (after one ``all_reduce`` of the (B, 2, G) sums across the group)
+the normalisation from the stats; kernel #2 the same way (partial Σγ·dŷ and
+Σγ·dŷ·x̂ with this rank's dγ, dβ; the ``all_reduce``; dx). That seam is the
+Pallas kernels' own (``groupnorm.py:112``/``:131`` and ``:218``/``:244``);
+the one-launch kernels stay the path without a group. Each launch counts on
+its own route (``ctx_sums_launches``, ``ctx_apply_launches``,
+``ctx_bwd_sums_launches``, ``ctx_dx_launches``).
+
 ``FusedGroupNorm`` saves only the input in its own dtype, the (B, 2, G)
 statistics the forward kernel wrote, and γ, β: no full-size fp32 tensor (the
 JAX package's contract, ``vqgan_tpu/ops/normalization.py``). Its backward
@@ -57,6 +68,9 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+import torch.distributed as dist
+
+from vqgan_tpu_torch.ops import normalization as plain
 from vqgan_tpu_torch.ops.cuda_build import load_library, num_sms
 from vqgan_tpu_torch.ops.normalization import group_norm_fp32_backward
 
@@ -68,6 +82,16 @@ from vqgan_tpu_torch.ops.normalization import group_norm_fp32_backward
 launches = 0
 bwd_launches = 0
 grad_copies = 0
+# the two-pass form's launches, one a call of each wrapper on a CUDA tensor:
+# forward sums, forward apply, backward sums, dx
+ctx_sums_launches = 0
+ctx_apply_launches = 0
+ctx_bwd_sums_launches = 0
+ctx_dx_launches = 0
+# the two-pass kernels' block (csrc/groupnorm.cu kCtxThreads), and the
+# blocks a launch aims at: this many an SM
+CTX_THREADS = 256
+CTX_BLOCKS_PER_SM = 2
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_PER_BLOCK = 232_448  # an H100's opt-in limit (227 KB)
@@ -136,6 +160,11 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.gn_backward_occupancy.restype = ctypes.c_int
     lib.gn_backward_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     lib.gn_backward_limits.restype = None
+    lib.gn_ctx_sums.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.gn_ctx_sums.restype = ctypes.c_int
+    lib.gn_ctx_apply.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.gn_ctx_apply.restype = ctypes.c_int
     lib.gn_error_string.argtypes = [ctypes.c_int]
     lib.gn_error_string.restype = ctypes.c_char_p
     limits = [ctypes.c_int(0) for _ in range(3)]
@@ -704,6 +733,188 @@ def fused_group_norm(
     (B, C, T, H, W) tensor with fp32 statistics and arithmetic; returns x's
     dtype and layout, and is differentiable in x, weight and bias."""
     return FusedGroupNorm.apply(x, weight, bias, num_groups, eps, with_swish)
+
+
+# ---------------------------------------------------------------------------
+# the two-pass form
+
+
+def _ctx_check(x, weight, bias, num_groups) -> None:
+    check_inputs(x, weight, bias, num_groups)
+    if x.device.type == "cuda":
+        if x.data_ptr() % 16:
+            raise ValueError("the two-pass GroupNorm needs a 16-byte aligned input")
+        if x.shape[1] * x.element_size() % 16:
+            raise ValueError(f"the two-pass GroupNorm needs C·itemsize a multiple of 16 bytes, "
+                             f"not {x.shape[1]} x {x.element_size()}")
+
+
+def _ctx_grid(x) -> tuple[int, int, int, int, int]:
+    """(B, S, C, the sums' blocks a sample, the apply's blocks a sample) of
+    a two-pass launch on x: about CTX_BLOCKS_PER_SM blocks an SM over the
+    call (a sums block at least 64 rows, an apply thread at least one
+    16-byte pack)."""
+    b, c = x.shape[:2]
+    s = math.prod(x.shape[2:])
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    want = -(-CTX_BLOCKS_PER_SM * num_sms(dev) // b)
+    packs = s * c * x.element_size() // 16
+    return (b, s, c, max(1, min(want, -(-s // 64))),
+            max(1, min(want, -(-packs // CTX_THREADS))))
+
+
+def _ctx_stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def group_norm_partial_sums(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
+    """The two-pass forward's first pass: fp32 (B, 2, G) Σx, Σx² of x's
+    rows per (batch, group). A CUDA tensor launches ``gn_ctx_sums_kernel``
+    (counted in ``ctx_sums_launches``); a CPU tensor runs the plain
+    version."""
+    global ctx_sums_launches
+    if x.device.type == "cpu":
+        return plain.group_norm_partial_sums(x, num_groups)
+    ones = torch.ones(x.shape[1], device=x.device)
+    _ctx_check(x, ones, ones, num_groups)
+    b, s, c, splits, _ = _ctx_grid(x)
+    out = torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
+    workspace = torch.empty(4 + b * splits * 2 * num_groups, dtype=torch.float32,
+                            device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.gn_ctx_sums(x.data_ptr(), None, None, None, None, out.data_ptr(),
+                              workspace.data_ptr(), b, s, c, num_groups, splits, 0, 0,
+                              _DTYPE_CODES[x.dtype], _ctx_stream(x))
+    _raise_on(err, lib, "two-pass forward sums")
+    ctx_sums_launches += 1
+    return out
+
+
+def group_norm_apply(x: torch.Tensor, stats: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, num_groups: int = 32,
+                     with_swish: bool = False) -> torch.Tensor:
+    """The two-pass forward's second pass: y (x's dtype and channels-last
+    layout) from the (B, 2, G) mean and rstd. A CUDA tensor launches
+    ``gn_ctx_apply_kernel`` (``ctx_apply_launches``); a CPU tensor the plain
+    version."""
+    global ctx_apply_launches
+    if x.device.type == "cpu":
+        return plain.group_norm_apply(x, stats, weight, bias, num_groups, with_swish)
+    _ctx_check(x, weight, bias, num_groups)
+    b, s, c, _, blocks = _ctx_grid(x)
+    y = torch.empty_like(x, memory_format=channels_last_format(x))
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.gn_ctx_apply(x.data_ptr(), None, stats.contiguous().data_ptr(), None,
+                               weight.data_ptr(), bias.data_ptr(), y.data_ptr(), b, s, c,
+                               num_groups, blocks, 0.0, 0, int(with_swish),
+                               _DTYPE_CODES[x.dtype], _ctx_stream(x))
+    _raise_on(err, lib, "two-pass forward apply")
+    ctx_apply_launches += 1
+    return y
+
+
+def group_norm_backward_partial(x, g, stats, weight, bias, num_groups: int = 32,
+                                with_swish: bool = False):
+    """The two-pass backward's first pass: ``(gsums, dγ, dβ)``, gsums the
+    fp32 (B, 2, G) Σγ·dŷ and Σγ·dŷ·x̂ of x's rows, dγ and dβ this rank's
+    fp32 (C,). A CUDA tensor launches ``gn_ctx_bwd_sums_kernel``
+    (``ctx_bwd_sums_launches``); a CPU tensor the plain version."""
+    global ctx_bwd_sums_launches
+    if x.device.type == "cpu":
+        return plain.group_norm_backward_partial(x, g, stats, weight, bias, num_groups,
+                                                 with_swish)
+    _ctx_check(x, weight, bias, num_groups)
+    b, s, c, splits, _ = _ctx_grid(x)
+    out = torch.empty(b * 2 * num_groups + 2 * c, dtype=torch.float32, device=x.device)
+    workspace = torch.empty(4 + b * splits * 2 * c, dtype=torch.float32, device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.gn_ctx_sums(x.data_ptr(), g.data_ptr(), stats.contiguous().data_ptr(),
+                              weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                              workspace.data_ptr(), b, s, c, num_groups, splits, 1,
+                              int(with_swish), _DTYPE_CODES[x.dtype], _ctx_stream(x))
+    _raise_on(err, lib, "two-pass backward sums")
+    ctx_bwd_sums_launches += 1
+    gsums = out[:b * 2 * num_groups].view(b, 2, num_groups)
+    dgdb = out[b * 2 * num_groups:].view(2, c)
+    return gsums, dgdb[0], dgdb[1]
+
+
+def group_norm_backward_dx(x, g, stats, gsums, count: int, weight, bias,
+                           num_groups: int = 32, with_swish: bool = False) -> torch.Tensor:
+    """The two-pass backward's second pass: dx (x's dtype and channels-last
+    layout) from the (B, 2, G) gsums summed over the ranks, ``count``
+    elements a group over every rank. A CUDA tensor launches
+    ``gn_ctx_dx_kernel`` (``ctx_dx_launches``); a CPU tensor the plain
+    version."""
+    global ctx_dx_launches
+    if x.device.type == "cpu":
+        return plain.group_norm_backward_dx(x, g, stats, gsums, count, weight, bias,
+                                            num_groups, with_swish)
+    _ctx_check(x, weight, bias, num_groups)
+    b, s, c, _, blocks = _ctx_grid(x)
+    dx = torch.empty_like(x, memory_format=channels_last_format(x))
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.gn_ctx_apply(x.data_ptr(), g.data_ptr(), stats.contiguous().data_ptr(),
+                               gsums.contiguous().data_ptr(), weight.data_ptr(),
+                               bias.data_ptr(), dx.data_ptr(), b, s, c, num_groups, blocks,
+                               float(count), 1, int(with_swish), _DTYPE_CODES[x.dtype],
+                               _ctx_stream(x))
+    _raise_on(err, lib, "two-pass dx")
+    ctx_dx_launches += 1
+    return dx
+
+
+class ContextGroupNorm(torch.autograd.Function):
+    """GroupNorm(+swish) of a tensor whose rows (a clip's T·H·W) are split
+    over ``group``'s ranks, each holding its block, in the two-pass form:
+    the statistics and the backward's group sums are the whole tensor's
+    (one ``all_reduce`` of a (B, 2, G) buffer each way); dγ and dβ are this
+    rank's shares (the step sums the gradients across the ranks). No group:
+    the two-pass form on one rank."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, with_swish, group):
+        check_layout(x)
+        sums = group_norm_partial_sums(x, num_groups)
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+        count = math.prod(x.shape[2:]) * (x.shape[1] // num_groups) * (
+            1 if group is None else dist.get_world_size(group))
+        stats = plain.group_norm_stats_from_sums(sums, count, eps)
+        y = group_norm_apply(x, stats, weight, bias, num_groups, with_swish)
+        ctx.save_for_backward(x, stats, weight, bias)
+        ctx.num_groups, ctx.with_swish, ctx.group, ctx.count = (num_groups, with_swish, group,
+                                                                count)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        global grad_copies
+        x, stats, weight, bias = ctx.saved_tensors
+        fmt = channels_last_format(g)
+        if not g.is_contiguous(memory_format=fmt):
+            grad_copies += 1
+            g = g.contiguous(memory_format=fmt)
+        gsums, dgamma, dbeta = group_norm_backward_partial(x, g, stats, weight, bias,
+                                                           ctx.num_groups, ctx.with_swish)
+        if ctx.group is not None:
+            gsums = gsums.contiguous()
+            dist.all_reduce(gsums, group=ctx.group)
+        dx = group_norm_backward_dx(x, g, stats, gsums, ctx.count, weight, bias,
+                                    ctx.num_groups, ctx.with_swish)
+        return dx, dgamma, dbeta, None, None, None, None
+
+
+def context_group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
+                       with_swish: bool = False, group=None) -> torch.Tensor:
+    """GroupNorm(+swish) over the rows of x and of the other ranks of
+    ``group`` (``ContextGroupNorm``); differentiable, collective."""
+    return ContextGroupNorm.apply(x, weight, bias, num_groups, eps, with_swish, group)
 
 
 # the operator that the forward goes through; it binds this module's launch

@@ -19,22 +19,31 @@ the same step by hand:
     the ranks before they are used.
 
 So a step on N ranks is the step on the concatenation of their batches.
-The ranks are laid out as JAX orders the axes, ``fsdp`` the faster: rank r
-is data index r // F and fsdp index r % F. With ``fsdp`` F > 1 the ranks of
-one data index (``Mesh.fsdp_group``) each hold at rest only their block of
-every train-state tensor that ``param_spec`` shards, as JAX's
-``state_shardings`` lays the state out (``parallel/fsdp.py``); the ranks of
-one fsdp index (``Mesh.replica_group``) hold the same blocks.
+The ranks are laid out as JAX orders the axes (``AXES``), the later the
+faster: with ``fsdp`` F rank r is data index r // F and fsdp index r % F;
+with ``context`` C rank r is data index r // C and context index r % C.
+With ``fsdp`` F > 1 the ranks of one data index (``Mesh.fsdp_group``) each
+hold at rest only their block of every train-state tensor that
+``param_spec`` shards, as JAX's ``state_shardings`` lays the state out
+(``parallel/fsdp.py``); the ranks of one fsdp index (``Mesh.replica_group``)
+hold the same blocks. With ``context`` C > 1 (the 3D job only) the C ranks
+of one data index (``Mesh.context_group``) hold the same clips, each a
+contiguous block of their T frames (``batch_block``, JAX
+``process_batch_block``); the model exchanges T halos, rotates the ring
+attention's k/v and reduces its GroupNorm sums across that group
+(``parallel/context.py``), and the gradients are summed over every rank, as
+the context ranks hold partial gradients of the same clips.
 
 Only ``all_reduce`` and ``broadcast`` move tensors: gloo takes both on CUDA
 tensors, which is how several ranks share one card; a gather of rows is an
 ``all_reduce`` of a zero-padded buffer whose bits are summed as integers,
 and a gather of shards a broadcast from each owner.
 
-The ``data`` and ``fsdp`` axes are ported. ``tensor`` and ``context``
-extents above 1 raise ``NotImplementedError`` naming their ROADMAP.md
-items; the JAX ``split_dcn_axes`` (multi-node) and ``process_batch_block``
-(the context feed) are not ported yet.
+The ``data`` and ``fsdp`` axes are ported, and ``context`` for the 3D job
+(``create_mesh(..., context=True)``). ``tensor`` above 1, ``context`` above
+1 for the 2D job, and ``fsdp`` with ``context`` both above 1 raise
+``NotImplementedError`` naming their ROADMAP.md items; the JAX
+``split_dcn_axes`` (multi-node) is not ported yet.
 """
 
 from __future__ import annotations
@@ -50,11 +59,14 @@ import torch.distributed as dist
 
 AXES = ("data", "fsdp", "tensor", "context")
 
-# the ROADMAP.md items that port the other axes
+# the ROADMAP.md items that port the other axes: ``tensor`` for both jobs,
+# ``context`` for the 2D job (the 3D job takes it), and the two sharded axes
+# together
 UNPORTED_AXES = {
     "tensor": "ROADMAP.md, Queue 1: tensor sharding",
-    "context": "ROADMAP.md, Queue 1: context (ring attention and the 2D halo)",
+    "context": "ROADMAP.md, Queue 1: context: the 2D halo",
 }
+FSDP_X_CONTEXT = "ROADMAP.md, Queue 1: fsdp x context"
 
 # gradients and parameters move in buckets of at most this many bytes
 BUCKET_BYTES = 64 << 20
@@ -72,7 +84,9 @@ class Mesh:
     gloo). With ``fsdp`` > 1, ``fsdp_group`` holds the ranks of this rank's
     data index, which share out the train state, and ``replica_group`` the
     ranks of its fsdp index, which hold the same shards (None for a lone
-    rank); with ``fsdp`` 1 both are None and every rank holds everything."""
+    rank); with ``fsdp`` 1 both are None and every rank holds everything.
+    With ``context`` > 1, ``context_group`` holds the ranks of this rank's
+    data index, which split its clips' frames (None otherwise)."""
 
     shape: dict[str, int]
     rank: int = 0
@@ -81,12 +95,33 @@ class Mesh:
     control: Optional[dist.ProcessGroup] = None
     fsdp_group: Optional[dist.ProcessGroup] = None
     replica_group: Optional[dist.ProcessGroup] = None
+    context_group: Optional[dist.ProcessGroup] = None
 
     @property
     def n_data(self) -> int:
         """The data-parallel extent: the ranks a global batch is split over,
         data x fsdp (JAX ``_data_axes``)."""
         return self.shape.get("data", 1) * self.shape.get("fsdp", 1)
+
+    @property
+    def n_context(self) -> int:
+        return self.shape.get("context", 1)
+
+    @property
+    def data_index(self) -> int:
+        """Which of the ``n_data`` blocks of the global batch this rank's
+        clips or images are."""
+        return self.rank // self.n_context
+
+    @property
+    def context_index(self) -> int:
+        """Which block of its clips' frames this rank holds."""
+        return self.rank % self.n_context
+
+    def batch_block(self, global_shape: Sequence[int]) -> list[tuple[int, int]]:
+        """This rank's (start, stop) of each dim of the global batch
+        (``batch_block``)."""
+        return batch_block(self.shape, self.rank, global_shape)
 
     @property
     def n_fsdp(self) -> int:
@@ -186,11 +221,33 @@ def mesh_extents(shape: Optional[dict[str, int]], n: int) -> dict[str, int]:
     return shape
 
 
-def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
+def batch_block(extents: dict[str, int], rank: int,
+                global_shape: Sequence[int]) -> list[tuple[int, int]]:
+    """The (start, stop) of each dim of a global batch that rank ``rank``
+    of a mesh of ``extents`` holds: dim 0 split over data x fsdp, and for a
+    5-D clip batch dim 1 (T) over ``context``, the other dims whole (JAX
+    ``process_batch_block`` of ``batch_sharding(mesh, ndim)``). Raises
+    where an extent does not divide its dim."""
+    n_ctx = extents.get("context", 1)
+    n_data = extents.get("data", 1) * extents.get("fsdp", 1)
+    out = [(0, n) for n in global_shape]
+    for dim, n, index in ((0, n_data, rank // n_ctx), (1, n_ctx, rank % n_ctx)):
+        if n == 1 or (dim == 1 and len(global_shape) < 5):
+            continue
+        size = global_shape[dim]
+        if size % n:
+            raise ValueError(f"dim {dim} of the global batch {tuple(global_shape)} does not "
+                             f"divide by its {n} ranks")
+        out[dim] = (index * size // n, (index + 1) * size // n)
+    return out
+
+
+def create_mesh(shape: Optional[dict[str, int]] = None, context: bool = False) -> Mesh:
     """The mesh of this job's ranks (one rank without ``torch.distributed``)
     for an axis dict like ``{"data": -1}`` or ``{"data": 1, "fsdp": -1}``
-    (``mesh_extents``). ``tensor`` and ``context`` above 1 raise
-    NotImplementedError. Its group is what ``axis_name="data"`` names
+    (``mesh_extents``). ``tensor`` above 1 raises NotImplementedError, and
+    so does ``context`` above 1 unless ``context`` (the 3D job), or with
+    ``fsdp`` above 1. Its group is what ``axis_name="data"`` names
     (``data_group``). Collective where the process group is up: every rank
     calls it."""
     global _MESH
@@ -199,10 +256,16 @@ def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
 
     def refuse_unported(axes: dict) -> None:
         for axis, item in UNPORTED_AXES.items():
-            if axes.get(axis, 1) > 1:
+            if axes.get(axis, 1) > 1 and not (axis == "context" and context):
                 raise NotImplementedError(
                     f"{axis}={axes[axis]} needs several devices on the {axis} axis, which is not "
-                    f"ported yet ({item}); only the data and fsdp axes are")
+                    f"ported yet ({item}); the data and fsdp axes are, and context for the 3D "
+                    f"job")
+        if context and axes.get("context", 1) > 1 and axes.get("fsdp", 1) > 1:
+            raise NotImplementedError(
+                f"fsdp={axes['fsdp']} with context={axes['context']}: the train state sharded "
+                f"over the ranks that split a clip's frames is not ported yet "
+                f"({FSDP_X_CONTEXT})")
 
     refuse_unported(dict(shape or {}))
     try:
@@ -213,7 +276,7 @@ def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
         raise ValueError(f"{e}: one process without torch.distributed is one rank; launch "
                          f"several with torchrun --nproc_per_node N") from None
     refuse_unported(extents)
-    group = control = fsdp_group = replica_group = None
+    group = control = fsdp_group = replica_group = context_group = None
     rank = dist.get_rank() if up else 0
     if up:
         group = dist.group.WORLD
@@ -226,7 +289,11 @@ def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
             if n_rep > 1:
                 replica_group = _member_group(
                     [list(range(f, world, n_fsdp)) for f in range(n_fsdp)], rank)
-    _MESH = Mesh(extents, rank, world, group, control, fsdp_group, replica_group)
+        n_ctx = extents.get("context", 1)
+        if n_ctx > 1:
+            context_group = group if n_ctx == world else _member_group(
+                [list(range(d * n_ctx, (d + 1) * n_ctx)) for d in range(world // n_ctx)], rank)
+    _MESH = Mesh(extents, rank, world, group, control, fsdp_group, replica_group, context_group)
     return _MESH
 
 

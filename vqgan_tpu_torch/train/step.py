@@ -307,29 +307,37 @@ def backward_share(loss: torch.Tensor, group) -> None:
         (loss * (1.0 / group_size(group))).backward()
 
 
-def global_rows(local: torch.Tensor, group, accum: int = 1) -> torch.Tensor:
+def global_rows(local: torch.Tensor, group, accum: int = 1, context=None) -> torch.Tensor:
     """The global batch's rows of a per-rank tensor whose dim 0 is this
-    rank's batch (``accum`` microbatches of it): gathered across ``group``,
-    microbatch-major as the step orders the global batch."""
+    rank's batch (``accum`` microbatches of it): gathered across ``group``
+    (4- or 8-byte elements), microbatch-major as the step orders the global
+    batch. With a ``context`` group (the 3D job: ranks of one data index
+    hold T blocks, dim 1, of the same clips) each data index's T blocks are
+    joined in order."""
     if group is None:
         return local
-    n, b = group_size(group), local.shape[0]
-    rows = gather_rows(local, group)
-    if accum > 1:
-        rest = tuple(rows.shape[1:])
-        rows = rows.reshape((n, accum, b // accum) + rest).transpose(0, 1).reshape((n * b,) + rest)
-    return rows
+    n_ctx = group_size(context)
+    n, b, t = group_size(group) // n_ctx, local.shape[0], local.shape[1]
+    rest = tuple(local.shape[2:])
+    rows = gather_rows(local, group).reshape((n, n_ctx, b, t) + rest).transpose(1, 2)
+    rows = rows.reshape((n, accum, b // accum, n_ctx * t) + rest).transpose(0, 1)
+    return rows.reshape((n * b, n_ctx * t) + rest)
 
 
-def rank_rows(global_t: torch.Tensor, group, accum: int = 1) -> torch.Tensor:
-    """This rank's rows of a global-batch tensor (``global_rows``' inverse)."""
+def rank_rows(global_t: torch.Tensor, group, accum: int = 1, context=None) -> torch.Tensor:
+    """This rank's rows of a global-batch tensor (``global_rows``' inverse),
+    and with a ``context`` group its T block (dim 1) of them."""
     if group is None:
         return global_t
-    n = group_size(group)
+    n_ctx = group_size(context)
+    n, index = group_size(group) // n_ctx, group_rank(group) // n_ctx
     b = global_t.shape[0] // n
     rest = tuple(global_t.shape[1:])
-    return global_t.reshape((accum, n, b // accum) + rest)[:, group_rank(group)].reshape(
-        (b,) + rest)
+    rows = global_t.reshape((accum, n, b // accum) + rest)[:, index].reshape((b,) + rest)
+    if context is None:
+        return rows
+    t, i = rows.shape[1] // n_ctx, group_rank(context)
+    return rows[:, i * t:(i + 1) * t]
 
 
 def global_metrics(metrics: dict[str, torch.Tensor], group) -> dict[str, torch.Tensor]:
@@ -437,21 +445,22 @@ def polyak_update(state: TrainState, model: nn.Module, decay: float) -> None:
     torch._foreach_add_(ema, [params[n] for n in names], alpha=1.0 - decay)
 
 
-def gradnorm_branch(cfg: TrainConfig, gradnorm_shards: int, group) -> Callable:
+def gradnorm_branch(cfg: TrainConfig, gradnorm_shards: int, group, context=None) -> Callable:
     """``(x, weight) -> gradnorm(x, ...)`` for the step's mode: the global
     Frobenius norm, or with ``cfg.gradnorm_mode = "mean_shard_norm"`` the
     mean of ``gradnorm_shards`` block norms (1: the global norm again). Under
     ``group`` the norm is the global batch's: the blocks are split evenly
-    over the ranks (JAX's ``gradnorm_shards = n_data``: one a rank)."""
+    over the data ranks (JAX's ``gradnorm_shards = n_data``: one a data
+    index), each block's frames over the ``context`` group's ranks."""
     gn_shards = gradnorm_shards if cfg.gradnorm_mode == "mean_shard_norm" else 1
     if group is None:
         return lambda x, w: gradnorm(x, w, None, gn_shards)
     if gn_shards == 1:
         return lambda x, w: gradnorm(x, w, group, 1, global_norm=True)
-    n = group_size(group)
+    n = group_size(group) // group_size(context)
     if gn_shards % n:
-        raise ValueError(f"gradnorm_shards {gn_shards} must divide by the {n} ranks")
-    return lambda x, w: gradnorm(x, w, group, gn_shards // n)
+        raise ValueError(f"gradnorm_shards {gn_shards} must divide by the {n} data ranks")
+    return lambda x, w: gradnorm(x, w, group, gn_shards // n, context=context)
 
 
 def make_train_step(

@@ -54,6 +54,24 @@ for the global batch (a rank takes its rows of ε), and every metric is the
 mean over the ranks. Sharded over fsdp (``state.layout``) G and D are
 gathered at the start, each AdamW steps on this rank's blocks and the step
 ends on the blocks, as in the 2D step.
+
+The context axis (``context``, a process group of the ranks of one data
+index, each holding a contiguous T block of the same clips; the model built
+with it, ``TVAE(cfg, context=group)``): every loss of a rank's own frames
+(L2, the KL or VQ loss over its latent block) is its local mean, and since
+the blocks are equal the mean over every rank is the global one, so the
+backward over ``group``'s N·C ranks and the gradient sum need nothing new.
+The frame subset (``parallel/context.py::FrameSubset``) takes global frame
+indices from the one phase u; each rank takes its chosen frames (possibly
+none), its GradNorm branches see them, and the subset is gathered so that
+LPIPS and D run on the whole (B, k) subset on every rank of the group, with
+the same values there: the gather's backward keeps this rank's frames, so
+G's gradient of those losses is each frame's once, and D's gradient, the
+same on the C ranks, enters the backward over N·C like every loss and sums
+to the N data ranks' mean. GradNorm's norms take the context ranks'
+squares together (``ops/gradnorm.py``). ε is the global latent's draw, cut
+to this rank's rows and T block; revival samples the global latent, its
+blocks reassembled in (B, t) order.
 """
 
 from __future__ import annotations
@@ -68,6 +86,7 @@ from vqgan_tpu_torch.config import TrainConfig, TVAEConfig
 from vqgan_tpu_torch.losses.gan import generator_gan_loss
 from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.tae import reparameterize
+from vqgan_tpu_torch.parallel.context import FrameSubset
 from vqgan_tpu_torch.parallel.mesh import group_size
 from vqgan_tpu_torch.train.state import TrainState
 from vqgan_tpu_torch.train.step import (
@@ -105,13 +124,8 @@ def frame_subset(arrays: Sequence[torch.Tensor], k: int, u) -> tuple[torch.Tenso
     u: frame floor((i + u)·T/k) for i < k, in fp32 as JAX's
     ``_frame_subset`` computes it (``step3d.py:42-57``). k <= 0 or k >= T
     keeps every frame."""
-    t = arrays[0].shape[1]
-    if k <= 0 or k >= t:
-        return tuple(arrays)
-    device = arrays[0].device
-    u = torch.as_tensor(u, dtype=torch.float32, device=device)
-    idx = ((torch.arange(k, device=device) + u) * (t / k)).floor().long()
-    return tuple(a.index_select(1, idx) for a in arrays)
+    subset = FrameSubset(arrays[0].shape[1], k, u, None, arrays[0].device)
+    return tuple(subset.local(a) for a in arrays)
 
 
 def flat_frames(x: torch.Tensor) -> torch.Tensor:
@@ -130,9 +144,11 @@ class _Latent:
     """The regularizer of one step and its draws: the Gaussian's sample and
     KL, or the VQ latent with its loss and new EMA statistics."""
 
-    def __init__(self, tvae_cfg: TVAEConfig, model: nn.Module, group=None, accum: int = 1):
+    def __init__(self, tvae_cfg: TVAEConfig, model: nn.Module, group=None, accum: int = 1,
+                 context=None):
         self.model = model
         self.group = group
+        self.context = context
         self.n_ranks = group_size(group)
         self.accum = accum
         self.gaussian = tvae_cfg.reg_type == "gaussian"
@@ -148,9 +164,11 @@ class _Latent:
         if self.gaussian:
             if draws.eps is None:
                 # the global batch's ε from the shared generator state
-                eps = torch.randn(z.shape[0] * self.n_ranks, *z.shape[1:-1], z.shape[-1] // 2,
+                n_ctx = group_size(self.context)
+                eps = torch.randn(z.shape[0] * self.n_ranks // n_ctx, z.shape[1] * n_ctx,
+                                  *z.shape[2:-1], z.shape[-1] // 2,
                                   generator=generator, device=z.device)
-                draws.eps = rank_rows(eps, self.group)
+                draws.eps = rank_rows(eps, self.group, context=self.context)
             z_s, kl = reparameterize(z, draws.eps)
             return z_s, kl, None
         if not stats:
@@ -168,15 +186,16 @@ class _Latent:
             draws.revive_idx = torch.randint(0, n, (self.codebook_size,),
                                              generator=state.generator, device=z.device)
         if self.revive_threshold > 0:
-            z = global_rows(z.float(), self.group, self.accum)
+            z = global_rows(z.float(), self.group, self.accum, self.context)
         fold_codebook(state, self.model, new_ema, z, draws.revive_idx, self.revive_threshold)
 
 
-def _own_rows(draws: Optional[Step3DDraws], group, accum: int) -> Step3DDraws:
-    """The step's draws, a caller's global ε cut to this rank's rows."""
+def _own_rows(draws: Optional[Step3DDraws], group, accum: int, context=None) -> Step3DDraws:
+    """The step's draws, a caller's global ε cut to this rank's rows and T
+    block."""
     draws = Step3DDraws() if draws is None else draws
     if group is not None and draws.eps is not None:
-        draws.eps = rank_rows(draws.eps, group, accum)
+        draws.eps = rank_rows(draws.eps, group, accum, context)
     return draws
 
 
@@ -201,16 +220,18 @@ class _Microbatches:
 
 
 def make_train_step_3d(
-    cfg: TrainConfig, tvae_cfg: TVAEConfig, model: nn.Module, group=None,
+    cfg: TrainConfig, tvae_cfg: TVAEConfig, model: nn.Module, group=None, context=None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """The recon-only step (``trainer3d.py:49-163``): returns ``step(state,
     clips, draws=None) -> (state, metrics)`` with metrics ``recon_l2``,
     ``kl`` (the VQ loss for VQ) and ``loss``, 0-d device tensors. ``state``
     comes from ``create_train_state(..., recon_only=True)`` and is updated
-    in place. ``group``: the data axis's process group (module docstring)."""
+    in place. ``group``: every rank's process group; ``context``: the ranks
+    that split this rank's clips' frames, with which ``model`` was built
+    (module docstring); ``clips`` is this rank's block."""
     _check(cfg, tvae_cfg)
     accum = max(1, cfg.grad_accum)
-    latent = _Latent(tvae_cfg, model, group, accum)
+    latent = _Latent(tvae_cfg, model, group, accum, context)
 
     def loss(state, batch, vq_ema, draws):
         """One microbatch's (total, metrics, z, new EMA statistics)."""
@@ -223,7 +244,7 @@ def make_train_step_3d(
         return total, metrics, z, new_ema
 
     def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
-        draws = _own_rows(draws, group, accum)
+        draws = _own_rows(draws, group, accum, context)
         mbs = _Microbatches(clips.float(), accum, draws)
         state.layout.begin_step(state)
         grads = GradMean(model.parameters(), accum)
@@ -258,6 +279,7 @@ def make_train_step_3d_gan(
     lpips: nn.Module,
     gradnorm_shards: int = 1,
     group=None,
+    context=None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """The full-GAN step (``step3d.py:66-331``): returns ``step(state, clips,
     draws=None) -> (state, metrics)``. ``disc`` is a ``PatchDiscriminator``
@@ -265,15 +287,18 @@ def make_train_step_3d_gan(
     subset's frame count (``"tubelet"``); ``state`` comes from
     ``create_train_state`` and is updated in place. ``gradnorm_shards``: the
     data-parallel extent for ``cfg.gradnorm_mode = "mean_shard_norm"``;
-    ``group``: the data axis's process group (module docstring)."""
+    ``group``: every rank's process group; ``context``: the ranks that
+    split this rank's clips' frames, with which ``model`` was built (module
+    docstring); ``clips`` is this rank's block."""
     _check(cfg, tvae_cfg)
     if cfg.disc_3d not in ("frame", "tubelet"):
         raise ValueError(f"unknown disc_3d {cfg.disc_3d!r}")
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
-    branch = gradnorm_branch(cfg, gradnorm_shards, group)
+    branch = gradnorm_branch(cfg, gradnorm_shards, group, context)
     accum = max(1, cfg.grad_accum)
-    latent = _Latent(tvae_cfg, model, group, accum)
+    latent = _Latent(tvae_cfg, model, group, accum, context)
+    n_ctx = group_size(context)
     tubelet = cfg.disc_3d == "tubelet"
     k = cfg.video_loss_frames
     # LPIPS and D as rematerialized regions with remat (JAX step3d.py:159-161)
@@ -291,11 +316,23 @@ def make_train_step_3d_gan(
         clip = clip.float()
         return clip if tubelet else flat_frames(clip)
 
+    def subset_of(batch: torch.Tensor, u) -> FrameSubset:
+        return FrameSubset(batch.shape[1] * n_ctx, k, u, context, batch.device)
+
+    def d_inputs(recon, batch, u):
+        """D's (real, fake) on the step's whole frame subset."""
+        subset = subset_of(batch, u)
+        real, fake = (subset.gather(subset.local(a)) for a in (batch, recon.detach().float()))
+        return disc_in(real), disc_in(fake)
+
     def g_losses(recon, reg_loss, batch, u):
         metrics = {}
-        # LPIPS and the GAN branch see the frame subset, L2 every frame
-        recon_f, target_f = frame_subset((recon, batch), k, u)
-        recon_lpips = branch(recon_f, cfg.gradnorm_lpips)
+        # LPIPS and the GAN branch see the frame subset, L2 every frame;
+        # each branch's GradNorm sees this rank's frames of it
+        subset = subset_of(batch, u)
+        recon_f = subset.local(recon)
+        target_f = subset.gather(subset.local(batch))
+        recon_lpips = subset.gather(branch(recon_f, cfg.gradnorm_lpips))
         percep = lpips_apply(flat_frames(recon_lpips.float()),
                              flat_frames(target_f.float())).mean()
         metrics["perceptual_loss"] = percep
@@ -305,7 +342,7 @@ def make_train_step_3d_gan(
         metrics["kl"] = reg_loss
         total = percep + rec + cfg.z_reg_weight * reg_loss
         if cfg.do_ganloss:
-            recon_gan = branch(recon_f, cfg.gradnorm_gan)
+            recon_gan = subset.gather(branch(recon_f, cfg.gradnorm_gan))
             g_gan = generator_gan_loss(disc_apply(disc_in(recon_gan)), cfg.disc_type)
             metrics["gan/generator_gan_loss"] = g_gan
             total = total + g_gan
@@ -314,9 +351,9 @@ def make_train_step_3d_gan(
         return total, metrics
 
     def step(state: TrainState, clips: torch.Tensor, draws: Optional[Step3DDraws] = None):
-        draws = _own_rows(draws, group, accum)
+        draws = _own_rows(draws, group, accum, context)
         batch = clips.float()
-        if draws.frame_u is None and 0 < k < batch.shape[1]:
+        if draws.frame_u is None and 0 < k < batch.shape[1] * n_ctx:
             draws.frame_u = torch.rand((), generator=state.generator, device=batch.device)
         if accum > 1:
             return step_accum(state, batch, draws)
@@ -330,8 +367,7 @@ def make_train_step_3d_gan(
 
         # --- D's update before G, on the same frame subset ---
         if cfg.do_ganloss:
-            recon_f, target_f = frame_subset((recon.detach().float(), batch), k, draws.frame_u)
-            discriminator_update(cfg, disc_apply, state, [(disc_in(target_f), disc_in(recon_f))],
+            discriminator_update(cfg, disc_apply, state, [d_inputs(recon, batch, draws.frame_u)],
                                  1, metrics, group)
 
         # --- G against the updated D; D's params take no gradient ---
@@ -362,8 +398,7 @@ def make_train_step_3d_gan(
                     z_s, _, _ = latent(model.encode(xb), state.generator, state.vq_ema, d,
                                        stats=False)
                     recon = model.decode(z_s)
-                recon_f, target_f = frame_subset((recon.float(), xb), k, draws.frame_u)
-                yield disc_in(target_f), disc_in(recon_f)
+                yield d_inputs(recon, xb, draws.frame_u)
 
         metrics: dict[str, torch.Tensor] = {}
         if cfg.do_ganloss:

@@ -86,14 +86,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def data_parallel(cfg: TrainConfig, device: str | torch.device) -> tuple[torch.device, Mesh]:
+def data_parallel(cfg: TrainConfig, device: str | torch.device,
+                  context: bool = False) -> tuple[torch.device, Mesh]:
     """This rank's device and the job's mesh (``init_distributed``,
-    ``create_mesh``), with the JAX trainer's batch checks: the global
-    ``batch_size`` divides by the data-parallel extent (data x fsdp), and by
+    ``create_mesh``; ``context``: the 3D job, which takes the context
+    axis), with the JAX trainer's batch checks: the global ``batch_size``
+    divides by the data-parallel extent (data x fsdp), and by
     ``grad_accum`` times it."""
     device = init_distributed(resolve_device(device))
     try:
-        mesh = create_mesh(parse_mesh_shape(cfg.mesh_shape))
+        mesh = create_mesh(parse_mesh_shape(cfg.mesh_shape), context=context)
     except (ValueError, NotImplementedError) as e:
         raise type(e)(f"mesh_shape {cfg.mesh_shape!r}: {e}") from None
     n = mesh.n_data

@@ -23,9 +23,18 @@ the states checked equal, rank 0 alone evaluating, logging and saving, each
 rank reading its share of the clips (its shards, or the same synthetic
 clips on every rank, as in JAX). ``data=D,fsdp=F`` splits the batch over
 D·F ranks and shards the train state over F of them (``parallel/fsdp.py``),
-every rank taking part in the gathers before eval and saves. Not ported:
-the ``tensor`` and ``context`` axes (ring attention), which raise
-NotImplementedError naming their ROADMAP.md Queue 1 items.
+every rank taking part in the gathers before eval and saves.
+``data=D,context=C`` splits each clip's T frames over the C ranks of a
+data index (JAX ``_ctx_feed``): those ranks read the same clips (the stream
+split by data index) and each keeps its contiguous T block; the model runs
+with the context group (``TVAE(cfg, context=...)``: T halos, two-pass
+GroupNorms, ring attention) and the step takes the global means over it
+(``train/step3d.py``). Rank 0 evaluates the same parameters on whole clips
+with no group: the ring is exact, so these are the numbers JAX's eval
+gives, with no collective for the other ranks to wait on. Checkpoints stay
+the whole tree and load at any layout. Not ported: the ``tensor`` axis and
+``fsdp`` together with ``context``, which raise NotImplementedError naming
+their ROADMAP.md Queue 1 items.
 
 One deliberate difference from the JAX trainer: ``load_path`` loads G before
 the train state is built, so the Polyak EMA and the VQ EMA statistics start
@@ -55,7 +64,7 @@ from vqgan_tpu_torch.losses.discriminator import (
 from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
 from vqgan_tpu_torch.losses.metrics import psnr, ssim
 from vqgan_tpu_torch.models.quant import VectorQuantizer
-from vqgan_tpu_torch.models.tae import TVAE, init_weights_
+from vqgan_tpu_torch.models.tae import TVAE, check_context_frames, init_weights_
 from vqgan_tpu_torch.parallel.fsdp import shard_state
 from vqgan_tpu_torch.train.checkpoint import CheckpointManager, state_dict_of
 from vqgan_tpu_torch.train.state import create_train_state, to_channels_last
@@ -105,10 +114,12 @@ class Trainer3D:
         self.cfg = cfg
         self.tvae_cfg = tvae_cfg
         self.frames = frames
-        self.device, self.mesh = data_parallel(cfg, device)
+        self.device, self.mesh = data_parallel(cfg, device, context=True)
         self.is_master = self.mesh.is_master
         self.local_batch = cfg.batch_size // self.mesh.n_data
-        group = self.mesh.group
+        group, context = self.mesh.group, self.mesh.context_group
+        if self.mesh.n_context > 1:
+            check_context_frames(frames, tvae_cfg.ch_mult, self.mesh.n_context)
         self.use_gan = cfg.do_ganloss
 
         # one generator for each of G, D, LPIPS and the step's draws, from
@@ -121,7 +132,7 @@ class Trainer3D:
             return torch.Generator(device=dev).manual_seed(seed)
 
         with torch.device(dev):
-            self.model = TVAE(tvae_cfg)
+            self.model = TVAE(tvae_cfg, context=context)
         init_weights_(self.model, gen(s_g))
         if cfg.load_path:  # G only
             self.model.load_state_dict(load_weights(cfg.load_path), strict=True)
@@ -151,13 +162,14 @@ class Trainer3D:
             shard_state(self.state, self.mesh)
             self._step = make_train_step_3d_gan(cfg, tvae_cfg, self.model, self.disc,
                                                 self.lpips, gradnorm_shards=self.mesh.n_data,
-                                                group=group)
+                                                group=group, context=context)
         else:
             # one AdamW at the constant lr learning_rate_vae / ch
             self.state = create_train_state(cfg, self.model, None, tvae_cfg.ch, seed=s_state,
                                             vq_ema=vq_ema, recon_only=True)
             shard_state(self.state, self.mesh)
-            self._step = make_train_step_3d(cfg, tvae_cfg, self.model, group=group)
+            self._step = make_train_step_3d(cfg, tvae_cfg, self.model, group=group,
+                                            context=context)
 
         # the eval's model: the deterministic latent, scored with the Polyak
         # weights where they are tracked
@@ -195,16 +207,26 @@ class Trainer3D:
 
     # ------------------------------------------------------------------
     def _train_source(self):
+        """This data index's clips: its shards of the stream (the context
+        ranks of one data index read the same), or the synthetic clips."""
         cfg = self.cfg
         seed = cfg.seed + self.start_step  # a fresh order on resume
         if cfg.dataset_url and not cfg.synthetic_data:
             return create_video_dataloader(cfg.dataset_url, self.local_batch, self.frames,
                                            self.tvae_cfg.resolution,
                                            num_workers=cfg.num_workers, seed=seed,
-                                           process_index=self.mesh.rank,
-                                           process_count=self.mesh.world_size)
+                                           process_index=self.mesh.data_index,
+                                           process_count=self.mesh.n_data)
         return synthetic_video_batches(self.local_batch, self.frames, self.tvae_cfg.resolution,
                                        seed=seed)
+
+    def _own_frames(self, src):
+        """This rank's T block of each of its data index's clip batches."""
+        res = self.tvae_cfg.resolution
+        (_, _), (t0, t1) = self.mesh.batch_block(
+            (self.cfg.batch_size, self.frames, res, res, 3))[:2]
+        for clips in src:
+            yield np.asarray(clips)[:, t0:t1]
 
     def _eval_batch(self) -> Optional[torch.Tensor]:
         """The fixed eval batch of ``local_batch`` clips, the same across
@@ -301,7 +323,8 @@ class Trainer3D:
         eval_batch = self._eval_batch()
         metrics = None
         try:
-            batches = device_prefetch(src, self.device)
+            batches = device_prefetch(self._own_frames(src) if self.mesh.n_context > 1
+                                      else src, self.device)
             for step in range(self.start_step, cfg.max_steps):
                 self.state, metrics = self._step(self.state, next(batches))
                 if step % cfg.log_every == 0:
