@@ -306,7 +306,8 @@ Phases, each fatal on failure:
      16f/128px mid blocks, forward and backward, against one rank's kernel
      #3 over the whole sequence within ``rounding_bounds``; the ring's
      launch (#3 with fp32 outputs) at its block against its plain version
-     and timed (phases 45-48: one torchrun launch, ``--ctx-ranks``);
+     and timed, and at the flagship's 2D mid block (phases 45-51: one
+     torchrun launch, ``--ctx-ranks``);
  46. kernels #1 and #2 in their two-pass form (sums, apply; backward sums,
      dx) against their plain versions and the one-launch kernels at the
      GroupNorm shapes a context rank's steps ran in phases 47 (fp32) and
@@ -315,13 +316,27 @@ Phases, each fatal on failure:
      against one rank on whole clips: phase 8's bounds with the decisions
      replayed, the ranks bitwise equal, the launches by route;
  48. phase 28's job at ``data=1,context=2`` under torchrun (3 steps, eval
-     and saves by rank 0), its save resumed bitwise in one process.
+     and saves by rank 0), its save resumed bitwise in one process;
+ 49. the 2D context axis's pieces (``parallel/context.py``): ``halo`` at
+     the flagship's widest rank block, forward and backward, bitwise the
+     whole zero-padded tensor's slices, timed; kernels #1 and #2 two-pass
+     at the GroupNorm shapes of phase 50's flagship step, as in phase 46;
+ 50. the flagship 2D GAN step (bf16, hinge + LeCam, clamp, the latent flips,
+     crop bucket ``CTX2D_CROP``), the same with the mid-block attention, and
+     the cropped step in fp32, at ``data=1,context=2`` against one rank on
+     whole images, decisions replayed: the ranks bitwise equal, every
+     GroupNorm two-pass and the attention on the ring; the fp32 step within
+     phase 8's bounds, the bf16 steps' losses within them, their gradients'
+     shares logged as PERF.md §7's witness (``ctx2d_bf16_witness``);
+ 51. phase 26's flagship job at ``data=1,context=2`` (3 steps, rank 0
+     evaluating whole images and saving), its save resumed bitwise at
+     ``data=1`` in one process.
 
 The kernels are built in parallel, one nvcc per source. The ``kernels``
 line's launches add the main paths' (phases 6, 11, 16, 19), the training
 jobs' (28-29, 31-33), the served artifacts' (35-37), every data-parallel
 and sharded rank's (38-43), the tools' (44) and the context ranks' and
-their job's (47-48). The second-to-last
+their jobs' (47-48, 50-51). The second-to-last
 line is a JSON summary of the kernels; the last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits 1 and prints neither.
 """
@@ -1443,6 +1458,8 @@ class DecisionTape:
         self.calls: dict[str, list[torch.Tensor]] = {}
         self._next: dict[str, int] = {}
         self.code_flips = 0
+        # (index, count): a context rank's block of H rows (``rows``)
+        self.h_block: tuple[int, int] | None = None
 
     @staticmethod
     def decision_modules(modules: dict) -> list:
@@ -1468,6 +1485,7 @@ class DecisionTape:
             raise AssertionError(f"{key} called more often than on the recorded run")
         self._next[key] = i + 1
         x, decision = inputs[0], self.calls[key][i].to(inputs[0].device)
+        decision = self._own_block(module, x, decision)
         if isinstance(module, torch.nn.ReLU):
             return x * decision.to(x.dtype)
         # the pool again over x with -inf off the recorded argmaxes: the same
@@ -1476,6 +1494,23 @@ class DecisionTape:
         off.flatten(2).scatter_(2, decision.flatten(2), 0.0)
         return F.max_pool2d(x + off, module.kernel_size, module.stride, module.padding,
                             module.dilation, module.ceil_mode)
+
+    def _own_block(self, module, x: torch.Tensor, decision: torch.Tensor) -> torch.Tensor:
+        """A decision recorded on whole images, cut to the block of H rows
+        that a context rank's module sees (where x holds a block and not
+        the gathered image): a ReLU's mask its rows, a max-pool's argmaxes
+        its output rows, re-based to the block's flat positions."""
+        relu = isinstance(module, torch.nn.ReLU)
+        # the rows this call gives (VGG's pools: no padding, square windows)
+        rows_out = x.shape[2] if relu else (x.shape[2] - module.kernel_size) // module.stride + 1
+        if self.h_block is None or x.ndim != 4 or rows_out == decision.shape[2]:
+            return decision
+        index, count = self.h_block
+        rows = decision.shape[2] // count
+        block = decision[:, :, index * rows:(index + 1) * rows]
+        if relu:
+            return block
+        return block - index * x.shape[2] * x.shape[3]
 
     @contextlib.contextmanager
     def _hooked(self, modules: dict, hook):
@@ -1538,11 +1573,15 @@ class DecisionTape:
         finally:
             custom_ops.nearest_codes = real
 
-    def rows(self, rank: int, n: int) -> "DecisionTape":
+    def rows(self, rank: int, n: int, h_block: tuple[int, int] | None = None
+             ) -> "DecisionTape":
         """The tape a data-parallel rank replays: every recorded decision's
         ``rank``-th of ``n`` equal blocks along dim 0 (the rank's rows of
-        each call's batch, for a tape recorded on the global batch)."""
+        each call's batch, for a tape recorded on the global batch).
+        ``h_block`` (index, count): a 2D context rank's block of the images'
+        H rows, taken from each decision where the module sees a block."""
         tape = DecisionTape()
+        tape.h_block = h_block
         for key, calls in self.calls.items():
             tape.calls[key] = [d.reshape((n, d.shape[0] // n) + tuple(d.shape[1:]))[rank]
                                for d in calls]
@@ -4492,7 +4531,8 @@ def dp_models() -> dict:
             "frames": JOB3D_FRAMES}
 
 
-def dp_case(name: str, device, group=None, models: dict | None = None, context=None) -> dict:
+def dp_case(name: str, device, group=None, models: dict | None = None, context=None,
+            fp32: bool = False) -> dict:
     """Case ``name`` of phases 38-40 on ``device``, its step data-parallel
     across ``group`` (None: one process on the global batch): the same
     seeded random weights in every process, D's final heads made non-zero
@@ -4510,10 +4550,15 @@ def dp_case(name: str, device, group=None, models: dict | None = None, context=N
     (hinge + LeCam on 4 frames, frame D, fp32 D and LPIPS) and the mid-block
     attention chunked at ``JOB3D_ATTN_CHUNK``, so that kernel #3 runs;
     "flagship accum" (phase 42): "flagship" at ``grad_accum`` 2; "3d gan
-    tubelet" (phase 47): "3d gan" with the tubelet D on the 4 frames.
-    ``models``: the sizes (``dp_models()``'s where None); ``context``: the
-    group of ranks that split each clip's frames (phase 47), with which the
-    model and step are built (the caller cuts the batch's T)."""
+    tubelet" (phase 47): "3d gan" with the tubelet D on the 4 frames;
+    "flagship ctx" (phase 50): "flagship" with the latent flips and crop
+    bucket ``CTX2D_CROP``; "flagship attn ctx": the flips and phase 16's
+    mid-block attention (``attn_chunk`` 512), no crop; "flagship ctx fp32"
+    (and ``fp32`` for any 2D case): the VAE, LPIPS and D in fp32. ``models``: the sizes
+    (``dp_models()``'s where None); ``context``: the group of ranks that
+    split each clip's frames (phase 47) or each image's rows (phase 50),
+    with which the model and step are built (the caller cuts the batch's T
+    or H)."""
     from vqgan_tpu_torch.config import TrainConfig, TVAEConfig, VAEConfig
     from vqgan_tpu_torch.losses.discriminator import (
         PatchDiscriminator,
@@ -4555,14 +4600,22 @@ def dp_case(name: str, device, group=None, models: dict | None = None, context=N
         # bound on the folded codebook
         extra = dict(reg_type="vq", vq_revive_threshold=DP_VQ_REVIVE,
                      enc_dtype="float32") if name == "flagship vq" else {}
+        if name == "flagship attn ctx":
+            extra = dict(use_attn=True, attn_chunk=512)
+        fp32 = fp32 or name == "flagship ctx fp32"
+        if fp32:
+            extra = dict(extra, enc_dtype="float32", dec_dtype="float32")
+        ctx2d = name in CTX2D_CASES
         model_cfg = VAEConfig(**{**sizes["vae"], **extra})
         cfg = TrainConfig(batch_size=sizes["batch"], image_size=model_cfg.resolution,
                           max_steps=10_000, do_ganloss=True, disc_type="hinge",
                           use_lecam=True, do_clamp=True, learning_rate_disc=DP_D_LR,
-                          grad_accum=2 if name == DP_ACCUM else 1)
+                          grad_accum=2 if name == DP_ACCUM else 1, flip_invariance=ctx2d,
+                          downscale_factor=model_cfg.ffactor)
         with torch.device(device):
-            model = VAE(model_cfg)
-            disc, lpips = PatchDiscriminator(torch.bfloat16), LPIPS(torch.bfloat16)
+            model = VAE(model_cfg, context=context)
+            loss_dtype = torch.float32 if fp32 else torch.bfloat16
+            disc, lpips = PatchDiscriminator(loss_dtype), LPIPS(loss_dtype)
         blocks.init_weights_(model, seeded(0))
         batch = torch.from_numpy(np.random.RandomState(0).uniform(
             -1, 1, (sizes["batch"], model_cfg.resolution, model_cfg.resolution, 3)).astype(
@@ -4585,11 +4638,13 @@ def dp_case(name: str, device, group=None, models: dict | None = None, context=N
                                       gradnorm_shards=1 if context is not None else DP_RANKS,
                                       group=group, context=context)
     else:
-        base = make_train_step(cfg, model_cfg, model, disc, lpips, gradnorm_shards=DP_RANKS,
-                               group=group)
+        base = make_train_step(cfg, model_cfg, model, disc, lpips,
+                               gradnorm_shards=1 if context is not None else DP_RANKS,
+                               group=group, context=context)
+        crop = CTX2D_CROP if name in ("flagship ctx", "flagship ctx fp32") else 0
 
         def step(state, batch):
-            return base(state, batch, 0)
+            return base(state, batch, crop)
     return {"state": state, "step": step, "batch": batch, "head": {"lpips": lpips, "disc": disc},
             "model": model, "disc": disc, "vq": name == "flagship vq"}
 
@@ -5042,13 +5097,14 @@ class GnShapeWatch:
 
 def gn_shape_rows(shapes: dict, steps: int = 1) -> list[list]:
     """``record_gn_shapes``' counts as JSON rows [B, C, T, H, W, dtype
-    name, swish, calls a step] over ``steps`` steps, in phase 3's order."""
+    name, swish, calls a step] ([B, C, H, W, ...] for a 2D model) over
+    ``steps`` steps, in phase 3's order."""
     rows = []
     for key in sorted(shapes, key=_shape_order):
-        b, c, t, h, w, dtype, swish = key
+        *dims, dtype, swish = key
         if shapes[key] % steps:
             raise AssertionError(f"GroupNorm {key}: {shapes[key]} calls in {steps} steps")
-        rows.append([b, c, t, h, w, str(dtype)[6:], bool(swish), shapes[key] // steps])
+        rows.append([*dims, str(dtype)[6:], bool(swish), shapes[key] // steps])
     return rows
 
 
@@ -5524,8 +5580,12 @@ CTX_MESH = {"data": 1, "context": CTX_RANKS}
 # step runs it; each rank holds half the tokens
 RING_CASES = {"48f/256px mid block": (1, 49152, 8, 32, torch.bfloat16),
               "16f/128px mid block": (2, 512, 8, 32, torch.bfloat16),
-              "16f/128px mid block fp32": (2, 512, 8, 32, torch.float32)}
+              "16f/128px mid block fp32": (2, 512, 8, 32, torch.float32),
+              # phase 50's: the flagship's 32 x 32 latent tokens at batch 8, 16
+              # heads of 64, each rank 16 rows of them
+              "flagship mid block": (DP_BATCH, 1024, 16, 64, torch.bfloat16)}
 RING_FWD_CASE, RING_BWD_CASE = "48f/256px mid block", "16f/128px mid block fp32"
+RING_2D_CASE = "flagship mid block"
 # phase 47: phase 40's 3D GAN step (TVAEConfig()'s width in fp32, 16f/128px,
 # 2 clips, hinge + LeCam on 4 frames) with the frame D and with the tubelet D
 CTX_CASES = ("3d gan", "3d gan tubelet")
@@ -5539,6 +5599,34 @@ CTX_JOB_FIRST = ["--mesh_shape", "data=1,context=2", "--max_steps", "3",
                  "--evaluate_every_n_steps", "3"]
 CTX_JOB_RESUME = ["--mesh_shape", "data=1", "--max_steps", "4", "--evaluate_every_n_steps",
                   "0"]
+# phases 49-51: the context axis of the 2D job, each image's H rows split over
+# phases 45-48's two ranks (in their launch). Phase 50: phase 38's flagship
+# step (bf16, batch 8, hinge + LeCam, clamp) with the latent flips and crop
+# bucket CTX2D_CROP (0.75: 24 of 32 latent rows, 12 a rank, and 192 of the
+# target's 256 rows, 96 a rank: six whole VGG strides, so LPIPS and D run on
+# the blocks), and with phase 16's mid-block attention uncropped (a crop's
+# 576 tokens do not split into its 512-token chunks, which the one-rank run
+# needs); D's accuracy is held to one logit of the crop's 12 x 12 patch grid
+CTX2D_CASES = ("flagship ctx", "flagship attn ctx", "flagship ctx fp32")
+# phase 50's bf16 cases: their step-1 losses are held to phase 8's bounds,
+# their gradients logged as PERF.md §7's witness (``ctx2d_bf16_witness``),
+# "flagship ctx"'s beside bf16's own rounding of the one-rank step
+# (CTX2D_WITNESS); the fp32 case holds the step to phase 8's bounds
+CTX2D_BF16 = ("flagship ctx", "flagship attn ctx")
+CTX2D_WITNESS = "flagship ctx"
+CTX2D_CROP = 1
+CTX2D_LOGITS = 2 * DP_BATCH * 144
+# phase 49: halo at the flagship's widest rank block (batch 8, 128 of 256
+# rows, 256 channels, bf16), forward and backward, against the whole
+# zero-padded tensor's slices
+CTX2D_HALO = (DP_BATCH, 256, 256, 256)
+# phase 51: phase 26's flagship job (TRAIN_JOB) at data=1,context=2 for 3
+# steps (an eval after step 1, saves after step 1 and at the end), then its
+# save resumed at data=1 in one plain process for a fourth step
+CTX2D_JOB_FIRST = ["--mesh_shape", "data=1,context=2", "--max_steps", "3",
+                   "--evaluate_every_n_steps", "3"]
+CTX2D_JOB_RESUME = ["--mesh_shape", "data=1", "--max_steps", "4", "--evaluate_every_n_steps",
+                    "0"]
 
 
 def _ring_chunk(n: int) -> int:
@@ -5640,7 +5728,7 @@ def ring_check(group, rank: int) -> dict:
                                                                     out_dtype=f32), iters),
                         device_ms(lambda: _library_attention(qb, kb, vb), iters),
                         attention_bound_ms(b, nl, h, d, dtype, backward=False))}
-            if name == RING_BWD_CASE:
+            if name in (RING_BWD_CASE, RING_2D_CASE):
                 lf_ms = times["fwd"][2]
                 ql, kl, vl = (t.detach().requires_grad_() for t in (qb, kb, vb))
 
@@ -5800,18 +5888,20 @@ def gn_two_pass_check(gn, x, g, w, b, swish: bool, label: str) -> dict:
 
 
 def gn_two_pass_at_shapes(gn, shapes: list, label: str) -> dict:
-    """Phase 46: ``gn_two_pass_check`` at each (B, C, T, H, W, dtype,
-    swish, calls) of ``shapes`` (a context rank's GroupNorms of one step of
-    a path, as its hooks recorded them: ``gn_shape_rows``); returns per
-    launch the largest max_abs_err and the (kernel, plain, library, bound)
-    ms summed over the step's calls."""
+    """Phases 46 and 49: ``gn_two_pass_check`` at each (B, C, T, H, W,
+    dtype, swish, calls), or (B, C, H, W, ...) for a 2D step, of ``shapes``
+    (a context rank's GroupNorms of one step of a path, as its hooks
+    recorded them: ``gn_shape_rows``); returns per launch the largest
+    max_abs_err and the (kernel, plain, library, bound) ms summed over the
+    step's calls."""
     gen = torch.Generator(device="cuda").manual_seed(46)
     total = {}
-    for b, c, t, h, w_, dtype, swish, calls in shapes:
+    for b, c, *spatial, dtype, swish, calls in shapes:
         dt = getattr(torch, dtype)
-        x, wt, bs = _gn_inputs(gen, b, 0, c, dt, (t, h, w_))
-        g = _gn_inputs(gen, b, 0, c, dt, (t, h, w_))[0] - 0.3
-        res = gn_two_pass_check(gn, x, g, wt, bs, swish, f"B={b} C={c} T={t} H={h} W={w_}")
+        x, wt, bs = _gn_inputs(gen, b, 0, c, dt, tuple(spatial))
+        g = _gn_inputs(gen, b, 0, c, dt, tuple(spatial))[0] - 0.3
+        res = gn_two_pass_check(gn, x, g, wt, bs, swish, f"B={b} C={c} " + " ".join(
+            f"{n_}={v_}" for n_, v_ in zip("THW"[-len(spatial):], spatial)))
         for launch, (err, *ms) in res.items():
             acc = total.setdefault(launch, [0.0, 0.0, 0.0, 0.0, 0.0])
             acc[0] = max(acc[0], err)
@@ -5827,20 +5917,70 @@ def gn_two_pass_at_shapes(gn, shapes: list, label: str) -> dict:
     return {k_: tuple(v_) for k_, v_ in total.items()}
 
 
+def halo_h_check(group, rank: int) -> dict:
+    """Phase 49's halo in a rank: ``halo`` (one row each way) on this
+    rank's half of the rows of a seeded bf16 (B, C, H, W) tensor of
+    ``CTX2D_HALO``, forward and backward through autograd for seeded
+    cotangents (every rank's drawn on every rank), twice, the second timed
+    by CUDA events (both ranks on the card): the output must be the slice
+    of the whole zero-padded tensor, and the input's gradient this rank's
+    rows of the sum of every rank's cotangent at its place, bit for bit.
+    Returns the ms and the bytes a rank sends."""
+    import torch.distributed as dist
+
+    from vqgan_tpu_torch.parallel.context import halo
+
+    b, c, h, w = CTX2D_HALO
+    hl = h // CTX_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(49)
+
+    def channels_last(t):  # (B, H, W, C) → (B, C, H, W) channels_last, bf16
+        return t.to(torch.bfloat16).movedim(-1, 1)
+
+    x = channels_last(torch.randn((b, h, w, c), generator=gen, device="cuda"))
+    cots = [channels_last(torch.randn((b, hl + 2, w, c), generator=gen, device="cuda"))
+            for _ in range(CTX_RANKS)]
+    for _ in range(2):
+        xl = x[:, :, rank * hl:(rank + 1) * hl].contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        dist.barrier(group)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        y = halo(xl, 1, 1, group)
+        ev[1].record()
+        y.backward(cots[rank])
+        ev[2].record()
+        torch.cuda.synchronize()
+    pad = F.pad(x, (0, 0, 1, 1))
+    dpad = torch.zeros_like(pad, dtype=torch.float32)
+    for r, cot in enumerate(cots):
+        dpad[:, :, r * hl:r * hl + hl + 2] += cot.float()
+    want_dx = dpad[:, :, 1 + rank * hl:1 + (rank + 1) * hl].to(torch.bfloat16)
+    same = (torch.equal(y.detach(), pad[:, :, rank * hl:rank * hl + hl + 2])
+            and torch.equal(xl.grad, want_dx))
+    if not same:
+        raise AssertionError(f"halo rank {rank}: not the whole tensor's slices")
+    return {"fwd_ms": ev[0].elapsed_time(ev[1]), "bwd_ms": ev[1].elapsed_time(ev[2]),
+            "bytes": w * c * b * 2 * (2 if 0 < rank < CTX_RANKS - 1 else 1)}
+
+
 def ctx_ranks_main(spec_path: str) -> int:
-    """One rank of phases 45-48 (``chip_smoke.py --ctx-ranks SPEC`` under
+    """One rank of phases 45-51 (``chip_smoke.py --ctx-ranks SPEC`` under
     torchrun): joins the process group on ``CTX_MESH``; phase 45 on both
-    ranks (``ring_check``); phase 47: each of ``CTX_CASES`` on this rank's
-    half of every clip's frames, its model and step built with the context
-    group, replaying the one-rank run's loss-head decisions, the ranks'
-    states compared bit for bit after each step, each step's launches,
-    CUDA-event ms and peak memory recorded, the model's GroupNorm shapes
-    recorded by hooks; phase 48: the spec's job (``rank_jobs``, its steps'
-    GroupNorm shapes recorded); then phase 46 on rank 0 while the other
-    waits: the two-pass launches at the GroupNorm shapes of phase 47's
-    step (fp32) and of phase 48's (bf16) (``gn_two_pass_at_shapes``).
-    cuDNN deterministic, its benchmark off, TF32 convolutions as the spec
-    says. Writes its results to ``{dir}/ctx_rank{r}.pt``."""
+    ranks (``ring_check``) and phase 49's halo (``halo_h_check``); phase 47:
+    each of ``CTX_CASES`` on this rank's half of every clip's frames, and
+    phase 50: each of ``CTX2D_CASES`` on this rank's half of every image's
+    rows, its model and step built with the context group, replaying the
+    one-rank run's loss-head decisions (a 2D rank its block of rows of
+    them), the ranks' states compared bit for bit after each step, each
+    step's launches, CUDA-event ms and peak memory recorded, the model's
+    GroupNorm shapes recorded by hooks; phases 48 and 51: the spec's jobs
+    (``rank_jobs``, their steps' GroupNorm shapes recorded); then phases 46
+    and 49 on rank 0 while the other waits: the two-pass launches at the
+    GroupNorm shapes of phase 47's step (fp32), of phase 48's (bf16) and of
+    phase 50's flagship step (bf16) (``gn_two_pass_at_shapes``). cuDNN
+    deterministic, its benchmark off, TF32 convolutions as the spec says.
+    Writes its results to ``{dir}/ctx_rank{r}.pt``."""
     import torch.distributed as dist
 
     from vqgan_tpu_torch.ops import groupnorm_cuda as gn
@@ -5852,7 +5992,7 @@ def ctx_ranks_main(spec_path: str) -> int:
     for cfg in (spec["models"]["vae"], spec["models"]["tvae"]):  # JSON's lists: tuples
         cfg.update({k: tuple(v) for k, v in cfg.items() if isinstance(v, list)})
     device = init_distributed("cuda")
-    mesh = create_mesh(CTX_MESH, context=True)
+    mesh = create_mesh(CTX_MESH)
     group = mesh.context_group
     set_tf32(spec["tf32"])
     torch.backends.cudnn.deterministic = True
@@ -5861,14 +6001,19 @@ def ctx_ranks_main(spec_path: str) -> int:
            "backend": dist.get_backend(group), "cases": {}}
     t0 = time.perf_counter()
     out["ring"] = ring_check(group, mesh.rank)
+    t49 = time.perf_counter()
+    out["halo"] = halo_h_check(group, mesh.rank)
     t47 = time.perf_counter()
-    for name in CTX_CASES:
+    out["cases2d"] = {}
+    for name in CTX_CASES + CTX2D_CASES:
         case = dp_case(name, device, group, spec["models"], context=group)
         t = case["batch"].shape[1] // CTX_RANKS
         case["batch"] = case["batch"][:, mesh.context_index * t:(mesh.context_index + 1) * t]
         tape = DecisionTape()
         tape.calls = torch.load(os.path.join(spec["dir"], f"ctx_tape_{name.replace(' ', '_')}.pt"),
                                 weights_only=True)
+        if name in CTX2D_CASES:  # the loss head sees this rank's rows
+            tape = tape.rows(0, 1, (mesh.context_index, CTX_RANKS))
         equal = []
 
         def after_step(state):
@@ -5885,10 +6030,12 @@ def ctx_ranks_main(spec_path: str) -> int:
         if mesh.rank != 0:
             got.pop("moments", None)
             got.pop("extra", None)
-        out["cases"][name] = got
+        out["cases2d" if name in CTX2D_CASES else "cases"][name] = got
         del case, tape
         gc.collect()
         torch.cuda.empty_cache()
+        if name == CTX_CASES[-1]:
+            t50 = time.perf_counter()
     t48 = time.perf_counter()
     out["jobs"] = rank_jobs(spec["jobs"])
     t46 = time.perf_counter()
@@ -5897,22 +6044,75 @@ def ctx_ranks_main(spec_path: str) -> int:
         out["gn"] = {
             "step": gn_two_pass_at_shapes(gn, out["cases"]["3d gan"]["gn_shapes"],
                                           "phase 47's 3d gan (fp32)"),
-            "job": gn_two_pass_at_shapes(gn, job["gn_shapes"], "phase 48's job (bf16)")}
+            "job": gn_two_pass_at_shapes(gn, job["gn_shapes"], "phase 48's job (bf16)"),
+            "step2d": gn_two_pass_at_shapes(gn, out["cases2d"]["flagship ctx"]["gn_shapes"],
+                                            "phase 50's flagship step (bf16)")}
     dist.barrier(group)
-    out["seconds"] = {"45": t47 - t0, "47": t48 - t47, "48": t46 - t48,
-                      "46": time.perf_counter() - t46}
+    out["seconds"] = {"45": t49 - t0, "49 halo": t47 - t49, "47": t50 - t47, "50": t48 - t50,
+                      "48 and 51": t46 - t48, "46 and 49": time.perf_counter() - t46}
     torch.save(out, os.path.join(spec["dir"], f"ctx_rank{mesh.rank}.pt"))
     dist.destroy_process_group()
     return 0
 
 
+def grad_shares(ref: dict, got: dict) -> dict:
+    """Each step-1 first moment's distance from ``ref``'s as a share of
+    phase 8's gradient bound (GRAD_RTOL of the tensor's largest entry +
+    GRAD_FLOOR of the largest entry of its side), {side: {name: share}}."""
+    out = {}
+    for side in ("G", "D"):
+        r_side, o_side = ref[side], got[side]
+        floor = GRAD_FLOOR * max(float(t.abs().max()) for t in r_side.values())
+        out[side] = {n: float((o_side[n] - r).abs().max()) / (GRAD_RTOL * float(r.abs().max())
+                                                               + floor)
+                     for n, r in r_side.items()}
+    return out
+
+
+def ctx2d_bf16_witness(what: str, one: dict, one_fp32: dict | None, ranks_run: dict,
+                       n_logits: int) -> None:
+    """Phase 50's bf16 step against one rank: step 1's losses within phase
+    8's bounds (raises on a miss). Its gradients are not held: the bf16 step
+    at the rank's half images is a second bf16 rounding of the one-rank
+    step (PERF.md §7's witness), and the fp32 case holds the step's
+    gradients to phase 8's bounds. Logs each side's gradient shares of that
+    bound, and, with ``one_fp32`` (the same one-rank step in fp32 replaying
+    its decisions), bf16's own rounding of each tensor past it."""
+    worst_loss, _, bad_loss, _ = step_bound_shares(
+        (one["metrics"][0], one["moments"]), (ranks_run["metrics"][0], ranks_run["moments"]),
+        n_logits)
+    gap = grad_shares(one["moments"], ranks_run["moments"])
+    own = grad_shares(one["moments"], one_fp32["moments"]) if one_fp32 else None
+    for side in ("G", "D"):
+        past = {n: s_ for n, s_ in gap[side].items() if s_ > 1.0}
+        worst = max(gap[side], key=gap[side].get)
+        log(f"train cross-device {what}, step 1 against one rank on whole images, {side} "
+            f"(witness, not held): the worst gradient {worst} uses {gap[side][worst]:.3f} of "
+            f"phase 8's bound ({len(past)} of {len(gap[side])} tensors past it"
+            + ("" if own is None else ": " + ", ".join(
+                f"{n} {s_:.3f} (bf16's own rounding {own[side][n]:.3f})"
+                for n, s_ in sorted(past.items(), key=lambda kv: -kv[1])[:6]))
+            + ")" + ("" if own is None else
+                     f"; bf16's own rounding, the one-rank step against fp32: worst "
+                     f"{max(own[side].values()):.3f}, "
+                     f"{sum(s_ > 1 for s_ in own[side].values())} tensors past the bound"))
+    log(f"train cross-device {what}: the worst loss uses {worst_loss:.3f} of its bound")
+    if bad_loss:
+        raise AssertionError(f"{what}: step 1's losses leave phase 8's bounds: {bad_loss}")
+
+
 def phase_context_steps(tmp: str) -> dict:
-    """Phases 45-47: each of ``CTX_CASES`` at one rank on the whole clips,
-    recording the loss head's decisions, then one torchrun launch of
-    ``CTX_RANKS`` ranks on the card over gloo (``ctx_ranks_main``): phase
-    45's ring attention, phase 47's steps at ``CTX_MESH``, phase 48's job
-    (``phase_context_job`` checks it), then phase 46's two-pass GroupNorm
-    at the shapes phase 47's and phase 48's steps ran it (their hooks').
+    """Phases 45-47 and 49-50: each of ``CTX_CASES`` and ``CTX2D_CASES`` at
+    one rank on the whole clips or images, recording the loss head's
+    decisions, then one torchrun launch of ``CTX_RANKS`` ranks on the card
+    over gloo (``ctx_ranks_main``): phase 45's ring attention, phase 49's
+    halo, phase 47's and phase 50's steps at ``CTX_MESH``, phases 48 and
+    51's jobs (``phase_context_job`` checks them), then phases 46 and 49's
+    two-pass GroupNorm at the shapes phase 47's, phase 48's and phase 50's
+    steps ran it (their hooks'). Phase 50 holds what phase 47 holds, the
+    GroupNorms and the ring by the same rule, no Conv3d, and step 1 against
+    D's accuracy of the crop's patch grid (``CTX2D_LOGITS``); of its bf16
+    cases, step 1's losses (``ctx2d_bf16_witness``).
     Phase 47 holds: the ranks' states bitwise equal after
     every step, the same metrics on both; step 1 within phase 8's bounds of
     the one-rank step (``compare_step_across_devices``); each rank's
@@ -5925,20 +6125,33 @@ def phase_context_steps(tmp: str) -> dict:
     set_tf32(True)
     tf32 = torch.backends.cudnn.allow_tf32
     ref = {}
-    for name in CTX_CASES:
+    for name in CTX_CASES + CTX2D_CASES:
         case = dp_case(name, "cuda")
         tape = DecisionTape()
         ref[name] = dp_run_case(case, slice(None), tape, record=True)
         torch.save(tape.calls, os.path.join(tmp, f"ctx_tape_{name.replace(' ', '_')}.pt"))
-        log(f"context {name}: the one-rank run on whole clips recorded {tape.describe()}; "
+        log(f"context {name}: the one-rank run on whole "
+            f"{'images' if name in CTX2D_CASES else 'clips'} recorded {tape.describe()}; "
             f"launches a step {ref[name]['launches']}")
+        if name == CTX2D_WITNESS:
+            # bf16's own rounding: the same one-rank step in fp32 with these
+            # decisions replayed
+            del case
+            gc.collect()
+            torch.cuda.empty_cache()
+            case = dp_case(name, "cuda", fp32=True)
+            ref[f"{name} fp32 replay"] = dp_run_case(case, slice(None), tape, record=False)
         del case, tape
         gc.collect()
         torch.cuda.empty_cache()
     job = {"name": "context job", "expect": "", "digest_out": os.path.join(tmp, "digest_ctx.json"),
            "argv": CTX_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"), "--run_name", "ctx"]
            + CTX_JOB_FIRST, "gn_shapes": True}
-    spec = {"dir": tmp, "tf32": tf32, "models": dp_models(), "jobs": [job]}
+    job2d = {"name": "context 2d job", "expect": "",
+             "digest_out": os.path.join(tmp, "digest_ctx2d.json"),
+             "argv": TRAIN_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"), "--run_name", "ctx2d"]
+             + CTX2D_JOB_FIRST, "gn_shapes": True}
+    spec = {"dir": tmp, "tf32": tf32, "models": dp_models(), "jobs": [job, job2d]}
     spec_path = os.path.join(tmp, "ctx_spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -5957,9 +6170,10 @@ def phase_context_steps(tmp: str) -> dict:
     if [(r["mesh"], r["backend"]) for r in ranks] != [(CTX_MESH, "gloo")] * CTX_RANKS:
         raise AssertionError(f"context ranks: {[(r['mesh'], r['backend']) for r in ranks]}")
     launches: dict[str, int] = {}
-    for name in CTX_CASES:
+    for name in CTX_CASES + CTX2D_CASES:
+        two_d = name in CTX2D_CASES
         what = f"context {name} ({CTX_MESH}, gloo)"
-        got = [r["cases"][name] for r in ranks]
+        got = [r["cases2d" if two_d else "cases"][name] for r in ranks]
         one = ref[name]["launches"][0]
         want = {**{k_: 0 for k_ in one}, "gn_ctx_sums": one["gn"], "gn_ctx_apply": one["gn"],
                 "gn_ctx_bwd_sums": one["gn_bwd"], "gn_ctx_dx": one["gn_bwd"],
@@ -5975,8 +6189,10 @@ def phase_context_steps(tmp: str) -> dict:
                 raise AssertionError(f"{what}: the ranks' states differ after the steps "
                                      f"{g_['replicas_equal']}")
             calls = sum(row[-1] for row in g_["gn_shapes"])
+            # the 3D cases run one model; each 2D case its own
+            shapes_of = (got[0] if two_d else ranks[0]["cases"]["3d gan"])["gn_shapes"]
             if calls != want["gn_ctx_sums"] or g_["gn_shapes"] != got[0]["gn_shapes"] \
-                    or g_["gn_shapes"] != ranks[0]["cases"]["3d gan"]["gn_shapes"]:
+                    or g_["gn_shapes"] != shapes_of:
                 raise AssertionError(f"{what}: rank {r}'s GroupNorm shapes {g_['gn_shapes']} "
                                      f"({calls} calls a step)")
             for counted in g_["launches"]:
@@ -5987,9 +6203,14 @@ def phase_context_steps(tmp: str) -> dict:
             f"every tensor of the ranks' train states bitwise equal")
         runs = {"cpu": (ref[name]["metrics"][0], ref[name]["moments"], ref[name]["extra"]),
                 "cuda": (got[0]["metrics"][0], got[0]["moments"], got[0]["extra"])}
-        compare_step_across_devices(runs, f"{what}, step 1 against one rank on whole clips",
-                                    DP_CASES["3d gan"], 0,
-                                    labels=("one rank", f"{CTX_RANKS} context ranks"))
+        if name in CTX2D_BF16:
+            ctx2d_bf16_witness(what, ref[name], ref.get(f"{name} fp32 replay"), got[0],
+                               CTX2D_LOGITS if name == "flagship ctx" else DP_CASES["flagship"])
+        else:
+            compare_step_across_devices(
+                runs, f"{what}, step 1 against one rank on whole {'images' if two_d else 'clips'}",
+                CTX2D_LOGITS if two_d else DP_CASES["3d gan"], 0,
+                labels=("one rank", f"{CTX_RANKS} context ranks"))
         log(f"{what}: a step {np.mean(got[0]['ms']):.1f} / {np.mean(got[1]['ms']):.1f} ms by "
             f"CUDA events on ranks 0 / 1 (the one-rank run {np.mean(ref[name]['ms']):.1f} ms); "
             f"peak {got[0]['peak_bytes'] / 2**30:.3f} / {got[1]['peak_bytes'] / 2**30:.3f} GiB "
@@ -6005,9 +6226,19 @@ def phase_context_steps(tmp: str) -> dict:
             f"on rank 0 (CUDA events, both ranks on the card); kernel #3 at the block " + "; ".join(
                 f"{kind} kernel_ms={t[0]:.4f} plain_ms={t[1]:.4f} library_ms={t[2]:.4f} "
                 f"bound_ms={t[3]:.4f}" for kind, t in r["times"].items()))
+    halo = [r["halo"] for r in ranks]
+    b_, c_, h_, w_ = CTX2D_HALO
+    log(f"halo (phase 49) at B={b_} C={c_} W={w_}, {h_ // CTX_RANKS} of {h_} rows a rank, bf16: "
+        f"each rank's rows with a neighbour's row each way and the halos' gradients home, "
+        f"bitwise the whole zero-padded tensor's; forward / backward "
+        + ", ".join(f"rank {i} {r['fwd_ms']:.3f} / {r['bwd_ms']:.3f} ms" for i, r in
+                    enumerate(halo))
+        + f" by CUDA events (both ranks on the card, {halo[0]['bytes']} bytes sent a rank a "
+        f"call, over gloo)")
     for path, label in (("step", "phase 47's 3d gan step (TVAEConfig() width, fp32)"),
-                        ("job", "phase 48's job step (TVAEConfig() width, bf16)")):
-        log(f"GN two-pass (phase 46) at the GroupNorms of a context rank's {label}, as its "
+                        ("job", "phase 48's job step (TVAEConfig() width, bf16)"),
+                        ("step2d", "phase 50's flagship step (VAEConfig() width, bf16)")):
+        log(f"GN two-pass (phases 46, 49) at the GroupNorms of a context rank's {label}, as its "
             f"hooks recorded them, every check within its bound; max_abs_err and device ms "
             f"summed over the step's calls (kernel/plain/library/bound): "
             + "; ".join(f"{k_} {v_[0]:.3e}, " + "/".join("-" if t is None else f"{t:.4f}"
@@ -6085,7 +6316,79 @@ def phase_context_job(tmp: str, ctx_steps: dict) -> dict:
     del plain, probe
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(os.path.join(tmp, "ckpt"))
+    shutil.rmtree(run_dir)
+    launches: dict[str, int] = {}
+    for counted in (*[r["launches"] for r in first], one_launches):
+        _add_launches(launches, counted)
+    return {"first": first, "launches": launches}
+
+
+def phase_context_job_2d(tmp: str, ctx_steps: dict) -> dict:
+    """Phase 51: phase 26's flagship job (``TRAIN_JOB``: 512 px synthetic
+    images area-resized to 256 on each rank's rows, bf16, hinge + LeCam) at
+    ``data=1,context=2`` (``CTX2D_JOB_FIRST``), run by phases 45-50's ranks
+    after phase 48's job, sharing the card over gloo, each holding 256 of
+    every image's 512 rows: 3 steps, rank 0 alone evaluating (whole images,
+    no group) after step 1, logging and saving after step 1 and at the end;
+    every rank's GroupNorms all in the two-pass form (``JOB_GN`` of each of
+    the four launches a step), no one-launch backward, and no one-launch
+    forward but rank 0's eval's. Then one plain process resumes the step-3
+    save at ``data=1``, bitwise the live state the ranks ended with (its
+    ``state_digest``), and trains step 4 on whole images. Returns the
+    reports and launches."""
+    import shutil
+
+    first = [r["jobs"][1] for r in ctx_steps["ranks"]]
+    what = f"context 2d job ({CTX_RANKS} ranks, {CTX_MESH})"
+    seen = [(r["backend"], r["local_batch"], r["mesh"]) for r in first]
+    if seen != [("gloo", DP_BATCH, CTX_MESH)] * CTX_RANKS:
+        raise AssertionError(f"{what}: (backend, local batch, mesh) {seen}")
+    if [r["is_master"] for r in first] != [True, False] \
+            or [len(r["evals"]) for r in first] != [1, 0]:
+        raise AssertionError(f"{what}: rank 0 alone evaluates "
+                             f"{[(r['is_master'], len(r['evals'])) for r in first]}")
+    keys = ("gn_ctx_sums", "gn_ctx_apply", "gn_ctx_bwd_sums", "gn_ctx_dx")
+    for r in first:
+        per = r["launches"]
+        if sum(row[-1] for row in r["gn_shapes"]) != JOB_GN \
+                or r["gn_shapes"] != first[0]["gn_shapes"]:
+            raise AssertionError(f"{what}: rank {r['rank']}'s GroupNorm shapes a step "
+                                 f"{r['gn_shapes']}")
+        if len(r["steps"]) != 3 or any(per[k] != 3 * JOB_GN for k in keys) \
+                or per["gn_bwd"] != 0 or per["gn"] != (JOB_GN if r["rank"] == 0 else 0):
+            raise AssertionError(f"{what}: rank {r['rank']}: {len(r['steps'])} steps, "
+                                 f"launches {per}")
+    run_dir = os.path.join(tmp, "ckpt", "ctx2d")
+    check_job_log(job_lines(run_dir, "ctx2d"), range(0, 3), [1], what)
+    saved = sorted(os.listdir(os.path.join(run_dir, "state")))
+    if saved != ["step_00000001.pt", "step_00000003.pt"]:
+        raise AssertionError(f"{what}: saved {saved}")
+    log(f"{what}: {first[0]['seconds']:.1f} s; ranks on {[r['device'] for r in first]} over "
+        f"gloo, {DP_BATCH} images of 256 of 512 rows a rank; rank 0 alone evaluated and wrote "
+        f"{saved}; a step {first[0]['step_ms']:.1f} / {first[1]['step_ms']:.1f} ms by the host "
+        f"clock, {first[0]['device_step_ms']:.1f} / {first[1]['device_step_ms']:.1f} by CUDA "
+        f"events on ranks 0 / 1; peak {first[0]['peak_bytes'] / 2**30:.3f} / "
+        f"{first[1]['peak_bytes'] / 2**30:.3f} GiB; launches {first[0]['launches']} / "
+        f"{first[1]['launches']}")
+    with open(os.path.join(tmp, "digest_ctx2d.json")) as f:
+        expect = [json.load(f)]
+    dp_zero_counts()
+    plain, probe, _ = run_job(TRAIN_JOB + ["--ckpt_dir", os.path.join(tmp, "ckpt"), "--run_name",
+                                           "ctx2d"] + CTX2D_JOB_RESUME,
+                              f"{what}: resumed in one plain process", expect)
+    one_launches = dp_counts()
+    if plain.mesh.group is not None or plain.mesh.n_context != 1 \
+            or [(s, same) for s, same, _ in probe.restores] != [(3, True)] \
+            or len(probe.steps) != 1:
+        raise AssertionError(f"{what}: the one-process resume restored {probe.restores}, "
+                             f"{len(probe.steps)} steps")
+    log(f"{what}: the step-3 save restored in one plain process bitwise the live state the "
+        f"ranks ended with ({probe.restores[0][2]} tensors, digests); it trained step 4 on "
+        f"whole images in {probe.steps[0][1]:.1f} ms by CUDA events")
+    del plain, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(run_dir)
     launches: dict[str, int] = {}
     for counted in (*[r["launches"] for r in first], one_launches):
         _add_launches(launches, counted)
@@ -6303,23 +6606,30 @@ def main() -> int:
 
     # 45. ring attention on kernel #3 over two context ranks; 46. kernels #1 and
     # #2 in their two-pass form at the 3D step's GroupNorms cut in T; 47. the 3D
-    # GAN step, frame and tubelet D, at data=1,context=2 against one rank
-    # (45-47: one torchrun launch, whose ranks then run 48); 48. phase 28's job
-    # at data=1,context=2, its save resumed in one plain process
+    # GAN step, frame and tubelet D, at data=1,context=2 against one rank; 49.
+    # halo, and #1 and #2 two-pass at the 2D step's GroupNorms cut in H; 50.
+    # the flagship 2D GAN step, with and without attention, at
+    # data=1,context=2 against one rank (45-47, 49-50: one torchrun launch,
+    # whose ranks then run 48 and 51); 48. phase 28's job at data=1,context=2,
+    # its save resumed in one plain process; 51. phase 26's job the same way
     t45 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         ctx_steps = phase_context_steps(tmp)
         t48 = time.perf_counter()
         ctx_job = phase_context_job(tmp, ctx_steps)
+        t51 = time.perf_counter()
+        ctx_job2d = phase_context_job_2d(tmp, ctx_steps)
     t_end = time.perf_counter()
-    log(f"phases 45-48 (the context axis): {t_end - t45:.1f} s (the launch of 45-48 and the "
+    log(f"phases 45-51 (the context axis): {t_end - t45:.1f} s (the launch of 45-51 and the "
         f"one-rank runs: {t48 - t45:.1f} s, 48's checks and its one-process resume: "
-        f"{t_end - t48:.1f} s) of the {t_end - t_smoke:.1f} s the smoke has run so far")
+        f"{t51 - t48:.1f} s, 51's: {t_end - t51:.1f} s) of the {t_end - t_smoke:.1f} s the "
+        f"smoke has run so far")
     ctx_launches: dict[str, int] = {}
-    for counted in (ctx_steps["launches"], ctx_job["launches"]):
+    for counted in (ctx_steps["launches"], ctx_job["launches"], ctx_job2d["launches"]):
         _add_launches(ctx_launches, counted)
-    ring, gn_ctx_job = ctx_steps["ring"], ctx_steps["gn"]["job"]
-    gn_ctx = {k_: (max(v_[0], gn_ctx_job[k_][0]), *v_[1:])
+    ring, gn_ctx_job, gn_ctx_2d = (ctx_steps["ring"], ctx_steps["gn"]["job"],
+                                   ctx_steps["gn"]["step2d"])
+    gn_ctx = {k_: (max(v_[0], gn_ctx_job[k_][0], gn_ctx_2d[k_][0]), *v_[1:])
               for k_, v_ in ctx_steps["gn"]["step"].items()}
 
     serving = {"enc": torch.float32, "dec": torch.bfloat16}
@@ -6471,7 +6781,8 @@ def main() -> int:
         f"(phases 28-29 and 31-33: {job_launches}), the served artifacts' reconstructs "
         f"(phases 35-37: {export_launches}) and the data-parallel ranks' steps and jobs, every "
         f"rank's (phases 38-43: {dp_launches}), the tools' (phase 44: {tool_launches}), the "
-        f"context ranks' steps and job and the job's resume (phases 47-48: {ctx_launches}); "
+        f"context ranks' steps and jobs and the jobs' resumes (phases 47-48 and 50-51: "
+        f"{ctx_launches}); "
         f"GroupNorm launches per identity training step and "
         f"ms per step at "
         f"batch {TRAIN_BATCH}, bf16, summed over its 50 calls; VQ launches per flagship VQ "
@@ -6488,12 +6799,14 @@ def main() -> int:
         f"one entry per case, launches in the probe entry point's run, device ms of one call "
         f"(library: torch.matmul of the same product); GroupNorm, VQ and geometry probe "
         f"times from CUDA graph replays; the two-pass GroupNorm entries (phase 46): launches "
-        f"on phases 47-48's paths, max_abs_err over both paths' shapes (phase 47's fp32, "
-        f"phase 48's bf16), ms summed over the calls of a context rank's step of phase 47 "
-        f"(fp32; phase 48's bf16 step in the lines above), library "
+        f"on phases 47-48 and 50-51's paths, max_abs_err over the three paths' shapes "
+        f"(phase 47's fp32, phase 48's and phase 50's bf16), ms summed over the calls of a "
+        f"context rank's step of phase 47 (fp32; phase 48's and phase 50's bf16 steps in the "
+        f"lines above), library "
         f"F.group_norm's whole forward (apply) or backward (dx), none for the sums; the ring "
         f"entries (phase 45): launches of kernel #3 that the ring made on "
-        f"phases 47-48's paths, max_abs_err over phase 45's cases against one rank over the "
+        f"phases 47-48 and 50-51's paths, max_abs_err over phase 45's cases against one rank "
+        f"over the "
         f"whole sequence, ms of one call of the ring's launch (fp32 outputs) at its block "
         f"({RING_FWD_CASE} forward, {RING_BWD_CASE} backward) with its plain version, SDPA "
         f"and bound")

@@ -7,7 +7,7 @@ One torchrun launch of tests/torch_dp_worker.py (4 ranks at
 context group, (0, 1) and (2, 3)) runs, while this process runs the same
 cases on the whole clips:
 
-  - ``halo_t`` over the 4 ranks, forward and backward, against slicing the
+  - ``halo`` over the 4 ranks, forward and backward, against slicing the
     whole zero-padded tensor (exact);
   - the two-pass GroupNorm (plain, which the CPU runs for kernels #1 and #2)
     over the 4 ranks' T blocks, with and without swish, forward and
@@ -137,7 +137,7 @@ def _cases() -> list[dict]:
 
 
 def _units(rng) -> dict:
-    """The pieces' global inputs: halo_t's tensor and its ranks'
+    """The pieces' global inputs: halo's tensor and its ranks'
     cotangents, the GroupNorm's, the TVAE's params (JAX's, converted),
     clips and loss weights."""
     tl = HALO_SHAPE[2] // RANKS

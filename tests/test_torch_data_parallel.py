@@ -383,18 +383,19 @@ def test_mesh_extents_match_jax(eight_devices, shape):
 
 def test_create_mesh_in_one_process():
     """Without torchrun the mesh is one rank with no process group, and a
-    data or fsdp axis of 2 says how to get a second rank; the unported axes
-    raise naming their ROADMAP items."""
+    data, fsdp or context axis of 2 says how to get a second rank; the
+    unported axes raise naming their ROADMAP items."""
     mesh = create_mesh({"data": -1})
     assert (mesh.shape, mesh.rank, mesh.world_size, mesh.group) == ({"data": 1}, 0, 1, None)
     assert mesh.is_master and mesh.n_data == 1
     assert mesh.any(True) and not mesh.any(False)
-    for axes in ({"data": 2}, {"data": 1, "fsdp": 2}):
+    for axes in ({"data": 2}, {"data": 1, "fsdp": 2}, {"data": 1, "context": 2}):
         with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
             create_mesh(axes)
-    for axis, item in (("tensor", "tensor sharding"), ("context", "context")):
+    for axes, item in (({"data": 1, "tensor": 2}, "tensor sharding"),
+                       ({"data": 1, "fsdp": 2, "context": 2}, "fsdp x context")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1: {item}"):
-            create_mesh({"data": 1, axis: 2})
+            create_mesh(axes)
     with pytest.raises(ValueError, match="unknown mesh axes"):
         mesh_extents({"pipeline": 2}, 2)
 

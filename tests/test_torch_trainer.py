@@ -314,7 +314,9 @@ def test_trainer_device_is_explicit(tmp_path):
     # one process without torch.distributed is one rank
     (dict(mesh_shape="data=2"), ValueError, "torchrun --nproc_per_node"),
     (dict(mesh_shape="data=1,tensor=2"), NotImplementedError, "Queue 1: tensor sharding"),
-    (dict(mesh_shape="data=1,context=2"), NotImplementedError, "Queue 1: context"),
+    # the context axis is ported for both jobs: it asks for ranks too
+    (dict(mesh_shape="data=1,context=2"), ValueError, "torchrun --nproc_per_node"),
+    (dict(mesh_shape="data=1,fsdp=2,context=2"), NotImplementedError, "Queue 1: fsdp x context"),
 ])
 def test_trainer_validates_its_config(tmp_path, kw, err, what):
     with pytest.raises(err, match=what):

@@ -91,9 +91,12 @@ def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
     (``held_bytes``) are kept, and the moments and final tensors read from
     the gathered trees.
 
-    ``context`` (a 3D case): the group of ranks that split this rank's
-    clips' frames; ``rank`` and ``n`` are then the data index and extent,
-    and the rank takes its T block of its clips (tests/test_torch_context.py)."""
+    ``context``: the group of ranks that split this rank's clips' frames
+    (a 3D case, tests/test_torch_context.py) or its images' rows (a 2D
+    case, tests/test_torch_context2d.py); ``rank`` and ``n`` are then the
+    data index and extent, and the rank takes its block of dim 1 of its
+    rows. A 2D case's ``do_crop`` (default 0) is its steps' crop bucket, or
+    a list of one a step."""
     cfg = TrainConfig(**case["train"])
     shards = case["gradnorm_shards"]
     three_d = case["kind"] == "3d"
@@ -102,7 +105,7 @@ def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
         vae = TVAE(model_cfg, context=context)
     else:
         model_cfg = VAEConfig(**case["model"])
-        vae = VAE(model_cfg)
+        vae = VAE(model_cfg, context=context)
     disc = (TubeletDiscriminator(case["tubelet_frames"]) if three_d and cfg.disc_3d == "tubelet"
             else PatchDiscriminator())
     lpips = LPIPS()
@@ -117,11 +120,13 @@ def run_case(case: dict, group=None, rank: int = 0, n: int = 1, tape=None,
                                       gradnorm_shards=shards, group=group, context=context)
     else:
         step = make_train_step(cfg, model_cfg, vae, disc, lpips, gradnorm_shards=shards,
-                               group=group)
+                               group=group, context=context)
     out = {"metrics": [], "replicas_equal": [], "vq_ema_steps": []}
     head = {"lpips": lpips, "disc": disc}
+    h_block = None if three_d or context is None else (dist.get_rank(context),
+                                                        dist.get_world_size(context))
     with (contextlib.nullcontext() if tape is None else tape.recording(head) if group is None
-          else tape.rows(rank, n).replaying(head)):
+          else tape.rows(rank, n, h_block).replaying(head)):
         _steps(case, step, state, vae, disc, group, rank, n, out, mesh, trees, context)
     if trees:
         out["param_names"] = {"g": [k for k, _ in vae.named_parameters()],
@@ -163,7 +168,8 @@ def _steps(case, step, state, vae, disc, group, rank, n, out, mesh=None,
         if three_d:
             state, m = step(state, x, draws)
         else:
-            state, m = step(state, x, 0, draws)
+            crop = case.get("do_crop", 0)
+            state, m = step(state, x, crop[i] if isinstance(crop, list) else crop, draws)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if trees:
             held = state_tensors(state)
@@ -303,20 +309,20 @@ def run_ring(spec: dict, groups: dict) -> dict:
 
 def run_context_units(spec: dict, mesh) -> dict:
     """The context axis's pieces on this rank's T blocks of the spec's
-    global tensors: ``halo_t`` over every rank and its backward for a
+    global tensors: ``halo`` over every rank and its backward for a
     cotangent; the two-pass GroupNorm over every rank, forward and
     backward; the tiny TVAE's forward and parameter gradients at
     data=1,context=2 (the ranks of this rank's context group) and at
     data=2,context=2 (every rank)."""
     from vqgan_tpu_torch.ops.groupnorm_cuda import context_group_norm
-    from vqgan_tpu_torch.parallel.context import halo_t
+    from vqgan_tpu_torch.parallel.context import halo
 
     world = mesh.group
     out = {}
     for before, after in ((1, 1), (0, 1)):
         x = _block(spec["halo_x"], world, 2).contiguous(
             memory_format=torch.channels_last_3d).requires_grad_(True)
-        y = halo_t(x, before, after, world)
+        y = halo(x, before, after, world)
         cot = spec["halo_g"][(before, after)][dist.get_rank()]
         y.backward(torch.from_numpy(cot))
         out[("halo", before, after)] = {"y": y.detach(), "dx": x.grad}
@@ -345,13 +351,86 @@ def run_context_units(spec: dict, mesh) -> dict:
     return out
 
 
+def run_context2d_units(spec: dict, mesh) -> dict:
+    """The 2D context axis's pieces on this rank's blocks of the spec's
+    global tensors (tests/test_torch_context2d.py): ``halo``,
+    ``reverse_blocks`` and ``window_blocks`` over every rank, each with its
+    backward for a cotangent; the step's input resize on the blocks; the
+    tiny VAE's forward and the parameter
+    gradients of a fixed loss at data=2,context=2 and data=1,context=4;
+    LPIPS and the PatchDiscriminator at data=1,context=4 on 64 px images
+    (blocks of 16 rows: the towers run on the blocks) and 32 px (8 rows:
+    gathered)."""
+    from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator
+    from vqgan_tpu_torch.losses.lpips import LPIPS
+    from vqgan_tpu_torch.parallel.context import halo, reverse_blocks, window_blocks
+
+    world = mesh.group
+    me = dist.get_rank()
+    out = {}
+    for before, after in ((1, 1), (0, 1)):
+        x = _block(spec["halo_x"], world, 2).contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        y = halo(x, before, after, world)
+        y.backward(torch.from_numpy(spec["halo_g"][(before, after)][me]))
+        out[("halo", before, after)] = {"y": y.detach(), "dx": x.grad}
+    x = _block(spec["rev_x"], world, 1).requires_grad_(True)
+    y = reverse_blocks(x, 1, world)
+    y.backward(_block(spec["rev_g"], world, 1))
+    out["reverse"] = {"y": y.detach(), "dx": x.grad}
+    x = _block(spec["win_x"], world, 1).requires_grad_(True)
+    y = window_blocks(x, 1, torch.tensor(spec["win_start"]), spec["win_size"], world)
+    y.backward(_block(spec["win_g"], world, 1))
+    out["window"] = {"y": y.detach(), "dx": x.grad}
+    from vqgan_tpu_torch.train.step import _resize_rows
+
+    for size in spec["resize_sizes"]:  # an area factor on the blocks, a gathered linear
+        out[("resize", size)] = _resize_rows(_block(spec["resize_x"], world, 1), size, world)
+    for layout, ctx, rows in (("d2c2", mesh.context_group, (mesh.data_index, mesh.n_data)),
+                              ("d1c4", world, (0, 1))):
+        model = VAE(VAEConfig(**spec["vae"]), context=ctx)
+        model.load_state_dict(spec["vae_sd"], strict=True)
+        z = model.encode(_block(_rows(spec["vae_x"], *rows), ctx, 1))
+        y = model.decode(z)
+        loss = (y * _block(_rows(spec["vae_wy"], *rows), ctx, 1)).sum() + (
+            z * _block(_rows(spec["vae_wz"], *rows), ctx, 1)).sum()
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        for g in grads.values():
+            dist.all_reduce(g, group=world)
+        out[("vae", layout)] = {"y": y.detach(), "z": z.detach(), "grads": grads}
+    lpips, disc = LPIPS(), PatchDiscriminator()
+    lpips.load_state_dict(spec["lpips_sd"], strict=True)
+    disc.load_state_dict(spec["d_sd"], strict=True)
+    for size in (64, 32):
+        x = _block(spec[f"head_x{size}"], world, 1).requires_grad_(True)
+        val = lpips(x, _block(spec[f"head_y{size}"], world, 1), world)
+        val.sum().backward()
+        out[("lpips", size)] = {"val": val.detach(), "dx": x.grad}
+        disc.zero_grad(set_to_none=True)
+        x = _block(spec[f"head_x{size}"], world, 1).requires_grad_(True)
+        logits = disc(x, world)
+        w = torch.from_numpy(spec[f"head_w{size}"])  # (B, Ph, Pw), every patch
+        if logits.shape[1] != w[0].numel():  # the logits of this rank's patch rows
+            w = _block(spec[f"head_w{size}"], world, 1)
+        (logits * w.reshape(logits.shape)).sum().backward()
+        grads = {k: p.grad for k, p in disc.named_parameters()}
+        for g in grads.values():
+            dist.all_reduce(g, group=world)
+        # the summed gradients are every rank's: rank 0's stand for them (D's
+        # are ~60 MB)
+        out[("disc", size)] = {"logits": logits.detach(), "dx": x.grad,
+                               "grads": grads if me == 0 else meta_tree(grads)}
+    return out
+
+
 def main() -> None:
     torch.set_num_threads(1)
     spec_path, out_dir = sys.argv[1], sys.argv[2]
     init_distributed("cpu")
     spec = torch.load(spec_path, weights_only=False)
     axes = spec.get("mesh", {"data": -1})
-    mesh = create_mesh(axes, context="context" in axes)
+    mesh = create_mesh(axes)
     rank, n = mesh.rank, mesh.world_size
     out = {}
     if "ring" in spec:
@@ -361,10 +440,14 @@ def main() -> None:
         out["ring"] = run_ring(spec["ring"], groups)
     if "context_units" in spec:
         out["context_units"] = run_context_units(spec["context_units"], mesh)
+    if "context2d_units" in spec:
+        out["context2d_units"] = run_context2d_units(spec["context2d_units"], mesh)
     for i, case in enumerate(spec.get("context_cases", ())):
         tape = _tape(os.path.join(out_dir, f"ctx_tape{i}.pt"))
         if case["layout"] == "d1c2":
             got = run_case(case, mesh.context_group, 0, 1, tape, context=mesh.context_group)
+        elif case["layout"] == "d1c4":  # every rank one context group
+            got = run_case(case, mesh.group, 0, 1, tape, context=mesh.group)
         else:
             got = run_case(case, mesh.group, mesh.data_index, mesh.n_data, tape,
                            context=mesh.context_group)

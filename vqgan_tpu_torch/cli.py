@@ -27,11 +27,11 @@ Data parallelism: ``torchrun --nproc_per_node N -m vqgan_tpu_torch.cli
 train|train3d --mesh_shape data=-1 ...`` runs N ranks, each on its card
 (``cuda:LOCAL_RANK``; ranks that share a card talk over gloo), with
 ``--batch_size`` the global batch; ``--mesh_shape data=D,fsdp=F`` (or
-``fsdp=-1``) also shards the train state over F ranks; ``train3d
---mesh_shape data=D,context=C`` splits each clip's frames over C ranks
-(ring attention, T halos). ``tensor`` above 1, ``context`` above 1 for
-``train`` and ``fsdp`` with ``context`` raise NotImplementedError naming
-their ROADMAP.md items.
+``fsdp=-1``) also shards the train state over F ranks; ``--mesh_shape
+data=D,context=C`` splits each image's H rows (``train``: H halos) or each
+clip's T frames (``train3d``: T halos) over C ranks, with ring attention and
+the two-pass GroupNorm. ``tensor`` above 1, and ``fsdp`` with ``context``,
+raise NotImplementedError naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -112,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--mesh_shape", type=str, default="data=-1",
         help="Device mesh: data=-1 (or data=N) splits the global --batch_size over the "
              "torchrun ranks; data=D,fsdp=F (or fsdp=-1) also shards the train state over "
-             "F ranks; tensor above 1 and context above 1 (the 2D halo) raise "
+             "F ranks; data=D,context=C splits each image's H rows over C ranks (H halos, "
+             "ring attention); tensor above 1, and fsdp with context, raise "
              "NotImplementedError (not ported)")
     add("--remat", type=_bool, default=False,
         help="Activation rematerialization (fit large configs in device memory)")

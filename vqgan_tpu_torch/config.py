@@ -173,8 +173,11 @@ class TrainConfig:
     ``mesh_shape``: both trainers run one rank a process under torchrun,
     the global ``batch_size`` split over the ``data`` and ``fsdp`` axes
     (``parallel/mesh.py``), the train state sharded at rest over ``fsdp``
-    (``parallel/fsdp.py``); ``tensor`` and ``context`` above 1 raise
-    NotImplementedError naming their ROADMAP.md Queue 1 items. No
+    (``parallel/fsdp.py``); both take ``context`` above 1, which splits each
+    image's H rows (``train``) or each clip's T frames (``train3d``) over
+    the ranks of a data index (``parallel/context.py``). ``tensor`` above 1,
+    and ``fsdp`` and ``context`` both above 1, raise NotImplementedError
+    naming their ROADMAP.md Queue 1 items. No
     effect in this package: ``device_normalize`` for the steps themselves
     (they normalize a uint8 batch on the device whatever its value; the
     loader reads it).

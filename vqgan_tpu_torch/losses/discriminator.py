@@ -18,6 +18,14 @@ Head specs (the reference's):
 State-dict keys are the reference's: the backbone under
 ``slice{n}.0.{idx}.*`` (each VGG slice wrapped in one more Sequential) and
 the heads as ``binary_classifier{k}.{0,2}.*``.
+
+Over an image's H rows split in blocks over a ``context`` group: where each
+block is a whole number of ``VGG_STRIDE`` rows (a whole number of patches)
+the backbone runs on the blocks (halos in its convs) and the heads, whose
+kernel is their stride, are local, so a rank's logits are its patch rows;
+otherwise the images are gathered and D runs on them whole on every rank
+(``parallel/context.py::gather_blocks``). Every mean over the patches is then
+the mean over the ranks' equal shares (the train step's).
 """
 
 from __future__ import annotations
@@ -28,8 +36,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vqgan_tpu_torch.losses.vgg import ScalingLayer, init_vgg_, vgg16_slices
+from vqgan_tpu_torch.losses.vgg import (
+    VGG_STRIDE,
+    ScalingLayer,
+    init_vgg_,
+    run_layers,
+    vgg16_slices,
+)
 from vqgan_tpu_torch.models.blocks import Conv2d, nchw
+from vqgan_tpu_torch.parallel.context import gather_blocks
 
 # (in, out, kernel = stride) of each head's convs, in Sequential order
 _HEADS = (
@@ -58,12 +73,17 @@ class PatchDiscriminator(nn.Module):
                 layers.append(Conv2d(cin, cout, ks, stride=ks, dtype=dtype))
             self.add_module(f"binary_classifier{k}", nn.Sequential(*layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
+        """``context``: the group whose ranks hold x's blocks of H rows (the
+        module docstring); the logits are then this rank's patch rows, or
+        every patch where x was gathered."""
+        if context is not None and x.shape[1] % VGG_STRIDE:
+            x, context = gather_blocks(x, 1, context), None
         h = self.scaling_layer(nchw(x))
         b = h.shape[0]
         logits = None
         for k in range(1, 6):
-            h = getattr(self, f"slice{k}")(h)
+            h = run_layers(getattr(self, f"slice{k}"), h, context)
             head = getattr(self, f"binary_classifier{k}")(h).reshape(b, -1)
             logits = head if logits is None else logits + head
         return logits.float()

@@ -14,6 +14,14 @@ State-dict keys are the reference's (``vgg.pth``): the VGG under
 ``net.slice{n}.{idx}.*`` and the heads as ``lin{k}.model.1.weight`` of shape
 (1, C, 1, 1). Without real weights the heads start at 1/C (each tap a plain
 normalized-feature MSE), as in the JAX package.
+
+Over an image's H rows split in blocks over a ``context`` group, LPIPS gives
+the whole images' distances on every rank of the group: where each block is
+a whole number of ``VGG_STRIDE`` rows the towers run on the blocks (halos in
+their convs, ``vgg.py``) and each tap's spatial sum is summed over the group
+and divided by the whole tap's H·W; otherwise the images are gathered and
+LPIPS runs on them whole on every rank (its backward keeps this rank's rows
+of the summed gradients, ``parallel/context.py::gather_blocks``).
 """
 
 from __future__ import annotations
@@ -21,8 +29,16 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from vqgan_tpu_torch.losses.vgg import TAP_CHANNELS, ScalingLayer, VGG16Features, init_vgg_
+from vqgan_tpu_torch.losses.vgg import (
+    TAP_CHANNELS,
+    VGG_STRIDE,
+    ScalingLayer,
+    VGG16Features,
+    init_vgg_,
+)
 from vqgan_tpu_torch.models.blocks import nchw
+from vqgan_tpu_torch.parallel.context import all_sum, gather_blocks
+from vqgan_tpu_torch.parallel.mesh import group_size
 
 
 def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -68,14 +84,24 @@ class LPIPS(nn.Module):
             self.add_module(f"lin{k}", NetLinLayer(c))
         self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        taps_x = self.net(self.scaling_layer(nchw(x)))
+    def forward(self, x: torch.Tensor, y: torch.Tensor, context=None) -> torch.Tensor:
+        """``context``: the group whose ranks hold x's and y's blocks of H
+        rows (the module docstring)."""
+        n = group_size(context)
+        if context is not None and x.shape[1] % VGG_STRIDE:
+            x, y = gather_blocks(x, 1, context), gather_blocks(y, 1, context)
+            context, n = None, 1
+        taps_x = self.net(self.scaling_layer(nchw(x)), context)
         with torch.no_grad():
-            taps_y = self.net(self.scaling_layer(nchw(y)))
+            taps_y = self.net(self.scaling_layer(nchw(y)), context)
         total = None
         for k, (tx, ty) in enumerate(zip(taps_x, taps_y)):
             diff = (_unit_normalize(tx.float()) - _unit_normalize(ty.float())).square()
-            val = getattr(self, f"lin{k}")(diff).mean(dim=(1, 2))  # spatial mean
+            d = getattr(self, f"lin{k}")(diff)
+            if context is None:
+                val = d.mean(dim=(1, 2))  # spatial mean
+            else:
+                val = all_sum(d.sum(dim=(1, 2)), context) / (n * d.shape[1] * d.shape[2])
             total = val if total is None else total + val
         return total[:, None]
 

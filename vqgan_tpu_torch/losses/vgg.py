@@ -10,6 +10,11 @@ reference's: ``slice1.0.weight`` ... ``slice5.28.bias``.
 
 Activations are (B, C, H, W) in ``torch.channels_last``; params fp32, each
 conv computing in the module's ``dtype`` (``models/blocks.py::Conv2d``).
+
+Over an image's H rows split in blocks over a ``context`` group
+(``run_layers``) each 3×3 conv takes a halo row of each neighbour and the
+2×2 max-pools are local, which holds where every rank's block is a whole
+number of ``VGG_STRIDE`` rows.
 """
 
 from __future__ import annotations
@@ -29,6 +34,25 @@ TAP_CHANNELS = (64, 128, 256, 512, 512)  # reference utils.py:13
 TORCHVISION_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 # the slices end after relu1_2, relu2_2, relu3_3, relu4_3, relu5_3
 SLICE_BOUNDS = (0, 4, 9, 16, 23, 30)
+# the rows of the input that one row of the last tap stands for: the four
+# 2x2 pools (and the patch discriminator's heads' patch)
+VGG_STRIDE = 16
+
+
+def run_layers(seq: nn.Module, x: torch.Tensor, context) -> torch.Tensor:
+    """``seq``'s layers (nested ``nn.Sequential``s walked in order) on x,
+    each ``Conv2d`` over this rank's H block of ``context``; ``seq(x)``
+    itself without one (the whole image)."""
+    if context is None:
+        return seq(x)
+    for m in seq:
+        if isinstance(m, nn.Sequential):
+            x = run_layers(m, x, context)
+        elif isinstance(m, Conv2d):
+            x = m.conv(x, context)
+        else:
+            x = m(x)
+    return x
 
 
 def slice_of(idx: int) -> int:
@@ -86,16 +110,18 @@ class ScalingLayer(nn.Module):
 
 
 class VGG16Features(nn.Module):
-    """(B, 3, H, W) channels_last → the 5 relu taps, in ``dtype``."""
+    """(B, 3, H, W) channels_last → the 5 relu taps, in ``dtype``; with
+    ``context`` x is this rank's block of H rows (``run_layers``) and so is
+    each tap."""
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         for n, seq in enumerate(vgg16_slices(dtype), start=1):
             self.add_module(f"slice{n}", seq)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, context=None) -> tuple[torch.Tensor, ...]:
         taps = []
         for n in range(1, 6):
-            x = getattr(self, f"slice{n}")(x)
+            x = run_layers(getattr(self, f"slice{n}"), x, context)
             taps.append(x)
         return tuple(taps)

@@ -21,10 +21,20 @@ walked in reverse.
 ``VAE.encode``/``decode``/``forward`` keep the JAX package's layout: images
 (B, H, W, C) and latents (B, h, w, z). Inside, tensors are (B, C, H, W) in
 ``torch.channels_last`` memory format.
+
+With a ``context`` process group (``VAE(cfg, context=group)``; JAX's GSPMD
+run of the same model on a batch whose H is sharded over ``context``) each
+rank holds a contiguous block of every image's H rows and the model
+computes the whole image's function on it (``models/blocks.py`` says how
+each module does); ``encode`` checks the image's rows against the group
+(``check_context_rows``). The HDR recipe's wavelet front end and HR decoder
+are not ported under it (``CONTEXT_HDR``). The parameter tree is the same
+with or without it.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import torch
@@ -33,6 +43,7 @@ import torch.nn as nn
 from vqgan_tpu_torch.config import DTYPES, VAEConfig
 from vqgan_tpu_torch.models.blocks import (
     AttnBlock,
+    Conv2d,
     Downsample,
     FP32GroupNorm,
     ResnetBlock,
@@ -45,6 +56,11 @@ from vqgan_tpu_torch.models.blocks import (
 )
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.wavelet import wavelet_transform_nchw
+from vqgan_tpu_torch.parallel.mesh import group_size
+
+# the ROADMAP.md item that ports the HDR recipe's options under the 2D
+# context axis
+CONTEXT_HDR = "ROADMAP.md, Queue 1: context: the 2D HDR options"
 
 
 class DownLevel(nn.Module):
@@ -215,16 +231,40 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def check_context_rows(rows: int, ch_mult: Sequence[int], n_context: int) -> None:
+    """The image sizes whose rows split evenly at every level over
+    ``n_context`` ranks: each rank's block of the latent's rows (the image's
+    over the encoder's 2^(levels - 1)) whole, so that every downsample
+    halves an even block. JAX's ``Trainer`` checks only ``image_size %
+    n_context`` (``trainer.py:65-69``; its GSPMD pads uneven blocks), which
+    this check implies; raises ValueError naming the sizes that pass."""
+    step = n_context * 2 ** (len(ch_mult) - 1)
+    if rows % step:
+        raise ValueError(
+            f"{rows} image rows do not split evenly over {n_context} context ranks at every "
+            f"level of ch_mult {tuple(ch_mult)}: each rank's block of the latent's rows must "
+            f"be whole, so the rows must be a multiple of {n_context} x "
+            f"{2 ** (len(ch_mult) - 1)} = {step}")
+
+
 class VAE(nn.Module):
     """Encoder + regularizer + decoder (reference ae.py:351-392).
 
-    Params are allocated, not initialized: load a state dict, or use
-    ``init_vae``."""
+    ``context``: a process group whose ranks each hold a contiguous block of
+    every image's H rows (the module docstring says how the model computes
+    on them). Params are allocated, not initialized: load a state dict, or
+    use ``init_vae``."""
 
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, context=None):
         super().__init__()
         _check_config(cfg)
+        if context is not None and (cfg.use_wavelet or cfg.decoder_also_perform_hr):
+            raise NotImplementedError(
+                f"use_wavelet={cfg.use_wavelet}, decoder_also_perform_hr="
+                f"{cfg.decoder_also_perform_hr} over H blocks of the context axis: not ported "
+                f"yet ({CONTEXT_HDR})")
         self.cfg = cfg
+        self.context = context
         attn = dict(use_attn=cfg.use_attn, attn_chunk=cfg.attn_chunk,
                     attn_impl=cfg.attn_impl,
                     remat_policy=remat_policy_of(cfg.remat, cfg.remat_policy))
@@ -247,14 +287,42 @@ class VAE(nn.Module):
             self.reg = IdentityGaussian()
         else:
             self.reg = DiagonalGaussian()
+        for m in self.modules():
+            if isinstance(m, (Conv2d, FP32GroupNorm, Downsample, AttnBlock)):
+                m.context = context
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, in_channels) → (B, h, w, z) in the encoder's dtype."""
+        """(B, H, W, in_channels) → (B, h, w, z) in the encoder's dtype; with
+        a context group x is this rank's block of H rows and so is the
+        latent."""
+        if self.context is not None:
+            n = group_size(self.context)
+            check_context_rows(x.shape[1] * n, self.cfg.ch_mult, n)
         return _nhwc(self.encoder(nchw(x)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """(B, h, w, z) → (B, H, W, out_ch) in the decoder's dtype."""
+        """(B, h, w, z) → (B, H, W, out_ch) in the decoder's dtype; with a
+        context group z is this rank's block of rows and so is the output."""
         return _nhwc(self.decoder(nchw(z)))
+
+    def decode_whole(self, z: torch.Tensor) -> torch.Tensor:
+        """``decode`` of whole latents on this rank alone, whatever the
+        context group: the decoder's modules again, sharing its parameters
+        (their gradients accumulate on them), without the group. The train
+        step decodes a crop window whose rows do not split over the ranks
+        so (``train/step.py``)."""
+        whole = self.__dict__.get("_whole_decoder")
+        if whole is None:
+            # a copy of the module tree that keeps the parameter tensors (and
+            # the group, which cannot be copied)
+            keep = {id(p): p for p in self.decoder.parameters()}
+            keep[id(self.context)] = self.context
+            whole = copy.deepcopy(self.decoder, keep)
+            for m in whole.modules():
+                if hasattr(m, "context"):
+                    m.context = None
+            self.__dict__["_whole_decoder"] = whole
+        return _nhwc(whole(nchw(z)))
 
     def regularize(self, z: torch.Tensor, ema_state: Optional[dict] = None,
                    update_stats: bool = False, eps: Optional[torch.Tensor] = None,

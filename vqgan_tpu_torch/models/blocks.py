@@ -10,6 +10,17 @@ Init follows the reference (``init_weights_``): torch's default Conv2d init
 (U(±1/√fan_in)), ResnetBlock.conv2 normal with std 1e-4/out_ch, AttnBlock's
 proj_out normal with std 0.2/√C, every bias zero, GroupNorm weight 1.
 
+With a ``context`` process group (set by ``VAE(cfg, context=group)``; an
+image's H rows split in contiguous blocks over its ranks, JAX
+``batch_sharding``'s H sharding) each module computes the whole image's
+function on this rank's rows (``parallel/context.py``): a 3×3 conv takes one
+halo row of each neighbour (``halo``, zeros at the image's edges) and runs
+VALID in H; a 1×1 conv is local; the downsample's (0, 1) H pad is a right
+halo of one row, zeros on the last rank; the upsample doubles its block and
+its conv takes halos; every GroupNorm is the two-pass ``ContextGroupNorm``
+(kernels #1 and #2 in their two-pass form); the mid-block attention is ring
+attention over the group's tokens (kernel #3 once a ring step).
+
 Rematerialization (``remat_call``; JAX ``blocks.py:43-66``): a module with a
 remat policy runs its forward as a ``torch.utils.checkpoint`` region where
 autograd records, so the backward recomputes what the region did not keep.
@@ -38,6 +49,8 @@ from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_attention
 from vqgan_tpu_torch.ops.groupnorm_cuda import ContextGroupNorm, FusedGroupNorm
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x
+from vqgan_tpu_torch.ops.ring_attention import ring_attention
+from vqgan_tpu_torch.parallel.context import halo
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -87,9 +100,9 @@ class FP32GroupNorm(nn.Module):
     the following swish fused when ``fused_swish``. Goes through the
     ``FusedGroupNorm`` autograd Function: a CUDA tensor runs the hand-written
     kernels forward and backward; a CPU tensor their plain versions. With a
-    ``context`` process group (a clip's frames split over its ranks, set by
-    ``TVAE``) the two-pass ``ContextGroupNorm``, whose statistics span every
-    rank's frames."""
+    ``context`` process group (a clip's frames or an image's rows split over
+    its ranks, set by ``TVAE`` or ``VAE``) the two-pass ``ContextGroupNorm``,
+    whose statistics span every rank's block."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  fused_swish: bool = False):
@@ -112,7 +125,11 @@ class FP32GroupNorm(nn.Module):
 class Conv2d(nn.Module):
     """A conv with fp32 params that computes in ``dtype``. ``init_std``:
     normal init with this std instead of torch's default; ``bias=False``: no
-    bias parameter."""
+    bias parameter. With a ``context`` group (``self.context``, or the one
+    ``conv`` is given) x is this rank's block of the image's H rows: a
+    padded conv (stride 1) takes ``padding`` halo rows of each neighbour
+    and runs VALID in H, the others (1×1, and kernel = stride with no pad)
+    are local."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -127,11 +144,22 @@ class Conv2d(nn.Module):
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
         )
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self.context = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.context)
+
+    def conv(self, x: torch.Tensor, context) -> torch.Tensor:
+        """The conv of x, this rank's H block under ``context`` (None: the
+        whole image)."""
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+        p = self.padding
+        if context is None or not p:
+            return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, p)
+        if self.stride != 1:
+            raise NotImplementedError("a padded conv of stride above 1 over H blocks")
+        return F.conv2d(halo(x.to(dt), p, p, context), self.weight.to(dt), bias, 1, (0, p))
 
 
 def conv3x3(in_channels: int, out_channels: int, dtype: torch.dtype,
@@ -203,7 +231,10 @@ class AttnBlock(nn.Module):
     ``attn_chunk`` > 0 and a token count above it: the memory-efficient path
     (kernel #3 on the card, the chunked plain version on the CPU), and the
     chunk must divide the token count, as in the JAX package. Else dense
-    attention. ``attn_impl`` keeps the JAX values and has no other effect."""
+    attention. ``attn_impl`` keeps the JAX values and has no other effect.
+    With a ``context`` group (set by ``VAE``) the tokens are this rank's H
+    rows, row-major as in the whole image, and the attention is ring
+    attention over the group, whatever ``attn_chunk``."""
 
     head_dim = 64  # the reference's, for every width
 
@@ -212,6 +243,7 @@ class AttnBlock(nn.Module):
         super().__init__()
         self.attn_chunk = attn_chunk
         self.attn_impl = attn_impl
+        self.context = None
         self.norm = FP32GroupNorm(channels)
         self.qkv = Conv2d(channels, 3 * channels, 1, dtype=dtype, bias=False)
         self.proj_out = Conv2d(channels, channels, 1, dtype=dtype, bias=False,
@@ -224,7 +256,9 @@ class AttnBlock(nn.Module):
         # channels_last qkv is physically (B, N, 3C): q, k, v are views
         q, k, v = qkv.permute(0, 2, 3, 1).reshape(
             b, n, 3, c // self.head_dim, self.head_dim).unbind(2)
-        if self.attn_chunk and n > self.attn_chunk:
+        if self.context is not None:
+            out = ring_attention(q, k, v, self.context, self.attn_chunk)
+        elif self.attn_chunk and n > self.attn_chunk:
             if n % self.attn_chunk:
                 raise ValueError(
                     f"attn_chunk {self.attn_chunk} must divide the mid-block token "
@@ -237,14 +271,21 @@ class AttnBlock(nn.Module):
 
 class Downsample(nn.Module):
     """Stride-2 3×3 conv after an asymmetric (0, 1) pad of H and W — the FLUX
-    convention (reference ae.py:143-154), not the conv's symmetric padding."""
+    convention (reference ae.py:143-154), not the conv's symmetric padding.
+    With a ``context`` group the H pad is the next rank's first row (zeros
+    on the last rank), so each rank's even block of rows gives its half of
+    the output rows."""
 
     def __init__(self, channels: int, dtype: torch.dtype):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, stride=2, dtype=dtype)
+        self.context = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x, (0, 1, 0, 1))
+        if self.context is None:
+            x = F.pad(x, (0, 1, 0, 1))
+        else:
+            x = F.pad(halo(x.to(self.conv.dtype), 0, 1, self.context), (0, 1))
         # a no-op where F.pad kept the layout; the convs and the GroupNorm
         # kernel downstream need channels_last
         return self.conv(x.contiguous(memory_format=torch.channels_last))

@@ -23,7 +23,7 @@ With a ``context`` process group (``TVAE(cfg, context=group)``; JAX
 ``TVAE(mesh, ring_axis)``) each rank holds a contiguous block of the clip's
 T frames and the model computes the whole clip's function on it
 (``parallel/context.py``): every stride-1 3×3×3 conv runs on its block with
-one halo frame of each neighbour (``halo_t``), VALID in T; the downsample's
+one halo frame of each neighbour (``halo``), VALID in T; the downsample's
 (0, 1) T pad is a right halo of one frame, zeros on the last rank; the
 upsample doubles its block and its conv takes halos; every GroupNorm takes
 the two-pass form across the group (``ContextGroupNorm``); the mid-block
@@ -54,7 +54,7 @@ from vqgan_tpu_torch.ops.attention import dense_attention, memory_efficient_atte
 from vqgan_tpu_torch.ops.conv3d_cuda import conv3d_ttap
 from vqgan_tpu_torch.ops.resize import nearest_upsample_2x_3d
 from vqgan_tpu_torch.ops.ring_attention import ring_attention
-from vqgan_tpu_torch.parallel.context import halo_t
+from vqgan_tpu_torch.parallel.context import halo
 from vqgan_tpu_torch.parallel.mesh import group_size
 
 NUM_HEADS = 8  # reference tae.py:17-18, for every width
@@ -125,7 +125,7 @@ class Conv3d(nn.Module):
 
     def _forward_halo(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        xe = halo_t(x, 1, 1, self.context)
+        xe = halo(x, 1, 1, self.context)
         bias = None if self.bias is None else self.bias.to(dt)
         if self.uses_kernel(x):
             out = conv3d_ttap(xe, self.weight.to(dt))[:, :, 1:-1]
@@ -251,7 +251,7 @@ class Downsample3D(nn.Module):
         if self.context is None:
             x = F.pad(x, (0, 1, 0, 1, 0, 1))
         else:
-            x = F.pad(halo_t(x.to(self.conv.dtype), 0, 1, self.context), (0, 1, 0, 1))
+            x = F.pad(halo(x.to(self.conv.dtype), 0, 1, self.context), (0, 1, 0, 1))
         return self.conv(x.contiguous(memory_format=torch.channels_last_3d))
 
 

@@ -17,12 +17,13 @@ holding its rows of the global gradient) the norm is the global one: with
 ``global_norm`` the square root of the squared sums of every rank, else the
 mean of every rank's block norms (JAX's ``lax.pmean`` of the per-rank norm),
 each one ``all_reduce`` inside the backward. With a ``context`` group (the
-3D job's clips split in T blocks over its ranks) a rank holds a T block of
-its clips' gradient: the global norm sums every rank's squares as before,
-and a block's norm in ``mean_shard_norm`` spans its clips' whole T, so the
-ranks of the context group add their squares of each block before the
-square root and the mean over the data blocks (the ranks of one data index
-share its blocks).
+3D job's clips split in T blocks over its ranks, or the 2D job's images in
+H blocks) a rank holds a block of dim 1 of its rows' gradient: the global
+norm sums every rank's squares as before, and a block's norm in
+``mean_shard_norm`` spans its rows' whole T or H, so the ranks of the
+context group add their squares of each block before the square root and
+the mean over the data blocks (the ranks of one data index share its
+blocks).
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ def gradnorm(
     across which the norm is taken; ``global_norm`` then picks the
     Frobenius norm over every rank, else the mean of the ranks' norms.
     ``context``: the group of ranks that hold T blocks of this rank's clips
-    (ranks of ``axis_name``'s group, context index fastest)."""
+    or H blocks of its images (ranks of ``axis_name``'s group, context
+    index fastest)."""
     group = None if axis_name is None else data_group(axis_name)
     return GradNorm.apply(x, weight, shards, group, global_norm, context)

@@ -1,7 +1,8 @@
 """Ring attention: exact attention over a token sequence split in contiguous
 blocks over the ranks of a context group (counterpart of
 ``vqgan_tpu/ops/ring_attention.py``, which ``AttnBlock3D`` runs under
-``shard_map`` over the ``context`` mesh axis).
+``shard_map`` over the ``context`` mesh axis; the port's 2D ``AttnBlock``
+runs it on an image's H blocks too).
 
 Each rank holds its block of q, k and v, (B, N_local, H, D). The k/v blocks
 rotate around the ring (``parallel/context.py::ring_shift``):

@@ -1,7 +1,8 @@
-"""The ``context`` mesh axis's collectives: a clip's T frames split in
-contiguous blocks over the ranks of one data index (``Mesh.context_group``;
-the 3D job's counterpart of JAX ``batch_sharding``'s T sharding, whose halos,
-GroupNorm sums and ring rotations XLA and ``shard_map`` insert).
+"""The ``context`` mesh axis's collectives: a clip's T frames (the 3D job)
+or an image's H rows (the 2D job) split in contiguous blocks over the ranks
+of one data index (``Mesh.context_group``; the counterpart of JAX
+``batch_sharding``'s dim-1 sharding, whose halos, GroupNorm sums and ring
+rotations XLA and ``shard_map`` insert).
 
 Only ``broadcast`` and ``all_reduce`` move tensors (gloo takes no other
 collective on CUDA tensors, which is how the ranks share one card;
@@ -9,11 +10,18 @@ collective on CUDA tensors, which is how the ranks share one card;
 broadcast per owner, as ``parallel/fsdp.py`` gathers, and the halo exchange
 and the ring rotation are built on it.
 
-  - ``halo_t(x, before, after, group)``: x's T block with ``before`` frames
-    of the previous rank's block prepended and ``after`` frames of the next
-    rank's appended, zeros at the clip's ends (``swap_edges``: each rank
-    sends only the edges a neighbour needs); its backward sends each halo's
-    gradient back to its owner, which adds it to its edge frames.
+  - ``halo(x, before, after, group)``: x's T (or H) block with ``before``
+    frames (rows) of the previous rank's block prepended and ``after`` of
+    the next rank's appended, zeros at the clip's (image's) ends
+    (``swap_edges``: each rank sends only the edges a neighbour needs); its
+    backward sends each halo's gradient back to its owner, which adds it to
+    its edge frames (rows).
+  - ``gather_blocks``: the whole tensor on every rank of the group (its
+    backward sums the ranks' gradients and keeps this rank's block);
+    ``reverse_blocks``: the whole tensor's flip, a block a rank (the latent
+    H flip); ``window_blocks``: a window of the whole tensor at an offset,
+    split again in equal blocks (the latent crop); ``all_sum``: a sum over
+    the group that autograd sees (LPIPS's spatial mean).
   - ``ring_shift(tensors, group)``: the previous rank's tensors (the ring
     attention's k/v rotation, ``ops/ring_attention.py``).
   - ``FrameSubset``: the step's strided frame subset (JAX ``_frame_subset``:
@@ -86,17 +94,24 @@ def swap_edges(lo: torch.Tensor, hi: torch.Tensor, group: dist.ProcessGroup
     return prev_hi, next_lo
 
 
-class HaloT(torch.autograd.Function):
-    """``halo_t``'s autograd: (B, C, T, H, W) → (B, C, before + T + after,
-    H, W), channels_last_3d."""
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the channels-last format of its rank (a 4-D or 5-D tensor)."""
+    return t.contiguous(memory_format=torch.channels_last_3d if t.ndim == 5
+                        else torch.channels_last)
+
+
+class Halo(torch.autograd.Function):
+    """``halo``'s autograd: x → x with ``before`` slices of the previous
+    rank's block and ``after`` of the next rank's joined along dim 2, in
+    the channels-last format of its rank."""
 
     @staticmethod
     def forward(ctx, x, before, after, group):
         ctx.before, ctx.after, ctx.group = before, after, group
-        t = x.shape[2]
-        # a rank's first `after` frames are the previous rank's after-halo,
-        # its last `before` frames the next rank's before-halo
-        prev_last, next_first = swap_edges(x[:, :, :after], x[:, :, t - before:], group)
+        n = x.shape[2]
+        # a rank's first `after` slices are the previous rank's after-halo,
+        # its last `before` slices the next rank's before-halo
+        prev_last, next_first = swap_edges(x[:, :, :after], x[:, :, n - before:], group)
         parts = []
         if before:
             parts.append(prev_last if prev_last is not None
@@ -105,30 +120,131 @@ class HaloT(torch.autograd.Function):
         if after:
             parts.append(next_first if next_first is not None
                          else x.new_zeros(()).expand_as(x[:, :, :after]))
-        return torch.cat(parts, dim=2).contiguous(memory_format=torch.channels_last_3d)
+        return _channels_last(torch.cat(parts, dim=2))
 
     @staticmethod
     def backward(ctx, g):
         before, after, group = ctx.before, ctx.after, ctx.group
-        t = g.shape[2] - before - after
-        dx = g[:, :, before:before + t].clone(memory_format=torch.channels_last_3d)
+        n = g.shape[2] - before - after
+        dx = _channels_last(g[:, :, before:before + n].clone())
         # this rank's halo gradients go home: the before-halo's to the
-        # previous rank's last frames, the after-halo's to the next rank's
-        # first frames
-        prev_after, next_before = swap_edges(g[:, :, :before], g[:, :, before + t:], group)
+        # previous rank's last slices, the after-halo's to the next rank's
+        # first slices
+        prev_after, next_before = swap_edges(g[:, :, :before], g[:, :, before + n:], group)
         if prev_after is not None:
             dx[:, :, :after] += prev_after
         if next_before is not None:
-            dx[:, :, t - before:] += next_before
+            dx[:, :, n - before:] += next_before
         return dx, None, None, None
 
 
-def halo_t(x: torch.Tensor, before: int, after: int, group: dist.ProcessGroup) -> torch.Tensor:
-    """x (B, C, T, H, W), this rank's T block of a clip split over
-    ``group``, with ``before`` frames of the previous block before it and
-    ``after`` frames of the next block after it; zeros stand for the frames
-    before the clip's first and after its last. Differentiable; collective."""
-    return HaloT.apply(x, before, after, group)
+def halo(x: torch.Tensor, before: int, after: int, group: dist.ProcessGroup) -> torch.Tensor:
+    """x channels-last, this rank's block along dim 2 of a tensor split over
+    ``group`` (the T frames of a (B, C, T, H, W) clip, or the H rows of a
+    (B, C, H, W) image), with ``before`` slices of the previous block before
+    it and ``after`` slices of the next block after it; zeros stand for the
+    slices before the tensor's first and after its last. Differentiable;
+    collective."""
+    return Halo.apply(x, before, after, group)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        return torch.cat([b for (b,) in owned_blocks([x.contiguous()], group)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's use of the whole tensor reaches this rank's rows: the
+        # ranks' gradients summed (in fp32), then this rank's block
+        total = g.float().contiguous()
+        dist.all_reduce(total, group=ctx.group)
+        me = group_rank(ctx.group)
+        return total.narrow(ctx.dim, me * ctx.size, ctx.size).to(g.dtype), None, None
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group: Optional[dist.ProcessGroup]
+                  ) -> torch.Tensor:
+    """The whole tensor of which x is this rank's block along ``dim`` (every
+    rank of ``group`` holding an equal block, in rank order), on every rank.
+    Its backward sums the ranks' gradients of the whole tensor and keeps
+    this rank's block: where every rank of the group computes the same loss
+    of the whole tensor, each block's gradient is the group's count times
+    that loss's. Differentiable; collective; x itself without a group."""
+    if group is None:
+        return x
+    return _GatherBlocks.apply(x, dim, group)
+
+
+class _ReverseBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _mirror_block(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mirror_block(g, ctx.dim, ctx.group), None, None
+
+
+def _mirror_block(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> torch.Tensor:
+    """The mirror rank's block (rank n - 1 - r's for rank r), flipped along
+    ``dim``."""
+    n, me = group_size(group), group_rank(group)
+    (mirror,) = owned_blocks([x.contiguous()], group)[n - 1 - me]
+    return mirror.flip(dim)
+
+
+def reverse_blocks(x: torch.Tensor, dim: int, group: Optional[dist.ProcessGroup]
+                   ) -> torch.Tensor:
+    """This rank's block of the whole tensor flipped along ``dim``, for x
+    this rank's block of a tensor split along ``dim`` in equal blocks over
+    ``group``: rank r's block is the flip of rank n - 1 - r's. Its backward
+    is the same reversal of the gradient. Differentiable; collective;
+    ``x.flip(dim)`` without a group."""
+    if group is None:
+        return x.flip(dim)
+    return _ReverseBlocks.apply(x, dim, group)
+
+
+def window_blocks(x: torch.Tensor, dim: int, start, size: int,
+                  group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The window [start, start + size) along ``dim`` of the whole tensor of
+    which x is this rank's block, split again in equal blocks over
+    ``group``: this rank's block of the window (``start`` an int or a 0-d
+    tensor on x's device). ``size`` must divide by the group's size.
+    Differentiable; collective."""
+    n, me = group_size(group), group_rank(group)
+    if size % n:
+        raise ValueError(f"a window of {size} does not split in equal blocks over {n} ranks")
+    whole = gather_blocks(x, dim, group)
+    rows = torch.arange(size, device=x.device) + start
+    return whole.index_select(dim, rows).narrow(dim, me * (size // n), size // n)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
+def all_sum(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """x summed over ``group``'s ranks, on every rank; the backward sums the
+    ranks' gradients likewise (each rank's x reaches every rank's sum).
+    Differentiable; collective; x itself without a group."""
+    if group is None:
+        return x
+    return _AllSum.apply(x, group)
 
 
 class _GatherFrames(torch.autograd.Function):

@@ -26,24 +26,23 @@ With ``fsdp`` F > 1 the ranks of one data index (``Mesh.fsdp_group``) each
 hold at rest only their block of every train-state tensor that
 ``param_spec`` shards, as JAX's ``state_shardings`` lays the state out
 (``parallel/fsdp.py``); the ranks of one fsdp index (``Mesh.replica_group``)
-hold the same blocks. With ``context`` C > 1 (the 3D job only) the C ranks
-of one data index (``Mesh.context_group``) hold the same clips, each a
-contiguous block of their T frames (``batch_block``, JAX
-``process_batch_block``); the model exchanges T halos, rotates the ring
-attention's k/v and reduces its GroupNorm sums across that group
+hold the same blocks. With ``context`` C > 1 the C ranks of one data index
+(``Mesh.context_group``) hold the same clips or images, each a contiguous
+block of dim 1, their T frames or H rows (``batch_block``, JAX
+``process_batch_block``); the model exchanges T or H halos, rotates the
+ring attention's k/v and reduces its GroupNorm sums across that group
 (``parallel/context.py``), and the gradients are summed over every rank, as
-the context ranks hold partial gradients of the same clips.
+the context ranks hold partial gradients of the same clips or images.
 
 Only ``all_reduce`` and ``broadcast`` move tensors: gloo takes both on CUDA
 tensors, which is how several ranks share one card; a gather of rows is an
 ``all_reduce`` of a zero-padded buffer whose bits are summed as integers,
 and a gather of shards a broadcast from each owner.
 
-The ``data`` and ``fsdp`` axes are ported, and ``context`` for the 3D job
-(``create_mesh(..., context=True)``). ``tensor`` above 1, ``context`` above
-1 for the 2D job, and ``fsdp`` with ``context`` both above 1 raise
-``NotImplementedError`` naming their ROADMAP.md items; the JAX
-``split_dcn_axes`` (multi-node) is not ported yet.
+The ``data``, ``fsdp`` and ``context`` axes are ported. ``tensor`` above 1,
+and ``fsdp`` with ``context`` both above 1, raise ``NotImplementedError``
+naming their ROADMAP.md items; the JAX ``split_dcn_axes`` (multi-node) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -59,13 +58,9 @@ import torch.distributed as dist
 
 AXES = ("data", "fsdp", "tensor", "context")
 
-# the ROADMAP.md items that port the other axes: ``tensor`` for both jobs,
-# ``context`` for the 2D job (the 3D job takes it), and the two sharded axes
-# together
-UNPORTED_AXES = {
-    "tensor": "ROADMAP.md, Queue 1: tensor sharding",
-    "context": "ROADMAP.md, Queue 1: context: the 2D halo",
-}
+# the ROADMAP.md items that port the rest: the ``tensor`` axis, and the two
+# sharded axes together
+TENSOR_AXIS = "ROADMAP.md, Queue 1: tensor sharding"
 FSDP_X_CONTEXT = "ROADMAP.md, Queue 1: fsdp x context"
 
 # gradients and parameters move in buckets of at most this many bytes
@@ -86,7 +81,8 @@ class Mesh:
     ranks of its fsdp index, which hold the same shards (None for a lone
     rank); with ``fsdp`` 1 both are None and every rank holds everything.
     With ``context`` > 1, ``context_group`` holds the ranks of this rank's
-    data index, which split its clips' frames (None otherwise)."""
+    data index, which split its clips' frames or its images' rows (None
+    otherwise)."""
 
     shape: dict[str, int]
     rank: int = 0
@@ -115,7 +111,8 @@ class Mesh:
 
     @property
     def context_index(self) -> int:
-        """Which block of its clips' frames this rank holds."""
+        """Which block of its clips' frames or its images' rows this rank
+        holds."""
         return self.rank % self.n_context
 
     def batch_block(self, global_shape: Sequence[int]) -> list[tuple[int, int]]:
@@ -224,15 +221,16 @@ def mesh_extents(shape: Optional[dict[str, int]], n: int) -> dict[str, int]:
 def batch_block(extents: dict[str, int], rank: int,
                 global_shape: Sequence[int]) -> list[tuple[int, int]]:
     """The (start, stop) of each dim of a global batch that rank ``rank``
-    of a mesh of ``extents`` holds: dim 0 split over data x fsdp, and for a
-    5-D clip batch dim 1 (T) over ``context``, the other dims whole (JAX
-    ``process_batch_block`` of ``batch_sharding(mesh, ndim)``). Raises
-    where an extent does not divide its dim."""
+    of a mesh of ``extents`` holds: dim 0 split over data x fsdp, and dim 1
+    (a clip's T, an image's H) over ``context``, the other dims whole (JAX
+    ``process_batch_block`` of ``batch_sharding(mesh, ndim)``, which splits
+    dim 1 of a batch of 3 dims or more). Raises where an extent does not
+    divide its dim."""
     n_ctx = extents.get("context", 1)
     n_data = extents.get("data", 1) * extents.get("fsdp", 1)
     out = [(0, n) for n in global_shape]
     for dim, n, index in ((0, n_data, rank // n_ctx), (1, n_ctx, rank % n_ctx)):
-        if n == 1 or (dim == 1 and len(global_shape) < 5):
+        if n == 1 or (dim == 1 and len(global_shape) < 3):
             continue
         size = global_shape[dim]
         if size % n:
@@ -242,30 +240,27 @@ def batch_block(extents: dict[str, int], rank: int,
     return out
 
 
-def create_mesh(shape: Optional[dict[str, int]] = None, context: bool = False) -> Mesh:
+def create_mesh(shape: Optional[dict[str, int]] = None) -> Mesh:
     """The mesh of this job's ranks (one rank without ``torch.distributed``)
     for an axis dict like ``{"data": -1}`` or ``{"data": 1, "fsdp": -1}``
     (``mesh_extents``). ``tensor`` above 1 raises NotImplementedError, and
-    so does ``context`` above 1 unless ``context`` (the 3D job), or with
-    ``fsdp`` above 1. Its group is what ``axis_name="data"`` names
-    (``data_group``). Collective where the process group is up: every rank
-    calls it."""
+    so does ``context`` above 1 with ``fsdp`` above 1. Its group is what
+    ``axis_name="data"`` names (``data_group``). Collective where the
+    process group is up: every rank calls it."""
     global _MESH
     up = dist.is_initialized()
     world = dist.get_world_size() if up else 1
 
     def refuse_unported(axes: dict) -> None:
-        for axis, item in UNPORTED_AXES.items():
-            if axes.get(axis, 1) > 1 and not (axis == "context" and context):
-                raise NotImplementedError(
-                    f"{axis}={axes[axis]} needs several devices on the {axis} axis, which is not "
-                    f"ported yet ({item}); the data and fsdp axes are, and context for the 3D "
-                    f"job")
-        if context and axes.get("context", 1) > 1 and axes.get("fsdp", 1) > 1:
+        if axes.get("tensor", 1) > 1:
+            raise NotImplementedError(
+                f"tensor={axes['tensor']} needs several devices on the tensor axis, which is "
+                f"not ported yet ({TENSOR_AXIS}); the data, fsdp and context axes are")
+        if axes.get("context", 1) > 1 and axes.get("fsdp", 1) > 1:
             raise NotImplementedError(
                 f"fsdp={axes['fsdp']} with context={axes['context']}: the train state sharded "
-                f"over the ranks that split a clip's frames is not ported yet "
-                f"({FSDP_X_CONTEXT})")
+                f"over the ranks that split a clip's frames or an image's rows is not ported "
+                f"yet ({FSDP_X_CONTEXT})")
 
     refuse_unported(dict(shape or {}))
     try:

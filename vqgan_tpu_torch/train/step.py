@@ -77,6 +77,30 @@ own rows of ε. Under accumulation the global microbatch i is the ranks'
 microbatches i in rank order, so the global batch is microbatch-major:
 [mb 0 of rank 0, mb 0 of rank 1, ..., mb 1 of rank 0, ...].
 
+The context axis (``context``, the process group of the ranks of one data
+index, each holding a contiguous block of the same images' H rows; the VAE
+built with it, ``VAE(cfg, context=group)``): the input resize is local
+where its area factor fits a block, else taken on the gathered images; the
+input flip and the latent W flip are local; the latent H flip is the
+cross-rank reversal (``parallel/context.py::reverse_blocks``) of z_s and of
+the target, and so is the LPIPS augment's H flip; the crop takes its window
+of the whole latent and target and splits it again over the group
+(``window_blocks``); a latent window whose rows do not split over the group
+is decoded whole on every rank (``VAE.decode_whole``, the parameters'
+gradients then each rank's rows' share) and each rank keeps its block of
+the decoded rows, which must split. LPIPS and D run on the blocks or on the
+gathered images (``losses/lpips.py``, ``losses/discriminator.py``). Every
+loss of a rank's own rows (the z²
+penalty, the VQ loss, D's means over its patches) is its local mean over
+equal blocks, and LPIPS the whole images' on every rank of the group, so
+the backward over ``group``'s N·C ranks and the gradient sum need nothing
+new, as in the 3D step (``train/step3d.py``); GradNorm's norms take the
+context ranks' squares together; the VQ statistics sum every rank's
+tokens; the z statistics take the gathered tokens; ε and the revival rows
+are the global latent's, a rank taking its rows and H block of ε. The HDR
+recipe's options (accumulation, the heatmap loss, the wavelet front end,
+the HR decoder) are not ported under it.
+
 Sharded over the fsdp axis (``state.layout``, ``parallel/fsdp.py``) the step
 starts by gathering G and D whole (``begin_step``), takes the same global
 all_reduce of the gradients, then each rank keeps its block of each
@@ -104,10 +128,12 @@ from vqgan_tpu_torch.losses.gan import (
     update_lecam_anchors,
 )
 from vqgan_tpu_torch.losses.recon import vae_loss_function
+from vqgan_tpu_torch.models.ae import CONTEXT_HDR
 from vqgan_tpu_torch.models.blocks import remat_call
 from vqgan_tpu_torch.models.quant import apply_ema_codebook_update, revive_dead_codes
 from vqgan_tpu_torch.ops.gradnorm import gradnorm
-from vqgan_tpu_torch.ops.resize import resize_area
+from vqgan_tpu_torch.ops.resize import area_downsample, resize_area
+from vqgan_tpu_torch.parallel.context import gather_blocks, reverse_blocks, window_blocks
 from vqgan_tpu_torch.parallel.mesh import (
     gather_rows,
     group_rank,
@@ -173,29 +199,70 @@ def _where(flag, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a if flag else b
 
 
-def _flip_if(flag, arrays, dim: int) -> tuple[torch.Tensor, ...]:
-    return tuple(_where(flag, a.flip(dim), a) for a in arrays)
+def _flip(a: torch.Tensor, dim: int, context=None) -> torch.Tensor:
+    """a flipped along ``dim``; along H (dim 1 of NHWC) under a ``context``
+    group, the cross-rank reversal of the ranks' row blocks."""
+    if context is not None and dim == 1:
+        return reverse_blocks(a, 1, context)
+    return a.flip(dim)
 
 
-def _latent_flip(flag, z_s, target, dim: int, neg_lo: int, neg_hi: int):
+def _flip_if(flag, arrays, dim: int, context=None) -> tuple[torch.Tensor, ...]:
+    return tuple(_where(flag, _flip(a, dim, context), a) for a in arrays)
+
+
+def _latent_flip(flag, z_s, target, dim: int, neg_lo: int, neg_hi: int, context=None):
     """Flip z_s and the target along one spatial dim and negate latent
     channels [neg_lo, neg_hi) (the sign channels of the Z2×Z2-equivariant
-    latent; vae_trainer.py:567-575)."""
+    latent; vae_trainer.py:567-575); along H under ``context``, across the
+    ranks."""
     c = z_s.shape[-1]
     lo = c + neg_lo if neg_lo < 0 else neg_lo
     hi = c + neg_hi if neg_hi < 0 else neg_hi
     idx = torch.arange(c, device=z_s.device)
     sign = torch.where((idx >= lo) & (idx < hi), -1.0, 1.0).to(z_s.dtype)
-    z_new = _where(flag, z_s.flip(dim) * sign, z_s)
-    t_new = _where(flag, target.flip(dim), target)
+    z_new = _where(flag, _flip(z_s, dim, context) * sign, z_s)
+    t_new = _where(flag, _flip(target, dim, context), target)
     return z_new, t_new
 
 
-def _crop(x: torch.Tensor, off_h, off_w, h: int, w: int) -> torch.Tensor:
-    """x[:, off_h:off_h+h, off_w:off_w+w] of NHWC, for int or tensor offsets."""
-    rows = torch.arange(h, device=x.device) + off_h
+def _crop(x: torch.Tensor, off_h, off_w, h: int, w: int, context=None,
+          whole: bool = False) -> torch.Tensor:
+    """x[:, off_h:off_h+h, off_w:off_w+w] of NHWC, for int or tensor offsets;
+    under ``context`` (x this rank's block of rows) this rank's block of the
+    window's rows (``window_blocks``), or with ``whole`` the whole window on
+    every rank."""
     cols = torch.arange(w, device=x.device) + off_w
-    return x.index_select(1, rows).index_select(2, cols)
+    if context is not None and not whole:
+        return window_blocks(x, 1, off_h, h, context).index_select(2, cols)
+    rows = torch.arange(h, device=x.device) + off_h
+    return gather_blocks(x, 1, context).index_select(1, rows).index_select(2, cols)
+
+
+def _own_rows(x: torch.Tensor, context) -> torch.Tensor:
+    """This rank's block of the rows of NHWC x, which every rank of
+    ``context`` holds whole."""
+    n, me = group_size(context), group_rank(context)
+    if x.shape[1] % n:
+        raise ValueError(f"{x.shape[1]} rows do not split over {n} context ranks")
+    h = x.shape[1] // n
+    return x[:, me * h:(me + 1) * h]
+
+
+def _resize_rows(x: torch.Tensor, size: int, context=None) -> torch.Tensor:
+    """``resize_area`` of NHWC images to (size, size); under ``context`` x
+    is this rank's block of rows and so is the result: an integer area
+    factor that fits the block runs on it, any other resize on the gathered
+    images, this rank's rows of it kept."""
+    if context is None:
+        return resize_area(x, (size, size))
+    n, h, w = group_size(context), x.shape[1], x.shape[2]
+    if h * n == size and w == size:
+        return x
+    f = w // size
+    if w == f * size and h % f == 0 and (h * n) // f == size:
+        return area_downsample(x, f)
+    return _own_rows(resize_area(gather_blocks(x, 1, context), (size, size)), context)
 
 
 def z_statistics(z: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -311,8 +378,8 @@ def global_rows(local: torch.Tensor, group, accum: int = 1, context=None) -> tor
     """The global batch's rows of a per-rank tensor whose dim 0 is this
     rank's batch (``accum`` microbatches of it): gathered across ``group``
     (4- or 8-byte elements), microbatch-major as the step orders the global
-    batch. With a ``context`` group (the 3D job: ranks of one data index
-    hold T blocks, dim 1, of the same clips) each data index's T blocks are
+    batch. With a ``context`` group (ranks of one data index hold blocks of
+    dim 1, T or H, of the same clips or images) each data index's blocks are
     joined in order."""
     if group is None:
         return local
@@ -326,7 +393,7 @@ def global_rows(local: torch.Tensor, group, accum: int = 1, context=None) -> tor
 
 def rank_rows(global_t: torch.Tensor, group, accum: int = 1, context=None) -> torch.Tensor:
     """This rank's rows of a global-batch tensor (``global_rows``' inverse),
-    and with a ``context`` group its T block (dim 1) of them."""
+    and with a ``context`` group its block of dim 1 (T or H) of them."""
     if group is None:
         return global_t
     n_ctx = group_size(context)
@@ -471,6 +538,7 @@ def make_train_step(
     lpips: nn.Module,
     gradnorm_shards: int = 1,
     group=None,
+    context=None,
 ) -> Callable[..., tuple[TrainState, dict[str, torch.Tensor]]]:
     """Returns ``step(state, batch, do_crop=0, draws=None) -> (state,
     metrics)``. ``state`` is a ``TrainState`` of these models and is updated
@@ -480,14 +548,24 @@ def make_train_step(
 
     ``gradnorm_shards``: the data-parallel extent for
     ``cfg.gradnorm_mode = "mean_shard_norm"``; 1 = global-norm mode.
-    ``group``: the data axis's process group (see the module docstring);
-    ``batch`` is then this rank's rows, ``draws.eps`` the global batch's."""
+    ``group``: every rank's process group (see the module docstring);
+    ``batch`` is then this rank's rows, ``draws.eps`` the global batch's.
+    ``context``: the ranks that split this rank's images' rows, with which
+    ``vae`` was built (module docstring); ``batch`` is then this rank's
+    block of rows of its rows."""
     if cfg.gradnorm_mode not in ("global", "mean_shard_norm"):
         raise ValueError(f"unknown gradnorm_mode {cfg.gradnorm_mode!r}")
     if cfg.do_ganloss and disc is None:
         raise ValueError("do_ganloss needs a discriminator")
-    branch = gradnorm_branch(cfg, gradnorm_shards, group)
+    if context is not None and (cfg.grad_accum > 1 or not cfg.do_pool_recon
+                                and cfg.recon_weight != 0.0):
+        raise NotImplementedError(
+            f"grad_accum={cfg.grad_accum}, the heatmap recon loss (do_pool_recon="
+            f"{cfg.do_pool_recon}, recon_weight={cfg.recon_weight}) over H blocks of the "
+            f"context axis: not ported yet ({CONTEXT_HDR})")
+    branch = gradnorm_branch(cfg, gradnorm_shards, group, context)
     n_ranks = group_size(group)
+    n_data = n_ranks // group_size(context)
     accum = max(1, cfg.grad_accum)
 
     enc_res = vae_cfg.resolution
@@ -512,11 +590,14 @@ def make_train_step(
     # LPIPS and D as rematerialized regions with remat (JAX step.py:171-177)
     loss_policy = "full" if vae_cfg.remat else None
 
+    # under context LPIPS and D take the group (losses/lpips.py)
+    over = () if context is None else (context,)
+
     def disc_apply(x):
-        return remat_call(disc, loss_policy, x)
+        return remat_call(disc, loss_policy, x, *over)
 
     def lpips_apply(x, y):
-        return remat_call(lpips, loss_policy, x, y)
+        return remat_call(lpips, loss_policy, x, y, *over)
 
     def gen_forward(batch, draws, do_crop, vq_ema, stats: bool = True):
         """→ (recon, z, target, z_pre, aux_loss, new_ema). ``stats=False``
@@ -524,8 +605,8 @@ def make_train_step(
         statistics."""
         if batch.dtype == torch.uint8:
             batch = batch.float() / 127.5 - 1.0
-        x_enc = resize_area(batch, (enc_res, enc_res))
-        target = resize_area(batch, (tgt_res, tgt_res))
+        x_enc = _resize_rows(batch, enc_res, context)
+        target = _resize_rows(batch, tgt_res, context)
         x_enc, target = _flip_if(draws.flip_in, (x_enc, target), 2)
 
         z = vae.encode(x_enc)
@@ -543,13 +624,15 @@ def make_train_step(
         if cfg.flip_invariance:
             c = z_s.shape[-1]
             z_s, target = _latent_flip(draws.flip_w, z_s, target, 2, -4, -2)
-            z_s, target = _latent_flip(draws.flip_h, z_s, target, 1, -2, c)
+            z_s, target = _latent_flip(draws.flip_h, z_s, target, 1, -2, c, context)
+        whole = False
         if do_crop:
             ch, cw = crop_size(do_crop)
-            z_s = _crop(z_s, draws.crop_h, draws.crop_w, ch, cw)
+            whole = context is not None and ch % group_size(context) != 0
+            z_s = _crop(z_s, draws.crop_h, draws.crop_w, ch, cw, context, whole)
             target = _crop(target, draws.crop_h * ds_factor, draws.crop_w * ds_factor,
-                           ch * ds_factor, cw * ds_factor)
-        recon = vae.decode(z_s)
+                           ch * ds_factor, cw * ds_factor, context)
+        recon = _own_rows(vae.decode_whole(z_s), context) if whole else vae.decode(z_s)
         return recon, z, target, z_pre, aux_loss, new_ema
 
     def g_losses(recon, z, aux_loss, target, draws):
@@ -559,7 +642,8 @@ def make_train_step(
         target_aug = target
         if cfg.augment_before_perceptual_loss:
             recon_lpips, target_aug = _flip_if(draws.aug_lpips_w, (recon_lpips, target_aug), 2)
-            recon_lpips, target_aug = _flip_if(draws.aug_lpips_h, (recon_lpips, target_aug), 1)
+            recon_lpips, target_aug = _flip_if(draws.aug_lpips_h, (recon_lpips, target_aug), 1,
+                                               context)
         percep = lpips_apply(recon_lpips.float(), target_aug).mean()
         metrics["perceptual_loss"] = percep
 
@@ -585,8 +669,9 @@ def make_train_step(
 
     def step_draws(state: TrainState, batch: torch.Tensor, do_crop: int,
                    draws: Optional[StepDraws]) -> StepDraws:
-        """The global batch's draws; ε cut to this rank's rows."""
-        rows = batch.shape[0] * n_ranks
+        """The global batch's draws; ε cut to this rank's rows (and its
+        block of them under ``context``)."""
+        rows = batch.shape[0] * n_data
         if draws is None:
             crop_range = (0, 0)
             if do_crop:
@@ -605,7 +690,7 @@ def make_train_step(
             if draws.eps.shape[0] != rows:
                 raise ValueError(f"draws.eps has {draws.eps.shape[0]} rows; the global batch "
                                  f"{rows}")
-            draws = dataclasses.replace(draws, eps=rank_rows(draws.eps, group, accum))
+            draws = dataclasses.replace(draws, eps=rank_rows(draws.eps, group, accum, context))
         return draws
 
     def step(state: TrainState, batch: torch.Tensor, do_crop: int = 0,
@@ -635,7 +720,8 @@ def make_train_step(
         state.g_opt.zero_grad(set_to_none=True)
         if use_vq_ema:
             # revival from the clamped, unflipped z (the global batch's)
-            fold_codebook(state, vae, new_ema, global_rows(z.detach().float(), group),
+            fold_codebook(state, vae, new_ema, global_rows(z.detach().float(), group,
+                                                            context=context),
                           draws.revive_idx, vae_cfg.vq_revive_threshold)
 
         if cfg.ema_decay > 0:

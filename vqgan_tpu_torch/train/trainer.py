@@ -14,9 +14,16 @@ then keeps its block of every tensor the rule shards
 block across the data axis. Rank 0 alone evaluates, logs and writes
 checkpoints, the others waiting at a barrier (under fsdp every rank first
 takes part in gathering what eval scores and what a save writes); every
-rank resumes from the same file, of any layout. The ``tensor`` and
-``context`` axes and the context-parallel feed are not ported (ROADMAP.md
-Queue 1). Everything else
+rank resumes from the same file, of any layout. With ``context`` C > 1
+(``data=D,context=C``) each image's H rows are split over the C ranks of a
+data index (JAX ``batch_sharding``'s H sharding and its context-parallel
+feed ``_ctx_slice``): those ranks read the same images and each keeps its
+block of rows, the VAE is built with the context group (``VAE(cfg,
+context=...)``: H halos, two-pass GroupNorm, the ring attention) and the
+step takes it (``train/step.py``); eval runs on whole images on rank 0, and
+a save holds the whole state, which resumes at any layout. The ``tensor``
+axis, and ``fsdp`` with ``context``, are not ported (ROADMAP.md Queue 1).
+Everything else
 keeps the JAX trainer's order and cadence: the seeded init, ``load_path`` /
 ``lpips_weights`` / ``disc_backbone_weights``, the full-state resume, the
 data stream reseeded by the resume step (indexed data resumes sample-exact),
@@ -46,7 +53,7 @@ from vqgan_tpu_torch.losses.discriminator import PatchDiscriminator, init_discri
 from vqgan_tpu_torch.losses.fid import frechet_distance, make_feature_fn
 from vqgan_tpu_torch.losses.lpips import LPIPS, init_lpips_
 from vqgan_tpu_torch.losses.metrics import psnr, ssim
-from vqgan_tpu_torch.models.ae import VAE
+from vqgan_tpu_torch.models.ae import VAE, check_context_rows
 from vqgan_tpu_torch.models.blocks import init_weights_
 from vqgan_tpu_torch.models.quant import VectorQuantizer
 from vqgan_tpu_torch.ops.resize import resize_area
@@ -86,16 +93,14 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-def data_parallel(cfg: TrainConfig, device: str | torch.device,
-                  context: bool = False) -> tuple[torch.device, Mesh]:
+def data_parallel(cfg: TrainConfig, device: str | torch.device) -> tuple[torch.device, Mesh]:
     """This rank's device and the job's mesh (``init_distributed``,
-    ``create_mesh``; ``context``: the 3D job, which takes the context
-    axis), with the JAX trainer's batch checks: the global ``batch_size``
-    divides by the data-parallel extent (data x fsdp), and by
-    ``grad_accum`` times it."""
+    ``create_mesh``), with the JAX trainer's batch checks: the global
+    ``batch_size`` divides by the data-parallel extent (data x fsdp), and
+    by ``grad_accum`` times it."""
     device = init_distributed(resolve_device(device))
     try:
-        mesh = create_mesh(parse_mesh_shape(cfg.mesh_shape), context=context)
+        mesh = create_mesh(parse_mesh_shape(cfg.mesh_shape))
     except (ValueError, NotImplementedError) as e:
         raise type(e)(f"mesh_shape {cfg.mesh_shape!r}: {e}") from None
     n = mesh.n_data
@@ -106,6 +111,16 @@ def data_parallel(cfg: TrainConfig, device: str | torch.device,
         raise ValueError(f"global batch_size {cfg.batch_size} must be divisible by "
                          f"grad_accum {cfg.grad_accum} x data-parallel extent {n}")
     return device, mesh
+
+
+def check_context_image(image_size: int, n_context: int) -> None:
+    """JAX ``Trainer``'s check (``trainer.py:65-69``): the images' rows split
+    over the context ranks."""
+    if image_size % n_context:
+        raise ValueError(
+            f"image_size {image_size} must be divisible by the "
+            f"context (spatial-parallel) extent {n_context}"
+        )
 
 
 @torch.no_grad()
@@ -146,6 +161,10 @@ class Trainer:
         self.cfg = cfg
         self.device, self.mesh = data_parallel(cfg, device)
         self.is_master = self.mesh.is_master
+        n_ctx = self.mesh.n_context
+        if n_ctx > 1:
+            check_context_image(cfg.image_size, n_ctx)
+            check_context_rows(vae_cfg.resolution, vae_cfg.ch_mult, n_ctx)
         if cfg.crop_invariance and cfg.downscale_factor != vae_cfg.ffactor:
             # the crop step addresses the target at latent_offset *
             # downscale_factor; a mismatch slices out of bounds
@@ -168,7 +187,7 @@ class Trainer:
             return torch.Generator(device=dev).manual_seed(seed)
 
         with torch.device(dev):
-            self.vae = VAE(vae_cfg)
+            self.vae = VAE(vae_cfg, context=self.mesh.context_group)
         init_weights_(self.vae, gen(s_g))
         vq_ema = None
         if isinstance(self.vae.reg, VectorQuantizer) and self.vae.reg.ema_decay > 0:
@@ -204,7 +223,8 @@ class Trainer:
         self.state = shard_state(create_train_state(cfg, self.vae, self.disc, vae_cfg.ch,
                                                     seed=s_state, vq_ema=vq_ema), self.mesh)
         self._step = make_train_step(cfg, vae_cfg, self.vae, self.disc, self.lpips,
-                                     gradnorm_shards=self.mesh.n_data, group=self.mesh.group)
+                                     gradnorm_shards=self.mesh.n_data, group=self.mesh.group,
+                                     context=self.mesh.context_group)
         self._eval_step = make_eval_step(cfg, vae_cfg, self.vae)
 
         run_dir = os.path.join(cfg.ckpt_dir, cfg.run_name)
@@ -247,20 +267,33 @@ class Trainer:
         batches are the same across restarts."""
         return int(self.state.step) if train else 0
 
+    def _own_rows(self, loader):
+        """This rank's block of H rows of each of its data index's batches
+        (JAX ``_ctx_slice``); the loader itself with one context rank."""
+        if self.mesh.n_context == 1:
+            return loader
+        (_, _), (h0, h1) = self.mesh.batch_block(
+            (self.cfg.batch_size, self.cfg.image_size, self.cfg.image_size, 3))[:2]
+        return (batch[:, h0:h1] for batch in loader)
+
     def _make_loader(self, train: bool):
+        """The train stream (this rank's rows of its data index's images)
+        or, on rank 0, the eval stream (whole images)."""
         cfg = self.cfg
         off = self._data_epoch_offset(train)
         if cfg.synthetic_data or not (cfg.dataset_url if train else cfg.test_dataset_url):
             # multiplicative fold, so a resumed train stream never takes the
             # eval stream's seed 1
             # every rank makes the same samples, as the JAX trainer's do
-            return synthetic_dataloader(self.local_batch, cfg.image_size,
-                                        seed=(0 if train else 1) + 1_000_003 * off)
+            loader = synthetic_dataloader(self.local_batch, cfg.image_size,
+                                          seed=(0 if train else 1) + 1_000_003 * off)
+            return self._own_rows(loader) if train else loader
         url = cfg.dataset_url if train else cfg.test_dataset_url
         # indexed mode: the batch at step S is position-addressed, so resume
         # is sample-exact; the seed stays fixed and start_step fast-forwards
         indexed = cfg.indexed_data and train
-        return iter(
+        # the ranks of one data index read the same images (JAX _ctx_feed)
+        loader = iter(
             create_dataloader(
                 url,
                 self.local_batch,
@@ -272,10 +305,11 @@ class Trainer:
                 device_normalize=cfg.device_normalize,
                 indexed=indexed,
                 start_step=off if indexed else 0,
-                process_index=self.mesh.rank,
-                process_count=self.mesh.world_size,
+                process_index=self.mesh.data_index,
+                process_count=self.mesh.n_data,
             )
         )
+        return self._own_rows(loader) if train else loader
 
     # ------------------------------------------------------------------
     def _install_preemption_handler(self):

@@ -114,7 +114,7 @@ class Trainer3D:
         self.cfg = cfg
         self.tvae_cfg = tvae_cfg
         self.frames = frames
-        self.device, self.mesh = data_parallel(cfg, device, context=True)
+        self.device, self.mesh = data_parallel(cfg, device)
         self.is_master = self.mesh.is_master
         self.local_batch = cfg.batch_size // self.mesh.n_data
         group, context = self.mesh.group, self.mesh.context_group
